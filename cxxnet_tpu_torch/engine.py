@@ -1,0 +1,118 @@
+"""Engine options: the JAX package's lowering switches, same keys,
+defaults, environment variables and validation (``cxxnet_tpu/engine.py``
+``_DEFS``), so a conf reads the same in both packages.
+
+Unlike the JAX package's process-global ``opts``, every trainer owns an
+:class:`EngineOptions` and the forward pass reads it from its
+:class:`~cxxnet_tpu_torch.layers.base.ForwardContext`, so two trainers in
+one process cannot change each other's kernels.
+
+Options this slice acts on:
+
+| key        | values             | meaning on the port                  |
+|------------|--------------------|--------------------------------------|
+| flash_attn | 1 (default), 0     | 0 = plain torch attention instead of |
+|            |                    | the hand-written flash kernel        |
+| pallas_ln  | 1 (default), x, 0  | 0 = plain torch layernorm instead of |
+|            |                    | the hand-written layernorm kernel    |
+|            |                    | (x only changes the JAX backward)    |
+
+The other keys keep the JAX package's table so a conf reads the same,
+but their layers and kernels come with later slices (ROADMAP.md): any
+value other than the default is refused, from a conf or from the
+environment, rather than ignored.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+
+def _is_positive_float(val: str) -> bool:
+    try:
+        return float(val) > 0.0
+    except ValueError:
+        return False
+
+
+_is_positive_float.expected = "a positive float"
+
+_DEFS = {
+    # name: (env var, default, valid values — a tuple of spellings or a
+    # predicate for free-form numerics); flash_attn's env var is an
+    # inverted bool, special-cased in EngineOptions.__init__
+    "pool_bwd": ("CXXNET_POOL_BWD", "sas", ("sas", "eq", "gather", "auto")),
+    "pool_layout": ("CXXNET_POOL_LAYOUT", "nchw", ("nchw", "chwn", "hwcn")),
+    "fast_wgrad": ("CXXNET_FAST_WGRAD", "s2d",
+                   ("s2d", "hwcn", "pallas", "off")),
+    "group_conv": ("CXXNET_GROUP_CONV", "fgc", ("fgc", "split")),
+    "conv1_fwd": ("CXXNET_CONV1_FWD", "conv", ("conv", "s2d")),
+    "pallas_lrn": ("CXXNET_PALLAS_LRN", "band",
+                   ("band", "bandconv", "hwcn", "1", "0")),
+    "relu_vjp": ("CXXNET_RELU_VJP", "out", ("out", "xla")),
+    "pool_relu_reorder": ("CXXNET_POOL_RELU_REORDER", "1", ("1", "0")),
+    "pool_relu_fuse": ("CXXNET_POOL_RELU_FUSE", "0", ("1", "0")),
+    "conv_sibling_fuse": ("CXXNET_CONV_SIBLING_FUSE", "0", ("1", "0")),
+    "concat_virtual": ("CXXNET_CONCAT_VIRTUAL", "0", ("1", "0")),
+    "flash_attn": ("CXXNET_NO_FLASH_ATTN", "1", ("1", "0")),
+    "pallas_ln": ("CXXNET_PALLAS_LN", "1", ("1", "x", "0")),
+    "fused_update": ("CXXNET_FUSED_UPDATE", "0", ("1", "0")),
+    "dp_overlap": ("CXXNET_DP_OVERLAP", "0", ("1", "0")),
+    "dp_bucket_mb": ("CXXNET_DP_BUCKET_MB", "4", _is_positive_float),
+    "dp_reduce_dtype": ("CXXNET_DP_REDUCE_DTYPE", "f32", ("f32", "bf16")),
+    "dp_reduce_at": ("CXXNET_DP_REDUCE_AT", "apply", ("apply", "step")),
+}
+
+
+#: the options this slice acts on; every other key takes only its default
+PORTED = ("flash_attn", "pallas_ln")
+
+
+def _check(name: str, val: str, where: str) -> None:
+    if not _valid(name, val):
+        raise ValueError(f"{where} = {val}: expected {_expectation(name)}")
+    if name not in PORTED and val != _DEFS[name][1]:
+        raise ValueError(f"{where} = {val}: not ported to cxxnet_tpu_torch "
+                         f"yet (only the default {_DEFS[name][1]!r}; "
+                         "ROADMAP.md)")
+
+
+def _valid(name: str, val: str) -> bool:
+    valid = _DEFS[name][2]
+    return valid(val) if callable(valid) else val in valid
+
+
+def _expectation(name: str) -> str:
+    valid = _DEFS[name][2]
+    if callable(valid):
+        return getattr(valid, "expected", valid.__name__)
+    return f"one of {valid}"
+
+
+def is_engine_option(name: str) -> bool:
+    return name in _DEFS
+
+
+class EngineOptions:
+    """One trainer's option values; environment variables set the
+    defaults and a config key wins over them."""
+
+    def __init__(self):
+        for name, (env, default, _) in _DEFS.items():
+            if name == "flash_attn":
+                # the env var is an opt-OUT (CXXNET_NO_FLASH_ATTN=1)
+                val = "0" if os.environ.get(env) else "1"
+            else:
+                val = os.environ.get(env, default)
+            _check(name, val, f"env {env}")
+            setattr(self, name, val)
+
+    def set(self, name: str, val: str) -> None:
+        if name not in _DEFS:
+            raise ValueError(f"unknown engine option {name!r}")
+        _check(name, val, f"engine option {name}")
+        setattr(self, name, val)
+
+    def snapshot(self) -> Dict[str, str]:
+        return {k: getattr(self, k) for k in _DEFS}

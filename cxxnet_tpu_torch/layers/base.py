@@ -1,0 +1,194 @@
+"""Layer core: plain functions on tensors over 4-D nodes.
+
+A layer holds only its static configuration.  Its parameters live in
+the trainer's ``{param_key: {tag: tensor}}`` dict — the JAX package's
+layout, tags ``wmat`` / ``bias`` / ``wqkv`` / ... — so snapshots and
+parity tests line up key for key.  ``forward(params, inputs, ctx)``
+returns the output tensors; serving needs no autograd, and the trainer
+runs every forward under ``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..engine import EngineOptions
+
+Shape4 = Tuple[int, int, int, int]  # (batch, channel, y, x)
+Params = Dict[str, torch.Tensor]
+
+
+class ShapeError(ValueError):
+    pass
+
+
+@dataclasses.dataclass
+class LabelInfo:
+    """Label fields by name, each ``(batch, width)`` (the JAX package's
+    ``LabelInfo``); eval and serving forwards pass none."""
+
+    fields: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """KV-cache plumbing for incremental decode (serve/decode.py).
+
+    * ``"prefill"`` — the forward runs a whole prompt row at the net's
+      width; attention layers store their fresh ``(k, v)`` in
+      ``caches[key]`` and otherwise compute the normal causal path.
+    * ``"step"`` — one position per row: attention layers write the new
+      ``(k, v)`` into ``caches[key]`` at ``positions`` (in place) and
+      attend over the whole cache under ``arange(max_seqlen) <=
+      positions``.
+
+    ``caches`` maps an attention connection's engine-stamped key to
+    ``{"k": (rows, heads, max_seqlen, head_dim), "v": ...}``.
+    """
+
+    mode: str                                  # "prefill" | "step"
+    caches: Dict[str, Dict[str, torch.Tensor]]
+    positions: Optional[torch.Tensor] = None   # (rows,) int64, step mode
+    max_seqlen: int = 0
+
+
+@dataclasses.dataclass
+class ForwardContext:
+    """Per-call context threaded through the forward pass."""
+
+    train: bool
+    opts: EngineOptions
+    labels: Optional[LabelInfo] = None
+    decode: Optional[DecodeState] = None
+
+
+def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device,
+                        dtype=torch.float32) * sigma).to(dtype)
+
+
+@dataclasses.dataclass
+class LayerParam:
+    """Common layer hyperparameters (the JAX package's ``LayerParam``)."""
+
+    num_hidden: int = 0
+    init_sigma: float = 0.01
+    init_uniform: float = -1.0
+    init_bias: float = 0.0
+    num_channel: int = 0
+    random_type: int = 0  # 0 gaussian, 1 uniform/xavier, 2 kaiming
+    num_group: int = 1
+    kernel_height: int = 0
+    kernel_width: int = 0
+    stride: int = 1
+    pad_y: int = 0
+    pad_x: int = 0
+    no_bias: int = 0
+    silent: int = 0
+
+    def set_param(self, name: str, val: str) -> bool:
+        """Consume one config key; True when it is a common key."""
+        if name == "init_sigma":
+            self.init_sigma = float(val)
+        elif name == "init_uniform":
+            self.init_uniform = float(val)
+        elif name == "init_bias":
+            self.init_bias = float(val)
+        elif name == "random_type":
+            m = {"gaussian": 0, "uniform": 1, "xavier": 1, "kaiming": 2}
+            if val not in m:
+                raise ValueError(f"invalid random_type {val!r}")
+            self.random_type = m[val]
+        elif name == "nhidden":
+            self.num_hidden = int(val)
+        elif name == "nchannel":
+            self.num_channel = int(val)
+        elif name == "ngroup":
+            self.num_group = int(val)
+        elif name == "kernel_size":
+            self.kernel_height = self.kernel_width = int(val)
+        elif name == "kernel_height":
+            self.kernel_height = int(val)
+        elif name == "kernel_width":
+            self.kernel_width = int(val)
+        elif name == "stride":
+            self.stride = int(val)
+        elif name == "pad":
+            self.pad_y = self.pad_x = int(val)
+        elif name == "pad_y":
+            self.pad_y = int(val)
+        elif name == "pad_x":
+            self.pad_x = int(val)
+        elif name == "no_bias":
+            self.no_bias = int(val)
+        elif name == "silent":
+            self.silent = int(val)
+        else:
+            return False
+        return True
+
+    def rand_init_weight(self, gen: torch.Generator, shape: Sequence[int],
+                         in_num: int, out_num: int,
+                         dtype=torch.float32) -> torch.Tensor:
+        """Weight init after ``param.h RandInitWeight``, with the JAX
+        package's kaiming rule: ``sqrt(2 / fan_in)`` (its deliberate
+        divergence from the reference's fan-out scale).  Draws come from
+        ``gen`` (Philox), so values differ from the JAX package's
+        threefry init; the distributions are the same."""
+        shape = tuple(shape)
+        if self.random_type == 0:
+            return _normal(gen, shape, self.init_sigma, dtype)
+        if self.random_type == 1:
+            a = float(np.sqrt(3.0 / (in_num + out_num)))
+            if self.init_uniform > 0:
+                a = self.init_uniform
+            u = torch.rand(shape, generator=gen, device=gen.device,
+                           dtype=torch.float32)
+            return (u * (2 * a) - a).to(dtype)
+        if self.random_type == 2:
+            sigma = float(np.sqrt(2.0 / in_num)) if in_num > 0 else 0.01
+            return _normal(gen, shape, sigma, dtype)
+        raise ValueError(f"unsupported random_type {self.random_type}")
+
+
+class Layer:
+    """Base class: subclasses override :meth:`infer_shapes`,
+    :meth:`init_params`, :meth:`forward` and optionally
+    :meth:`set_param`."""
+
+    type_names: Tuple[str, ...] = ()
+    # embedding-style layers read their input as integer ids: the net
+    # then keeps that input in float32 instead of casting it to a
+    # narrow compute dtype (bf16 holds integers exactly only to 256)
+    takes_ids: bool = False
+
+    def __init__(self) -> None:
+        self.param = LayerParam()
+        self.name: str = ""
+
+    def set_param(self, name: str, val: str) -> None:
+        """Consume a config key; unknown keys are ignored (reference
+        rule: global keys are broadcast to every layer)."""
+        self.param.set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        raise NotImplementedError
+
+    def init_params(self, gen: torch.Generator, in_shapes: List[Shape4],
+                    dtype=torch.float32) -> Params:
+        return {}
+
+    def forward(self, params: Params, inputs: List[torch.Tensor],
+                ctx: ForwardContext) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def check_n_inputs(self, inputs: Sequence, lo: int,
+                       hi: Optional[int] = None) -> None:
+        hi = lo if hi is None else hi
+        if not lo <= len(inputs) <= hi:
+            raise ShapeError(f"{self.type_names[0]} layer expects {lo}..{hi}"
+                             f" inputs, got {len(inputs)}")

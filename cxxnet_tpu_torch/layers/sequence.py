@@ -1,0 +1,322 @@
+"""Sequence-model layers: embedding, layernorm, per-position linear,
+multi-head attention (with the incremental-decode cache path) and the
+LM softmax head — the JAX package's ``layers/sequence.py`` in PyTorch.
+
+Layouts at the module boundaries are the JAX package's: activations
+``(b, 1, s, d)``, token ids float ``(b, 1, 1, s)``, ``wqkv`` ``(3d, d)``,
+the KV cache ``(slots, h, S, hd)``.
+
+Kernel selection is configuration, read from the forward context's
+engine options: ``flash_attn = 1`` routes attention through
+:func:`~cxxnet_tpu_torch.ops.flash_attention.flash_attention_fwd` and
+``pallas_ln = 1`` (or ``x``) routes layernorm through
+:func:`~cxxnet_tpu_torch.ops.layernorm.layernorm_fwd`; ``0`` selects
+the plain torch path the JAX package runs off the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.flash_attention import flash_attention_fwd
+from ..ops.layernorm import layernorm_fwd
+from ..parallel import ring
+from .base import ForwardContext, Layer, Shape4, _normal
+from .loss import LossLayerBase
+
+
+def _label_field(ctx: ForwardContext, name: str) -> Optional[torch.Tensor]:
+    """A (b, s) label field by name, or None when unset or absent (eval
+    and serving forwards carry no labels)."""
+    if not name or ctx.labels is None or name not in ctx.labels.fields:
+        return None
+    return ctx.labels.fields[name]
+
+
+def single_device_attention(q, k, v, causal: bool, ctx: ForwardContext,
+                            seg: Optional[torch.Tensor] = None):
+    """(b, h, s, hd) attention: the flash kernel under ``flash_attn = 1``
+    for unsegmented attention (it raises on a head width it does not
+    take), plain :func:`ring.dense_attention` under ``flash_attn = 0``
+    or with segment ids (the segmented flash kernel is not ported yet)."""
+    b, h, s, hd = q.shape
+    if ctx.opts.flash_attn == "1" and seg is None:
+        o, _ = flash_attention_fwd(q.reshape(b * h, s, hd).contiguous(),
+                                   k.reshape(b * h, s, hd).contiguous(),
+                                   v.reshape(b * h, s, hd).contiguous(),
+                                   causal)
+        return o.reshape(b, h, s, hd)
+    return ring.dense_attention(q, k, v, causal=causal, seg=seg)
+
+
+class EmbeddingLayer(Layer):
+    """Token embedding: (b,1,1,s) float ids -> (b,1,s,d); ``wmat``
+    (vocab, d), and with ``pos_embed = 1`` ``wpos`` (s, d)."""
+
+    type_names = ("embedding",)
+    takes_ids = True
+
+    def __init__(self):
+        super().__init__()
+        self.vocab_size = 0
+        self.pos_embed = 0
+        self.pos_key = ""
+
+    def set_param(self, name, val):
+        if name == "vocab_size":
+            self.vocab_size = int(val)
+        elif name == "pos_embed":
+            self.pos_embed = int(val)
+        elif name == "pos_key":
+            self.pos_key = val
+        else:
+            super().set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert len(in_shapes) == 1, "embedding: 1-1 connection only"
+        n, c, h, s = in_shapes[0]
+        assert c == 1 and h == 1, "embedding: input must be (b,1,1,seq) ids"
+        assert self.vocab_size > 0, "embedding: must set vocab_size"
+        assert self.param.num_hidden > 0, "embedding: must set nhidden"
+        return [(n, 1, s, self.param.num_hidden)]
+
+    def init_params(self, gen, in_shapes, dtype=torch.float32):
+        d = self.param.num_hidden
+        sigma = self.param.init_sigma
+        params = {"wmat": _normal(gen, (self.vocab_size, d), sigma, dtype)}
+        if self.pos_embed:
+            params["wpos"] = _normal(gen, (in_shapes[0][3], d), sigma, dtype)
+        return params
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        ids = inputs[0].reshape(inputs[0].shape[0], -1).long()
+        out = params["wmat"][ids]  # (b, s, d)
+        if "wpos" in params:
+            wpos = params["wpos"]
+            dec = ctx.decode
+            pos = _label_field(ctx, self.pos_key)
+            if dec is not None and dec.mode == "step":
+                # incremental decode: each row sits at its own position
+                pidx = (dec.positions[:, None]
+                        + torch.arange(ids.shape[1], device=ids.device)
+                        [None, :]).clamp(0, wpos.shape[0] - 1)
+                out = out + wpos[pidx].to(out.dtype)
+            elif pos is not None:
+                # packed documents: per (b, s) position ids
+                pidx = pos.long().clamp(0, wpos.shape[0] - 1)
+                out = out + wpos[pidx].to(out.dtype)
+            else:
+                out = out + wpos[None, :, :].to(out.dtype)
+        return [out[:, None, :, :]]
+
+
+class LayerNormLayer(Layer):
+    """LayerNorm over the last axis of (b,1,s,d); slope/shift under the
+    ``wmat`` / ``bias`` tags."""
+
+    type_names = ("layernorm",)
+
+    def __init__(self):
+        super().__init__()
+        self.eps = 1e-5
+
+    def set_param(self, name, val):
+        if name == "eps":
+            self.eps = float(val)
+        else:
+            super().set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert len(in_shapes) == 1, "layernorm: 1-1 connection only"
+        return [in_shapes[0]]
+
+    def init_params(self, gen, in_shapes, dtype=torch.float32):
+        d = in_shapes[0][3]
+        dev = gen.device
+        return {"wmat": torch.ones((d,), dtype=dtype, device=dev),
+                "bias": torch.zeros((d,), dtype=dtype, device=dev)}
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        x = inputs[0]
+        d = x.shape[-1]
+        if ctx.opts.pallas_ln in ("1", "x"):
+            y, _, _ = layernorm_fwd(x.reshape(-1, d).contiguous(),
+                                    params["wmat"], params["bias"], self.eps)
+            return [y.reshape(x.shape)]
+        # the plain path, as the JAX package lowers it off the TPU
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        if x.dtype == torch.bfloat16:
+            # single-pass moments, as the JAX package does for bf16
+            m2 = torch.square(x32).mean(dim=-1, keepdim=True)
+            var = torch.clamp(m2 - torch.square(mean), min=0.0)
+        else:
+            var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * params["wmat"].float() + params["bias"].float()
+        return [y.to(x.dtype)]
+
+
+class SeqFullcLayer(Layer):
+    """Per-position linear: (b,1,s,d) -> (b,1,s,nhidden); ``wmat``
+    (nhidden, d), ``bias`` (nhidden,)."""
+
+    type_names = ("seq_fullc",)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert len(in_shapes) == 1, "seq_fullc: 1-1 connection only"
+        n, c, s, d = in_shapes[0]
+        assert c == 1, "seq_fullc: input must be (b,1,s,d)"
+        assert self.param.num_hidden > 0, "seq_fullc: must set nhidden"
+        return [(n, 1, s, self.param.num_hidden)]
+
+    def init_params(self, gen, in_shapes, dtype=torch.float32):
+        d = in_shapes[0][3]
+        nh = self.param.num_hidden
+        params = {"wmat": self.param.rand_init_weight(gen, (nh, d), d, nh,
+                                                      dtype)}
+        if not self.param.no_bias:
+            params["bias"] = torch.full((nh,), self.param.init_bias,
+                                        dtype=dtype, device=gen.device)
+        return params
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        x = inputs[0]
+        b = params.get("bias")
+        return [F.linear(x, params["wmat"].to(x.dtype),
+                         None if b is None else b.to(x.dtype))]
+
+
+class AttentionLayer(Layer):
+    """Multi-head self-attention on (b,1,s,d): ``wqkv`` (3d, d), ``wout``
+    (d, d), biases ``bqkv`` / ``bout`` unless ``no_bias``; config
+    ``nhead`` (required), ``causal``, ``segment_key``."""
+
+    type_names = ("attention",)
+
+    def __init__(self):
+        super().__init__()
+        self.nhead = 0
+        self.causal = 0
+        self.segment_key = ""
+        self.decode_key: Optional[str] = None  # stamped by DecodeEngine
+
+    def set_param(self, name, val):
+        if name == "nhead":
+            self.nhead = int(val)
+        elif name == "causal":
+            self.causal = int(val)
+        elif name == "segment_key":
+            self.segment_key = val
+        else:
+            super().set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert len(in_shapes) == 1, "attention: 1-1 connection only"
+        n, c, s, d = in_shapes[0]
+        assert c == 1, "attention: input must be (b,1,s,d)"
+        assert self.nhead > 0, "attention: must set nhead"
+        assert d % self.nhead == 0, "attention: nhead must divide dim"
+        return [in_shapes[0]]
+
+    def init_params(self, gen, in_shapes, dtype=torch.float32):
+        d = in_shapes[0][3]
+        p = self.param
+        params = {"wqkv": p.rand_init_weight(gen, (3 * d, d), d, 3 * d, dtype),
+                  "wout": p.rand_init_weight(gen, (d, d), d, d, dtype)}
+        if not p.no_bias:
+            params["bqkv"] = torch.zeros((3 * d,), dtype=dtype,
+                                         device=gen.device)
+            params["bout"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+        return params
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        x = inputs[0]
+        b, _, s, d = x.shape
+        h = self.nhead
+        hd = d // h
+        bqkv = params.get("bqkv")
+        qkv = F.linear(x, params["wqkv"].to(x.dtype),
+                       None if bqkv is None else bqkv.to(x.dtype))
+        qkv = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (b, h, s, hd)
+        if ctx.decode is not None:
+            att = self._decode_attention(ctx, q, k, v)
+        else:
+            seg = _label_field(ctx, self.segment_key)
+            if seg is not None:
+                seg = seg.long()
+            att = single_device_attention(q, k, v, bool(self.causal), ctx,
+                                          seg=seg)
+        att = att.transpose(1, 2).reshape(b, 1, s, d)
+        bout = params.get("bout")
+        return [F.linear(att, params["wout"].to(x.dtype),
+                         None if bout is None else bout.to(x.dtype))]
+
+    def _decode_attention(self, ctx, q, k, v):
+        """Cache-aware attention for incremental decode.
+
+        Prefill stores this layer's fresh ``(k, v)`` in the decode state
+        and runs the normal causal path.  Step mode (one position per
+        row) writes the new ``(k, v)`` into the cache in place at
+        ``positions`` and attends over the whole cache under the length
+        mask ``arange(S) <= position``: masked scores get ``NEG_INF`` and
+        softmax to exactly 0, so never-written cache columns are
+        invisible.  Scores and ``p·V`` run in float32, as the JAX
+        package's ``preferred_element_type`` does."""
+        dec = ctx.decode
+        key = self.decode_key
+        assert key is not None, \
+            "attention: decode forward without an engine-stamped cache key"
+        assert self.causal, "incremental decode requires causal = 1"
+        if dec.mode == "prefill":
+            dec.caches[key] = {"k": k, "v": v}
+            return single_device_attention(q, k, v, True, ctx)
+        b, h, s, hd = q.shape
+        assert dec.mode == "step" and s == 1, \
+            f"decode step expects seq len 1, got mode {dec.mode} len {s}"
+        cache = dec.caches[key]
+        rows = torch.arange(b, device=q.device)
+        ck, cv = cache["k"], cache["v"]
+        ck[rows, :, dec.positions] = k[:, :, 0, :].to(ck.dtype)
+        cv[rows, :, dec.positions] = v[:, :, 0, :].to(cv.dtype)
+        scale = 1.0 / (hd ** 0.5)
+        scores = torch.matmul(q.float(),
+                              ck.to(q.dtype).float().transpose(-1, -2)) \
+            * scale
+        mask = torch.arange(ck.shape[2], device=q.device)[None, :] \
+            <= dec.positions[:, None]
+        scores = torch.where(mask[:, None, None, :], scores, ring.NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        return torch.matmul(p, cv.float()).to(q.dtype)
+
+
+class SoftmaxSeqLayer(LossLayerBase):
+    """Per-position softmax over the vocabulary (the LM head's
+    self-loop); the training loss comes with the training slice."""
+
+    type_names = ("softmax_seq",)
+
+    def __init__(self):
+        super().__init__()
+        self.packed = 0
+
+    def set_param(self, name, val):
+        if name == "packed":
+            self.packed = int(val)
+        else:
+            super().set_param(name, val)
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        if ctx.train:
+            raise NotImplementedError(
+                "softmax_seq: the training loss is not ported yet")
+        return [torch.softmax(inputs[0], dim=-1)]

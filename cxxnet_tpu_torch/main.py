@@ -1,0 +1,287 @@
+"""CLI entry point (the JAX package's ``main.py``):
+
+    python -m cxxnet_tpu_torch <config.conf> [key=value ...]
+
+This slice runs ``task = serve`` with ``serve_gen = 1``: a snapshot
+(``model_in``) is served by the KV-cache decode engine behind the
+continuous-batching step scheduler, the ``pred`` iterator section's
+rows become the prompts, and the generated ids land in ``name_pred``.
+The other tasks come with later slices and are refused by name.
+"""
+
+from __future__ import annotations
+
+import queue
+import sys
+import threading
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from .io.factory import create_iterator, init_iterator
+from .monitor import log as mlog
+from .nnet.trainer import NetTrainer
+from .utils.config import parse_config_file, parse_keyval_args
+
+PORTED_TASKS = ("serve",)
+
+
+class LearnTask:
+    def __init__(self):
+        self.task = "train"
+        self.name_model_in = "NULL"
+        self.name_pred = "pred.txt"
+        self.cfg: List[Tuple[str, str]] = []
+        self.net: Optional[NetTrainer] = None
+        self.itr_pred = None
+        # the last serve_gen run's accounting (counts, rates, latencies)
+        self.last_serve: Optional[dict] = None
+
+    def set_param(self, name: str, val: str) -> None:
+        if val == "default":
+            return
+        if name == "model_in":
+            self.name_model_in = val
+        elif name == "silent":
+            mlog.set_silent(int(val))
+        elif name == "task":
+            self.task = val
+        self.cfg.append((name, val))
+
+    # ---------------------------------------------------------------- init
+    def _create_net(self) -> NetTrainer:
+        net = NetTrainer()
+        for k, v in self.cfg:
+            net.set_param(k, v)
+        return net
+
+    def init(self) -> None:
+        if self.name_model_in == "NULL":
+            raise ValueError(f"task = {self.task}: must specify model_in")
+        self.net = self._create_net()
+        self.net.load_model(self.name_model_in)
+        self._create_iterators()
+
+    def _create_iterators(self) -> None:
+        """Section scanner (reference CreateIterators): this slice builds
+        the ``pred`` section, the request stream of ``task = serve``."""
+        flag = 0
+        itcfg: List[Tuple[str, str]] = []
+        defcfg: List[Tuple[str, str]] = []
+        for name, val in self.cfg:
+            if name in ("data", "eval"):
+                flag = 1
+                continue
+            if name == "pred":
+                flag = 3
+                self.name_pred = val
+                continue
+            if name == "iter" and val == "end":
+                assert flag != 0, "wrong configuration file"
+                if flag == 3:
+                    assert self.itr_pred is None, \
+                        "can only have one pred data"
+                    self.itr_pred = create_iterator(itcfg)
+                flag = 0
+                itcfg = []
+                continue
+            (itcfg if flag != 0 else defcfg).append((name, val))
+        if self.itr_pred is not None:
+            init_iterator(self.itr_pred, defcfg)
+
+    # ---------------------------------------------------------------- tasks
+    def _emit_latency_record(self, op: str) -> None:
+        metrics = self.net.metrics
+        h = metrics.histograms.get(f"{op}_latency_sec")
+        if h is None or not h.count:
+            return
+        s = h.summary()
+        metrics.emit("latency", op=op, count=int(s["count"]),
+                     **{k: round(s[k] * 1e3, 3)
+                        for k in ("mean", "min", "max", "p50", "p95", "p99")},
+                     unit="ms")
+
+    def task_serve(self) -> None:
+        assert self.itr_pred is not None, (
+            "task=serve requires a 'pred = <out>' iterator section "
+            "(the request stream)")
+        from .serve import ServeConfig
+        cfg = ServeConfig.from_pairs(self.cfg)
+        if not cfg.gen:
+            raise NotImplementedError(
+                "task = serve without serve_gen = 1 (the micro-batched "
+                "predict path) is not ported to cxxnet_tpu_torch yet")
+        self.task_serve_gen(cfg)
+
+    @staticmethod
+    def _prompts(batch, cfg) -> List[np.ndarray]:
+        """The requests of one pred-iterator batch: each valid row's
+        leading ``serve_gen_prompt`` ids, or under
+        ``serve_gen_prompt_doc = 1`` each document of the row (by the
+        ``packseq`` segment field), capped at ``serve_gen_prompt``."""
+        n = batch.batch_size - batch.num_batch_padd
+        rows = np.asarray(batch.data[:n], np.float32).reshape(n, -1)
+        if not cfg.gen_prompt_doc:
+            return [r[:cfg.gen_prompt].astype(np.int32) for r in rows]
+        s = rows.shape[1]
+        label = None if batch.label is None else np.asarray(batch.label)
+        if label is None or label.shape[-1] != 3 * s:
+            raise ValueError("serve_gen_prompt_doc = 1 needs the packseq "
+                             "iterator's segment field in the pred rows")
+        out = []
+        for row, seg in zip(rows, label[:n, s:2 * s]):
+            for k in range(1, int(seg.max()) + 1):
+                out.append(row[seg == k][:cfg.gen_prompt].astype(np.int32))
+        return out
+
+    def task_serve_gen(self, cfg) -> None:
+        """Autoregressive generation: each valid pred-iterator row's
+        leading ``serve_gen_prompt`` ids (or each of its documents, see
+        :meth:`_prompts`) become one request,
+        ``serve_clients`` threads submit them concurrently, and the step
+        scheduler keeps the ``decode_slots`` batch full.  Generated ids
+        land in ``name_pred``, space-separated, one request per line."""
+        from .serve.host import GenModel
+        metrics = self.net.metrics
+        gm = GenModel(self.net, cfg, metrics=metrics)
+        mlog.notice(f"serve: warming decode engine ({cfg.slots} slot(s), "
+                    f"max_seqlen {gm.engine.max_seqlen}, device "
+                    f"{self.net.device}) ...")
+        results: dict = {}
+        errors: List[BaseException] = []
+        abort = threading.Event()
+        work: "queue.Queue" = queue.Queue(maxsize=cfg.queue_depth)
+        done = object()
+        n_total = [0]
+
+        def put(item) -> bool:
+            while not abort.is_set():
+                try:
+                    work.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                self.itr_pred.before_first()
+                idx = 0
+                while True:
+                    batch = self.itr_pred.next()
+                    if batch is None:
+                        break
+                    for prompt in self._prompts(batch, cfg):
+                        if not put((idx, prompt)):
+                            return
+                        idx += 1
+                n_total[0] = idx
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                abort.set()
+            finally:
+                for _ in range(cfg.clients):
+                    if not put(done):
+                        return
+
+        def client():
+            while True:
+                try:
+                    item = work.get(timeout=0.05)
+                except queue.Empty:
+                    if abort.is_set():
+                        return
+                    continue
+                if item is done:
+                    return
+                i, prompt = item
+                try:
+                    results[i] = gm.generate(prompt)
+                except BaseException as e:  # noqa: BLE001 — reported
+                    errors.append(e)
+                    abort.set()
+                    return
+
+        try:
+            gm.warmup()
+            mlog.info(f"serve: decode warmup in "
+                      f"{gm.engine.warmup_sec:.1f} sec")
+            footprint = gm.footprint()
+            metrics.set_gauge("serve_footprint_bytes",
+                              footprint["total_bytes"])
+            mlog.notice(f"serve: streaming generation over {cfg.clients} "
+                        "client thread(s)")
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, daemon=True,
+                                        name=f"cxxnet-serve-gen-{j}")
+                       for j in range(cfg.clients)]
+            prod = threading.Thread(target=producer, daemon=True,
+                                    name="cxxnet-serve-gen-producer")
+            prod.start()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            prod.join()
+            dur = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
+                for i in range(n_total[0]):
+                    fo.write(" ".join(str(t) for t in results[i]) + "\n")
+            self._emit_latency_record("token")
+            self._emit_latency_record("gen")
+            stats = gm.scheduler.stats()
+            tps = stats["tokens"] / max(dur, 1e-9)
+            self.last_serve = dict(stats, duration_sec=dur,
+                                   tokens_per_sec=tps,
+                                   prefill_calls=gm.engine.prefill_calls,
+                                   step_calls=gm.engine.step_calls)
+            metrics.emit("serve_gen", model=gm.name,
+                         duration_sec=round(dur, 3),
+                         tokens_per_sec=round(tps, 1), slots=cfg.slots,
+                         max_seqlen=gm.engine.max_seqlen,
+                         gen_tokens=cfg.gen_tokens, clients=cfg.clients,
+                         sample=cfg.gen_sample, device=str(self.net.device),
+                         footprint=footprint, **stats)
+            mlog.result(
+                f"serve: generated {stats['tokens']} tokens for "
+                f"{n_total[0]} requests in {dur:.2f} sec ({tps:.1f} tok/s, "
+                f"mean occupancy {stats['mean_occupancy']}, "
+                f"{stats['batching']} batching)")
+        finally:
+            gm.close()
+        mlog.notice(f"finished serving, wrote {self.name_pred}")
+
+    def run(self, argv: List[str]) -> int:
+        if len(argv) < 1:
+            mlog.notice("Usage: python -m cxxnet_tpu_torch <config> "
+                        "[key=value ...]")
+            return 0
+        for k, v in parse_config_file(argv[0]):
+            self.set_param(k, v)
+        for k, v in parse_keyval_args(argv[1:]):
+            self.set_param(k, v)
+        if self.task not in PORTED_TASKS:
+            raise NotImplementedError(
+                f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
+                f"(ported: {', '.join(PORTED_TASKS)}; ROADMAP.md)")
+        try:
+            self.init()
+            mlog.info("initializing end, start working")
+            self.task_serve()
+        finally:
+            if self.itr_pred is not None:
+                self.itr_pred.close()
+            if self.net is not None:
+                self.net.metrics.close()
+        return 0
+
+
+def main() -> int:
+    return LearnTask().run(sys.argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""Counters, gauges, latency histograms and a JSONL record sink.
+
+The slice of the JAX package's ``MetricsRegistry`` that serving needs:
+``counter_inc`` / ``set_gauge`` / ``observe`` / ``emit``.  Records keep
+the JAX package's schema (``ts`` + ``kind`` + fields, one JSON object
+per line) so the same readers take both.  Span tracing and the admin
+plane come with the observability slice.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+
+def nearest_rank(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile over a SORTED list: ceil(n*q/100)-1,
+    clamped (the JAX package's definition)."""
+    i = max(math.ceil(len(sorted_vals) * q / 100.0) - 1, 0)
+    return sorted_vals[min(i, len(sorted_vals) - 1)]
+
+
+class Histogram:
+    """Every observation kept (serving runs are short); thread-safe."""
+
+    def __init__(self):
+        self._vals: List[float] = []
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._vals.append(float(value))
+
+    @property
+    def count(self) -> int:
+        return len(self._vals)
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            s = sorted(self._vals)
+        out: Dict[str, float] = {"count": len(s), "sum": sum(s)}
+        if s:
+            out.update(min=s[0], max=s[-1], mean=sum(s) / len(s),
+                       p50=nearest_rank(s, 50), p95=nearest_rank(s, 95),
+                       p99=nearest_rank(s, 99))
+        return out
+
+
+class Metrics:
+    """Per-trainer instruments plus an optional ``jsonl:<path>`` sink."""
+
+    def __init__(self):
+        self.counters: Dict[str, int] = {}
+        self.gauges: Dict[str, float] = {}
+        self.histograms: Dict[str, Histogram] = {}
+        self.sink_path: Optional[str] = None
+        self._fo = None
+        self._lock = threading.Lock()
+
+    def configure_sink(self, spec: str) -> None:
+        self.close()
+        if not spec or spec in ("none", "0"):
+            return
+        if not spec.startswith("jsonl:"):
+            raise ValueError(
+                f"metrics_sink = {spec!r}: expected jsonl:<path> (or none)")
+        self.sink_path = spec[len("jsonl:"):]
+        # append-only record stream, flushed per record
+        self._fo = open(self.sink_path, "a")  # disclint: ok(atomic-write)
+
+    @property
+    def active(self) -> bool:
+        return self._fo is not None
+
+    def counter_inc(self, name: str, n: int = 1) -> int:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+            return self.counters[name]
+
+    def set_gauge(self, name: str, value: float) -> None:
+        self.gauges[name] = float(value)
+
+    def observe(self, name: str, value: float) -> None:
+        self.histograms.setdefault(name, Histogram()).observe(value)
+
+    def emit(self, kind: str, **fields: Any) -> None:
+        """Write one record (no-op without a sink)."""
+        with self._lock:
+            if self._fo is None:
+                return
+            rec = {"ts": round(time.time(), 3), "kind": kind}
+            rec.update(fields)
+            self._fo.write(json.dumps(rec, sort_keys=True, default=float)
+                           + "\n")
+            self._fo.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            fo, self._fo = self._fo, None
+        if fo is not None:
+            fo.close()
