@@ -7,10 +7,12 @@ Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch / CUDA versions,
    and the build of the hand-written kernels from ops/csrc (timed);
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
-   the card at the served model's shapes, with its median time, the plain
+   the card at its main paths' shapes (the served forward; every kernel
+   of the two train paths at theirs), with its median time, the plain
    version's, one PyTorch library call's (a yardstick only: the port
-   never calls it) and the least time the card could take (bound);
-3. main path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
+   never calls it) and the least time the card could take (bound); each
+   backward runs twice and must be bitwise equal;
+3. serve path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
    the d2048 / 12-layer / s4096 / bf16 transformer LM (random weights
    from a seed, written as a ``.model``) to concurrent clients, twice
    over the same 8 prompts of seeded lengths in 64..1024 (one document
@@ -18,11 +20,22 @@ Phases (any failure raises and exits non-zero):
    must show that every prefill and every step went through them;
 4. on-card consistency: the decode engine's prefill and incremental step
    logits against a cache-free full forward, through the kernels and
-   through the plain torch path (``flash_attn = 0``, ``pallas_ln = 0``).
+   through the plain torch path (``flash_attn = 0``, ``pallas_ln = 0``);
+5. train path: ``task = train`` of the packed d2048 / 12-layer / 16-head
+   / s4096 / vocab 8192 / bf16 / adam / batch 4 LM (random weights from
+   a seed) on a seeded, learnable corpus of repeated phrases, through
+   ``iter = text`` + ``iter = packseq``, for TRAIN_STEPS steps: finite,
+   falling loss, and every attention / layernorm forward and backward
+   through the segmented flash and layernorm kernels;
+6. unpacked train path: the same net without segment ids (the JAX
+   package's ``bench_transformer`` net) at depth 2, where the plain
+   flash forward and backward kernels run.
 
-The last two lines are a ``{"kernels": [...]}`` JSON record and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or run
-outside a checkout of the repo, it exits non-zero and prints no result.
+Each path runs with every launch counter set to 0 just before it and
+read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
+record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+run outside a checkout of the repo, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -46,20 +59,52 @@ F32_TOL = 1e-4
 #: bf16 kernel outputs: max |got - ref| per row within two bf16 ulps of
 #: the row's largest element (one ulp of a value is at most 2^-7 of it)
 BF16_ROW_TOL = 2.0 ** -6
+#: bf16 attention gradients, per row: p and ds are rounded to bf16 before
+#: their products on both sides, from float32 values that differ in the
+#: last bits, so a few roundings flip; four bf16 ulps of the row's
+#: largest element.  The row's denominator is floored at GRAD_ROW_FLOOR
+#: of the tensor's largest element: a query that attends only to itself
+#: (row 0, a document's first token, padding) has an exactly-zero
+#: gradient, so both sides hold only float32 rounding noise there
+BF16_GRAD_ROW_TOL = 2.0 ** -5
+GRAD_ROW_FLOOR = 2.0 ** -10
+#: bf16 dgamma / dbeta (stored in bf16 like gamma): one rounding apart
+BF16_VEC_TOL = 2.0 ** -7
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, and FLOP/s
 # of the tensor cores in bf16 and of the CUDA cores in float32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# the served model: bench.py's LM flagship width
+# the served and trained model: bench.py's LM flagship width
 VOCAB, SEQ, DIM, NLAYER, NHEAD = 8192, 4096, 2048, 12, 16
 N_PROMPTS, GEN_TOKENS, SLOTS, CLIENTS = 8, 32, 4, 4
 PROMPT_LENS = (64, 1024)    # prompt lengths drawn uniformly from this range
 MAIN_REPS = 2               # CLI runs over the same prompts
 DEV = "gpu"
+# training: bench_transformer's batch and updater; adam at eta 1e-3
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_ETA = 4, 6, 1e-3
+UNPACKED_LAYERS, UNPACKED_STEPS = 2, 3
+DOC_LENS = (64, 4096)       # training document lengths
+LN_EPS = 1e-5
 
-ALL_PHASES = {"env", "kernels", "serve", "consistency"}
+ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
+              "train_unpacked"}
+#: --profile: the kernels listed by device time
+PROFILE_TOP = 25
+
+#: every ported kernel: its wrapper, CUDA source and the pallas_call of
+#: the TPU kernel it replaces (cxxnet_tpu/ops/pallas_kernels.py)
+KERNELS = {
+    "flash_attention_fwd": ("flash_attention", "flash_attn_fwd.cu", 1259),
+    "flash_attention_bwd": ("flash_attention", "flash_attn_bwd.cu", 1294),
+    "flash_attention_seg_fwd": ("flash_attention", "flash_attn_fwd.cu",
+                                1477),
+    "flash_attention_seg_bwd": ("flash_attention", "flash_attn_bwd.cu",
+                                1498),
+    "layernorm_fwd": ("layernorm", "layernorm_fwd.cu", 1736),
+    "layernorm_bwd": ("layernorm", "layernorm_bwd.cu", 1770),
+}
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -98,12 +143,38 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-6))
 
 
-def row_rel_err(got, ref) -> float:
-    """max over rows of max |got - ref| / max |ref| within the row."""
+def row_rel_err(got, ref, floor: float = 0.0) -> float:
+    """max over rows of max |got - ref| / max |ref| within the row (the
+    denominator at least ``floor`` times max |ref| of the tensor)."""
     got = got.float().reshape(-1, got.shape[-1])
     ref = ref.float().reshape(-1, ref.shape[-1])
-    return float(((got - ref).abs().amax(1)
-                  / ref.abs().amax(1).clamp_min(1e-6)).max())
+    den = ref.abs().amax(1).clamp_min(
+        max(1e-6, floor * float(ref.abs().max())))
+    return float(((got - ref).abs().amax(1) / den).max())
+
+
+def kernel_fn(name):
+    import importlib
+    mod = importlib.import_module(f"cxxnet_tpu_torch.ops.{KERNELS[name][0]}")
+    return getattr(mod, name)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        kernel_fn(name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel_fn(name).launches for name in KERNELS}
+
+
+def bound(flops: float, nbytes: float, dtype: str) -> dict:
+    """The least time for ``flops`` operations and ``nbytes`` of traffic
+    on this card's published peaks, and which of the two bounds it."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 # ------------------------------------------------------------------ phases
@@ -215,6 +286,242 @@ def phase_kernels():
     return out
 
 
+def seeded_segments(rng, b: int, s: int, pad_max: int) -> np.ndarray:
+    """(b, s) segment ids: documents of seeded lengths in DOC_LENS
+    (numbered 1.. per row, the last one cut to fit) and a seeded zero
+    (padding) tail of up to ``pad_max`` positions."""
+    seg = np.zeros((b, s), np.int64)
+    for r in range(b):
+        end = s - rng.randint(0, pad_max + 1)
+        pos, k = 0, 1
+        while pos < end:
+            n = min(rng.randint(DOC_LENS[0], DOC_LENS[1] + 1), end - pos)
+            seg[r, pos:pos + n] = k
+            pos, k = pos + n, k + 1
+    return seg
+
+
+def live_pairs(seg: np.ndarray, h: int) -> int:
+    """(query, key) scores the segmented causal mask keeps: each
+    document's triangle, plus the diagonal of every padding position."""
+    total = 0
+    for row in seg:
+        _, n = np.unique(row[row != 0], return_counts=True)
+        total += int((n * (n + 1) // 2).sum()) + int((row == 0).sum())
+    return total * h
+
+
+def _run_twice(label, run):
+    """The kernel's outputs, after checking that a second run is bitwise
+    equal (no atomics: the reductions are deterministic)."""
+    import torch
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: two runs are not bitwise equal")
+    return a
+
+
+def _errors(got, ref, bf16: bool, row_tol: float, floor: float = 0.0):
+    """(per-output errors, tolerance, max abs error): per row for bf16,
+    against the whole tensor for float32."""
+    errs = [row_rel_err(x, r, floor) if bf16 else rel_err(x, r)
+            for x, r in zip(got, ref)]
+    abs_err = max(float((x.float() - r.float()).abs().max())
+                  for x, r in zip(got, ref))
+    return errs, (row_tol if bf16 else F32_TOL), abs_err
+
+
+def phase_train_kernels():
+    """The training path's kernels against their plain versions at the
+    training shapes: flash forward and backward (causal), segmented flash
+    forward and backward ((64, 4096, 128) = batch 4 x 16 heads, seeded
+    documents and padding tails), the layernorm forward and backward
+    ((16384, 2048), both residual contracts of the backward, one gamma
+    column exactly 0); bf16 and float32.  Returns the numbers of the bf16
+    runs (the forward kernels' under a "(training shape)" name: the
+    served shape's numbers stand for them in the kernels line)."""
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops import flash_attention as fa
+    from cxxnet_tpu_torch.ops import layernorm as ln
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    b, h, s, d = TRAIN_BATCH, NHEAD, SEQ, DIM // NHEAD
+    bh = b * h
+    seg_np = seeded_segments(np.random.RandomState(3), b, s, 512)
+    seg = torch.from_numpy(seg_np).to(dev)
+    pos = torch.arange(s, device=dev)
+    mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+            | (pos[:, None] == pos[None, :])) & (pos[:, None] >= pos[None, :])
+    mask = mask[:, None]                       # (b, 1, s, s) for sdpa
+    pairs = {"causal": bh * s * (s + 1) // 2, "seg": live_pairs(seg_np, h)}
+    log(f"training segments: documents per row "
+        f"{[int(r.max()) for r in seg_np]}, padding tails "
+        f"{[int((r == 0).sum()) for r in seg_np]}; live scores "
+        f"{pairs['seg'] / pairs['causal']:.3f} of the causal triangle")
+    out = {}
+
+    def record(name, dtype, errs, tol, abs_err, ms, plain, lib, bnd, what,
+               shape=(bh, s, d)):
+        log(f"{name} {shape} {dtype}: errors "
+            f"{', '.join(f'{w} {e:.3e}' for w, e in zip(what, errs))} "
+            f"(tol {tol:g}); abs err {abs_err:.3e}; kernel {ms:.3f} ms, "
+            f"plain {plain:.3f} ms, library {lib:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
+            f"{'; bitwise repeatable' if '_bwd' in name else ''}")
+        if not max(errs) <= tol:
+            raise AssertionError(f"{name} {dtype} disagrees with its plain "
+                                 f"version: {errs}")
+        if dtype == "bfloat16":
+            out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                             library_ms=lib, **bnd)
+
+    def sdpa_bwd(q, k, v, do, attn_mask):
+        q4, k4, v4 = (t.detach().view(b, h, s, d).requires_grad_()
+                      for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=attn_mask, is_causal=attn_mask is None)
+        g4 = do.view(b, h, s, d)
+        return lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                           retain_graph=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        isz = 2 if bf16 else 4
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        grads = ("dq", "dk", "dv")
+        # row 7 at the unpacked training shape
+        run = lambda: fa.flash_attention_fwd(q, k, v, True)
+        plain = lambda: fa.flash_attention_fwd_plain(q, k, v, True)
+        (o, lse), ref = run(), plain()
+        torch.cuda.synchronize()
+        errs = [row_rel_err(o, ref[0]) if bf16 else rel_err(o, ref[0]),
+                rel_err(lse, ref[1])]
+        abs_err = float((o.float() - ref[0].float()).abs().max())
+        del ref
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        record("flash_attention_fwd (training shape)", name, errs,
+               BF16_ROW_TOL if bf16 else F32_TOL, abs_err, time_ms(run),
+               time_ms(plain, reps=3),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True)),
+               bound(4.0 * d * pairs["causal"],
+                     4 * bh * s * d * isz + 4 * bh * s, name), ("o", "lse"))
+        if not errs[1] <= F32_TOL:
+            raise AssertionError("flash_attention_fwd lse disagrees")
+        # row 8: the flash backward, causal, from the forward's o and lse
+        run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     True)
+        got = _run_twice("flash_attention_bwd", run)
+        errs, tol, abs_err = _errors(got, plain(), bf16, BF16_GRAD_ROW_TOL,
+                                     GRAD_ROW_FLOOR)
+        record("flash_attention_bwd", name, errs, tol, abs_err,
+               time_ms(run), time_ms(plain, reps=3),
+               time_ms(sdpa_bwd(q, k, v, do, None)),
+               bound(10.0 * d * pairs["causal"],
+                     8 * bh * s * d * isz + 4 * bh * s, name), grads)
+        # row 9: the segmented forward
+        run = lambda: fa.flash_attention_seg_fwd(q, k, v, seg)
+        plain = lambda: fa.flash_attention_seg_fwd_plain(q, k, v, seg)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        errs = [row_rel_err(got[0], ref[0]) if bf16
+                else rel_err(got[0], ref[0]), rel_err(got[1], ref[1])]
+        abs_err = float((got[0].float() - ref[0].float()).abs().max())
+        record("flash_attention_seg_fwd", name, errs,
+               BF16_ROW_TOL if bf16 else F32_TOL, abs_err, time_ms(run),
+               time_ms(plain, reps=3),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask)),
+               bound(4.0 * d * pairs["seg"],
+                     4 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
+               ("o", "lse"))
+        if not errs[1] <= F32_TOL:
+            raise AssertionError("flash_attention_seg_fwd lse disagrees")
+        # row 10: the segmented backward
+        o, lse = got
+        run = lambda: fa.flash_attention_seg_bwd(q, k, v, seg, o, lse, do)
+        plain = lambda: fa.flash_attention_seg_bwd_plain(q, k, v, seg, o,
+                                                         lse, do)
+        got = _run_twice("flash_attention_seg_bwd", run)
+        errs, tol, abs_err = _errors(got, plain(), bf16, BF16_GRAD_ROW_TOL,
+                                     GRAD_ROW_FLOOR)
+        record("flash_attention_seg_bwd", name, errs, tol, abs_err,
+               time_ms(run), time_ms(plain, reps=3),
+               time_ms(sdpa_bwd(q, k, v, do, mask)),
+               bound(10.0 * d * pairs["seg"],
+                     8 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
+               grads)
+        del q, k, v, do, o, lse, got
+        # row 12: the layernorm backward, both residual contracts
+        rows = b * s
+        x = (torch.randn((rows, DIM), generator=gen, device=dev) * 2 + 3
+             ).to(dtype)
+        g = (torch.rand((DIM,), generator=gen, device=dev) + 0.5).to(dtype)
+        g[5] = 0.0
+        bt = (torch.randn((DIM,), generator=gen, device=dev) * .5).to(dtype)
+        dy = torch.randn((rows, DIM), generator=gen, device=dev).to(dtype)
+        # row 11 at the training shape, then row 12 from its residuals
+        run = lambda: ln.layernorm_fwd(x, g, bt, LN_EPS)
+        plain = lambda: ln.layernorm_fwd_plain(x, g, bt, LN_EPS)
+        (y, mean, rstd), ref = run(), plain()
+        torch.cuda.synchronize()
+        errs = [row_rel_err(y, ref[0]) if bf16 else rel_err(y, ref[0])]
+        serr = max(rel_err(mean, ref[1]), rel_err(rstd, ref[2]))
+        abs_err = float((y.float() - ref[0].float()).abs().max())
+        del ref
+        log(f"layernorm_fwd (training shape) {name}: mean / rstd err "
+            f"{serr:.3e} (tol {F32_TOL:g})")
+        if not serr <= F32_TOL:
+            raise AssertionError(f"layernorm_fwd {name} mean / rstd "
+                                 f"disagree: {serr}")
+        record("layernorm_fwd (training shape)", name, errs,
+               BF16_ROW_TOL if bf16 else F32_TOL, abs_err,
+               time_ms(run, reps=20), time_ms(plain, reps=5),
+               time_ms(lambda: F.layer_norm(x, (DIM,), g, bt, LN_EPS),
+                       reps=20),
+               bound(8.0 * rows * DIM, 2 * rows * DIM * isz + 2 * DIM * isz
+                     + 2 * rows * 4, "float32"), ("y",), (rows, DIM))
+        for save_x in (False, True):
+            a = x if save_x else y
+            run = lambda: ln.layernorm_bwd(dy, a, g, bt, mean, rstd, save_x)
+            plain = lambda: ln.layernorm_bwd_plain(dy, a, g, bt, mean, rstd,
+                                                   save_x)
+            got = _run_twice("layernorm_bwd", run)
+            ref = plain()
+            errs, tol, abs_err = _errors(got[:1], ref[:1], bf16,
+                                         BF16_ROW_TOL)
+            verr = max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2]))
+            vtol = BF16_VEC_TOL if bf16 else F32_TOL
+            if not verr <= vtol:
+                raise AssertionError(f"layernorm_bwd {name} dgamma / dbeta "
+                                     f"disagree: {verr} (tol {vtol})")
+            xx, gg, bb = (t.detach().requires_grad_() for t in (x, g, bt))
+            yy = F.layer_norm(xx, (DIM,), gg, bb, LN_EPS)
+            lib = time_ms(lambda: torch.autograd.grad(
+                yy, (xx, gg, bb), dy, retain_graph=True), reps=20)
+            nbytes = (3 * rows * DIM * isz + (2 if save_x else 1) * rows * 4
+                      + 4 * DIM * isz)
+            tag = f"layernorm_bwd{' save_x' if save_x else ''}"
+            log(f"{tag}: dgamma / dbeta err {verr:.3e} (tol {vtol:g})")
+            numbers = (errs, tol, abs_err, time_ms(run, reps=20),
+                       time_ms(plain, reps=5), lib,
+                       bound(14.0 * rows * DIM, nbytes, "float32"), ("dx",),
+                       (rows, DIM))
+            if save_x:
+                record(tag, name, *numbers)
+            else:
+                record("layernorm_bwd", name, *numbers)
+        del x, dy, y
+        torch.cuda.empty_cache()
+    return out
+
+
 def write_inputs(tmp: str) -> str:
     """A seeded flagship ``.model``, a shard of N_PROMPTS prompt
     documents of seeded lengths and the serve conf (one request per
@@ -279,12 +586,9 @@ def phase_serve(tmp: str):
     """MAIN_REPS runs of the serve CLI over the same conf; the launch
     counters are zeroed before the first and read after the last."""
     from cxxnet_tpu_torch.main import LearnTask
-    from cxxnet_tpu_torch.ops import flash_attention as fa
-    from cxxnet_tpu_torch.ops import layernorm as ln
     conf = write_inputs(tmp)
     prefills = steps = 0
-    fa.flash_attention_fwd.launches = 0
-    ln.layernorm_fwd.launches = 0
+    reset_launches()
     for rep in range(MAIN_REPS):
         task = LearnTask()
         t0 = time.perf_counter()
@@ -313,9 +617,8 @@ def phase_serve(tmp: str):
             if len(toks) != GEN_TOKENS or not all(0 <= t < VOCAB
                                                   for t in toks):
                 raise AssertionError(f"bad generation row: {ln_[:80]}")
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "layernorm_fwd": ln.layernorm_fwd.launches}
-    log(f"main path launches: {launches} for {prefills} prefills and "
+    launches = read_launches()
+    log(f"serve path launches: {launches} for {prefills} prefills and "
         f"{steps} steps (plus one warmup prefill and step per run)")
     if launches["flash_attention_fwd"] < NLAYER * prefills or prefills < 1:
         raise AssertionError("prefills did not all run the flash kernel")
@@ -357,10 +660,187 @@ def phase_consistency(task):
         raise AssertionError("decode logits leave the bf16 envelope")
 
 
+def phrase_docs(rng, n_tokens: int, lens) -> list:
+    """Seeded documents of lengths in ``lens`` totalling at least
+    ``n_tokens``, each a run of phrases drawn from 16 fixed phrases of
+    8..32 token ids: within a phrase every next token is determined, so a
+    model can learn the corpus in a few steps."""
+    phrases = [rng.randint(0, VOCAB, rng.randint(8, 33)) for _ in range(16)]
+    docs, total = [], 0
+    while total < n_tokens:
+        n = rng.randint(lens[0], lens[1] + 1)
+        parts, have = [], 0
+        while have < n:
+            parts.append(phrases[rng.randint(len(phrases))])
+            have += parts[-1].size
+        docs.append(np.concatenate(parts)[:n])
+        total += n
+    return docs
+
+
+def phase_train(tmp: str, packed: bool, profile: bool = False) -> dict:
+    """``task = train`` through the port's CLI: the packed flagship at
+    full depth (documents of seeded lengths, segment ids, per-document
+    positions, masked boundary targets), or the unpacked one at depth
+    UNPACKED_LAYERS (one long document, no segment ids).  Returns the
+    path's launch counts.  ``profile`` traces the whole run with
+    ``torch.profiler`` and prints where its device time goes."""
+    import torch
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.models import transformer
+    label = "train" if packed else "train_unpacked"
+    nlayer = NLAYER if packed else UNPACKED_LAYERS
+    steps = TRAIN_STEPS if packed else UNPACKED_STEPS
+    n_tok = steps * TRAIN_BATCH * SEQ + 1
+    rng = np.random.RandomState(17 if packed else 19)
+    docs = phrase_docs(rng, n_tok, DOC_LENS if packed else (n_tok, n_tok))
+    shard = os.path.join(tmp, f"{label}.tok")
+    write_token_shard(shard, docs, itemsize=2)
+    net = transformer(vocab=VOCAB, seq=SEQ, dim=DIM, nlayer=nlayer,
+                      nhead=NHEAD, packed=packed)
+    conf = os.path.join(tmp, f"{label}.conf")
+    with open(conf, "w") as f:
+        f.write(f"""dev = {DEV}
+task = train
+model_dir = {tmp}/models
+save_model = 0
+data = train
+iter = text
+  path_tok = {shard}
+iter = packseq
+  seqlen = {SEQ}
+iter = end
+{net}
+batch_size = {TRAIN_BATCH}
+dtype = bfloat16
+updater = adam
+eta = {TRAIN_ETA}
+flash_attn = 1
+pallas_ln = 1
+num_round = 1
+print_step = 1
+eval_train = 0
+seed = 7
+silent = 1
+metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
+""")
+    log(f"{label}: {len(docs)} documents, {sum(d.size for d in docs)} "
+        f"tokens; d{DIM} / {nlayer} layers / {NHEAD} heads / s{SEQ} / "
+        f"vocab {VOCAB} / bf16 / adam eta {TRAIN_ETA} / batch "
+        f"{TRAIN_BATCH}{' / packed' if packed else ''}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = LearnTask()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    try:
+        rc = task.run([conf])
+    finally:
+        if prof is not None:
+            prof.stop()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = task.last_train
+    if prof is not None and st is not None:
+        report_profile(prof.events(), st["step_ms"])
+    if rc != 0 or st is None or st["steps"] != steps:
+        raise AssertionError(f"{label}: CLI returned {rc} after "
+                             f"{None if st is None else st['steps']} steps")
+    losses = st["losses"]
+    log(f"{label}: {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in st['step_ms']]}, p50 "
+        f"{st['step_p50_ms']:.1f} ms (steps after the first) = "
+        f"{st['tokens_per_sec']:.0f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; CLI wall "
+        f"{wall:.1f} s")
+    log(f"{label} path launches: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    per_step = {k: v / steps for k, v in launches.items()}
+    if packed:
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
+        want = {"flash_attention_seg_fwd": nlayer,
+                "flash_attention_seg_bwd": nlayer,
+                "layernorm_fwd": 2 * nlayer + 1,
+                "layernorm_bwd": 2 * nlayer + 1}
+    else:
+        want = {"flash_attention_fwd": nlayer, "flash_attention_bwd": nlayer,
+                "layernorm_fwd": 2 * nlayer + 1,
+                "layernorm_bwd": 2 * nlayer + 1}
+    short = {k: per_step[k] for k, n in want.items() if per_step[k] < n}
+    if short:
+        raise AssertionError(f"{label}: launches per step {short} below "
+                             f"{want}: a layer did not run its kernel")
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def report_profile(events, step_ms) -> None:
+    """Where the device time of a traced train run goes, per step, over
+    the steps after the first (warm-up) one.  ``events``: the profiler's
+    events; ``step_ms``: each step's wall time, which ends in a device
+    synchronise.  On the device timeline the profiler records the spans
+    of the trainer's ``train_forward`` / ``train_update`` ranges: the
+    window runs from the second step's forward to the last update, and
+    the backward, which autograd runs from its own thread, is the window
+    less those spans.  Busy time is the sum of the kernels and copies in
+    the window.  Lists the kernels with the most time."""
+    from torch.autograd import DeviceType
+    dev = [e for e in events if e.device_type != DeviceType.CPU]
+    starts = sorted(e.time_range.start for e in dev
+                    if e.name == "train_forward")
+    ends = [e.time_range.end for e in dev if e.name == "train_update"]
+    n = len(step_ms) - 1
+    log(f"profile: {len(starts)} forward and {len(ends)} update spans on "
+        f"the device for {n + 1} steps")
+    if not ends or starts[-1] < min(ends):
+        raise AssertionError("profile: no step after the first on the "
+                             "device timeline")
+    t0 = min(t for t in starts if t > min(ends))
+    t1 = max(ends)
+    spans, kernels = {}, {}
+    for e in dev:
+        if e.time_range.start < t0 or e.time_range.end > t1:
+            continue
+        us = e.time_range.elapsed_us()
+        if e.name.startswith("train_"):
+            spans[e.name] = spans.get(e.name, 0.0) + us
+        else:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += us
+            k[1] += 1
+    busy = sum(us for us, _ in kernels.values())
+    per = lambda us: us / 1e3 / n
+    span = per(t1 - t0)
+    fwd = per(spans.get("train_forward", 0.0))
+    upd = per(spans.get("train_update", 0.0))
+    log(f"profile over steps 2-{n + 1}: wall {np.mean(step_ms[1:]):.1f} ms "
+        f"a step, device window {span:.1f} ms, kernels busy {per(busy):.1f}"
+        f" ms = {per(busy) / span:.3f} of the window; forward {fwd:.1f} ms,"
+        f" backward {span - fwd - upd:.1f} ms, update {upd:.1f} ms")
+    for name, (us, count) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][0])[:PROFILE_TOP]:
+        log(f"  {per(us):9.2f} ms/step {us / busy:6.1%} "
+            f"{count / n:7.1f} calls/step  {name[:100]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                     help="comma-separated subset of the phases")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the packed train phase with "
+                         "torch.profiler and print where the time goes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -368,26 +848,41 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     phases = set(args.phases.split(","))
+    unknown = phases - ALL_PHASES
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
     torch.cuda.set_device(0)
     phase_env()
-    numbers = phase_kernels() if "kernels" in phases else {}
-    launches = {}
-    if "serve" in phases:
-        with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
-            task, launches = phase_serve(tmp)
+    numbers = {}
+    if "kernels" in phases:
+        numbers.update(phase_kernels())
+        numbers.update(phase_train_kernels())
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
+        if "serve" in phases:
+            task, paths["serve"] = phase_serve(tmp)
             if "consistency" in phases:
                 phase_consistency(task)
-    replaces = {
-        "flash_attention_fwd": ("cxxnet_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-                                "cxxnet_tpu/ops/pallas_kernels.py:1259"),
-        "layernorm_fwd": ("cxxnet_tpu_torch/ops/csrc/layernorm_fwd.cu",
-                          "cxxnet_tpu/ops/pallas_kernels.py:1736")}
-    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
-                    launches=launches.get(n, 0), **numbers.get(n, {}))
-               for n, (src, rep) in replaces.items()]
+            del task
+        for name, packed in (("train", True), ("train_unpacked", False)):
+            if name in phases:
+                paths[name] = phase_train(tmp, packed,
+                                          args.profile and packed)
+    launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
+    kernels = [dict(name=n, route="cuda",
+                    source=f"cxxnet_tpu_torch/ops/csrc/{src}",
+                    replaces=f"cxxnet_tpu/ops/pallas_kernels.py:{line}",
+                    launches=launches[n],
+                    launches_by_path={p: c[n] for p, c in paths.items()},
+                    **numbers.get(n, {}))
+               for n, (_, src, line) in KERNELS.items()]
     if phases != ALL_PHASES:
         log(f"ran phases {sorted(phases)} only: no result")
+        log(json.dumps({"kernels": kernels}))
         return 1
+    idle = [n for n, c in launches.items() if c < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on a path: {idle}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,12 @@ Options this slice acts on:
 | key        | values             | meaning on the port                  |
 |------------|--------------------|--------------------------------------|
 | flash_attn | 1 (default), 0     | 0 = plain torch attention instead of |
-|            |                    | the hand-written flash kernel        |
+|            |                    | the hand-written flash kernels       |
+|            |                    | (segmented or not, fwd and bwd)      |
 | pallas_ln  | 1 (default), x, 0  | 0 = plain torch layernorm instead of |
-|            |                    | the hand-written layernorm kernel    |
-|            |                    | (x only changes the JAX backward)    |
+|            |                    | the hand-written layernorm kernels;  |
+|            |                    | x = the kernels, the backward from   |
+|            |                    | the saved input instead of the output|
 
 The other keys keep the JAX package's table so a conf reads the same,
 but their layers and kernels come with later slices (ROADMAP.md): any

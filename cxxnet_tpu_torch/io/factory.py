@@ -1,8 +1,9 @@
 """Iterator chain factory (the JAX package's ``io/factory.py``) over the
 stages ported so far: ``iter = text`` (token-shard documents) and
 ``iter = packseq`` (fixed ``(batch, seqlen)`` LM rows) — the chain that
-feeds prompts to ``task = serve``.  Keys seen in a section are forwarded
-to every stage, as in the reference."""
+feeds ``task = train`` its batches and ``task = serve`` its prompts.
+Keys seen in a section are forwarded to every stage, as in the
+reference."""
 
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ A layer holds only its static configuration.  Its parameters live in
 the trainer's ``{param_key: {tag: tensor}}`` dict — the JAX package's
 layout, tags ``wmat`` / ``bias`` / ``wqkv`` / ... — so snapshots and
 parity tests line up key for key.  ``forward(params, inputs, ctx)``
-returns the output tensors; serving needs no autograd, and the trainer
-runs every forward under ``torch.inference_mode``.
+returns the output tensors; a training forward runs under autograd, and
+loss layers append their scalar terms to ``ctx.losses``.
 """
 
 from __future__ import annotations
@@ -29,9 +29,19 @@ class ShapeError(ValueError):
 @dataclasses.dataclass
 class LabelInfo:
     """Label fields by name, each ``(batch, width)`` (the JAX package's
-    ``LabelInfo``); eval and serving forwards pass none."""
+    ``LabelInfo``); eval and serving forwards pass none.  ``mask``
+    ``(batch,)`` zeroes the loss of a short tail batch's replica padding
+    (``DataBatch.tail_mask_padd``)."""
 
     fields: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    mask: Optional[torch.Tensor] = None
+
+    def get(self, name: str) -> torch.Tensor:
+        if name not in self.fields:
+            raise KeyError(f"label field {name!r} is not declared "
+                           f"(have {sorted(self.fields)}); use "
+                           "label_vec[a,b) = name")
+        return self.fields[name]
 
 
 @dataclasses.dataclass
@@ -58,12 +68,17 @@ class DecodeState:
 
 @dataclasses.dataclass
 class ForwardContext:
-    """Per-call context threaded through the forward pass."""
+    """Per-call context threaded through the forward pass.  A training
+    forward carries the labels and collects each loss layer's scalar in
+    ``losses``, already times ``loss_scale`` = 1 / (batch_size *
+    update_period), the reference's per-instance gradient scaling."""
 
     train: bool
     opts: EngineOptions
     labels: Optional[LabelInfo] = None
     decode: Optional[DecodeState] = None
+    losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    loss_scale: float = 1.0
 
 
 def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:

@@ -7,11 +7,13 @@ Layouts at the module boundaries are the JAX package's: activations
 the KV cache ``(slots, h, S, hd)``.
 
 Kernel selection is configuration, read from the forward context's
-engine options: ``flash_attn = 1`` routes attention through
-:func:`~cxxnet_tpu_torch.ops.flash_attention.flash_attention_fwd` and
-``pallas_ln = 1`` (or ``x``) routes layernorm through
-:func:`~cxxnet_tpu_torch.ops.layernorm.layernorm_fwd`; ``0`` selects
-the plain torch path the JAX package runs off the TPU.
+engine options: ``flash_attn = 1`` routes attention through the
+autograd Functions of :mod:`~cxxnet_tpu_torch.ops.flash_attention`
+(the segmented one when the layer has segment ids), and ``pallas_ln =
+1`` (or ``x``, which saves the input for the backward) routes layernorm
+through :class:`~cxxnet_tpu_torch.ops.layernorm.LayerNorm`; ``0``
+selects the plain torch path the JAX package runs off the TPU, the only
+way to reach :func:`ring.dense_attention`.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention_fwd
-from ..ops.layernorm import layernorm_fwd
+from ..ops.flash_attention import flash_attention, flash_attention_segmented
+from ..ops.layernorm import layernorm
 from ..parallel import ring
 from .base import ForwardContext, Layer, Shape4, _normal
 from .loss import LossLayerBase
@@ -38,18 +40,24 @@ def _label_field(ctx: ForwardContext, name: str) -> Optional[torch.Tensor]:
 
 def single_device_attention(q, k, v, causal: bool, ctx: ForwardContext,
                             seg: Optional[torch.Tensor] = None):
-    """(b, h, s, hd) attention: the flash kernel under ``flash_attn = 1``
-    for unsegmented attention (it raises on a head width it does not
-    take), plain :func:`ring.dense_attention` under ``flash_attn = 0``
-    or with segment ids (the segmented flash kernel is not ported yet)."""
+    """(b, h, s, hd) attention.  Under ``flash_attn = 1`` the flash
+    kernels (they raise on a head width they do not take): the
+    segmented Function when there are segment ids (causal only, as in
+    the JAX package), else the plain flash Function.  Under
+    ``flash_attn = 0`` plain :func:`ring.dense_attention`."""
     b, h, s, hd = q.shape
-    if ctx.opts.flash_attn == "1" and seg is None:
-        o, _ = flash_attention_fwd(q.reshape(b * h, s, hd).contiguous(),
-                                   k.reshape(b * h, s, hd).contiguous(),
-                                   v.reshape(b * h, s, hd).contiguous(),
-                                   causal)
-        return o.reshape(b, h, s, hd)
-    return ring.dense_attention(q, k, v, causal=causal, seg=seg)
+    if ctx.opts.flash_attn != "1":
+        return ring.dense_attention(q, k, v, causal=causal, seg=seg)
+    q3, k3, v3 = (t.reshape(b * h, s, hd).contiguous() for t in (q, k, v))
+    if seg is None:
+        o = flash_attention(q3, k3, v3, causal)
+    elif causal:
+        o = flash_attention_segmented(q3, k3, v3, seg)
+    else:
+        raise ValueError("attention: flash_attn = 1 with segment ids needs "
+                         "causal = 1 (the segmented kernel is causal); set "
+                         "flash_attn = 0 for non-causal packed attention")
+    return o.reshape(b, h, s, hd)
 
 
 class EmbeddingLayer(Layer):
@@ -145,8 +153,8 @@ class LayerNormLayer(Layer):
         x = inputs[0]
         d = x.shape[-1]
         if ctx.opts.pallas_ln in ("1", "x"):
-            y, _, _ = layernorm_fwd(x.reshape(-1, d).contiguous(),
-                                    params["wmat"], params["bias"], self.eps)
+            y = layernorm(x.reshape(-1, d).contiguous(), params["wmat"],
+                          params["bias"], self.eps, ctx.opts.pallas_ln == "x")
             return [y.reshape(x.shape)]
         # the plain path, as the JAX package lowers it off the TPU
         x32 = x.float()
@@ -299,8 +307,14 @@ class AttentionLayer(Layer):
 
 
 class SoftmaxSeqLayer(LossLayerBase):
-    """Per-position softmax over the vocabulary (the LM head's
-    self-loop); the training loss comes with the training slice."""
+    """Per-position softmax over the vocabulary plus, in a training
+    forward, the mean per-token cross-entropy of the ``target`` label
+    field (``(b, s)`` token ids) as the loss.
+
+    ``packed = 1`` (document-packed rows, io/text.py): target ids < 0
+    mark positions whose next token crosses a document boundary or is
+    padding; they contribute zero loss and zero gradient, and a row's
+    mean divides by its count of valid targets (at least 1)."""
 
     type_names = ("softmax_seq",)
 
@@ -316,7 +330,21 @@ class SoftmaxSeqLayer(LossLayerBase):
 
     def forward(self, params, inputs, ctx):
         self.check_n_inputs(inputs, 1)
-        if ctx.train:
-            raise NotImplementedError(
-                "softmax_seq: the training loss is not ported yet")
-        return [torch.softmax(inputs[0], dim=-1)]
+        x = inputs[0]  # (b, 1, s, V)
+        if not (ctx.train and ctx.labels is not None):
+            return [torch.softmax(x, dim=-1)]
+        y = ctx.labels.get(self.target)  # (b, s) float ids
+        logp = torch.log_softmax(x[:, 0].float(), dim=-1)
+        yi = y.long()
+        if self.packed:
+            valid = (y >= 0).float()
+            tok = logp.gather(2, yi.clamp(min=0)[:, :, None])[:, :, 0]
+            per_inst = -(tok * valid).sum(dim=1) \
+                / valid.sum(dim=1).clamp(min=1.0)
+        else:
+            tok = logp.gather(2, yi[:, :, None])[:, :, 0]
+            per_inst = -tok.mean(dim=1)
+        self.add_loss(ctx, per_inst)
+        # the output node is not part of the loss: no autograd graph
+        with torch.no_grad():
+            return [torch.softmax(x, dim=-1)]

@@ -2,16 +2,27 @@
 
     python -m cxxnet_tpu_torch <config.conf> [key=value ...]
 
-This slice runs ``task = serve`` with ``serve_gen = 1``: a snapshot
-(``model_in``) is served by the KV-cache decode engine behind the
-continuous-batching step scheduler, the ``pred`` iterator section's
-rows become the prompts, and the generated ids land in ``name_pred``.
-The other tasks come with later slices and are refused by name.
+Ported tasks:
+
+* ``task = train``: a fresh model (or ``model_in``) trained for
+  ``num_round`` rounds over the ``data = train`` iterator section, a
+  ``%04d.model`` snapshot in ``model_dir`` every ``save_model`` rounds
+  (``0000.model`` before the first), one ``train`` metrics record per
+  ``print_step`` steps (loss, step ms, tokens/s);
+* ``task = serve`` with ``serve_gen = 1``: a snapshot (``model_in``) is
+  served by the KV-cache decode engine behind the continuous-batching
+  step scheduler, the ``pred`` iterator section's rows become the
+  prompts, and the generated ids land in ``name_pred``.
+
+The other tasks, and the keys of the JAX package's train loop whose
+features are not ported (``UNPORTED_TASK_KEYS``), are refused by name.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import re
 import sys
 import threading
 import time
@@ -21,32 +32,71 @@ import numpy as np
 
 from .io.factory import create_iterator, init_iterator
 from .monitor import log as mlog
-from .nnet.trainer import NetTrainer
+from .nnet.trainer import NetTrainer, refuse_unported
 from .utils.config import parse_config_file, parse_keyval_args
 
-PORTED_TASKS = ("serve",)
+PORTED_TASKS = ("train", "serve")
+
+#: train-loop keys of the JAX package that are not ported, with the one
+#: value the port takes: rollback and NNNN.ckpt snapshots, profiling
+#: windows, sentinels, train metrics, continue = 1, device-side input
+#: staging diagnostics
+UNPORTED_TASK_KEYS = {
+    "rollback": "0", "ckpt_async": "0", "continue": "0", "prof": "",
+    "prof_start_step": "-1", "prof_num_steps": "0", "prof_every": "0",
+    "sentinel": "0", "eval_train": "0", "test_io": "0", "multi_step": "0",
+    "synth_device_data": "0", "test_on_server": "0",
+}
 
 
 class LearnTask:
     def __init__(self):
         self.task = "train"
         self.name_model_in = "NULL"
+        self.name_model_dir = "./"
         self.name_pred = "pred.txt"
+        self.print_step = 100
+        self.save_period = 1
+        self.save_opt = 1
+        # reference default 0: 0000.model is the pre-training snapshot
+        # and rounds 1..num_round then train
+        self.start_counter = 0
+        self.num_round = 10
+        self.max_round = 2147483647
         self.cfg: List[Tuple[str, str]] = []
         self.net: Optional[NetTrainer] = None
+        self.itr_train = None
         self.itr_pred = None
         # the last serve_gen run's accounting (counts, rates, latencies)
         self.last_serve: Optional[dict] = None
+        # the last train run's per-step losses, step ms and tokens/s
+        self.last_train: Optional[dict] = None
 
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
             return
         if name == "model_in":
             self.name_model_in = val
+        elif name == "model_dir":
+            self.name_model_dir = val
+        elif name == "print_step":
+            self.print_step = int(val)
+        elif name == "save_model":
+            self.save_period = int(val)
+        elif name == "save_opt":
+            self.save_opt = int(val)
+        elif name == "start_counter":
+            self.start_counter = int(val)
+        elif name == "num_round":
+            self.num_round = int(val)
+        elif name == "max_round":
+            self.max_round = int(val)
         elif name == "silent":
             mlog.set_silent(int(val))
         elif name == "task":
             self.task = val
+        elif name in UNPORTED_TASK_KEYS:
+            refuse_unported(name, val, UNPORTED_TASK_KEYS[name])
         self.cfg.append((name, val))
 
     # ---------------------------------------------------------------- init
@@ -57,21 +107,37 @@ class LearnTask:
         return net
 
     def init(self) -> None:
-        if self.name_model_in == "NULL":
-            raise ValueError(f"task = {self.task}: must specify model_in")
         self.net = self._create_net()
-        self.net.load_model(self.name_model_in)
+        if self.name_model_in == "NULL":
+            if self.task != "train":
+                raise ValueError(f"task = {self.task}: must specify "
+                                 "model_in")
+            self.net.init_model()
+        else:
+            self.net.load_model(self.name_model_in)
+            m = re.search(r"(\d+)\.model$", self.name_model_in)
+            if m and self.task == "train":
+                self.start_counter = int(m.group(1)) + 1
         self._create_iterators()
 
     def _create_iterators(self) -> None:
-        """Section scanner (reference CreateIterators): this slice builds
-        the ``pred`` section, the request stream of ``task = serve``."""
+        """Section scanner (reference CreateIterators): ``data`` is the
+        train stream of ``task = train``, ``pred`` the request stream of
+        ``task = serve``; ``eval`` sections (evaluation with metrics) are
+        not ported and are refused under ``task = train``."""
         flag = 0
         itcfg: List[Tuple[str, str]] = []
         defcfg: List[Tuple[str, str]] = []
         for name, val in self.cfg:
-            if name in ("data", "eval"):
+            if name == "data":
                 flag = 1
+                continue
+            if name == "eval":
+                if self.task == "train":
+                    raise NotImplementedError(
+                        f"eval = {val}: evaluation sections are not ported "
+                        "to cxxnet_tpu_torch yet (ROADMAP.md)")
+                flag = 2
                 continue
             if name == "pred":
                 flag = 3
@@ -79,7 +145,10 @@ class LearnTask:
                 continue
             if name == "iter" and val == "end":
                 assert flag != 0, "wrong configuration file"
-                if flag == 3:
+                if flag == 1 and self.task == "train":
+                    assert self.itr_train is None, "can only have one data"
+                    self.itr_train = create_iterator(itcfg)
+                if flag == 3 and self.task == "serve":
                     assert self.itr_pred is None, \
                         "can only have one pred data"
                     self.itr_pred = create_iterator(itcfg)
@@ -87,8 +156,88 @@ class LearnTask:
                 itcfg = []
                 continue
             (itcfg if flag != 0 else defcfg).append((name, val))
-        if self.itr_pred is not None:
-            init_iterator(self.itr_pred, defcfg)
+        for it in (self.itr_train, self.itr_pred):
+            if it is not None:
+                init_iterator(it, defcfg)
+
+    # ---------------------------------------------------------------- train
+    def _save_model(self) -> None:
+        """Round-boundary snapshot ``model_dir/%04d.model`` (the legacy
+        single-file format, with optimizer state unless ``save_opt =
+        0``) every ``save_model`` rounds; counts the round either way."""
+        counter = self.start_counter
+        self.start_counter += 1
+        if self.save_period == 0 or counter % self.save_period != 0:
+            return
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        path = os.path.join(self.name_model_dir, f"{counter:04d}.model")
+        t0 = time.perf_counter()
+        self.net.save_model(path, with_opt_state=bool(self.save_opt)
+                            and self.net.opt_state is not None)
+        self.net.metrics.emit("ckpt", round=counter, path=path,
+                              bytes=os.path.getsize(path),
+                              write_sec=round(time.perf_counter() - t0, 4))
+
+    def task_train(self) -> None:
+        """``task = train``: rounds of updates over the train iterator.
+        Each step ends in a device synchronise, so its host time is the
+        step's time on the card; the first step of the run (allocator
+        and library warm-up) is kept out of the step percentiles."""
+        net = self.net
+        metrics = net.metrics
+        start = time.time()
+        if self.name_model_in == "NULL":
+            self._save_model()
+        if self.itr_train is None:
+            raise RuntimeError("task = train but the config has no "
+                               "'data = train' iterator section")
+        seq = int(np.prod(net.net.node_shapes[0][1:]))
+        losses: List[float] = []
+        step_ms: List[float] = []
+        cc = self.max_round
+        while self.start_counter <= self.num_round and cc > 0:
+            cc -= 1
+            mlog.info(f"update round {self.start_counter - 1}")
+            net.start_round(self.start_counter)
+            self.itr_train.before_first()
+            sample_counter = 0
+            while True:
+                batch = self.itr_train.next()
+                if batch is None:
+                    break
+                t0 = time.perf_counter()
+                net.update(batch)
+                net.sync()
+                dt = time.perf_counter() - t0
+                loss = float(net.last_loss)
+                losses.append(loss)
+                step_ms.append(dt * 1e3)
+                if len(step_ms) > 1:
+                    metrics.observe("step_latency_sec", dt)
+                sample_counter += 1
+                if sample_counter % self.print_step == 0:
+                    n_tok = batch.batch_size * seq
+                    metrics.emit("train", round=self.start_counter - 1,
+                                 step=sample_counter,
+                                 global_step=net.sample_counter, loss=loss,
+                                 step_ms=round(dt * 1e3, 3),
+                                 tokens_per_sec=round(n_tok / dt, 1),
+                                 device=str(net.device))
+                    mlog.info(f"round {self.start_counter - 1:8d}:"
+                              f"[{sample_counter:8d}] "
+                              f"{int(time.time() - start)} sec elapsed, "
+                              f"loss {loss:.4f}, {dt * 1e3:.1f} ms/step")
+            mlog.result(f"[{self.start_counter}]")
+            self._save_model()
+        self._emit_latency_record("step")
+        tail = step_ms[1:] or step_ms
+        p50 = float(np.median(tail)) if tail else 0.0
+        self.last_train = dict(
+            losses=losses, step_ms=step_ms, step_p50_ms=p50,
+            tokens_per_sec=(self.net.batch_size * seq / (p50 / 1e3)
+                            if p50 else 0.0),
+            steps=len(losses))
+        mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
 
     # ---------------------------------------------------------------- tasks
     def _emit_latency_record(self, op: str) -> None:
@@ -270,10 +419,14 @@ class LearnTask:
         try:
             self.init()
             mlog.info("initializing end, start working")
-            self.task_serve()
+            if self.task == "train":
+                self.task_train()
+            else:
+                self.task_serve()
         finally:
-            if self.itr_pred is not None:
-                self.itr_pred.close()
+            for it in (self.itr_train, self.itr_pred):
+                if it is not None:
+                    it.close()
             if self.net is not None:
                 self.net.metrics.close()
         return 0

@@ -1,6 +1,7 @@
 """Counters, gauges, latency histograms and a JSONL record sink.
 
-The slice of the JAX package's ``MetricsRegistry`` that serving needs:
+The slice of the JAX package's ``MetricsRegistry`` that serving and
+training need:
 ``counter_inc`` / ``set_gauge`` / ``observe`` / ``emit``.  Records keep
 the JAX package's schema (``ts`` + ``kind`` + fields, one JSON object
 per line) so the same readers take both.  Span tracing and the admin

@@ -37,13 +37,21 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _c = ctypes
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, s, d, causal, scale, dtype, stream
-    "cxn_flash_attn_fwd": (_c.c_void_p,) * 5 + (_c.c_int,) * 4
+    # q, k, v, seg, o, lse, bh, h, s, d, causal, scale, dtype, stream
+    "cxn_flash_attn_fwd": (_c.c_void_p,) * 6 + (_c.c_int,) * 5
+    + (_c.c_float, _c.c_int, _c.c_void_p),
+    # q, k, v, seg, o, lse, dout, delta, dq, dk, dv, bh, h, s, d, causal,
+    # scale, dtype, stream
+    "cxn_flash_attn_bwd": (_c.c_void_p,) * 11 + (_c.c_int,) * 5
     + (_c.c_float, _c.c_int, _c.c_void_p),
     # x, gamma, beta, y, mean, rstd, rows, d, eps, xdtype, gdtype, stream
     "cxn_layernorm_fwd": (_c.c_void_p,) * 6 + (_c.c_longlong, _c.c_int,
                                                _c.c_float, _c.c_int,
                                                _c.c_int, _c.c_void_p),
+    # a, gamma, beta, mean, rstd, dy, dx, part, dg, db, rows, d, nblocks,
+    # save_x, xdtype, gdtype, stream
+    "cxn_layernorm_bwd": (_c.c_void_p,) * 10 + (_c.c_longlong,)
+    + (_c.c_int,) * 5 + (_c.c_void_p,),
 }
 
 

@@ -1,22 +1,29 @@
 // Flash-attention forward for Hopper (sm_90a), called through ctypes.
 //
 // Replaces: cxxnet_tpu/ops/pallas_kernels.py `_fa_fwd` (the triangular
-// causal `pallas_call` with `_fa_fwd_kernel_tri`, and the dense one),
-// whose per-block math is `_fa_fwd_step`.  Same function: for each of
+// causal `pallas_call` with `_fa_fwd_kernel_tri`, and the dense one) and,
+// with segment ids, `_fa_seg_fwd` (`_fa_fwd_kernel_tri_seg`); the
+// per-block math of both is `_fa_fwd_step`.  Same function: for each of
 // the b*h rows of q/k/v (b*h, s, d), o = softmax(q k^T * scale, masked)
 // v and lse = m + log(l), with
 //   * scores in float32 (bf16 inputs are exact in float32), times scale;
-//   * the causal mask writing NEG_INF = -1e30 (not -inf);
+//   * the causal mask, then under segment ids the `_segment_mask` rule
+//     (same non-padding segment, or the diagonal), writing
+//     NEG_INF = -1e30 (not -inf);
 //   * p cast to v's dtype before the p.V product, sums in float32;
 //   * o stored in q's dtype, lse (b*h, s) in float32.
 // Any s (the ragged last tile is masked) and any d that is a multiple
-// of 8 up to 256.
+// of 8 up to 256.  Segment ids are one int32 row (b, s) per batch entry,
+// shared by its h heads (row bh / h); the SEG template flag selects the
+// segmented variant of each kernel, nothing else differs.
 //
 // What bounds it on the card: operations.  At the served shape (16
 // heads, s 4096, d 128, causal, bf16) it does ~69 GFLOP on 67 MB of
 // input and output, far above the ~295 FLOP/byte at which an H100 stops
 // being memory-bound, so the least time is the products over the
-// tensor cores' 989 TFLOP/s.
+// tensor cores' 989 TFLOP/s.  Segment masking removes scores inside the
+// live tiles but no tiles: tiles are skipped by causality only, as in
+// the JAX package.
 //
 // Design: the TPU grid walks (q-block, k-block) pairs in order and
 // carries (acc, m, l) in VMEM scratch between grid steps.  Here one
@@ -40,6 +47,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -48,7 +56,6 @@ constexpr int FA_BK = 64;              // key rows per tile
 constexpr int FA_THREADS = 256;        // 8 warps
 constexpr int FA_ROWS_PER_WARP = FA_BQ / (FA_THREADS / 32);
 constexpr int FA_SP = FA_BK + 1;       // padded score-row stride
-constexpr float FA_NEG_INF = -1e30f;
 
 size_t fa_smem_bytes(int d) {
   const size_t dp = (size_t)d + 1;
@@ -56,28 +63,15 @@ size_t fa_smem_bytes(int d) {
                           FA_BQ * FA_SP + 3 * FA_BQ);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // DCH = ceil(d / 32): output columns per lane (lane + 32 * c)
-template <typename T, int DCH>
+template <typename T, int DCH, bool SEG>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int s_len, int d, int causal,
-                 float scale) {
+                 const T* __restrict__ v, const int* __restrict__ seg,
+                 T* __restrict__ o, float* __restrict__ lse, int s_len,
+                 int d, int h, int causal, float scale) {
   extern __shared__ float smem[];
+  __shared__ int sSegK[FA_BK];
   const int dp = d + 1;
   float* sQ = smem;                      // FA_BQ x dp
   float* sK = sQ + FA_BQ * dp;           // FA_BK x dp
@@ -95,6 +89,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + base;
   const T* kb = k + base;
   const T* vb = v + base;
+  const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
 
   for (int idx = tid; idx < FA_BQ * d; idx += FA_THREADS) {
     const int r = idx / d, c = idx - r * d;
@@ -117,6 +112,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_kt = causal ? q_last / FA_BK + 1 : (s_len + FA_BK - 1) / FA_BK;
   const int sr0 = (tid >> 4) * 4;  // this thread's score rows sr0..sr0+3
   const int sc0 = tid & 15;        // and columns sc0 + 16 * j
+  int segq[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    segq[i] = SEG && q0 + sr0 + i < s_len ? segb[q0 + sr0 + i] : 0;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * FA_BK;
@@ -128,6 +127,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sK[r * dp + c] = ok ? cxn_to_f32(kb[(size_t)gr * d + c]) : 0.f;
       sV[r * d + c] = ok ? cxn_to_f32(vb[(size_t)gr * d + c]) : 0.f;
     }
+    if (SEG) fa_load_seg(sSegK, segb, k0, s_len);
     __syncthreads();
 
     // scores: a 4 x 4 register tile per thread
@@ -153,8 +153,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = sr0 + i, cc = sc0 + 16 * j;
-        const int gq = q0 + r, gk = k0 + cc;
-        const bool ok = gk < s_len && (!causal || gk <= gq);
+        const bool ok = fa_allowed<SEG>(q0 + r, k0 + cc, s_len, causal,
+                                        segq[i], SEG ? sSegK[cc] : 0);
         sP[r * FA_SP + cc] = ok ? sc[i][j] * scale : FA_NEG_INF;
       }
     __syncthreads();
@@ -230,68 +230,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // same thread-to-element map as the A operand of the next mma, so p goes
 // from scores to the p.V product without touching shared memory; row
 // reductions are two shuffles among the 4 lanes that share a row.  Only
-// the q / k / v tiles live in shared memory.  The kernel is instantiated
-// for D = d rounded up to 16; a head width with d % 16 == 8 carries a
-// zero column block in shared memory (it adds nothing to the scores and
-// its output columns are not stored).  Rows are read as 16-byte vectors,
-// so q / k / v / o must be 16-byte aligned (the caller checks).
+// the q / k / v tiles (and a k-tile's segment ids) live in shared
+// memory.  The kernel is instantiated for D = d rounded up to 16; a head
+// width with d % 16 == 8 carries a zero column block in shared memory
+// (it adds nothing to the scores and its output columns are not stored).
+// Rows are read as 16-byte vectors, so q / k / v / o must be 16-byte
+// aligned (the caller checks).
 
-constexpr int TC_BQ = 64;
-constexpr int TC_BK = 64;
-constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two bf16 -> one operand register, the lower index in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows row0.. of a (s_len, d) matrix into a (64, D + 8) tile; rows past
-// s_len and columns d..D are zero
-template <int D>
-__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             int row0, int s_len, int d) {
-  constexpr int LD = D + 8, VEC = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < TC_BQ * VEC; idx += TC_THREADS) {
-    const int r = idx / VEC, c8 = (idx - r * VEC) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < s_len && c8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
-}
-
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ seg,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int s_len, int d, int causal, float scale) {
+                     int s_len, int d, int h, int causal, float scale) {
   constexpr int LD = D + 8;      // padded smem row: conflict-free reads
   constexpr int NK = D / 16;     // k-steps of the score product
   constexpr int NO = D / 8;      // n8 tiles of the output
   constexpr int NS = TC_BK / 8;  // n8 tiles of the scores
   extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int sSegK[TC_BK];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* sK = sQ + TC_BQ * LD;
   __nv_bfloat16* sV = sK + TC_BK * LD;
@@ -300,10 +259,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;  // mma group / thread in group
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;  // heaviest first
   const size_t base = (size_t)blockIdx.y * s_len * d;
+  const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
   tc_load_tile<D>(sQ, q + base, q0, s_len, d);
 
   const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8
   const int gq0 = q0 + r0, gq1 = gq0 + 8;
+  const int sq0 = SEG && gq0 < s_len ? segb[gq0] : 0;
+  const int sq1 = SEG && gq1 < s_len ? segb[gq1] : 0;
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -317,6 +279,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // the previous tile's sK / sV reads are done
     tc_load_tile<D>(sK, k + base, k0, s_len, d);
     tc_load_tile<D>(sV, v + base, k0, s_len, d);
+    if (SEG) fa_load_seg(sSegK, segb, k0, s_len);
     __syncthreads();
 
     // scores: 16 x 64 per warp, in NS n8 accumulator tiles
@@ -325,13 +288,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
-      const __nv_bfloat16* qa = sQ + r0 * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * LD), ld_u32(qa + 8),
-                             ld_u32(qa + 8 * LD + 8)};
+      uint32_t a[4];
+      tc_frag_a<LD>(a, sQ, r0, kk, t);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        const __nv_bfloat16* kb = sK + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t b[2] = {ld_u32(kb), ld_u32(kb + 8)};
+        uint32_t b[2];
+        tc_frag_bt<LD>(b, sK, n, kk, g, t);
         mma_16816(s[n], a, b);
       }
     }
@@ -342,9 +304,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int gk = k0 + n * 8 + 2 * t + (e & 1);
-        const int gq = e < 2 ? gq0 : gq1;
-        const bool ok = gk < s_len && (!causal || gk <= gq);
+        const int kc = n * 8 + 2 * t + (e & 1);
+        const bool ok = fa_allowed<SEG>(e < 2 ? gq0 : gq1, k0 + kc, s_len,
+                                        causal, e < 2 ? sq0 : sq1,
+                                        SEG ? sSegK[kc] : 0);
         s[n][e] = ok ? s[n][e] * scale : FA_NEG_INF;
         if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
         else mx1 = fmaxf(mx1, s[n][e]);
@@ -386,16 +349,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // acc += p.V: p (bf16) straight from the score registers
 #pragma unroll
     for (int j = 0; j < TC_BK / 16; ++j) {
-      const uint32_t a[4] = {pack_f32(s[2 * j][0], s[2 * j][1]),
-                             pack_f32(s[2 * j][2], s[2 * j][3]),
-                             pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* vb = sV + (j * 16 + 2 * t) * LD + g;
+      uint32_t a[4];
+      tc_frag_acc(a, s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vn = vb + n * 8;
-        const uint32_t b[2] = {pack_bf16(vn[0], vn[LD]),
-                               pack_bf16(vn[8 * LD], vn[9 * LD])};
+        uint32_t b[2];
+        tc_frag_b<LD>(b, sV, j, n, g, t);
         mma_16816(acc[n], a, b);
       }
     }
@@ -418,102 +377,105 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t fa_launch_mma(const void* q, const void* k, const void* v,
-                          void* o, void* lse, int bh, int s, int d,
-                          int causal, float scale, cudaStream_t stream) {
+struct FwdArgs {
+  const void *q, *k, *v;
+  const int* seg;
+  void *o, *lse;
+  int bh, h, s, d, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, bool SEG>
+cudaError_t fa_launch_mma(const FwdArgs& a) {
   const size_t smem = sizeof(__nv_bfloat16) * (TC_BQ + 2 * TC_BK) * (D + 8);
-  auto kern = flash_fwd_mma_kernel<D>;
+  auto kern = flash_fwd_mma_kernel<D, SEG>;
   cudaError_t err = cxn_allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + TC_BQ - 1) / TC_BQ, bh);
-  kern<<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s, d, causal, scale);
+  const dim3 grid((a.s + TC_BQ - 1) / TC_BQ, a.bh);
+  kern<<<grid, TC_THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.seg,
+      static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.s, a.d,
+      a.h, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t fa_launch_tc(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int bh, int s, int d,
-                         int causal, float scale, cudaStream_t st) {
-  switch ((d + 15) / 16) {
-    case 1: return fa_launch_mma<16>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 2: return fa_launch_mma<32>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 3: return fa_launch_mma<48>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 4: return fa_launch_mma<64>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 5: return fa_launch_mma<80>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 6: return fa_launch_mma<96>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 7: return fa_launch_mma<112>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 8: return fa_launch_mma<128>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 9: return fa_launch_mma<144>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 10: return fa_launch_mma<160>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 11: return fa_launch_mma<176>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 12: return fa_launch_mma<192>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 13: return fa_launch_mma<208>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 14: return fa_launch_mma<224>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 15: return fa_launch_mma<240>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 16: return fa_launch_mma<256>(q, k, v, o, lse, bh, s, d, causal, scale, st);
+template <bool SEG>
+cudaError_t fa_launch_tc(const FwdArgs& a) {
+  switch ((a.d + 15) / 16) {
+    case 1: return fa_launch_mma<16, SEG>(a);
+    case 2: return fa_launch_mma<32, SEG>(a);
+    case 3: return fa_launch_mma<48, SEG>(a);
+    case 4: return fa_launch_mma<64, SEG>(a);
+    case 5: return fa_launch_mma<80, SEG>(a);
+    case 6: return fa_launch_mma<96, SEG>(a);
+    case 7: return fa_launch_mma<112, SEG>(a);
+    case 8: return fa_launch_mma<128, SEG>(a);
+    case 9: return fa_launch_mma<144, SEG>(a);
+    case 10: return fa_launch_mma<160, SEG>(a);
+    case 11: return fa_launch_mma<176, SEG>(a);
+    case 12: return fa_launch_mma<192, SEG>(a);
+    case 13: return fa_launch_mma<208, SEG>(a);
+    case 14: return fa_launch_mma<224, SEG>(a);
+    case 15: return fa_launch_mma<240, SEG>(a);
+    case 16: return fa_launch_mma<256, SEG>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-template <typename T, int DCH>
-cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
-                      void* lse, int bh, int s, int d, int causal,
-                      float scale, cudaStream_t stream) {
-  const size_t smem = fa_smem_bytes(d);
-  auto kern = flash_fwd_kernel<T, DCH>;
+template <int DCH, bool SEG>
+cudaError_t fa_launch(const FwdArgs& a) {
+  const size_t smem = fa_smem_bytes(a.d);
+  auto kern = flash_fwd_kernel<float, DCH, SEG>;
   cudaError_t err = cxn_allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + FA_BQ - 1) / FA_BQ, bh);
-  kern<<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), s, d, causal, scale);
+  const dim3 grid((a.s + FA_BQ - 1) / FA_BQ, a.bh);
+  kern<<<grid, FA_THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.seg, static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.s, a.d, a.h, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t fa_dispatch(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int bh, int s, int d, int causal,
-                        float scale, cudaStream_t st) {
-  switch ((d + 31) / 32) {
-    case 1: return fa_launch<T, 1>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 2: return fa_launch<T, 2>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 3: return fa_launch<T, 3>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 4: return fa_launch<T, 4>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 5: return fa_launch<T, 5>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 6: return fa_launch<T, 6>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 7: return fa_launch<T, 7>(q, k, v, o, lse, bh, s, d, causal, scale, st);
-    case 8: return fa_launch<T, 8>(q, k, v, o, lse, bh, s, d, causal, scale, st);
+template <bool SEG>
+cudaError_t fa_dispatch_f32(const FwdArgs& a) {
+  switch ((a.d + 31) / 32) {
+    case 1: return fa_launch<1, SEG>(a);
+    case 2: return fa_launch<2, SEG>(a);
+    case 3: return fa_launch<3, SEG>(a);
+    case 4: return fa_launch<4, SEG>(a);
+    case 5: return fa_launch<5, SEG>(a);
+    case 6: return fa_launch<6, SEG>(a);
+    case 7: return fa_launch<7, SEG>(a);
+    case 8: return fa_launch<8, SEG>(a);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s, d) contiguous in `dtype`; lse: (bh, s) float32.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// q, k, v, o: (bh, s, d) contiguous in `dtype`; lse: (bh, s) float32;
+// seg: NULL, or (bh / h, s) int32 segment ids (0 = padding) of the
+// segmented variant.  Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int cxn_flash_attn_fwd(const void* q, const void* k,
-                                  const void* v, void* o, void* lse, int bh,
-                                  int s, int d, int causal, float scale,
-                                  int dtype, void* stream) {
-  if (bh < 1 || bh > 65535 || s < 1 || d < 8 || d > 256 || d % 8 != 0)
+                                  const void* v, const void* seg, void* o,
+                                  void* lse, int bh, int h, int s, int d,
+                                  int causal, float scale, int dtype,
+                                  void* stream) {
+  if (bh < 1 || bh > 65535 || h < 1 || bh % h != 0 || s < 1 || d < 8 ||
+      d > 256 || d % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{q,  k, v, static_cast<const int*>(seg), o, lse, bh, h, s,
+                  d, causal, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == CXN_BF16) {
     if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
       return (int)cudaErrorMisalignedAddress;
-    return (int)fa_launch_tc(q, k, v, o, lse, bh, s, d, causal, scale, st);
+    return (int)(seg ? fa_launch_tc<true>(a) : fa_launch_tc<false>(a));
   }
   if (dtype == CXN_F32)
-    return (int)fa_dispatch<float>(q, k, v, o, lse, bh, s, d, causal, scale,
-                                   st);
+    return (int)(seg ? fa_dispatch_f32<true>(a) : fa_dispatch_f32<false>(a));
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,15 @@
-"""Row LayerNorm forward: the hand-written CUDA kernel
-(``csrc/layernorm_fwd.cu``) and its plain PyTorch version.
+"""Row LayerNorm: the hand-written CUDA kernels (``csrc/layernorm_fwd.cu``,
+``csrc/layernorm_bwd.cu``), their plain PyTorch versions and the
+autograd Function that ties them together.
 
-Replaces the JAX package's Pallas ``_ln_fwd_res`` (pallas_kernels.py),
-the forward half of ``layernorm_pallas``: ``(rows, d)`` input, ``(d,)``
-gamma / beta, two-pass float32 variance; returns ``y`` in x's dtype and
-``mean`` / ``rstd`` as ``(rows, 1)`` float32.  Forward only: the
-backward kernels come with the training slice.
+Replaces the JAX package's Pallas ``layernorm_pallas`` (``_ln_fwd_res``
+/ ``_ln_bwd_res``, pallas_kernels.py): ``(rows, d)`` input, ``(d,)``
+gamma / beta, two-pass float32 variance; the forward returns ``y`` in
+x's dtype and ``mean`` / ``rstd`` as ``(rows, 1)`` float32.  The
+backward has the JAX package's two residual contracts: by default it
+rebuilds xhat from the output (residuals ``y, gamma, beta, rstd``; no
+``(rows, d)`` buffer beyond the output), and with ``save_x`` (config
+``pallas_ln = x``) from the saved input (``x, gamma, mean, rstd``).
 """
 
 from __future__ import annotations
@@ -16,20 +20,73 @@ import torch
 
 from . import build
 
-#: largest row the kernel keeps in shared memory (float32 per element)
+#: largest row the forward kernel keeps in shared memory (float32)
 MAX_D = (232448 - 256) // 4
+#: largest row of the backward kernel (four float32 rows of shared memory)
+MAX_BWD_D = (232448 - 256) // 16
+#: row runs of the backward's first pass (a few per SM of an H100)
+_BWD_BLOCKS = 528
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    return t.double() if t.dtype == torch.float64 else t.float()
 
 
 def layernorm_fwd_plain(x: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch (two-pass float32 moments)."""
-    x32 = x.float()
+    x32 = _acc(x)
     mean = x32.mean(dim=1, keepdim=True)
     var = torch.square(x32 - mean).mean(dim=1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    y = (x32 - mean) * rstd * gamma.float() + beta.float()
+    y = (x32 - mean) * rstd * _acc(gamma) + _acc(beta)
     return y.to(x.dtype), mean, rstd
+
+
+def layernorm_bwd_plain(dy: torch.Tensor, a: torch.Tensor,
+                        gamma: torch.Tensor, beta: torch.Tensor,
+                        mean: torch.Tensor, rstd: torch.Tensor,
+                        save_x: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dgamma, dbeta)`` in plain PyTorch.  ``a`` is the output y
+    (``save_x`` false: xhat = (y - beta) / gamma, 0 where gamma == 0;
+    ``mean`` unused) or the input x (``save_x`` true: xhat =
+    (x - mean) * rstd; ``beta`` unused)."""
+    a32, dy32, g = _acc(a), _acc(dy), _acc(gamma)
+    if save_x:
+        xhat = (a32 - mean) * rstd
+    else:
+        zero = g == 0.0
+        xhat = torch.where(zero, 0.0,
+                           (a32 - _acc(beta)) / torch.where(zero, 1.0, g))
+    dyg = dy32 * g
+    c1 = dyg.mean(dim=1, keepdim=True)
+    c2 = (dyg * xhat).mean(dim=1, keepdim=True)
+    dx = rstd * (dyg - c1 - xhat * c2)
+    dg = (dy32 * xhat).sum(dim=0)
+    db = dy32.sum(dim=0)
+    return dx.to(a.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+def _check_vecs(what: str, x: torch.Tensor, *vecs: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (rows, d), got {tuple(x.shape)}")
+    d = x.shape[1]
+    if any(tuple(t.shape) != (d,) for t in vecs):
+        raise ValueError(f"{what}: gamma / beta "
+                         f"{[tuple(t.shape) for t in vecs]} do not match "
+                         f"d = {d}")
+    if x.dtype not in build.DTYPE_CODES or any(t.dtype != vecs[0].dtype
+                                               for t in vecs) \
+            or vecs[0].dtype not in build.DTYPE_CODES:
+        raise ValueError(f"{what}: dtypes x {x.dtype}, gamma / beta "
+                         f"{[t.dtype for t in vecs]}: expected float32 or "
+                         "bfloat16, gamma and beta alike")
+    if not all(t.is_contiguous() for t in (x,) + vecs):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.device != x.device for t in vecs):
+        raise ValueError(f"{what}: inputs on different devices")
 
 
 def layernorm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -42,25 +99,11 @@ def layernorm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return layernorm_fwd_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_fwd: no kernel for {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"layernorm_fwd: expected (rows, d), got {x.shape}")
+    _check_vecs("layernorm_fwd", x, gamma, beta)
     rows, d = x.shape
-    if gamma.shape != (d,) or beta.shape != (d,):
-        raise ValueError(f"layernorm_fwd: gamma {tuple(gamma.shape)} / beta "
-                         f"{tuple(beta.shape)} do not match d = {d}")
     if not 1 <= d <= MAX_D or rows < 1:
         raise ValueError(f"layernorm_fwd: shape {tuple(x.shape)} out of "
                          f"range (d up to {MAX_D})")
-    if x.dtype not in build.DTYPE_CODES or gamma.dtype != beta.dtype \
-            or gamma.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"layernorm_fwd: dtypes x {x.dtype}, gamma "
-                         f"{gamma.dtype}, beta {beta.dtype}: expected "
-                         "float32 or bfloat16, gamma and beta alike")
-    if not (x.is_contiguous() and gamma.is_contiguous()
-            and beta.is_contiguous()):
-        raise ValueError("layernorm_fwd: x, gamma, beta must be contiguous")
-    if not (gamma.device == beta.device == x.device):
-        raise ValueError("layernorm_fwd: x, gamma, beta on different devices")
     lib = build.LIBRARY.get()
     y = torch.empty_like(x)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
@@ -75,5 +118,80 @@ def layernorm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y, mean, rstd
 
 
-#: launches of the CUDA kernel (not of the plain version)
+def layernorm_bwd(dy: torch.Tensor, a: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                  save_x: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dgamma, dbeta)`` (see :func:`layernorm_bwd_plain` for the
+    arguments).  A CUDA tensor goes through the CUDA kernel (or raises);
+    a CPU tensor through the plain version."""
+    if a.device.type == "cpu":
+        return layernorm_bwd_plain(dy, a, gamma, beta, mean, rstd, save_x)
+    if a.device.type != "cuda":
+        raise ValueError(f"layernorm_bwd: no kernel for {a.device}")
+    _check_vecs("layernorm_bwd", a, gamma, beta)
+    rows, d = a.shape
+    if (dy.shape != a.shape or dy.dtype != a.dtype or not dy.is_contiguous()
+            or dy.device != a.device):
+        raise ValueError(f"layernorm_bwd: dy {dy.dtype} {tuple(dy.shape)} "
+                         f"must be a contiguous {a.dtype} {tuple(a.shape)}")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if (tuple(t.shape) != (rows, 1) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != a.device):
+            raise ValueError(f"layernorm_bwd: {name} must be contiguous "
+                             f"float32 ({rows}, 1)")
+    if not 1 <= d <= MAX_BWD_D:
+        raise ValueError(f"layernorm_bwd: d = {d} out of range (up to "
+                         f"{MAX_BWD_D})")
+    lib = build.LIBRARY.get()
+    nblocks = min(rows, _BWD_BLOCKS)
+    dx = torch.empty_like(a)
+    part = torch.empty((2, nblocks, d), dtype=torch.float32, device=a.device)
+    dg = torch.empty_like(gamma)
+    db = torch.empty_like(gamma)
+    err = lib.cxn_layernorm_bwd(
+        a.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        dg.data_ptr(), db.data_ptr(), rows, d, nblocks, int(bool(save_x)),
+        build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[gamma.dtype],
+        build.stream_handle(a.device))
+    build.check(err, "layernorm_bwd")
+    layernorm_bwd.launches += 1
+    return dx, dg, db
+
+
+#: launches of each CUDA kernel (not of the plain versions)
 layernorm_fwd.launches = 0
+layernorm_bwd.launches = 0
+
+
+class LayerNorm(torch.autograd.Function):
+    """``y`` of (rows, d) x: forward :func:`layernorm_fwd`, backward
+    :func:`layernorm_bwd`.  Residuals: ``(y, gamma, beta, rstd)`` by
+    default, never x; ``(x, gamma, mean, rstd)`` with ``save_x``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float, save_x: bool):
+        y, mean, rstd = layernorm_fwd(x, gamma, beta, eps)
+        ctx.save_x = save_x
+        if save_x:
+            ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        else:
+            ctx.save_for_backward(y, gamma, beta, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.save_x:
+            a, gamma, beta, mean, rstd = ctx.saved_tensors
+        else:
+            a, gamma, beta, rstd = ctx.saved_tensors
+            mean = rstd  # unused without save_x; any (rows, 1) float32
+        dx, dg, db = layernorm_bwd(dy.contiguous(), a, gamma, beta, mean,
+                                   rstd, ctx.save_x)
+        return dx, dg, db, None, None
+
+
+def layernorm(x, gamma, beta, eps: float, save_x: bool = False):
+    """Differentiable row layernorm of (rows, d) x."""
+    return LayerNorm.apply(x, gamma, beta, eps, save_x)

@@ -78,26 +78,31 @@ def atomic_write(path: str, write_fn) -> None:
 
 
 def save_model(path: str, *, net_structure: dict, epoch: int,
-               params: Dict, buffers: Dict, extra_meta: Dict = None) -> None:
-    """Write a ``.model`` (optimizer state is not part of this slice)."""
+               params: Dict, buffers: Dict, opt_state: Dict = None,
+               extra_meta: Dict = None) -> None:
+    """Write a ``.model``; ``opt_state`` (the updater's per-tensor state,
+    ``opt/<key>/<tag>/<name>``) is optional, as in the JAX package."""
     dtypes: Dict[str, str] = {}
     arrays: Dict[str, np.ndarray] = {}
     arrays.update(_flatten({"params": params}, "", dtypes))
     arrays.update(_flatten({"buffers": buffers}, "", dtypes))
+    if opt_state is not None:
+        arrays.update(_flatten({"opt": opt_state}, "", dtypes))
     header = {"format_version": FORMAT_VERSION, "net": net_structure,
-              "epoch": int(epoch), "has_opt_state": False,
+              "epoch": int(epoch), "has_opt_state": opt_state is not None,
               "dtypes": dtypes, "extra": extra_meta or {}}
     arrays["__header__"] = np.frombuffer(
         json.dumps(header).encode("utf-8"), dtype=np.uint8)
     atomic_write(path, lambda f: np.savez(f, **arrays))
 
 
-def load_model(path: str) -> Tuple[dict, Dict, Dict]:
-    """Return ``(header, params, buffers)`` as nested dicts of numpy
-    arrays; bfloat16 leaves come back as their stored float32, named in
-    ``header["dtypes"]`` under their flattened key."""
+def load_model(path: str) -> Tuple[dict, Dict, Dict, Dict]:
+    """Return ``(header, params, buffers, opt_state or None)`` as nested
+    dicts of numpy arrays; bfloat16 leaves come back as their stored
+    float32, named in ``header["dtypes"]`` under their flattened key."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(bytes(z["__header__"]).decode("utf-8"))
         flat = {k: z[k] for k in z.files if k != "__header__"}
     tree = _unflatten(flat)
-    return header, tree.get("params", {}), tree.get("buffers", {})
+    opt = tree.get("opt") if header.get("has_opt_state") else None
+    return header, tree.get("params", {}), tree.get("buffers", {}), opt

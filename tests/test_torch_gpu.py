@@ -27,6 +27,11 @@ pytestmark = pytest.mark.gpu
 # a value is at most 2^-7 of it), so a wrong tile in a row of small
 # values cannot hide under the largest value of the tensor.
 F32_TOL, BF16_ROW_TOL = 1e-4, 2.0 ** -6
+# bf16 attention gradients per row: four ulps (p and ds are rounded to
+# bf16 on both sides from float32 values that differ in the last bits),
+# the row's denominator floored at 2^-10 of the tensor's largest value
+# (a query that attends only to itself has an exactly-zero gradient)
+BF16_GRAD_ROW_TOL, GRAD_ROW_FLOOR = 2.0 ** -5, 2.0 ** -10
 
 
 @pytest.fixture
@@ -44,11 +49,35 @@ def _rel(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
 
 
-def _row_rel(a, b):
+def _row_rel(a, b, floor=0.0):
     a = a.float().reshape(-1, a.shape[-1])
     b = b.float().reshape(-1, b.shape[-1])
-    return float(((a - b).abs().amax(1)
-                  / b.abs().amax(1).clamp_min(1e-6)).max())
+    den = b.abs().amax(1).clamp_min(max(1e-6, floor * float(b.abs().max())))
+    return float(((a - b).abs().amax(1) / den).max())
+
+
+def _grads_close(got, ref, dtype):
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        if dtype == torch.float32:
+            assert _rel(g, r) <= F32_TOL
+        else:
+            assert _row_rel(g, r, GRAD_ROW_FLOOR) <= BF16_GRAD_ROW_TOL
+
+
+def _segments(b, s, gen):
+    """(b, s) int64 ids: documents of random lengths, a padding tail."""
+    seg = torch.zeros((b, s), dtype=torch.int64)
+    lens = torch.randint(1, max(2, s // 3), (b, 8), generator=gen)
+    for r in range(b):
+        pos, k = 0, 1
+        end = s - (r * 7) % max(1, s // 4)
+        for n in lens[r].tolist():
+            if pos >= end:
+                break
+            seg[r, pos:min(pos + n, end)] = k
+            pos, k = pos + n, k + 1
+    return seg.cuda()
 
 
 @pytest.mark.parametrize("shape,causal", [
@@ -109,3 +138,126 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d, xdt, gdt):
     else:
         assert _row_rel(y, y_ref) <= BF16_ROW_TOL
     assert _rel(mean, m_ref) <= F32_TOL and _rel(rstd, r_ref) <= F32_TOL
+
+
+# -------------------------------------------------------- training kernels
+
+@pytest.mark.parametrize("shape,causal", [
+    ((3, 200, 64), True),        # ragged last tile
+    ((2, 128, 8), True),         # narrowest head
+    ((1, 77, 128), False),       # widest backward head, ragged
+    ((4, 64, 40), False),        # head width not a multiple of 32
+    ((2, 320, 128), True),       # several tiles per row and column
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda, shape, causal, dtype):
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 2, 200, 64), (1, 3, 320, 128),
+                                     (2, 1, 96, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_seg_kernels_match_plain(cuda, b, h, s, d, dtype):
+    q, k, v, do = (torch.randn((b * h, s, d), generator=cuda, device="cuda")
+                   .to(dtype) for _ in range(4))
+    seg = _segments(b, s, torch.Generator().manual_seed(s))
+    before = (fa.flash_attention_seg_fwd.launches,
+              fa.flash_attention_seg_bwd.launches)
+    o, lse = fa.flash_attention_seg_fwd(q, k, v, seg)
+    o_ref, lse_ref = fa.flash_attention_seg_fwd_plain(q, k, v, seg)
+    got = fa.flash_attention_seg_bwd(q, k, v, seg, o, lse, do)
+    ref = fa.flash_attention_seg_bwd_plain(q, k, v, seg, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_seg_fwd.launches,
+            fa.flash_attention_seg_bwd.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    if dtype == torch.float32:
+        assert _rel(o, o_ref) <= F32_TOL
+    else:
+        assert _row_rel(o, o_ref) <= BF16_ROW_TOL
+    assert _rel(lse, lse_ref) <= F32_TOL
+    _grads_close(got, ref, dtype)
+
+
+def test_flash_functions_backward_through_the_kernels(cuda):
+    """autograd through FlashAttention / FlashAttentionSegmented launches
+    one forward and one backward kernel each."""
+    q, k, v = (torch.randn((4, 128, 64), generator=cuda, device="cuda",
+                           dtype=torch.float32).requires_grad_()
+               for _ in range(3))
+    seg = _segments(2, 128, torch.Generator().manual_seed(1))
+    counts = lambda: (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches,
+                      fa.flash_attention_seg_fwd.launches,
+                      fa.flash_attention_seg_bwd.launches)
+    before = counts()
+    fa.flash_attention(q, k, v, True).sum().backward()
+    fa.flash_attention_segmented(q, k, v, seg).sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+
+
+def test_flash_bwd_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 16, 136), device="cuda")
+    lse = torch.zeros((2, 1, 16), device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q, True)
+    q = torch.zeros((2, 16, 16), device="cuda")
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q, lse[:, :, :8], q, True)
+    with pytest.raises(ValueError, match="segment ids"):
+        fa.flash_attention_seg_fwd(q, q, q, torch.ones((3, 16),
+                                                       device="cuda"))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 1), (5, 130), (300, 2048),
+                                    (1000, 64)])
+@pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("save_x", [False, True])
+def test_layernorm_bwd_kernel_matches_plain(cuda, rows, d, xdt, gdt, save_x):
+    x = (torch.randn((rows, d), generator=cuda, device="cuda") * 2 + 3)
+    x = x.to(xdt)
+    g = (torch.rand((d,), generator=cuda, device="cuda") + 0.5).to(gdt)
+    g[d // 2] = 0.0
+    b = torch.randn((d,), generator=cuda, device="cuda").to(gdt)
+    dy = torch.randn((rows, d), generator=cuda, device="cuda").to(xdt)
+    y, mean, rstd = ln.layernorm_fwd(x, g, b, 1e-5)
+    a = x if save_x else y
+    before = ln.layernorm_bwd.launches
+    got = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
+    again = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
+    ref = ln.layernorm_bwd_plain(dy, a, g, b, mean, rstd, save_x)
+    torch.cuda.synchronize()
+    assert ln.layernorm_bwd.launches == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    assert got[0].dtype == xdt and got[1].dtype == gdt
+    if xdt == torch.float32:
+        assert _rel(got[0], ref[0]) <= F32_TOL
+    else:
+        assert _row_rel(got[0], ref[0]) <= BF16_ROW_TOL
+    vec_tol = F32_TOL if gdt == torch.float32 else 2.0 ** -7
+    assert _rel(got[1], ref[1]) <= vec_tol and _rel(got[2], ref[2]) <= vec_tol
+
+
+def test_layernorm_function_backward_through_the_kernel(cuda):
+    x = torch.randn((64, 256), generator=cuda, device="cuda").requires_grad_()
+    g = torch.ones((256,), device="cuda", requires_grad=True)
+    b = torch.zeros((256,), device="cuda", requires_grad=True)
+    before = (ln.layernorm_fwd.launches, ln.layernorm_bwd.launches)
+    for save_x in (False, True):
+        ln.layernorm(x, g, b, 1e-5, save_x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ln.layernorm_fwd.launches - before[0],
+            ln.layernorm_bwd.launches - before[1]) == (2, 2)
