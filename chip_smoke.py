@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
    and the build of the hand-written kernels from ops/csrc (timed);
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card at its main paths' shapes (the served forward; every kernel
-   of the two train paths at theirs), with its median time, the plain
+   of the two LM train paths and of the two CNN paths at theirs), with
+   its median time, the plain
    version's, one PyTorch library call's (a yardstick only: the port
    never calls it) and the least time the card could take (bound); each
    backward runs twice and must be bitwise equal;
@@ -29,7 +30,18 @@ Phases (any failure raises and exits non-zero):
    through the segmented flash and layernorm kernels;
 6. unpacked train path: the same net without segment ids (the JAX
    package's ``bench_transformer`` net) at depth 2, where the plain
-   flash forward and backward kernels run.
+   flash forward and backward kernels run;
+7. AlexNet path: ``task = train`` of example/ImageNet/ImageNet.conf
+   (batch 256, 3x227x227, bf16, sgd with momentum, xavier init) on
+   ``synth_device_data = 1`` with ``multi_step = 10`` for 3 rounds,
+   under ``pool_layout = hwcn pool_relu_fuse = 1 pallas_lrn = 1
+   fast_wgrad = hwcn``: finite losses, and per step 2 LRN forward and
+   backward, 3 max-pool forward and backward (one relu-masked) and one
+   conv1 wgrad launch;
+8. MNIST_CONV path: example/MNIST/MNIST_CONV.conf over
+   tools/make_synth_mnist.py data for 4 rounds under ``pool_layout =
+   hwcn fast_wgrad = hwcn``: the test error falls below half of its
+   first round's.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -89,22 +101,44 @@ DOC_LENS = (64, 4096)       # training document lengths
 LN_EPS = 1e-5
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
-              "train_unpacked"}
+              "train_unpacked", "alexnet", "mnist_conv"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
-#: every ported kernel: its wrapper, CUDA source and the pallas_call of
-#: the TPU kernel it replaces (cxxnet_tpu/ops/pallas_kernels.py)
+#: every ported kernel: its wrapper (module of cxxnet_tpu_torch.ops and
+#: function), CUDA source and the pallas_call of the TPU kernel it
+#: replaces (cxxnet_tpu/ops/pallas_kernels.py)
 KERNELS = {
-    "flash_attention_fwd": ("flash_attention", "flash_attn_fwd.cu", 1259),
-    "flash_attention_bwd": ("flash_attention", "flash_attn_bwd.cu", 1294),
-    "flash_attention_seg_fwd": ("flash_attention", "flash_attn_fwd.cu",
-                                1477),
-    "flash_attention_seg_bwd": ("flash_attention", "flash_attn_bwd.cu",
-                                1498),
-    "layernorm_fwd": ("layernorm", "layernorm_fwd.cu", 1736),
-    "layernorm_bwd": ("layernorm", "layernorm_bwd.cu", 1770),
+    "flash_attention_fwd": ("flash_attention", "flash_attention_fwd",
+                            "flash_attn_fwd.cu", 1259),
+    "flash_attention_bwd": ("flash_attention", "flash_attention_bwd",
+                            "flash_attn_bwd.cu", 1294),
+    "flash_attention_seg_fwd": ("flash_attention", "flash_attention_seg_fwd",
+                                "flash_attn_fwd.cu", 1477),
+    "flash_attention_seg_bwd": ("flash_attention", "flash_attention_seg_bwd",
+                                "flash_attn_bwd.cu", 1498),
+    "layernorm_fwd": ("layernorm", "layernorm_fwd", "layernorm_fwd.cu", 1736),
+    "layernorm_bwd": ("layernorm", "layernorm_bwd", "layernorm_bwd.cu", 1770),
+    "lrn_fwd": ("lrn", "lrn_fwd", "lrn.cu", 125),
+    "lrn_bwd": ("lrn", "lrn_bwd", "lrn.cu", 125),
+    "max_pool_fwd": ("pool", "max_pool_fwd", "max_pool.cu", 609),
+    "max_pool_bwd": ("pool", "max_pool_bwd", "max_pool.cu", 648),
+    "conv_wgrad": ("conv_wgrad", "conv_wgrad_hwcn_pallas", "conv_wgrad.cu",
+                   830),
 }
+
+# the CNN paths: ImageNet.conf as the slice runs it, per-step launches
+ALEXNET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
+                "num_round=3", "pool_layout=hwcn", "pool_relu_fuse=1",
+                "pallas_lrn=1", "fast_wgrad=hwcn", "save_model=3")
+ALEXNET_STEPS = 30
+ALEXNET_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "max_pool_fwd": 3,
+                    "max_pool_bwd": 3, "conv_wgrad": 1}
+MNIST_ROUNDS = 4
+#: conv wgrad (float32 dW, db from either dtype): max |diff| / max |ref|;
+#: both sides sum float32 products (exact for bf16 inputs) over up to
+#: 774,400 positions, in different orders
+WGRAD_TOL = 1e-3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -155,13 +189,15 @@ def row_rel_err(got, ref, floor: float = 0.0) -> float:
 
 def kernel_fn(name):
     import importlib
-    mod = importlib.import_module(f"cxxnet_tpu_torch.ops.{KERNELS[name][0]}")
-    return getattr(mod, name)
+    module, fn = KERNELS[name][:2]
+    return getattr(importlib.import_module(f"cxxnet_tpu_torch.ops.{module}"),
+                   fn)
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         kernel_fn(name).launches = 0
+    kernel_fn("max_pool_bwd").relu_launches = 0
 
 
 def read_launches() -> dict:
@@ -522,6 +558,167 @@ def phase_train_kernels():
     return out
 
 
+def phase_cnn_kernels():
+    """Rows 1, 3, 4 and 5 against their plain versions at the shapes of
+    the two CNN paths, bf16 and float32: the LRN forward and backward at
+    AlexNet's lrn1 (256, 96, 27, 27) and lrn2 (256, 256, 13, 13); the
+    max pool forward and the all-ties backward, plain and relu-masked, at
+    pool1 (256, 96, 55, 55), pool2 (256, 256, 27, 27), pool5 (256, 256,
+    13, 13) and MNIST_CONV's (100, 32, 14, 14), on inputs with many tied
+    maxima, bitwise; the conv wgrad at conv1 (x (256, 3, 227, 227), 11x11
+    stride 4 to 96 channels) and MNIST_CONV's (x (100, 1, 28, 28), 3x3
+    stride 2 pad 1 to 32).  Every backward runs twice, bitwise equal.
+    Times are taken at lrn1, pool1 and conv1; returns the bf16 numbers
+    there."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+    from cxxnet_tpu_torch.ops import conv_wgrad as cw
+    from cxxnet_tpu_torch.ops import lrn, pool
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    out = {}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def report(name, dtype, shape, err, tol, abs_err, times=None, bnd=None,
+               note=""):
+        timing = ""
+        if times is not None:
+            timing = (f"; kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms,"
+                      f" library {times[2]:.4f} ms, bound "
+                      f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        log(f"{name} {shape} {dtype}: error {err:.3e} (tol {tol:g}); abs "
+            f"err {abs_err:.3e}{timing}{note}")
+        if not err <= tol:
+            raise AssertionError(f"{name} {dtype} {shape} disagrees with "
+                                 f"its plain version: {err}")
+        if times is not None and dtype == "bfloat16":
+            out[name] = dict(max_abs_err=abs_err, ms=times[0],
+                             plain_ms=times[1], library_ms=times[2], **bnd)
+
+    def compare(got, ref, bf16):
+        err = row_rel_err(got, ref) if bf16 else rel_err(got, ref)
+        return err, float((got.float() - ref.float()).abs().max())
+
+    lrn_args = (5, 0.001, 0.75, 1.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        isz = 2 if bf16 else 4
+        tol = BF16_ROW_TOL if bf16 else F32_TOL
+        # row 1: LRN forward and backward
+        for shape in ((256, 96, 27, 27), (256, 256, 13, 13)):
+            x, g = randn(shape, dtype, 8.0), randn(shape, dtype)
+            timed = shape[1] == 96
+            fwd = lambda: lrn.lrn_fwd(x, *lrn_args)
+            plain = lambda: lrn.lrn_fwd_plain(x, *lrn_args)
+            err, abs_err = compare(fwd(), plain(), bf16)
+            numel = x.numel()
+            times = bnd = None
+            if timed:
+                times = (time_ms(fwd, reps=20), time_ms(plain, reps=5),
+                         time_ms(lambda: F.local_response_norm(
+                             x, 5, 0.001, 0.75, 1.0), reps=20))
+                bnd = bound(14.0 * numel, 2 * numel * isz, "float32")
+            report("lrn_fwd", name, shape, err, tol, abs_err, times, bnd)
+            bwd = lambda: lrn.lrn_bwd(x, g, *lrn_args)
+            plain = lambda: lrn.lrn_bwd_plain(x, g, *lrn_args)
+            (dx,) = _run_twice("lrn_bwd", lambda: (bwd(),))
+            err, abs_err = compare(dx, plain(), bf16)
+            if timed:
+                xx = x.detach().requires_grad_()
+                yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
+                times = (time_ms(bwd, reps=20), time_ms(plain, reps=5),
+                         time_ms(lambda: torch.autograd.grad(
+                             yy, xx, g, retain_graph=True), reps=20))
+                bnd = bound(30.0 * numel, 3 * numel * isz, "float32")
+            report("lrn_bwd", name, shape, err, tol, abs_err, times, bnd,
+                   "; bitwise repeatable")
+            del x, g
+        # rows 3 and 4: max pool forward and all-ties backward
+        for shape in ((256, 96, 55, 55), (256, 256, 27, 27),
+                      (256, 256, 13, 13), (100, 32, 14, 14)):
+            geom = (3, 3, 2, 0, 0)
+            # a grid of 1/4 and a shift: many tied maxima, negative ones
+            x = (torch.round(randn(shape, torch.float32, 6.0)) / 4 - 0.5
+                 ).to(dtype)
+            timed = shape[1] == 96
+            fwd = lambda: pool.max_pool_fwd(x, geom)
+            y = fwd()
+            if not torch.equal(y, pool.max_pool_fwd_plain(x, geom)):
+                raise AssertionError(f"max_pool_fwd {name} {shape} is not "
+                                     "bitwise equal to its plain version")
+            times = bnd = None
+            nx, ny = x.numel(), y.numel()
+            if timed:
+                times = (time_ms(fwd, reps=20),
+                         time_ms(lambda: pool.max_pool_fwd_plain(x, geom),
+                                 reps=5),
+                         time_ms(lambda: F.max_pool2d(x, 3, 2, ceil_mode=True),
+                                 reps=20))
+                bnd = bound(9.0 * ny, (nx + ny) * isz, "float32")
+            report("max_pool_fwd", name, shape, 0.0, 0.0, 0.0, times, bnd,
+                   "; bitwise")
+            dy = (torch.round(randn(y.shape, torch.float32, 8.0)) / 8
+                  ).to(dtype)
+            for relu in (False, True):
+                bwd = lambda: pool.max_pool_bwd(x, y, dy, geom, relu)
+                plain = lambda: pool.max_pool_bwd_plain(x, y, dy, geom, relu)
+                (dx,) = _run_twice("max_pool_bwd", lambda: (bwd(),))
+                if not torch.equal(dx, plain()):
+                    raise AssertionError(
+                        f"max_pool_bwd {name} {shape} relu {relu} is not "
+                        "bitwise equal to its plain version")
+                times = bnd = None
+                if timed:
+                    xx = x.detach().requires_grad_()
+                    yy = F.max_pool2d(xx, 3, 2, ceil_mode=True)
+                    times = (time_ms(bwd, reps=20), time_ms(plain, reps=3),
+                             time_ms(lambda: torch.autograd.grad(
+                                 yy, xx, dy, retain_graph=True), reps=20))
+                    bnd = bound(9.0 * ny, (2 * nx + 2 * ny) * isz, "float32")
+                report("max_pool_bwd" if not relu else "max_pool_bwd relu",
+                       name, shape, 0.0, 0.0, 0.0, times, bnd,
+                       "; bitwise, bitwise repeatable")
+            del x, y, dy
+        torch.cuda.empty_cache()
+        # row 5: conv weight and bias gradient
+        for xshape, co, k, st, pad in (((256, 3, 227, 227), 96, 11, 4, 0),
+                                       ((100, 1, 28, 28), 32, 3, 2, 1)):
+            x = torch.rand(xshape, generator=gen, device=dev).to(dtype)
+            oh = (xshape[2] + 2 * pad - k) // st + 1
+            dy = randn((xshape[0], co, oh, oh), dtype)
+            args = (k, k, st, pad, pad)
+            run = lambda: cw.conv_wgrad_hwcn_pallas(x, dy, *args)
+            plain = lambda: cw.conv_wgrad_plain(x, dy, *args)
+            got = _run_twice("conv_wgrad", run)
+            ref = plain()
+            err = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+            abs_err = max(float((a - b).abs().max())
+                          for a, b in zip(got, ref))
+            times = bnd = None
+            if xshape[1] == 3:
+                wshape = (co, xshape[1], k, k)
+                times = (time_ms(run, reps=10), time_ms(plain, reps=5),
+                         time_ms(lambda: (conv2d_weight(x, wshape, dy,
+                                                        stride=st),
+                                          dy.sum((0, 2, 3))), reps=10))
+                positions = xshape[0] * oh * oh
+                bnd = bound(2.0 * positions * co * xshape[1] * k * k
+                            + positions * co,
+                            (x.numel() + dy.numel()) * isz
+                            + (co * xshape[1] * k * k + co) * 4, name)
+            report("conv_wgrad", name, (xshape, co, k, st, pad), err,
+                   WGRAD_TOL, abs_err, times, bnd, "; bitwise repeatable")
+            del x, dy, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def write_inputs(tmp: str) -> str:
     """A seeded flagship ``.model``, a shard of N_PROMPTS prompt
     documents of seeded lengths and the serve conf (one request per
@@ -785,6 +982,131 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
     return launches
 
 
+def phase_alexnet(tmp: str, profile: bool = False) -> dict:
+    """``task = train`` of example/ImageNet/ImageNet.conf through the
+    port's CLI with ALEXNET_ARGS: AlexNet at batch 256 in bf16 on
+    seeded synthetic batches held on the card, 3 rounds of 10 steps.
+    Every loss must be finite and every step must launch the CNN kernels
+    ALEXNET_PER_STEP times (one of the three pool backwards relu-masked:
+    pool1's, whose conv keeps its bias for the fused wgrad).  Prints the
+    step p50 and images/s; returns the path's launch counts."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    conf = os.path.join(REPO, "example", "ImageNet", "ImageNet.conf")
+    args = list(ALEXNET_ARGS) + [f"model_dir={tmp}/alexnet", "silent=1"]
+    log(f"alexnet: ImageNet.conf {' '.join(args)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = LearnTask()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    try:
+        rc = task.run([conf] + args)
+    finally:
+        if prof is not None:
+            prof.stop()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    relu = kernel_fn("max_pool_bwd").relu_launches
+    st = task.last_train
+    if prof is not None and st is not None:
+        report_profile(prof.events(), st["step_ms"])
+    if rc != 0 or st is None or st["steps"] != ALEXNET_STEPS:
+        raise AssertionError(f"alexnet: CLI returned {rc} after "
+                             f"{None if st is None else st['steps']} steps")
+    losses = st["losses"]
+    log(f"alexnet: {ALEXNET_STEPS} steps, losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f} (min {min(losses):.4f}, max {max(losses):.4f});"
+        f" step p50 {st['step_p50_ms']:.2f} ms (steps after the first) = "
+        f"{st['examples_per_sec']:.1f} images/s; first step "
+        f"{st['step_ms'][0]:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; CLI wall "
+        f"{wall:.1f} s")
+    log(f"alexnet path launches: {launches}, relu-masked pool backward "
+        f"{relu}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"alexnet: non-finite loss {losses}")
+    want = {n: ALEXNET_PER_STEP.get(n, 0) * ALEXNET_STEPS for n in KERNELS}
+    if launches != want or relu != ALEXNET_STEPS:
+        raise AssertionError(f"alexnet: launches {launches} (relu-masked "
+                             f"{relu}), expected {want} ({ALEXNET_STEPS} "
+                             "relu-masked)")
+    snap = os.path.join(tmp, "alexnet", "0003.model")
+    log(f"alexnet: snapshot {os.path.getsize(snap) / 2 ** 20:.1f} MiB")
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mnist_conv(tmp: str) -> dict:
+    """``task = train`` of example/MNIST/MNIST_CONV.conf through the
+    port's CLI (``iter = mnist``, ``eval = test``, ``metric = error``,
+    ``eval_train = 1``) over tools/make_synth_mnist.py data, for
+    MNIST_ROUNDS rounds under ``pool_layout = hwcn fast_wgrad = hwcn``:
+    the test error must fall and end below half of its first round's.
+    Every step launches the conv1 wgrad and the pool forward and
+    backward; every eval batch the pool forward."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    data = os.path.join(tmp, "mnist")
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "make_synth_mnist.py"),
+                    "--out", data], check=True, capture_output=True)
+    text = open(os.path.join(REPO, "example", "MNIST",
+                             "MNIST_CONV.conf")).read()
+    conf = os.path.join(tmp, "mnist_conv.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/"))
+    args = ["dev=gpu", f"num_round={MNIST_ROUNDS}",
+            f"max_round={MNIST_ROUNDS}", "pool_layout=hwcn",
+            "fast_wgrad=hwcn", f"model_dir={tmp}/mnist_models",
+            "save_model=0", "silent=1"]
+    log(f"mnist_conv: MNIST_CONV.conf {' '.join(args)}")
+    reset_launches()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    rc = task.run([conf] + args)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = task.last_train
+    if rc != 0 or st is None or len(st["evals"]) != MNIST_ROUNDS:
+        raise AssertionError(f"mnist_conv: CLI returned {rc}")
+    test = [r["test-error"] for r in st["evals"]]
+    train = [r["train-error"] for r in st["evals"]]
+    steps = st["steps"]
+    log(f"mnist_conv: {steps} steps, test-error by round {test}, "
+        f"train-error {train}; step p50 {st['step_p50_ms']:.2f} ms; CLI "
+        f"wall {wall:.1f} s")
+    log(f"mnist_conv path launches: {launches}")
+    if not (test[-1] < test[0] and test[-1] < 0.5 * test[0]):
+        raise AssertionError(f"mnist_conv: test error did not fall below "
+                             f"half its first round's: {test}")
+    if not (launches["conv_wgrad"] == launches["max_pool_bwd"] == steps
+            and launches["max_pool_fwd"] > steps):
+        raise AssertionError(f"mnist_conv: launches {launches} for "
+                             f"{steps} steps")
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total, end = total + (b - a), b
+        elif b > end:
+            total, end = total + (b - end), b
+    return total
+
+
 def report_profile(events, step_ms) -> None:
     """Where the device time of a traced train run goes, per step, over
     the steps after the first (warm-up) one.  ``events``: the profiler's
@@ -793,8 +1115,11 @@ def report_profile(events, step_ms) -> None:
     of the trainer's ``train_forward`` / ``train_update`` ranges: the
     window runs from the second step's forward to the last update, and
     the backward, which autograd runs from its own thread, is the window
-    less those spans.  Busy time is the sum of the kernels and copies in
-    the window.  Lists the kernels with the most time."""
+    less those spans.  A range may show on the device more than once a
+    step (once per stream its kernels ran on), so each range's time and
+    the busy time are the union of their intervals; busy covers the
+    kernels and copies in the window.  Lists the kernels with the most
+    time (summed per kernel)."""
     from torch.autograd import DeviceType
     dev = [e for e in events if e.device_type != DeviceType.CPU]
     starts = sorted(e.time_range.start for e in dev
@@ -808,18 +1133,20 @@ def report_profile(events, step_ms) -> None:
                              "device timeline")
     t0 = min(t for t in starts if t > min(ends))
     t1 = max(ends)
-    spans, kernels = {}, {}
+    spans, kernels, busy_iv = {}, {}, []
     for e in dev:
         if e.time_range.start < t0 or e.time_range.end > t1:
             continue
-        us = e.time_range.elapsed_us()
+        iv = (e.time_range.start, e.time_range.end)
         if e.name.startswith("train_"):
-            spans[e.name] = spans.get(e.name, 0.0) + us
+            spans.setdefault(e.name, []).append(iv)
         else:
             k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += us
+            k[0] += e.time_range.elapsed_us()
             k[1] += 1
-    busy = sum(us for us, _ in kernels.values())
+            busy_iv.append(iv)
+    busy = union_us(busy_iv)
+    spans = {name: union_us(ivs) for name, ivs in spans.items()}
     per = lambda us: us / 1e3 / n
     span = per(t1 - t0)
     fwd = per(spans.get("train_forward", 0.0))
@@ -839,8 +1166,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                     help="comma-separated subset of the phases")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the packed train phase with "
-                         "torch.profiler and print where the time goes")
+                    help="trace the packed train and the alexnet phases "
+                         "with torch.profiler and print where the time "
+                         "goes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -857,6 +1185,7 @@ def main() -> int:
     if "kernels" in phases:
         numbers.update(phase_kernels())
         numbers.update(phase_train_kernels())
+        numbers.update(phase_cnn_kernels())
     paths = {}
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
         if "serve" in phases:
@@ -868,6 +1197,10 @@ def main() -> int:
             if name in phases:
                 paths[name] = phase_train(tmp, packed,
                                           args.profile and packed)
+        if "alexnet" in phases:
+            paths["alexnet"] = phase_alexnet(tmp, args.profile)
+        if "mnist_conv" in phases:
+            paths["mnist_conv"] = phase_mnist_conv(tmp)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",
@@ -875,7 +1208,7 @@ def main() -> int:
                     launches=launches[n],
                     launches_by_path={p: c[n] for p, c in paths.items()},
                     **numbers.get(n, {}))
-               for n, (_, src, line) in KERNELS.items()]
+               for n, (_, _, src, line) in KERNELS.items()]
     if phases != ALL_PHASES:
         log(f"ran phases {sorted(phases)} only: no result")
         log(json.dumps({"kernels": kernels}))

@@ -7,22 +7,38 @@ Unlike the JAX package's process-global ``opts``, every trainer owns an
 :class:`~cxxnet_tpu_torch.layers.base.ForwardContext`, so two trainers in
 one process cannot change each other's kernels.
 
-Options this slice acts on:
+Options the port acts on (``PORTED``):
 
-| key        | values             | meaning on the port                  |
-|------------|--------------------|--------------------------------------|
-| flash_attn | 1 (default), 0     | 0 = plain torch attention instead of |
-|            |                    | the hand-written flash kernels       |
-|            |                    | (segmented or not, fwd and bwd)      |
-| pallas_ln  | 1 (default), x, 0  | 0 = plain torch layernorm instead of |
-|            |                    | the hand-written layernorm kernels;  |
-|            |                    | x = the kernels, the backward from   |
-|            |                    | the saved input instead of the output|
+| key               | values            | meaning on the port                |
+|-------------------|-------------------|------------------------------------|
+| flash_attn        | 1 (default), 0    | 0 = plain torch attention instead  |
+|                   |                   | of the hand-written flash kernels  |
+| pallas_ln         | 1 (default), x, 0 | 0 = plain torch layernorm; x = the |
+|                   |                   | kernels, backward from the input   |
+| pool_layout       | nchw (default),   | hwcn = every max pool through the  |
+|                   | hwcn              | all-ties pool kernels              |
+| pool_bwd          | sas (default),    | eq / gather = the all-ties pool    |
+|                   | eq, gather        | kernels (one function); sas = the  |
+|                   |                   | one-winner plain torch pool        |
+| pool_relu_reorder | 1 (default), 0    | relu before a max pool moves after |
+|                   |                   | it (and a conv bias with it)       |
+| pool_relu_fuse    | 0 (default), 1    | 1 = relu(max pool) through the     |
+|                   |                   | relu-fused all-ties pool kernels   |
+| pallas_lrn        | band (default),   | 1 = the LRN kernels; the others    |
+|                   | bandconv, 1, 0    | the plain torch LRN (one function) |
+| fast_wgrad        | s2d (default),    | the conv1 class (stride >= 2, cin  |
+|                   | hwcn, off         | <= 4, ungrouped) takes dW and db   |
+|                   |                   | from one wgrad: hwcn = the wgrad   |
+|                   |                   | kernel, s2d = torch's; off = plain |
+|                   |                   | autograd                           |
 
-The other keys keep the JAX package's table so a conf reads the same,
-but their layers and kernels come with later slices (ROADMAP.md): any
-value other than the default is refused, from a conf or from the
-environment, rather than ignored.
+Unlike the JAX package, no gate reads the device: the CPU and the card
+build the same graph, and only the kernel-or-plain choice inside a
+wrapper follows the tensor's device.  The other keys and values keep
+the JAX package's table so a conf reads the same, but their layers and
+kernels come with later slices (ROADMAP.md): any value the port does
+not implement is refused, from a conf or from the environment, rather
+than ignored.
 """
 
 from __future__ import annotations
@@ -67,16 +83,27 @@ _DEFS = {
 }
 
 
-#: the options this slice acts on; every other key takes only its default
-PORTED = ("flash_attn", "pallas_ln")
+#: the values the port implements, by option; every other option takes
+#: only its default
+PORTED = {
+    "flash_attn": ("1", "0"),
+    "pallas_ln": ("1", "x", "0"),
+    "pool_layout": ("nchw", "hwcn"),
+    "pool_bwd": ("sas", "eq", "gather"),
+    "pool_relu_reorder": ("1", "0"),
+    "pool_relu_fuse": ("0", "1"),
+    "pallas_lrn": ("band", "bandconv", "1", "0"),
+    "fast_wgrad": ("s2d", "hwcn", "off"),
+}
 
 
 def _check(name: str, val: str, where: str) -> None:
     if not _valid(name, val):
         raise ValueError(f"{where} = {val}: expected {_expectation(name)}")
-    if name not in PORTED and val != _DEFS[name][1]:
+    ported = PORTED.get(name, (_DEFS[name][1],))
+    if val not in ported:
         raise ValueError(f"{where} = {val}: not ported to cxxnet_tpu_torch "
-                         f"yet (only the default {_DEFS[name][1]!r}; "
+                         f"yet (only {', '.join(map(repr, ported))}; "
                          "ROADMAP.md)")
 
 

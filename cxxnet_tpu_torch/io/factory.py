@@ -1,15 +1,16 @@
 """Iterator chain factory (the JAX package's ``io/factory.py``) over the
-stages ported so far: ``iter = text`` (token-shard documents) and
-``iter = packseq`` (fixed ``(batch, seqlen)`` LM rows) — the chain that
-feeds ``task = train`` its batches and ``task = serve`` its prompts.
-Keys seen in a section are forwarded to every stage, as in the
-reference."""
+stages ported so far: ``iter = mnist`` (MNIST idx files), ``iter =
+text`` (token-shard documents) and ``iter = packseq`` (fixed ``(batch,
+seqlen)`` LM rows) — the chains that feed ``task = train`` its batches,
+the ``eval`` sections theirs and ``task = serve`` its prompts.  Keys
+seen in a section are forwarded to every stage, as in the reference."""
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
 from .data import IIterator
+from .iter_mnist import MNISTIterator
 from .text import PackedSeqIterator, TextIterator
 
 
@@ -18,7 +19,10 @@ def create_iterator(cfg: List[Tuple[str, str]]) -> IIterator:
     pending: List[Tuple[str, str]] = []
     for name, val in cfg:
         if name == "iter":
-            if val == "text":
+            if val == "mnist":
+                assert it is None, "mnist cannot chain over another iterator"
+                it = MNISTIterator()
+            elif val == "text":
                 assert it is None, "text cannot chain over another iterator"
                 it = TextIterator()
             elif val == "packseq":
@@ -28,7 +32,8 @@ def create_iterator(cfg: List[Tuple[str, str]]) -> IIterator:
                 continue
             else:
                 raise ValueError(f"iterator type {val!r} is not ported to "
-                                 "cxxnet_tpu_torch yet (text, packseq are)")
+                                 "cxxnet_tpu_torch yet (mnist, text, packseq "
+                                 "are)")
             for n, v in pending:
                 it.set_param(n, v)
             continue

@@ -71,7 +71,8 @@ class ForwardContext:
     """Per-call context threaded through the forward pass.  A training
     forward carries the labels and collects each loss layer's scalar in
     ``losses``, already times ``loss_scale`` = 1 / (batch_size *
-    update_period), the reference's per-instance gradient scaling."""
+    update_period), the reference's per-instance gradient scaling.
+    ``rng`` draws a training forward's random masks (dropout)."""
 
     train: bool
     opts: EngineOptions
@@ -79,6 +80,7 @@ class ForwardContext:
     decode: Optional[DecodeState] = None
     losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
     loss_scale: float = 1.0
+    rng: Optional[torch.Generator] = None
 
 
 def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:

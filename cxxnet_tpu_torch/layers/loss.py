@@ -1,5 +1,6 @@
-"""Loss-layer base: the self-loop that marks a net's head (the JAX
-package's ``layers/loss.py`` ``LossLayerBase``).
+"""Loss layers: the base of the self-loop that marks a net's head, and
+``softmax``, ``l2_loss`` and ``multi_logistic`` (the JAX package's
+``layers/loss.py``; reference ``src/layer/loss/*``).
 
 A loss layer's forward applies its output transform and, in a training
 forward, appends one scalar to ``ctx.losses``: the sum over instances of
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import List
 
 import torch
+import torch.nn.functional as F
 
 from .base import ForwardContext, Layer, Shape4
 
@@ -48,3 +50,64 @@ class LossLayerBase(Layer):
             per_inst = per_inst * ctx.labels.mask.to(per_inst.dtype)
         ctx.losses.append(per_inst.sum()
                           * (self.grad_scale * ctx.loss_scale))
+
+
+class _FlatLossLayer(LossLayerBase):
+    """A loss over the (batch, k) view of its node: the output is
+    ``_transform`` of it, and a training forward adds the per-instance
+    loss of the ``target`` label field.  The output is not part of the
+    loss, so it carries no autograd graph."""
+
+    def _transform(self, x2d: torch.Tensor) -> torch.Tensor:
+        return x2d
+
+    def _per_instance_loss(self, x2d: torch.Tensor,
+                           labels: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        x = inputs[0]
+        x2d = x.reshape(x.shape[0], -1)
+        if ctx.train and ctx.labels is not None:
+            self.add_loss(ctx, self._per_instance_loss(
+                x2d, ctx.labels.get(self.target)))
+        with torch.no_grad():
+            return [self._transform(x2d).reshape(x.shape)]
+
+
+class SoftmaxLayer(_FlatLossLayer):
+    """Softmax + cross-entropy on integer class labels (reference
+    softmax_layer-inl.hpp: gradient p with p[y] -= 1)."""
+
+    type_names = ("softmax",)
+
+    def _transform(self, x2d):
+        return torch.softmax(x2d, dim=-1)
+
+    def _per_instance_loss(self, x2d, labels):
+        logp = torch.log_softmax(x2d.float(), dim=-1)
+        return -logp.gather(1, labels[:, :1].long())[:, 0]
+
+
+class L2LossLayer(_FlatLossLayer):
+    """Identity + squared error, gradient p - y (l2_loss_layer-inl.hpp)."""
+
+    type_names = ("l2_loss",)
+
+    def _per_instance_loss(self, x2d, labels):
+        return 0.5 * torch.square(x2d.float() - labels.float()).sum(dim=1)
+
+
+class MultiLogisticLayer(_FlatLossLayer):
+    """Elementwise sigmoid + binary cross-entropy, gradient sigmoid(x) - y
+    (multi_logistic_layer-inl.hpp)."""
+
+    type_names = ("multi_logistic",)
+
+    def _transform(self, x2d):
+        return torch.sigmoid(x2d)
+
+    def _per_instance_loss(self, x2d, labels):
+        return F.binary_cross_entropy_with_logits(
+            x2d.float(), labels.float(), reduction="none").sum(dim=1)

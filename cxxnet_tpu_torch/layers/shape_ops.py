@@ -1,11 +1,26 @@
-"""Graph plumbing layers: ``split`` (1 -> N copies) and ``eltsum``
-(elementwise sum of same-shape nodes, the residual join)."""
+"""Graph plumbing layers: ``flatten`` ((n, c, h, w) -> (n, 1, 1,
+c*h*w)), ``split`` (1 -> N copies) and ``eltsum`` (elementwise sum of
+same-shape nodes, the residual join)."""
 
 from __future__ import annotations
 
 from typing import List
 
 from .base import Layer, Shape4
+
+
+class FlattenLayer(Layer):
+    type_names = ("flatten",)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert len(in_shapes) == 1, "flatten: 1-1 connection only"
+        n, c, h, w = in_shapes[0]
+        return [(n, 1, 1, c * h * w)]
+
+    def forward(self, params, inputs, ctx):
+        self.check_n_inputs(inputs, 1)
+        x = inputs[0]
+        return [x.reshape(x.shape[0], 1, 1, -1)]
 
 
 class SplitLayer(Layer):

@@ -8,7 +8,12 @@ Ported tasks:
   ``num_round`` rounds over the ``data = train`` iterator section, a
   ``%04d.model`` snapshot in ``model_dir`` every ``save_model`` rounds
   (``0000.model`` before the first), one ``train`` metrics record per
-  ``print_step`` steps (loss, step ms, tokens/s);
+  ``print_step`` steps (loss, step ms, tokens/s), and after each round a
+  ``[round]\ttrain-<metric>:v\t<eval>-<metric>:v`` line on stderr
+  (the train metric under ``eval_train = 1``, then every ``eval = name``
+  section).  ``synth_device_data = 1`` trains instead on ``multi_step``
+  seeded synthetic batches held on the device, the JAX package's
+  no-data entry, drawn with numpy exactly as it draws them;
 * ``task = serve`` with ``serve_gen = 1``: a snapshot (``model_in``) is
   served by the KV-cache decode engine behind the continuous-batching
   step scheduler, the ``pred`` iterator section's rows become the
@@ -29,6 +34,7 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .io.factory import create_iterator, init_iterator
 from .monitor import log as mlog
@@ -39,13 +45,11 @@ PORTED_TASKS = ("train", "serve")
 
 #: train-loop keys of the JAX package that are not ported, with the one
 #: value the port takes: rollback and NNNN.ckpt snapshots, profiling
-#: windows, sentinels, train metrics, continue = 1, device-side input
-#: staging diagnostics
+#: windows, sentinels, continue = 1, input-pipeline diagnostics
 UNPORTED_TASK_KEYS = {
     "rollback": "0", "ckpt_async": "0", "continue": "0", "prof": "",
     "prof_start_step": "-1", "prof_num_steps": "0", "prof_every": "0",
-    "sentinel": "0", "eval_train": "0", "test_io": "0", "multi_step": "0",
-    "synth_device_data": "0", "test_on_server": "0",
+    "sentinel": "0", "test_io": "0", "test_on_server": "0",
 }
 
 
@@ -64,12 +68,21 @@ class LearnTask:
         self.num_round = 10
         self.max_round = 2147483647
         self.cfg: List[Tuple[str, str]] = []
+        # the round line carries the train metric (reference default 1)
+        self.eval_train = 1
+        # steps a round of synth_device_data = 1 takes; grouped dispatch
+        # of the JAX package otherwise (the port runs each batch eagerly)
+        self.multi_step = 0
+        self.synth_device_data = 0
         self.net: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_pred = None
+        self.itr_evals: List = []
+        self.eval_names: List[str] = []
         # the last serve_gen run's accounting (counts, rates, latencies)
         self.last_serve: Optional[dict] = None
-        # the last train run's per-step losses, step ms and tokens/s
+        # the last train run's per-step losses, step ms and rates, and
+        # each round's metric values
         self.last_train: Optional[dict] = None
 
     def set_param(self, name: str, val: str) -> None:
@@ -95,6 +108,12 @@ class LearnTask:
             mlog.set_silent(int(val))
         elif name == "task":
             self.task = val
+        elif name == "eval_train":
+            self.eval_train = int(val)
+        elif name == "multi_step":
+            self.multi_step = int(val)
+        elif name == "synth_device_data":
+            self.synth_device_data = int(val)
         elif name in UNPORTED_TASK_KEYS:
             refuse_unported(name, val, UNPORTED_TASK_KEYS[name])
         self.cfg.append((name, val))
@@ -122,10 +141,13 @@ class LearnTask:
 
     def _create_iterators(self) -> None:
         """Section scanner (reference CreateIterators): ``data`` is the
-        train stream of ``task = train``, ``pred`` the request stream of
-        ``task = serve``; ``eval`` sections (evaluation with metrics) are
-        not ported and are refused under ``task = train``."""
+        train stream and each ``eval = name`` an evaluation stream of
+        ``task = train``, ``pred`` the request stream of ``task =
+        serve``.  ``synth_device_data = 1`` reads no data."""
+        if self.synth_device_data:
+            return
         flag = 0
+        evname = ""
         itcfg: List[Tuple[str, str]] = []
         defcfg: List[Tuple[str, str]] = []
         for name, val in self.cfg:
@@ -133,10 +155,7 @@ class LearnTask:
                 flag = 1
                 continue
             if name == "eval":
-                if self.task == "train":
-                    raise NotImplementedError(
-                        f"eval = {val}: evaluation sections are not ported "
-                        "to cxxnet_tpu_torch yet (ROADMAP.md)")
+                evname = val
                 flag = 2
                 continue
             if name == "pred":
@@ -148,6 +167,9 @@ class LearnTask:
                 if flag == 1 and self.task == "train":
                     assert self.itr_train is None, "can only have one data"
                     self.itr_train = create_iterator(itcfg)
+                if flag == 2 and self.task == "train":
+                    self.itr_evals.append(create_iterator(itcfg))
+                    self.eval_names.append(evname)
                 if flag == 3 and self.task == "serve":
                     assert self.itr_pred is None, \
                         "can only have one pred data"
@@ -156,7 +178,7 @@ class LearnTask:
                 itcfg = []
                 continue
             (itcfg if flag != 0 else defcfg).append((name, val))
-        for it in (self.itr_train, self.itr_pred):
+        for it in [self.itr_train, self.itr_pred] + self.itr_evals:
             if it is not None:
                 init_iterator(it, defcfg)
 
@@ -179,21 +201,53 @@ class LearnTask:
                               write_sec=round(time.perf_counter() - t0, 4))
 
     def task_train(self) -> None:
-        """``task = train``: rounds of updates over the train iterator.
-        Each step ends in a device synchronise, so its host time is the
-        step's time on the card; the first step of the run (allocator
-        and library warm-up) is kept out of the step percentiles."""
-        net = self.net
-        metrics = net.metrics
+        """``task = train``: rounds of updates over the train iterator
+        (or the synthetic device batches).  Each step ends in a device
+        synchronise, so its host time is the step's time on the card;
+        the first step of the run (allocator and library warm-up) is kept
+        out of the step percentiles."""
         start = time.time()
         if self.name_model_in == "NULL":
             self._save_model()
+        self._losses: List[float] = []
+        self._step_ms: List[float] = []
+        self._evals: List[dict] = []
+        if self.synth_device_data:
+            self._train_synth_device()
+        else:
+            self._train_rounds(start)
+        self._emit_latency_record("step")
+        tail = self._step_ms[1:] or self._step_ms
+        p50 = float(np.median(tail)) if tail else 0.0
+        seq = int(np.prod(self.net.net.node_shapes[0][1:]))
+        self.last_train = dict(
+            losses=self._losses, step_ms=self._step_ms, step_p50_ms=p50,
+            tokens_per_sec=(self.net.batch_size * seq / (p50 / 1e3)
+                            if p50 else 0.0),
+            examples_per_sec=(self.net.batch_size / (p50 / 1e3)
+                              if p50 else 0.0),
+            steps=len(self._losses), evals=self._evals)
+        mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
+
+    def _timed_step(self, step) -> float:
+        """Run ``step()`` (one update), wait for the device, and record
+        its loss and time; returns the time in seconds."""
+        t0 = time.perf_counter()
+        step()
+        self.net.sync()
+        dt = time.perf_counter() - t0
+        self._losses.append(float(self.net.last_loss))
+        self._step_ms.append(dt * 1e3)
+        if len(self._step_ms) > 1:
+            self.net.metrics.observe("step_latency_sec", dt)
+        return dt
+
+    def _train_rounds(self, start: float) -> None:
+        net = self.net
         if self.itr_train is None:
             raise RuntimeError("task = train but the config has no "
                                "'data = train' iterator section")
         seq = int(np.prod(net.net.node_shapes[0][1:]))
-        losses: List[float] = []
-        step_ms: List[float] = []
         cc = self.max_round
         while self.start_counter <= self.num_round and cc > 0:
             cc -= 1
@@ -205,39 +259,61 @@ class LearnTask:
                 batch = self.itr_train.next()
                 if batch is None:
                     break
-                t0 = time.perf_counter()
-                net.update(batch)
-                net.sync()
-                dt = time.perf_counter() - t0
-                loss = float(net.last_loss)
-                losses.append(loss)
-                step_ms.append(dt * 1e3)
-                if len(step_ms) > 1:
-                    metrics.observe("step_latency_sec", dt)
+                dt = self._timed_step(lambda: net.update(batch))
                 sample_counter += 1
                 if sample_counter % self.print_step == 0:
-                    n_tok = batch.batch_size * seq
-                    metrics.emit("train", round=self.start_counter - 1,
-                                 step=sample_counter,
-                                 global_step=net.sample_counter, loss=loss,
-                                 step_ms=round(dt * 1e3, 3),
-                                 tokens_per_sec=round(n_tok / dt, 1),
-                                 device=str(net.device))
+                    loss = self._losses[-1]
+                    net.metrics.emit(
+                        "train", round=self.start_counter - 1,
+                        step=sample_counter, global_step=net.sample_counter,
+                        loss=loss, step_ms=round(dt * 1e3, 3),
+                        tokens_per_sec=round(batch.batch_size * seq / dt, 1),
+                        device=str(net.device))
                     mlog.info(f"round {self.start_counter - 1:8d}:"
                               f"[{sample_counter:8d}] "
                               f"{int(time.time() - start)} sec elapsed, "
                               f"loss {loss:.4f}, {dt * 1e3:.1f} ms/step")
-            mlog.result(f"[{self.start_counter}]")
+            line = f"[{self.start_counter}]"
+            evals = {}
+            if self.eval_train:
+                line += net.train_metric.print_line("train")
+                evals.update(net.train_metric.values("train"))
+            for it, name in zip(self.itr_evals, self.eval_names):
+                line += net.evaluate(it, name)
+                evals.update(net.metric.values(name))
+            self._evals.append(evals)
+            mlog.result(line)
             self._save_model()
-        self._emit_latency_record("step")
-        tail = step_ms[1:] or step_ms
-        p50 = float(np.median(tail)) if tail else 0.0
-        self.last_train = dict(
-            losses=losses, step_ms=step_ms, step_p50_ms=p50,
-            tokens_per_sec=(self.net.batch_size * seq / (p50 / 1e3)
-                            if p50 else 0.0),
-            steps=len(losses))
-        mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
+
+    def _train_synth_device(self) -> None:
+        """``synth_device_data = 1``: every round takes ``multi_step``
+        steps (at least 1) over one stack of seeded synthetic batches
+        made once and held on the device: uniform [0, 1) data and
+        uniform class labels from ``numpy.random.RandomState(0)``, drawn
+        in the JAX package's order, so both packages see the same
+        batches."""
+        net = self.net
+        k = max(self.multi_step, 1)
+        shape = net.net.node_shapes[0]
+        nclass = net.net.node_shapes[net.net.final_node][-1]
+        rnd = np.random.RandomState(0)
+        datas = torch.from_numpy(rnd.rand(k, *shape).astype(np.float32)) \
+            .to(net.device).to(net.dtype)
+        labels = torch.from_numpy(rnd.randint(0, nclass, (k, shape[0], 1))
+                                  .astype(np.float32)).to(net.device)
+        while self.start_counter <= self.num_round:
+            net.start_round(self.start_counter)
+            t = sum(self._timed_step(lambda: net.update_step(
+                {0: datas[j]}, net.label_info(labels[j])))
+                for j in range(k))
+            mlog.info(f"round {self.start_counter - 1:8d}: synth-device "
+                      f"{k} steps, {shape[0] * k / t:.1f} examples/sec")
+            net.metrics.emit(
+                "step", round=self.start_counter - 1, step=k,
+                global_step=net.sample_counter, synth_device=1,
+                examples_per_sec=round(shape[0] * k / t, 1),
+                loss=self._losses[-1], device=str(net.device))
+            self._save_model()
 
     # ---------------------------------------------------------------- tasks
     def _emit_latency_record(self, op: str) -> None:
@@ -424,7 +500,7 @@ class LearnTask:
             else:
                 self.task_serve()
         finally:
-            for it in (self.itr_train, self.itr_pred):
+            for it in [self.itr_train, self.itr_pred] + self.itr_evals:
                 if it is not None:
                     it.close()
             if self.net is not None:

@@ -1,3 +1,3 @@
 """Netconfig generators (:mod:`.zoo`)."""
 
-from .zoo import transformer  # noqa: F401
+from .zoo import alexnet, lenet, transformer  # noqa: F401

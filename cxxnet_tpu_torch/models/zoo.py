@@ -1,7 +1,111 @@
 """Model zoo: netconfig text generators (the JAX package's
-``models/zoo.py``), for the models the port runs so far."""
+``models/zoo.py``), for the models the port runs so far: the LeNet and
+AlexNet convnets and the transformer LM."""
 
 from __future__ import annotations
+
+
+def lenet(num_class: int = 10) -> str:
+    """LeNet-style MNIST convnet (the MNIST_CONV.conf shape): two
+    conv+pool stages and a 500-wide hidden layer."""
+    return f"""
+netconfig=start
+layer[0->1] = conv:conv1
+  kernel_size = 5
+  nchannel = 20
+layer[1->2] = max_pooling
+  kernel_size = 2
+  stride = 2
+layer[2->3] = relu
+layer[3->4] = conv:conv2
+  kernel_size = 5
+  nchannel = 50
+layer[4->5] = max_pooling
+  kernel_size = 2
+  stride = 2
+layer[5->6] = relu
+layer[6->7] = flatten
+layer[7->8] = fullc:fc1
+  nhidden = 500
+layer[8->9] = relu
+layer[9->10] = fullc:fc2
+  nhidden = {num_class}
+layer[10->10] = softmax
+netconfig=end
+input_shape = 1,28,28
+"""
+
+
+def alexnet(num_class: int = 1000) -> str:
+    """AlexNet (the ImageNet.conf:26-95 architecture): 5 conv stages with
+    grouped conv2/4/5, LRN after conv1/2, three 4096/4096/num_class fullc
+    layers with dropout."""
+    return f"""
+netconfig=start
+layer[0->1] = conv:conv1
+  kernel_size = 11
+  stride = 4
+  nchannel = 96
+layer[1->2] = relu
+layer[2->3] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[3->4] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+  knorm = 1
+layer[4->5] = conv:conv2
+  ngroup = 2
+  kernel_size = 5
+  pad = 2
+  nchannel = 256
+layer[5->6] = relu
+layer[6->7] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[7->8] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+  knorm = 1
+layer[8->9] = conv:conv3
+  kernel_size = 3
+  pad = 1
+  nchannel = 384
+layer[9->10] = relu
+layer[10->11] = conv:conv4
+  ngroup = 2
+  kernel_size = 3
+  pad = 1
+  nchannel = 384
+layer[11->12] = relu
+layer[12->13] = conv:conv5
+  ngroup = 2
+  kernel_size = 3
+  pad = 1
+  nchannel = 256
+layer[13->14] = relu
+layer[14->15] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[15->16] = flatten
+layer[16->17] = fullc:fc6
+  nhidden = 4096
+layer[17->18] = relu
+layer[18->18] = dropout
+  threshold = 0.5
+layer[18->19] = fullc:fc7
+  nhidden = 4096
+layer[19->20] = relu
+layer[20->20] = dropout
+  threshold = 0.5
+layer[20->21] = fullc:fc8
+  nhidden = {num_class}
+layer[21->21] = softmax
+netconfig=end
+input_shape = 3,227,227
+"""
 
 
 def transformer(vocab: int, seq: int, dim: int, nlayer: int,

@@ -4,7 +4,9 @@ The JAX package's ``nnet/net.py`` in PyTorch: connections bind layer
 instances to node ids in declaration order, shapes are inferred once,
 and ``forward`` runs the connections over a node list (self-loop layers
 rebind their node).  ``share[tag]`` connections reuse the primary's
-layer and parameter group.
+layer and parameter group.  A max pool that carries a conv's deferred
+bias (the trainer's relu/bias -> pool reorder) reads that bias from the
+conv's group as ``deferred_bias`` (:func:`conn_params`).
 """
 
 from __future__ import annotations
@@ -127,8 +129,7 @@ class Network:
             if until is not None and i >= until:
                 break
             ins = [nodes[n] for n in conn.nindex_in]
-            outs = conn.layer.forward(params.get(conn.param_key, {}), ins,
-                                      ctx)
+            outs = conn.layer.forward(conn_params(params, conn), ins, ctx)
             for n, v in zip(conn.nindex_out, outs):
                 nodes[n] = v
         return nodes
@@ -156,3 +157,14 @@ class Network:
             lines.append(f"{i:3d} {conn.layer.type_names[0]:>20s}{share} "
                          f"[{ins} -> {outs}] out={shapes}")
         return "\n".join(lines)
+
+
+def conn_params(params: Params, conn: Connection) -> Dict[str, torch.Tensor]:
+    """One connection's parameters.  A max pool carrying a deferred conv
+    bias gets it under "deferred_bias"; the tensor stays in the conv's
+    group, so gradients, the updater and snapshots are untouched."""
+    p = params.get(conn.param_key, {})
+    key = getattr(conn.layer, "deferred_bias_key", None)
+    if key is not None:
+        p = dict(p, deferred_bias=params[key]["bias"])
+    return p

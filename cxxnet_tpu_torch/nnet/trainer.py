@@ -11,6 +11,14 @@ reads.
 With ``update_period = K > 1`` the gradients of K batches are summed
 before one update, as in the JAX package.  Optimizer state is made at
 the first update (a serving trainer never holds it).
+
+``metric[label,node] = name`` keys bind evaluation metrics to nodes (the
+final node by default): :meth:`NetTrainer.evaluate` runs them over an
+eval iterator, and with ``eval_train = 1`` (the default) every training
+step adds its eval-node outputs to the train metric.  At build time the
+relu -> max pool reorder moves a relu that feeds only a max pool after
+it, and with it the bias of the conv beneath
+(:meth:`NetTrainer._reorder_relu_pool`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from ..monitor import log as mlog
 from ..monitor.metrics import Metrics
 from ..updater.updaters import UpdaterHyper, create_updater
 from ..utils import serializer
+from ..utils.metric import MetricSet
 from .net import Network, Params
 from .netconfig import NetConfig
 
@@ -129,6 +138,13 @@ class NetTrainer:
         self._opt_host: Optional[Dict] = None  # loaded, installed lazily
         self._grad_acc: Optional[Dict] = None
         self.last_loss: Optional[torch.Tensor] = None
+        # (metric name, label field, node name or "" for the final node)
+        self._metric_req: List[Tuple[str, str, str]] = []
+        self.eval_train = 1
+        self.eval_node_ids: List[int] = []
+        self.metric = MetricSet()
+        self.train_metric = MetricSet()
+        self.rng: Optional[torch.Generator] = None
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -154,8 +170,15 @@ class NetTrainer:
         elif name in UNPORTED_KEYS:
             refuse_unported(name, val, UNPORTED_KEYS[name])
         elif name == "metric" or name.startswith("metric["):
-            raise ValueError(f"{name} = {val}: evaluation metrics are not "
-                             "ported to cxxnet_tpu_torch yet (ROADMAP.md)")
+            # metric[label,node] = m | metric[label] = m | metric = m
+            m = re.match(r"^metric\[([^,\]]+)(?:,([^\]]+))?\]$", name)
+            if name != "metric" and m is None:
+                raise ValueError(f"malformed metric key {name!r}")
+            self._metric_req.append(
+                (val, m.group(1), m.group(2) or "") if m
+                else (val, "label", ""))
+        elif name == "eval_train":
+            self.eval_train = int(val)
         elif engine.is_engine_option(name):
             self.opts.set(name, val)
         elif name == "silent":
@@ -209,6 +232,77 @@ class NetTrainer:
         self._grad_acc = None
         self.sample_counter = 0
         self.epoch_counter = 0
+        self.eval_node_ids = [self.net.node_id(node) if node
+                              else self.net.final_node
+                              for _, _, node in self._metric_req]
+        self.metric, self.train_metric = MetricSet(), MetricSet()
+        for name, field, _ in self._metric_req:
+            self.metric.add_metric(name, field)
+            self.train_metric.add_metric(name, field)
+        self.rng = torch.Generator(device=self.device)
+        self.rng.manual_seed(self.seed)
+        self._reorder_relu_pool()
+
+    def _reorder_relu_pool(self) -> None:
+        """Peephole (``pool_relu_reorder = 1``, the JAX package's
+        ``_reorder_relu_pool``): a relu whose output feeds only a max
+        pool moves after the pool (max(relu(x)) == relu(max(x)); the
+        gradients agree a.e.), so the pool can take the relu-fused
+        kernel.  When the relu's producer is a biased conv whose output
+        feeds only that relu, and the conv is not of the fast-wgrad
+        class (whose one wgrad computes db), its bias add moves to the
+        pooled tensor too (max(z + b) == max(z) + b).  Skipped for
+        shared layer instances and eval nodes."""
+        from ..layers.activation import ReluLayer
+        from ..layers.conv import ConvolutionLayer, MaxPoolingLayer
+        from ..ops.nn import use_fast_wgrad
+        if self.opts.pool_relu_reorder != "1":
+            return
+        conns = self.net.connections
+        uses: Dict[int, int] = {}
+        for c in conns:
+            uses[id(c.layer)] = uses.get(id(c.layer), 0) + 1
+
+        def last_writer(node, before):
+            return next((j for j in range(before - 1, -1, -1)
+                         if node in conns[j].nindex_out), None)
+
+        def readers_after(node, start):
+            return [j for j in range(start + 1, len(conns))
+                    if node in conns[j].nindex_in]
+
+        for i, c in enumerate(conns):
+            if type(c.layer) is not MaxPoolingLayer or uses[id(c.layer)] > 1:
+                continue
+            v = c.nindex_in[0]
+            j = last_writer(v, i)
+            if j is None or type(conns[j].layer) is not ReluLayer:
+                continue
+            relu = conns[j]
+            if (uses[id(relu.layer)] > 1 or v in self.eval_node_ids
+                    or readers_after(v, j) != [i]):
+                continue
+            self_loop = relu.nindex_in == relu.nindex_out
+            relu.layer.defer_to_pool = True
+            c.layer.relu_after = True
+            k = last_writer(v if self_loop else relu.nindex_in[0], j)
+            if k is None:
+                continue
+            conv = conns[k]
+            cnode = conv.nindex_out[0]
+            if (type(conv.layer) is ConvolutionLayer
+                    and not conv.layer.param.no_bias
+                    and uses[id(conv.layer)] == 1
+                    and readers_after(cnode, k) == ([j, i] if self_loop
+                                                    else [j])
+                    and cnode not in self.eval_node_ids
+                    and conv.nindex_in != conv.nindex_out
+                    and not use_fast_wgrad(
+                        self.net.node_shapes[conv.nindex_in[0]][1],
+                        conv.layer.param.stride, conv.layer.param.num_group,
+                        self.opts)):
+                conv.layer.defer_bias = 1
+                c.layer.deferred_bias_key = conv.param_key
 
     def load_model(self, path: str) -> None:
         """Load a ``.model`` written by either package.  The session's
@@ -281,9 +375,6 @@ class NetTrainer:
             extra_meta={"round": self.round})
 
     # ------------------------------------------------------------ training
-    def start_round(self, r: int) -> None:
-        self.round = r
-
     def _batch_tensors(self, batch) -> Tuple[Dict[int, torch.Tensor],
                                              LabelInfo]:
         dev = self.device
@@ -294,29 +385,35 @@ class NetTrainer:
                                             device=dev)
         label = torch.as_tensor(np.asarray(batch.label, np.float32),
                                 device=dev)
-        fields = {name: label[:, a:b] for name, a, b in self._label_fields}
-        mask = None
+        info = self.label_info(label)
         n_padd = int(getattr(batch, "tail_mask_padd", 0))
         if n_padd:
             # tail-batch replica padding trains nothing (DataBatch)
             mask = torch.ones((label.shape[0],), dtype=torch.float32,
                               device=dev)
             mask[label.shape[0] - n_padd:] = 0.0
-        return inputs, LabelInfo(fields=fields, mask=mask)
+            info.mask = mask
+        return inputs, info
 
     def loss_and_grads(self, batch) -> Tuple[torch.Tensor, Dict]:
         """The summed, scaled loss of one batch and its gradient for
         every parameter (same nesting as ``params``)."""
-        inputs, labels = self._batch_tensors(batch)
+        loss, grads, _ = self._loss_grads_outs(*self._batch_tensors(batch))
+        return loss, grads
+
+    def _loss_grads_outs(self, inputs: Dict[int, torch.Tensor],
+                         labels: LabelInfo
+                         ) -> Tuple[torch.Tensor, Dict, Dict]:
+        """(loss, grads, {eval node: its training-forward output})."""
         ctx = ForwardContext(train=True, opts=self.opts, labels=labels,
-                             loss_scale=self.loss_scale)
+                             loss_scale=self.loss_scale, rng=self.rng)
         leaves = [(k, t, p) for k, g in self.params.items()
                   for t, p in g.items()]
         for _, _, p in leaves:
             p.requires_grad_(True)
         try:
             with record_function("train_forward"):
-                self.net.forward(self.params, inputs, ctx)
+                nodes = self.net.forward(self.params, inputs, ctx)
                 if not ctx.losses:
                     raise RuntimeError("network has no loss layer; cannot "
                                        "train")
@@ -331,17 +428,32 @@ class NetTrainer:
         out: Dict[str, Dict[str, torch.Tensor]] = {}
         for (k, t, _), g in zip(leaves, grads):
             out.setdefault(k, {})[t] = g
-        return total.detach(), out
+        outs = {n: nodes[n].detach() for n in self.eval_node_ids}
+        return total.detach(), out, outs
 
     def update(self, batch) -> None:
-        """One training step on a host :class:`~..io.data.DataBatch`."""
+        """One training step on a host :class:`~..io.data.DataBatch`;
+        with ``eval_train`` the step's eval-node outputs go to the train
+        metric (padding excluded)."""
+        outs = self.update_step(*self._batch_tensors(batch))
+        if self.eval_train and self.train_metric.evals:
+            self._add_eval(self.train_metric,
+                           [outs[n].float().cpu().numpy()
+                            for n in self.eval_node_ids],
+                           batch.label,
+                           int(getattr(batch, "num_batch_padd", 0)))
+
+    def update_step(self, inputs: Dict[int, torch.Tensor],
+                    labels: LabelInfo) -> Dict[int, torch.Tensor]:
+        """One training step on device tensors (node id -> input, label
+        fields); returns the eval-node outputs of its forward."""
         self._ensure_opt_state()
         self.sample_counter += 1
         do_update = self.sample_counter % self.update_period == 0
         epoch = self.epoch_counter
         if do_update:
             self.epoch_counter += 1
-        loss, grads = self.loss_and_grads(batch)
+        loss, grads, outs = self._loss_grads_outs(inputs, labels)
         self.last_loss = loss
         if self.update_period > 1:
             if self._grad_acc is None:
@@ -351,9 +463,15 @@ class NetTrainer:
                     for t, v in g.items():
                         self._grad_acc[k][t].add_(v)
             if not do_update:
-                return
+                return outs
             grads, self._grad_acc = self._grad_acc, None
         self.apply_update(grads, epoch)
+        return outs
+
+    def label_info(self, label: torch.Tensor) -> LabelInfo:
+        """The label fields of a (batch, label width) device tensor."""
+        return LabelInfo(fields={name: label[:, a:b]
+                                 for name, a, b in self._label_fields})
 
     def apply_update(self, grads: Dict, epoch: int) -> None:
         """The updater on every (layer, tag), in place."""
@@ -378,6 +496,30 @@ class NetTrainer:
         with torch.inference_mode():
             nodes = self.net.forward(self.params, {0: x}, self.context())
         return [nodes[n].float().cpu().numpy() for n in node_ids]
+
+    def _add_eval(self, metric: MetricSet, preds: List[np.ndarray],
+                  label: np.ndarray, n_padd: int) -> None:
+        """One batch's eval-node values (in ``eval_node_ids`` order) into
+        ``metric``, the last ``n_padd`` (padding) instances excluded."""
+        n = label.shape[0] - n_padd
+        label = np.asarray(label)
+        metric.add_eval([p[:n].reshape(n, -1) for p in preds],
+                        {name: label[:n, a:b]
+                         for name, a, b in self._label_fields})
+
+    def evaluate(self, data_iter, name: str) -> str:
+        """One pass of ``data_iter`` through the eval forward into the
+        metric; returns its ``\tname-metric:value`` line fragment."""
+        self.metric.clear()
+        for batch in data_iter:
+            self._add_eval(self.metric,
+                           self.forward_eval(batch.data, self.eval_node_ids),
+                           batch.label, int(batch.num_batch_padd))
+        return self.metric.print_line(name)
+
+    def start_round(self, r: int) -> None:
+        self.round = r
+        self.train_metric.clear()
 
     def context(self, decode=None) -> ForwardContext:
         return ForwardContext(train=False, opts=self.opts, decode=decode)

@@ -52,6 +52,19 @@ _SIGNATURES = {
     # save_x, xdtype, gdtype, stream
     "cxn_layernorm_bwd": (_c.c_void_p,) * 10 + (_c.c_longlong,)
     + (_c.c_int,) * 5 + (_c.c_void_p,),
+    # backward, x, g, out, n, c, hw, nsize, salpha, beta, knorm, dtype,
+    # stream
+    "cxn_lrn": (_c.c_int,) + (_c.c_void_p,) * 3 + (_c.c_int, _c.c_int,
+                                                   _c.c_longlong, _c.c_int)
+    + (_c.c_float,) * 3 + (_c.c_int, _c.c_void_p),
+    # backward, relu, x, y, dy, out, planes, h, w, oh, ow, kh, kw, s,
+    # pad_y, pad_x, dtype, stream
+    "cxn_max_pool": (_c.c_int,) * 2 + (_c.c_void_p,) * 4 + (_c.c_longlong,)
+    + (_c.c_int,) * 10 + (_c.c_void_p,),
+    # x, dy, part, part_b, dw, db, n, c, h, w, co, oh, ow, kh, kw, s,
+    # pad_y, pad_x, splits, per_split, dtype, stream
+    "cxn_conv_wgrad": (_c.c_void_p,) * 6 + (_c.c_int,) * 13
+    + (_c.c_longlong, _c.c_int, _c.c_void_p),
 }
 
 

@@ -1,0 +1,172 @@
+"""Weight and bias gradient of an ungrouped strided convolution: the
+hand-written CUDA kernel (``csrc/conv_wgrad.cu``), its plain PyTorch
+version, and ``conv_bias_fast``, the conv + bias autograd Function whose
+backward computes dW and db with it.
+
+Replaces the JAX package's Pallas ``conv_wgrad_hwcn_pallas``
+(``_cw_hwcn_kernel``, pallas_kernels.py) and the backward of
+``ops/nn.py conv_bias_fast`` under ``fast_wgrad = hwcn``: dW as float32
+(co, ci, kh, kw) and db as float32 (co,) from the forward's input x and
+the output gradient dy, in one kernel.  Under ``fast_wgrad = s2d`` dW is
+the JAX package's space-to-depth identity instead: the stride-1 weight
+gradient over :func:`s2d_input`'s rearranged x, through torch.  dx goes
+through the ordinary conv transpose (the JAX package leaves it to XLA).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.nn.grad import conv2d_input, conv2d_weight
+
+from . import build
+
+#: positions of one K-chunk (csrc/conv_wgrad.cu CW_BK) and the dW tile
+_BK, _BM, _BN = 32, 64, 64
+#: blocks the split-K grid aims at (four per SM of an H100)
+_TARGET_BLOCKS = 528
+
+
+def conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                     stride: int, pad_y: int, pad_x: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW, db)`` in float32 in plain PyTorch, from float32 copies of x
+    and dy."""
+    x32, dy32 = x.float(), dy.float()
+    dw = conv2d_weight(x32, (dy.shape[1], x.shape[1], kh, kw), dy32,
+                       stride=stride, padding=(pad_y, pad_x))
+    return dw, dy32.sum(dim=(0, 2, 3))
+
+
+def s2d_input(x: torch.Tensor, stride: int, kh: int, kw: int, oh: int,
+              ow: int, pad_y: int, pad_x: int
+              ) -> Tuple[torch.Tensor, int, int]:
+    """The JAX package's x-side space-to-depth rearrangement: (n, c, h,
+    w) -> (n, c*s*s, hb, wb), channel order (c, sy, sx), so a stride-s
+    conv of x is a stride-1 conv of the result with ``(kb_y, kb_x) =
+    (ceil(kh / s), ceil(kw / s))`` kernel blocks.  Returns ``(xb, kb_y,
+    kb_x)``."""
+    s = stride
+    n, c, h, w = x.shape
+    kb_y, kb_x = -(-kh // s), -(-kw // s)
+    hb, wb = oh - 1 + kb_y, ow - 1 + kb_x
+    # the conv padding, then whole blocks; a strided conv may leave
+    # unconsumed tail rows / columns, hence the clamp and the slice
+    xp = F.pad(x, (pad_x, max(0, wb * s - w - pad_x),
+                   pad_y, max(0, hb * s - h - pad_y)))[:, :, :hb * s,
+                                                       :wb * s]
+    xb = xp.reshape(n, c, hb, s, wb, s).permute(0, 1, 3, 5, 2, 4)
+    return xb.reshape(n, c * s * s, hb, wb), kb_y, kb_x
+
+
+def wgrad_s2d(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+              stride: int, pad_y: int, pad_x: int) -> torch.Tensor:
+    """dW (co, ci, kh, kw) through the space-to-depth identity: the
+    stride-1 weight gradient over :func:`s2d_input`, its (c, sy, sx)
+    channels folded back into the kernel's rows and columns."""
+    s = stride
+    co, (ci, oh, ow) = dy.shape[1], (x.shape[1],) + tuple(dy.shape[2:])
+    xb, kb_y, kb_x = s2d_input(x, s, kh, kw, oh, ow, pad_y, pad_x)
+    dwb = conv2d_weight(xb, (co, ci * s * s, kb_y, kb_x), dy)
+    dw = dwb.reshape(co, ci, s, s, kb_y, kb_x).permute(0, 1, 4, 2, 5, 3)
+    return dw.reshape(co, ci, kb_y * s, kb_x * s)[:, :, :kh, :kw]
+
+
+def split_plan(n: int, oh: int, ow: int, co: int, taps: int
+               ) -> Tuple[int, int]:
+    """``(splits, chunks per split)`` of the kernel's K range: enough
+    splits to give the grid ~_TARGET_BLOCKS blocks, none empty."""
+    chunks = n * -(-(oh * ow) // _BK)
+    tiles = -(-co // _BM) * -(-taps // _BN)
+    want = max(1, min(chunks, _TARGET_BLOCKS // tiles, 65535))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+def conv_wgrad_hwcn_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
+                           kw: int, stride: int, pad_y: int = 0,
+                           pad_x: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW (co, ci, kh, kw), db (co,))`` in float32 of the conv of
+    (N, C, H, W) x to (N, CO, OH, OW) dy.  A CUDA tensor goes through the
+    CUDA kernel (or raises); a CPU tensor through
+    :func:`conv_wgrad_plain`."""
+    if x.device.type == "cpu":
+        return conv_wgrad_plain(x, dy, kh, kw, stride, pad_y, pad_x)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_wgrad: no kernel for {x.device}")
+    if (x.dim() != 4 or dy.dim() != 4 or x.dtype not in build.DTYPE_CODES
+            or dy.dtype != x.dtype or dy.device != x.device
+            or not x.is_contiguous() or not dy.is_contiguous()):
+        raise ValueError(f"conv_wgrad: x {x.dtype} {tuple(x.shape)}, dy "
+                         f"{dy.dtype} {tuple(dy.shape)}: expected contiguous "
+                         "4-d float32 or bfloat16 tensors of one dtype")
+    n, c, h, w = x.shape
+    _, co, oh, ow = dy.shape
+    if (dy.shape[0] != n or oh != (h + 2 * pad_y - kh) // stride + 1
+            or ow != (w + 2 * pad_x - kw) // stride + 1):
+        raise ValueError(f"conv_wgrad: dy {tuple(dy.shape)} is not the "
+                         f"output of a {kh}x{kw} stride {stride} conv of "
+                         f"{tuple(x.shape)}")
+    taps = c * kh * kw
+    splits, per = split_plan(n, oh, ow, co, taps)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, co, taps), **f32)
+    part_b = torch.empty((splits, co), **f32)
+    dw = torch.empty((co, c, kh, kw), **f32)
+    db = torch.empty((co,), **f32)
+    err = build.LIBRARY.get().cxn_conv_wgrad(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), part_b.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), n, c, h, w, co, oh, ow, kh, kw, stride,
+        pad_y, pad_x, splits, per, build.DTYPE_CODES[x.dtype],
+        build.stream_handle(x.device))
+    build.check(err, "conv_wgrad")
+    conv_wgrad_hwcn_pallas.launches += 1
+    return dw, db
+
+
+#: launches of the CUDA kernel (not of the plain version)
+conv_wgrad_hwcn_pallas.launches = 0
+
+
+class ConvBiasFast(torch.autograd.Function):
+    """``conv2d(x, w) + b`` (ungrouped) with dW and db from one wgrad
+    (``mode`` ``hwcn``: :func:`conv_wgrad_hwcn_pallas`; ``s2d``: the
+    same function as :func:`wgrad_s2d` and a sum, as the JAX package's
+    default computes it with XLA), cast to w's dtype; dx through the
+    conv transpose, only when x needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride: int, pad_y: int, pad_x: int,
+                mode: str):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, pad_y, pad_x, mode)
+        out = F.conv2d(x, w.to(x.dtype), stride=stride,
+                       padding=(pad_y, pad_x))
+        return out + b.to(out.dtype).reshape(1, -1, 1, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, pad_y, pad_x, mode = ctx.args
+        dy = dy.contiguous()
+        co, ci, kh, kw = w.shape
+        if mode == "hwcn":
+            dw, db = conv_wgrad_hwcn_pallas(x.contiguous(), dy, kh, kw,
+                                            stride, pad_y, pad_x)
+        else:
+            dw = wgrad_s2d(x, dy, kh, kw, stride, pad_y, pad_x)
+            db = dy.float().sum(dim=(0, 2, 3))
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_input(x.shape, w.to(x.dtype), dy, stride=stride,
+                              padding=(pad_y, pad_x))
+        return dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None
+
+
+def conv_bias_fast(x, w, b, stride: int, pad_y: int, pad_x: int,
+                   mode: str = "hwcn"):
+    """Differentiable ungrouped conv + bias with the fast wgrad."""
+    return ConvBiasFast.apply(x, w, b, stride, pad_y, pad_x, mode)

@@ -17,8 +17,11 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from cxxnet_tpu_torch.ops import conv_wgrad as cw  # noqa: E402
 from cxxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from cxxnet_tpu_torch.ops import layernorm as ln  # noqa: E402
+from cxxnet_tpu_torch.ops import lrn  # noqa: E402
+from cxxnet_tpu_torch.ops import pool  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -32,6 +35,10 @@ F32_TOL, BF16_ROW_TOL = 1e-4, 2.0 ** -6
 # the row's denominator floored at 2^-10 of the tensor's largest value
 # (a query that attends only to itself has an exactly-zero gradient)
 BF16_GRAD_ROW_TOL, GRAD_ROW_FLOOR = 2.0 ** -5, 2.0 ** -10
+# conv wgrad (dW, db in float32 from either dtype): max |diff| / max |ref|;
+# both sides sum float32 products (exact for bf16 inputs) over N*OH*OW
+# positions in different orders
+WGRAD_TOL = 1e-3
 
 
 @pytest.fixture
@@ -261,3 +268,114 @@ def test_layernorm_function_backward_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert (ln.layernorm_fwd.launches - before[0],
             ln.layernorm_bwd.launches - before[1]) == (2, 2)
+
+
+# ------------------------------------------------------------ CNN kernels
+
+@pytest.mark.parametrize("shape,nsize,beta", [
+    ((4, 96, 27, 27), 5, 0.75),   # AlexNet lrn1 (batch cut)
+    ((2, 256, 13, 13), 5, 0.75),  # AlexNet lrn2
+    ((3, 7, 5, 9), 4, 0.75),      # even window: transposed backward
+    ((2, 16, 6, 6), 3, 0.6),      # pow path
+    ((1, 3, 2, 2), 7, 0.75),      # window wider than the channels
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_kernels_match_plain(cuda, shape, nsize, beta, dtype):
+    """LRN forward and backward against the plain versions (float32 at
+    1e-4, bf16 per row at 2^-6); the backward twice, bitwise equal."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(dtype)
+    g = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    args = (nsize, 0.01, beta, 1.0)
+    before = (lrn.lrn_fwd.launches, lrn.lrn_bwd.launches)
+    y = lrn.lrn_fwd(x, *args)
+    dx, again = lrn.lrn_bwd(x, g, *args), lrn.lrn_bwd(x, g, *args)
+    ref_y, ref_dx = lrn.lrn_fwd_plain(x, *args), lrn.lrn_bwd_plain(x, g,
+                                                                    *args)
+    torch.cuda.synchronize()
+    assert (lrn.lrn_fwd.launches - before[0],
+            lrn.lrn_bwd.launches - before[1]) == (1, 2)
+    assert torch.equal(dx, again) and y.dtype == dx.dtype == dtype
+    for got, ref in ((y, ref_y), (dx, ref_dx)):
+        if dtype == torch.float32:
+            assert _rel(got, ref) <= F32_TOL
+        else:
+            assert _row_rel(got, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("shape,geom", [
+    ((4, 96, 55, 55), (3, 3, 2, 0, 0)),   # AlexNet pool1 (batch cut)
+    ((2, 16, 13, 13), (3, 3, 2, 0, 0)),   # clipped tail
+    ((2, 8, 12, 12), (2, 2, 2, 0, 0)),    # non-overlapping
+    ((2, 8, 9, 10), (3, 2, 1, 1, 1)),     # padded, non-square
+    ((3, 5, 14, 14), (3, 3, 2, 0, 0)),    # MNIST_CONV pool
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_max_pool_kernels_match_plain_bitwise(cuda, shape, geom, dtype,
+                                              relu):
+    """Max pool forward and the all-ties backward (plain and relu-masked)
+    against the plain versions, bitwise in both dtypes: both sum each
+    input's windows in float32 in the same order.  The input has forced
+    ties (values rounded to a coarse grid) and negatives."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2).round()
+    x = (x / 2).to(dtype)
+    before = (pool.max_pool_fwd.launches, pool.max_pool_bwd.launches)
+    y = pool.max_pool_fwd(x, geom)
+    dy = torch.randn(y.shape, generator=cuda, device="cuda").to(dtype)
+    dx = pool.max_pool_bwd(x, y, dy, geom, relu)
+    again = pool.max_pool_bwd(x, y, dy, geom, relu)
+    torch.cuda.synchronize()
+    assert (pool.max_pool_fwd.launches - before[0],
+            pool.max_pool_bwd.launches - before[1]) == (1, 2)
+    assert torch.equal(y, pool.max_pool_fwd_plain(x, geom))
+    assert torch.equal(dx, again)
+    assert torch.equal(dx, pool.max_pool_bwd_plain(x, y, dy, geom, relu))
+
+
+@pytest.mark.parametrize("xshape,co,k,s,pad", [
+    ((8, 3, 227, 227), 96, 11, 4, 0),   # AlexNet conv1 (batch cut)
+    ((6, 1, 28, 28), 32, 3, 2, 1),      # MNIST_CONV conv1
+    ((3, 5, 17, 19), 70, 4, 3, 2),      # ragged tiles, padding
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_wgrad_kernel_matches_plain(cuda, xshape, co, k, s, pad, dtype):
+    """dW and db against the plain version from the same inputs, max
+    |diff| / max |ref| within WGRAD_TOL (float32 sums of up to ~10^5
+    terms in another order); twice, bitwise equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(xshape, generator=cuda, device="cuda").to(dtype)
+    oh = (xshape[2] + 2 * pad - k) // s + 1
+    ow = (xshape[3] + 2 * pad - k) // s + 1
+    dy = torch.randn((xshape[0], co, oh, ow), generator=cuda,
+                     device="cuda").to(dtype)
+    before = cw.conv_wgrad_hwcn_pallas.launches
+    got = cw.conv_wgrad_hwcn_pallas(x, dy, k, k, s, pad, pad)
+    again = cw.conv_wgrad_hwcn_pallas(x, dy, k, k, s, pad, pad)
+    ref = cw.conv_wgrad_plain(x, dy, k, k, s, pad, pad)
+    torch.cuda.synchronize()
+    assert cw.conv_wgrad_hwcn_pallas.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].shape == (co, xshape[1], k, k) and got[1].shape == (co,)
+    assert _rel(got[0], ref[0]) <= WGRAD_TOL
+    assert _rel(got[1], ref[1]) <= WGRAD_TOL
+
+
+def test_cnn_functions_backward_through_the_kernels(cuda):
+    """autograd through the LRN, pool (plain and relu-fused) and
+    conv-bias Functions launches each kernel once."""
+    from cxxnet_tpu_torch.ops.conv_wgrad import conv_bias_fast
+    x = torch.randn((2, 3, 31, 31), generator=cuda, device="cuda")
+    w = (torch.randn((8, 3, 7, 7), generator=cuda, device="cuda") * 0.1
+         ).requires_grad_()
+    b = torch.zeros((8,), device="cuda", requires_grad=True)
+    counts = lambda: (lrn.lrn_fwd.launches, lrn.lrn_bwd.launches,
+                      pool.max_pool_fwd.launches, pool.max_pool_bwd.launches,
+                      cw.conv_wgrad_hwcn_pallas.launches)
+    before = counts()
+    h = conv_bias_fast(x, w, b, 3, 1, 1, "hwcn")
+    h = pool.max_pool_relu_hwcn(h, 3, 3, 2)
+    h = pool.max_pool_hwcn(lrn.lrn_pallas(h, 5, 1e-3, 0.75, 1.0), 2, 2, 1)
+    h.square().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 2, 2, 1)
+    assert w.grad is not None and b.grad is not None

@@ -253,11 +253,16 @@ def test_config_netconfig_and_engine_options_match_jax():
 
 @pytest.mark.parametrize("key,val", [("fused_update", "1"),
                                      ("dp_overlap", "1"),
-                                     ("pool_layout", "hwcn"),
+                                     ("pool_layout", "chwn"),
+                                     ("pool_bwd", "auto"),
+                                     ("pallas_lrn", "hwcn"),
+                                     ("fast_wgrad", "pallas"),
+                                     ("group_conv", "split"),
+                                     ("conv1_fwd", "s2d"),
                                      ("dp_bucket_mb", "8")])
 def test_unported_engine_options_are_refused(monkeypatch, key, val):
-    """A key whose kernel is not ported takes only its default: another
-    value, from a conf or from the environment, raises."""
+    """A key or value whose kernel is not ported is refused: from a
+    conf or from the environment, it raises."""
     from cxxnet_tpu_torch import engine as tengine
     opts = tengine.EngineOptions()
     opts.set(key, tengine._DEFS[key][1])

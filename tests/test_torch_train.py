@@ -479,7 +479,7 @@ def test_cli_train_matches_jax_cli_and_loads_in_jax(tmp_path):
 
 @pytest.mark.parametrize("key,val", [("fused_update", "1"),
                                      ("rollback", "2"),
-                                     ("eval_train", "1"),
+                                     ("sentinel", "1"),
                                      ("mesh", "data:2")])
 def test_unported_train_keys_are_refused(tmp_path, key, val):
     """Each key of the JAX train loop that the port does not implement
