@@ -41,7 +41,20 @@ Phases (any failure raises and exits non-zero):
 8. MNIST_CONV path: example/MNIST/MNIST_CONV.conf over
    tools/make_synth_mnist.py data for 4 rounds under ``pool_layout =
    hwcn fast_wgrad = hwcn``: the test error falls below half of its
-   first round's.
+   first round's; the last round's snapshot is kept;
+9. fused train path: the packed LM of phase 5 under ``fused_update =
+   1`` over the same corpus: the first loss bitwise equal to phase 5's,
+   the later ones within 1e-2, one fused adam launch per admitted tensor
+   per step, and the update's time fused and unfused;
+10. AlexNet (H, W, C, N) path: ImageNet.conf as in phase 7 but under
+   ``pallas_lrn = hwcn fast_wgrad = pallas``, one round of 10 steps: per
+   step 2 (H, W, C, N) LRN forward and backward and one space-to-depth
+   conv1 wgrad launch, and none of the NCHW LRN or the strided wgrad;
+11. CNN inference path: ``task = pred``, ``pred_raw``, ``extract`` (text
+   and binary) from phase 8's snapshot through example/MNIST/MNIST_pred.conf
+   (its predictions' error equals the last round's test error, the raw
+   rows sum to 1, the feature rows have the ``.meta`` width), with their
+   per-batch latencies, and one round of ``task = finetune`` from it.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -101,7 +114,8 @@ DOC_LENS = (64, 4096)       # training document lengths
 LN_EPS = 1e-5
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
-              "train_unpacked", "alexnet", "mnist_conv"}
+              "train_unpacked", "alexnet", "mnist_conv", "train_fused",
+              "alexnet_hwcn", "cnn_infer"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -125,6 +139,11 @@ KERNELS = {
     "max_pool_bwd": ("pool", "max_pool_bwd", "max_pool.cu", 648),
     "conv_wgrad": ("conv_wgrad", "conv_wgrad_hwcn_pallas", "conv_wgrad.cu",
                    830),
+    "lrn_hwcn_fwd": ("lrn", "lrn_hwcn_fwd", "lrn.cu", 352),
+    "lrn_hwcn_bwd": ("lrn", "lrn_hwcn_bwd", "lrn.cu", 352),
+    "conv_wgrad_s2d": ("conv_wgrad", "conv_wgrad_s2d_pallas", "conv_wgrad.cu",
+                       927),
+    "fused_adam": ("fused_adam", "fused_adam_pallas", "fused_adam.cu", 1860),
 }
 
 # the CNN paths: ImageNet.conf as the slice runs it, per-step launches
@@ -134,7 +153,23 @@ ALEXNET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
 ALEXNET_STEPS = 30
 ALEXNET_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "max_pool_fwd": 3,
                     "max_pool_bwd": 3, "conv_wgrad": 1}
+# the same net through the (H, W, C, N) LRN and the space-to-depth wgrad
+ALEXNET_HWCN_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
+                     "num_round=1", "pool_layout=hwcn", "pool_relu_fuse=1",
+                     "pallas_lrn=hwcn", "fast_wgrad=pallas", "save_model=0")
+ALEXNET_HWCN_STEPS = 10
+ALEXNET_HWCN_PER_STEP = {"lrn_hwcn_fwd": 2, "lrn_hwcn_bwd": 2,
+                         "max_pool_fwd": 3, "max_pool_bwd": 3,
+                         "conv_wgrad_s2d": 1}
 MNIST_ROUNDS = 4
+#: the MNIST_CONV node whose values task = extract writes (se1's output)
+EXTRACT_NODE, EXTRACT_WIDTH = "5", 100
+#: fused adam (m1, m2, the master): rtol 1e-5, atol 1e-7, as the JAX
+#: package holds its two lowerings (nvcc contracts multiply-adds into FMAs)
+ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-7
+#: train_fused against train: the first loss bitwise, the later ones
+#: within this relative difference
+FUSED_LOSS_TOL = 1e-2
 #: conv wgrad (float32 dW, db from either dtype): max |diff| / max |ref|;
 #: both sides sum float32 products (exact for bf16 inputs) over up to
 #: 774,400 positions, in different orders
@@ -719,6 +754,224 @@ def phase_cnn_kernels():
     return out
 
 
+def bf16_within_step(p, p_ref, w, w_ref) -> bool:
+    """Each bf16 param within one bf16 step (2^-7 of its magnitude) of the
+    plain one, plus the masters' difference (both are roundings of
+    masters a few float32 ulps apart, which decides a param near 0)."""
+    import torch
+    p, p_ref = p.float(), p_ref.float()
+    tol = torch.maximum(p.abs(), p_ref.abs()) * 2.0 ** -7 + (w - w_ref).abs()
+    return bool((((p - p_ref).abs() <= tol) | (p.isnan() & p_ref.isnan()))
+                .all())
+
+
+def phase_last_kernels():
+    """Rows 13, 2 and 6 against their plain versions at their main paths'
+    shapes.  The fused adam at the LM's largest tensor (2048 x 8192, bf16
+    param, float32 state), three chained steps with wd = 0, clip = 0 (the
+    train_fused path's hyper-parameters) and with wd, clip > 0 and planted
+    NaNs: m1, m2 and the master within ADAM_RTOL / ADAM_ATOL, the param
+    the rounding of the kernel's own master and within one bf16 step of
+    the plain one.  The (H, W, C, N) LRN forward and backward at AlexNet's
+    lrn1 (27, 27, 96, 256) and lrn2 (13, 13, 256, 256), and the
+    space-to-depth wgrad at conv1 and MNIST_CONV's conv1, bf16 and
+    float32 (the wgrad also against row 5's kernel).  Every backward runs
+    twice, bitwise equal.  Times at the LM tensor, lrn1 and conv1, with
+    the (H, W, C, N) permutes and the s2d rearrangement timed apart;
+    returns the numbers of the timed runs (bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+    from cxxnet_tpu_torch.ops import conv_wgrad as cw
+    from cxxnet_tpu_torch.ops import fused_adam as fu
+    from cxxnet_tpu_torch.ops import lrn
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    out = {}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    # row 13: fused adam
+    shape = (DIM, VOCAB)
+    n = DIM * VOCAB
+    for wd, clip in ((0.0, 0.0), (5e-4, 1.0)):
+        w = randn(shape, torch.float32, 0.02)
+        state = [w.to(torch.bfloat16), torch.zeros_like(w),
+                 torch.zeros_like(w), w.clone()]
+        ref = [t.clone() for t in state]
+        err = 0.0
+        for step in range(3):
+            g = randn(shape, torch.bfloat16, 1e-3)
+            if clip:
+                g.view(-1)[:4] = torch.tensor(
+                    [float("nan"), 5.0, -5.0, float("nan")], device=dev,
+                    dtype=torch.bfloat16)
+            args = (1e-3 * (step + 1), 0.1, 0.001, wd, clip)
+            fu.fused_adam_pallas(g, *state[1:], args[0], d1=args[1],
+                                 d2=args[2], wd=wd, clip=clip, out=state[0])
+            ref = list(fu.fused_adam_plain(g, *ref[1:], *args))
+            torch.cuda.synchronize()
+            for name, got, want in zip(("m1", "m2", "w32"), state[1:],
+                                       ref[1:]):
+                bad = ~torch.isclose(got, want, rtol=ADAM_RTOL,
+                                     atol=ADAM_ATOL)
+                if bad.any() or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"fused_adam wd {wd} clip {clip} step {step}: {name}"
+                        f" off its plain version at {int(bad.sum())} places")
+            if not torch.equal(state[0], state[3].to(torch.bfloat16)):
+                raise AssertionError("fused_adam: the bf16 param is not the "
+                                     "rounding of its master")
+            if not bf16_within_step(state[0], ref[0], state[3], ref[3]):
+                raise AssertionError(f"fused_adam wd {wd} clip {clip}: the "
+                                     "param is off by more than a bf16 step")
+            err = max(err, float((state[3] - ref[3]).abs().max()))
+            differ = sum(int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+                         for a, b in zip(state, ref))
+        note = ""
+        times = None
+        if not wd:
+            g = randn(shape, torch.bfloat16, 1e-3)
+            run = lambda: fu.fused_adam_pallas(g, *state[1:], 1e-3, d1=0.1,
+                                               d2=0.001, out=state[0])
+            plain = lambda: fu.fused_adam_plain(g, *state[1:], 1e-3, 0.1,
+                                                0.001)
+            times = (time_ms(run, reps=20), time_ms(plain, reps=5))
+            bnd = bound(15.0 * n, 28.0 * n, "float32")
+            out["fused_adam"] = dict(max_abs_err=err, ms=times[0],
+                                     plain_ms=times[1], library_ms=None,
+                                     **bnd)
+            note = (f"; kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, "
+                    f"library none, bound {bnd['bound_ms']:.4f} ms "
+                    f"({bnd['bound_by']})")
+        log(f"fused_adam {shape} wd {wd} clip {clip}, 3 steps: m1 / m2 / "
+            f"master within rtol {ADAM_RTOL:g} atol {ADAM_ATOL:g}, param "
+            f"within a bf16 step; master abs err {err:.3e}; {differ} of "
+            f"{4 * n} outputs of the last step not bitwise equal to the "
+            f"plain version's{note}")
+        del w, state, ref, g
+    torch.cuda.empty_cache()
+    lrn_args = (5, 0.001, 0.75, 1.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        isz = 2 if bf16 else 4
+        tol = BF16_ROW_TOL if bf16 else F32_TOL
+        # row 2: the (H, W, C, N) LRN, rows along N
+        for nchw in ((256, 96, 27, 27), (256, 256, 13, 13)):
+            x = randn(nchw, dtype, 8.0)
+            xt = x.permute(lrn.TO_HWCN).contiguous()
+            gt = randn(xt.shape, dtype)
+            timed = bf16 and nchw[1] == 96
+            fwd = lambda: lrn.lrn_hwcn_fwd(xt, *lrn_args)
+            plain = lambda: lrn.lrn_hwcn_fwd_plain(xt, *lrn_args)
+            got, ref = fwd(), plain()
+            (dx,) = _run_twice("lrn_hwcn_bwd",
+                               lambda: (lrn.lrn_hwcn_bwd(xt, gt, *lrn_args),))
+            dref = lrn.lrn_hwcn_bwd_plain(xt, gt, *lrn_args)
+            torch.cuda.synchronize()
+            errs = [row_rel_err(a, b) if bf16 else rel_err(a, b)
+                    for a, b in ((got, ref), (dx, dref))]
+            abs_errs = [float((a.float() - b.float()).abs().max())
+                        for a, b in ((got, ref), (dx, dref))]
+            note = ""
+            if timed:
+                numel = x.numel()
+                g = gt.permute(lrn.FROM_HWCN)
+                xx = x.detach().requires_grad_()
+                yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
+                bwd = lambda: lrn.lrn_hwcn_bwd(xt, gt, *lrn_args)
+                t_fwd = (time_ms(fwd, reps=20), time_ms(plain, reps=5),
+                         time_ms(lambda: F.local_response_norm(
+                             x, 5, 0.001, 0.75, 1.0), reps=20))
+                t_bwd = (time_ms(bwd, reps=20),
+                         time_ms(lambda: lrn.lrn_hwcn_bwd_plain(
+                             xt, gt, *lrn_args), reps=5),
+                         time_ms(lambda: torch.autograd.grad(
+                             yy, xx, g, retain_graph=True), reps=20))
+                t_perm = time_ms(lambda: x.permute(lrn.TO_HWCN).contiguous(),
+                                 reps=20)
+                for kname, t, flops, nbytes, e in (
+                        ("lrn_hwcn_fwd", t_fwd, 14.0, 2, abs_errs[0]),
+                        ("lrn_hwcn_bwd", t_bwd, 30.0, 3, abs_errs[1])):
+                    out[kname] = dict(max_abs_err=e, ms=t[0], plain_ms=t[1],
+                                      library_ms=t[2],
+                                      **bound(flops * numel,
+                                              nbytes * numel * isz,
+                                              "float32"))
+                note = (f"; fwd kernel {t_fwd[0]:.4f} ms, plain "
+                        f"{t_fwd[1]:.4f} ms, library {t_fwd[2]:.4f} ms, "
+                        f"bound {out['lrn_hwcn_fwd']['bound_ms']:.4f} ms; "
+                        f"bwd kernel {t_bwd[0]:.4f} ms, plain {t_bwd[1]:.4f}"
+                        f" ms, library {t_bwd[2]:.4f} ms, bound "
+                        f"{out['lrn_hwcn_bwd']['bound_ms']:.4f} ms; one "
+                        f"NCHW <-> (H, W, C, N) permute {t_perm:.4f} ms "
+                        "(the path makes 2 a forward, 3 a backward)")
+            log(f"lrn_hwcn {tuple(xt.shape)} {name}: errors fwd {errs[0]:.3e}"
+                f", bwd {errs[1]:.3e} (tol {tol:g}); abs err "
+                f"{max(abs_errs):.3e}; bwd bitwise repeatable{note}")
+            if not max(errs) <= tol:
+                raise AssertionError(f"lrn_hwcn {name} {tuple(xt.shape)} "
+                                     f"disagrees with its plain version: "
+                                     f"{errs}")
+            del x, xt, gt, got, ref, dx, dref
+        torch.cuda.empty_cache()
+        # row 6: the space-to-depth wgrad, also against row 5's kernel
+        for xshape, co, k, st, pad in (((256, 3, 227, 227), 96, 11, 4, 0),
+                                       ((100, 1, 28, 28), 32, 3, 2, 1)):
+            x = torch.rand(xshape, generator=gen, device=dev).to(dtype)
+            oh = (xshape[2] + 2 * pad - k) // st + 1
+            dy = randn((xshape[0], co, oh, oh), dtype)
+            args = (k, k, st, pad, pad)
+            run = lambda: cw.conv_wgrad_s2d_pallas(x, dy, *args)
+            got = _run_twice("conv_wgrad_s2d", run)
+            refs = (cw.conv_wgrad_s2d_plain(x, dy, *args),
+                    cw.conv_wgrad_hwcn_pallas(x, dy, *args))
+            errs = [max(rel_err(got[0], r[0]), rel_err(got[1], r[1]))
+                    for r in refs]
+            abs_err = max(float((a - b).abs().max())
+                          for a, b in zip(got, refs[0]))
+            note = ""
+            if bf16 and xshape[1] == 3:
+                wshape = (co, xshape[1], k, k)
+                kb = -(-k // st)
+                cs = xshape[1] * st * st
+                hb = oh - 1 + kb
+                times = (time_ms(run, reps=10),
+                         time_ms(lambda: cw.conv_wgrad_s2d_plain(x, dy, *args),
+                                 reps=5),
+                         time_ms(lambda: (conv2d_weight(x, wshape, dy,
+                                                        stride=st),
+                                          dy.sum((0, 2, 3))), reps=10))
+                t_s2d = time_ms(lambda: cw.s2d_input(x, st, k, k, oh, oh,
+                                                     pad, pad), reps=10)
+                positions = xshape[0] * oh * oh
+                bnd = bound(2.0 * positions * co * cs * kb * kb
+                            + positions * co,
+                            (xshape[0] * cs * hb * hb + dy.numel()) * isz
+                            + (co * cs * kb * kb + co) * 4, name)
+                out["conv_wgrad_s2d"] = dict(max_abs_err=abs_err,
+                                             ms=times[0], plain_ms=times[1],
+                                             library_ms=times[2], **bnd)
+                note = (f"; kernel (s2d, wgrad, fold) {times[0]:.4f} ms, of "
+                        f"which the s2d rearrangement {t_s2d:.4f} ms; plain "
+                        f"{times[1]:.4f} ms, library {times[2]:.4f} ms, "
+                        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            log(f"conv_wgrad_s2d {(xshape, co, k, st, pad)} {name}: error "
+                f"{errs[0]:.3e} vs its plain version, {errs[1]:.3e} vs row "
+                f"5's kernel (tol {WGRAD_TOL:g}); abs err {abs_err:.3e}; "
+                f"bitwise repeatable{note}")
+            if not max(errs) <= WGRAD_TOL:
+                raise AssertionError(f"conv_wgrad_s2d {name} {xshape} "
+                                     f"disagrees: {errs}")
+            del x, dy, got, refs
+        torch.cuda.empty_cache()
+    return out
+
+
 def write_inputs(tmp: str) -> str:
     """A seeded flagship ``.model``, a shard of N_PROMPTS prompt
     documents of seeded lengths and the serve conf (one request per
@@ -875,18 +1128,26 @@ def phrase_docs(rng, n_tokens: int, lens) -> list:
     return docs
 
 
-def phase_train(tmp: str, packed: bool, profile: bool = False) -> dict:
+def phase_train(tmp: str, packed: bool, profile: bool = False,
+                fused_vs: list = None) -> tuple:
     """``task = train`` through the port's CLI: the packed flagship at
     full depth (documents of seeded lengths, segment ids, per-document
     positions, masked boundary targets), or the unpacked one at depth
-    UNPACKED_LAYERS (one long document, no segment ids).  Returns the
-    path's launch counts.  ``profile`` traces the whole run with
-    ``torch.profiler`` and prints where its device time goes."""
+    UNPACKED_LAYERS (one long document, no segment ids).  ``fused_vs``
+    (the packed path's losses) runs the packed path again under
+    ``fused_update = 1`` and holds its losses to those; it then times the
+    update of every parameter fused and unfused on the trained state.
+    Returns the path's launch counts and losses.  ``profile`` traces the
+    whole run with ``torch.profiler`` and prints where its device time
+    goes."""
     import torch
     from cxxnet_tpu_torch.io.text import write_token_shard
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.models import transformer
-    label = "train" if packed else "train_unpacked"
+    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
+    fused = fused_vs is not None
+    label = ("train_fused" if fused else "train") if packed \
+        else "train_unpacked"
     nlayer = NLAYER if packed else UNPACKED_LAYERS
     steps = TRAIN_STEPS if packed else UNPACKED_STEPS
     n_tok = steps * TRAIN_BATCH * SEQ + 1
@@ -915,6 +1176,7 @@ updater = adam
 eta = {TRAIN_ETA}
 flash_attn = 1
 pallas_ln = 1
+fused_update = {int(fused)}
 num_round = 1
 print_step = 1
 eval_train = 0
@@ -969,6 +1231,25 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
                 "flash_attention_seg_bwd": nlayer,
                 "layernorm_fwd": 2 * nlayer + 1,
                 "layernorm_bwd": 2 * nlayer + 1}
+        tr = task.net
+        admitted = sum(fused_adam_supported(p) for g in tr.params.values()
+                       for p in g.values())
+        ntensor = sum(len(g) for g in tr.params.values())
+        if launches["fused_adam"] != (admitted * steps if fused else 0):
+            raise AssertionError(
+                f"{label}: {launches['fused_adam']} fused adam launches for "
+                f"{admitted} admitted tensors (of {ntensor}) x {steps} steps")
+        if fused:
+            diffs = [abs(a - b) / abs(b) for a, b in zip(losses, fused_vs)]
+            log(f"{label}: {admitted} of {ntensor} tensors "
+                f"({sum(p.numel() for g in tr.params.values() for p in g.values() if fused_adam_supported(p)) / 1e9:.3f} B "
+                f"parameters) fused; losses against train's: first "
+                f"{'bitwise equal' if losses[0] == fused_vs[0] else 'DIFFER'}"
+                f", relative differences {[f'{d:.2e}' for d in diffs]}")
+            if losses[0] != fused_vs[0] or max(diffs) > FUSED_LOSS_TOL:
+                raise AssertionError(f"{label}: losses {losses} leave train's"
+                                     f" {fused_vs} (tol {FUSED_LOSS_TOL})")
+            time_update(tr)
     else:
         want = {"flash_attention_fwd": nlayer, "flash_attention_bwd": nlayer,
                 "layernorm_fwd": 2 * nlayer + 1,
@@ -979,22 +1260,52 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
                              f"{want}: a layer did not run its kernel")
     del task
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
-def phase_alexnet(tmp: str, profile: bool = False) -> dict:
+def time_update(tr) -> None:
+    """The ``train_update`` work of one step (the updater on every
+    parameter) on a trained LM's state, with seeded bf16 gradients, under
+    ``fused_update = 1`` and ``0`` alike: CUDA-event medians, in one
+    process, one after the other."""
+    import torch
+    gen = torch.Generator(device=tr.device)
+    gen.manual_seed(9)
+    grads = {k: {t: (torch.randn(p.shape, generator=gen, device=tr.device)
+                     * 1e-3).to(p.dtype) for t, p in g.items()}
+             for k, g in tr.params.items()}
+    times = {}
+    for mode in ("1", "0", "1"):
+        tr.opts.set("fused_update", mode)
+        times.setdefault(mode, []).append(time_ms(
+            lambda: tr.apply_update(grads, tr.epoch_counter), reps=5))
+    log(f"train_update (every parameter, one step): fused "
+        f"{' / '.join(f'{t:.2f}' for t in times['1'])} ms, unfused "
+        f"{times['0'][0]:.2f} ms")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def phase_alexnet(tmp: str, profile: bool = False, hwcn: bool = False
+                  ) -> dict:
     """``task = train`` of example/ImageNet/ImageNet.conf through the
     port's CLI with ALEXNET_ARGS: AlexNet at batch 256 in bf16 on
-    seeded synthetic batches held on the card, 3 rounds of 10 steps.
-    Every loss must be finite and every step must launch the CNN kernels
-    ALEXNET_PER_STEP times (one of the three pool backwards relu-masked:
-    pool1's, whose conv keeps its bias for the fused wgrad).  Prints the
-    step p50 and images/s; returns the path's launch counts."""
+    seeded synthetic batches held on the card, 3 rounds of 10 steps
+    (``hwcn``: ALEXNET_HWCN_ARGS, one round).  Every loss must be finite
+    and every step must launch the CNN kernels ALEXNET_PER_STEP
+    (ALEXNET_HWCN_PER_STEP) times and no other (one of the three pool
+    backwards relu-masked: pool1's, whose conv keeps its bias for the
+    fused wgrad).  Prints the step p50 and images/s; returns the path's
+    launch counts."""
     import torch
     from cxxnet_tpu_torch.main import LearnTask
+    label = "alexnet_hwcn" if hwcn else "alexnet"
+    nsteps = ALEXNET_HWCN_STEPS if hwcn else ALEXNET_STEPS
+    per_step = ALEXNET_HWCN_PER_STEP if hwcn else ALEXNET_PER_STEP
     conf = os.path.join(REPO, "example", "ImageNet", "ImageNet.conf")
-    args = list(ALEXNET_ARGS) + [f"model_dir={tmp}/alexnet", "silent=1"]
-    log(f"alexnet: ImageNet.conf {' '.join(args)}")
+    args = list(ALEXNET_HWCN_ARGS if hwcn else ALEXNET_ARGS) + [
+        f"model_dir={tmp}/{label}", "silent=1"]
+    log(f"{label}: ImageNet.conf {' '.join(args)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1017,28 +1328,29 @@ def phase_alexnet(tmp: str, profile: bool = False) -> dict:
     st = task.last_train
     if prof is not None and st is not None:
         report_profile(prof.events(), st["step_ms"])
-    if rc != 0 or st is None or st["steps"] != ALEXNET_STEPS:
-        raise AssertionError(f"alexnet: CLI returned {rc} after "
+    if rc != 0 or st is None or st["steps"] != nsteps:
+        raise AssertionError(f"{label}: CLI returned {rc} after "
                              f"{None if st is None else st['steps']} steps")
     losses = st["losses"]
-    log(f"alexnet: {ALEXNET_STEPS} steps, losses {losses[0]:.4f} .. "
+    log(f"{label}: {nsteps} steps, losses {losses[0]:.4f} .. "
         f"{losses[-1]:.4f} (min {min(losses):.4f}, max {max(losses):.4f});"
         f" step p50 {st['step_p50_ms']:.2f} ms (steps after the first) = "
         f"{st['examples_per_sec']:.1f} images/s; first step "
         f"{st['step_ms'][0]:.1f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; CLI wall "
         f"{wall:.1f} s")
-    log(f"alexnet path launches: {launches}, relu-masked pool backward "
+    log(f"{label} path launches: {launches}, relu-masked pool backward "
         f"{relu}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"alexnet: non-finite loss {losses}")
-    want = {n: ALEXNET_PER_STEP.get(n, 0) * ALEXNET_STEPS for n in KERNELS}
-    if launches != want or relu != ALEXNET_STEPS:
-        raise AssertionError(f"alexnet: launches {launches} (relu-masked "
-                             f"{relu}), expected {want} ({ALEXNET_STEPS} "
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    want = {n: per_step.get(n, 0) * nsteps for n in KERNELS}
+    if launches != want or relu != nsteps:
+        raise AssertionError(f"{label}: launches {launches} (relu-masked "
+                             f"{relu}), expected {want} ({nsteps} "
                              "relu-masked)")
-    snap = os.path.join(tmp, "alexnet", "0003.model")
-    log(f"alexnet: snapshot {os.path.getsize(snap) / 2 ** 20:.1f} MiB")
+    if not hwcn:
+        snap = os.path.join(tmp, "alexnet", "0003.model")
+        log(f"alexnet: snapshot {os.path.getsize(snap) / 2 ** 20:.1f} MiB")
     del task
     torch.cuda.empty_cache()
     return launches
@@ -1066,7 +1378,7 @@ def phase_mnist_conv(tmp: str) -> dict:
     args = ["dev=gpu", f"num_round={MNIST_ROUNDS}",
             f"max_round={MNIST_ROUNDS}", "pool_layout=hwcn",
             "fast_wgrad=hwcn", f"model_dir={tmp}/mnist_models",
-            "save_model=0", "silent=1"]
+            f"save_model={MNIST_ROUNDS}", "silent=1"]
     log(f"mnist_conv: MNIST_CONV.conf {' '.join(args)}")
     reset_launches()
     task = LearnTask()
@@ -1091,6 +1403,108 @@ def phase_mnist_conv(tmp: str) -> dict:
             and launches["max_pool_fwd"] > steps):
         raise AssertionError(f"mnist_conv: launches {launches} for "
                              f"{steps} steps")
+    del task
+    torch.cuda.empty_cache()
+    return launches, test[-1]
+
+
+def read_mnist_labels(path: str) -> np.ndarray:
+    import gzip
+    with gzip.open(path, "rb") as f:
+        return np.frombuffer(f.read()[8:], np.uint8)
+
+
+def phase_cnn_infer(tmp: str, test_error: float) -> dict:
+    """``task = pred``, ``pred_raw`` and ``extract`` (text, then binary)
+    through the port's CLI and example/MNIST/MNIST_pred.conf from the
+    mnist_conv phase's last snapshot, under ``pool_layout = hwcn``, then
+    one round of ``task = finetune`` from it with MNIST_CONV.conf.  The
+    predictions' error against the test labels must equal that round's
+    ``test_error``; every raw row sums to 1 within 1e-5; the features
+    have the ``.meta`` width, and the binary rows equal the text rows to
+    their printed digits; finetune copies every layer and trains a finite
+    round.  Prints each task's per-batch latency; returns the path's
+    launch counts."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    data = os.path.join(tmp, "mnist")
+    snap = os.path.join(tmp, "mnist_models", f"{MNIST_ROUNDS:04d}.model")
+    text = open(os.path.join(REPO, "example", "MNIST",
+                             "MNIST_pred.conf")).read()
+    conf = os.path.join(tmp, "mnist_pred.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/")
+                .replace("dev = cpu", "dev = gpu")
+                .replace("pred = out.txt", f"pred = {tmp}/pred_out"))
+    out = os.path.join(tmp, "pred_out")
+    base = [conf, f"model_in={snap}", "input_flat=0", "pool_layout=hwcn",
+            "silent=1"]
+    labels = read_mnist_labels(os.path.join(data,
+                                            "t10k-labels-idx1-ubyte.gz"))
+    reset_launches()
+    results = {}
+    for task_name, extra in (
+            ("pred", []), ("pred_raw", []),
+            ("extract", [f"extract_node_name={EXTRACT_NODE}",
+                         "output_format=txt"]),
+            ("extract_bin", [f"extract_node_name={EXTRACT_NODE}",
+                             "output_format=bin"])):
+        task = LearnTask()
+        t0 = time.perf_counter()
+        rc = task.run(base + [f"task={task_name.split('_bin')[0]}"] + extra)
+        wall = time.perf_counter() - t0
+        op = "extract" if task_name.startswith("extract") else "pred"
+        lat = task.net.metrics.histograms[f"{op}_latency_sec"].summary()
+        if rc != 0:
+            raise AssertionError(f"cnn_infer: task = {task_name} returned "
+                                 f"{rc}")
+        log(f"cnn_infer {task_name}: {int(lat['count'])} batches, latency "
+            f"p50 {lat['p50'] * 1e3:.3f} ms, p99 {lat['p99'] * 1e3:.3f} ms,"
+            f" mean {lat['mean'] * 1e3:.3f} ms; CLI wall {wall:.1f} s")
+        if task_name == "extract_bin":
+            meta = int(open(out + ".meta").read())
+            results[task_name] = np.fromfile(out, "<f4").reshape(-1, meta)
+        else:
+            results[task_name] = np.loadtxt(out, np.float32, ndmin=2)
+        del task
+    pred = results["pred"][:, 0]
+    err = float(np.mean(pred != labels[:pred.size]))
+    raw = results["pred_raw"]
+    sums = np.abs(raw.sum(1) - 1.0).max()
+    ext, ext_bin = results["extract"], results["extract_bin"]
+    log(f"cnn_infer: {pred.size} predictions, error {err:.6f} (the last "
+        f"round's test-error {test_error:.6f}); pred_raw {raw.shape}, max "
+        f"|row sum - 1| {sums:.2e}; extract node {EXTRACT_NODE}: text "
+        f"{ext.shape}, binary {ext_bin.shape}")
+    if pred.size != labels.size or abs(err - test_error) > 1e-9:
+        raise AssertionError(f"cnn_infer: pred error {err} != test-error "
+                             f"{test_error}")
+    if raw.shape != (labels.size, 10) or sums > 1e-5:
+        raise AssertionError(f"cnn_infer: pred_raw rows {raw.shape}, sums "
+                             f"off by {sums}")
+    if (meta != EXTRACT_WIDTH or ext.shape != (labels.size, EXTRACT_WIDTH)
+            or ext_bin.shape != ext.shape
+            or not np.allclose(ext, ext_bin, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"cnn_infer: extract rows {ext.shape} / "
+                             f"{ext_bin.shape}, width {EXTRACT_WIDTH}")
+    task = LearnTask()
+    rc = task.run([os.path.join(tmp, "mnist_conv.conf"), "dev=gpu",
+                   "task=finetune", f"model_in={snap}", "num_round=1",
+                   "max_round=1", "pool_layout=hwcn", "fast_wgrad=hwcn",
+                   f"model_dir={tmp}/finetune", "save_model=0", "silent=1"])
+    st = task.last_train
+    copied = task.net.copied_layers
+    log(f"cnn_infer finetune: copied layers {copied}; {st['steps']} steps, "
+        f"losses {st['losses'][0]:.4f} .. {st['losses'][-1]:.4f}, evals "
+        f"{st['evals']}")
+    if rc != 0 or copied != ["cv1", "fc1", "fc2"] or not st["steps"] \
+            or not all(np.isfinite(st["losses"])):
+        raise AssertionError(f"cnn_infer: finetune returned {rc}, copied "
+                             f"{copied}")
+    launches = read_launches()
+    log(f"cnn_infer path launches: {launches}")
+    if launches["max_pool_fwd"] < 1 or launches["conv_wgrad"] != st["steps"]:
+        raise AssertionError(f"cnn_infer: launches {launches}")
     del task
     torch.cuda.empty_cache()
     return launches
@@ -1166,9 +1580,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                     help="comma-separated subset of the phases")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the packed train and the alexnet phases "
-                         "with torch.profiler and print where the time "
-                         "goes")
+                    help="trace the packed train, train_fused, alexnet "
+                         "and alexnet_hwcn phases with torch.profiler and "
+                         "print where the time goes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1186,6 +1600,7 @@ def main() -> int:
         numbers.update(phase_kernels())
         numbers.update(phase_train_kernels())
         numbers.update(phase_cnn_kernels())
+        numbers.update(phase_last_kernels())
     paths = {}
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
         if "serve" in phases:
@@ -1193,14 +1608,27 @@ def main() -> int:
             if "consistency" in phases:
                 phase_consistency(task)
             del task
+        train_losses = None
         for name, packed in (("train", True), ("train_unpacked", False)):
             if name in phases:
-                paths[name] = phase_train(tmp, packed,
-                                          args.profile and packed)
+                paths[name], losses = phase_train(tmp, packed,
+                                                  args.profile and packed)
+                if packed:
+                    train_losses = losses
+        if "train_fused" in phases:
+            if train_losses is None:
+                raise SystemExit("train_fused needs the train phase")
+            paths["train_fused"], _ = phase_train(
+                tmp, True, args.profile, fused_vs=train_losses)
         if "alexnet" in phases:
             paths["alexnet"] = phase_alexnet(tmp, args.profile)
+        if "alexnet_hwcn" in phases:
+            paths["alexnet_hwcn"] = phase_alexnet(tmp, args.profile,
+                                                  hwcn=True)
         if "mnist_conv" in phases:
-            paths["mnist_conv"] = phase_mnist_conv(tmp)
+            paths["mnist_conv"], test_error = phase_mnist_conv(tmp)
+            if "cnn_infer" in phases:
+                paths["cnn_infer"] = phase_cnn_infer(tmp, test_error)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

@@ -24,13 +24,21 @@ Options the port acts on (``PORTED``):
 |                   |                   | it (and a conv bias with it)       |
 | pool_relu_fuse    | 0 (default), 1    | 1 = relu(max pool) through the     |
 |                   |                   | relu-fused all-ties pool kernels   |
-| pallas_lrn        | band (default),   | 1 = the LRN kernels; the others    |
-|                   | bandconv, 1, 0    | the plain torch LRN (one function) |
+| pallas_lrn        | band (default),   | 1 = the LRN kernels; hwcn = the    |
+|                   | bandconv, hwcn,   | (H, W, C, N) LRN kernels where the |
+|                   | 1, 0              | shape fits their gate; the others  |
+|                   |                   | the plain torch LRN (one function) |
 | fast_wgrad        | s2d (default),    | the conv1 class (stride >= 2, cin  |
-|                   | hwcn, off         | <= 4, ungrouped) takes dW and db   |
+|                   | hwcn, pallas, off | <= 4, ungrouped) takes dW and db   |
 |                   |                   | from one wgrad: hwcn = the wgrad   |
-|                   |                   | kernel, s2d = torch's; off = plain |
-|                   |                   | autograd                           |
+|                   |                   | kernel; pallas = the same kernel   |
+|                   |                   | at stride 1 over the space-to-     |
+|                   |                   | depth input; s2d = torch's; off =  |
+|                   |                   | plain autograd                     |
+| fused_update      | 0 (default), 1    | 1 = adam on a bf16 tensor with a   |
+|                   |                   | float32 master whose size is a     |
+|                   |                   | multiple of 8192 in one fused      |
+|                   |                   | update kernel                      |
 
 Unlike the JAX package, no gate reads the device: the CPU and the card
 build the same graph, and only the kernel-or-plain choice inside a
@@ -92,8 +100,9 @@ PORTED = {
     "pool_bwd": ("sas", "eq", "gather"),
     "pool_relu_reorder": ("1", "0"),
     "pool_relu_fuse": ("0", "1"),
-    "pallas_lrn": ("band", "bandconv", "1", "0"),
-    "fast_wgrad": ("s2d", "hwcn", "off"),
+    "pallas_lrn": ("band", "bandconv", "hwcn", "1", "0"),
+    "fast_wgrad": ("s2d", "hwcn", "pallas", "off"),
+    "fused_update": ("0", "1"),
 }
 
 

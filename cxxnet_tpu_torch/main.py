@@ -14,13 +14,24 @@ Ported tasks:
   section).  ``synth_device_data = 1`` trains instead on ``multi_step``
   seeded synthetic batches held on the device, the JAX package's
   no-data entry, drawn with numpy exactly as it draws them;
+* ``task = finetune``: a fresh model whose layers matching a layer of
+  ``model_in`` by name and shapes take its weights, then trained as
+  ``task = train``;
+* ``task = pred`` / ``pred_raw`` / ``extract``: the ``pred`` iterator
+  section's batches through the eval forward of ``model_in``; one line
+  per valid row in the ``pred = <file>`` file: the predicted class
+  (``pred``), the final node's values (``pred_raw``), or node
+  ``extract_node_name``'s values (``extract``: text, or raw float32
+  under ``output_format = bin``, with the row width in ``<file>.meta``);
+  each emits a ``latency`` record of its per-batch times;
 * ``task = serve`` with ``serve_gen = 1``: a snapshot (``model_in``) is
   served by the KV-cache decode engine behind the continuous-batching
   step scheduler, the ``pred`` iterator section's rows become the
   prompts, and the generated ids land in ``name_pred``.
 
-The other tasks, and the keys of the JAX package's train loop whose
-features are not ported (``UNPORTED_TASK_KEYS``), are refused by name.
+The other tasks (``check``), and the keys of the JAX package's train
+loop whose features are not ported (``UNPORTED_TASK_KEYS``), are refused
+by name.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ from .monitor import log as mlog
 from .nnet.trainer import NetTrainer, refuse_unported
 from .utils.config import parse_config_file, parse_keyval_args
 
-PORTED_TASKS = ("train", "serve")
+PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 
 #: train-loop keys of the JAX package that are not ported, with the one
 #: value the port takes: rollback and NNNN.ckpt snapshots, profiling
@@ -74,6 +85,9 @@ class LearnTask:
         # of the JAX package otherwise (the port runs each batch eagerly)
         self.multi_step = 0
         self.synth_device_data = 0
+        self.extract_node_name = ""
+        # 1 = text rows, 0 = raw float32 rows (task = extract)
+        self.output_format = 1
         self.net: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_pred = None
@@ -114,6 +128,14 @@ class LearnTask:
             self.multi_step = int(val)
         elif name == "synth_device_data":
             self.synth_device_data = int(val)
+        elif name == "extract_node_name":
+            self.extract_node_name = val
+        elif name == "output_format":
+            # the reference treats anything but "txt" as binary
+            if val not in ("txt", "bin"):
+                mlog.warn(f"output_format={val!r} not 'txt'/'bin'; "
+                          "treating as binary")
+            self.output_format = 1 if val == "txt" else 0
         elif name in UNPORTED_TASK_KEYS:
             refuse_unported(name, val, UNPORTED_TASK_KEYS[name])
         self.cfg.append((name, val))
@@ -132,6 +154,9 @@ class LearnTask:
                 raise ValueError(f"task = {self.task}: must specify "
                                  "model_in")
             self.net.init_model()
+        elif self.task == "finetune":
+            self.net.init_model()
+            self.net.copy_model_from(self.name_model_in)
         else:
             self.net.load_model(self.name_model_in)
             m = re.search(r"(\d+)\.model$", self.name_model_in)
@@ -141,9 +166,10 @@ class LearnTask:
 
     def _create_iterators(self) -> None:
         """Section scanner (reference CreateIterators): ``data`` is the
-        train stream and each ``eval = name`` an evaluation stream of
-        ``task = train``, ``pred`` the request stream of ``task =
-        serve``.  ``synth_device_data = 1`` reads no data."""
+        train stream and each ``eval = name`` an evaluation stream (made
+        for every task but ``pred``, as in the JAX package), ``pred`` the
+        input of ``pred`` / ``pred_raw`` / ``extract`` and the request
+        stream of ``serve``.  ``synth_device_data = 1`` reads no data."""
         if self.synth_device_data:
             return
         flag = 0
@@ -164,13 +190,14 @@ class LearnTask:
                 continue
             if name == "iter" and val == "end":
                 assert flag != 0, "wrong configuration file"
-                if flag == 1 and self.task == "train":
+                if flag == 1 and self.task != "pred":
                     assert self.itr_train is None, "can only have one data"
                     self.itr_train = create_iterator(itcfg)
-                if flag == 2 and self.task == "train":
+                if flag == 2 and self.task != "pred":
                     self.itr_evals.append(create_iterator(itcfg))
                     self.eval_names.append(evname)
-                if flag == 3 and self.task == "serve":
+                if flag == 3 and self.task in ("pred", "pred_raw",
+                                               "extract", "serve"):
                     assert self.itr_pred is None, \
                         "can only have one pred data"
                     self.itr_pred = create_iterator(itcfg)
@@ -326,6 +353,68 @@ class LearnTask:
                      **{k: round(s[k] * 1e3, 3)
                         for k in ("mean", "min", "max", "p50", "p95", "p99")},
                      unit="ms")
+
+    def _pred_batches(self, what: str):
+        """The pred iterator's batches, from the first; raises before any
+        output file is opened when there is no pred section."""
+        if self.itr_pred is None:
+            raise RuntimeError(f"task = {self.task}: must specify a pred "
+                               f"iterator section {what}")
+        self.itr_pred.before_first()
+        return iter(self.itr_pred.next, None)
+
+    def _timed(self, op: str, fn, batch):
+        """``fn(batch)``, a host array (so the device work is done), its
+        time observed into the ``<op>_latency_sec`` histogram."""
+        t0 = time.perf_counter()
+        out = fn(batch)
+        self.net.metrics.observe(f"{op}_latency_sec",
+                                 time.perf_counter() - t0)
+        return out
+
+    def task_predict(self, raw: bool = False) -> None:
+        """``task = pred``: one predicted class (or value) per valid row;
+        ``raw`` (``task = pred_raw``): the final node's values of each,
+        space-separated."""
+        mlog.notice(f"start predicting{' raw scores' if raw else ''}...")
+        fn = self.net.predict_raw if raw else self.net.predict
+        batches = self._pred_batches("to predict")
+        with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
+            for batch in batches:
+                for row in self._timed("pred", fn, batch):
+                    fo.write((" ".join(f"{v:g}" for v in row) if raw
+                              else f"{row:g}") + "\n")
+        self._emit_latency_record("pred")
+        mlog.notice(f"finished prediction, write into {self.name_pred}")
+
+    def task_extract(self) -> None:
+        """``task = extract``: node ``extract_node_name``'s values of each
+        valid row, as text rows or (``output_format = bin``) raw
+        little-endian float32 rows; ``<pred>.meta`` holds the row
+        width."""
+        node = self.extract_node_name
+        if not node:
+            raise ValueError("task = extract: must set extract_node_name")
+        mlog.notice(f"start extracting feature from node {node} ...")
+        binary = self.output_format == 0
+        wrote_meta = False
+        batches = self._pred_batches("to extract from")
+        with open(self.name_pred, "wb" if binary else "w") as fo:  # disclint: ok(atomic-write)
+            for batch in batches:
+                feat = self._timed(
+                    "extract", lambda b: self.net.extract_feature(b, node),
+                    batch)
+                if not wrote_meta:
+                    with open(self.name_pred + ".meta", "w") as fm:  # disclint: ok(atomic-write)
+                        fm.write(f"{feat.shape[1]}\n")
+                    wrote_meta = True
+                if binary:
+                    fo.write(np.ascontiguousarray(feat, "<f4").tobytes())
+                else:
+                    for row in feat:
+                        fo.write(" ".join(f"{v:g}" for v in row) + "\n")
+        self._emit_latency_record("extract")
+        mlog.notice(f"finished extraction, write into {self.name_pred}")
 
     def task_serve(self) -> None:
         assert self.itr_pred is not None, (
@@ -495,8 +584,12 @@ class LearnTask:
         try:
             self.init()
             mlog.info("initializing end, start working")
-            if self.task == "train":
+            if self.task in ("train", "finetune"):
                 self.task_train()
+            elif self.task in ("pred", "pred_raw"):
+                self.task_predict(raw=self.task == "pred_raw")
+            elif self.task == "extract":
+                self.task_extract()
             else:
                 self.task_serve()
         finally:

@@ -18,7 +18,11 @@ eval iterator, and with ``eval_train = 1`` (the default) every training
 step adds its eval-node outputs to the train metric.  At build time the
 relu -> max pool reorder moves a relu that feeds only a max pool after
 it, and with it the bias of the conv beneath
-(:meth:`NetTrainer._reorder_relu_pool`).
+(:meth:`NetTrainer._reorder_relu_pool`); a node read at call time
+(:meth:`NetTrainer.extract_feature`) gets the relu and the bias back.
+:meth:`NetTrainer.predict` / :meth:`~NetTrainer.predict_raw` serve
+``task = pred`` / ``pred_raw``, and :meth:`NetTrainer.copy_model_from`
+``task = finetune``.
 """
 
 from __future__ import annotations
@@ -145,6 +149,11 @@ class NetTrainer:
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         self.rng: Optional[torch.Generator] = None
+        # node id -> ("relu" | "bias", conv param key or None): what the
+        # relu -> pool reorder took out of the node's stored value
+        self._read_fixups: Dict[int, Tuple[str, Optional[str]]] = {}
+        # the layer names the last copy_model_from copied
+        self.copied_layers: List[str] = []
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -252,10 +261,14 @@ class NetTrainer:
         feeds only that relu, and the conv is not of the fast-wgrad
         class (whose one wgrad computes db), its bias add moves to the
         pooled tensor too (max(z + b) == max(z) + b).  Skipped for
-        shared layer instances and eval nodes."""
+        shared layer instances and eval nodes.  The relu's node then
+        holds the pre-activation and the conv's node the bias-less
+        output: ``_read_fixups`` records what a call-time read of either
+        must add back."""
         from ..layers.activation import ReluLayer
         from ..layers.conv import ConvolutionLayer, MaxPoolingLayer
         from ..ops.nn import use_fast_wgrad
+        self._read_fixups = {}
         if self.opts.pool_relu_reorder != "1":
             return
         conns = self.net.connections
@@ -285,6 +298,7 @@ class NetTrainer:
             self_loop = relu.nindex_in == relu.nindex_out
             relu.layer.defer_to_pool = True
             c.layer.relu_after = True
+            self._read_fixups[v] = ("relu", None)
             k = last_writer(v if self_loop else relu.nindex_in[0], j)
             if k is None:
                 continue
@@ -303,6 +317,8 @@ class NetTrainer:
                         self.opts)):
                 conv.layer.defer_bias = 1
                 c.layer.deferred_bias_key = conv.param_key
+                self._read_fixups[cnode] = ("bias", conv.param_key)
+                self._read_fixups[v] = ("relu", conv.param_key)
 
     def load_model(self, path: str) -> None:
         """Load a ``.model`` written by either package.  The session's
@@ -327,6 +343,30 @@ class NetTrainer:
         self.epoch_counter = header["epoch"]
         self.sample_counter = self.epoch_counter * self.update_period
         self.round = header.get("extra", {}).get("round", 0)
+
+    def copy_model_from(self, path: str) -> None:
+        """``task = finetune``: copy the weights of every layer whose name
+        (the parameter key after its ``NN-`` prefix) and tag shapes match
+        a layer of the ``.model`` at ``path``, in this net's dtypes, and
+        re-derive the float32 masters (the JAX package's
+        ``copy_model_from``, reference CopyModelFrom)."""
+        _, params, _, _ = serializer.load_model(path)
+        by_name = {k.split("-", 1)[1]: v for k, v in params.items()}
+        copied = []
+        for pkey, group in self.params.items():
+            name = pkey.split("-", 1)[1]
+            src = by_name.get(name)
+            if src is not None and all(
+                    t in src and tuple(src[t].shape) == tuple(p.shape)
+                    for t, p in group.items()):
+                self.params[pkey] = {
+                    t: torch.from_numpy(np.array(src[t], np.float32))
+                    .to(self.device, p.dtype) for t, p in group.items()}
+                copied.append(name)
+        if self.opt_state is not None:
+            self._refresh_masters()
+        self.copied_layers = copied
+        mlog.info(f"copy_model_from: copied layers {copied}")
 
     def set_state(self, params: Params, buffers: Params) -> None:
         """Install parameters (e.g. from :func:`params_from_jax`) on the
@@ -474,13 +514,17 @@ class NetTrainer:
                                  for name, a, b in self._label_fields})
 
     def apply_update(self, grads: Dict, epoch: int) -> None:
-        """The updater on every (layer, tag), in place."""
+        """The updater on every (layer, tag), in place; ``fused_update =
+        1`` sends the tensors its gate admits through the fused adam
+        kernel."""
+        fused = self.opts.fused_update == "1"
         with record_function("train_update"):
             for pkey, group in self.params.items():
                 for tag, p in group.items():
                     self.updater.apply(p, grads[pkey][tag],
                                        self.opt_state[pkey][tag],
-                                       self.hypers[pkey][tag], epoch)
+                                       self.hypers[pkey][tag], epoch,
+                                       fused=fused)
 
     def sync(self) -> None:
         """Wait for the device (a no-op on the CPU)."""
@@ -488,14 +532,61 @@ class NetTrainer:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ forward
-    def forward_eval(self, data: np.ndarray,
-                     node_ids: Sequence[int]) -> List[np.ndarray]:
-        """Eval forward of a ``(n, c, y, x)`` batch; float32 numpy values
-        of the requested nodes."""
-        x = torch.as_tensor(np.asarray(data, np.float32), device=self.device)
+    def forward_eval(self, data: np.ndarray, node_ids: Sequence[int],
+                     extra_data: Sequence[np.ndarray] = ()
+                     ) -> List[np.ndarray]:
+        """Eval forward of a ``(n, c, y, x)`` batch (and its extra input
+        nodes); float32 numpy values of the requested nodes."""
+        inputs = {i: torch.as_tensor(np.asarray(a, np.float32),
+                                     device=self.device)
+                  for i, a in enumerate([data, *extra_data])}
         with torch.inference_mode():
-            nodes = self.net.forward(self.params, {0: x}, self.context())
+            nodes = self.net.forward(self.params, inputs, self.context())
         return [nodes[n].float().cpu().numpy() for n in node_ids]
+
+    def _node_rows(self, batch, nid: int) -> np.ndarray:
+        """Node ``nid`` of a batch's eval forward as (valid rows, values)
+        float32, the padding rows dropped."""
+        [out] = self.forward_eval(batch.data, [nid],
+                                  getattr(batch, "extra_data", None) or ())
+        n = batch.batch_size - int(batch.num_batch_padd)
+        return out.reshape(out.shape[0], -1)[:n]
+
+    def predict_raw(self, batch) -> np.ndarray:
+        """The final node's values of each valid row (``task =
+        pred_raw``)."""
+        return self._node_rows(batch, self.net.final_node)
+
+    def predict(self, batch) -> np.ndarray:
+        """Each valid row's prediction: the argmax of the final node for
+        more than one class, else its value (reference TransformPred)."""
+        raw = self.predict_raw(batch)
+        if raw.shape[1] > 1:
+            return raw.argmax(axis=1).astype(np.float32)
+        return raw[:, 0]
+
+    def extract_feature(self, batch, node_name: str) -> np.ndarray:
+        """Node ``node_name``'s values of each valid row (``task =
+        extract``), with the read fixups applied."""
+        nid = self.net.node_id(node_name)
+        return self._apply_read_fixup(nid, self._node_rows(batch, nid))
+
+    def _apply_read_fixup(self, nid: int, out: np.ndarray) -> np.ndarray:
+        """Undo the relu -> pool reorder for a node read at call time: add
+        back a deferred conv bias and apply a deferred relu (the JAX
+        package's ``_apply_read_fixup``)."""
+        fix = self._read_fixups.get(nid)
+        if fix is None:
+            return out
+        kind, bias_key = fix
+        flat = out.shape
+        out = out.reshape((flat[0],) + tuple(self.net.node_shapes[nid][1:]))
+        if bias_key is not None:
+            bias = self.params[bias_key]["bias"].float().cpu().numpy()
+            out = out + bias.reshape((-1,) + (1,) * (out.ndim - 2))
+        if kind == "relu":
+            out = np.maximum(out, np.float32(0))
+        return out.reshape(flat)
 
     def _add_eval(self, metric: MetricSet, preds: List[np.ndarray],
                   label: np.ndarray, n_padd: int) -> None:

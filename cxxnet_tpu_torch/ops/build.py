@@ -54,7 +54,7 @@ _SIGNATURES = {
     + (_c.c_int,) * 5 + (_c.c_void_p,),
     # backward, x, g, out, n, c, hw, nsize, salpha, beta, knorm, dtype,
     # stream
-    "cxn_lrn": (_c.c_int,) + (_c.c_void_p,) * 3 + (_c.c_int, _c.c_int,
+    "cxn_lrn": (_c.c_int,) + (_c.c_void_p,) * 3 + (_c.c_longlong, _c.c_int,
                                                    _c.c_longlong, _c.c_int)
     + (_c.c_float,) * 3 + (_c.c_int, _c.c_void_p),
     # backward, relu, x, y, dy, out, planes, h, w, oh, ow, kh, kw, s,
@@ -65,6 +65,9 @@ _SIGNATURES = {
     # pad_y, pad_x, splits, per_split, dtype, stream
     "cxn_conv_wgrad": (_c.c_void_p,) * 6 + (_c.c_int,) * 13
     + (_c.c_longlong, _c.c_int, _c.c_void_p),
+    # g, m1, m2, w32, p, n, lr_t, d1, d2, wd, clip, stream
+    "cxn_fused_adam": (_c.c_void_p,) * 5 + (_c.c_longlong,)
+    + (_c.c_float,) * 5 + (_c.c_void_p,),
 }
 
 

@@ -11,6 +11,15 @@ the output gradient dy, in one kernel.  Under ``fast_wgrad = s2d`` dW is
 the JAX package's space-to-depth identity instead: the stride-1 weight
 gradient over :func:`s2d_input`'s rearranged x, through torch.  dx goes
 through the ordinary conv transpose (the JAX package leaves it to XLA).
+
+Also replaces ``conv_wgrad_s2d_pallas`` (``_conv_wgrad_kernel``), the
+backward under ``fast_wgrad = pallas``: the same dW and db through the
+space-to-depth identity.  As on the TPU, x is rearranged outside the
+kernel (:func:`s2d_input`, plain torch), the kernel computes the dense
+stride-1 dW and db of the (N, C*s*s, HB, WB) tensor over kb_y x kb_x
+taps (the CUDA kernel of ``csrc/conv_wgrad.cu`` at stride 1, behind its
+own wrapper and counter), and the (c, sy, sx) channels fold back into
+the kernel's rows and columns outside it, the padded taps sliced away.
 """
 
 from __future__ import annotations
@@ -61,17 +70,29 @@ def s2d_input(x: torch.Tensor, stride: int, kh: int, kw: int, oh: int,
     return xb.reshape(n, c * s * s, hb, wb), kb_y, kb_x
 
 
+def s2d_fold(dwb: torch.Tensor, ci: int, stride: int, kh: int,
+             kw: int) -> torch.Tensor:
+    """The stride-1 weight gradient (co, ci*s*s, kb_y, kb_x) of the
+    space-to-depth input -> (co, ci, kh, kw): its (c, sy, sx) channels
+    fold back into the kernel's rows (dh*s + sy) and columns (dw*s +
+    sx); taps past kh / kw (zero padding of the blocks) are sliced
+    away."""
+    s = stride
+    co, _, kb_y, kb_x = dwb.shape
+    dw = dwb.reshape(co, ci, s, s, kb_y, kb_x).permute(0, 1, 4, 2, 5, 3)
+    return dw.reshape(co, ci, kb_y * s, kb_x * s)[:, :, :kh, :kw]
+
+
 def wgrad_s2d(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
               stride: int, pad_y: int, pad_x: int) -> torch.Tensor:
     """dW (co, ci, kh, kw) through the space-to-depth identity: the
-    stride-1 weight gradient over :func:`s2d_input`, its (c, sy, sx)
-    channels folded back into the kernel's rows and columns."""
+    stride-1 weight gradient over :func:`s2d_input`, folded back by
+    :func:`s2d_fold`."""
     s = stride
     co, (ci, oh, ow) = dy.shape[1], (x.shape[1],) + tuple(dy.shape[2:])
     xb, kb_y, kb_x = s2d_input(x, s, kh, kw, oh, ow, pad_y, pad_x)
     dwb = conv2d_weight(xb, (co, ci * s * s, kb_y, kb_x), dy)
-    dw = dwb.reshape(co, ci, s, s, kb_y, kb_x).permute(0, 1, 4, 2, 5, 3)
-    return dw.reshape(co, ci, kb_y * s, kb_x * s)[:, :, :kh, :kw]
+    return s2d_fold(dwb, ci, s, kh, kw)
 
 
 def split_plan(n: int, oh: int, ow: int, co: int, taps: int
@@ -85,24 +106,21 @@ def split_plan(n: int, oh: int, ow: int, co: int, taps: int
     return -(-chunks // per), per
 
 
-def conv_wgrad_hwcn_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
-                           kw: int, stride: int, pad_y: int = 0,
-                           pad_x: int = 0
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dW (co, ci, kh, kw), db (co,))`` in float32 of the conv of
-    (N, C, H, W) x to (N, CO, OH, OW) dy.  A CUDA tensor goes through the
-    CUDA kernel (or raises); a CPU tensor through
-    :func:`conv_wgrad_plain`."""
-    if x.device.type == "cpu":
-        return conv_wgrad_plain(x, dy, kh, kw, stride, pad_y, pad_x)
+def _check(what: str, x: torch.Tensor, dy: torch.Tensor) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"conv_wgrad: no kernel for {x.device}")
+        raise ValueError(f"{what}: no kernel for {x.device}")
     if (x.dim() != 4 or dy.dim() != 4 or x.dtype not in build.DTYPE_CODES
             or dy.dtype != x.dtype or dy.device != x.device
             or not x.is_contiguous() or not dy.is_contiguous()):
-        raise ValueError(f"conv_wgrad: x {x.dtype} {tuple(x.shape)}, dy "
+        raise ValueError(f"{what}: x {x.dtype} {tuple(x.shape)}, dy "
                          f"{dy.dtype} {tuple(dy.shape)}: expected contiguous "
                          "4-d float32 or bfloat16 tensors of one dtype")
+
+
+def _launch(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+            stride: int, pad_y: int, pad_x: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel: ``(dW, db)`` of the conv of x to dy."""
     n, c, h, w = x.shape
     _, co, oh, ow = dy.shape
     if (dy.shape[0] != n or oh != (h + 2 * pad_y - kh) // stride + 1
@@ -123,20 +141,70 @@ def conv_wgrad_hwcn_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
         pad_y, pad_x, splits, per, build.DTYPE_CODES[x.dtype],
         build.stream_handle(x.device))
     build.check(err, "conv_wgrad")
-    conv_wgrad_hwcn_pallas.launches += 1
     return dw, db
 
 
-#: launches of the CUDA kernel (not of the plain version)
+def conv_wgrad_hwcn_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
+                           kw: int, stride: int, pad_y: int = 0,
+                           pad_x: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW (co, ci, kh, kw), db (co,))`` in float32 of the conv of
+    (N, C, H, W) x to (N, CO, OH, OW) dy.  A CUDA tensor goes through the
+    CUDA kernel (or raises); a CPU tensor through
+    :func:`conv_wgrad_plain`."""
+    if x.device.type == "cpu":
+        return conv_wgrad_plain(x, dy, kh, kw, stride, pad_y, pad_x)
+    _check("conv_wgrad", x, dy)
+    out = _launch(x, dy, kh, kw, stride, pad_y, pad_x)
+    conv_wgrad_hwcn_pallas.launches += 1
+    return out
+
+
+def conv_wgrad_s2d_plain(x: torch.Tensor, dy: torch.Tensor, kh: int,
+                         kw: int, stride: int, pad_y: int, pad_x: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW, db)`` in float32 the space-to-depth way in plain PyTorch:
+    :func:`conv_wgrad_plain` at stride 1 over :func:`s2d_input`'s tensor,
+    folded back by :func:`s2d_fold`."""
+    ci, (oh, ow) = x.shape[1], dy.shape[2:]
+    xb, kb_y, kb_x = s2d_input(x, stride, kh, kw, oh, ow, pad_y, pad_x)
+    dwb, db = conv_wgrad_plain(xb, dy, kb_y, kb_x, 1, 0, 0)
+    return s2d_fold(dwb, ci, stride, kh, kw), db
+
+
+def conv_wgrad_s2d_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
+                          kw: int, stride: int, pad_y: int = 0,
+                          pad_x: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW (co, ci, kh, kw), db (co,))`` in float32 of the stride-s
+    conv of (N, C, H, W) x to (N, CO, OH, OW) dy, the JAX package's way:
+    :func:`s2d_input` (torch), then the kernel's dense stride-1 wgrad of
+    the (N, C*s*s, HB, WB) tensor over ``ceil(kh / s) x ceil(kw / s)``
+    taps, then :func:`s2d_fold` (torch).  A CUDA tensor goes through the
+    CUDA kernel (or raises); a CPU tensor through
+    :func:`conv_wgrad_s2d_plain`."""
+    if x.device.type == "cpu":
+        return conv_wgrad_s2d_plain(x, dy, kh, kw, stride, pad_y, pad_x)
+    _check("conv_wgrad_s2d", x, dy)
+    ci, (oh, ow) = x.shape[1], dy.shape[2:]
+    xb, kb_y, kb_x = s2d_input(x, stride, kh, kw, oh, ow, pad_y, pad_x)
+    dwb, db = _launch(xb.contiguous(), dy, kb_y, kb_x, 1, 0, 0)
+    conv_wgrad_s2d_pallas.launches += 1
+    return s2d_fold(dwb, ci, stride, kh, kw).contiguous(), db
+
+
+#: launches of each CUDA kernel (not of the plain versions)
 conv_wgrad_hwcn_pallas.launches = 0
+conv_wgrad_s2d_pallas.launches = 0
 
 
 class ConvBiasFast(torch.autograd.Function):
     """``conv2d(x, w) + b`` (ungrouped) with dW and db from one wgrad
-    (``mode`` ``hwcn``: :func:`conv_wgrad_hwcn_pallas`; ``s2d``: the
-    same function as :func:`wgrad_s2d` and a sum, as the JAX package's
-    default computes it with XLA), cast to w's dtype; dx through the
-    conv transpose, only when x needs a gradient."""
+    (``mode`` ``hwcn``: :func:`conv_wgrad_hwcn_pallas`; ``pallas``:
+    :func:`conv_wgrad_s2d_pallas`; ``s2d``: the same function as
+    :func:`wgrad_s2d` and a sum, as the JAX package's default computes
+    it with XLA), cast to w's dtype; dx through the conv transpose, only
+    when x needs a gradient."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride: int, pad_y: int, pad_x: int,
@@ -156,6 +224,9 @@ class ConvBiasFast(torch.autograd.Function):
         if mode == "hwcn":
             dw, db = conv_wgrad_hwcn_pallas(x.contiguous(), dy, kh, kw,
                                             stride, pad_y, pad_x)
+        elif mode == "pallas":
+            dw, db = conv_wgrad_s2d_pallas(x.contiguous(), dy, kh, kw,
+                                           stride, pad_y, pad_x)
         else:
             dw = wgrad_s2d(x, dy, kh, kw, stride, pad_y, pad_x)
             db = dy.float().sum(dim=(0, 2, 3))

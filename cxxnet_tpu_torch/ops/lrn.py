@@ -1,6 +1,6 @@
 """Cross-channel local response normalisation: the hand-written CUDA
 kernels (``csrc/lrn.cu``), their plain PyTorch versions and the autograd
-Function that ties them together.
+Functions that tie them together.
 
 Replaces the JAX package's Pallas ``lrn_pallas`` (``_call_per_batch``
 over ``_lrn_fwd_kernel`` / ``_lrn_bwd_kernel``, pallas_kernels.py) on
@@ -8,6 +8,13 @@ logical NCHW: ``y = x * (knorm + alpha / n * sum_win x^2) ^ -beta`` with
 the window ``[c - n//2, c + n - 1 - n//2]`` clipped to the channels, all
 in float32 and stored in x's dtype.  The backward is the kernel's own
 (the transposed window for even n); its only residual is x.
+
+And the JAX package's ``lrn_pallas_hwcn`` (``_lrn_hwcn_call``): the same
+function computed on the (H, W, C, N) transpose of x by their own
+kernels (``lrn_hwcn_fwd`` / ``lrn_hwcn_bwd``), behind the same shape
+gate (:func:`lrn_hwcn_fits`).  On the TPU the transposes are layout
+bitcasts; here they are copies, made in the autograd Function around
+the kernels.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from . import build
 
 #: largest window the backward kernel takes (csrc/lrn.cu LRN_RING)
 MAX_BWD_NSIZE = 32
+#: (N, C, H, W) <-> (H, W, C, N)
+TO_HWCN, FROM_HWCN = (2, 3, 1, 0), (3, 2, 0, 1)
 
 
 def chwin_sum(sq: torch.Tensor, nsize: int,
@@ -73,7 +82,7 @@ def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, nsize: int,
 
 def _check(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
     if x.dim() != 4:
-        raise ValueError(f"{what}: expected (N, C, H, W), got "
+        raise ValueError(f"{what}: expected 4 dimensions, got "
                          f"{tuple(x.shape)}")
     if x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{what}: dtype {x.dtype}: expected float32 or "
@@ -85,16 +94,17 @@ def _check(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
                              f"{x.dtype} {tuple(x.shape)} on one device")
 
 
-def _launch(backward: bool, x, g, nsize, alpha, beta, knorm):
-    n, c, h, w = x.shape
-    lib = build.LIBRARY.get()
+def _launch(what: str, x, g, outer: int, c: int, inner: int, nsize, alpha,
+            beta, knorm):
+    """The kernel on x viewed as (outer, c, inner), the window along c;
+    the backward when the output gradient g is given."""
     out = torch.empty_like(x)
-    err = lib.cxn_lrn(int(backward), x.data_ptr(),
-                      g.data_ptr() if backward else 0, out.data_ptr(), n, c,
-                      h * w, nsize, float(alpha / nsize), float(beta),
-                      float(knorm), build.DTYPE_CODES[x.dtype],
-                      build.stream_handle(x.device))
-    build.check(err, "lrn_bwd" if backward else "lrn_fwd")
+    err = build.LIBRARY.get().cxn_lrn(
+        int(g is not None), x.data_ptr(), 0 if g is None else g.data_ptr(),
+        out.data_ptr(), outer, c, inner, nsize, float(alpha / nsize),
+        float(beta), float(knorm), build.DTYPE_CODES[x.dtype],
+        build.stream_handle(x.device))
+    build.check(err, what)
     return out
 
 
@@ -109,7 +119,8 @@ def lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     _check("lrn_fwd", x)
     if nsize < 1:
         raise ValueError(f"lrn_fwd: local_size = {nsize}")
-    y = _launch(False, x, None, nsize, alpha, beta, knorm)
+    n, c, h, w = x.shape
+    y = _launch("lrn_fwd", x, None, n, c, h * w, nsize, alpha, beta, knorm)
     lrn_fwd.launches += 1
     return y
 
@@ -127,7 +138,8 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
     if not 1 <= nsize <= MAX_BWD_NSIZE:
         raise ValueError(f"lrn_bwd: local_size = {nsize} out of range (up "
                          f"to {MAX_BWD_NSIZE})")
-    dx = _launch(True, x, g, nsize, alpha, beta, knorm)
+    n, c, h, w = x.shape
+    dx = _launch("lrn_bwd", x, g, n, c, h * w, nsize, alpha, beta, knorm)
     lrn_bwd.launches += 1
     return dx
 
@@ -158,3 +170,102 @@ class LRN(torch.autograd.Function):
 def lrn_pallas(x, nsize: int, alpha: float, beta: float, knorm: float):
     """Differentiable LRN through the kernels (the JAX package's name)."""
     return LRN.apply(x.contiguous(), nsize, alpha, beta, knorm)
+
+
+# ---------------------------------------------------------- (H, W, C, N)
+
+def lrn_hwcn_fits(shape) -> bool:
+    """The JAX package's ``_lrn_hwcn_fits`` without its TPU-backend test,
+    so the same layers take the (H, W, C, N) kernels in both packages:
+    batches of whole 128-image tiles, planes at most 64 wide, and a (W,
+    C, 128) float32 block within 3 MiB."""
+    n, c, h, w = shape
+    return n % 128 == 0 and w <= 64 and w * c * 128 * 4 <= (3 << 20)
+
+
+def lrn_hwcn_fwd_plain(xt: torch.Tensor, nsize: int, alpha: float,
+                       beta: float, knorm: float) -> torch.Tensor:
+    """:func:`lrn_fwd_plain` of the (H, W, C, N) tensor ``xt``."""
+    return lrn_fwd_plain(xt.permute(FROM_HWCN), nsize, alpha, beta,
+                         knorm).permute(TO_HWCN)
+
+
+def lrn_hwcn_bwd_plain(xt: torch.Tensor, gt: torch.Tensor, nsize: int,
+                       alpha: float, beta: float, knorm: float
+                       ) -> torch.Tensor:
+    """:func:`lrn_bwd_plain` of (H, W, C, N) tensors."""
+    return lrn_bwd_plain(xt.permute(FROM_HWCN), gt.permute(FROM_HWCN), nsize,
+                         alpha, beta, knorm).permute(TO_HWCN)
+
+
+def lrn_hwcn_fwd(xt: torch.Tensor, nsize: int, alpha: float, beta: float,
+                 knorm: float) -> torch.Tensor:
+    """LRN forward of (H, W, C, N) xt, window along C.  A CUDA tensor goes
+    through the CUDA kernel (or raises); a CPU tensor through
+    :func:`lrn_hwcn_fwd_plain`."""
+    if xt.device.type == "cpu":
+        return lrn_hwcn_fwd_plain(xt, nsize, alpha, beta, knorm)
+    if xt.device.type != "cuda":
+        raise ValueError(f"lrn_hwcn_fwd: no kernel for {xt.device}")
+    _check("lrn_hwcn_fwd", xt)
+    if nsize < 1:
+        raise ValueError(f"lrn_hwcn_fwd: local_size = {nsize}")
+    h, w, c, n = xt.shape
+    y = _launch("lrn_hwcn_fwd", xt, None, h * w, c, n, nsize, alpha, beta,
+                knorm)
+    lrn_hwcn_fwd.launches += 1
+    return y
+
+
+def lrn_hwcn_bwd(xt: torch.Tensor, gt: torch.Tensor, nsize: int,
+                 alpha: float, beta: float, knorm: float) -> torch.Tensor:
+    """dx (H, W, C, N) of the LRN of xt for output gradient gt.  A CUDA
+    tensor goes through the CUDA kernel (or raises); a CPU tensor through
+    :func:`lrn_hwcn_bwd_plain`."""
+    if xt.device.type == "cpu":
+        return lrn_hwcn_bwd_plain(xt, gt, nsize, alpha, beta, knorm)
+    if xt.device.type != "cuda":
+        raise ValueError(f"lrn_hwcn_bwd: no kernel for {xt.device}")
+    _check("lrn_hwcn_bwd", xt, gt)
+    if not 1 <= nsize <= MAX_BWD_NSIZE:
+        raise ValueError(f"lrn_hwcn_bwd: local_size = {nsize} out of range "
+                         f"(up to {MAX_BWD_NSIZE})")
+    h, w, c, n = xt.shape
+    dx = _launch("lrn_hwcn_bwd", xt, gt, h * w, c, n, nsize, alpha, beta,
+                 knorm)
+    lrn_hwcn_bwd.launches += 1
+    return dx
+
+
+lrn_hwcn_fwd.launches = 0
+lrn_hwcn_bwd.launches = 0
+
+
+class LRNHWCN(torch.autograd.Function):
+    """LRN of (N, C, H, W) x through the (H, W, C, N) kernels: x is copied
+    into that layout, :func:`lrn_hwcn_fwd` runs, and y is copied back to
+    contiguous NCHW; the backward transposes x and the gradient the same
+    way around :func:`lrn_hwcn_bwd`.  The residual is x alone (the JAX
+    package's ``_lrn_hwcn_bwd_res``)."""
+
+    @staticmethod
+    def forward(ctx, x, nsize: int, alpha: float, beta: float,
+                knorm: float):
+        ctx.save_for_backward(x)
+        ctx.args = (nsize, alpha, beta, knorm)
+        yt = lrn_hwcn_fwd(x.permute(TO_HWCN).contiguous(), *ctx.args)
+        return yt.permute(FROM_HWCN).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        dxt = lrn_hwcn_bwd(x.permute(TO_HWCN).contiguous(),
+                           g.permute(TO_HWCN).contiguous(), *ctx.args)
+        return (dxt.permute(FROM_HWCN).contiguous(),
+                None, None, None, None)
+
+
+def lrn_pallas_hwcn(x, nsize: int, alpha: float, beta: float, knorm: float):
+    """Differentiable LRN of NCHW x through the (H, W, C, N) kernels (the
+    JAX package's name).  Gate with :func:`lrn_hwcn_fits`."""
+    return LRNHWCN.apply(x, nsize, alpha, beta, knorm)

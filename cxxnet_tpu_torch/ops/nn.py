@@ -132,10 +132,14 @@ def lrn(x: torch.Tensor, nsize: int, alpha: float, beta: float,
         knorm: float, *, opts: EngineOptions) -> torch.Tensor:
     """Local response normalisation across channels
     (lrn_layer-inl.hpp:53-56): ``x * (knorm + alpha / n * sum x^2) ^
-    -beta``.  ``pallas_lrn = 1``: the LRN kernels; band / bandconv / 0:
-    the same function in plain torch under autograd."""
+    -beta``.  ``pallas_lrn = 1``: the LRN kernels; ``hwcn``: the (H, W,
+    C, N) LRN kernels where the shape passes their gate, else, as in the
+    JAX package, the plain form; band / bandconv / 0: the same function
+    in plain torch under autograd."""
     if opts.pallas_lrn == "1":
         return lrn_ops.lrn_pallas(x, nsize, alpha, beta, knorm)
+    if opts.pallas_lrn == "hwcn" and lrn_ops.lrn_hwcn_fits(x.shape):
+        return lrn_ops.lrn_pallas_hwcn(x, nsize, alpha, beta, knorm)
     norm = chpool_sum(torch.square(x), nsize) * (alpha / nsize) + knorm
     return x * lrn_ops.norm_pow(norm, beta)
 

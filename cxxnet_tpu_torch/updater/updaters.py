@@ -12,7 +12,9 @@ and a parameter that is not float32 carries a float32 master copy
 (``w32``) in its state: the update applies to the master and the
 working parameter becomes its cast.  Unlike the JAX package's pure
 functions, :meth:`Updater.apply` writes the new state and parameter in
-place (no second copy of the optimizer state on the card).  Schedules
+place (no second copy of the optimizer state on the card).  Under
+``fused_update = 1`` adam takes the fused kernel of
+:mod:`..ops.fused_adam` where its gate admits the tensor.  Schedules
 are evaluated from the update counter (the reference's
 ``epoch_counter``, the number of updates).
 """
@@ -25,6 +27,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.fused_adam import fused_adam_pallas, fused_adam_supported
 
 State = Dict[str, torch.Tensor]
 
@@ -160,9 +164,11 @@ class Updater:
 
     @torch.no_grad()
     def apply(self, p: torch.Tensor, g: torch.Tensor, state: State,
-              hyper: UpdaterHyper, epoch: int) -> torch.Tensor:
+              hyper: UpdaterHyper, epoch: int,
+              fused: bool = False) -> torch.Tensor:
         """One update of ``p`` by gradient ``g``; writes ``state`` and
-        ``p`` in place and returns ``p``."""
+        ``p`` in place and returns ``p``.  ``fused`` (``fused_update =
+        1``) matters only to adam, the one updater with a fused kernel."""
         master = state.get("w32")
         p32 = master if master is not None else p.float()
         sub = {k: v for k, v in state.items() if k != "w32"}
@@ -237,6 +243,20 @@ class AdamUpdater(Updater):
         fix1 = f32(1.0) - np.power(f32(1.0 - hyper.beta1), t)
         fix2 = f32(1.0) - np.power(f32(1.0 - hyper.beta2), t)
         return float(f32(hyper.base_lr) * np.sqrt(fix2) / fix1)
+
+    @torch.no_grad()
+    def apply(self, p, g, state, hyper, epoch, fused=False):
+        """Under ``fused``, a bf16 tensor with a float32 master that the
+        JAX package's gate admits (:func:`fused_adam_supported`) takes one
+        sweep of the fused kernel (same state keys ``m1`` / ``m2`` /
+        ``w32``, same ``lr_t``); every other tensor the unfused update."""
+        if fused and "w32" in state and fused_adam_supported(p):
+            fused_adam_pallas(g.contiguous(), state["m1"], state["m2"],
+                              state["w32"], self.lr_t(hyper, epoch),
+                              d1=hyper.beta1, d2=hyper.beta2, wd=hyper.wd,
+                              clip=hyper.clip_gradient, out=p)
+            return p
+        return super().apply(p, g, state, hyper, epoch)
 
     def _apply32(self, p, g, state, hyper, epoch):
         d1, d2 = hyper.beta1, hyper.beta2

@@ -1,8 +1,9 @@
 """The port's CNN stack against the JAX package, on the CPU.
 
-Kernels: the plain versions of the LRN, all-ties max-pool and strided
-conv wgrad kernels (cxxnet_tpu_torch/ops/lrn.py, pool.py, conv_wgrad.py)
-against the JAX package's Pallas kernels in interpret mode, as
+Kernels: the plain versions of the LRN (NCHW and (H, W, C, N)),
+all-ties max-pool and strided conv wgrad (direct and space-to-depth)
+kernels (cxxnet_tpu_torch/ops/lrn.py, pool.py, conv_wgrad.py) against
+the JAX package's Pallas kernels in interpret mode, as
 tests/test_pallas.py runs them, and against its XLA all-ties pool
 (``ops.nn._max_pool_eq``).  Layers: each CNN layer of the port against
 its JAX counterpart on one input and one output gradient.  Net and CLI:
@@ -123,6 +124,73 @@ def test_lrn_plain_matches_pallas_interpret(nsize, beta):
     norm = TN.chpool_sum(xt * xt, nsize) * (0.01 / nsize) + 1.0
     (dx_auto,) = torch.autograd.grad(xt * norm ** -beta, xt, _t(g).double())
     assert _rel(dx_t, dx_auto) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("nsize,beta", [(5, 0.75), (4, 0.75), (3, 0.6)])
+def test_lrn_hwcn_plain_matches_pallas_interpret(nsize, beta):
+    """lrn_pallas_hwcn of the port (its autograd Function over the plain
+    (H, W, C, N) versions on the CPU) == the JAX package's lrn_pallas_hwcn
+    (interpret mode) and its vjp: forward FWD_TOL, dx GRAD_TOL; the same
+    values as the NCHW lrn_pallas, the window along C either way."""
+    rnd = np.random.RandomState(12)
+    x = (rnd.randn(3, 12, 5, 6) * 2).astype(np.float32)
+    g = rnd.randn(*x.shape).astype(np.float32)
+    args = (nsize, 0.01, beta, 1.0)
+    y_j, vjp = jax.vjp(lambda v: pk.lrn_pallas_hwcn(v, *args),
+                       jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(g))
+    xt = _t(x).requires_grad_()
+    y = lrn.lrn_pallas_hwcn(xt, *args)
+    (dx,) = torch.autograd.grad(y, xt, _t(g))
+    assert y.is_contiguous() and dx.is_contiguous()
+    assert _rel(y.detach(), y_j) <= FWD_TOL and _rel(dx, dx_j) <= GRAD_TOL
+    xt = _t(x).requires_grad_()
+    (dx_nchw,) = torch.autograd.grad(lrn.lrn_pallas(xt, *args), xt, _t(g))
+    assert _rel(dx, dx_nchw) <= GRAD_TOL
+    assert (lrn.lrn_hwcn_fwd.launches, lrn.lrn_hwcn_bwd.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 96, 27, 27),    # AlexNet lrn1
+    (256, 256, 13, 13),   # AlexNet lrn2
+    (128, 8, 5, 5),
+    (100, 8, 5, 5),       # batch off the 128-image tile
+    (128, 64, 65, 65),    # plane wider than 64
+    (128, 192, 56, 56),   # GoogLeNet: within 3 MiB
+    (128, 512, 28, 28),   # over 3 MiB
+])
+def test_lrn_hwcn_gate_matches_jax(monkeypatch, shape):
+    """lrn_hwcn_fits == the JAX package's _lrn_hwcn_fits with its backend
+    reading TPU: the same layers take the (H, W, C, N) kernels in both
+    packages (the port's gate reads no device)."""
+    monkeypatch.setattr(JN.jax, "default_backend", lambda: "tpu")
+    assert lrn.lrn_hwcn_fits(shape) == JN._lrn_hwcn_fits(shape)
+    if shape[0] == 256:
+        assert lrn.lrn_hwcn_fits(shape)
+
+
+@pytest.mark.parametrize("shape", [(128, 8, 5, 5), (4, 8, 5, 5)])
+def test_lrn_routes_under_pallas_lrn_hwcn(jopts, monkeypatch, shape):
+    """nn.lrn under ``pallas_lrn = hwcn``: a shape inside the gate goes
+    through lrn_pallas_hwcn, one outside it through the plain form; both
+    equal the JAX package's nn.lrn under the same option (which on the
+    CPU computes the same function in XLA) within FWD_TOL / GRAD_TOL."""
+    calls = []
+    real = lrn.lrn_pallas_hwcn
+    monkeypatch.setattr(lrn, "lrn_pallas_hwcn",
+                        lambda *a: calls.append(1) or real(*a))
+    jopts.set("pallas_lrn", "hwcn")
+    rnd = np.random.RandomState(13)
+    x = (rnd.randn(*shape) * 2).astype(np.float32)
+    g = rnd.randn(*shape).astype(np.float32)
+    args = (5, 0.001, 0.75, 1.0)
+    y_j, vjp = jax.vjp(lambda v: JN.lrn(v, *args), jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(g))
+    xt = _t(x).requires_grad_()
+    y = TN.lrn(xt, *args, opts=_topts([("pallas_lrn", "hwcn")]))
+    (dx,) = torch.autograd.grad(y, xt, _t(g))
+    assert len(calls) == int(shape[0] == 128)
+    assert _rel(y.detach(), y_j) <= FWD_TOL and _rel(dx, dx_j) <= GRAD_TOL
 
 
 # ------------------------------------------------------------- max pool
@@ -281,6 +349,44 @@ def test_s2d_input_and_wgrad_match_jax(n, c, h, co, k, s, pad):
     dw = cw.wgrad_s2d(_t(x), _t(dy), k, k, s, pad, pad)
     ref = conv2d_weight(_t(x), (co, c, k, k), _t(dy), stride=s, padding=pad)
     assert _rel(dw, ref) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("n,c,h,co,k,s,pad", [
+    (2, 3, 23, 8, 11, 4, 0),    # AlexNet conv1 class: kb 3
+    (2, 1, 10, 6, 3, 2, 1),     # MNIST_CONV conv1 class, padded
+    (3, 2, 17, 5, 4, 3, 2),     # unconsumed tail rows, padding
+])
+def test_conv_wgrad_s2d_plain_matches_pallas_interpret(n, c, h, co, k, s,
+                                                       pad):
+    """conv_wgrad_s2d_pallas of the port (its plain version on the CPU)
+    == the JAX package's conv_wgrad_s2d_pallas (interpret mode, as its
+    ``fast_wgrad = pallas`` runs it): dW and db in float32 within
+    GRAD_TOL, and the same as the direct wgrad; conv_bias_fast's
+    ``pallas`` mode gives that dW / db and F.conv2d's dx."""
+    rnd = np.random.RandomState(14)
+    x = rnd.randn(n, c, h, h).astype(np.float32)
+    w = (rnd.randn(co, c, k, k) * 0.1).astype(np.float32)
+    b = rnd.randn(co).astype(np.float32)
+    oh = (h + 2 * pad - k) // s + 1
+    dy = rnd.randn(n, co, oh, oh).astype(np.float32)
+    dw_j, db_j = pk.conv_wgrad_s2d_pallas(jnp.asarray(x), jnp.asarray(dy),
+                                          kh=k, kw=k, stride=s, pad_y=pad,
+                                          pad_x=pad, interpret=True)
+    dw_t, db_t = cw.conv_wgrad_s2d_pallas(_t(x), _t(dy), k, k, s, pad, pad)
+    assert dw_t.shape == (co, c, k, k) and db_t.shape == (co,)
+    assert _rel(dw_t, dw_j) <= GRAD_TOL and _rel(db_t, db_j) <= GRAD_TOL
+    dw_d, db_d = cw.conv_wgrad_plain(_t(x), _t(dy), k, k, s, pad, pad)
+    assert _rel(dw_t, dw_d) <= GRAD_TOL and _rel(db_t, db_d) <= GRAD_TOL
+    assert cw.conv_wgrad_s2d_pallas.launches == 0
+    xt, wt, bt = (_t(a).requires_grad_() for a in (x, w, b))
+    out = cw.conv_bias_fast(xt, wt, bt, s, pad, pad, "pallas")
+    grads = torch.autograd.grad(out, (xt, wt, bt), _t(dy))
+    xr = _t(x).requires_grad_()
+    ref = F.conv2d(xr, _t(w), _t(b), stride=s, padding=pad)
+    (dx_ref,) = torch.autograd.grad(ref, xr, _t(dy))
+    assert _rel(out.detach(), ref.detach()) <= FWD_TOL
+    assert _rel(grads[0], dx_ref) <= GRAD_TOL
+    assert torch.equal(grads[1], dw_t) and torch.equal(grads[2], db_t)
 
 
 # --------------------------------------------------------------- layers
@@ -645,6 +751,59 @@ def test_alexnet_narrow_step_grads_match_jax(jopts):
             assert err <= NET_GRAD_TOL, (key, tag, err)
 
 
+def test_alexnet_narrow_hwcn_pallas_step_grads_match_nchw_kernels(jopts):
+    """The narrow AlexNet at batch 128 under ``pallas_lrn = hwcn
+    fast_wgrad = pallas`` against the same net and weights under
+    ``pallas_lrn = 1 fast_wgrad = hwcn`` (held to the JAX trainer by
+    test_alexnet_narrow_step_grads_match_jax; a JAX trainer at batch 128
+    takes ~20 s on a CPU): both LRNs take the (H, W, C, N) Function and
+    conv1's dW / db the space-to-depth wgrad, and the loss and every
+    gradient agree within FWD_TOL and GRAD_TOL (one function, summed in
+    other orders)."""
+    from cxxnet_tpu_torch.layers.conv import LRNLayer
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    batch = _synth_batch((128, 3, 67, 67), 10, 15)
+    calls = {"lrn": 0, "wgrad": 0}
+    real_lrn, real_wgrad = lrn.lrn_pallas_hwcn, cw.conv_wgrad_s2d_pallas
+
+    def lrn_spy(*a):
+        calls["lrn"] += 1
+        return real_lrn(*a)
+
+    def wgrad_spy(*a):
+        calls["wgrad"] += 1
+        return real_wgrad(*a)
+
+    out = {}
+    for name, opts in (("nchw", SLICE_OPTS),
+                       ("hwcn", (("pool_layout", "hwcn"),
+                                 ("pool_relu_fuse", "1"),
+                                 ("pallas_lrn", "hwcn"),
+                                 ("fast_wgrad", "pallas")))):
+        tt = NetTrainer()
+        for k, v in parse_config_string(_alexnet_narrow()):
+            tt.set_param(k, v)
+        for k, v in [("batch_size", "128"), ("dev", "cpu"), ("seed", "3"),
+                     ("eval_train", "0"), ("silent", "1")] + _SGD_KEYS \
+                + list(opts):
+            tt.set_param(k, v)
+        tt.init_model()
+        lrn.lrn_pallas_hwcn, cw.conv_wgrad_s2d_pallas = lrn_spy, wgrad_spy
+        try:
+            out[name] = tt.loss_and_grads(batch)
+        finally:
+            lrn.lrn_pallas_hwcn = real_lrn
+            cw.conv_wgrad_s2d_pallas = real_wgrad
+    assert sum(type(c.layer) is LRNLayer for c in tt.net.connections) == 2
+    assert calls == {"lrn": 2, "wgrad": 1}
+    (ref_loss, ref), (loss, grads) = out["nchw"], out["hwcn"]
+    assert _rel(float(loss), float(ref_loss)) <= FWD_TOL
+    for key, group in ref.items():
+        for tag, g in group.items():
+            assert _rel(grads[key][tag], g) <= GRAD_TOL, (key, tag)
+
+
 def test_cnn_trains_on_from_jax_sgd_state(jopts, tmp_path):
     """One sgd-momentum step in the JAX trainer on a LeNet, saved with
     its optimizer state as a .model; the port loads it (params, momentum
@@ -780,18 +939,22 @@ def test_cli_mnist_conv_round_matches_jax_cli(jopts, tmp_path, capsys):
 # ------------------------------------------------- engine, registry, io
 
 def test_engine_values_ported_and_refused():
-    """The slice's values are accepted; the values whose kernels are not
-    ported (pallas_lrn = hwcn: row 2, fast_wgrad = pallas: row 6,
-    pool_bwd = auto, pool_layout = chwn, group_conv = split, conv1_fwd =
-    s2d) raise "not ported" by name."""
+    """The slices' values are accepted (pallas_lrn = hwcn: row 2,
+    fast_wgrad = pallas: row 6, fused_update = 1: row 13 among them);
+    the values whose features are not ported (pool_bwd = auto,
+    pool_layout = chwn, group_conv = split, conv1_fwd = s2d, relu_vjp =
+    xla, conv_sibling_fuse = 1) raise "not ported" by name."""
     opts = EngineOptions()
     for k, v in SLICE_OPTS + (("pool_bwd", "gather"), ("pool_bwd", "eq"),
                               ("pallas_lrn", "bandconv"),
                               ("pallas_lrn", "0"), ("fast_wgrad", "off"),
-                              ("pool_relu_reorder", "0")):
+                              ("pool_relu_reorder", "0"),
+                              ("pallas_lrn", "hwcn"),
+                              ("fast_wgrad", "pallas"),
+                              ("fused_update", "1")):
         opts.set(k, v)
         assert getattr(opts, k) == v
-    for k, v in (("pallas_lrn", "hwcn"), ("fast_wgrad", "pallas"),
+    for k, v in (("relu_vjp", "xla"), ("conv_sibling_fuse", "1"),
                  ("pool_bwd", "auto"), ("pool_layout", "chwn"),
                  ("group_conv", "split"), ("conv1_fwd", "s2d")):
         with pytest.raises(ValueError, match="not ported"):

@@ -19,6 +19,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from cxxnet_tpu_torch.ops import conv_wgrad as cw  # noqa: E402
 from cxxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from cxxnet_tpu_torch.ops import fused_adam as fu  # noqa: E402
 from cxxnet_tpu_torch.ops import layernorm as ln  # noqa: E402
 from cxxnet_tpu_torch.ops import lrn  # noqa: E402
 from cxxnet_tpu_torch.ops import pool  # noqa: E402
@@ -379,3 +380,158 @@ def test_cnn_functions_backward_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 2, 2, 1)
     assert w.grad is not None and b.grad is not None
+
+
+# ------------------------------------------------- fused adam, LRN (H, W,
+# C, N), space-to-depth wgrad
+
+def _same(a, b):
+    """Bitwise equal, NaN where NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _bf16_within_step(p, p_ref, w, w_ref):
+    """Each bf16 param within one bf16 step (2^-7 of its magnitude) of
+    the plain one, plus the masters' difference: both are roundings of
+    masters that may differ by a few float32 ulps, which decides a param
+    near zero."""
+    p, p_ref = p.float(), p_ref.float()
+    tol = torch.maximum(p.abs(), p_ref.abs()) * 2.0 ** -7 + (w - w_ref).abs()
+    return bool((((p - p_ref).abs() <= tol) | (p.isnan() & p_ref.isnan()))
+                .all())
+
+
+@pytest.mark.parametrize("shape", [(16, 1024), (2048, 8192), (3, 8)])
+@pytest.mark.parametrize("wd,clip", [(0.0, 0.0), (0.001, 0.5)])
+def test_fused_adam_kernel_matches_plain(cuda, shape, wd, clip):
+    """Three chained steps of the fused adam kernel against its plain
+    version on the same inputs, with a NaN and an over-clip gradient:
+    m1, m2 and the master within rtol 1e-5 (the kernel may contract
+    multiply-adds into FMAs), the bf16 param the rounding of the
+    kernel's own master and within one bf16 step of the plain one (plus
+    the masters' difference, which decides a near-zero param); all
+    written in place."""
+    w = torch.randn(shape, generator=cuda, device="cuda") * 0.1
+    state = [w.to(torch.bfloat16), torch.zeros_like(w), torch.zeros_like(w),
+             w.clone()]
+    ref = [t.clone() for t in state]
+    before = fu.fused_adam_pallas.launches
+    for step in range(3):
+        g = (torch.randn(shape, generator=cuda, device="cuda") * 0.01
+             ).to(torch.bfloat16)
+        g.view(-1)[0], g.view(-1)[1] = float("nan"), 5.0
+        args = (0.01 * (step + 1), 0.1, 0.001, wd, clip)
+        p, m1, m2, w32 = state
+        out = fu.fused_adam_pallas(g, m1, m2, w32, args[0], d1=args[1],
+                                   d2=args[2], wd=wd, clip=clip, out=p)
+        assert all(a is b for a, b in zip(out, state))
+        ref = list(fu.fused_adam_plain(g, *ref[1:], *args))
+        torch.cuda.synchronize()
+        for got, want in zip(state[1:], ref[1:]):
+            assert torch.isfinite(got).all() == bool(clip)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7,
+                                       equal_nan=True)
+        assert _same(state[0], state[3].to(torch.bfloat16))
+        assert _bf16_within_step(state[0], ref[0], state[3], ref[3])
+    assert fu.fused_adam_pallas.launches == before + 3
+
+
+def test_fused_adam_rejects_what_it_does_not_take(cuda):
+    buf = torch.zeros((8200,), device="cuda")
+    g = torch.zeros((8200,), device="cuda", dtype=torch.bfloat16)
+    p = g.clone()
+    with pytest.raises(ValueError, match="aligned"):
+        fu.fused_adam_pallas(g[1:8193], buf[1:8193], buf[1:8193],
+                             buf[1:8193], 0.1, d1=0.1, d2=0.1,
+                             out=p[1:8193])
+    with pytest.raises(ValueError, match="float32"):
+        fu.fused_adam_pallas(g, g, buf, buf, 0.1, d1=0.1, d2=0.1, out=p)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fu.fused_adam_pallas(g[:12], buf[:12], buf[:12], buf[:12], 0.1,
+                             d1=0.1, d2=0.1, out=p[:12])
+
+
+@pytest.mark.parametrize("shape,nsize,beta", [
+    ((27, 27, 96, 128), 5, 0.75),   # AlexNet lrn1 (batch cut)
+    ((13, 13, 256, 128), 5, 0.75),  # AlexNet lrn2 (batch cut)
+    ((5, 9, 7, 3), 4, 0.75),        # even window, odd batch
+    ((6, 6, 16, 2), 3, 0.6),        # pow path
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_hwcn_kernels_match_plain(cuda, shape, nsize, beta, dtype):
+    """The (H, W, C, N) LRN forward and backward against their plain
+    versions (float32 at 1e-4, bf16 per row at 2^-6, rows along N); the
+    backward twice, bitwise equal."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(dtype)
+    g = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    args = (nsize, 0.01, beta, 1.0)
+    before = (lrn.lrn_hwcn_fwd.launches, lrn.lrn_hwcn_bwd.launches)
+    y = lrn.lrn_hwcn_fwd(x, *args)
+    dx, again = lrn.lrn_hwcn_bwd(x, g, *args), lrn.lrn_hwcn_bwd(x, g, *args)
+    ref_y = lrn.lrn_hwcn_fwd_plain(x, *args)
+    ref_dx = lrn.lrn_hwcn_bwd_plain(x, g, *args)
+    torch.cuda.synchronize()
+    assert (lrn.lrn_hwcn_fwd.launches - before[0],
+            lrn.lrn_hwcn_bwd.launches - before[1]) == (1, 2)
+    assert torch.equal(dx, again) and y.dtype == dx.dtype == dtype
+    for got, ref in ((y, ref_y), (dx, ref_dx)):
+        if dtype == torch.float32:
+            assert _rel(got, ref) <= F32_TOL
+        else:
+            assert _row_rel(got, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("xshape,co,k,s,pad", [
+    ((8, 3, 227, 227), 96, 11, 4, 0),   # AlexNet conv1 (batch cut)
+    ((6, 1, 28, 28), 32, 3, 2, 1),      # MNIST_CONV conv1
+    ((3, 5, 17, 19), 70, 4, 3, 2),      # ragged tiles, padding, tail
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_wgrad_s2d_kernel_matches_plain(cuda, xshape, co, k, s, pad,
+                                             dtype):
+    """The space-to-depth wgrad against its plain version and against the
+    strided conv's plain dW / db, within WGRAD_TOL; twice, bitwise
+    equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(xshape, generator=cuda, device="cuda").to(dtype)
+    oh = (xshape[2] + 2 * pad - k) // s + 1
+    ow = (xshape[3] + 2 * pad - k) // s + 1
+    dy = torch.randn((xshape[0], co, oh, ow), generator=cuda,
+                     device="cuda").to(dtype)
+    before = cw.conv_wgrad_s2d_pallas.launches
+    got = cw.conv_wgrad_s2d_pallas(x, dy, k, k, s, pad, pad)
+    again = cw.conv_wgrad_s2d_pallas(x, dy, k, k, s, pad, pad)
+    torch.cuda.synchronize()
+    assert cw.conv_wgrad_s2d_pallas.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].shape == (co, xshape[1], k, k) and got[1].shape == (co,)
+    for ref in (cw.conv_wgrad_s2d_plain(x, dy, k, k, s, pad, pad),
+                cw.conv_wgrad_plain(x, dy, k, k, s, pad, pad)):
+        assert _rel(got[0], ref[0]) <= WGRAD_TOL
+        assert _rel(got[1], ref[1]) <= WGRAD_TOL
+
+
+def test_hwcn_lrn_s2d_wgrad_and_fused_adam_launch_their_kernels(cuda):
+    """autograd through LRNHWCN and conv_bias_fast's ``pallas`` mode, and
+    the adam updater under ``fused``, launch each new kernel."""
+    from cxxnet_tpu_torch.ops.conv_wgrad import conv_bias_fast
+    from cxxnet_tpu_torch.updater.updaters import (AdamUpdater,
+                                                   UpdaterHyper)
+    x = torch.randn((128, 3, 31, 31), generator=cuda, device="cuda")
+    w = (torch.randn((8, 3, 7, 7), generator=cuda, device="cuda") * 0.1
+         ).requires_grad_()
+    b = torch.zeros((8,), device="cuda", requires_grad=True)
+    counts = lambda: (lrn.lrn_hwcn_fwd.launches, lrn.lrn_hwcn_bwd.launches,
+                      cw.conv_wgrad_s2d_pallas.launches,
+                      fu.fused_adam_pallas.launches)
+    before = counts()
+    h = conv_bias_fast(x, w, b, 3, 1, 1, "pallas")
+    lrn.lrn_pallas_hwcn(h, 5, 1e-3, 0.75, 1.0).square().sum().backward()
+    p = torch.randn((8, 1024), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    up = AdamUpdater()
+    st = up.make_state(p)
+    up.apply(p, torch.ones_like(p), st, UpdaterHyper(), 0, fused=True)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 1, 1)
+    assert torch.equal(p, st["w32"].to(torch.bfloat16))

@@ -245,18 +245,22 @@ def test_config_netconfig_and_engine_options_match_jax():
     assert {k: v[:2] for k, v in jengine._DEFS.items()} \
         == {k: v[:2] for k, v in tengine._DEFS.items()}
     opts = tengine.EngineOptions()
+    for key, val in (("fused_update", "1"), ("pallas_lrn", "hwcn"),
+                     ("fast_wgrad", "pallas")):
+        opts.set(key, val)
+        assert getattr(opts, key) == val
     with pytest.raises(ValueError):
         opts.set("flash_attn", "2")
     with pytest.raises(ValueError):
         opts.set("no_such_option", "1")
 
 
-@pytest.mark.parametrize("key,val", [("fused_update", "1"),
+@pytest.mark.parametrize("key,val", [("relu_vjp", "xla"),
                                      ("dp_overlap", "1"),
                                      ("pool_layout", "chwn"),
                                      ("pool_bwd", "auto"),
-                                     ("pallas_lrn", "hwcn"),
-                                     ("fast_wgrad", "pallas"),
+                                     ("conv_sibling_fuse", "1"),
+                                     ("concat_virtual", "1"),
                                      ("group_conv", "split"),
                                      ("conv1_fwd", "s2d"),
                                      ("dp_bucket_mb", "8")])

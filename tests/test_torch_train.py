@@ -5,10 +5,13 @@ segmented flash forward / backward and the layernorm backward against
 the JAX package's Pallas kernels in interpret mode (as
 tests/test_pallas.py and tests/test_text.py run them), and each new
 autograd Function's CPU path under ``torch.autograd.gradcheck``.
-Training: the updaters against the JAX ``Updater.apply``, the tiny
-packed transformer LM stepped by both trainers from the same weights
-and batches, both CLIs training from one snapshot, and the train keys
-the port refuses.  Inputs come from numpy with a seed.  The CUDA kernels
+Training: the updaters against the JAX ``Updater.apply``, the fused
+adam update's plain version against the Pallas ``fused_adam_pallas``
+(interpret mode) and its gate against the JAX gate, the tiny packed
+transformer LM stepped by both trainers from the same weights and
+batches (in bf16 under ``fused_update = 1`` too), both CLIs training
+from one snapshot, and the train keys the port refuses.  Inputs come
+from numpy with a seed.  The CUDA kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -477,7 +480,7 @@ def test_cli_train_matches_jax_cli_and_loads_in_jax(tmp_path):
                          and r["tokens_per_sec"] > 0 for r in train)
 
 
-@pytest.mark.parametrize("key,val", [("fused_update", "1"),
+@pytest.mark.parametrize("key,val", [("continue", "1"),
                                      ("rollback", "2"),
                                      ("sentinel", "1"),
                                      ("mesh", "data:2")])
@@ -540,3 +543,273 @@ def test_attention_with_segments_routes_by_flash_attn(flash, monkeypatch):
     opts.set("flash_attn", "1")
     with pytest.raises(ValueError, match="causal"):
         layer.forward(params, [x], ctx)
+
+
+# ------------------------------------------------------------ fused adam
+
+def _bf16_within_step(p, p_ref, w, w_ref):
+    """Each bf16 param within one bf16 step (2^-7 of its magnitude) of the
+    reference, plus the two float32 masters' difference (both params are
+    roundings of masters a few ulps apart, which decides a param near
+    0)."""
+    p, p_ref = np.asarray(p, np.float32), np.asarray(p_ref, np.float32)
+    tol = np.maximum(np.abs(p), np.abs(p_ref)) * 2.0 ** -7 + np.abs(
+        np.asarray(w, np.float32) - np.asarray(w_ref, np.float32))
+    return bool(((np.abs(p - p_ref) <= tol)
+                 | (np.isnan(p) & np.isnan(p_ref))).all())
+
+
+@pytest.mark.parametrize("wd,clip,epoch", [(0.0, 0.0, 0), (0.001, 0.5, 7),
+                                           (0.01, 0.0, 3)])
+def test_fused_adam_plain_matches_pallas_interpret(wd, clip, epoch):
+    """fused_adam_pallas of the port (its plain version on the CPU)
+    against the JAX package's (interpret mode) on the same (16, 1024)
+    bf16 param, float32 state and bias-corrected lr_t, three chained
+    steps with an over-clip gradient (and under a clip a NaN): m1, m2 and
+    the master within rtol 1e-5, atol 1e-7, the param within one bf16
+    step (the JAX package's own tolerances between its two lowerings);
+    the port writes its state and param in place.  The port's unfused
+    AdamUpdater agrees to the same tolerances."""
+    from cxxnet_tpu.updater import updaters as ju
+    from cxxnet_tpu_torch.ops import fused_adam as fu
+    from cxxnet_tpu_torch.updater import updaters as tu
+    rnd = np.random.RandomState(23)
+    p0 = (rnd.randn(16, 1024) * 0.1).astype(np.float32)
+    jh = ju.UpdaterHyper(tag="wmat", base_lr=0.01, wd=wd,
+                         clip_gradient=clip)
+    th = tu.UpdaterHyper(**vars(jh))
+    jp = jnp.asarray(p0).astype(jnp.bfloat16)
+    js = ju.AdamUpdater().make_state(jp)
+    tp = _t(p0).to(torch.bfloat16)
+    ts = tu.AdamUpdater().make_state(tp)
+    up, us = tp.clone(), {k: v.clone() for k, v in ts.items()}
+    for step in range(3):
+        g = (rnd.randn(16, 1024) * 0.01).astype(np.float32)
+        g[0, 1] = 5.0
+        if clip:
+            g[0, 0] = np.nan
+        lr_j = ju.AdamUpdater._lr_t(jh, epoch + step)
+        lr_t = tu.AdamUpdater().lr_t(th, epoch + step)
+        # float32 bias corrections: numpy's and XLA's pow may differ in
+        # the last bit, which 1 - (1 - d2)^t (near 0) amplifies
+        assert abs(lr_t - float(lr_j)) <= 1e-5 * float(lr_j)
+        jp, m1, m2, w32 = pk.fused_adam_pallas(
+            jnp.asarray(g).astype(jnp.bfloat16), js["m1"], js["m2"],
+            js["w32"], lr_j, d1=jh.beta1, d2=jh.beta2, wd=wd, clip=clip,
+            interpret=True)
+        js = {"m1": m1, "m2": m2, "w32": w32}
+        tg = _t(g).to(torch.bfloat16)
+        out = fu.fused_adam_pallas(tg, ts["m1"], ts["m2"], ts["w32"], lr_t,
+                                   d1=th.beta1, d2=th.beta2, wd=wd,
+                                   clip=clip, out=tp)
+        assert all(a is b for a, b in zip(out, (tp, ts["m1"], ts["m2"],
+                                                ts["w32"])))
+        tu.AdamUpdater().apply(up, tg, us, th, epoch + step)
+        for key in ("m1", "m2", "w32"):
+            for got in (ts[key], us[key]):
+                np.testing.assert_allclose(got.numpy(), np.asarray(js[key]),
+                                           rtol=1e-5, atol=1e-7,
+                                           err_msg=f"{key} step {step}")
+        assert torch.equal(tp, ts["w32"].to(torch.bfloat16))
+        for p, st in ((tp, ts), (up, us)):
+            assert _bf16_within_step(p.float().numpy(), np.asarray(
+                jp, np.float32), st["w32"].numpy(), np.asarray(js["w32"]))
+    assert fu.fused_adam_pallas.launches == 0
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 1024), "bfloat16"), ((16, 1024), "float32"),
+    ((3, 1000), "bfloat16"), ((8192,), "bfloat16"),
+    ((2, 3, 8192), "bfloat16"), ((4096,), "bfloat16"),
+    ((256, 128), "bfloat16"), ((384,), "bfloat16")])
+def test_fused_adam_supported_matches_jax(shape, dtype):
+    """Both packages' gates admit the same tensors (bf16, size a multiple
+    of 8 x 1024), so under fused_update = 1 they fuse the same ones."""
+    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
+    want = pk.fused_adam_supported(jnp.zeros(shape, getattr(jnp, dtype)))
+    assert fused_adam_supported(torch.zeros(shape,
+                                            dtype=getattr(torch, dtype))) \
+        == want == (dtype == "bfloat16" and int(np.prod(shape)) % 8192 == 0)
+
+
+@pytest.mark.parametrize("shape,dtype,master,fused", [
+    ((16, 1024), torch.bfloat16, True, True),    # admitted
+    ((3, 1000), torch.bfloat16, True, False),    # size off the gate
+    ((16, 1024), torch.float32, False, False),   # no master
+])
+def test_adam_fused_flag_routes_by_the_gate(monkeypatch, shape, dtype,
+                                            master, fused):
+    """AdamUpdater.apply(fused=True) sends exactly the admitted tensors
+    through fused_adam_pallas; the others take the unfused update,
+    bitwise the same as without the flag."""
+    from cxxnet_tpu_torch.updater import updaters as tu
+    calls = []
+    real = tu.fused_adam_pallas
+    monkeypatch.setattr(tu, "fused_adam_pallas",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    rnd = np.random.RandomState(24)
+    p = _t((rnd.randn(*shape) * 0.1).astype(np.float32)).to(dtype)
+    g = _t((rnd.randn(*shape) * 0.01).astype(np.float32)).to(dtype)
+    up = tu.AdamUpdater()
+    h = tu.UpdaterHyper(tag="wmat", base_lr=0.01)
+    st = up.make_state(p)
+    assert ("w32" in st) == master
+    ref_p, ref_st = p.clone(), {k: v.clone() for k, v in st.items()}
+    up.apply(p, g, st, h, 2, fused=True)
+    up.apply(ref_p, g, ref_st, h, 2)
+    assert len(calls) == int(fused) and sorted(st) == sorted(ref_st)
+    if not fused:
+        assert torch.equal(p, ref_p)
+    for k in st:
+        torch.testing.assert_close(st[k], ref_st[k], rtol=1e-5, atol=1e-7)
+
+
+def _fused_lm_net():
+    from cxxnet_tpu_torch.models import transformer
+    return transformer(vocab=256, seq=128, dim=128, nlayer=2, nhead=2,
+                       packed=True)
+
+
+def _fused_lm_batches(path, n):
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    rnd = np.random.RandomState(25)
+    write_token_shard(str(path), [rnd.randint(0, 256, rnd.randint(10, 90))
+                                  for _ in range(40)], itemsize=2)
+    return _batches(path, n)
+
+
+@pytest.fixture
+def jopts():
+    """The JAX package's process-global engine options (a trainer's
+    ``fused_update`` key sets them), restored after the test."""
+    from cxxnet_tpu import engine as jengine
+    saved = jengine.snapshot()
+    yield jengine.opts
+    for k, v in saved.items():
+        jengine.opts.set(k, v)
+
+
+def _fused_pair(keys):
+    """(JAX trainer, port trainer) on the narrow bf16 LM (d128, vocab 256,
+    2 layers: every matrix tiles by 8192), the port's params from the
+    JAX trainer's."""
+    from __graft_entry__ import _make_trainer
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer, params_from_jax
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    net = _fused_lm_net()
+    jt = _make_trainer(net, 2, "cpu", extra=keys)
+    tt = NetTrainer()
+    for k, v in parse_config_string(net):
+        tt.set_param(k, v)
+    for k, v in [("batch_size", "2"), ("dev", "cpu")] + keys:
+        tt.set_param(k, v)
+    tt.init_model()
+    tt.set_state(*params_from_jax(jax.tree.map(np.asarray, jt.params),
+                                  jax.tree.map(np.asarray, jt.buffers)))
+    return jt, tt
+
+
+_FUSED_KEYS = [("updater", "adam"), ("eta", "0.001"), ("dtype", "bfloat16"),
+               ("fused_update", "1"), ("eval_train", "0"), ("silent", "1")]
+
+
+@pytest.mark.parametrize("period", [1, 2])
+def test_fused_update_lm_matches_jax(jopts, monkeypatch, tmp_path, period):
+    """The narrow bf16 LM under ``fused_update = 1`` (and update_period =
+    ``period``) stepped twice by both trainers from one snapshot: each
+    port update sends the 11 admitted matrices (of 29 tensors) through
+    fused_adam_pallas and the JAX trainer traces its Pallas kernel for
+    the same ones; the losses agree within rel 1e-4 (bf16 forwards); the
+    masters within 2 x eta per update (adam moves a parameter at most
+    ~eta a step, and an element whose bf16 gradients straddle zero in
+    the two packages moves either way); m1 and m2 within 0.1 of their
+    largest element (the two packages' bf16 gradients differ in the last
+    bits)."""
+    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
+    from cxxnet_tpu_torch.updater import updaters as tu
+    calls = {"jax": 0, "port": 0}
+    real_j, real_t = pk.fused_adam_pallas, tu.fused_adam_pallas
+
+    def spy(which, real):
+        def f(*a, **kw):
+            calls[which] += 1
+            return real(*a, **kw)
+        return f
+
+    monkeypatch.setattr(pk, "fused_adam_pallas", spy("jax", real_j))
+    monkeypatch.setattr(tu, "fused_adam_pallas", spy("port", real_t))
+    batches = _fused_lm_batches(tmp_path / "c.tok", 2 * period)
+    jt, tt = _fused_pair(_FUSED_KEYS + [("update_period", str(period))])
+    admitted = sum(fused_adam_supported(p) for g in tt.params.values()
+                   for p in g.values())
+    assert admitted == 11
+    for batch in batches:
+        jt.update(batch)
+        tt.update(batch)
+        jl, tl = float(jt._last_loss), float(tt.last_loss)
+        assert abs(tl - jl) <= 1e-4 * abs(jl)
+    assert tt.epoch_counter == jt.epoch_counter == 2
+    assert calls["port"] == 2 * admitted and calls["jax"] >= admitted
+    for key, group in jt.opt_state.items():
+        for tag, st in group.items():
+            assert set(st) == set(tt.opt_state[key][tag]) == {"m1", "m2",
+                                                              "w32"}
+            w = np.asarray(st["w32"])
+            got = tt.opt_state[key][tag]
+            assert np.abs(got["w32"].numpy() - w).max() <= 2 * 2 * 1e-3
+            np.testing.assert_array_equal(
+                tt.params[key][tag].float().numpy(),
+                got["w32"].to(torch.bfloat16).float().numpy())
+            for m in ("m1", "m2"):
+                ref = np.asarray(st[m])
+                assert _max_rel(got[m].numpy(), ref) <= 0.1, (key, tag, m)
+
+
+def test_fused_update_equals_unfused_in_the_port(jopts, tmp_path):
+    """In the port, the same bf16 LM from one snapshot stepped twice with
+    and without ``fused_update``: the same losses bitwise (the first
+    update's gradients are the same), and every param, master and moment
+    within rtol 1e-5, atol 1e-7 of the unfused update's."""
+    batches = _fused_lm_batches(tmp_path / "c.tok", 2)
+    _, fused = _fused_pair(_FUSED_KEYS)
+    _, plain = _fused_pair([kv for kv in _FUSED_KEYS
+                            if kv[0] != "fused_update"])
+    assert plain.opts.fused_update == "0"
+    for batch in batches:
+        fused.update(batch)
+        plain.update(batch)
+    assert float(fused.last_loss) == pytest.approx(float(plain.last_loss),
+                                                   rel=1e-6)
+    for key, group in plain.opt_state.items():
+        for tag, st in group.items():
+            for k, v in st.items():
+                torch.testing.assert_close(fused.opt_state[key][tag][k], v,
+                                           rtol=1e-5, atol=1e-7)
+
+
+def test_fused_snapshot_crosses_from_jax(jopts, tmp_path):
+    """One fused step in the JAX trainer saved with its optimizer state:
+    the port loads m1, m2 and w32 bitwise under the same keys, and its
+    fused updates go on from them (two more steps, losses within rel
+    1e-4 of the JAX trainer's)."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    batches = _fused_lm_batches(tmp_path / "c.tok", 3)
+    jt, _ = _fused_pair(_FUSED_KEYS)
+    jt.update(batches[0])
+    path = str(tmp_path / "j.model")
+    jt.save_model(path, with_opt_state=True)
+    tt = NetTrainer()
+    for k, v in [("batch_size", "2"), ("dev", "cpu")] + _FUSED_KEYS:
+        tt.set_param(k, v)
+    tt.load_model(path)
+    tt._ensure_opt_state()
+    for key, group in jt.opt_state.items():
+        for tag, st in group.items():
+            for k, v in st.items():
+                np.testing.assert_array_equal(
+                    tt.opt_state[key][tag][k].numpy(), np.asarray(v))
+    for batch in batches[1:]:
+        jt.update(batch)
+        tt.update(batch)
+        jl = float(jt._last_loss)
+        assert abs(float(tt.last_loss) - jl) <= 1e-4 * abs(jl)
