@@ -68,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -239,6 +240,13 @@ def read_launches() -> dict:
     return {name: kernel_fn(name).launches for name in KERNELS}
 
 
+def rate(flops: float, ms: float, bound_ms: float) -> str:
+    """Achieved TFLOP/s of ``flops`` operations in ``ms``, and the share of
+    the bound (bound_ms / ms)."""
+    return (f"{flops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+            "bound")
+
+
 def bound(flops: float, nbytes: float, dtype: str) -> dict:
     """The least time for ``flops`` operations and ``nbytes`` of traffic
     on this card's published peaks, and which of the two bounds it."""
@@ -249,6 +257,23 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 
 
 # ------------------------------------------------------------------ phases
+def wgmma_ptxas(build_log: str):
+    """(kernel, "registers; spills") of each wgmma flash kernel in the
+    nvcc -Xptxas -v output (an entry's lines follow its name)."""
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '.*(flash_(?:fwd|bwd_dq|"
+                      r"bwd_dkv)_wgmma_kernel)ILi(\d+)ELb([01])E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}, SEG={m.group(3)}>"
+        elif name and "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line:
+            out.append((name, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+            name, spill = None, ""
+    return out
+
+
 def phase_env():
     import torch
     from cxxnet_tpu_torch.ops import build
@@ -266,6 +291,8 @@ def phase_env():
     for line in build.LIBRARY.build_log.splitlines():
         if "registers" in line or line.startswith("=="):
             log(f"  ptxas: {line.strip()}")
+    for name, props in wgmma_ptxas(build.LIBRARY.build_log):
+        log(f"  ptxas {name}: {props} (shared memory: dynamic, at launch)")
 
 
 def phase_kernels():
@@ -306,7 +333,8 @@ def phase_kernels():
             f"{'per-row ' if bf16 else ''}rel err o {err:.3e} (tol {tol:g}),"
             f" lse {lerr:.3e} (tol {F32_TOL:g}); abs err {abs_err:.3e};"
             f" kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms,"
-            f" bound {max(t_ops, t_bytes):.4f} ms")
+            f" bound {max(t_ops, t_bytes):.4f} ms; "
+            f"{rate(flops, ms, max(t_ops, t_bytes))}")
         if not (err <= tol and lerr <= F32_TOL):
             raise AssertionError(f"flash_attention_fwd {name} disagrees "
                                  f"with its plain version: {err}, {lerr}")
@@ -435,13 +463,14 @@ def phase_train_kernels():
     out = {}
 
     def record(name, dtype, errs, tol, abs_err, ms, plain, lib, bnd, what,
-               shape=(bh, s, d)):
+               shape=(bh, s, d), flops=None):
         log(f"{name} {shape} {dtype}: errors "
             f"{', '.join(f'{w} {e:.3e}' for w, e in zip(what, errs))} "
             f"(tol {tol:g}); abs err {abs_err:.3e}; kernel {ms:.3f} ms, "
             f"plain {plain:.3f} ms, library {lib:.3f} ms, bound "
             f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
-            f"{'; bitwise repeatable' if '_bwd' in name else ''}")
+            f"{'; bitwise repeatable' if '_bwd' in name else ''}"
+            f"{'; ' + rate(flops, ms, bnd['bound_ms']) if flops else ''}")
         if not max(errs) <= tol:
             raise AssertionError(f"{name} {dtype} disagrees with its plain "
                                  f"version: {errs}")
@@ -481,7 +510,8 @@ def phase_train_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(
                    q4, k4, v4, is_causal=True)),
                bound(4.0 * d * pairs["causal"],
-                     4 * bh * s * d * isz + 4 * bh * s, name), ("o", "lse"))
+                     4 * bh * s * d * isz + 4 * bh * s, name), ("o", "lse"),
+               flops=4.0 * d * pairs["causal"])
         if not errs[1] <= F32_TOL:
             raise AssertionError("flash_attention_fwd lse disagrees")
         # row 8: the flash backward, causal, from the forward's o and lse
@@ -495,7 +525,8 @@ def phase_train_kernels():
                time_ms(run), time_ms(plain, reps=3),
                time_ms(sdpa_bwd(q, k, v, do, None)),
                bound(10.0 * d * pairs["causal"],
-                     8 * bh * s * d * isz + 4 * bh * s, name), grads)
+                     8 * bh * s * d * isz + 4 * bh * s, name), grads,
+               flops=10.0 * d * pairs["causal"])
         # row 9: the segmented forward
         run = lambda: fa.flash_attention_seg_fwd(q, k, v, seg)
         plain = lambda: fa.flash_attention_seg_fwd_plain(q, k, v, seg)
@@ -511,7 +542,7 @@ def phase_train_kernels():
                    q4, k4, v4, attn_mask=mask)),
                bound(4.0 * d * pairs["seg"],
                      4 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
-               ("o", "lse"))
+               ("o", "lse"), flops=4.0 * d * pairs["seg"])
         if not errs[1] <= F32_TOL:
             raise AssertionError("flash_attention_seg_fwd lse disagrees")
         # row 10: the segmented backward
@@ -527,7 +558,7 @@ def phase_train_kernels():
                time_ms(sdpa_bwd(q, k, v, do, mask)),
                bound(10.0 * d * pairs["seg"],
                      8 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
-               grads)
+               grads, flops=10.0 * d * pairs["seg"])
         del q, k, v, do, o, lse, got
         # row 12: the layernorm backward, both residual contracts
         rows = b * s

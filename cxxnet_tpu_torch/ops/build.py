@@ -44,6 +44,8 @@ _SIGNATURES = {
     # scale, dtype, stream
     "cxn_flash_attn_bwd": (_c.c_void_p,) * 11 + (_c.c_int,) * 5
     + (_c.c_float, _c.c_int, _c.c_void_p),
+    # d, dtype, backward
+    "cxn_flash_attn_route": (_c.c_int,) * 3,
     # x, gamma, beta, y, mean, rstd, rows, d, eps, xdtype, gdtype, stream
     "cxn_layernorm_fwd": (_c.c_void_p,) * 6 + (_c.c_longlong, _c.c_int,
                                                _c.c_float, _c.c_int,

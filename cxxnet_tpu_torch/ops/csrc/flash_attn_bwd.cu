@@ -13,34 +13,46 @@
 // input gets no gradient.
 //
 // What bounds it on the card: operations.  At the training shape (64
-// heads, s 4096, d 128, causal, bf16) the two passes do ~5 products of
-// (s x s x d) over the live triangle, ~690 GFLOP on ~270 MB of input and
-// output, far above an H100's ~295 FLOP/byte: the least time is those
-// products over the tensor cores' 989 TFLOP/s.
+// heads, s 4096, d 128, causal, bf16) the function needs 5 products of
+// the live (s x s x d) triangle (s, dO v^T, dv, dk, dq), ~690 GFLOP on
+// ~270 MB of input and output, far above an H100's ~295 FLOP/byte: the
+// least time is those products over the tensor cores' 989 TFLOP/s,
+// 0.695 ms.
 //
-// Design.  As in the JAX package, two kernels, so that no block writes
-// another block's output: no atomics, and repeated runs are bitwise
-// equal.
-//   * dq: one block per (b*h, 64-row q-tile), looping over the k-tiles
-//     up to the diagonal (the TPU's `_fa_dq_kernel_tri`, the sequential
-//     grid axis turned into a loop); heaviest rows first.
-//   * dk/dv: one block per (b*h, 64-row k-tile), looping over the
-//     q-tiles from the diagonal on (the TPU's `_fa_dkv_kernel_tri`, whose
-//     first q block is `ifirst = (j * bk) // bq`; with equal 64-row tiles
-//     that is the k-tile's own index).  It works on the transposed score
-//     tile s^T = k q^T, so p^T and ds^T come out of the accumulators
-//     already in the A-operand layout of the dv and dk products.
-//   * delta: a small pre-kernel, one warp per row.
-// bf16 runs on the tensor cores (mma.sync m16n8k16, the register layout
-// of flash_attn_fwd.cu): scores, p and ds never leave registers; dk and
-// dv accumulators (2 x 16 x d float32 a warp) are the register budget,
-// which is why the dk/dv kernel walks each q-tile in two halves of 32
-// columns.  float32 runs on the CUDA cores (4 x 4 register tiles, p and
-// ds staged in shared memory).  Head widths up to 128 (d a multiple of
-// 8), instantiated at 32, 64 and 128 columns with zero padding.  Not
-// pipelined (no cp.async / TMA, no wgmma): PERF.md has the times.  The
-// kernels allocate nothing (the caller passes the delta buffer), do not
-// synchronise, and launch on the caller's stream.
+// Design.  As in the JAX package, two kernels after a delta pre-kernel,
+// so that no block writes another block's output: no atomics, and
+// repeated runs are bitwise equal.  The price is that s and dO v^T are
+// formed in both: 7 products against the bound's 5.
+//   * delta: one warp per row, float32.
+//   * bf16 (every head width up to 128, instantiated at 64 and 128
+//     columns; TMA fills the columns past d with zeros): wgmma fed by a
+//     TMA ring, warp-specialised as the forward (flash_attn_fwd.cu): 384
+//     threads a block, a producer warpgroup whose first warp issues the
+//     TMA loads and stages the per-row vectors, two consumer warpgroups
+//     of 64 rows with 240 registers each (setmaxnreg).
+//       - dq: one block per (b*h, 128-row q-tile), heaviest first.  Q and
+//         dO stay resident; 64-row K and V tiles stream through a 2-stage
+//         ring.  A consumer forms S = Q K^T and dP = dO V^T (wgmma from
+//         shared memory), ds in registers, and dq += ds K with ds (bf16)
+//         as the register A operand and K read MN-major from the ring.
+//       - dk/dv: one block per (b*h, 128-row k-tile), the longest causal
+//         columns first; K and V resident, 64-row Q and dO tiles (with
+//         their lse and delta) stream through a 2-stage ring from the
+//         diagonal on (the TPU's `_fa_dkv_kernel_tri`).  It works on the
+//         transposed tile: S^T = K Q^T and dP^T = V dO^T from shared
+//         memory, p^T and ds^T in registers, then dv += p^T dO and
+//         dk += ds^T Q with p^T / ds^T as register A operands: two
+//         64 x d float32 accumulators a thread-row, no halves.
+//     Scores go to the exp2 domain (log2(e) folded into the scale and
+//     into lse as it is staged); the mask runs only on tiles that cross
+//     the diagonal or the ragged end and, under SEG, on tiles whose
+//     streamed rows do not all share the resident rows' one nonzero
+//     segment id (checked by the producer as it stages the ids).
+//   * float32: the CUDA cores (4 x 4 register tiles, p and ds staged in
+//     shared memory), 64-row tiles, head widths up to 128.
+// PERF.md has the times.  The kernels allocate nothing (the caller passes
+// the delta buffer), do not synchronise, and launch on the caller's
+// stream.
 
 #include <stdint.h>
 
@@ -48,13 +60,13 @@
 
 #include "common.cuh"
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
 constexpr int FB_ROWS = 64;       // q or k rows per block (both kernels)
 constexpr int FB_THREADS = 256;   // float32 kernels: 8 warps
 constexpr int FB_SP = FB_ROWS + 1;
-constexpr int FB_QH = 32;         // bf16 dk/dv: q columns per half-tile
 
 // delta[row] = sum_c dout[row, c] * o[row, c] in float32, a warp a row
 template <typename T>
@@ -342,238 +354,372 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------- bf16
-// dq on the tensor cores: 4 warps x 16 q rows; per k-tile each warp
-// forms s and dO v^T (16 x 64) in registers, turns them into ds and
-// adds ds k to its (16 x D) accumulator.
+// Thread roles as in flash_fwd_wgmma_kernel: threads 0..127 the producer
+// warpgroup (its first warp works), 128..383 consumers c = 0, 1 owning
+// rows 64c .. 64c + 63 of the block's 128; a consumer thread holds the
+// m64n* accumulator layout (rows g, g + 8 of its warp's 16; columns
+// 8i + 2t, 8i + 2t + 1 of n8 block i in registers 4i .. 4i + 3).
+template <int D>
+struct DqTiles {
+  static constexpr int BM = 128;               // query rows per block
+  static constexpr int BK = 64;                // key rows per ring stage
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * D * 2;   // resident Q or dO
+  static constexpr int KV_BYTES = BK * D * 2;  // one K or V stage
+  static constexpr int OFF_G = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_SEG = OFF_V + STAGES * KV_BYTES;
+  // fh_stage_seg of the two row halves, then of each stage
+  static constexpr int OFF_UNI = OFF_SEG + STAGES * BK * 4;
+  static constexpr int OFF_BAR = OFF_UNI + 32;
+  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+struct DkvTiles {
+  static constexpr int BN = 128;               // key rows per block
+  static constexpr int BQ = 64;                // query rows per ring stage
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // resident K or V
+  static constexpr int Q_BYTES = BQ * D * 2;   // one Q or dO stage
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_G = OFF_Q + STAGES * Q_BYTES;
+  // per stage: BQ values each of lse * log2(e), delta, segment id
+  static constexpr int OFF_VEC = OFF_G + STAGES * Q_BYTES;
+  // fh_stage_seg of the two row halves, then of each stage
+  static constexpr int OFF_UNI = OFF_VEC + STAGES * 3 * BQ * 4;
+  static constexpr int OFF_BAR = OFF_UNI + 32;
+  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+};
+
 template <int D, bool SEG>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ seg,
-                        __nv_bfloat16* __restrict__ dq, int s_len, int d,
-                        int h, int causal, float scale) {
-  constexpr int LD = D + 8, NK = D / 16, NO = D / 8, NS = TC_BK / 8;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __shared__ int sSegK[TC_BK];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* sG = sQ + TC_BQ * LD;  // dO
-  __nv_bfloat16* sK = sG + TC_BQ * LD;
-  __nv_bfloat16* sV = sK + TC_BK * LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ seg,
+                          __nv_bfloat16* __restrict__ dq, int s_len, int d,
+                          int h, int causal, float scale, float scale_log2) {
+  using L = DqTiles<D>;
+  constexpr int BM = L::BM, BK = L::BK, ST = L::STAGES;
+  extern __shared__ unsigned char fh_raw[];
+  unsigned char* sm = fh_align1024(fh_raw);
+  int* sseg = reinterpret_cast<int*>(sm + L::OFF_SEG);
+  int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const int n_kt = causal ? (min(q0 + BM, s_len) + BK - 1) / BK
+                          : (s_len + BK - 1) / BK;
+  const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
+  fh_init_barriers<ST>(bar_q);
+
+  if (threadIdx.x < 128) {  // producer
+    fh_producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (SEG)
+      for (int half = 0; half < 2; ++half) {
+        const int u =
+            fh_stage_seg(nullptr, segb, q0 + 64 * half, 64, s_len, lane);
+        if (lane == 0) suni[half] = u;
+      }
+    if (lane == 0) {
+      mbar_arrive_tx(bar_q, 2 * L::Q_BYTES);
+      tma_tile<BM, D>(sm, &tq, bar_q, q0, bh);
+      tma_tile<BM, D>(sm + L::OFF_G, &tg, bar_q, q0, bh);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % ST, k0 = kt * BK;
+      if (kt >= ST) mbar_wait(&empty[st], (kt / ST - 1) & 1);
+      if (SEG) {
+        const int u = fh_stage_seg(sseg + st * BK, segb, k0, BK, s_len, lane);
+        if (lane == 0) suni[2 + st] = u;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[st], 2 * L::KV_BYTES);
+        tma_tile<BK, D>(sm + L::OFF_K + st * L::KV_BYTES, &tk, &full[st],
+                        k0, bh);
+        tma_tile<BK, D>(sm + L::OFF_V + st * L::KV_BYTES, &tv, &full[st],
+                        k0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  fh_consumer_regs();
+  const int c = threadIdx.x / 128 - 1;
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * s_len * d;
-  const size_t rbase = (size_t)blockIdx.y * s_len;
-  const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
-  tc_load_tile<D>(sQ, q + base, q0, s_len, d);
-  tc_load_tile<D>(sG, dout + base, q0, s_len, d);
-  const int r0 = warp * 16 + g;
-  const int gq0 = q0 + r0, gq1 = gq0 + 8;
-  const float lse0 = gq0 < s_len ? lse[rbase + gq0] : 0.f;
-  const float lse1 = gq1 < s_len ? lse[rbase + gq1] : 0.f;
+  const int r0 = q0 + 64 * c;
+  const int gq0 = r0 + 16 * w + g, gq1 = gq0 + 8;
+  const size_t rbase = (size_t)bh * s_len;
+  const float ls0 = gq0 < s_len ? lse[rbase + gq0] * FH_LOG2E : 0.f;
+  const float ls1 = gq1 < s_len ? lse[rbase + gq1] * FH_LOG2E : 0.f;
   const float dl0 = gq0 < s_len ? delta[rbase + gq0] : 0.f;
   const float dl1 = gq1 < s_len ? delta[rbase + gq1] : 0.f;
   const int sq0 = SEG && gq0 < s_len ? segb[gq0] : 0;
   const int sq1 = SEG && gq1 < s_len ? segb[gq1] : 0;
-  float acc[NO][4];
+  const uint32_t s_q = smem_u32(sm), s_g = smem_u32(sm + L::OFF_G);
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int q_last = min(q0 + TC_BQ, s_len) - 1;
-  const int n_kt = causal ? q_last / TC_BK + 1 : (s_len + TC_BK - 1) / TC_BK;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
+  const int urow = SEG ? suni[c] : 0;  // the rows' one segment, or -1
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TC_BK;
-    __syncthreads();  // the previous tile's sK / sV reads are done
-    tc_load_tile<D>(sK, k + base, k0, s_len, d);
-    tc_load_tile<D>(sV, v + base, k0, s_len, d);
-    if (SEG) fa_load_seg(sSegK, segb, k0, s_len);
-    __syncthreads();
-    float s[NS][4], gp[NS][4];
+    const int st = kt % ST, k0 = kt * BK;
+    const uint32_t s_k = smem_u32(sm + L::OFF_K + st * L::KV_BYTES);
+    const uint32_t s_v = smem_u32(sm + L::OFF_V + st * L::KV_BYTES);
+    mbar_wait(&full[st], (kt / ST) & 1);
+    float sc[BK / 2], dp[BK / 2];
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BK>(sc, wg_kmajor<BM>(s_q, 64 * c, kk),
+                wg_kmajor<BK>(s_k, 0, kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = gp[n][e] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BK>(dp, wg_kmajor<BM>(s_g, 64 * c, kk),
+                wg_kmajor<BK>(s_v, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<BK / 2>(sc);
+    wg_fence_acc<BK / 2>(dp);
+
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t aq[4], ag[4];
-      tc_frag_a<LD>(aq, sQ, r0, kk, t);
-      tc_frag_a<LD>(ag, sG, r0, kk, t);
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+    const bool seg_mask = SEG && !(urow > 0 && suni[2 + st] == urow);
+    if (seg_mask || k0 + BK > s_len || (causal && k0 + BK - 1 > r0)) {
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t b[2];
-        tc_frag_bt<LD>(b, sK, n, kk, g, t);
-        mma_16816(s[n], aq, b);
-        tc_frag_bt<LD>(b, sV, n, kk, g, t);
-        mma_16816(gp[n], ag, b);
+      for (int i = 0; i < BK / 2; ++i) {
+        const int kc = 8 * (i >> 2) + 2 * t + (i & 1), gk = k0 + kc;
+        const bool hi = (i & 2) != 0;
+        const int gq = hi ? gq1 : gq0;
+        bool ok = gk < s_len && (!causal || gk <= gq);
+        if (SEG) {
+          const int sq = hi ? sq1 : sq0;
+          ok = ok && ((sq == sseg[st * BK + kc] && sq != 0) || gq == gk);
+        }
+        if (!ok) sc[i] = FA_NEG_INF;
       }
     }
-    // ds in place of s (rows r0: elements 0,1; r0 + 8: 2,3)
+    // ds in place of dP
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const bool hi = e >= 2;
-        const bool ok = fa_allowed<SEG>(hi ? gq1 : gq0, k0 + kc, s_len,
-                                        causal, hi ? sq1 : sq0,
-                                        SEG ? sSegK[kc] : 0);
-        const float p =
-            expf((ok ? s[n][e] * scale : FA_NEG_INF) - (hi ? lse1 : lse0));
-        s[n][e] = p * (gp[n][e] - (hi ? dl1 : dl0)) * scale;
-      }
-    // dq += ds k, ds (bf16) straight from the registers
-#pragma unroll
-    for (int j = 0; j < TC_BK / 16; ++j) {
-      uint32_t a[4];
-      tc_frag_acc(a, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b[2];
-        tc_frag_b<LD>(b, sK, j, n, g, t);
-        mma_16816(acc[n], a, b);
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      const bool hi = (i & 2) != 0;
+      const float p = fh_exp2(sc[i] - (hi ? ls1 : ls0));
+      dp[i] = p * (dp[i] - (hi ? dl1 : dl0)) * scale;
     }
+    // dq += ds K: ds (bf16) from the registers, K MN-major
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) wg_acc_to_a(sa[j], dp, j);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      wg_rs_t<D>(acc, sa[j], wg_mnmajor<BK>(s_k, j));
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<D / 2>(acc);
+    mbar_arrive(&empty[st]);
   }
+
+  const size_t base = rbase * d;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
+    if (n * 8 >= d) break;  // TMA's zero columns past d
     const int col = n * 8 + 2 * t;
-    if (n * 8 >= d) break;  // zero padding columns
     if (gq0 < s_len)
       *reinterpret_cast<uint32_t*>(dq + base + (size_t)gq0 * d + col) =
-          pack_f32(acc[n][0], acc[n][1]);
+          pack_f32(acc[4 * n], acc[4 * n + 1]);
     if (gq1 < s_len)
       *reinterpret_cast<uint32_t*>(dq + base + (size_t)gq1 * d + col) =
-          pack_f32(acc[n][2], acc[n][3]);
+          pack_f32(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// dk / dv on the tensor cores: 4 warps x 16 k rows; per q-tile (in two
-// halves of 32 columns) each warp forms s^T = k q^T and v dO^T in
-// registers, turns them into p^T and ds^T, and adds p^T dO and ds^T q
-// to its two (16 x D) accumulators.
 template <int D, bool SEG>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ seg,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int s_len, int d,
-                         int h, int causal, float scale) {
-  constexpr int LD = D + 8, NK = D / 16, NO = D / 8, NH = FB_QH / 8;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __shared__ float sL[TC_BQ], sD[TC_BQ];
-  __shared__ int sSegQ[TC_BQ];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* sV = sK + TC_BK * LD;
-  __nv_bfloat16* sQ = sV + TC_BK * LD;
-  __nv_bfloat16* sG = sQ + TC_BQ * LD;  // dO
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ seg,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int s_len, int d,
+                           int h, int causal, float scale,
+                           float scale_log2) {
+  using L = DkvTiles<D>;
+  constexpr int BN = L::BN, BQ = L::BQ, ST = L::STAGES;
+  extern __shared__ unsigned char fh_raw[];
+  unsigned char* sm = fh_align1024(fh_raw);
+  float* svec = reinterpret_cast<float*>(sm + L::OFF_VEC);
+  int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BN;  // the longest causal columns first
+  const int q_first = causal ? k0 / BQ : 0;
+  const int n_it = (s_len + BQ - 1) / BQ - q_first;
+  const size_t rbase = (size_t)bh * s_len;
+  const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
+  fh_init_barriers<ST>(bar_kv);
+
+  if (threadIdx.x < 128) {  // producer
+    fh_producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (SEG)
+      for (int half = 0; half < 2; ++half) {
+        const int u =
+            fh_stage_seg(nullptr, segb, k0 + 64 * half, 64, s_len, lane);
+        if (lane == 0) suni[half] = u;
+      }
+    if (lane == 0) {
+      mbar_arrive_tx(bar_kv, 2 * L::KV_BYTES);
+      tma_tile<BN, D>(sm, &tk, bar_kv, k0, bh);
+      tma_tile<BN, D>(sm + L::OFF_V, &tv, bar_kv, k0, bh);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % ST, q0 = (q_first + it) * BQ;
+      if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
+      float* vec = svec + st * 3 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool ok = q0 + r < s_len;
+        vec[r] = ok ? lse[rbase + q0 + r] * FH_LOG2E : 0.f;
+        vec[BQ + r] = ok ? delta[rbase + q0 + r] : 0.f;
+      }
+      if (SEG) {
+        const int u = fh_stage_seg(reinterpret_cast<int*>(vec) + 2 * BQ,
+                                   segb, q0, BQ, s_len, lane);
+        if (lane == 0) suni[2 + st] = u;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[st], 2 * L::Q_BYTES);
+        tma_tile<BQ, D>(sm + L::OFF_Q + st * L::Q_BYTES, &tq, &full[st],
+                        q0, bh);
+        tma_tile<BQ, D>(sm + L::OFF_G + st * L::Q_BYTES, &tg, &full[st],
+                        q0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  fh_consumer_regs();
+  const int c = threadIdx.x / 128 - 1;
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * TC_BK;  // the longest causal columns first
-  const size_t base = (size_t)blockIdx.y * s_len * d;
-  const size_t rbase = (size_t)blockIdx.y * s_len;
-  const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
-  tc_load_tile<D>(sK, k + base, k0, s_len, d);
-  tc_load_tile<D>(sV, v + base, k0, s_len, d);
-  const int r0 = warp * 16 + g;
-  const int gk0 = k0 + r0, gk1 = gk0 + 8;
+  const int kr0 = k0 + 64 * c;
+  const int gk0 = kr0 + 16 * w + g, gk1 = gk0 + 8;
   const int sk0 = SEG && gk0 < s_len ? segb[gk0] : 0;
   const int sk1 = SEG && gk1 < s_len ? segb[gk1] : 0;
-  float ak[NO][4], av[NO][4];
+  const uint32_t s_k = smem_u32(sm), s_v = smem_u32(sm + L::OFF_V);
+  float ak[D / 2], av[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+  const int urow = SEG ? suni[c] : 0;  // the rows' one segment, or -1
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ST, q0 = (q_first + it) * BQ;
+    const uint32_t s_qt = smem_u32(sm + L::OFF_Q + st * L::Q_BYTES);
+    const uint32_t s_g = smem_u32(sm + L::OFF_G + st * L::Q_BYTES);
+    const float* vl = svec + st * 3 * BQ;  // lse * log2(e) by q column
+    const float* vd = vl + BQ;             // delta
+    const int* vs = reinterpret_cast<const int*>(vl + 2 * BQ);
+    mbar_wait(&full[st], (it / ST) & 1);
+    float sc[BQ / 2], dp[BQ / 2];  // S^T and dP^T: k rows, q columns
+    wg_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BQ>(sc, wg_kmajor<BN>(s_k, 64 * c, kk),
+                wg_kmajor<BQ>(s_qt, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BQ>(dp, wg_kmajor<BN>(s_v, 64 * c, kk),
+                wg_kmajor<BQ>(s_g, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<BQ / 2>(sc);
+    wg_fence_acc<BQ / 2>(dp);
 
-  const int n_qt = (s_len + TC_BQ - 1) / TC_BQ;
-  for (int qt = causal ? k0 / TC_BQ : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * TC_BQ;
-    __syncthreads();  // the previous tile's sQ / sG reads are done
-    tc_load_tile<D>(sQ, q + base, q0, s_len, d);
-    tc_load_tile<D>(sG, dout + base, q0, s_len, d);
-    for (int r = threadIdx.x; r < TC_BQ; r += TC_THREADS) {
-      const bool ok = q0 + r < s_len;
-      sL[r] = ok ? lse[rbase + q0 + r] : 0.f;
-      sD[r] = ok ? delta[rbase + q0 + r] : 0.f;
-    }
-    if (SEG) fa_load_seg(sSegQ, segb, q0, s_len);
-    __syncthreads();
 #pragma unroll
-    for (int half = 0; half < TC_BQ / FB_QH; ++half) {
-      const int c0 = half * FB_QH;  // first q column of this half
-      float st[NH][4], gt[NH][4];
+    for (int i = 0; i < BQ / 2; ++i) sc[i] *= scale_log2;
+    const bool seg_mask = SEG && !(urow > 0 && suni[2 + st] == urow);
+    if (seg_mask || q0 + BQ > s_len || (causal && kr0 + 63 > q0)) {
 #pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = gt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        uint32_t ka[4], va[4];
-        tc_frag_a<LD>(ka, sK, r0, kk, t);
-        tc_frag_a<LD>(va, sV, r0, kk, t);
-#pragma unroll
-        for (int n = 0; n < NH; ++n) {
-          uint32_t b[2];
-          tc_frag_bt<LD>(b, sQ + c0 * LD, n, kk, g, t);
-          mma_16816(st[n], ka, b);
-          tc_frag_bt<LD>(b, sG + c0 * LD, n, kk, g, t);
-          mma_16816(gt[n], va, b);
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * t + (i & 1), gq = q0 + qc;
+        const bool hi = (i & 2) != 0;
+        const int gk = hi ? gk1 : gk0;
+        bool ok = gq < s_len && (!causal || gk <= gq);
+        if (SEG) {
+          const int sk = hi ? sk1 : sk0;
+          ok = ok && ((vs[qc] == sk && sk != 0) || gq == gk);
         }
-      }
-      // p^T in place of s^T, ds^T in place of (v dO^T)
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = c0 + n * 8 + 2 * t + (e & 1);
-          const bool hi = e >= 2;
-          const bool ok = fa_allowed<SEG>(q0 + qc, hi ? gk1 : gk0, s_len,
-                                          causal, SEG ? sSegQ[qc] : 0,
-                                          hi ? sk1 : sk0);
-          const float p =
-              expf((ok ? st[n][e] * scale : FA_NEG_INF) - sL[qc]);
-          st[n][e] = p;
-          gt[n][e] = p * (gt[n][e] - sD[qc]) * scale;
-        }
-      // dv += p^T dO, dk += ds^T q over this half's 32 q rows
-#pragma unroll
-      for (int j = 0; j < FB_QH / 16; ++j) {
-        uint32_t ap[4], as[4];
-        tc_frag_acc(ap, st[2 * j], st[2 * j + 1]);
-        tc_frag_acc(as, gt[2 * j], gt[2 * j + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t b[2];
-          tc_frag_b<LD>(b, sG + c0 * LD, j, n, g, t);
-          mma_16816(av[n], ap, b);
-          tc_frag_b<LD>(b, sQ + c0 * LD, j, n, g, t);
-          mma_16816(ak[n], as, b);
-        }
+        if (!ok) sc[i] = FA_NEG_INF;
       }
     }
+    // p^T in place of S^T, ds^T in place of dP^T
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+      const float p = fh_exp2(sc[i] - vl[qc]);
+      sc[i] = p;
+      dp[i] = p * (dp[i] - vd[qc]) * scale;
+    }
+    // dv += p^T dO, dk += ds^T Q: register A operands, dO / Q MN-major
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      wg_acc_to_a(pa[j], sc, j);
+      wg_acc_to_a(sa[j], dp, j);
+    }
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j)
+      wg_rs_t<D>(av, pa[j], wg_mnmajor<BQ>(s_g, j));
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j)
+      wg_rs_t<D>(ak, sa[j], wg_mnmajor<BQ>(s_qt, j));
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<D / 2>(av);
+    wg_fence_acc<D / 2>(ak);
+    mbar_arrive(&empty[st]);
   }
+
+  const size_t base = rbase * d;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
+    if (n * 8 >= d) break;  // TMA's zero columns past d
     const int col = n * 8 + 2 * t;
-    if (n * 8 >= d) break;  // zero padding columns
     if (gk0 < s_len) {
       const size_t off = base + (size_t)gk0 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_f32(ak[n][0], ak[n][1]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_f32(av[n][0], av[n][1]);
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack_f32(ak[4 * n], ak[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off) =
+          pack_f32(av[4 * n], av[4 * n + 1]);
     }
     if (gk1 < s_len) {
       const size_t off = base + (size_t)gk1 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_f32(ak[n][2], ak[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_f32(av[n][2], av[n][3]);
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack_f32(ak[4 * n + 2], ak[4 * n + 3]);
+      *reinterpret_cast<uint32_t*>(dv + off) =
+          pack_f32(av[4 * n + 2], av[4 * n + 3]);
     }
   }
 }
@@ -601,28 +747,43 @@ cudaError_t fb_launch_delta(const BwdArgs& a) {
 }
 
 template <int D, bool SEG>
-cudaError_t fb_launch_mma(const BwdArgs& a) {
+cudaError_t fb_launch_wgmma(const BwdArgs& a) {
   using bf = __nv_bfloat16;
-  const size_t smem = sizeof(bf) * 4 * TC_BQ * (D + 8);
-  const dim3 grid((a.s + TC_BQ - 1) / TC_BQ, a.bh);
-  auto kdq = flash_bwd_dq_mma_kernel<D, SEG>;
-  auto kdkv = flash_bwd_dkv_mma_kernel<D, SEG>;
-  cudaError_t err = cxn_allow_smem(kdq, smem);
-  if (err == cudaSuccess) err = cxn_allow_smem(kdkv, smem);
+  using Q = DqTiles<D>;
+  using KV = DkvTiles<D>;
+  // the dq kernel's resident Q / dO and streamed K / V tiles, and the
+  // dk/dv kernel's resident K / V and streamed Q / dO tiles
+  CUtensorMap q_dq, g_dq, k_dq, v_dq, q_kv, g_kv, k_kv, v_kv;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int rows;
+  } maps[] = {{&q_dq, a.q, Q::BM},   {&g_dq, a.dout, Q::BM},
+              {&k_dq, a.k, Q::BK},   {&v_dq, a.v, Q::BK},
+              {&q_kv, a.q, KV::BQ},  {&g_kv, a.dout, KV::BQ},
+              {&k_kv, a.k, KV::BN},  {&v_kv, a.v, KV::BN}};
+  for (const auto& m : maps)
+    if (!fh_tensor_map(m.map, m.base, a.bh, a.s, a.d, m.rows))
+      return cudaErrorInvalidValue;
+  auto kdq = flash_bwd_dq_wgmma_kernel<D, SEG>;
+  auto kdkv = flash_bwd_dkv_wgmma_kernel<D, SEG>;
+  static const cudaError_t ready_dq = fh_prepare(kdq, Q::SMEM);
+  static const cudaError_t ready_dkv = fh_prepare(kdkv, KV::SMEM);
+  if (ready_dq != cudaSuccess) return ready_dq;
+  if (ready_dkv != cudaSuccess) return ready_dkv;
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const float sl2 = a.scale * FH_LOG2E;
+  kdq<<<dim3(a.bh, (a.s + Q::BM - 1) / Q::BM), FH_THREADS, Q::SMEM,
+        a.stream>>>(q_dq, g_dq, k_dq, v_dq, lse, delta, a.seg,
+                    static_cast<bf*>(a.dq), a.s, a.d, a.h, a.causal,
+                    a.scale, sl2);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kdq<<<grid, TC_THREADS, smem, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      a.seg, static_cast<bf*>(a.dq), a.s, a.d, a.h, a.causal, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  kdkv<<<grid, TC_THREADS, smem, a.stream>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      a.seg, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.s, a.d, a.h,
-      a.causal, a.scale);
+  kdkv<<<dim3(a.bh, (a.s + KV::BN - 1) / KV::BN), FH_THREADS, KV::SMEM,
+         a.stream>>>(q_kv, g_kv, k_kv, v_kv, lse, delta, a.seg,
+                     static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.s,
+                     a.d, a.h, a.causal, a.scale, sl2);
   return cudaGetLastError();
 }
 
@@ -654,11 +815,9 @@ cudaError_t fb_launch_f32(const BwdArgs& a) {
 
 template <bool SEG>
 cudaError_t fb_dispatch(const BwdArgs& a, int dtype) {
-  if (dtype == CXN_BF16) {
-    if (a.d <= 32) return fb_launch_mma<32, SEG>(a);
-    if (a.d <= 64) return fb_launch_mma<64, SEG>(a);
-    return fb_launch_mma<128, SEG>(a);
-  }
+  if (dtype == CXN_BF16)
+    return a.d <= 64 ? fb_launch_wgmma<64, SEG>(a)
+                     : fb_launch_wgmma<128, SEG>(a);
   if (a.d <= 32) return fb_launch_f32<1, SEG>(a);
   if (a.d <= 64) return fb_launch_f32<2, SEG>(a);
   return fb_launch_f32<4, SEG>(a);

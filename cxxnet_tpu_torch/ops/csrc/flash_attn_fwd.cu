@@ -18,36 +18,52 @@
 // segmented variant of each kernel, nothing else differs.
 //
 // What bounds it on the card: operations.  At the served shape (16
-// heads, s 4096, d 128, causal, bf16) it does ~69 GFLOP on 67 MB of
-// input and output, far above the ~295 FLOP/byte at which an H100 stops
-// being memory-bound, so the least time is the products over the
-// tensor cores' 989 TFLOP/s.  Segment masking removes scores inside the
-// live tiles but no tiles: tiles are skipped by causality only, as in
-// the JAX package.
+// heads, s 4096, d 128, causal, bf16) it does 2 products of the live
+// (s x s x d) triangle, ~69 GFLOP on 67 MB of input and output, far
+// above the ~295 FLOP/byte at which an H100 stops being memory-bound:
+// the least time is the products over the tensor cores' 989 TFLOP/s,
+// 0.070 ms.  Segment masking removes scores inside the live tiles but
+// no tiles: tiles are skipped by causality only, as in the JAX package.
 //
-// Design: the TPU grid walks (q-block, k-block) pairs in order and
-// carries (acc, m, l) in VMEM scratch between grid steps.  Here one
-// thread block owns one (b*h, 64-row q-tile) and loops over the k-tiles
-// itself, stopping at the diagonal under the causal mask (the dead
-// blocks the TPU removes from its grid with `_fa_tri_pairs` are never
-// visited).  Blocks are issued heaviest-first so the long causal rows do
-// not trail the grid.  Each k/v tile is read from device memory once
-// into shared memory and used by all 64 query rows.  One kernel per
-// dtype:
-//   * bf16 (the served dtype): tensor cores through mma.sync m16n8k16
-//     with scores, running max / sum and the output accumulator in
-//     registers (see the section comment below), for every head width;
+// Design.  The TPU grid walks (q-block, k-block) pairs in order and
+// carries (acc, m, l) in VMEM scratch between grid steps; here one block
+// owns a (b*h, q-tile) and loops over the k-tiles itself, stopping at the
+// diagonal under the causal mask.  Blocks are issued heaviest-first (the
+// last q-tiles of every head before the first ones).  Three routes:
+//   * bf16, d <= 128 (the served and trained width): wgmma fed by a TMA
+//     ring, warp-specialised (flash_fwd_wgmma_kernel below).  A block of
+//     384 threads owns 128 query rows: a producer warpgroup, whose first
+//     warp loads the q-tile once and streams 128-row K and V tiles
+//     through a 2-stage ring in shared memory (TMA, 128-byte swizzle,
+//     mbarriers; a stage is freed when both consumers' p.V products have
+//     completed), and two consumer warpgroups of 64 query rows each.  A
+//     consumer computes S = Q K^T (wgmma m64n128k16, both operands in
+//     shared memory), the online softmax in registers in the exp2 domain
+//     (log2(e) folded into the scale; the mask evaluated only on tiles
+//     that cross the diagonal or the ragged end and, under SEG, on tiles
+//     whose keys do not all share the rows' one nonzero segment id, which
+//     the producer checks as it stages the ids), rounds p to bf16
+//     straight from the score accumulators into the A operand of
+//     O += p V (wgmma from registers, V read MN-major from the ring): p
+//     never touches shared memory.  setmaxnreg gives the consumers 240
+//     registers and the producer 24.  Widths are instantiated at 64 and
+//     128 columns; TMA fills the columns past d with zeros.  At d = 128
+//     the block holds Q (32 KB) and two stages of K + V (128 KB).  2
+//     products of the live tiles, as the bound counts, plus the masked
+//     halves of the diagonal tiles.
+//   * bf16, 128 < d <= 256: the earlier mma.sync m16n8k16 kernel
+//     (flash_fwd_mma_kernel: 64-row tiles staged through registers), at
+//     d rounded up to 16 (widths 136..256).
 //   * float32: products on the CUDA cores in float32, each warp owning
 //     8 query rows with their (8 x d) accumulator in registers.
-// Neither is pipelined yet (no cp.async / TMA double buffering, no
-// wgmma): PERF.md has their times against the bound.  The kernels
-// allocate nothing, do not synchronise, and launch on the caller's
-// stream.
+// PERF.md has their times against the bound.  The kernels allocate
+// nothing, do not synchronise, and launch on the caller's stream.
 
 #include <stdint.h>
 
 #include "common.cuh"
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -222,7 +238,211 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, float32
+// bf16, d <= 128: wgmma, a TMA ring and warp specialisation (see the
+// header).  Thread roles: threads 0..127 the producer warpgroup (only
+// its first warp works), 128..383 consumers c = 0, 1 owning query rows
+// q0 + 64c ... q0 + 64c + 63.  A consumer thread holds the m64n* wgmma
+// accumulator layout: rows g and g + 8 of its warp's 16 (g = lane / 4),
+// columns 8i + 2t, 8i + 2t + 1 of each n8 block i (t = lane % 4), in
+// registers 4i .. 4i + 3.
+template <int D>
+struct FwdTiles {
+  static constexpr int BM = 128;               // query rows per block
+  static constexpr int BK = 128;               // key rows per ring stage
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_SEG = OFF_V + STAGES * KV_BYTES;
+  // fh_stage_seg of the two row halves, then of each stage
+  static constexpr int OFF_UNI = OFF_SEG + STAGES * BK * 4;
+  static constexpr int OFF_BAR = OFF_UNI + 32;
+  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const int* __restrict__ seg,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int s_len, int d, int h,
+                       int causal, float scale_log2) {
+  using L = FwdTiles<D>;
+  constexpr int BM = L::BM, BK = L::BK, ST = L::STAGES;
+  extern __shared__ unsigned char fh_raw[];
+  unsigned char* sm = fh_align1024(fh_raw);
+  int* sseg = reinterpret_cast<int*>(sm + L::OFF_SEG);
+  int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const int n_kt = causal ? (min(q0 + BM, s_len) + BK - 1) / BK
+                          : (s_len + BK - 1) / BK;
+  const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
+  fh_init_barriers<ST>(bar_q);
+
+  if (threadIdx.x < 128) {  // producer
+    fh_producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (SEG)
+      for (int half = 0; half < 2; ++half) {
+        const int u =
+            fh_stage_seg(nullptr, segb, q0 + 64 * half, 64, s_len, lane);
+        if (lane == 0) suni[half] = u;
+      }
+    if (lane == 0) {
+      mbar_arrive_tx(bar_q, L::Q_BYTES);
+      tma_tile<BM, D>(sm, &tq, bar_q, q0, bh);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % ST, k0 = kt * BK;
+      if (kt >= ST) mbar_wait(&empty[st], (kt / ST - 1) & 1);
+      if (SEG) {
+        const int u = fh_stage_seg(sseg + st * BK, segb, k0, BK, s_len, lane);
+        if (lane == 0) suni[2 + st] = u;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[st], 2 * L::KV_BYTES);
+        tma_tile<BK, D>(sm + L::OFF_K + st * L::KV_BYTES, &tk, &full[st],
+                        k0, bh);
+        tma_tile<BK, D>(sm + L::OFF_V + st * L::KV_BYTES, &tv, &full[st],
+                        k0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  fh_consumer_regs();
+  const int c = threadIdx.x / 128 - 1;
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * c;
+  const int gq0 = r0 + 16 * w + g, gq1 = gq0 + 8;
+  const int sq0 = SEG && gq0 < s_len ? segb[gq0] : 0;
+  const int sq1 = SEG && gq1 < s_len ? segb[gq1] : 0;
+  const uint32_t s_q = smem_u32(sm);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // running max (exp2 domain) and this thread's part of the row sums
+  float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+  mbar_wait(bar_q, 0);
+  const int urow = SEG ? suni[c] : 0;  // the rows' one segment, or -1
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % ST, k0 = kt * BK;
+    const uint32_t s_k = smem_u32(sm + L::OFF_K + st * L::KV_BYTES);
+    const uint32_t s_v = smem_u32(sm + L::OFF_V + st * L::KV_BYTES);
+    mbar_wait(&full[st], (kt / ST) & 1);
+    float s[BK / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BK>(s, wg_kmajor<BM>(s_q, 64 * c, kk), wg_kmajor<BK>(s_k, 0, kk),
+                kk > 0);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<BK / 2>(s);
+
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] *= scale_log2;
+    // the segment mask is all-live where rows and keys share one id
+    const bool seg_mask = SEG && !(urow > 0 && suni[2 + st] == urow);
+    if (seg_mask || k0 + BK > s_len || (causal && k0 + BK - 1 > r0)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int kc = 8 * (i >> 2) + 2 * t + (i & 1), gk = k0 + kc;
+        const bool hi = (i & 2) != 0;
+        const int gq = hi ? gq1 : gq0;
+        bool ok = gk < s_len && (!causal || gk <= gq);
+        if (SEG) {
+          const int sq = hi ? sq1 : sq0;
+          ok = ok && ((sq == sseg[st * BK + kc] && sq != 0) || gq == gk);
+        }
+        if (!ok) s[i] = FA_NEG_INF;
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float c0 = fh_exp2(m0 - mx0), c1 = fh_exp2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      s[4 * i] = fh_exp2(s[4 * i] - m0);
+      s[4 * i + 1] = fh_exp2(s[4 * i + 1] - m0);
+      s[4 * i + 2] = fh_exp2(s[4 * i + 2] - m1);
+      s[4 * i + 3] = fh_exp2(s[4 * i + 3] - m1);
+      sum0 += s[4 * i] + s[4 * i + 1];
+      sum1 += s[4 * i + 2] + s[4 * i + 3];
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= c0;
+      acc[4 * n + 1] *= c0;
+      acc[4 * n + 2] *= c1;
+      acc[4 * n + 3] *= c1;
+    }
+    // O += p V: p (bf16) from the score registers, V MN-major
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) wg_acc_to_a(pa[j], s, j);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      wg_rs_t<D>(acc, pa[j], wg_mnmajor<BK>(s_v, j));
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<D / 2>(acc);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const size_t base = (size_t)bh * s_len * d;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (n * 8 >= d) break;  // TMA's zero columns past d
+    const int col = n * 8 + 2 * t;
+    if (gq0 < s_len)
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)gq0 * d + col) =
+          pack_f32(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (gq1 < s_len)
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)gq1 * d + col) =
+          pack_f32(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+  if (t == 0) {
+    float* lrow = lse + (size_t)bh * s_len;
+    if (gq0 < s_len) lrow[gq0] = (m0 + log2f(l0)) * FH_LN2;
+    if (gq1 < s_len) lrow[gq1] = (m1 + log2f(l1)) * FH_LN2;
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16, 128 < d <= 256: mma.sync m16n8k16 (bf16 in, float32
 // accumulate), the FlashAttention-2 register layout.  One block of 4
 // warps per (b*h, 64-row q-tile); each warp owns 16 query rows and keeps
 // their scores (16 x 64 per k-tile), running max / sum and output
@@ -231,7 +451,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // from scores to the p.V product without touching shared memory; row
 // reductions are two shuffles among the 4 lanes that share a row.  Only
 // the q / k / v tiles (and a k-tile's segment ids) live in shared
-// memory.  The kernel is instantiated for D = d rounded up to 16; a head
+// memory.  The kernel is instantiated for D = d rounded up to 16 (144 ..
+// 256, the widths the wgmma kernel above does not take); a head
 // width with d % 16 == 8 carries a zero column block in shared memory
 // (it adds nothing to the scores and its output columns are not stored).
 // Rows are read as 16-byte vectors, so q / k / v / o must be 16-byte
@@ -402,17 +623,31 @@ cudaError_t fa_launch_mma(const FwdArgs& a) {
   return cudaGetLastError();
 }
 
+template <int D, bool SEG>
+cudaError_t fa_launch_wgmma(const FwdArgs& a) {
+  using L = FwdTiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (!fh_tensor_map(&tq, a.q, a.bh, a.s, a.d, L::BM) ||
+      !fh_tensor_map(&tk, a.k, a.bh, a.s, a.d, L::BK) ||
+      !fh_tensor_map(&tv, a.v, a.bh, a.s, a.d, L::BK))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<D, SEG>;
+  static const cudaError_t ready = fh_prepare(kern, L::SMEM);
+  if (ready != cudaSuccess) return ready;
+  const dim3 grid(a.bh, (a.s + L::BM - 1) / L::BM);
+  kern<<<grid, FH_THREADS, L::SMEM, a.stream>>>(
+      tq, tk, tv, a.seg, static_cast<__nv_bfloat16*>(a.o),
+      static_cast<float*>(a.lse), a.s, a.d, a.h, a.causal,
+      a.scale * FH_LOG2E);
+  return cudaGetLastError();
+}
+
 template <bool SEG>
 cudaError_t fa_launch_tc(const FwdArgs& a) {
+  if (fa_route(a.d, CXN_BF16) == FA_ROUTE_WGMMA)
+    return a.d <= 64 ? fa_launch_wgmma<64, SEG>(a)
+                     : fa_launch_wgmma<128, SEG>(a);
   switch ((a.d + 15) / 16) {
-    case 1: return fa_launch_mma<16, SEG>(a);
-    case 2: return fa_launch_mma<32, SEG>(a);
-    case 3: return fa_launch_mma<48, SEG>(a);
-    case 4: return fa_launch_mma<64, SEG>(a);
-    case 5: return fa_launch_mma<80, SEG>(a);
-    case 6: return fa_launch_mma<96, SEG>(a);
-    case 7: return fa_launch_mma<112, SEG>(a);
-    case 8: return fa_launch_mma<128, SEG>(a);
     case 9: return fa_launch_mma<144, SEG>(a);
     case 10: return fa_launch_mma<160, SEG>(a);
     case 11: return fa_launch_mma<176, SEG>(a);
@@ -478,4 +713,13 @@ extern "C" int cxn_flash_attn_fwd(const void* q, const void* k,
   if (dtype == CXN_F32)
     return (int)(seg ? fa_dispatch_f32<true>(a) : fa_dispatch_f32<false>(a));
   return (int)cudaErrorInvalidValue;
+}
+
+// The route (FaRoute) of a forward (backward = 0) or backward call at
+// head width d in `dtype`, or -1 for a width the kernels do not take.
+extern "C" int cxn_flash_attn_route(int d, int dtype, int backward) {
+  if (d < 8 || d % 8 != 0 || d > (backward ? 128 : 256) ||
+      (dtype != CXN_BF16 && dtype != CXN_F32))
+    return -1;
+  return fa_route(d, dtype);
 }

@@ -1,6 +1,9 @@
 // Shared pieces of the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): the mask rule, warp reductions and the bf16
-// tensor-core helpers (mma.sync m16n8k16 and its operand packing).
+// flash_attn_bwd.cu; conv_wgrad.cu takes the mma.sync helpers): the mask
+// rule, warp reductions, the bf16 tensor-core helpers (mma.sync
+// m16n8k16 and its operand packing; tc_frag_acc also packs wgmma
+// accumulators, whose rows of a warp share its layout) and the route a
+// flash call takes.
 #pragma once
 
 #include <stdint.h>
@@ -138,6 +141,15 @@ __device__ __forceinline__ void fa_load_seg(int* dst, const int* segb,
                                             int row0, int s_len) {
   for (int r = threadIdx.x; r < 64; r += blockDim.x)
     dst[r] = row0 + r < s_len ? segb[row0 + r] : 0;
+}
+
+// The kernel a call takes (cxn_flash_attn_route): float32 on the CUDA
+// cores; bf16 through wgmma for head widths up to 128, through mma.sync
+// above (the forward only: the backward takes widths up to 128).
+enum FaRoute { FA_ROUTE_SIMT = 0, FA_ROUTE_MMA = 1, FA_ROUTE_WGMMA = 2 };
+inline int fa_route(int d, int dtype) {
+  if (dtype != CXN_BF16) return FA_ROUTE_SIMT;
+  return d <= 128 ? FA_ROUTE_WGMMA : FA_ROUTE_MMA;
 }
 
 inline bool aligned16(const void* p) {

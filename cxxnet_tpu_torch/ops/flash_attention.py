@@ -35,6 +35,24 @@ def flash_attention_supported(d: int) -> bool:
     return d % 8 == 0 and 8 <= d <= 256
 
 
+#: the kernels a bf16 or float32 call can take (csrc/flash_common.cuh
+#: FaRoute): float32 on the CUDA cores, bf16 through mma.sync (forward
+#: head widths above 128) or wgmma (every other width)
+ROUTES = ("simt", "mma.sync", "wgmma")
+
+
+def kernel_route(d: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The CUDA kernel a forward (or backward) call at head width ``d`` in
+    ``dtype`` launches, as the C dispatcher decides it (builds the
+    library)."""
+    code = build.LIBRARY.get().cxn_flash_attn_route(
+        int(d), build.DTYPE_CODES[dtype], int(bool(backward)))
+    if code < 0:
+        raise ValueError(f"no flash {'backward' if backward else 'forward'} "
+                         f"kernel for head width {d} in {dtype}")
+    return ROUTES[code]
+
+
 def _default_scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)
 

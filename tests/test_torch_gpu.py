@@ -228,6 +228,102 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
                                                        device="cuda"))
 
 
+# ------------------------------------------- the wgmma kernels' tile edges
+# The bf16 forward takes 128 query rows a block and 128-row K / V stages,
+# the dq kernel 128 query rows and 64-row K / V stages, the dk/dv kernel
+# 128 key rows and 64-row Q / dO stages.
+
+def _bf16_fwd_bwd(shape, causal, gen, seg=None):
+    """bf16 forward and backward (twice, bitwise equal) against their
+    plain versions on one seeded input."""
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    if seg is None:
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    else:
+        fwd = lambda: fa.flash_attention_seg_fwd(q, k, v, seg)
+        o_ref, lse_ref = fa.flash_attention_seg_fwd_plain(q, k, v, seg)
+    o, lse = fwd()
+    if seg is None:
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    else:
+        bwd = lambda: fa.flash_attention_seg_bwd(q, k, v, seg, o, lse, do)
+        ref = fa.flash_attention_seg_bwd_plain(q, k, v, seg, o, lse, do)
+    got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    assert _row_rel(o, o_ref) <= BF16_ROW_TOL
+    assert _rel(lse, lse_ref) <= F32_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if shape[1] == 1:
+        # one token attends only to itself: dq and dk are exactly 0, and
+        # the kernel's hold the float32 rounding of dP - delta.  A zero row
+        # is held against the row check's floor, here 2^-10 of dv's
+        # largest value (dq's and dk's are 0)
+        floor = GRAD_ROW_FLOOR * float(ref[2].float().abs().max())
+        for g in got[:2]:
+            assert float(g.float().abs().max()) <= BF16_GRAD_ROW_TOL * floor
+        got, ref = got[2:], ref[2:]
+    _grads_close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 1, 128), True),         # one row
+    ((3, 50, 128), True),        # less than one tile
+    ((2, 127, 128), True),       # one short of a block
+    ((2, 128, 128), True),       # exactly one block
+    ((2, 129, 128), True),       # one past a block
+    ((2, 193, 64), True),        # past a 64-row stage, d = 64
+    ((2, 129, 128), False),      # non-causal, ragged
+    ((1, 320, 64), False),       # non-causal, several stages
+    ((2, 4096, 128), True),      # the main path's sequence length
+])
+def test_flash_kernels_at_tile_boundaries(cuda, shape, causal):
+    _bf16_fwd_bwd(shape, causal, cuda)
+
+
+@pytest.mark.parametrize("s,d", [(129, 128), (300, 64)])
+def test_flash_seg_kernels_one_token_documents(cuda, s, d):
+    """Segments of one token (each query sees only itself), a longer
+    document, and a padding tail, through the segmented kernels."""
+    seg = torch.zeros((2, s), dtype=torch.int64)
+    ones = 37                               # one-token documents first
+    seg[0, :ones] = torch.arange(1, ones + 1)
+    seg[0, ones:s - 17] = ones + 1          # then one document, then padding
+    seg[1, :s - 5] = torch.arange(1, s - 4)  # one token each, padding tail
+    _bf16_fwd_bwd((4, s, d), True, cuda, seg.cuda())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_seg_kernels_tile_aligned_documents(cuda, d):
+    """Documents that cover whole tiles: tiles whose rows and keys share
+    one segment skip the segment mask, and a tile whose keys all lie in
+    an earlier document (one id, not the rows') stays masked."""
+    seg = torch.zeros((2, 512), dtype=torch.int64)
+    seg[0, :256], seg[0, 256:] = 1, 2
+    seg[1, :128], seg[1, 128:428] = 5, 7
+    _bf16_fwd_bwd((4, 512, d), True, cuda, seg.cuda())
+
+
+@pytest.mark.parametrize("d,fwd_bf16,bwd_bf16", [
+    (8, "wgmma", "wgmma"), (40, "wgmma", "wgmma"), (64, "wgmma", "wgmma"),
+    (128, "wgmma", "wgmma"), (136, "mma.sync", None),
+    (256, "mma.sync", None)])
+def test_flash_route_by_head_width(cuda, d, fwd_bf16, bwd_bf16):
+    """Which kernel each head width takes: bf16 through wgmma up to 128
+    columns, the forward through mma.sync above; float32 on the CUDA
+    cores; the backward takes no width above 128."""
+    assert fa.kernel_route(d, torch.bfloat16) == fwd_bf16
+    assert fa.kernel_route(d, torch.float32) == "simt"
+    if bwd_bf16 is None:
+        with pytest.raises(ValueError, match="no flash backward"):
+            fa.kernel_route(d, torch.bfloat16, backward=True)
+    else:
+        assert fa.kernel_route(d, torch.bfloat16, backward=True) == bwd_bf16
+        assert fa.kernel_route(d, torch.float32, backward=True) == "simt"
+
+
 @pytest.mark.parametrize("rows,d", [(1, 1), (5, 130), (300, 2048),
                                     (1000, 64)])
 @pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
