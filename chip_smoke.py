@@ -9,10 +9,17 @@ Phases (any failure raises and exits non-zero):
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card at its main paths' shapes (the served forward; every kernel
    of the two LM train paths and of the two CNN paths at theirs), with
-   its median time, the plain
-   version's, one PyTorch library call's (a yardstick only: the port
-   never calls it) and the least time the card could take (bound); each
-   backward runs twice and must be bitwise equal;
+   its device time (``ms``: the profiler's kernel durations over 50
+   back-to-back calls) and its wrapper's per-call time (``call_ms``:
+   CUDA events around one call, the host's work included), the plain
+   version's per-call time, one PyTorch library call's device and
+   per-call times (a yardstick only: the port never calls it) and the
+   least time the card could take (bound); each backward runs twice and
+   must be bitwise equal; then each kernel route at the edge of its
+   domain (layernorm warp / block, conv wgrad wgmma / mma.sync, the
+   attention layer's routes at head widths 264 (dense), 256 (the
+   CUDA-core backward), 128 and 12 (widened), the LRN backward at
+   windows of 33 and 64 channels);
 3. serve path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
    the d2048 / 12-layer / s4096 / bf16 transformer LM (random weights
    from a seed, written as a ``.model``) to concurrent clients, twice
@@ -47,7 +54,7 @@ Phases (any failure raises and exits non-zero):
    the later ones within 1e-2, one fused adam launch per admitted tensor
    per step, and the update's time fused and unfused;
 10. AlexNet (H, W, C, N) path: ImageNet.conf as in phase 7 but under
-   ``pallas_lrn = hwcn fast_wgrad = pallas``, one round of 10 steps: per
+   ``pallas_lrn = hwcn fast_wgrad = pallas``, 3 rounds of 10 steps: per
    step 2 (H, W, C, N) LRN forward and backward and one space-to-depth
    conv1 wgrad launch, and none of the NCHW LRN or the strided wgrad;
 11. CNN inference path: ``task = pred``, ``pred_raw``, ``extract`` (text
@@ -101,6 +108,8 @@ BF16_VEC_TOL = 2.0 ** -7
 # of the tensor cores in bf16 and of the CUDA cores in float32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: back-to-back calls whose device time device_ms averages
+DEVICE_REPS = 50
 
 # the served and trained model: bench.py's LM flagship width
 VOCAB, SEQ, DIM, NLAYER, NHEAD = 8192, 4096, 2048, 12, 16
@@ -156,9 +165,9 @@ ALEXNET_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "max_pool_fwd": 3,
                     "max_pool_bwd": 3, "conv_wgrad": 1}
 # the same net through the (H, W, C, N) LRN and the space-to-depth wgrad
 ALEXNET_HWCN_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
-                     "num_round=1", "pool_layout=hwcn", "pool_relu_fuse=1",
+                     "num_round=3", "pool_layout=hwcn", "pool_relu_fuse=1",
                      "pallas_lrn=hwcn", "fast_wgrad=pallas", "save_model=0")
-ALEXNET_HWCN_STEPS = 10
+ALEXNET_HWCN_STEPS = 30
 ALEXNET_HWCN_PER_STEP = {"lrn_hwcn_fwd": 2, "lrn_hwcn_bwd": 2,
                          "max_pool_fwd": 3, "max_pool_bwd": 3,
                          "conv_wgrad_s2d": 1}
@@ -190,8 +199,56 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, reps: int = DEVICE_REPS) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels, copies and fills that ``reps`` back-to-back calls put on the
+    card (torch.profiler), over ``reps``.  The host's time between
+    launches (the wrapper, ctypes, allocations) is not in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    if not us > 0:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    return us / reps / 1e3
+
+
+def timings(run, plain=None, lib=None, reps: int = 20,
+            plain_reps: int = 5) -> dict:
+    """A row's times: the kernel's device ms (``ms``) and its wrapper's
+    per-call ms (``call_ms``, CUDA events around one call, host work
+    included), the plain version's per-call ms, and the library call's
+    device and per-call ms (None without one)."""
+    return dict(ms=device_ms(run), call_ms=time_ms(run, reps),
+                plain_ms=None if plain is None else time_ms(plain,
+                                                            plain_reps),
+                library_ms=None if lib is None else device_ms(lib),
+                library_call_ms=None if lib is None else time_ms(lib, reps))
+
+
+def times_note(t: dict) -> str:
+    lib = ("none" if t["library_ms"] is None else
+           f"{t['library_ms']:.4f} ms device ({t['library_call_ms']:.4f} "
+           "a call)")
+    plain = "" if t["plain_ms"] is None else f"plain {t['plain_ms']:.4f} ms, "
+    return (f"kernel {t['ms']:.4f} ms device ({t['call_ms']:.4f} a call), "
+            f"{plain}library {lib}")
+
+
 def time_ms(fn, reps: int = 10) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Median time of one call of ``fn`` over ``reps`` calls: CUDA events
+    recorded around each call, so the host's work inside the call counts
+    whenever it outlasts the device's (the per-call "call ms")."""
     import torch
     for _ in range(2):
         fn()
@@ -258,14 +315,19 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 
 # ------------------------------------------------------------------ phases
 def wgmma_ptxas(build_log: str):
-    """(kernel, "registers; spills") of each wgmma flash kernel in the
-    nvcc -Xptxas -v output (an entry's lines follow its name)."""
+    """(kernel, "registers; spills") of each wgmma kernel (flash and
+    conv wgrad) in the nvcc -Xptxas -v output (an entry's lines follow
+    its name)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '.*(flash_(?:fwd|bwd_dq|"
                       r"bwd_dkv)_wgmma_kernel)ILi(\d+)ELb([01])E", line)
+        c = re.search(r"Compiling entry function '.*(conv_wgrad_wgmma_"
+                      r"kernel)E", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}, SEG={m.group(3)}>"
+        elif c:
+            name = c.group(1)
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "Used" in line:
@@ -319,30 +381,25 @@ def phase_kernels():
         lerr = rel_err(lse, lse_ref)
         abs_err = float((o.float() - o_ref.float()).abs().max())
         tol = BF16_ROW_TOL if bf16 else F32_TOL
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
-        plain = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, True),
-                        reps=3)
         q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
+        t = timings(lambda: fa.flash_attention_fwd(q, k, v, True),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v, True),
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=True), reps=10, plain_reps=3)
         flops = 4.0 * d * bh * s * (s + 1) / 2
-        nbytes = 4 * bh * s * d * q.element_size() + bh * s * 4
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bnd = bound(flops, 4 * bh * s * d * q.element_size() + bh * s * 4,
+                    name)
         log(f"flash_attention_fwd ({bh},{s},{d}) causal {name}: "
             f"{'per-row ' if bf16 else ''}rel err o {err:.3e} (tol {tol:g}),"
-            f" lse {lerr:.3e} (tol {F32_TOL:g}); abs err {abs_err:.3e};"
-            f" kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms,"
-            f" bound {max(t_ops, t_bytes):.4f} ms; "
-            f"{rate(flops, ms, max(t_ops, t_bytes))}")
+            f" lse {lerr:.3e} (tol {F32_TOL:g}); abs err {abs_err:.3e}; "
+            f"{times_note(t)} (sdpa), bound {bnd['bound_ms']:.4f} ms; "
+            f"{rate(flops, t['ms'], bnd['bound_ms'])}")
         if not (err <= tol and lerr <= F32_TOL):
             raise AssertionError(f"flash_attention_fwd {name} disagrees "
                                  f"with its plain version: {err}, {lerr}")
         if dtype == torch.bfloat16:
-            out["flash_attention_fwd"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            out["flash_attention_fwd"] = dict(max_abs_err=abs_err, **t,
+                                              **bnd)
     for rows in (SEQ, SLOTS):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
@@ -358,30 +415,25 @@ def phase_kernels():
             serr = max(rel_err(mean, m_ref), rel_err(rstd, r_ref))
             abs_err = float((y.float() - y_ref.float()).abs().max())
             tol = BF16_ROW_TOL if bf16 else F32_TOL
-            ms = time_ms(lambda: ln.layernorm_fwd(x, g, b, 1e-5), reps=20)
-            plain = time_ms(lambda: ln.layernorm_fwd_plain(x, g, b, 1e-5),
-                            reps=20)
-            lib = time_ms(lambda: F.layer_norm(x, (DIM,), g, b, 1e-5),
-                          reps=20)
-            nbytes = (2 * rows * DIM * x.element_size()
-                      + 2 * DIM * g.element_size() + 2 * rows * 4)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 8.0 * rows * DIM / PEAK_FLOPS["float32"] * 1e3
+            t = timings(lambda: ln.layernorm_fwd(x, g, b, 1e-5),
+                        lambda: ln.layernorm_fwd_plain(x, g, b, 1e-5),
+                        lambda: F.layer_norm(x, (DIM,), g, b, 1e-5),
+                        plain_reps=20)
+            bnd = bound(8.0 * rows * DIM,
+                        2 * rows * DIM * x.element_size()
+                        + 2 * DIM * g.element_size() + 2 * rows * 4,
+                        "float32")
             log(f"layernorm_fwd ({rows},{DIM}) {name}: "
                 f"{'per-row ' if bf16 else ''}rel err y {err:.3e} (tol "
                 f"{tol:g}), mean/rstd {serr:.3e} (tol {F32_TOL:g}); abs err "
-                f"{abs_err:.3e}; kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound "
-                f"{max(t_ops, t_bytes):.5f} ms")
+                f"{abs_err:.3e}; {times_note(t)} (F.layer_norm), bound "
+                f"{bnd['bound_ms']:.5f} ms")
             if not (err <= tol and serr <= F32_TOL):
                 raise AssertionError(f"layernorm_fwd {name} ({rows} rows) "
                                      f"disagrees with its plain version: "
                                      f"{err}, {serr}")
             if dtype == torch.bfloat16 and rows == SEQ:
-                out["layernorm_fwd"] = dict(
-                    max_abs_err=abs_err, ms=ms, plain_ms=plain,
-                    library_ms=lib, bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+                out["layernorm_fwd"] = dict(max_abs_err=abs_err, **t, **bnd)
     return out
 
 
@@ -462,21 +514,19 @@ def phase_train_kernels():
         f"{pairs['seg'] / pairs['causal']:.3f} of the causal triangle")
     out = {}
 
-    def record(name, dtype, errs, tol, abs_err, ms, plain, lib, bnd, what,
+    def record(name, dtype, errs, tol, abs_err, t, bnd, what,
                shape=(bh, s, d), flops=None):
         log(f"{name} {shape} {dtype}: errors "
             f"{', '.join(f'{w} {e:.3e}' for w, e in zip(what, errs))} "
-            f"(tol {tol:g}); abs err {abs_err:.3e}; kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms, library {lib:.3f} ms, bound "
+            f"(tol {tol:g}); abs err {abs_err:.3e}; {times_note(t)}, bound "
             f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
             f"{'; bitwise repeatable' if '_bwd' in name else ''}"
-            f"{'; ' + rate(flops, ms, bnd['bound_ms']) if flops else ''}")
+            f"{'; ' + rate(flops, t['ms'], bnd['bound_ms']) if flops else ''}")
         if not max(errs) <= tol:
             raise AssertionError(f"{name} {dtype} disagrees with its plain "
                                  f"version: {errs}")
         if dtype == "bfloat16":
-            out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
-                             library_ms=lib, **bnd)
+            out[name] = dict(max_abs_err=abs_err, **t, **bnd)
 
     def sdpa_bwd(q, k, v, do, attn_mask):
         q4, k4, v4 = (t.detach().view(b, h, s, d).requires_grad_()
@@ -505,10 +555,9 @@ def phase_train_kernels():
         del ref
         q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
         record("flash_attention_fwd (training shape)", name, errs,
-               BF16_ROW_TOL if bf16 else F32_TOL, abs_err, time_ms(run),
-               time_ms(plain, reps=3),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, is_causal=True)),
+               BF16_ROW_TOL if bf16 else F32_TOL, abs_err,
+               timings(run, plain, lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True), 10, 3),
                bound(4.0 * d * pairs["causal"],
                      4 * bh * s * d * isz + 4 * bh * s, name), ("o", "lse"),
                flops=4.0 * d * pairs["causal"])
@@ -522,8 +571,7 @@ def phase_train_kernels():
         errs, tol, abs_err = _errors(got, plain(), bf16, BF16_GRAD_ROW_TOL,
                                      GRAD_ROW_FLOOR)
         record("flash_attention_bwd", name, errs, tol, abs_err,
-               time_ms(run), time_ms(plain, reps=3),
-               time_ms(sdpa_bwd(q, k, v, do, None)),
+               timings(run, plain, sdpa_bwd(q, k, v, do, None), 10, 3),
                bound(10.0 * d * pairs["causal"],
                      8 * bh * s * d * isz + 4 * bh * s, name), grads,
                flops=10.0 * d * pairs["causal"])
@@ -536,10 +584,9 @@ def phase_train_kernels():
                 else rel_err(got[0], ref[0]), rel_err(got[1], ref[1])]
         abs_err = float((got[0].float() - ref[0].float()).abs().max())
         record("flash_attention_seg_fwd", name, errs,
-               BF16_ROW_TOL if bf16 else F32_TOL, abs_err, time_ms(run),
-               time_ms(plain, reps=3),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, attn_mask=mask)),
+               BF16_ROW_TOL if bf16 else F32_TOL, abs_err,
+               timings(run, plain, lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask), 10, 3),
                bound(4.0 * d * pairs["seg"],
                      4 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
                ("o", "lse"), flops=4.0 * d * pairs["seg"])
@@ -554,8 +601,7 @@ def phase_train_kernels():
         errs, tol, abs_err = _errors(got, plain(), bf16, BF16_GRAD_ROW_TOL,
                                      GRAD_ROW_FLOOR)
         record("flash_attention_seg_bwd", name, errs, tol, abs_err,
-               time_ms(run), time_ms(plain, reps=3),
-               time_ms(sdpa_bwd(q, k, v, do, mask)),
+               timings(run, plain, sdpa_bwd(q, k, v, do, mask), 10, 3),
                bound(10.0 * d * pairs["seg"],
                      8 * bh * s * d * isz + 4 * bh * s + 4 * b * s, name),
                grads, flops=10.0 * d * pairs["seg"])
@@ -584,9 +630,8 @@ def phase_train_kernels():
                                  f"disagree: {serr}")
         record("layernorm_fwd (training shape)", name, errs,
                BF16_ROW_TOL if bf16 else F32_TOL, abs_err,
-               time_ms(run, reps=20), time_ms(plain, reps=5),
-               time_ms(lambda: F.layer_norm(x, (DIM,), g, bt, LN_EPS),
-                       reps=20),
+               timings(run, plain,
+                       lambda: F.layer_norm(x, (DIM,), g, bt, LN_EPS)),
                bound(8.0 * rows * DIM, 2 * rows * DIM * isz + 2 * DIM * isz
                      + 2 * rows * 4, "float32"), ("y",), (rows, DIM))
         for save_x in (False, True):
@@ -605,14 +650,13 @@ def phase_train_kernels():
                                      f"disagree: {verr} (tol {vtol})")
             xx, gg, bb = (t.detach().requires_grad_() for t in (x, g, bt))
             yy = F.layer_norm(xx, (DIM,), gg, bb, LN_EPS)
-            lib = time_ms(lambda: torch.autograd.grad(
-                yy, (xx, gg, bb), dy, retain_graph=True), reps=20)
+            lib = lambda: torch.autograd.grad(yy, (xx, gg, bb), dy,
+                                              retain_graph=True)
             nbytes = (3 * rows * DIM * isz + (2 if save_x else 1) * rows * 4
                       + 4 * DIM * isz)
             tag = f"layernorm_bwd{' save_x' if save_x else ''}"
             log(f"{tag}: dgamma / dbeta err {verr:.3e} (tol {vtol:g})")
-            numbers = (errs, tol, abs_err, time_ms(run, reps=20),
-                       time_ms(plain, reps=5), lib,
+            numbers = (errs, tol, abs_err, timings(run, plain, lib),
                        bound(14.0 * rows * DIM, nbytes, "float32"), ("dx",),
                        (rows, DIM))
             if save_x:
@@ -654,8 +698,7 @@ def phase_cnn_kernels():
                note=""):
         timing = ""
         if times is not None:
-            timing = (f"; kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms,"
-                      f" library {times[2]:.4f} ms, bound "
+            timing = (f"; {times_note(times)}, bound "
                       f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         log(f"{name} {shape} {dtype}: error {err:.3e} (tol {tol:g}); abs "
             f"err {abs_err:.3e}{timing}{note}")
@@ -663,8 +706,7 @@ def phase_cnn_kernels():
             raise AssertionError(f"{name} {dtype} {shape} disagrees with "
                                  f"its plain version: {err}")
         if times is not None and dtype == "bfloat16":
-            out[name] = dict(max_abs_err=abs_err, ms=times[0],
-                             plain_ms=times[1], library_ms=times[2], **bnd)
+            out[name] = dict(max_abs_err=abs_err, **times, **bnd)
 
     def compare(got, ref, bf16):
         err = row_rel_err(got, ref) if bf16 else rel_err(got, ref)
@@ -686,9 +728,8 @@ def phase_cnn_kernels():
             numel = x.numel()
             times = bnd = None
             if timed:
-                times = (time_ms(fwd, reps=20), time_ms(plain, reps=5),
-                         time_ms(lambda: F.local_response_norm(
-                             x, 5, 0.001, 0.75, 1.0), reps=20))
+                times = timings(fwd, plain, lambda: F.local_response_norm(
+                    x, 5, 0.001, 0.75, 1.0))
                 bnd = bound(14.0 * numel, 2 * numel * isz, "float32")
             report("lrn_fwd", name, shape, err, tol, abs_err, times, bnd)
             bwd = lambda: lrn.lrn_bwd(x, g, *lrn_args)
@@ -698,9 +739,8 @@ def phase_cnn_kernels():
             if timed:
                 xx = x.detach().requires_grad_()
                 yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
-                times = (time_ms(bwd, reps=20), time_ms(plain, reps=5),
-                         time_ms(lambda: torch.autograd.grad(
-                             yy, xx, g, retain_graph=True), reps=20))
+                times = timings(bwd, plain, lambda: torch.autograd.grad(
+                    yy, xx, g, retain_graph=True))
                 bnd = bound(30.0 * numel, 3 * numel * isz, "float32")
             report("lrn_bwd", name, shape, err, tol, abs_err, times, bnd,
                    "; bitwise repeatable")
@@ -721,11 +761,10 @@ def phase_cnn_kernels():
             times = bnd = None
             nx, ny = x.numel(), y.numel()
             if timed:
-                times = (time_ms(fwd, reps=20),
-                         time_ms(lambda: pool.max_pool_fwd_plain(x, geom),
-                                 reps=5),
-                         time_ms(lambda: F.max_pool2d(x, 3, 2, ceil_mode=True),
-                                 reps=20))
+                times = timings(fwd,
+                                lambda: pool.max_pool_fwd_plain(x, geom),
+                                lambda: F.max_pool2d(x, 3, 2,
+                                                     ceil_mode=True))
                 bnd = bound(9.0 * ny, (nx + ny) * isz, "float32")
             report("max_pool_fwd", name, shape, 0.0, 0.0, 0.0, times, bnd,
                    "; bitwise")
@@ -743,9 +782,8 @@ def phase_cnn_kernels():
                 if timed:
                     xx = x.detach().requires_grad_()
                     yy = F.max_pool2d(xx, 3, 2, ceil_mode=True)
-                    times = (time_ms(bwd, reps=20), time_ms(plain, reps=3),
-                             time_ms(lambda: torch.autograd.grad(
-                                 yy, xx, dy, retain_graph=True), reps=20))
+                    times = timings(bwd, plain, lambda: torch.autograd.grad(
+                        yy, xx, dy, retain_graph=True), plain_reps=3)
                     bnd = bound(9.0 * ny, (2 * nx + 2 * ny) * isz, "float32")
                 report("max_pool_bwd" if not relu else "max_pool_bwd relu",
                        name, shape, 0.0, 0.0, 0.0, times, bnd,
@@ -769,20 +807,157 @@ def phase_cnn_kernels():
             times = bnd = None
             if xshape[1] == 3:
                 wshape = (co, xshape[1], k, k)
-                times = (time_ms(run, reps=10), time_ms(plain, reps=5),
-                         time_ms(lambda: (conv2d_weight(x, wshape, dy,
-                                                        stride=st),
-                                          dy.sum((0, 2, 3))), reps=10))
+                times = timings(run, plain, lambda: (
+                    conv2d_weight(x, wshape, dy, stride=st),
+                    dy.sum((0, 2, 3))), reps=10)
                 positions = xshape[0] * oh * oh
                 bnd = bound(2.0 * positions * co * xshape[1] * k * k
                             + positions * co,
                             (x.numel() + dy.numel()) * isz
                             + (co * xshape[1] * k * k + co) * 4, name)
+            route = cw.kernel_route(xshape[1], co, oh, k, k, st, dtype)
             report("conv_wgrad", name, (xshape, co, k, st, pad), err,
-                   WGRAD_TOL, abs_err, times, bnd, "; bitwise repeatable")
+                   WGRAD_TOL, abs_err, times, bnd,
+                   f"; route {route}; bitwise repeatable")
+            if route != ("wgmma" if bf16 else "mma.sync"):
+                raise AssertionError(f"conv_wgrad {name}: route {route}")
             del x, dy, got, ref
         torch.cuda.empty_cache()
     return out
+
+
+def phase_route_kernels():
+    """Each kernel route at the edge of its domain, on the card, against
+    the plain version: the layernorm forward's warp route ((4096, 2048),
+    (3, 100), x off 16-byte alignment) and block route ((64, 20000)),
+    bf16 and float32; the attention layer under ``flash_attn = 1`` with a
+    gradient and segment ids at head width 264 (the dense route, as the
+    JAX package takes it: no flash launch, one dense route), 256 (the
+    segmented flash forward and the CUDA-core backward), 128 (wgmma) and
+    12 (the kernels on q, k, v widened to 16), output and input gradient
+    against ``flash_attn = 0``; and the LRN backward in both
+    layouts at windows of 33 and 64 channels (AlexNet's lrn1, C = 96),
+    launches counted."""
+    import torch
+    from cxxnet_tpu_torch.engine import EngineOptions
+    from cxxnet_tpu_torch.layers import sequence as tseq
+    from cxxnet_tpu_torch.layers.base import ForwardContext, LabelInfo
+    from cxxnet_tpu_torch.ops import flash_attention as fa
+    from cxxnet_tpu_torch.ops import layernorm as ln
+    from cxxnet_tpu_torch.ops import lrn
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for rows, d, offset in ((4096, 2048, 0), (3, 100, 0), (33, 2048, 1),
+                            (64, 20000, 0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.empty((rows * d + offset,), dtype=dtype, device=dev)[
+                offset:].view(rows, d)
+            x.copy_(torch.randn((rows, d), generator=gen, device=dev) * 2
+                    + 3)
+            g = (torch.rand((d,), generator=gen, device=dev) + 0.5).to(dtype)
+            b = torch.randn((d,), generator=gen, device=dev).to(dtype)
+            got = ln.layernorm_fwd(x, g, b, LN_EPS)
+            ref = ln.layernorm_fwd_plain(x, g, b, LN_EPS)
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            err = row_rel_err(got[0], ref[0]) if bf16 else rel_err(got[0],
+                                                                   ref[0])
+            serr = max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2]))
+            tol = BF16_ROW_TOL if bf16 else F32_TOL
+            route = ln.kernel_route(d)
+            if route != ("warp" if d <= ln.WARP_MAX_D else "block"):
+                raise AssertionError(f"layernorm_fwd d {d}: route {route}")
+            log(f"layernorm_fwd route {route} ({rows}, {d})"
+                f"{' x off 16-byte alignment' if offset else ''} "
+                f"{str(dtype).split('.')[1]}: error y {err:.3e} (tol "
+                f"{tol:g}), mean / rstd {serr:.3e}")
+            if not (err <= tol and serr <= F32_TOL):
+                raise AssertionError(f"layernorm_fwd ({rows}, {d}) disagrees "
+                                     f"with its plain version")
+    for hd, want in ((264, "dense"), (256, "flash_seg"), (128, "flash_seg"),
+                     (12, "flash_seg")):
+        layer = tseq.AttentionLayer()
+        for k, v in (("nhead", "2"), ("causal", "1"), ("segment_key", "seg")):
+            layer.set_param(k, v)
+        s_len, dim = 1024, 2 * hd
+        params = layer.init_params(gen, [(2, 1, s_len, dim)],
+                                   torch.bfloat16)
+        x = (torch.randn((2, 1, s_len, dim), generator=gen, device=dev)
+             ).to(torch.bfloat16).requires_grad_()
+        seg = torch.zeros((2, s_len), device=dev)
+        seg[0, :300], seg[0, 300:] = 1, 2
+        seg[1, :1000] = 1
+        opts = EngineOptions()
+        ctx = ForwardContext(train=True, opts=opts,
+                             labels=LabelInfo(fields={"seg": seg}))
+        reset_launches()
+        tseq.single_device_attention.dense_routes = 0
+        [out] = layer.forward(params, [x], ctx)
+        (gx,) = torch.autograd.grad(out.float().square().sum(), [x])
+        torch.cuda.synchronize()
+        counts = (tseq.single_device_attention.dense_routes,
+                  fa.flash_attention_seg_fwd.launches,
+                  fa.flash_attention_seg_bwd.launches)
+        opts.set("flash_attn", "0")
+        [ref] = layer.forward(params, [x], ctx)
+        (gref,) = torch.autograd.grad(ref.float().square().sum(), [x])
+        torch.cuda.synchronize()
+        errs = (row_rel_err(out, ref), row_rel_err(gx, gref, GRAD_ROW_FLOOR))
+        kernel = "none" if want == "dense" else fa.kernel_route(
+            max(8, hd + (-hd) % 8), torch.bfloat16, backward=True)
+        log(f"attention layer hd {hd} bf16 with a gradient: route {want} "
+            f"(backward kernel {kernel}); "
+            f"dense routes, segmented flash forward / backward launches "
+            f"{counts}; errors against flash_attn = 0: out {errs[0]:.3e} "
+            f"(tol {BF16_ROW_TOL:g}), dx {errs[1]:.3e} (tol "
+            f"{BF16_GRAD_ROW_TOL:g})")
+        expect = (1, 0, 0) if want == "dense" else (0, 1, 1)
+        if counts != expect or not (errs[0] <= BF16_ROW_TOL
+                                    and errs[1] <= BF16_GRAD_ROW_TOL):
+            raise AssertionError(f"attention at hd {hd}: launches {counts} "
+                                 f"(want {expect}), errors {errs}")
+    # the CUDA-core backward at the widest head, timed beside sdpa's
+    b, h, s_len, d = 1, 16, 4096, 256
+    q, k, v, do = (torch.randn((b * h, s_len, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    q4, k4, v4 = (t.view(b, h, s_len, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)
+    kern = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True), reps=5)
+    lib = device_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do.view(b, h, s_len, d), retain_graph=True),
+        reps=5)
+    log(f"flash_attention_bwd ({b * h}, {s_len}, {d}) causal bf16 on the "
+        f"{fa.kernel_route(d, torch.bfloat16, backward=True)} route: "
+        f"{kern:.4f} ms device; sdpa backward {lib:.4f} ms device")
+    del q, k, v, do, o, lse, q4, k4, v4, o4
+    shape = (256, 96, 27, 27)
+    for nsize in (33, 64):
+        x = (torch.randn(shape, generator=gen, device=dev) * 8).to(
+            torch.bfloat16)
+        gr = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        args = (nsize, 0.001, 0.75, 1.0)
+        xt = x.permute(lrn.TO_HWCN).contiguous()
+        gt = gr.permute(lrn.TO_HWCN).contiguous()
+        reset_launches()
+        (dx,) = _run_twice("lrn_bwd", lambda: (lrn.lrn_bwd(x, gr, *args),))
+        (dxt,) = _run_twice("lrn_hwcn_bwd",
+                            lambda: (lrn.lrn_hwcn_bwd(xt, gt, *args),))
+        launched = (lrn.lrn_bwd.launches, lrn.lrn_hwcn_bwd.launches)
+        errs = (row_rel_err(dx, lrn.lrn_bwd_plain(x, gr, *args)),
+                row_rel_err(dxt, lrn.lrn_hwcn_bwd_plain(xt, gt, *args)))
+        log(f"lrn_bwd / lrn_hwcn_bwd {shape} bf16 window {nsize}: launches "
+            f"{launched}, errors {errs[0]:.3e} / {errs[1]:.3e} (tol "
+            f"{BF16_ROW_TOL:g}); bitwise repeatable")
+        if launched != (2, 2) or max(errs) > BF16_ROW_TOL:
+            raise AssertionError(f"LRN backward at window {nsize}: "
+                                 f"launches {launched}, errors {errs}")
+    del x, gr, xt, gt, dx, dxt
+    torch.cuda.empty_cache()
 
 
 def bf16_within_step(p, p_ref, w, w_ref) -> bool:
@@ -870,13 +1045,10 @@ def phase_last_kernels():
                                                d2=0.001, out=state[0])
             plain = lambda: fu.fused_adam_plain(g, *state[1:], 1e-3, 0.1,
                                                 0.001)
-            times = (time_ms(run, reps=20), time_ms(plain, reps=5))
+            times = timings(run, plain)
             bnd = bound(15.0 * n, 28.0 * n, "float32")
-            out["fused_adam"] = dict(max_abs_err=err, ms=times[0],
-                                     plain_ms=times[1], library_ms=None,
-                                     **bnd)
-            note = (f"; kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, "
-                    f"library none, bound {bnd['bound_ms']:.4f} ms "
+            out["fused_adam"] = dict(max_abs_err=err, **times, **bnd)
+            note = (f"; {times_note(times)}, bound {bnd['bound_ms']:.4f} ms "
                     f"({bnd['bound_by']})")
         log(f"fused_adam {shape} wd {wd} clip {clip}, 3 steps: m1 / m2 / "
             f"master within rtol {ADAM_RTOL:g} atol {ADAM_ATOL:g}, param "
@@ -915,29 +1087,23 @@ def phase_last_kernels():
                 xx = x.detach().requires_grad_()
                 yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
                 bwd = lambda: lrn.lrn_hwcn_bwd(xt, gt, *lrn_args)
-                t_fwd = (time_ms(fwd, reps=20), time_ms(plain, reps=5),
-                         time_ms(lambda: F.local_response_norm(
-                             x, 5, 0.001, 0.75, 1.0), reps=20))
-                t_bwd = (time_ms(bwd, reps=20),
-                         time_ms(lambda: lrn.lrn_hwcn_bwd_plain(
-                             xt, gt, *lrn_args), reps=5),
-                         time_ms(lambda: torch.autograd.grad(
-                             yy, xx, g, retain_graph=True), reps=20))
+                t_fwd = timings(fwd, plain, lambda: F.local_response_norm(
+                    x, 5, 0.001, 0.75, 1.0))
+                t_bwd = timings(bwd, lambda: lrn.lrn_hwcn_bwd_plain(
+                    xt, gt, *lrn_args), lambda: torch.autograd.grad(
+                        yy, xx, g, retain_graph=True))
                 t_perm = time_ms(lambda: x.permute(lrn.TO_HWCN).contiguous(),
                                  reps=20)
                 for kname, t, flops, nbytes, e in (
                         ("lrn_hwcn_fwd", t_fwd, 14.0, 2, abs_errs[0]),
                         ("lrn_hwcn_bwd", t_bwd, 30.0, 3, abs_errs[1])):
-                    out[kname] = dict(max_abs_err=e, ms=t[0], plain_ms=t[1],
-                                      library_ms=t[2],
+                    out[kname] = dict(max_abs_err=e, **t,
                                       **bound(flops * numel,
                                               nbytes * numel * isz,
                                               "float32"))
-                note = (f"; fwd kernel {t_fwd[0]:.4f} ms, plain "
-                        f"{t_fwd[1]:.4f} ms, library {t_fwd[2]:.4f} ms, "
-                        f"bound {out['lrn_hwcn_fwd']['bound_ms']:.4f} ms; "
-                        f"bwd kernel {t_bwd[0]:.4f} ms, plain {t_bwd[1]:.4f}"
-                        f" ms, library {t_bwd[2]:.4f} ms, bound "
+                note = (f"; fwd {times_note(t_fwd)}, bound "
+                        f"{out['lrn_hwcn_fwd']['bound_ms']:.4f} ms; "
+                        f"bwd {times_note(t_bwd)}, bound "
                         f"{out['lrn_hwcn_bwd']['bound_ms']:.4f} ms; one "
                         f"NCHW <-> (H, W, C, N) permute {t_perm:.4f} ms "
                         "(the path makes 2 a forward, 3 a backward)")
@@ -966,38 +1132,32 @@ def phase_last_kernels():
             abs_err = max(float((a - b).abs().max())
                           for a, b in zip(got, refs[0]))
             note = ""
+            same = all(torch.equal(a, b) for a, b in zip(got, refs[1]))
             if bf16 and xshape[1] == 3:
                 wshape = (co, xshape[1], k, k)
-                kb = -(-k // st)
-                cs = xshape[1] * st * st
-                hb = oh - 1 + kb
-                times = (time_ms(run, reps=10),
-                         time_ms(lambda: cw.conv_wgrad_s2d_plain(x, dy, *args),
-                                 reps=5),
-                         time_ms(lambda: (conv2d_weight(x, wshape, dy,
-                                                        stride=st),
-                                          dy.sum((0, 2, 3))), reps=10))
-                t_s2d = time_ms(lambda: cw.s2d_input(x, st, k, k, oh, oh,
-                                                     pad, pad), reps=10)
+                times = timings(
+                    run, lambda: cw.conv_wgrad_s2d_plain(x, dy, *args),
+                    lambda: (conv2d_weight(x, wshape, dy, stride=st),
+                             dy.sum((0, 2, 3))), reps=10)
                 positions = xshape[0] * oh * oh
-                bnd = bound(2.0 * positions * co * cs * kb * kb
-                            + positions * co,
-                            (xshape[0] * cs * hb * hb + dy.numel()) * isz
-                            + (co * cs * kb * kb + co) * 4, name)
-                out["conv_wgrad_s2d"] = dict(max_abs_err=abs_err,
-                                             ms=times[0], plain_ms=times[1],
-                                             library_ms=times[2], **bnd)
-                note = (f"; kernel (s2d, wgrad, fold) {times[0]:.4f} ms, of "
-                        f"which the s2d rearrangement {t_s2d:.4f} ms; plain "
-                        f"{times[1]:.4f} ms, library {times[2]:.4f} ms, "
-                        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-            log(f"conv_wgrad_s2d {(xshape, co, k, st, pad)} {name}: error "
-                f"{errs[0]:.3e} vs its plain version, {errs[1]:.3e} vs row "
-                f"5's kernel (tol {WGRAD_TOL:g}); abs err {abs_err:.3e}; "
-                f"bitwise repeatable{note}")
-            if not max(errs) <= WGRAD_TOL:
+                taps = xshape[1] * k * k
+                bnd = bound(2.0 * positions * co * taps + positions * co,
+                            (x.numel() + dy.numel()) * isz
+                            + (co * taps + co) * 4, name)
+                out["conv_wgrad_s2d"] = dict(max_abs_err=abs_err, **times,
+                                             **bnd)
+                note = (f"; {times_note(times)}, bound "
+                        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            log(f"conv_wgrad_s2d {(xshape, co, k, st, pad)} {name} (route "
+                f"{cw.kernel_route(xshape[1], co, oh, k, k, st, dtype)}): "
+                f"error {errs[0]:.3e} vs its plain version; "
+                f"{'bitwise equal to' if same else 'DIFFERS from'} row 5's "
+                f"kernel on the same x (tol {WGRAD_TOL:g}); abs err "
+                f"{abs_err:.3e}; bitwise repeatable{note}")
+            if not (max(errs) <= WGRAD_TOL and same):
                 raise AssertionError(f"conv_wgrad_s2d {name} {xshape} "
-                                     f"disagrees: {errs}")
+                                     f"disagrees: {errs}, same as row 5: "
+                                     f"{same}")
             del x, dy, got, refs
         torch.cuda.empty_cache()
     return out
@@ -1322,7 +1482,7 @@ def phase_alexnet(tmp: str, profile: bool = False, hwcn: bool = False
     """``task = train`` of example/ImageNet/ImageNet.conf through the
     port's CLI with ALEXNET_ARGS: AlexNet at batch 256 in bf16 on
     seeded synthetic batches held on the card, 3 rounds of 10 steps
-    (``hwcn``: ALEXNET_HWCN_ARGS, one round).  Every loss must be finite
+    (``hwcn``: ALEXNET_HWCN_ARGS).  Every loss must be finite
     and every step must launch the CNN kernels ALEXNET_PER_STEP
     (ALEXNET_HWCN_PER_STEP) times and no other (one of the three pool
     backwards relu-masked: pool1's, whose conv keeps its bias for the
@@ -1632,6 +1792,7 @@ def main() -> int:
         numbers.update(phase_train_kernels())
         numbers.update(phase_cnn_kernels())
         numbers.update(phase_last_kernels())
+        phase_route_kernels()
     paths = {}
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
         if "serve" in phases:

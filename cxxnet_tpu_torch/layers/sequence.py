@@ -9,11 +9,14 @@ the KV cache ``(slots, h, S, hd)``.
 Kernel selection is configuration, read from the forward context's
 engine options: ``flash_attn = 1`` routes attention through the
 autograd Functions of :mod:`~cxxnet_tpu_torch.ops.flash_attention`
-(the segmented one when the layer has segment ids), and ``pallas_ln =
-1`` (or ``x``, which saves the input for the backward) routes layernorm
-through :class:`~cxxnet_tpu_torch.ops.layernorm.LayerNorm`; ``0``
-selects the plain torch path the JAX package runs off the TPU, the only
-way to reach :func:`ring.dense_attention`.
+(the segmented one when the layer has segment ids) wherever
+:func:`~cxxnet_tpu_torch.ops.flash_attention.attention_route` finds a
+kernel for the call, and through :func:`ring.dense_attention` where the
+JAX package runs it too (heads wider than 256, non-causal attention
+with segment ids); ``pallas_ln = 1`` (or ``x``, which saves the input
+for the backward) routes layernorm through
+:class:`~cxxnet_tpu_torch.ops.layernorm.LayerNorm`; ``0`` selects the
+plain torch path the JAX package runs off the TPU.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention, flash_attention_segmented
+from ..monitor import log as mlog
+from ..ops.flash_attention import (attention_route, dense_reason,
+                                   flash_attention,
+                                   flash_attention_segmented)
 from ..ops.layernorm import layernorm
 from ..parallel import ring
 from .base import ForwardContext, Layer, Shape4, _normal
@@ -40,24 +46,33 @@ def _label_field(ctx: ForwardContext, name: str) -> Optional[torch.Tensor]:
 
 def single_device_attention(q, k, v, causal: bool, ctx: ForwardContext,
                             seg: Optional[torch.Tensor] = None):
-    """(b, h, s, hd) attention.  Under ``flash_attn = 1`` the flash
-    kernels (they raise on a head width they do not take): the
-    segmented Function when there are segment ids (causal only, as in
-    the JAX package), else the plain flash Function.  Under
-    ``flash_attn = 0`` plain :func:`ring.dense_attention`."""
+    """(b, h, s, hd) attention.  Under ``flash_attn = 1``, as
+    :func:`attention_route` decides from the shapes before any launch:
+    the segmented flash Function when there are segment ids (causal), the
+    plain flash Function without, and :func:`ring.dense_attention` where
+    the JAX package takes it (counted in ``dense_routes``; the first of a
+    count logs its reason).  Under ``flash_attn = 0`` always
+    :func:`ring.dense_attention`."""
     b, h, s, hd = q.shape
     if ctx.opts.flash_attn != "1":
         return ring.dense_attention(q, k, v, causal=causal, seg=seg)
+    route = attention_route(hd, causal, seg is not None)
+    if route == "dense":
+        single_device_attention.dense_routes += 1
+        if single_device_attention.dense_routes == 1:
+            mlog.notice("attention: plain dense attention for "
+                        + dense_reason(hd, causal, seg is not None))
+        return ring.dense_attention(q, k, v, causal=causal, seg=seg)
     q3, k3, v3 = (t.reshape(b * h, s, hd).contiguous() for t in (q, k, v))
-    if seg is None:
+    if route == "flash":
         o = flash_attention(q3, k3, v3, causal)
-    elif causal:
-        o = flash_attention_segmented(q3, k3, v3, seg)
     else:
-        raise ValueError("attention: flash_attn = 1 with segment ids needs "
-                         "causal = 1 (the segmented kernel is causal); set "
-                         "flash_attn = 0 for non-causal packed attention")
+        o = flash_attention_segmented(q3, k3, v3, seg)
     return o.reshape(b, h, s, hd)
+
+
+#: calls under ``flash_attn = 1`` that took dense attention
+single_device_attention.dense_routes = 0
 
 
 class EmbeddingLayer(Layer):

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "cxn_layernorm_fwd": (_c.c_void_p,) * 6 + (_c.c_longlong, _c.c_int,
                                                _c.c_float, _c.c_int,
                                                _c.c_int, _c.c_void_p),
+    # d
+    "cxn_layernorm_fwd_route": (_c.c_int,),
     # a, gamma, beta, mean, rstd, dy, dx, part, dg, db, rows, d, nblocks,
     # save_x, xdtype, gdtype, stream
     "cxn_layernorm_bwd": (_c.c_void_p,) * 10 + (_c.c_longlong,)
@@ -63,6 +65,8 @@ _SIGNATURES = {
     # pad_y, pad_x, dtype, stream
     "cxn_max_pool": (_c.c_int,) * 2 + (_c.c_void_p,) * 4 + (_c.c_longlong,)
     + (_c.c_int,) * 10 + (_c.c_void_p,),
+    # c, co, ow, kh, kw, s, dtype
+    "cxn_conv_wgrad_route": (_c.c_int,) * 7,
     # x, dy, part, part_b, dw, db, n, c, h, w, co, oh, ow, kh, kw, s,
     # pad_y, pad_x, splits, per_split, dtype, stream
     "cxn_conv_wgrad": (_c.c_void_p,) * 6 + (_c.c_int,) * 13

@@ -1,7 +1,7 @@
 """Weight and bias gradient of an ungrouped strided convolution: the
-hand-written CUDA kernel (``csrc/conv_wgrad.cu``), its plain PyTorch
+hand-written CUDA kernels (``csrc/conv_wgrad.cu``), their plain PyTorch
 version, and ``conv_bias_fast``, the conv + bias autograd Function whose
-backward computes dW and db with it.
+backward computes dW and db with them.
 
 Replaces the JAX package's Pallas ``conv_wgrad_hwcn_pallas``
 (``_cw_hwcn_kernel``, pallas_kernels.py) and the backward of
@@ -13,17 +13,21 @@ gradient over :func:`s2d_input`'s rearranged x, through torch.  dx goes
 through the ordinary conv transpose (the JAX package leaves it to XLA).
 
 Also replaces ``conv_wgrad_s2d_pallas`` (``_conv_wgrad_kernel``), the
-backward under ``fast_wgrad = pallas``: the same dW and db through the
-space-to-depth identity.  As on the TPU, x is rearranged outside the
-kernel (:func:`s2d_input`, plain torch), the kernel computes the dense
-stride-1 dW and db of the (N, C*s*s, HB, WB) tensor over kb_y x kb_x
-taps (the CUDA kernel of ``csrc/conv_wgrad.cu`` at stride 1, behind its
-own wrapper and counter), and the (c, sy, sx) channels fold back into
-the kernel's rows and columns outside it, the padded taps sliced away.
+backward under ``fast_wgrad = pallas``: the same dW and db, which the
+TPU kernel reaches through the space-to-depth identity.  That identity
+is only an order of the taps, so on the card it runs the same kernels on
+the original x (no rearrangement, no fold), behind its own wrapper and
+counter; its plain version keeps the JAX package's form
+(:func:`conv_wgrad_s2d_plain`).
+
+The kernels take two routes (:func:`kernel_route`): ``wgmma`` (bf16,
+co <= 96, C kh kw <= 383, output rows of at most 64 positions, AlexNet's
+conv1) and ``mma.sync`` (every other shape, float32 too).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -32,10 +36,15 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 
 from . import build
 
-#: positions of one K-chunk (csrc/conv_wgrad.cu CW_BK) and the dW tile
+#: positions of one K-chunk of the mma.sync route (csrc/conv_wgrad.cu
+#: CW_BK) and its dW tile
 _BK, _BM, _BN = 32, 64, 64
-#: blocks the split-K grid aims at (four per SM of an H100)
+#: blocks the mma.sync route's split-K grid aims at (four per SM of an H100)
 _TARGET_BLOCKS = 528
+#: the wgmma route's partial of a block: (taps, co) padded to (384, 96)
+_WG_TAPS, _WG_CO = 384, 96
+#: the kernels of csrc/conv_wgrad.cu cxn_conv_wgrad_route
+ROUTES = ("mma.sync", "wgmma")
 
 
 def conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
@@ -106,6 +115,24 @@ def split_plan(n: int, oh: int, ow: int, co: int, taps: int
     return -(-chunks // per), per
 
 
+def kernel_route(c: int, co: int, ow: int, kh: int, kw: int, stride: int,
+                 dtype: torch.dtype) -> str:
+    """The kernel the wgrad of a kh x kw stride ``stride`` conv of C
+    channels to ``co`` at output width ``ow`` in ``dtype`` launches, as
+    the C dispatcher decides it (builds the library)."""
+    code = build.LIBRARY.get().cxn_conv_wgrad_route(
+        c, co, ow, kh, kw, stride, build.DTYPE_CODES[dtype])
+    if code < 0:
+        raise ValueError(f"conv_wgrad: no kernel for C {c}, co {co}, ow "
+                         f"{ow}, {kh}x{kw} stride {stride} in {dtype}")
+    return ROUTES[code]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(what: str, x: torch.Tensor, dy: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
@@ -129,10 +156,21 @@ def _launch(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
                          f"output of a {kh}x{kw} stride {stride} conv of "
                          f"{tuple(x.shape)}")
     taps = c * kh * kw
-    splits, per = split_plan(n, oh, ow, co, taps)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, co, taps), **f32)
-    part_b = torch.empty((splits, co), **f32)
+    if kernel_route(c, co, ow, kh, kw, stride, x.dtype) == "wgmma":
+        # the kernel copies x and dy in 16-byte pieces
+        x = x.clone() if x.data_ptr() % 16 else x
+        dy = dy.clone() if dy.data_ptr() % 16 else dy
+        # one block an SM, each over a run of whole output rows
+        rows = n * oh
+        per = -(-rows // min(rows, _sm_count(x.device.index or 0)))
+        splits = -(-rows // per)
+        part = torch.empty((splits, _WG_TAPS, _WG_CO), **f32)
+        part_b = part
+    else:
+        splits, per = split_plan(n, oh, ow, co, taps)
+        part = torch.empty((splits, co, taps), **f32)
+        part_b = torch.empty((splits, co), **f32)
     dw = torch.empty((co, c, kh, kw), **f32)
     db = torch.empty((co,), **f32)
     err = build.LIBRARY.get().cxn_conv_wgrad(
@@ -177,20 +215,16 @@ def conv_wgrad_s2d_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
                           pad_x: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dW (co, ci, kh, kw), db (co,))`` in float32 of the stride-s
-    conv of (N, C, H, W) x to (N, CO, OH, OW) dy, the JAX package's way:
-    :func:`s2d_input` (torch), then the kernel's dense stride-1 wgrad of
-    the (N, C*s*s, HB, WB) tensor over ``ceil(kh / s) x ceil(kw / s)``
-    taps, then :func:`s2d_fold` (torch).  A CUDA tensor goes through the
-    CUDA kernel (or raises); a CPU tensor through
-    :func:`conv_wgrad_s2d_plain`."""
+    conv of (N, C, H, W) x to (N, CO, OH, OW) dy.  A CUDA tensor goes
+    through the CUDA kernel on x itself (or raises): the space-to-depth
+    identity of the JAX package's kernel only reorders the taps.  A CPU
+    tensor goes through :func:`conv_wgrad_s2d_plain`."""
     if x.device.type == "cpu":
         return conv_wgrad_s2d_plain(x, dy, kh, kw, stride, pad_y, pad_x)
     _check("conv_wgrad_s2d", x, dy)
-    ci, (oh, ow) = x.shape[1], dy.shape[2:]
-    xb, kb_y, kb_x = s2d_input(x, stride, kh, kw, oh, ow, pad_y, pad_x)
-    dwb, db = _launch(xb.contiguous(), dy, kb_y, kb_x, 1, 0, 0)
+    out = _launch(x, dy, kh, kw, stride, pad_y, pad_x)
     conv_wgrad_s2d_pallas.launches += 1
-    return s2d_fold(dwb, ci, stride, kh, kw).contiguous(), db
+    return out
 
 
 #: launches of each CUDA kernel (not of the plain versions)

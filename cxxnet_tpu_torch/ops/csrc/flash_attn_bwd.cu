@@ -48,8 +48,12 @@
 //     the diagonal or the ragged end and, under SEG, on tiles whose
 //     streamed rows do not all share the resident rows' one nonzero
 //     segment id (checked by the producer as it stages the ids).
-//   * float32: the CUDA cores (4 x 4 register tiles, p and ds staged in
-//     shared memory), 64-row tiles, head widths up to 128.
+//   * float32, and bf16 heads of 136-256 columns: the CUDA cores (4 x 4
+//     register tiles, p and ds staged in shared memory) over 64-row
+//     tiles up to 128 columns, over 32-row tiles (2 x 2 register tiles)
+//     from 136 to 256, where four 64-row float32 tiles would not fit in
+//     shared memory.  bf16 inputs are widened as they are staged, and p
+//     and ds rounded to bf16 before their products, as above.
 // PERF.md has the times.  The kernels allocate nothing (the caller passes
 // the delta buffer), do not synchronise, and launch on the caller's
 // stream.
@@ -64,9 +68,7 @@
 
 namespace {
 
-constexpr int FB_ROWS = 64;       // q or k rows per block (both kernels)
-constexpr int FB_THREADS = 256;   // float32 kernels: 8 warps
-constexpr int FB_SP = FB_ROWS + 1;
+constexpr int FB_THREADS = 256;   // CUDA-core kernels: 8 warps
 
 // delta[row] = sum_c dout[row, c] * o[row, c] in float32, a warp a row
 template <typename T>
@@ -88,41 +90,42 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
 }
 
 // ------------------------------------------------------------ float32
-// rows row0.. of a (s_len, d) matrix into a (64, d + 1) float tile
-template <typename T>
+// rows row0.. of a (s_len, d) matrix into an (R, d + 1) float tile
+template <int R, typename T>
 __device__ __forceinline__ void fb_load_rows(float* dst, const T* src,
                                              int row0, int s_len, int d) {
   const int dp = d + 1;
-  for (int idx = threadIdx.x; idx < FB_ROWS * d; idx += FB_THREADS) {
+  for (int idx = threadIdx.x; idx < R * d; idx += FB_THREADS) {
     const int r = idx / d, c = idx - r * d;
     const int gr = row0 + r;
     dst[r * dp + c] = gr < s_len ? cxn_to_f32(src[(size_t)gr * d + c]) : 0.f;
   }
 }
 
+template <int R>
 __device__ __forceinline__ void fb_load_stats(float* sl, float* sd,
                                               const float* lse,
                                               const float* delta, int row0,
                                               int s_len) {
-  for (int r = threadIdx.x; r < FB_ROWS; r += blockDim.x) {
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const bool ok = row0 + r < s_len;
     sl[r] = ok ? lse[row0 + r] : 0.f;
     sd[r] = ok ? delta[row0 + r] : 0.f;
   }
 }
 
-size_t fb_smem_dq(int d) {
-  return sizeof(float) * (4 * (size_t)FB_ROWS * (d + 1) + FB_ROWS * FB_SP);
+size_t fb_smem_dq(int d, int r) {
+  return sizeof(float) * (4 * (size_t)r * (d + 1) + r * (r + 1));
 }
-size_t fb_smem_dkv(int d) {
-  return sizeof(float) * (4 * (size_t)FB_ROWS * (d + 1) +
-                          2 * FB_ROWS * FB_SP);
+size_t fb_smem_dkv(int d, int r) {
+  return sizeof(float) * (4 * (size_t)r * (d + 1) + 2 * r * (r + 1));
 }
 
-// dq: this block's 64 q rows against every live k-tile.  Each thread
-// computes a 4 x 4 tile of s and dO v^T, the block stages ds in shared
-// memory, and each warp accumulates 8 rows of ds k (DCH columns a lane).
-template <typename T, int DCH, bool SEG>
+// dq: this block's R q rows (R = 64, or 32 for heads wider than 128)
+// against every live k-tile.  Each thread computes an R/16 x R/16 tile
+// of s and dO v^T, the block stages ds in shared memory, and each warp
+// accumulates R/8 rows of ds k (DCH columns a lane).
+template <typename T, int DCH, bool SEG, int R>
 __global__ void __launch_bounds__(FB_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -130,82 +133,82 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta,
                     const int* __restrict__ seg, T* __restrict__ dq,
                     int s_len, int d, int h, int causal, float scale) {
+  constexpr int RT = R / 16, AR = R / 8, SP = R + 1;
   extern __shared__ float smem[];
-  __shared__ float sL[FB_ROWS], sD[FB_ROWS];
-  __shared__ int sSegK[FB_ROWS];
+  __shared__ float sL[R], sD[R];
+  __shared__ int sSegK[64];  // fa_load_seg stages 64 ids
   const int dp = d + 1;
   float* sQ = smem;
-  float* sG = sQ + FB_ROWS * dp;   // dO
-  float* sK = sG + FB_ROWS * dp;
-  float* sV = sK + FB_ROWS * dp;
-  float* sS = sV + FB_ROWS * dp;   // ds, [q row][k col]
+  float* sG = sQ + R * dp;   // dO
+  float* sK = sG + R * dp;
+  float* sV = sK + R * dp;
+  float* sS = sV + R * dp;   // ds, [q row][k col]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FB_ROWS;  // heaviest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // heaviest first
   const size_t base = (size_t)blockIdx.y * s_len * d;
   const size_t rbase = (size_t)blockIdx.y * s_len;
   const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
-  fb_load_rows(sQ, q + base, q0, s_len, d);
-  fb_load_rows(sG, dout + base, q0, s_len, d);
-  fb_load_stats(sL, sD, lse + rbase, delta + rbase, q0, s_len);
-  const int sr0 = (tid >> 4) * 4, sc0 = tid & 15;
-  int segq[4];
+  fb_load_rows<R>(sQ, q + base, q0, s_len, d);
+  fb_load_rows<R>(sG, dout + base, q0, s_len, d);
+  fb_load_stats<R>(sL, sD, lse + rbase, delta + rbase, q0, s_len);
+  const int sr0 = (tid >> 4) * RT, sc0 = tid & 15;
+  int segq[RT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
     segq[i] = SEG && q0 + sr0 + i < s_len ? segb[q0 + sr0 + i] : 0;
-  float acc[8][DCH];
+  float acc[AR][DCH];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < AR; ++i)
 #pragma unroll
     for (int c = 0; c < DCH; ++c) acc[i][c] = 0.f;
 
-  const int q_last = min(q0 + FB_ROWS, s_len) - 1;
-  const int n_kt =
-      causal ? q_last / FB_ROWS + 1 : (s_len + FB_ROWS - 1) / FB_ROWS;
+  const int q_last = min(q0 + R, s_len) - 1;
+  const int n_kt = causal ? q_last / R + 1 : (s_len + R - 1) / R;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * FB_ROWS;
+    const int k0 = kt * R;
     __syncthreads();  // the previous tile's sK / sS reads are done
-    fb_load_rows(sK, k + base, k0, s_len, d);
-    fb_load_rows(sV, v + base, k0, s_len, d);
+    fb_load_rows<R>(sK, k + base, k0, s_len, d);
+    fb_load_rows<R>(sV, v + base, k0, s_len, d);
     if (SEG) fa_load_seg(sSegK, segb, k0, s_len);
     __syncthreads();
-    float sc[4][4], gp[4][4];
+    float sc[RT][RT], gp[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = gp[i][j] = 0.f;
+      for (int j = 0; j < RT; ++j) sc[i][j] = gp[i][j] = 0.f;
 #pragma unroll 2
     for (int c = 0; c < d; ++c) {
-      float qa[4], ga[4], ka[4], va[4];
+      float qa[RT], ga[RT], ka[RT], va[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RT; ++i) {
         qa[i] = sQ[(sr0 + i) * dp + c];
         ga[i] = sG[(sr0 + i) * dp + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         ka[j] = sK[(sc0 + 16 * j) * dp + c];
         va[j] = sV[(sc0 + 16 * j) * dp + c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RT; ++j) {
           sc[i][j] = fmaf(qa[i], ka[j], sc[i][j]);
           gp[i][j] = fmaf(ga[i], va[j], gp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         const int r = sr0 + i, cc = sc0 + 16 * j;
         const bool ok = fa_allowed<SEG>(q0 + r, k0 + cc, s_len, causal,
                                         segq[i], SEG ? sSegK[cc] : 0);
         const float p = expf((ok ? sc[i][j] * scale : FA_NEG_INF) - sL[r]);
-        sS[r * FB_SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[r]) * scale);
+        sS[r * SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[r]) * scale);
       }
     __syncthreads();
-    for (int j = 0; j < FB_ROWS; ++j) {
+    for (int j = 0; j < R; ++j) {
       float kv[DCH];
 #pragma unroll
       for (int c = 0; c < DCH; ++c) {
@@ -213,16 +216,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         kv[c] = col < d ? sK[j * dp + col] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float ds = sS[(warp * 8 + i) * FB_SP + j];
+      for (int i = 0; i < AR; ++i) {
+        const float ds = sS[(warp * AR + i) * SP + j];
 #pragma unroll
         for (int c = 0; c < DCH; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gq = q0 + warp * 8 + i;
+  for (int i = 0; i < AR; ++i) {
+    const int gq = q0 + warp * AR + i;
     if (gq >= s_len) continue;
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
@@ -232,9 +235,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dk / dv: this block's 64 k rows against every live q-tile, on the
+// dk / dv: this block's R k rows against every live q-tile, on the
 // transposed tile (k row, q column).
-template <typename T, int DCH, bool SEG>
+template <typename T, int DCH, bool SEG, int R>
 __global__ void __launch_bounds__(FB_THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -243,82 +246,83 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ seg, T* __restrict__ dk,
                      T* __restrict__ dv, int s_len, int d, int h, int causal,
                      float scale) {
+  constexpr int RT = R / 16, AR = R / 8, SP = R + 1;
   extern __shared__ float smem[];
-  __shared__ float sL[FB_ROWS], sD[FB_ROWS];
-  __shared__ int sSegQ[FB_ROWS];
+  __shared__ float sL[R], sD[R];
+  __shared__ int sSegQ[64];
   const int dp = d + 1;
   float* sK = smem;
-  float* sV = sK + FB_ROWS * dp;
-  float* sQ = sV + FB_ROWS * dp;
-  float* sG = sQ + FB_ROWS * dp;   // dO
-  float* sP = sG + FB_ROWS * dp;   // p^T, [k row][q col]
-  float* sS = sP + FB_ROWS * FB_SP;  // ds^T
+  float* sV = sK + R * dp;
+  float* sQ = sV + R * dp;
+  float* sG = sQ + R * dp;   // dO
+  float* sP = sG + R * dp;   // p^T, [k row][q col]
+  float* sS = sP + R * SP;  // ds^T
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k0 = blockIdx.x * FB_ROWS;  // the longest causal columns first
+  const int k0 = blockIdx.x * R;  // the longest causal columns first
   const size_t base = (size_t)blockIdx.y * s_len * d;
   const size_t rbase = (size_t)blockIdx.y * s_len;
   const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
-  fb_load_rows(sK, k + base, k0, s_len, d);
-  fb_load_rows(sV, v + base, k0, s_len, d);
-  const int sr0 = (tid >> 4) * 4, sc0 = tid & 15;
-  int segk[4];
+  fb_load_rows<R>(sK, k + base, k0, s_len, d);
+  fb_load_rows<R>(sV, v + base, k0, s_len, d);
+  const int sr0 = (tid >> 4) * RT, sc0 = tid & 15;
+  int segk[RT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
     segk[i] = SEG && k0 + sr0 + i < s_len ? segb[k0 + sr0 + i] : 0;
-  float ak[8][DCH], av[8][DCH];
+  float ak[AR][DCH], av[AR][DCH];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < AR; ++i)
 #pragma unroll
     for (int c = 0; c < DCH; ++c) ak[i][c] = av[i][c] = 0.f;
 
-  const int n_qt = (s_len + FB_ROWS - 1) / FB_ROWS;
-  for (int qt = causal ? k0 / FB_ROWS : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * FB_ROWS;
+  const int n_qt = (s_len + R - 1) / R;
+  for (int qt = causal ? k0 / R : 0; qt < n_qt; ++qt) {
+    const int q0 = qt * R;
     __syncthreads();  // the previous tile's sQ / sG / sP / sS reads are done
-    fb_load_rows(sQ, q + base, q0, s_len, d);
-    fb_load_rows(sG, dout + base, q0, s_len, d);
-    fb_load_stats(sL, sD, lse + rbase, delta + rbase, q0, s_len);
+    fb_load_rows<R>(sQ, q + base, q0, s_len, d);
+    fb_load_rows<R>(sG, dout + base, q0, s_len, d);
+    fb_load_stats<R>(sL, sD, lse + rbase, delta + rbase, q0, s_len);
     if (SEG) fa_load_seg(sSegQ, segb, q0, s_len);
     __syncthreads();
-    float sc[4][4], gp[4][4];
+    float sc[RT][RT], gp[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = gp[i][j] = 0.f;
+      for (int j = 0; j < RT; ++j) sc[i][j] = gp[i][j] = 0.f;
 #pragma unroll 2
     for (int c = 0; c < d; ++c) {
-      float ka[4], va[4], qa[4], ga[4];
+      float ka[RT], va[RT], qa[RT], ga[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RT; ++i) {
         ka[i] = sK[(sr0 + i) * dp + c];
         va[i] = sV[(sr0 + i) * dp + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         qa[j] = sQ[(sc0 + 16 * j) * dp + c];
         ga[j] = sG[(sc0 + 16 * j) * dp + c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RT; ++j) {
           sc[i][j] = fmaf(ka[i], qa[j], sc[i][j]);
           gp[i][j] = fmaf(va[i], ga[j], gp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         const int r = sr0 + i, cc = sc0 + 16 * j;
         const bool ok = fa_allowed<SEG>(q0 + cc, k0 + r, s_len, causal,
                                         SEG ? sSegQ[cc] : 0, segk[i]);
         const float p = expf((ok ? sc[i][j] * scale : FA_NEG_INF) - sL[cc]);
-        sP[r * FB_SP + cc] = cxn_round_to<T>(p);
-        sS[r * FB_SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[cc]) * scale);
+        sP[r * SP + cc] = cxn_round_to<T>(p);
+        sS[r * SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[cc]) * scale);
       }
     __syncthreads();
-    for (int j = 0; j < FB_ROWS; ++j) {
+    for (int j = 0; j < R; ++j) {
       float gv[DCH], qv[DCH];
 #pragma unroll
       for (int c = 0; c < DCH; ++c) {
@@ -327,9 +331,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qv[c] = col < d ? sQ[j * dp + col] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = sP[(warp * 8 + i) * FB_SP + j];
-        const float ds = sS[(warp * 8 + i) * FB_SP + j];
+      for (int i = 0; i < AR; ++i) {
+        const float p = sP[(warp * AR + i) * SP + j];
+        const float ds = sS[(warp * AR + i) * SP + j];
 #pragma unroll
         for (int c = 0; c < DCH; ++c) {
           av[i][c] = fmaf(p, gv[c], av[i][c]);
@@ -339,8 +343,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gk = k0 + warp * 8 + i;
+  for (int i = 0; i < AR; ++i) {
+    const int gk = k0 + warp * AR + i;
     if (gk >= s_len) continue;
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
@@ -787,40 +791,44 @@ cudaError_t fb_launch_wgmma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <int DCH, bool SEG>
-cudaError_t fb_launch_f32(const BwdArgs& a) {
-  const dim3 grid((a.s + FB_ROWS - 1) / FB_ROWS, a.bh);
-  auto kdq = flash_bwd_dq_kernel<float, DCH, SEG>;
-  auto kdkv = flash_bwd_dkv_kernel<float, DCH, SEG>;
-  const size_t smem_dq = fb_smem_dq(a.d), smem_dkv = fb_smem_dkv(a.d);
+template <typename T, int DCH, bool SEG, int R>
+cudaError_t fb_launch_simt(const BwdArgs& a) {
+  const dim3 grid((a.s + R - 1) / R, a.bh);
+  auto kdq = flash_bwd_dq_kernel<T, DCH, SEG, R>;
+  auto kdkv = flash_bwd_dkv_kernel<T, DCH, SEG, R>;
+  const size_t smem_dq = fb_smem_dq(a.d, R), smem_dkv = fb_smem_dkv(a.d, R);
   cudaError_t err = cxn_allow_smem(kdq, smem_dq);
   if (err == cudaSuccess) err = cxn_allow_smem(kdkv, smem_dkv);
   if (err != cudaSuccess) return err;
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   kdq<<<grid, FB_THREADS, smem_dq, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse,
-      delta, a.seg, static_cast<float*>(a.dq), a.s, a.d, a.h, a.causal,
-      a.scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse, delta,
+      a.seg, static_cast<T*>(a.dq), a.s, a.d, a.h, a.causal, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kdkv<<<grid, FB_THREADS, smem_dkv, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse,
-      delta, a.seg, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.s, a.d, a.h, a.causal, a.scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse, delta,
+      a.seg, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s, a.d, a.h,
+      a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <bool SEG>
 cudaError_t fb_dispatch(const BwdArgs& a, int dtype) {
-  if (dtype == CXN_BF16)
+  if (fa_route(a.d, dtype, true) == FA_ROUTE_WGMMA)
     return a.d <= 64 ? fb_launch_wgmma<64, SEG>(a)
                      : fb_launch_wgmma<128, SEG>(a);
-  if (a.d <= 32) return fb_launch_f32<1, SEG>(a);
-  if (a.d <= 64) return fb_launch_f32<2, SEG>(a);
-  return fb_launch_f32<4, SEG>(a);
+  // the CUDA cores: 64-row tiles up to 128 columns, 32-row tiles above
+  // (four (R, d + 1) float32 tiles must fit in shared memory)
+  if (a.d > 128)
+    return dtype == CXN_BF16 ? fb_launch_simt<__nv_bfloat16, 8, SEG, 32>(a)
+                             : fb_launch_simt<float, 8, SEG, 32>(a);
+  if (a.d <= 32) return fb_launch_simt<float, 1, SEG, 64>(a);
+  if (a.d <= 64) return fb_launch_simt<float, 2, SEG, 64>(a);
+  return fb_launch_simt<float, 4, SEG, 64>(a);
 }
 
 }  // namespace
@@ -838,7 +846,7 @@ extern "C" int cxn_flash_attn_bwd(const void* q, const void* k,
                                   int d, int causal, float scale, int dtype,
                                   void* stream) {
   if (bh < 1 || bh > 65535 || h < 1 || bh % h != 0 || s < 1 || d < 8 ||
-      d > 128 || d % 8 != 0 || (dtype != CXN_BF16 && dtype != CXN_F32))
+      d > 256 || d % 8 != 0 || (dtype != CXN_BF16 && dtype != CXN_F32))
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q,  k,  v,  static_cast<const int*>(seg), o, lse, dout,
                   delta, dq, dk, dv, bh, h, s, d, causal, scale,

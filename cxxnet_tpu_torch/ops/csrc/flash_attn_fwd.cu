@@ -644,7 +644,7 @@ cudaError_t fa_launch_wgmma(const FwdArgs& a) {
 
 template <bool SEG>
 cudaError_t fa_launch_tc(const FwdArgs& a) {
-  if (fa_route(a.d, CXN_BF16) == FA_ROUTE_WGMMA)
+  if (fa_route(a.d, CXN_BF16, false) == FA_ROUTE_WGMMA)
     return a.d <= 64 ? fa_launch_wgmma<64, SEG>(a)
                      : fa_launch_wgmma<128, SEG>(a);
   switch ((a.d + 15) / 16) {
@@ -718,8 +718,8 @@ extern "C" int cxn_flash_attn_fwd(const void* q, const void* k,
 // The route (FaRoute) of a forward (backward = 0) or backward call at
 // head width d in `dtype`, or -1 for a width the kernels do not take.
 extern "C" int cxn_flash_attn_route(int d, int dtype, int backward) {
-  if (d < 8 || d % 8 != 0 || d > (backward ? 128 : 256) ||
+  if (d < 8 || d % 8 != 0 || d > 256 ||
       (dtype != CXN_BF16 && dtype != CXN_F32))
     return -1;
-  return fa_route(d, dtype);
+  return fa_route(d, dtype, backward != 0);
 }

@@ -15,13 +15,25 @@
 // the ~295 FLOP/byte where an H100 turns compute-bound; the least time
 // is those bytes over 3.35 TB/s.
 //
-// Design: the TPU version tiles rows into VMEM blocks; here one thread
-// block owns one row.  The row is read from device memory once, into
-// shared memory as float32, and both variance passes and the output
-// pass run from there, so the two-pass variance costs no second trip to
-// device memory.  Reductions are warp shuffles plus one shared-memory
-// step across warps.  The kernel allocates nothing, does not
-// synchronise, and launches on the caller's stream.
+// Design, two routes (cxn_layernorm_fwd_route):
+// - warp (d <= LNW_MAX_D = 4096): one warp owns one row at a time and
+//   keeps it in registers as float32, at most LNW_MAX_EL = 128 elements
+//   a lane.  Rows arrive as 16-byte vector loads (8 bf16 or 4 float32 a
+//   lane a load; neighbouring lanes on neighbouring 16 bytes) when d is
+//   a multiple of the vector and x, y are 16-byte aligned, else as
+//   coalesced scalar loads; the tail of a row is masked.  Both moments
+//   are warp shuffles from the registers (the second pass reads no
+//   memory), so no barrier and no shared memory per row.  The grid is
+//   persistent (a few blocks an SM): each block stages gamma and beta
+//   once as float32 in shared memory and its warps walk the rows, so
+//   gamma and beta are read from device memory once per block, not once
+//   per row.  Stores are 16-byte; lane 0 writes mean and rstd.
+// - block (wider rows): one thread block owns one row, read once into
+//   shared memory as float32; both passes and the output run from there,
+//   with block-wide sums (warp shuffles plus one shared-memory step).
+// Neither kernel allocates, synchronises, or leaves the caller's stream.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -44,6 +56,137 @@ __device__ float block_sum(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     t += __shfl_xor_sync(0xffffffffu, t, off);
   return t;
+}
+
+constexpr int LNW_WARPS = 4;              // rows in flight per block
+constexpr int LNW_THREADS = 32 * LNW_WARPS;
+constexpr int LNW_MAX_EL = 128;           // row elements a lane holds
+constexpr int LNW_MAX_D = 32 * LNW_MAX_EL;
+constexpr int LNW_BLOCKS_PER_SM = 4;      // the persistent grid
+
+// V elements of T at p into f (V == 1: one scalar; else 16 bytes)
+template <typename T, int V>
+__device__ __forceinline__ void ln_load(const T* __restrict__ p, float* f) {
+  if constexpr (V == 1) {
+    f[0] = cxn_to_f32(p[0]);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        f[i] = __uint_as_float(w[i]);
+      } else {
+        f[2 * i] = __uint_as_float(w[i] << 16);
+        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void ln_store(T* __restrict__ p, const float* f) {
+  if constexpr (V == 1) {
+    p[0] = cxn_from_f32<T>(f[0]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        w[i] = __float_as_uint(f[i]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+__device__ __forceinline__ float ln_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// gamma / beta of either dtype as float32
+__device__ __forceinline__ float ln_vec(const void* p, int gf32, int c) {
+  return gf32 ? static_cast<const float*>(p)[c]
+              : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c]);
+}
+
+// The warp route: EL row elements a lane (a multiple of V), V elements a
+// load; load i of lane l covers columns (32 i + l) V .. + V - 1.  With
+// V > 1, V divides d, so a load is whole or past the row.
+template <typename T, int EL, int V>
+__global__ void __launch_bounds__(LNW_THREADS)
+layernorm_fwd_warp_kernel(const T* __restrict__ x, const void* gamma,
+                          const void* beta, int gf32, T* __restrict__ y,
+                          float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, long long rows,
+                          int d, float eps) {
+  constexpr int NL = EL / V;
+  // gamma, then beta, each EL * 32 floats in the order the lanes read
+  // them: element e of load i of lane l at (i V + e) 32 + l, so every
+  // read of a warp is one conflict-free shared-memory access
+  extern __shared__ float gb[];
+  for (int c = threadIdx.x; c < d; c += LNW_THREADS) {
+    const int at = ((c / (32 * V)) * V + c % V) * 32 + (c / V) % 32;
+    gb[at] = ln_vec(gamma, gf32, c);
+    gb[EL * 32 + at] = ln_vec(beta, gf32, c);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (long long r = (long long)blockIdx.x * LNW_WARPS + (threadIdx.x >> 5);
+       r < rows; r += (long long)gridDim.x * LNW_WARPS) {
+    const T* xr = x + r * d;
+    float v[EL];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int c0 = (i * 32 + lane) * V;
+      if (c0 < d) {
+        ln_load<T, V>(xr + c0, v + i * V);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[i * V + e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += v[i * V + e];
+    }
+    const float mean = ln_warp_sum(s) / d;
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int c0 = (i * 32 + lane) * V;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float t = v[i * V + e] - mean;
+        if (c0 + e < d) s2 += t * t;
+      }
+    }
+    const float var = ln_warp_sum(s2) / d;
+    const float rstd = 1.f / sqrtf(var + eps);
+    T* yr = y + r * d;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int c0 = (i * 32 + lane) * V;
+      if (c0 < d) {
+        float o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int at = (i * V + e) * 32 + lane;
+          o[e] = (v[i * V + e] - mean) * rstd * gb[at] + gb[EL * 32 + at];
+        }
+        ln_store<T, V>(yr + c0, o);
+      }
+    }
+    if (lane == 0) {
+      mean_out[r] = mean;
+      rstd_out[r] = rstd;
+    }
+  }
 }
 
 template <typename T, typename G>
@@ -97,7 +240,77 @@ cudaError_t ln_launch(const void* x, const void* g, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename T, int EL, int V>
+cudaError_t lnw_launch_el(const void* x, const void* g, const void* b,
+                          int gf32, void* y, void* mean, void* rstd,
+                          long long rows, int d, float eps,
+                          cudaStream_t stream) {
+  auto kern = layernorm_fwd_warp_kernel<T, EL, V>;
+  constexpr size_t smem = 2 * sizeof(float) * EL * 32;
+  // the persistent grid: as many blocks as fit at once, at most
+  // LNW_BLOCKS_PER_SM an SM (the same for every call of this instance)
+  static const int resident = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                  LNW_THREADS, smem);
+    per_sm = per_sm < LNW_BLOCKS_PER_SM ? per_sm : LNW_BLOCKS_PER_SM;
+    return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }();
+  const long long want = (rows + LNW_WARPS - 1) / LNW_WARPS;
+  const unsigned blocks = (unsigned)(want < resident ? want : resident);
+  kern<<<blocks, LNW_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), g, b, gf32, static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), rows, d, eps);
+  return cudaGetLastError();
+}
+
+// the warp route at V elements a load: the fewest elements a lane that
+// hold the row
+template <typename T, int V>
+cudaError_t lnw_launch_v(const void* x, const void* g, const void* b,
+                         int gf32, void* y, void* mean, void* rstd,
+                         long long rows, int d, float eps,
+                         cudaStream_t st) {
+  if (d <= 32 * 8)
+    return lnw_launch_el<T, 8, V>(x, g, b, gf32, y, mean, rstd, rows, d,
+                                  eps, st);
+  if (d <= 32 * 16)
+    return lnw_launch_el<T, 16, V>(x, g, b, gf32, y, mean, rstd, rows, d,
+                                   eps, st);
+  if (d <= 32 * 32)
+    return lnw_launch_el<T, 32, V>(x, g, b, gf32, y, mean, rstd, rows, d,
+                                   eps, st);
+  if (d <= 32 * 64)
+    return lnw_launch_el<T, 64, V>(x, g, b, gf32, y, mean, rstd, rows, d,
+                                   eps, st);
+  return lnw_launch_el<T, 128, V>(x, g, b, gf32, y, mean, rstd, rows, d,
+                                  eps, st);
+}
+
+// the warp route: 16-byte loads where d is a multiple of the vector and
+// x and y are 16-byte aligned, else scalar ones
+template <typename T>
+cudaError_t lnw_launch(const void* x, const void* g, const void* b,
+                       int gf32, void* y, void* mean, void* rstd,
+                       long long rows, int d, float eps, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = d % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  if (vec)
+    return lnw_launch_v<T, V>(x, g, b, gf32, y, mean, rstd, rows, d, eps,
+                              st);
+  return lnw_launch_v<T, 1>(x, g, b, gf32, y, mean, rstd, rows, d, eps, st);
+}
+
 }  // namespace
+
+// The kernel a row of width d takes: 0 the warp route, 1 the block route.
+extern "C" int cxn_layernorm_fwd_route(int d) {
+  return d <= LNW_MAX_D ? 0 : 1;
+}
 
 // x, y: (rows, d) contiguous in `xdtype`; gamma, beta: (d,) in `gdtype`;
 // mean, rstd: (rows,) float32.  Returns cudaGetLastError() after the
@@ -106,8 +319,19 @@ extern "C" int cxn_layernorm_fwd(const void* x, const void* gamma,
                                  const void* beta, void* y, void* mean,
                                  void* rstd, long long rows, int d, float eps,
                                  int xdtype, int gdtype, void* stream) {
-  if (rows < 1 || rows > 2147483647LL || d < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || rows > 2147483647LL || d < 1 ||
+      (xdtype != CXN_F32 && xdtype != CXN_BF16) ||
+      (gdtype != CXN_F32 && gdtype != CXN_BF16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cxn_layernorm_fwd_route(d) == 0) {
+    const int gf32 = gdtype == CXN_F32;
+    if (xdtype == CXN_F32)
+      return (int)lnw_launch<float>(x, gamma, beta, gf32, y, mean, rstd,
+                                    rows, d, eps, st);
+    return (int)lnw_launch<__nv_bfloat16>(x, gamma, beta, gf32, y, mean,
+                                          rstd, rows, d, eps, st);
+  }
   if (xdtype == CXN_F32 && gdtype == CXN_F32)
     return (int)ln_launch<float, float>(x, gamma, beta, y, mean, rstd, rows,
                                         d, eps, st);

@@ -36,17 +36,23 @@
 // neighbouring inner addresses (coalesced: neighbouring pixels in NCHW,
 // neighbouring images in (H, W, C, N)).  The forward re-reads the n
 // window values of each channel, which stay in L1.  The backward needs
-// inner[j] for the n channels of the transposed window: each thread
-// keeps the last RING values of inner and norm^-beta in its own column
-// of shared memory (no other thread reads it, so no barrier), and
-// computes inner[j] once, when channel j enters the window.
+// inner[j] for the channels of the transposed window: each thread keeps
+// the last R = min(n, C) values of inner and norm^-beta in its own
+// column of a ring in dynamic shared memory (no other thread reads it,
+// so no barrier), and computes inner[j] once, when channel j enters the
+// window.  The block shrinks from 128 to 32 threads as R grows, so the
+// ring fits for R up to LRN_MAX_RING (908 channels); past that a second
+// instance keeps no ring and recomputes each inner[j] of the window
+// (n + 1 times the forward's reads), so every window n >= 1 runs.
 #include "common.cuh"
 
 namespace {
 
 constexpr int LRN_THREADS = 128;
-// ring of the backward: holds the transposed window (n <= LRN_RING)
-constexpr int LRN_RING = 32;
+// shared memory a block may use (H100: 227 KB)
+constexpr int LRN_SMEM = 232448;
+// widest ring (two floats a channel) a 32-thread block holds
+constexpr int LRN_MAX_RING = LRN_SMEM / (2 * 4 * 32);
 
 __device__ __forceinline__ float lrn_pow(float norm, float beta) {
   return beta == 0.75f ? rsqrtf(norm * sqrtf(norm)) : powf(norm, -beta);
@@ -85,41 +91,83 @@ lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, long long cols,
   }
 }
 
+// inner[j] = g[j] x[j] norm[j]^-beta / norm[j], and norm[j]^-beta in *p
 template <typename T>
+__device__ __forceinline__ float lrn_inner(const T* __restrict__ xc,
+                                           const T* __restrict__ gc, int j,
+                                           int C, long long inner, int lo,
+                                           int hi, float salpha, float beta,
+                                           float knorm, float* p) {
+  const float norm = lrn_norm(xc, j, C, inner, lo, hi, salpha, knorm);
+  *p = lrn_pow(norm, beta);
+  const long long off = (long long)j * inner;
+  return cxn_to_f32(gc[off]) * cxn_to_f32(xc[off]) * (*p / norm);
+}
+
+// RING: inner and norm^-beta of the last R channels in the thread's
+// column of the dynamic shared ring ([2][R][blockDim.x] floats); else
+// recomputed for every channel of every window
+template <typename T, bool RING>
 __global__ void __launch_bounds__(LRN_THREADS)
 lrn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                T* __restrict__ dx, long long cols, int C, long long inner,
-               int lo, int hi, float salpha, float beta, float knorm) {
-  __shared__ float ring_inner[LRN_RING][LRN_THREADS];
-  __shared__ float ring_pow[LRN_RING][LRN_THREADS];
+               int lo, int hi, float salpha, float beta, float knorm,
+               int R) {
+  extern __shared__ float ring[];
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= cols) return;
-  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  float* ring_inner = ring + threadIdx.x;
+  float* ring_pow = ring + (size_t)R * nt + threadIdx.x;
   const long long base = (t / inner) * C * inner + t % inner;
   const T* xc = x + base;
   const T* gc = g + base;
   const float coef = 2.f * beta * salpha;
   int next = 0;  // the next channel whose inner enters the ring
+  int slot = 0;  // its ring slot (next % R, kept without a division)
   for (int c = 0; c < C; ++c) {
     // the transposed window of c is [c - hi, c + lo]
     const int top = c + lo > C - 1 ? C - 1 : c + lo;
-    for (; next <= top; ++next) {
-      const float norm =
-          lrn_norm(xc, next, C, inner, lo, hi, salpha, knorm);
-      const float p = lrn_pow(norm, beta);
-      const long long off = (long long)next * inner;
-      ring_pow[next % LRN_RING][tid] = p;
-      ring_inner[next % LRN_RING][tid] =
-          cxn_to_f32(gc[off]) * cxn_to_f32(xc[off]) * (p / norm);
-    }
     const int j0 = c - hi < 0 ? 0 : c - hi;
-    float s = 0.f;
-    for (int j = j0; j <= top; ++j) s += ring_inner[j % LRN_RING][tid];
+    float s = 0.f, pc;
+    if constexpr (RING) {
+      for (; next <= top; ++next) {
+        float p;
+        const float v = lrn_inner(xc, gc, next, C, inner, lo, hi, salpha,
+                                  beta, knorm, &p);
+        ring_pow[(size_t)slot * nt] = p;
+        ring_inner[(size_t)slot * nt] = v;
+        slot = slot + 1 == R ? 0 : slot + 1;
+      }
+      // channel top sits in the slot before `slot`; j0 and c are at most
+      // R - 1 channels before it
+      const int at_top = slot == 0 ? R - 1 : slot - 1;
+      int at = at_top - (top - j0);
+      if (at < 0) at += R;
+      for (int j = j0; j <= top; ++j) {
+        s += ring_inner[(size_t)at * nt];
+        at = at + 1 == R ? 0 : at + 1;
+      }
+      const int at_c = at_top - (top - c);
+      pc = ring_pow[(size_t)(at_c < 0 ? at_c + R : at_c) * nt];
+    } else {
+      float p;
+      for (int j = j0; j <= top; ++j)
+        s += lrn_inner(xc, gc, j, C, inner, lo, hi, salpha, beta, knorm, &p);
+      pc = lrn_pow(lrn_norm(xc, c, C, inner, lo, hi, salpha, knorm), beta);
+    }
     const long long off = (long long)c * inner;
-    const float v = cxn_to_f32(gc[off]) * ring_pow[c % LRN_RING][tid] -
-                    coef * cxn_to_f32(xc[off]) * s;
+    const float v = cxn_to_f32(gc[off]) * pc - coef * cxn_to_f32(xc[off]) * s;
     dx[base + off] = cxn_from_f32<T>(v);
   }
+}
+
+// threads of a backward block whose ring of R channels fits, largest
+// first; 0 when not even a 32-thread block's ring fits
+int lrn_bwd_threads(int R) {
+  for (int nt = LRN_THREADS; nt >= 32; nt /= 2)
+    if ((size_t)2 * 4 * R * nt <= (size_t)LRN_SMEM) return nt;
+  return 0;
 }
 
 template <typename T>
@@ -129,15 +177,28 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
                        cudaStream_t st) {
   const long long cols = outer * inner;
   const int lo = nsize / 2, hi = nsize - 1 - lo;
-  const long long blocks = (cols + LRN_THREADS - 1) / LRN_THREADS;
-  if (backward)
-    lrn_bwd_kernel<T><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g),
-        static_cast<T*>(out), cols, C, inner, lo, hi, salpha, beta, knorm);
-  else
+  if (!backward) {
+    const long long blocks = (cols + LRN_THREADS - 1) / LRN_THREADS;
     lrn_fwd_kernel<T><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out), cols, C, inner, lo,
         hi, salpha, beta, knorm);
+    return cudaGetLastError();
+  }
+  const int R = nsize < C ? nsize : C;
+  int nt = lrn_bwd_threads(R);
+  size_t smem = (size_t)2 * 4 * R * nt;
+  auto kern = lrn_bwd_kernel<T, true>;
+  if (nt == 0) {
+    nt = LRN_THREADS;
+    smem = 0;
+    kern = lrn_bwd_kernel<T, false>;
+  }
+  cudaError_t err = cxn_allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (cols + nt - 1) / nt;
+  kern<<<(unsigned)blocks, nt, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<T*>(out), cols, C, inner, lo, hi, salpha, beta, knorm, R);
   return cudaGetLastError();
 }
 
@@ -146,16 +207,15 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
 // x (and g, the output gradient, for the backward): contiguous (outer, C,
 // inner) in `dtype`, the window along C: logical NCHW as (N, C, H*W), its
 // (H, W, C, N) transpose as (H*W, C, N); out: y (forward) or dx
-// (backward), the same shape and dtype.  salpha = alpha / nsize.  The
-// backward takes nsize <= 32.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// (backward), the same shape and dtype.  salpha = alpha / nsize; any
+// nsize >= 1.  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int cxn_lrn(int backward, const void* x, const void* g, void* out,
                        long long outer, int C, long long inner, int nsize,
                        float salpha, float beta, float knorm, int dtype,
                        void* stream) {
   if (outer < 1 || C < 1 || inner < 1 || nsize < 1 ||
-      (backward && nsize > LRN_RING) ||
-      (outer * inner + LRN_THREADS - 1) / LRN_THREADS > 2147483647LL)
+      (outer * inner + 31) / 32 > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == CXN_F32)

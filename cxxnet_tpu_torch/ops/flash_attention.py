@@ -11,8 +11,13 @@ the ``h`` heads of a batch entry (0 = padding), with the mask rule
 ``causal & ((same segment & segment != 0) | diagonal)``.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
-its plain version for a CPU tensor.  The forward kernels take head
-widths that are multiples of 8 up to 256, the backward ones up to 128.
+its plain version for a CPU tensor.  The kernels take head widths that
+are multiples of 8 up to 256; :func:`flash_attention` and
+:func:`flash_attention_segmented` widen any other width up to 256 with
+zero columns.  :func:`attention_route` sends what the JAX package's
+``_single_device_attention`` runs densely (heads wider than 256,
+non-causal attention with segment ids) to plain dense attention,
+before any launch.
 """
 
 from __future__ import annotations
@@ -20,24 +25,48 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..parallel.ring import NEG_INF
 from . import build
 
-#: widest head the backward kernels take
-MAX_BWD_D = 128
+#: widest head the kernels take (the JAX package's
+#: ``flash_attention_available`` bound too)
+MAX_D = 256
 #: float elements of one score matrix chunk in the plain versions
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
 def flash_attention_supported(d: int) -> bool:
-    """Head widths the forward kernel takes (any sequence length does)."""
-    return d % 8 == 0 and 8 <= d <= 256
+    """Head widths the kernels take unwidened (any sequence length does)."""
+    return d % 8 == 0 and 8 <= d <= MAX_D
+
+
+def dense_reason(hd: int, causal: bool, has_seg: bool) -> Optional[str]:
+    """Why an attention call at head width ``hd`` takes plain dense
+    attention, as the JAX package's ``_single_device_attention`` does,
+    or None when a flash kernel takes it.  Decided from shapes alone,
+    the same on every device."""
+    if has_seg and not causal:
+        return "non-causal attention with segment ids (the segmented " \
+               "kernels are causal)"
+    if hd > MAX_D:
+        return f"head width {hd} above {MAX_D}"
+    return None
+
+
+def attention_route(hd: int, causal: bool, has_seg: bool) -> str:
+    """``"flash_seg"`` (segment ids, causal), ``"flash"`` or ``"dense"``
+    (see :func:`dense_reason`) for one attention call."""
+    if dense_reason(hd, causal, has_seg) is not None:
+        return "dense"
+    return "flash_seg" if has_seg else "flash"
 
 
 #: the kernels a bf16 or float32 call can take (csrc/flash_common.cuh
-#: FaRoute): float32 on the CUDA cores, bf16 through mma.sync (forward
-#: head widths above 128) or wgmma (every other width)
+#: FaRoute): float32 on the CUDA cores; bf16 through wgmma up to head
+#: width 128, above it through mma.sync (forward) or the CUDA cores
+#: (backward)
 ROUTES = ("simt", "mma.sync", "wgmma")
 
 
@@ -256,7 +285,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
-    _check("flash_attention_fwd", (q, k, v), 256)
+    _check("flash_attention_fwd", (q, k, v), MAX_D)
     out = _launch_fwd("flash_attention_fwd", q, k, v, None, causal, scale)
     flash_attention_fwd.launches += 1
     return out
@@ -270,7 +299,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
-    _check("flash_attention_bwd", (q, k, v, o, do), MAX_BWD_D)
+    _check("flash_attention_bwd", (q, k, v, o, do), MAX_D)
     _check_lse("flash_attention_bwd", lse, q)
     out = _launch_bwd("flash_attention_bwd", q, k, v, None, o, lse, do,
                       causal, scale)
@@ -285,7 +314,7 @@ def flash_attention_seg_fwd(q, k, v, seg, scale: Optional[float] = None):
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_seg_fwd_plain(q, k, v, seg, scale)
-    _check("flash_attention_seg_fwd", (q, k, v), 256)
+    _check("flash_attention_seg_fwd", (q, k, v), MAX_D)
     seg32 = _seg_int32("flash_attention_seg_fwd", seg, q)
     out = _launch_fwd("flash_attention_seg_fwd", q, k, v, seg32, True, scale)
     flash_attention_seg_fwd.launches += 1
@@ -300,7 +329,7 @@ def flash_attention_seg_bwd(q, k, v, seg, o, lse, do,
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_seg_bwd_plain(q, k, v, seg, o, lse, do, scale)
-    _check("flash_attention_seg_bwd", (q, k, v, o, do), MAX_BWD_D)
+    _check("flash_attention_seg_bwd", (q, k, v, o, do), MAX_D)
     _check_lse("flash_attention_seg_bwd", lse, q)
     seg32 = _seg_int32("flash_attention_seg_bwd", seg, q)
     out = _launch_bwd("flash_attention_seg_bwd", q, k, v, seg32, o, lse, do,
@@ -357,13 +386,29 @@ class FlashAttentionSegmented(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _widen(q, k, v):
+    """q, k, v with zero columns up to the next multiple of 8 (at least
+    8), and the true width.  Exact: zero columns add nothing to q·k or
+    to p·V, and the gradients of the output's cut-off columns are 0."""
+    d = q.shape[-1]
+    pad = max(8, d + (-d) % 8) - d
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    return q, k, v, d
+
+
 def flash_attention(q, k, v, causal: bool, scale: Optional[float] = None):
-    """Differentiable flash attention over (b*h, s, d) q/k/v."""
-    return FlashAttention.apply(q, k, v, causal, _default_scale(q, scale))
+    """Differentiable flash attention over (b*h, s, d) q/k/v; a head
+    width off the kernels' multiples of 8 runs widened (:func:`_widen`)
+    at its own scale, the output cut back to it."""
+    scale = _default_scale(q, scale)
+    q, k, v, d = _widen(q, k, v)
+    return FlashAttention.apply(q, k, v, causal, scale)[..., :d]
 
 
 def flash_attention_segmented(q, k, v, seg, scale: Optional[float] = None):
     """Differentiable segment-masked causal flash attention; ``seg`` is
-    ``(b, s)`` integer segment ids."""
-    return FlashAttentionSegmented.apply(q, k, v, seg,
-                                         _default_scale(q, scale))
+    ``(b, s)`` integer segment ids.  Widths as :func:`flash_attention`."""
+    scale = _default_scale(q, scale)
+    q, k, v, d = _widen(q, k, v)
+    return FlashAttentionSegmented.apply(q, k, v, seg, scale)[..., :d]

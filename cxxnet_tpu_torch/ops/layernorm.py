@@ -20,8 +20,13 @@ import torch
 
 from . import build
 
-#: largest row the forward kernel keeps in shared memory (float32)
+#: largest row the forward's block route keeps in shared memory (float32)
 MAX_D = (232448 - 256) // 4
+#: widest row of the forward's warp route (csrc/layernorm_fwd.cu LNW_MAX_D)
+WARP_MAX_D = 4096
+#: the forward kernels (csrc/layernorm_fwd.cu cxn_layernorm_fwd_route): a
+#: warp per row in registers, or a block per row through shared memory
+ROUTES = ("warp", "block")
 #: largest row of the backward kernel (four float32 rows of shared memory)
 MAX_BWD_D = (232448 - 256) // 16
 #: row runs of the backward's first pass (a few per SM of an H100)
@@ -69,6 +74,12 @@ def layernorm_bwd_plain(dy: torch.Tensor, a: torch.Tensor,
     return dx.to(a.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
 
 
+def kernel_route(d: int) -> str:
+    """The forward kernel a row of width ``d`` takes, as the C dispatcher
+    decides it (builds the library)."""
+    return ROUTES[build.LIBRARY.get().cxn_layernorm_fwd_route(int(d))]
+
+
 def _check_vecs(what: str, x: torch.Tensor, *vecs: torch.Tensor) -> None:
     if x.dim() != 2:
         raise ValueError(f"{what}: expected (rows, d), got {tuple(x.shape)}")
@@ -106,8 +117,9 @@ def layernorm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          f"range (d up to {MAX_D})")
     lib = build.LIBRARY.get()
     y = torch.empty_like(x)
-    mean = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    # mean and rstd: two contiguous halves of one allocation
+    mean, rstd = torch.empty((2, rows, 1), dtype=torch.float32,
+                             device=x.device)
     err = lib.cxn_layernorm_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), rows, d, float(eps),

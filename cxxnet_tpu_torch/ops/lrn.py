@@ -7,7 +7,9 @@ over ``_lrn_fwd_kernel`` / ``_lrn_bwd_kernel``, pallas_kernels.py) on
 logical NCHW: ``y = x * (knorm + alpha / n * sum_win x^2) ^ -beta`` with
 the window ``[c - n//2, c + n - 1 - n//2]`` clipped to the channels, all
 in float32 and stored in x's dtype.  The backward is the kernel's own
-(the transposed window for even n); its only residual is x.
+(the transposed window for even n); its only residual is x.  Both
+directions take every window ``nsize >= 1``, as the JAX package's
+kernels do.
 
 And the JAX package's ``lrn_pallas_hwcn`` (``_lrn_hwcn_call``): the same
 function computed on the (H, W, C, N) transpose of x by their own
@@ -24,8 +26,6 @@ import torch.nn.functional as F
 
 from . import build
 
-#: largest window the backward kernel takes (csrc/lrn.cu LRN_RING)
-MAX_BWD_NSIZE = 32
 #: (N, C, H, W) <-> (H, W, C, N)
 TO_HWCN, FROM_HWCN = (2, 3, 1, 0), (3, 2, 0, 1)
 
@@ -135,9 +135,8 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
     if x.device.type != "cuda":
         raise ValueError(f"lrn_bwd: no kernel for {x.device}")
     _check("lrn_bwd", x, g)
-    if not 1 <= nsize <= MAX_BWD_NSIZE:
-        raise ValueError(f"lrn_bwd: local_size = {nsize} out of range (up "
-                         f"to {MAX_BWD_NSIZE})")
+    if nsize < 1:
+        raise ValueError(f"lrn_bwd: local_size = {nsize}")
     n, c, h, w = x.shape
     dx = _launch("lrn_bwd", x, g, n, c, h * w, nsize, alpha, beta, knorm)
     lrn_bwd.launches += 1
@@ -227,9 +226,8 @@ def lrn_hwcn_bwd(xt: torch.Tensor, gt: torch.Tensor, nsize: int,
     if xt.device.type != "cuda":
         raise ValueError(f"lrn_hwcn_bwd: no kernel for {xt.device}")
     _check("lrn_hwcn_bwd", xt, gt)
-    if not 1 <= nsize <= MAX_BWD_NSIZE:
-        raise ValueError(f"lrn_hwcn_bwd: local_size = {nsize} out of range "
-                         f"(up to {MAX_BWD_NSIZE})")
+    if nsize < 1:
+        raise ValueError(f"lrn_hwcn_bwd: local_size = {nsize}")
     h, w, c, n = xt.shape
     dx = _launch("lrn_hwcn_bwd", xt, gt, h * w, c, n, nsize, alpha, beta,
                  knorm)

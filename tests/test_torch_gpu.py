@@ -153,9 +153,12 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d, xdt, gdt):
 @pytest.mark.parametrize("shape,causal", [
     ((3, 200, 64), True),        # ragged last tile
     ((2, 128, 8), True),         # narrowest head
-    ((1, 77, 128), False),       # widest backward head, ragged
+    ((1, 77, 128), False),       # widest wgmma head, ragged
     ((4, 64, 40), False),        # head width not a multiple of 32
     ((2, 320, 128), True),       # several tiles per row and column
+    ((2, 130, 136), True),       # the CUDA cores' 32-row tiles, ragged
+    ((1, 77, 256), False),       # widest head
+    ((2, 200, 192), True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(cuda, shape, causal, dtype):
@@ -173,7 +176,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, shape, causal, dtype):
 
 
 @pytest.mark.parametrize("b,h,s,d", [(2, 2, 200, 64), (1, 3, 320, 128),
-                                     (2, 1, 96, 32)])
+                                     (2, 1, 96, 32), (2, 2, 200, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_seg_kernels_match_plain(cuda, b, h, s, d, dtype):
     q, k, v, do = (torch.randn((b * h, s, d), generator=cuda, device="cuda")
@@ -216,10 +219,11 @@ def test_flash_functions_backward_through_the_kernels(cuda):
 
 
 def test_flash_bwd_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((2, 16, 136), device="cuda")
     lse = torch.zeros((2, 1, 16), device="cuda")
-    with pytest.raises(ValueError, match="head width"):
-        fa.flash_attention_bwd(q, q, q, q, lse, q, True)
+    for d in (12, 264):
+        q = torch.zeros((2, 16, d), device="cuda")
+        with pytest.raises(ValueError, match="head width"):
+            fa.flash_attention_bwd(q, q, q, q, lse, q, True)
     q = torch.zeros((2, 16, 16), device="cuda")
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd(q, q, q, q, lse[:, :, :8], q, True)
@@ -308,20 +312,61 @@ def test_flash_seg_kernels_tile_aligned_documents(cuda, d):
 
 @pytest.mark.parametrize("d,fwd_bf16,bwd_bf16", [
     (8, "wgmma", "wgmma"), (40, "wgmma", "wgmma"), (64, "wgmma", "wgmma"),
-    (128, "wgmma", "wgmma"), (136, "mma.sync", None),
-    (256, "mma.sync", None)])
+    (128, "wgmma", "wgmma"), (136, "mma.sync", "simt"),
+    (256, "mma.sync", "simt"), (264, None, None)])
 def test_flash_route_by_head_width(cuda, d, fwd_bf16, bwd_bf16):
     """Which kernel each head width takes: bf16 through wgmma up to 128
-    columns, the forward through mma.sync above; float32 on the CUDA
-    cores; the backward takes no width above 128."""
+    columns, above that the forward through mma.sync and the backward on
+    the CUDA cores; float32 on the CUDA cores; no kernel above 256."""
+    if fwd_bf16 is None:
+        for backward in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                with pytest.raises(ValueError, match="no flash"):
+                    fa.kernel_route(d, dtype, backward=backward)
+        return
     assert fa.kernel_route(d, torch.bfloat16) == fwd_bf16
     assert fa.kernel_route(d, torch.float32) == "simt"
-    if bwd_bf16 is None:
-        with pytest.raises(ValueError, match="no flash backward"):
-            fa.kernel_route(d, torch.bfloat16, backward=True)
-    else:
-        assert fa.kernel_route(d, torch.bfloat16, backward=True) == bwd_bf16
-        assert fa.kernel_route(d, torch.float32, backward=True) == "simt"
+    assert fa.kernel_route(d, torch.bfloat16, backward=True) == bwd_bf16
+    assert fa.kernel_route(d, torch.float32, backward=True) == "simt"
+
+
+@pytest.mark.parametrize("d", [4, 12, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_functions_widen_odd_head_widths(cuda, d, dtype):
+    """flash_attention and flash_attention_segmented at a head width off
+    the multiples of 8 launch the kernels on zero-widened q, k, v: the
+    output and the gradients have the true width and match the plain
+    versions at it."""
+    q, k, v, do = (torch.randn((4, 150, d), generator=cuda, device="cuda")
+                   .to(dtype) for _ in range(4))
+    seg = _segments(2, 150, torch.Generator().manual_seed(d))
+    counts = lambda: (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches,
+                      fa.flash_attention_seg_fwd.launches,
+                      fa.flash_attention_seg_bwd.launches)
+    before = counts()
+    for fn, plain_fwd, plain_bwd in (
+            (lambda *t: fa.flash_attention(*t, True),
+             lambda *t: fa.flash_attention_fwd_plain(*t, True),
+             lambda q_, k_, v_, o, l: fa.flash_attention_bwd_plain(
+                 q_, k_, v_, o, l, do, True)),
+            (lambda *t: fa.flash_attention_segmented(*t, seg),
+             lambda *t: fa.flash_attention_seg_fwd_plain(*t, seg),
+             lambda q_, k_, v_, o, l: fa.flash_attention_seg_bwd_plain(
+                 q_, k_, v_, seg, o, l, do))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        got = torch.autograd.grad(o, leaves, do)
+        o_ref, lse_ref = plain_fwd(q, k, v)
+        ref = plain_bwd(q, k, v, o_ref, lse_ref)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape and all(g.shape == q.shape for g in got)
+        if dtype == torch.float32:
+            assert _rel(o, o_ref) <= F32_TOL
+        else:
+            assert _row_rel(o, o_ref) <= BF16_ROW_TOL
+        _grads_close(got, ref, dtype)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
 
 
 @pytest.mark.parametrize("rows,d", [(1, 1), (5, 130), (300, 2048),
@@ -631,3 +676,168 @@ def test_hwcn_lrn_s2d_wgrad_and_fused_adam_launch_their_kernels(cuda):
     torch.cuda.synchronize()
     assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 1, 1)
     assert torch.equal(p, st["w32"].to(torch.bfloat16))
+
+
+# ------------------------------------------------------- routes (kernels)
+
+def _ln_inputs(gen, rows, d, xdt, gdt, offset=0):
+    """x (``offset`` elements into its buffer, so a nonzero offset leaves
+    it misaligned for 16-byte loads), gamma, beta."""
+    x = torch.empty((rows * d + offset,), dtype=xdt, device="cuda")[
+        offset:].view(rows, d)
+    x.copy_(torch.randn((rows, d), generator=gen, device="cuda") * 2 + 3)
+    g = (torch.rand((d,), generator=gen, device="cuda") + 0.5).to(gdt)
+    b = torch.randn((d,), generator=gen, device="cuda").to(gdt)
+    return x, g, b
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4096])
+@pytest.mark.parametrize("d", [8, 100, 2048, 2056, 4096, 4100, 20000])
+@pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+def test_layernorm_fwd_routes_match_plain(cuda, rows, d, xdt, gdt):
+    """The layernorm forward at both routes (warp up to d = 4096, block
+    past it) against the plain version, twice, bitwise equal."""
+    x, g, b = _ln_inputs(cuda, rows, d, xdt, gdt)
+    assert ln.kernel_route(d) == ("warp" if d <= ln.WARP_MAX_D else "block")
+    y, mean, rstd = ln.layernorm_fwd(x, g, b, 1e-5)
+    again = ln.layernorm_fwd(x, g, b, 1e-5)
+    y_ref, m_ref, r_ref = ln.layernorm_fwd_plain(x, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip((y, mean, rstd), again))
+    if xdt == torch.float32:
+        assert _rel(y, y_ref) <= F32_TOL
+    else:
+        assert _row_rel(y, y_ref) <= BF16_ROW_TOL
+    assert _rel(mean, m_ref) <= F32_TOL and _rel(rstd, r_ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [8, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_fwd_warp_route_unaligned(cuda, d, dtype):
+    """x and y one element off 16-byte alignment take the warp route's
+    scalar loads; the same values as the plain version."""
+    x, g, b = _ln_inputs(cuda, 33, d, dtype, dtype, offset=1)
+    assert x.data_ptr() % 16 != 0
+    y, mean, rstd = ln.layernorm_fwd(x, g, b, 1e-5)
+    y_ref, m_ref, r_ref = ln.layernorm_fwd_plain(x, g, b, 1e-5)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert _rel(y, y_ref) <= F32_TOL
+    else:
+        assert _row_rel(y, y_ref) <= BF16_ROW_TOL
+    assert _rel(mean, m_ref) <= F32_TOL and _rel(rstd, r_ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("xshape,co,k,s,pad", [
+    ((8, 3, 227, 227), 96, 11, 4, 0),     # AlexNet conv1 (batch cut)
+    ((256, 3, 227, 227), 96, 11, 4, 0),   # AlexNet conv1
+    ((6, 1, 28, 28), 32, 3, 2, 1),        # MNIST_CONV conv1
+    ((3, 5, 17, 19), 70, 4, 3, 2),        # ragged tiles, padding
+    ((2, 4, 9, 9), 128, 3, 1, 1),         # co past the wgmma route
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_wgrad_routes_match_plain(cuda, xshape, co, k, s, pad, dtype):
+    """Rows 5 and 6 at both routes (wgmma: bf16 with co <= 96; mma.sync:
+    float32 and wider co): dW and db of conv_wgrad_hwcn_pallas and of
+    conv_wgrad_s2d_pallas against conv_wgrad_plain and
+    conv_wgrad_s2d_plain within WGRAD_TOL; each twice, bitwise equal,
+    and the two wrappers bitwise equal (one kernel on the same x)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(xshape, generator=cuda, device="cuda").to(dtype)
+    oh = (xshape[2] + 2 * pad - k) // s + 1
+    ow = (xshape[3] + 2 * pad - k) // s + 1
+    dy = torch.randn((xshape[0], co, oh, ow), generator=cuda,
+                     device="cuda").to(dtype)
+    want = ("wgmma" if dtype == torch.bfloat16 and co <= 96
+            else "mma.sync")
+    assert cw.kernel_route(xshape[1], co, ow, k, k, s, dtype) == want
+    args = (k, k, s, pad, pad)
+    got = cw.conv_wgrad_hwcn_pallas(x, dy, *args)
+    again = cw.conv_wgrad_hwcn_pallas(x, dy, *args)
+    s2d = cw.conv_wgrad_s2d_pallas(x, dy, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, s2d))
+    for ref in (cw.conv_wgrad_plain(x, dy, *args),
+                cw.conv_wgrad_s2d_plain(x, dy, *args)):
+        assert _rel(got[0], ref[0]) <= WGRAD_TOL
+        assert _rel(got[1], ref[1]) <= WGRAD_TOL
+
+
+@pytest.mark.parametrize("shape,nsize", [
+    ((2, 40, 5, 6), 33), ((2, 40, 5, 6), 64), ((2, 40, 5, 6), 43),
+    ((1, 920, 1, 3), 921),    # a ring wider than shared memory holds
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_bwd_kernels_at_wide_windows(cuda, shape, nsize, dtype):
+    """lrn_bwd and lrn_hwcn_bwd launch their kernels at windows past 32
+    channels (33, 64, C + 3, and one whose ring does not fit) and agree
+    with the plain versions; twice, bitwise equal."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(dtype)
+    g = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    args = (nsize, 0.01, 0.75, 1.0)
+    xt = x.permute(lrn.TO_HWCN).contiguous()
+    gt = g.permute(lrn.TO_HWCN).contiguous()
+    before = (lrn.lrn_bwd.launches, lrn.lrn_hwcn_bwd.launches)
+    runs = [(lrn.lrn_bwd(x, g, *args), lrn.lrn_bwd(x, g, *args),
+             lrn.lrn_bwd_plain(x, g, *args)),
+            (lrn.lrn_hwcn_bwd(xt, gt, *args), lrn.lrn_hwcn_bwd(xt, gt, *args),
+             lrn.lrn_hwcn_bwd_plain(xt, gt, *args))]
+    torch.cuda.synchronize()
+    assert (lrn.lrn_bwd.launches - before[0],
+            lrn.lrn_hwcn_bwd.launches - before[1]) == (2, 2)
+    for dx, again, ref in runs:
+        assert torch.equal(dx, again)
+        if dtype == torch.float32:
+            assert _rel(dx, ref) <= F32_TOL
+        else:
+            assert _row_rel(dx, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("dim,nhead,dense", [(256, 1, 0), (128, 1, 0),
+                                             (24, 2, 0), (264, 1, 1)])
+def test_lm_step_routes_attention_by_head_width(cuda, tmp_path, dim, nhead,
+                                                dense):
+    """One training step of a depth-1 bf16 packed LM: at head widths 256
+    (the CUDA-core backward), 128 (wgmma) and 12 (widened to 16) the
+    segmented flash kernels run forward and backward once, and at 264,
+    above every kernel, the attention takes the dense route once and
+    runs no flash kernel; the loss is finite either way."""
+    from cxxnet_tpu_torch.io.factory import create_iterator, init_iterator
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    from cxxnet_tpu_torch.layers import sequence as tseq
+    from cxxnet_tpu_torch.models import transformer
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    gen = torch.Generator().manual_seed(3)
+    write_token_shard(str(tmp_path / "c.tok"),
+                      [torch.randint(0, 64, (int(n),), generator=gen).numpy()
+                       for n in torch.randint(20, 200, (12,),
+                                              generator=gen)],
+                      itemsize=2)
+    it = init_iterator(create_iterator(
+        [("iter", "text"), ("path_tok", str(tmp_path / "c.tok")),
+         ("iter", "packseq"), ("seqlen", "256"), ("iter", "end")]),
+        [("batch_size", "2"), ("silent", "1")])
+    it.before_first()
+    batch = it.next()
+    tr = NetTrainer()
+    for k, v in parse_config_string(transformer(
+            vocab=64, seq=256, dim=dim, nlayer=1, nhead=nhead, packed=True)):
+        tr.set_param(k, v)
+    for k, v in (("batch_size", "2"), ("dev", "gpu"), ("dtype", "bfloat16"),
+                 ("updater", "adam"), ("eta", "1e-3"), ("silent", "1")):
+        tr.set_param(k, v)
+    tr.init_model()
+    counts = lambda: (tseq.single_device_attention.dense_routes,
+                      fa.flash_attention_seg_fwd.launches,
+                      fa.flash_attention_seg_bwd.launches)
+    before = counts()
+    tr.update(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.as_tensor(float(tr.last_loss)))
+    flash = 1 - dense
+    assert tuple(a - b for a, b in zip(counts(), before)) == (dense, flash,
+                                                              flash)

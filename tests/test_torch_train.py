@@ -499,9 +499,11 @@ def test_unported_train_keys_are_refused(tmp_path, key, val):
 
 @pytest.mark.parametrize("flash", ["1", "0"])
 def test_attention_with_segments_routes_by_flash_attn(flash, monkeypatch):
-    """flash_attn = 1 with segment ids goes through the segmented flash
-    Function (never dense_attention); flash_attn = 0 is the only way to
-    dense_attention.  Both give the same output and input gradients."""
+    """flash_attn = 1 with causal segment ids goes through the segmented
+    flash Function (never dense_attention); flash_attn = 0 goes to
+    dense_attention.  Both give the same output and input gradients.
+    Non-causal attention with segment ids takes dense_attention under
+    flash_attn = 1 too, as the JAX package routes it."""
     from cxxnet_tpu_torch.engine import EngineOptions
     from cxxnet_tpu_torch.layers import sequence as tseq
     from cxxnet_tpu_torch.layers.base import ForwardContext, LabelInfo
@@ -541,8 +543,12 @@ def test_attention_with_segments_routes_by_flash_attn(flash, monkeypatch):
     torch.testing.assert_close(gx, gref, atol=1e-5, rtol=1e-5)
     layer.set_param("causal", "0")
     opts.set("flash_attn", "1")
-    with pytest.raises(ValueError, match="causal"):
-        layer.forward(params, [x], ctx)
+    calls.update(seg=0, dense=0)
+    [out] = layer.forward(params, [x], ctx)
+    assert calls == {"seg": 0, "dense": 1}
+    opts.set("flash_attn", "0")
+    [ref] = layer.forward(params, [x], ctx)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
 # ------------------------------------------------------------ fused adam

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""A/B timing of one of the port's kernels across source trees, on one
+CUDA card.
+
+    python3 tools/kernel_ab.py --kernel flash|wgrad ROOT_A ROOT_B [...]
+
+Each ROOT holds a ``cxxnet_tpu_torch/`` package (a checkout, or a copy
+with edited kernels under a git-ignored directory).  The trees' kernels
+are built first, all builds started together; then each tree runs in a
+process of its own, in the order A B .. B A, so drift of the card shows
+as a difference between a tree's two runs.  Each run prints one JSON
+line:
+
+- ``flash``: the flash rows of PERF.md's kernel table at chip_smoke.py's
+  shapes, bf16: the forward at the served (16, 4096, 128) and the
+  training (64, 4096, 128) causal shapes, the backward at the training
+  shape, and the segmented forward and backward on chip_smoke.py's
+  seeded documents; median milliseconds (CUDA events), with the largest
+  per-row error against the plain versions.
+- ``wgrad``: rows 5 and 6 at AlexNet's conv1 (x (256, 3, 227, 227) to dy
+  (256, 96, 55, 55), 11x11 stride 4, bf16): ``conv_wgrad_hwcn_pallas``'s
+  device ms (chip_smoke.device_ms) and the largest error of dW / db
+  against the plain version (max |diff| / max |ref|).  A tree whose
+  kernel is edited to skip work times what is left and reports the
+  error that follows.
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the ops module each kernel's timing imports from a tree
+MODULES = {"flash": "flash_attention", "wgrad": "conv_wgrad"}
+
+
+def _load(root: str, kernel: str):
+    """chip_smoke (from this checkout) and ``root``'s module of
+    ``kernel``."""
+    import importlib
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    sys.path.insert(0, os.path.abspath(root))
+    mod = importlib.import_module(f"cxxnet_tpu_torch.ops.{MODULES[kernel]}")
+    if not mod.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"{root}: imported {mod.__file__}")
+    return chip_smoke, mod
+
+
+def build_tree(root: str, kernel: str) -> None:
+    _load(root, kernel)
+    from cxxnet_tpu_torch.ops import build
+    build.LIBRARY.get()
+
+
+def time_flash(cs, fa) -> dict:
+    import numpy as np
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    out = {}
+    q, k, v = (randn(cs.NHEAD, cs.SEQ, cs.DIM // cs.NHEAD) for _ in range(3))
+    out["fwd_served_ms"] = cs.time_ms(
+        lambda: fa.flash_attention_fwd(q, k, v, True), reps=20)
+    b, h, s, d = cs.TRAIN_BATCH, cs.NHEAD, cs.SEQ, cs.DIM // cs.NHEAD
+    q, k, v, do = (randn(b * h, s, d) for _ in range(4))
+    seg = torch.from_numpy(cs.seeded_segments(np.random.RandomState(3), b, s,
+                                              512)).to(dev)
+    errs = []
+    for tag, fwd, bwd, fwd_plain, bwd_plain in (
+            ("", lambda: fa.flash_attention_fwd(q, k, v, True),
+             lambda o, l: fa.flash_attention_bwd(q, k, v, o, l, do, True),
+             lambda: fa.flash_attention_fwd_plain(q, k, v, True),
+             lambda o, l: fa.flash_attention_bwd_plain(q, k, v, o, l, do,
+                                                       True)),
+            ("seg_", lambda: fa.flash_attention_seg_fwd(q, k, v, seg),
+             lambda o, l: fa.flash_attention_seg_bwd(q, k, v, seg, o, l, do),
+             lambda: fa.flash_attention_seg_fwd_plain(q, k, v, seg),
+             lambda o, l: fa.flash_attention_seg_bwd_plain(q, k, v, seg, o,
+                                                           l, do))):
+        out[f"{tag}fwd_ms"] = cs.time_ms(fwd, reps=20)
+        o, lse = fwd()
+        errs.append(cs.row_rel_err(o, fwd_plain()[0]))
+        out[f"{tag}bwd_ms"] = cs.time_ms(lambda: bwd(o, lse), reps=20)
+        errs += [cs.row_rel_err(g, r, cs.GRAD_ROW_FLOOR)
+                 for g, r in zip(bwd(o, lse), bwd_plain(o, lse))]
+    out["max_row_err"] = max(errs)
+    return out
+
+
+def time_wgrad(cs, cw) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    x = torch.rand((256, 3, 227, 227), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = torch.randn((256, 96, 55, 55), generator=gen, device=dev).to(
+        torch.bfloat16)
+    run = lambda: cw.conv_wgrad_hwcn_pallas(x, dy, 11, 11, 4, 0, 0)
+    got, ref = run(), cw.conv_wgrad_plain(x, dy, 11, 11, 4, 0, 0)
+    return {"ms": cs.device_ms(run),
+            "err": max(cs.rel_err(a, b) for a, b in zip(got, ref))}
+
+
+TIMERS = {"flash": time_flash, "wgrad": time_wgrad}
+
+
+def time_tree(root: str, kernel: str) -> dict:
+    cs, mod = _load(root, kernel)
+    return {"root": root, **TIMERS[kernel](cs, mod), "card": cs.card_line()}
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if len(args) < 3 or args[0] != "--kernel" or args[1] not in TIMERS:
+        raise SystemExit(__doc__)
+    kernel, rest = args[1], args[2:]
+    if rest[0] in ("--build", "--time") and len(rest) == 2:
+        if rest[0] == "--build":
+            build_tree(rest[1], kernel)
+        else:
+            sys.stdout.write(json.dumps(time_tree(rest[1], kernel)) + "\n")
+        return 0
+    me = [sys.executable, os.path.abspath(__file__), "--kernel", kernel]
+    builds = [subprocess.Popen(me + ["--build", r]) for r in rest]
+    if any(p.wait() != 0 for p in builds):
+        raise SystemExit("a build failed")
+    for r in rest + rest[::-1]:
+        subprocess.run(me + ["--time", r], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
