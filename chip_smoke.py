@@ -655,7 +655,11 @@ def phase_train_kernels():
             nbytes = (3 * rows * DIM * isz + (2 if save_x else 1) * rows * 4
                       + 4 * DIM * isz)
             tag = f"layernorm_bwd{' save_x' if save_x else ''}"
-            log(f"{tag}: dgamma / dbeta err {verr:.3e} (tol {vtol:g})")
+            route = ln.bwd_route(DIM)
+            log(f"{tag}: route {route}; dgamma / dbeta err {verr:.3e} (tol "
+                f"{vtol:g})")
+            if route != "register":
+                raise AssertionError(f"layernorm_bwd d {DIM}: route {route}")
             numbers = (errs, tol, abs_err, timings(run, plain, lib),
                        bound(14.0 * rows * DIM, nbytes, "float32"), ("dx",),
                        (rows, DIM))
@@ -745,9 +749,13 @@ def phase_cnn_kernels():
             report("lrn_bwd", name, shape, err, tol, abs_err, times, bnd,
                    "; bitwise repeatable")
             del x, g
-        # rows 3 and 4: max pool forward and all-ties backward
-        for shape in ((256, 96, 55, 55), (256, 256, 27, 27),
-                      (256, 256, 13, 13), (100, 32, 14, 14)):
+        # rows 3 and 4: max pool forward and all-ties backward (the
+        # backward timed at AlexNet's three pools, pool1 in the kernels
+        # line)
+        for shape, tag in (((256, 96, 55, 55), ""),
+                           ((256, 256, 27, 27), " pool2"),
+                           ((256, 256, 13, 13), " pool3"),
+                           ((100, 32, 14, 14), None)):
             geom = (3, 3, 2, 0, 0)
             # a grid of 1/4 and a shift: many tied maxima, negative ones
             x = (torch.round(randn(shape, torch.float32, 6.0)) / 4 - 0.5
@@ -779,15 +787,19 @@ def phase_cnn_kernels():
                         f"max_pool_bwd {name} {shape} relu {relu} is not "
                         "bitwise equal to its plain version")
                 times = bnd = None
-                if timed:
+                if tag is not None:
                     xx = x.detach().requires_grad_()
                     yy = F.max_pool2d(xx, 3, 2, ceil_mode=True)
                     times = timings(bwd, plain, lambda: torch.autograd.grad(
                         yy, xx, dy, retain_graph=True), plain_reps=3)
                     bnd = bound(9.0 * ny, (2 * nx + 2 * ny) * isz, "float32")
-                report("max_pool_bwd" if not relu else "max_pool_bwd relu",
-                       name, shape, 0.0, 0.0, 0.0, times, bnd,
-                       "; bitwise, bitwise repeatable")
+                route = pool.bwd_route(x, geom)
+                report(f"max_pool_bwd{' relu' if relu else ''}"
+                       f"{tag or ''}", name, shape, 0.0, 0.0, 0.0, times,
+                       bnd, f"; route {route}; bitwise, bitwise repeatable")
+                if route != "cells":
+                    raise AssertionError(f"max_pool_bwd {shape}: route "
+                                         f"{route}")
             del x, y, dy
         torch.cuda.empty_cache()
         # row 5: conv weight and bias gradient
@@ -957,6 +969,76 @@ def phase_route_kernels():
             raise AssertionError(f"LRN backward at window {nsize}: "
                                  f"launches {launched}, errors {errs}")
     del x, gr, xt, gt, dx, dxt
+    # the layernorm backward at each route: registers to BWD_REG_MAX_D,
+    # the stream route past it (14520: just past the widest row whose
+    # four float32 copies fit one block's shared memory)
+    from cxxnet_tpu_torch.ops import pool
+    rows = 37
+    for d in (2048, ln.BWD_REG_MAX_D, 14520, 16384, 43648, ln.MAX_D):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            x = (torch.randn((rows, d), generator=gen, device=dev) * 2 + 3
+                 ).to(dtype)
+            g = (torch.rand((d,), generator=gen, device=dev) + 0.5).to(dtype)
+            g[d // 3] = 0.0
+            b = torch.randn((d,), generator=gen, device=dev).to(dtype)
+            dy = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            y, mean, rstd = ln.layernorm_fwd(x, g, b, LN_EPS)
+            route = ln.bwd_route(d)
+            if route != ("register" if d <= ln.BWD_REG_MAX_D else "stream"):
+                raise AssertionError(f"layernorm_bwd d {d}: route {route}")
+            for save_x in (False, True):
+                a = x if save_x else y
+                got = _run_twice("layernorm_bwd", lambda: ln.layernorm_bwd(
+                    dy, a, g, b, mean, rstd, save_x))
+                ref = ln.layernorm_bwd_plain(dy, a, g, b, mean, rstd, save_x)
+                err = (row_rel_err(got[0], ref[0]) if bf16
+                       else rel_err(got[0], ref[0]))
+                verr = max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2]))
+                tol = BF16_ROW_TOL if bf16 else F32_TOL
+                vtol = BF16_VEC_TOL if bf16 else F32_TOL
+                log(f"layernorm_bwd route {route} ({rows}, {d}) "
+                    f"{str(dtype).split('.')[1]}"
+                    f"{' save_x' if save_x else ''}: error dx {err:.3e} (tol "
+                    f"{tol:g}), dgamma / dbeta {verr:.3e} (tol {vtol:g}); "
+                    "bitwise repeatable")
+                if not (err <= tol and verr <= vtol):
+                    raise AssertionError(f"layernorm_bwd ({rows}, {d}) "
+                                         "disagrees with its plain version")
+            del x, dy, y
+    # the pool backward's routes at pool1's input: cells (AlexNet's 3x3
+    # stride 2 window, aligned tensors) and gather (the same one element
+    # off 16-byte alignment; a 5x5 window at stride 3, padded)
+    for geom, offset, want in (((3, 3, 2, 0, 0), 0, "cells"),
+                               ((3, 3, 2, 0, 0), 1, "gather"),
+                               ((5, 5, 3, 1, 1), 0, "gather")):
+        def at_offset(t):
+            out = torch.empty((t.numel() + offset,), dtype=t.dtype,
+                              device=dev)[offset:].view(t.shape)
+            return out.copy_(t)
+        x = at_offset((torch.round(torch.randn((256, 96, 55, 55),
+                                               generator=gen, device=dev)
+                                   * 6.0) / 4 - 0.5).to(torch.bfloat16))
+        y = at_offset(pool.max_pool_fwd(x, geom))
+        dy = at_offset((torch.round(torch.randn(y.shape, generator=gen,
+                                                device=dev) * 8) / 8
+                        ).to(torch.bfloat16))
+        route = pool.bwd_route(x, geom, offset == 0)
+        if route != want:
+            raise AssertionError(f"max_pool_bwd {geom}: route {route}")
+        for relu in (False, True):
+            (dx,) = _run_twice("max_pool_bwd", lambda: (
+                pool.max_pool_bwd(x, y, dy, geom, relu),))
+            if not torch.equal(dx, pool.max_pool_bwd_plain(x, y, dy, geom,
+                                                           relu)):
+                raise AssertionError(f"max_pool_bwd route {route} relu "
+                                     f"{relu} is not bitwise equal to its "
+                                     "plain version")
+        log(f"max_pool_bwd route {route} (256, 96, 55, 55) window {geom} "
+            f"bf16{', one element off 16-byte alignment' if offset else ''}"
+            ": bitwise equal to the plain version, relu and not; bitwise "
+            "repeatable")
+        del x, y, dy, dx
     torch.cuda.empty_cache()
 
 
@@ -1767,6 +1849,7 @@ def report_profile(events, step_ms) -> None:
 
 
 def main() -> int:
+    global TRAIN_STEPS
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                     help="comma-separated subset of the phases")
@@ -1774,7 +1857,11 @@ def main() -> int:
                     help="trace the packed train, train_fused, alexnet "
                          "and alexnet_hwcn phases with torch.profiler and "
                          "print where the time goes")
+    ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
+                    help="steps of the packed train and train_fused "
+                         "phases (30 for a step p50 to compare trees by)")
     args = ap.parse_args()
+    TRAIN_STEPS = args.train_steps
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)

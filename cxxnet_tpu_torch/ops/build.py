@@ -52,19 +52,19 @@ _SIGNATURES = {
                                                _c.c_int, _c.c_void_p),
     # d
     "cxn_layernorm_fwd_route": (_c.c_int,),
-    # a, gamma, beta, mean, rstd, dy, dx, part, dg, db, rows, d, nblocks,
-    # save_x, xdtype, gdtype, stream
+    # a, gamma, beta, mean, rstd, dy, dx, scratch, dg, db, rows, d, route,
+    # vec, el, wpr, blocks, save_x, xdtype, gdtype, stream
     "cxn_layernorm_bwd": (_c.c_void_p,) * 10 + (_c.c_longlong,)
-    + (_c.c_int,) * 5 + (_c.c_void_p,),
+    + (_c.c_int,) * 9 + (_c.c_void_p,),
     # backward, x, g, out, n, c, hw, nsize, salpha, beta, knorm, dtype,
     # stream
     "cxn_lrn": (_c.c_int,) + (_c.c_void_p,) * 3 + (_c.c_longlong, _c.c_int,
                                                    _c.c_longlong, _c.c_int)
     + (_c.c_float,) * 3 + (_c.c_int, _c.c_void_p),
     # backward, relu, x, y, dy, out, planes, h, w, oh, ow, kh, kw, s,
-    # pad_y, pad_x, dtype, stream
+    # pad_y, pad_x, cells, group, dtype, stream
     "cxn_max_pool": (_c.c_int,) * 2 + (_c.c_void_p,) * 4 + (_c.c_longlong,)
-    + (_c.c_int,) * 10 + (_c.c_void_p,),
+    + (_c.c_int,) * 12 + (_c.c_void_p,),
     # c, co, ow, kh, kw, s, dtype
     "cxn_conv_wgrad_route": (_c.c_int,) * 7,
     # x, dy, part, part_b, dw, db, n, c, h, w, co, oh, ow, kh, kw, s,

@@ -64,56 +64,11 @@ constexpr int LNW_MAX_EL = 128;           // row elements a lane holds
 constexpr int LNW_MAX_D = 32 * LNW_MAX_EL;
 constexpr int LNW_BLOCKS_PER_SM = 4;      // the persistent grid
 
-// V elements of T at p into f (V == 1: one scalar; else 16 bytes)
-template <typename T, int V>
-__device__ __forceinline__ void ln_load(const T* __restrict__ p, float* f) {
-  if constexpr (V == 1) {
-    f[0] = cxn_to_f32(p[0]);
-  } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (sizeof(T) == 4) {
-        f[i] = __uint_as_float(w[i]);
-      } else {
-        f[2 * i] = __uint_as_float(w[i] << 16);
-        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    }
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void ln_store(T* __restrict__ p, const float* f) {
-  if constexpr (V == 1) {
-    p[0] = cxn_from_f32<T>(f[0]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (sizeof(T) == 4) {
-        w[i] = __float_as_uint(f[i]);
-      } else {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-        w[i] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 __device__ __forceinline__ float ln_warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// gamma / beta of either dtype as float32
-__device__ __forceinline__ float ln_vec(const void* p, int gf32, int c) {
-  return gf32 ? static_cast<const float*>(p)[c]
-              : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c]);
 }
 
 // The warp route: EL row elements a lane (a multiple of V), V elements a
@@ -133,8 +88,8 @@ layernorm_fwd_warp_kernel(const T* __restrict__ x, const void* gamma,
   extern __shared__ float gb[];
   for (int c = threadIdx.x; c < d; c += LNW_THREADS) {
     const int at = ((c / (32 * V)) * V + c % V) * 32 + (c / V) % 32;
-    gb[at] = ln_vec(gamma, gf32, c);
-    gb[EL * 32 + at] = ln_vec(beta, gf32, c);
+    gb[at] = cxn_param(gamma, gf32, c);
+    gb[EL * 32 + at] = cxn_param(beta, gf32, c);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -147,7 +102,7 @@ layernorm_fwd_warp_kernel(const T* __restrict__ x, const void* gamma,
     for (int i = 0; i < NL; ++i) {
       const int c0 = (i * 32 + lane) * V;
       if (c0 < d) {
-        ln_load<T, V>(xr + c0, v + i * V);
+        cxn_load<T, V>(xr + c0, v + i * V);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) v[i * V + e] = 0.f;
@@ -179,7 +134,7 @@ layernorm_fwd_warp_kernel(const T* __restrict__ x, const void* gamma,
           const int at = (i * V + e) * 32 + lane;
           o[e] = (v[i * V + e] - mean) * rstd * gb[at] + gb[EL * 32 + at];
         }
-        ln_store<T, V>(yr + c0, o);
+        cxn_store<T, V>(yr + c0, o);
       }
     }
     if (lane == 0) {

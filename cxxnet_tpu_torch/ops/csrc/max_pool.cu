@@ -24,12 +24,27 @@
 // the backward reads x, y and dy and writes dx, with a few compares an
 // element.
 //
-// Design: the backward is the gather form of `_mp_hwcn_bwd_kernel`:
-// one thread per input element walks its <= ceil(kh/s) * ceil(kw/s)
-// candidate windows.  No two threads write one output, so there are no
-// atomics and every run gives the same bits.  The forward is one thread
-// per output element.  Neighbouring threads own neighbouring columns,
-// so loads and stores are coalesced along W.
+// Design.  The forward is one thread per output element.  The backward
+// is the gather form of `_mp_hwcn_bwd_kernel` (each input element walks
+// its <= ceil(kh/s) * ceil(kw/s) candidate windows and sums in a
+// register, so no two threads write one output: no atomics, the same
+// bits on every run), on one of two routes that the caller
+// (ops/pool.py `bwd_plan`) picks from the window:
+// - cells (3 x 3 windows at stride 2 or 1, 2 x 2 at stride 2, any
+//   padding; x and dx 16-byte aligned): a block owns a group of whole
+//   planes, brings their x into shared memory and takes dx back out in
+//   16-byte pieces; in between, a thread owns the S input columns
+//   between two window starts of one plane and walks down the plane S
+//   rows at a time, keeping the window rows it still needs in
+//   registers, so each y and dy value is loaded once a thread.
+//   Neighbouring lanes own neighbouring columns and take the same
+//   branches: y and dy move in coalesced warp-wide loads, x and dx in
+//   conflict-free shared-memory accesses, and index arithmetic is one
+//   division a thread.
+// - gather (other windows, x or dx off 16-byte alignment, or a plane
+//   too large for shared memory): one thread per input element decodes
+//   its position with 64-bit arithmetic and walks its candidate windows.
+
 #include "common.cuh"
 
 namespace {
@@ -96,15 +111,224 @@ max_pool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
   dx[t] = cxn_from_f32<T>(acc);
 }
 
+// The cells route, for K x K windows at stride S (D = (K - 1) / S).
+// A block owns a group of whole planes.  It copies the group's x into
+// shared memory in 16-byte pieces (cp.async, from the 16-byte boundary
+// at or before the group; zero-filled past the tensor), computes dx in
+// place there, and stores it back in 16-byte pieces (the elements it
+// owns of a piece on the group's edge one by one).  Between the two,
+// thread (plane, t) owns input columns c0 .. c0 + S - 1, c0 = t S -
+// pad_x, and walks its plane in cells of S x S: cell row m holds input
+// rows m S - pad_y .. + S - 1.  Windows (m - j, t - k), j, k = 0 .. D,
+// cover the cell, and window (m - j, t - k) covers element (q, p) of it
+// iff j S + q <= K - 1 and k S + p <= K - 1 (fixed at compile time).
+// The thread keeps window rows m .. m - D (columns t .. t - D) in a
+// register ring, each loaded once from device memory (neighbouring
+// lanes load neighbouring windows), with the next MP_AHEAD cell rows'
+// loads in flight.  Sums run in the gather order (window rows
+// ascending, columns descending).  A window outside the output reads as
+// NaN (equal to nothing); a miss adds 0.0, which leaves a float32 sum
+// that starts at +0 bitwise unchanged.
+constexpr int MP_AHEAD = 2;   // cell rows a thread loads ahead
+
+// 16 bytes global -> shared, of which the first `bytes` (0 .. 16) are
+// read and the rest zero-filled
+__device__ __forceinline__ void mp_cp_async16(void* dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(bytes) : "memory");
+}
+
+template <typename T, int K, int S>
+struct MpCellRow {
+  static constexpr int D = (K - 1) / S;
+  float x[S][S], wy[D + 1], wd[D + 1];
+  // cell row m of thread t: x (NaN outside the input; `xp` the plane in
+  // shared memory) and window row m
+  __device__ __forceinline__ void load(const T* xp, const T* __restrict__ yp,
+                                       const T* __restrict__ dyp, int m,
+                                       int t, int c0, const PoolGeom& g) {
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int iy = m * S - g.py + q;
+#pragma unroll
+      for (int p = 0; p < S; ++p) {
+        const int ix = c0 + p;
+        x[q][p] = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W
+                      ? cxn_to_f32(xp[iy * g.W + ix])
+                      : __int_as_float(0x7fc00000);  // NaN: equals nothing
+      }
+    }
+#pragma unroll
+    for (int k = 0; k <= D; ++k) {
+      const int ox = t - k;
+      const bool ok = m < g.OH && ox >= 0 && ox < g.OW;
+      const int o = ok ? m * g.OW + ox : 0;
+      wy[k] = ok ? cxn_to_f32(yp[o]) : __int_as_float(0x7fc00000);
+      wd[k] = cxn_to_f32(dyp[o]);
+    }
+  }
+};
+
+// thread t's columns of one plane, x read and dx written at `xp`
+template <typename T, bool RELU, int K, int S>
+__device__ __forceinline__ void mp_cells_walk(T* xp,
+                                              const T* __restrict__ yp,
+                                              const T* __restrict__ dyp,
+                                              int t, const PoolGeom& g) {
+  constexpr int D = (K - 1) / S;
+  const int c0 = t * S - g.px;
+  const int rows = (g.H + g.py + S - 1) / S;   // cell rows
+  float wy[D + 1][D + 1], wd[D + 1][D + 1];   // [j][k]: window (m - j, t - k)
+#pragma unroll
+  for (int j = 0; j <= D; ++j) {
+#pragma unroll
+    for (int k = 0; k <= D; ++k) {
+      wy[j][k] = __int_as_float(0x7fc00000);
+      wd[j][k] = 0.f;
+    }
+  }
+  // cell row m, then the MP_AHEAD rows after it, loads in flight
+  MpCellRow<T, K, S> cur, ahead[MP_AHEAD];
+  cur.load(xp, yp, dyp, 0, t, c0, g);
+#pragma unroll
+  for (int i = 0; i < MP_AHEAD; ++i)
+    if (i + 1 < rows) ahead[i].load(xp, yp, dyp, i + 1, t, c0, g);
+  for (int m = 0; m < rows; ++m) {
+#pragma unroll
+    for (int j = D; j > 0; --j) {
+#pragma unroll
+      for (int k = 0; k <= D; ++k) {
+        wy[j][k] = wy[j - 1][k];
+        wd[j][k] = wd[j - 1][k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k <= D; ++k) {
+      wy[0][k] = cur.wy[k];
+      wd[0][k] = cur.wd[k];
+    }
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int iy = m * S - g.py + q;
+#pragma unroll
+      for (int p = 0; p < S; ++p) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = D; j >= 0; --j) {
+#pragma unroll
+          for (int k = 0; k <= D; ++k) {
+            if (j * S + q <= K - 1 && k * S + p <= K - 1) {
+              const bool hit = wy[j][k] == cur.x[q][p] &&
+                               (!RELU || wy[j][k] > 0.f);
+              acc += hit ? wd[j][k] : 0.f;
+            }
+          }
+        }
+        const int ix = c0 + p;
+        if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
+          xp[iy * g.W + ix] = cxn_from_f32<T>(acc);
+      }
+    }
+    cur = ahead[0];
+#pragma unroll
+    for (int i = 0; i + 1 < MP_AHEAD; ++i) ahead[i] = ahead[i + 1];
+    if (m + MP_AHEAD + 1 < rows)
+      ahead[MP_AHEAD - 1].load(xp, yp, dyp, m + MP_AHEAD + 1, t, c0, g);
+  }
+}
+
+// Block b owns planes [b group, min((b + 1) group, planes)); shared
+// memory holds their x (then dx) after a shift of up to V - 1.
+template <typename T, bool RELU, int K, int S>
+__global__ void __launch_bounds__(MP_THREADS)
+max_pool_bwd_cells_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          long long planes, int group, int cells,
+                          PoolGeom g) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char mp_smem[];
+  T* sx = reinterpret_cast<T*>(mp_smem);
+  const int hw = g.H * g.W, ohw = g.OH * g.OW;
+  const long long p0 = (long long)blockIdx.x * group;
+  const int here = planes - p0 < group ? (int)(planes - p0) : group;
+  const long long xs = p0 * hw, xe = xs + (long long)here * hw;
+  const long long xa = xs - xs % V, xtot = planes * hw;
+  const int npieces = (int)((xe - xa + V - 1) / V);
+  for (int k = threadIdx.x; k < npieces; k += MP_THREADS) {
+    const long long e = xa + (long long)k * V;
+    mp_cp_async16(sx + k * V, x + e,
+                  (int)sizeof(T) * (xtot - e < V ? (int)(xtot - e) : V));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  T* sx0 = sx + (xs - xa);   // plane p0
+  for (int i = threadIdx.x; i < here * cells; i += MP_THREADS) {
+    const int pl = i / cells;
+    mp_cells_walk<T, RELU, K, S>(sx0 + pl * hw, y + (p0 + pl) * ohw,
+                                 dy + (p0 + pl) * ohw, i - pl * cells, g);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < npieces; k += MP_THREADS) {
+    const long long e0 = xa + (long long)k * V;
+    if (e0 >= xs && e0 + V <= xe) {
+      *reinterpret_cast<uint4*>(dx + e0) =
+          *reinterpret_cast<const uint4*>(sx + k * V);
+    } else {
+      for (long long e = e0 > xs ? e0 : xs; e < e0 + V && e < xe; ++e)
+        dx[e] = sx[e - xa];
+    }
+  }
+}
+
+template <typename T, bool RELU>
+auto mp_cells_kernel(const PoolGeom& g) {
+  if (g.kw == 3 && g.s == 1) return max_pool_bwd_cells_kernel<T, RELU, 3, 1>;
+  if (g.kw == 2 && g.s == 2) return max_pool_bwd_cells_kernel<T, RELU, 2, 2>;
+  return max_pool_bwd_cells_kernel<T, RELU, 3, 2>;
+}
+
+// elements of x (then dx) a cells-route block stages: the group's after
+// a shift of up to V - 1, in whole 16-byte pieces
+template <typename T>
+long long mp_cap(int group, int hw) {
+  constexpr int V = 16 / sizeof(T);
+  return ((long long)group * hw + 2 * V - 2) / V * V;
+}
+
 template <typename T>
 cudaError_t mp_launch(int backward, int relu, const void* x, const void* y,
                       const void* dy, void* out, long long planes,
-                      PoolGeom g, cudaStream_t st) {
+                      PoolGeom g, int cells, int group, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  if (backward && cells > 0) {
+    // the cells route: 3 x 3 windows at stride 2 or 1, 2 x 2 at 2
+    const bool fits = g.kh == g.kw && ((g.kw == 3 && (g.s == 2 || g.s == 1))
+                                       || (g.kw == 2 && g.s == 2));
+    const size_t smem = sizeof(T) * mp_cap<T>(group, g.H * g.W);
+    const long long blocks = (planes + group - 1) / group;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                           reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    if (!fits || !aligned || group < 1 ||
+        cells != (g.W + g.px + g.s - 1) / g.s || smem > 232448 ||
+        (long long)group * cells > 2147483647LL ||
+        blocks > 2147483647LL)
+      return cudaErrorInvalidValue;
+    auto kern = relu ? mp_cells_kernel<T, true>(g)
+                     : mp_cells_kernel<T, false>(g);
+    cudaError_t err = cxn_allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<(unsigned)blocks, MP_THREADS, smem, st>>>(
+        xt, static_cast<const T*>(y), static_cast<const T*>(dy),
+        static_cast<T*>(out), planes, group, cells, g);
+    return cudaGetLastError();
+  }
   const long long total =
       planes * (backward ? (long long)g.H * g.W : (long long)g.OH * g.OW);
   const long long blocks = (total + MP_THREADS - 1) / MP_THREADS;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  const T* xt = static_cast<const T*>(x);
   if (!backward)
     max_pool_fwd_kernel<T><<<(unsigned)blocks, MP_THREADS, 0, st>>>(
         xt, static_cast<T*>(out), total, g);
@@ -124,25 +348,29 @@ cudaError_t mp_launch(int backward, int relu, const void* x, const void* y,
 // x: contiguous (planes = N*C, H, W) in `dtype`.  Forward (backward = 0):
 // out = y, (planes, OH, OW).  Backward: y = the forward's (pre-relu)
 // output, dy its gradient, both (planes, OH, OW); out = dx, like x;
-// relu = 1 masks dy where y <= 0.  The caller sizes OH / OW by the
+// relu = 1 masks dy where y <= 0; cells > 0 takes the cells route with
+// `cells` = ceil((W + pad_x) / s) column cells a plane and `group`
+// planes a block (ops/pool.py bwd_plan; x and dx 16-byte aligned), 0
+// the gather route.  The caller sizes OH / OW by the
 // reference rule (every window holds an input element).  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int cxn_max_pool(int backward, int relu, const void* x,
                             const void* y, const void* dy, void* out,
                             long long planes, int H, int W, int OH, int OW,
                             int kh, int kw, int s, int pad_y, int pad_x,
-                            int dtype, void* stream) {
+                            int cells, int group, int dtype,
+                            void* stream) {
   if (planes < 1 || H < 1 || W < 1 || OH < 1 || OW < 1 || kh < 1 ||
       kw < 1 || s < 1 || pad_y < 0 || pad_x < 0 || pad_y >= kh ||
-      pad_x >= kw)
+      pad_x >= kw || cells < 0)
     return (int)cudaErrorInvalidValue;
   const PoolGeom g{H, W, OH, OW, kh, kw, s, pad_y, pad_x};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == CXN_F32)
     return (int)mp_launch<float>(backward, relu, x, y, dy, out, planes, g,
-                                 st);
+                                 cells, group, st);
   if (dtype == CXN_BF16)
     return (int)mp_launch<__nv_bfloat16>(backward, relu, x, y, dy, out,
-                                         planes, g, st);
+                                         planes, g, cells, group, st);
   return (int)cudaErrorInvalidValue;
 }

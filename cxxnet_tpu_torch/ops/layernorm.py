@@ -14,7 +14,8 @@ rebuilds xhat from the output (residuals ``y, gamma, beta, rstd``; no
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,10 +28,60 @@ WARP_MAX_D = 4096
 #: the forward kernels (csrc/layernorm_fwd.cu cxn_layernorm_fwd_route): a
 #: warp per row in registers, or a block per row through shared memory
 ROUTES = ("warp", "block")
-#: largest row of the backward kernel (four float32 rows of shared memory)
-MAX_BWD_D = (232448 - 256) // 16
-#: row runs of the backward's first pass (a few per SM of an H100)
-_BWD_BLOCKS = 528
+#: the backward's routes (csrc/layernorm_bwd.cu), chosen by :func:`bwd_plan`:
+#: rows in registers, 1-8 warps a row, up to BWD_REG_MAX_D; or, wider, a
+#: block per row for the row sums and then column strips streamed again
+BWD_ROUTES = ("register", "stream")
+BWD_REG_MAX_D = 4096
+#: threads of a backward block; register-route blocks resident on an SM
+#: (the kernel's __launch_bounds__) for 8 and 16 columns a thread
+_BWD_THREADS = 256
+_BWD_PER_SM = {8: 3, 16: 2}
+#: stream route: column-strip blocks aimed at per SM
+_BWD_STRIPS_PER_SM = 8
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel covers a (rows, d) problem."""
+    route: str      # one of BWD_ROUTES
+    vec: bool       # 16-byte row loads (else scalar ones)
+    el: int         # register route: columns a thread holds (8 or 16)
+    warps: int      # register route: warps a row (1, 2, 4 or 8)
+    blocks: int     # register route: the grid; stream route: row runs
+    parts: int      # rows of the (parts, d) float32 column partials
+
+
+def bwd_route(d: int) -> str:
+    """The backward route a row of width ``d`` takes."""
+    return BWD_ROUTES[0] if d <= BWD_REG_MAX_D else BWD_ROUTES[1]
+
+
+def bwd_plan(rows: int, d: int, itemsize: int, aligned: bool = True,
+             sms: int = 132) -> BwdPlan:
+    """The backward's launch plan for (rows, d) rows of ``itemsize``-byte
+    elements on a card of ``sms`` SMs; ``aligned``: y (or x), dy and dx
+    start on 16-byte boundaries.  Register route: a row slot of the
+    persistent grid visits rows slot, slot + slots, ..; stream route:
+    run k holds rows [k per, (k + 1) per), per = ceil(rows / blocks)."""
+    vec_el = 16 // itemsize
+    vec = aligned and d % vec_el == 0
+    if bwd_route(d) == "register":
+        el = 8 if d <= 8 * _BWD_THREADS else 16
+        warps = 1
+        while 32 * warps * el < d:
+            warps *= 2
+        slots = _BWD_THREADS // 32 // warps
+        blocks = min(-(-rows // slots), sms * _BWD_PER_SM[el])
+        return BwdPlan("register", vec, el, warps, blocks, blocks * slots)
+    strips = -(-d // (_BWD_THREADS * (vec_el if vec else 1)))
+    runs = min(rows, max(1, -(-sms * _BWD_STRIPS_PER_SM // strips)))
+    runs = -(-rows // -(-rows // runs))   # no empty run
+    return BwdPlan("stream", vec, 0, 0, runs, runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -152,19 +203,25 @@ def layernorm_bwd(dy: torch.Tensor, a: torch.Tensor, gamma: torch.Tensor,
                 or not t.is_contiguous() or t.device != a.device):
             raise ValueError(f"layernorm_bwd: {name} must be contiguous "
                              f"float32 ({rows}, 1)")
-    if not 1 <= d <= MAX_BWD_D:
+    if not 1 <= d <= MAX_D:
         raise ValueError(f"layernorm_bwd: d = {d} out of range (up to "
-                         f"{MAX_BWD_D})")
+                         f"{MAX_D})")
     lib = build.LIBRARY.get()
-    nblocks = min(rows, _BWD_BLOCKS)
     dx = torch.empty_like(a)
-    part = torch.empty((2, nblocks, d), dtype=torch.float32, device=a.device)
+    plan = bwd_plan(rows, d, a.element_size(),
+                    all(t.data_ptr() % 16 == 0 for t in (a, dy, dx)),
+                    _sm_count(a.device.index or 0))
+    # the (parts, d) dgamma and dbeta partials, then the stream route's
+    # (rows, 2) row means
+    scratch = torch.empty(2 * plan.parts * d + 2 * rows * (
+        plan.route == "stream"), dtype=torch.float32, device=a.device)
     dg = torch.empty_like(gamma)
     db = torch.empty_like(gamma)
     err = lib.cxn_layernorm_bwd(
         a.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        dg.data_ptr(), db.data_ptr(), rows, d, nblocks, int(bool(save_x)),
+        rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        dg.data_ptr(), db.data_ptr(), rows, d, BWD_ROUTES.index(plan.route),
+        int(plan.vec), plan.el, plan.warps, plan.blocks, int(bool(save_x)),
         build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[gamma.dtype],
         build.stream_handle(a.device))
     build.check(err, "layernorm_bwd")

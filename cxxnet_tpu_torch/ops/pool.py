@@ -18,7 +18,7 @@ pre-relu pooled output)``, as on the TPU.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +105,63 @@ def max_pool_bwd_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     return acc.to(x.dtype)
 
 
+#: the backward's routes (csrc/max_pool.cu), chosen by :func:`bwd_plan`:
+#: a block a group of whole planes whose x and dx pass through shared
+#: memory, a thread the input columns between two window starts, for the
+#: windows in CELL_WINDOWS; or a thread an input element
+BWD_ROUTES = ("cells", "gather")
+#: (square window size, stride) pairs of the cells route
+#: (csrc/max_pool.cu mp_cells_kernel); any padding
+CELL_WINDOWS = ((3, 2), (3, 1), (2, 2))
+#: threads of a cells-route block; the shared memory it may take
+_BWD_THREADS = 256
+BWD_SMEM = 64 * 1024
+
+
+class BwdPlan(NamedTuple):
+    """How the all-ties backward covers (planes, h, w) inputs."""
+    route: str      # one of BWD_ROUTES
+    cells: int      # cells route: column cells a plane, ceil((w + px) / s)
+    group: int      # cells route: planes a block
+    blocks: int     # cells route: the grid, ceil(planes / group)
+    smem: int       # cells route: shared memory bytes a block
+
+
+def bwd_smem(group: int, h: int, w: int, itemsize: int) -> int:
+    """Shared memory of a cells-route block (csrc/max_pool.cu mp_cap): x
+    of ``group`` planes after a shift of up to a 16-byte piece, in whole
+    pieces."""
+    v = 16 // itemsize
+    return (group * h * w + 2 * v - 2) // v * v * itemsize
+
+
+def bwd_plan(planes: int, h: int, w: int, geom: Geom, itemsize: int,
+             aligned: bool = True, sms: int = 132) -> BwdPlan:
+    """The backward's launch plan; ``aligned``: x and dx start on 16-byte
+    boundaries.  Block b of the cells route owns planes [b group, (b + 1)
+    group): as many as give each of its threads one column cell, fewer
+    where shared memory runs out or the grid would leave SMs of a card
+    of ``sms`` without two blocks; cell t holds input columns [t s -
+    pad_x, (t + 1) s - pad_x)."""
+    kh, kw, s, py, px = geom
+    cells = -(-(w + px) // s)
+    group = max(1, min(_BWD_THREADS // cells, -(-planes // (2 * sms))))
+    while group > 1 and bwd_smem(group, h, w, itemsize) > BWD_SMEM:
+        group -= 1
+    smem = bwd_smem(group, h, w, itemsize)
+    if (kh != kw or (kw, s) not in CELL_WINDOWS or not aligned
+            or smem > BWD_SMEM):
+        return BwdPlan("gather", 0, 0, 0, 0)
+    return BwdPlan("cells", cells, group, -(-planes // group), smem)
+
+
+def bwd_route(x: torch.Tensor, geom: Geom, aligned: bool = True) -> str:
+    """The backward route of (N, C, H, W) x under ``geom``; ``aligned``:
+    x and dx start on 16-byte boundaries."""
+    return bwd_plan(x.shape[0] * x.shape[1], x.shape[2], x.shape[3], geom,
+                    x.element_size(), aligned).route
+
+
 def _check(what: str, x: torch.Tensor, geom: Geom) -> None:
     kh, kw, s, py, px = geom
     if x.dim() != 4 or x.dtype not in build.DTYPE_CODES \
@@ -121,10 +178,13 @@ def _launch(backward: bool, relu: bool, x, y, dy, out, geom: Geom) -> None:
     kh, kw, s, py, px = geom
     n, c, h, w = x.shape
     oh, ow = _out_shape(x, geom)
+    plan = bwd_plan(n * c, h, w, geom, x.element_size(), all(
+        t.data_ptr() % 16 == 0 for t in (x, out))) if backward else None
     err = build.LIBRARY.get().cxn_max_pool(
         int(backward), int(relu), x.data_ptr(),
         y.data_ptr() if backward else 0, dy.data_ptr() if backward else 0,
         out.data_ptr(), n * c, h, w, oh, ow, kh, kw, s, py, px,
+        plan.cells if backward else 0, plan.group if backward else 0,
         build.DTYPE_CODES[x.dtype], build.stream_handle(x.device))
     build.check(err, "max_pool_bwd" if backward else "max_pool_fwd")
 

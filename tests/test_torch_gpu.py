@@ -369,11 +369,24 @@ def test_flash_functions_widen_odd_head_widths(cuda, d, dtype):
     assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
 
 
-@pytest.mark.parametrize("rows,d", [(1, 1), (5, 130), (300, 2048),
-                                    (1000, 64)])
-@pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
-                                     (torch.bfloat16, torch.bfloat16),
-                                     (torch.bfloat16, torch.float32)])
+_LN_DTYPES = [(torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+# both routes: registers to d = 4096, the stream route past it, up to
+# the forward's MAX_D (14520: just past the widest row whose four
+# float32 copies fit one block's shared memory; 14521 takes scalar
+# loads); the LM's training shape once, in bf16
+_LN_BWD_CASES = [
+    (rows, d, xdt, gdt)
+    for rows, d in [(1, 1), (5, 130), (300, 2048), (1000, 64), (1, 4096),
+                    (37, 4096), (1, 14520), (37, 14520), (37, 14521),
+                    (1, 16384), (37, 16384), (1, 43648), (37, 43648),
+                    (37, ln.MAX_D)]
+    for xdt, gdt in _LN_DTYPES] + [(16384, 2048, torch.bfloat16,
+                                    torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows,d,xdt,gdt", _LN_BWD_CASES)
 @pytest.mark.parametrize("save_x", [False, True])
 def test_layernorm_bwd_kernel_matches_plain(cuda, rows, d, xdt, gdt, save_x):
     x = (torch.randn((rows, d), generator=cuda, device="cuda") * 2 + 3)
@@ -384,6 +397,8 @@ def test_layernorm_bwd_kernel_matches_plain(cuda, rows, d, xdt, gdt, save_x):
     dy = torch.randn((rows, d), generator=cuda, device="cuda").to(xdt)
     y, mean, rstd = ln.layernorm_fwd(x, g, b, 1e-5)
     a = x if save_x else y
+    assert ln.bwd_route(d) == ("register" if d <= ln.BWD_REG_MAX_D
+                               else "stream")
     before = ln.layernorm_bwd.launches
     got = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
     again = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
@@ -450,6 +465,10 @@ def test_lrn_kernels_match_plain(cuda, shape, nsize, beta, dtype):
     ((2, 8, 12, 12), (2, 2, 2, 0, 0)),    # non-overlapping
     ((2, 8, 9, 10), (3, 2, 1, 1, 1)),     # padded, non-square
     ((3, 5, 14, 14), (3, 3, 2, 0, 0)),    # MNIST_CONV pool
+    ((8, 96, 55, 55), (3, 3, 2, 0, 0)),   # AlexNet pool1, pool2, pool3
+    ((8, 256, 27, 27), (3, 3, 2, 0, 0)),
+    ((8, 256, 13, 13), (3, 3, 2, 0, 0)),
+    ((3, 5, 55, 55), (3, 3, 2, 0, 0)),    # 15 planes: a ragged group
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu", [False, True])
@@ -472,6 +491,45 @@ def test_max_pool_kernels_match_plain_bitwise(cuda, shape, geom, dtype,
     assert torch.equal(y, pool.max_pool_fwd_plain(x, geom))
     assert torch.equal(dx, again)
     assert torch.equal(dx, pool.max_pool_bwd_plain(x, y, dy, geom, relu))
+
+
+@pytest.mark.parametrize("shape,geom,want", [
+    ((4, 96, 55, 55), (3, 3, 2, 0, 0), "cells"),
+    ((20, 97, 27, 27), (3, 3, 2, 0, 0), "cells"),  # a ragged last group
+    ((2, 8, 9, 10), (3, 3, 1, 1, 1), "cells"),     # 3x3 at stride 1
+    ((2, 8, 12, 13), (2, 2, 2, 1, 1), "cells"),
+    ((2, 8, 9, 10), (3, 2, 1, 1, 1), "gather"),    # not square
+    ((2, 8, 9, 10), (2, 2, 1, 1, 1), "gather"),    # 2x2 at stride 1
+    ((2, 5, 55, 55), (5, 5, 3, 1, 1), "gather"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_max_pool_bwd_routes_match_plain_bitwise(cuda, shape, geom, want,
+                                                 dtype, offset):
+    """The backward's cells route (3x3 windows at stride 2 or 1, 2x2 at
+    stride 2, any padding; x and dx 16-byte aligned) and gather route
+    (other windows; tensors one element off 16-byte alignment),
+    each twice and bitwise equal to the plain version, relu-masked and
+    not."""
+    def at_offset(t):
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x = at_offset(((torch.randn(shape, generator=cuda, device="cuda") * 2)
+                   .round() / 2).to(dtype))
+    y = at_offset(pool.max_pool_fwd(x, geom))
+    dy = at_offset(torch.randn(y.shape, generator=cuda, device="cuda")
+                   .to(dtype))
+    assert pool.bwd_route(x, geom, offset == 0) == (
+        want if offset == 0 else "gather")
+    for relu in (False, True):
+        dx = pool.max_pool_bwd(x, y, dy, geom, relu)
+        again = pool.max_pool_bwd(x, y, dy, geom, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, again)
+        assert torch.equal(dx, pool.max_pool_bwd_plain(x, y, dy, geom, relu))
 
 
 @pytest.mark.parametrize("xshape,co,k,s,pad", [
@@ -728,6 +786,36 @@ def test_layernorm_fwd_warp_route_unaligned(cuda, d, dtype):
     else:
         assert _row_rel(y, y_ref) <= BF16_ROW_TOL
     assert _rel(mean, m_ref) <= F32_TOL and _rel(rstd, r_ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [2048, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("save_x", [False, True])
+def test_layernorm_bwd_routes_unaligned(cuda, d, dtype, save_x):
+    """The residual and dy one element off 16-byte alignment take both
+    backward routes' scalar loads; the same values as the plain version,
+    twice, bitwise equal."""
+    x, g, b = _ln_inputs(cuda, 33, d, dtype, dtype, offset=1)
+    y, mean, rstd = ln.layernorm_fwd(x, g, b, 1e-5)
+    a = x if save_x else torch.empty((33 * d + 1,), dtype=dtype,
+                                     device="cuda")[1:].view(33, d)
+    if not save_x:
+        a.copy_(y)
+    dy = torch.empty((33 * d + 1,), dtype=dtype, device="cuda")[1:].view(
+        33, d)
+    dy.copy_(torch.randn((33, d), generator=cuda, device="cuda"))
+    assert a.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+    got = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
+    again = ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
+    ref = ln.layernorm_bwd_plain(dy, a, g, b, mean, rstd, save_x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    if dtype == torch.float32:
+        assert _rel(got[0], ref[0]) <= F32_TOL
+    else:
+        assert _row_rel(got[0], ref[0]) <= BF16_ROW_TOL
+    vec_tol = F32_TOL if dtype == torch.float32 else 2.0 ** -7
+    assert _rel(got[1], ref[1]) <= vec_tol and _rel(got[2], ref[2]) <= vec_tol
 
 
 @pytest.mark.parametrize("xshape,co,k,s,pad", [

@@ -143,13 +143,20 @@ def test_flash_wrappers_use_plain_versions_on_cpu():
 
 # ------------------------------------------------------------ layernorm
 
-@pytest.mark.parametrize("save_x", [False, True])
-def test_layernorm_bwd_plain_matches_pallas_vjp(save_x):
+@pytest.mark.parametrize("save_x,rows,d", [
+    pytest.param(False, 256, 128, id="False"),
+    pytest.param(True, 256, 128, id="True"),
+    # wider than the port's backward took before its stream route: the
+    # reference's kernel runs there (layernorm_pallas_supported)
+    pytest.param(False, 8, 16384, id="False-d16384"),
+    pytest.param(True, 8, 16384, id="True-d16384"),
+])
+def test_layernorm_bwd_plain_matches_pallas_vjp(save_x, rows, d):
     """layernorm_bwd_plain == jax.vjp of layernorm_pallas (interpret
     mode) for both residual contracts, with one gamma column exactly 0
     (xhat = 0 there under the default rebuild): dx, dg, db within 1e-5."""
+    assert pk.layernorm_pallas_supported(rows, d) or pk.pltpu is None
     rnd = np.random.RandomState(15)
-    rows, d = 256, 128
     x = rnd.randn(rows, d).astype(np.float32)
     g = (rnd.rand(d) + 0.5).astype(np.float32)
     g[7] = 0.0

@@ -2,7 +2,9 @@
 """A/B timing of one of the port's kernels across source trees, on one
 CUDA card.
 
-    python3 tools/kernel_ab.py --kernel flash|wgrad ROOT_A ROOT_B [...]
+    python3 tools/kernel_ab.py --kernel KERNEL ROOT_A ROOT_B [...]
+
+KERNEL is one of flash, wgrad, layernorm_bwd, max_pool_bwd.
 
 Each ROOT holds a ``cxxnet_tpu_torch/`` package (a checkout, or a copy
 with edited kernels under a git-ignored directory).  The trees' kernels
@@ -23,6 +25,14 @@ line:
   against the plain version (max |diff| / max |ref|).  A tree whose
   kernel is edited to skip work times what is left and reports the
   error that follows.
+- ``layernorm_bwd``: row 12 at the LM's training shape (16384, 2048)
+  bf16, both residual contracts (one gamma column exactly 0): device ms
+  and the largest error against the plain version (dx per row, dgamma /
+  dbeta as max |diff| / max |ref|).
+- ``max_pool_bwd``: row 4 at AlexNet's pool1 (256, 96, 55, 55), pool2
+  (256, 256, 27, 27) and pool3 (256, 256, 13, 13), k3 s2 bf16, plain
+  and relu-masked, on inputs with many tied maxima: device ms, and
+  whether every dx is bitwise equal to the plain version's.
 
 Needs a CUDA device.
 """
@@ -36,7 +46,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the ops module each kernel's timing imports from a tree
-MODULES = {"flash": "flash_attention", "wgrad": "conv_wgrad"}
+MODULES = {"flash": "flash_attention", "wgrad": "conv_wgrad",
+           "layernorm_bwd": "layernorm", "max_pool_bwd": "pool"}
 
 
 def _load(root: str, kernel: str):
@@ -50,6 +61,28 @@ def _load(root: str, kernel: str):
     if not mod.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"{root}: imported {mod.__file__}")
     return chip_smoke, mod
+
+
+def kernel_split(fn, reps: int = 20) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel (torch.profiler,
+    ``reps`` back-to-back calls), by the kernel's function name."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
+    return {k: round(v / reps / 1e3, 5) for k, v in out.items()}
 
 
 def build_tree(root: str, kernel: str) -> None:
@@ -114,7 +147,62 @@ def time_wgrad(cs, cw) -> dict:
             "err": max(cs.rel_err(a, b) for a, b in zip(got, ref))}
 
 
-TIMERS = {"flash": time_flash, "wgrad": time_wgrad}
+def time_layernorm_bwd(cs, ln) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows, d = cs.TRAIN_BATCH * cs.SEQ, cs.DIM
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 2 + 3).to(
+        torch.bfloat16)
+    g = (torch.rand((d,), generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    g[5] = 0.0
+    b = (torch.randn((d,), generator=gen, device=dev) * .5).to(
+        torch.bfloat16)
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    y, mean, rstd = ln.layernorm_fwd(x, g, b, cs.LN_EPS)
+    out, errs = {}, []
+    for save_x in (False, True):
+        a = x if save_x else y
+        run = lambda: ln.layernorm_bwd(dy, a, g, b, mean, rstd, save_x)
+        got = run()
+        ref = ln.layernorm_bwd_plain(dy, a, g, b, mean, rstd, save_x)
+        errs += [cs.row_rel_err(got[0], ref[0]), cs.rel_err(got[1], ref[1]),
+                 cs.rel_err(got[2], ref[2])]
+        out["save_x_ms" if save_x else "ms"] = cs.device_ms(run)
+        out["save_x_split" if save_x else "split"] = kernel_split(run)
+    out["max_err"] = max(errs)
+    return out
+
+
+def time_max_pool_bwd(cs, pool) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    geom, out, bitwise = (3, 3, 2, 0, 0), {}, True
+    for tag, shape in (("pool1", (256, 96, 55, 55)),
+                       ("pool2", (256, 256, 27, 27)),
+                       ("pool3", (256, 256, 13, 13))):
+        x = (torch.round(torch.randn(shape, generator=gen, device=dev) * 6)
+             / 4 - 0.5).to(torch.bfloat16)
+        y = pool.max_pool_fwd(x, geom)
+        dy = (torch.round(torch.randn(y.shape, generator=gen, device=dev)
+                          * 8) / 8).to(torch.bfloat16)
+        for relu in (False, True):
+            run = lambda: pool.max_pool_bwd(x, y, dy, geom, relu)
+            bitwise &= torch.equal(run(), pool.max_pool_bwd_plain(
+                x, y, dy, geom, relu))
+            out[f"{tag}{'_relu' if relu else ''}_ms"] = cs.device_ms(run)
+    out["bitwise"] = bool(bitwise)
+    return out
+
+
+TIMERS = {"flash": time_flash, "wgrad": time_wgrad,
+          "layernorm_bwd": time_layernorm_bwd,
+          "max_pool_bwd": time_max_pool_bwd}
 
 
 def time_tree(root: str, kernel: str) -> dict:
