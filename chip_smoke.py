@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero):
    the card at its main paths' shapes (the served forward; every kernel
    of the two LM train paths and of the two CNN paths at theirs), with
    its device time (``ms``: the profiler's kernel durations over 50
-   back-to-back calls) and its wrapper's per-call time (``call_ms``:
+   back-to-back calls; CUDA events around 50 calls queued behind a sleep
+   kernel where three traces lost events) and its wrapper's per-call time (``call_ms``:
    CUDA events around one call, the host's work included), the plain
    version's per-call time, one PyTorch library call's device and
    per-call times (a yardstick only: the port never calls it) and the
@@ -203,24 +204,77 @@ def device_ms(fn, reps: int = DEVICE_REPS) -> float:
     """Device time of one call of ``fn``: the summed durations of the
     kernels, copies and fills that ``reps`` back-to-back calls put on the
     card (torch.profiler), over ``reps``.  The host's time between
-    launches (the wrapper, ctypes, allocations) is not in it."""
+    launches (the wrapper, ctypes, allocations) is not in it.
+
+    Every call puts the same device events on the card, so a trace in
+    which some event's count is not a multiple of ``reps`` lost events
+    (one such trace timed a pool forward at 0.0040 ms, another held 44
+    events of a two-event call in 50 calls): it is taken again, and after
+    three such traces the time is taken by ``queued_ms`` instead, with a
+    line that says so."""
     import torch
+    from collections import Counter
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        counts = Counter(e.name for e in events)
+        us = sum(e.time_range.elapsed_us() for e in events)
+        if us > 0 and counts and all(n % reps == 0
+                                     for n in counts.values()):
+            return us / reps / 1e3
+    log(f"device_ms: three profiler traces lost device events (the last "
+        f"held {len(events)} in {reps} calls: "
+        f"{sorted(counts.values())}); timed by queued_ms")
+    return queued_ms(fn, reps)
+
+
+def queued_ms(fn, reps: int = DEVICE_REPS) -> float:
+    """Device time of one call of ``fn`` without the profiler: ``reps``
+    calls queued behind a sleep kernel that outlasts the host's launches,
+    timed by CUDA events from the sleep's end to the last call's end, over
+    ``reps``.  The device's own gaps between kernels are in it, the host's
+    are not as long as the sleep outlasted the launches; where it did not
+    (three tries, the sleep doubled each time), a line says so."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    # the sleep kernel's cycles per ms on this card
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(1 << 22)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = (1 << 22) / a.elapsed_time(b)
+    sleep_ms = 1.0
+    for _ in range(3):
+        s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(int(cycles_per_ms * sleep_ms))
+        s1.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        e.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    if not us > 0:
-        raise AssertionError("device_ms: the profiler saw no device time")
-    return us / reps / 1e3
+        if host_ms < s0.elapsed_time(s1):
+            return s1.elapsed_time(e) / reps
+        sleep_ms = 2 * max(sleep_ms, host_ms)
+    log(f"queued_ms: the host's launches ({host_ms:.3f} ms) outlasted a "
+        f"{s0.elapsed_time(s1):.3f} ms sleep; host gaps may be in the time")
+    return s1.elapsed_time(e) / reps
 
 
 def timings(run, plain=None, lib=None, reps: int = 20,
@@ -316,18 +370,27 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 # ------------------------------------------------------------------ phases
 def wgmma_ptxas(build_log: str):
     """(kernel, "registers; spills") of each wgmma kernel (flash and
-    conv wgrad) in the nvcc -Xptxas -v output (an entry's lines follow
-    its name)."""
+    conv wgrad), the LRN backward's window route and the max-pool
+    forward's cells route in the nvcc -Xptxas -v output (an entry's
+    lines follow its name)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '.*(flash_(?:fwd|bwd_dq|"
                       r"bwd_dkv)_wgmma_kernel)ILi(\d+)ELb([01])E", line)
         c = re.search(r"Compiling entry function '.*(conv_wgrad_wgmma_"
                       r"kernel)E", line)
+        w = re.search(r"Compiling entry function '.*(lrn_bwd_window_kernel|"
+                      r"max_pool_fwd_cells_kernel)I(13__nv_bfloat16|f)"
+                      r"Li(\d+)ELi(\d+)E", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}, SEG={m.group(3)}>"
         elif c:
             name = c.group(1)
+        elif w:
+            dtype = "float" if w.group(2) == "f" else "bf16"
+            name = f"{w.group(1)}<{dtype}, {w.group(3)}, {w.group(4)}>"
+        elif "Compiling entry function" in line:
+            name = None
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "Used" in line:
@@ -722,10 +785,12 @@ def phase_cnn_kernels():
         bf16 = dtype == torch.bfloat16
         isz = 2 if bf16 else 4
         tol = BF16_ROW_TOL if bf16 else F32_TOL
-        # row 1: LRN forward and backward
-        for shape in ((256, 96, 27, 27), (256, 256, 13, 13)):
+        # row 1: LRN forward and backward (the backward timed at lrn1
+        # and lrn2, lrn1 in the kernels line)
+        for shape, tag in (((256, 96, 27, 27), ""),
+                           ((256, 256, 13, 13), " lrn2")):
             x, g = randn(shape, dtype, 8.0), randn(shape, dtype)
-            timed = shape[1] == 96
+            timed = not tag
             fwd = lambda: lrn.lrn_fwd(x, *lrn_args)
             plain = lambda: lrn.lrn_fwd_plain(x, *lrn_args)
             err, abs_err = compare(fwd(), plain(), bf16)
@@ -740,15 +805,20 @@ def phase_cnn_kernels():
             plain = lambda: lrn.lrn_bwd_plain(x, g, *lrn_args)
             (dx,) = _run_twice("lrn_bwd", lambda: (bwd(),))
             err, abs_err = compare(dx, plain(), bf16)
-            if timed:
-                xx = x.detach().requires_grad_()
-                yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
-                times = timings(bwd, plain, lambda: torch.autograd.grad(
-                    yy, xx, g, retain_graph=True))
-                bnd = bound(30.0 * numel, 3 * numel * isz, "float32")
-            report("lrn_bwd", name, shape, err, tol, abs_err, times, bnd,
-                   "; bitwise repeatable")
-            del x, g
+            xx = x.detach().requires_grad_()
+            yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
+            times = timings(bwd, plain, lambda: torch.autograd.grad(
+                yy, xx, g, retain_graph=True))
+            bnd = bound(30.0 * numel, 3 * numel * isz, "float32")
+            plan = lrn.bwd_plan(shape[0], shape[1], shape[2] * shape[3], 5,
+                                isz, dx.data_ptr() % 16 == 0)
+            report(f"lrn_bwd{tag}", name, shape, err, tol, abs_err, times,
+                   bnd, f"; route {plan.route} ({plan.vec} column(s) a "
+                   f"thread, chunks of {plan.chunk} channels); bitwise "
+                   "repeatable")
+            if plan.route != "window":
+                raise AssertionError(f"lrn_bwd {shape}: route {plan.route}")
+            del x, g, xx, yy
         # rows 3 and 4: max pool forward and all-ties backward (the
         # backward timed at AlexNet's three pools, pool1 in the kernels
         # line)
@@ -760,22 +830,25 @@ def phase_cnn_kernels():
             # a grid of 1/4 and a shift: many tied maxima, negative ones
             x = (torch.round(randn(shape, torch.float32, 6.0)) / 4 - 0.5
                  ).to(dtype)
-            timed = shape[1] == 96
             fwd = lambda: pool.max_pool_fwd(x, geom)
             y = fwd()
             if not torch.equal(y, pool.max_pool_fwd_plain(x, geom)):
                 raise AssertionError(f"max_pool_fwd {name} {shape} is not "
                                      "bitwise equal to its plain version")
-            times = bnd = None
             nx, ny = x.numel(), y.numel()
-            if timed:
-                times = timings(fwd,
-                                lambda: pool.max_pool_fwd_plain(x, geom),
-                                lambda: F.max_pool2d(x, 3, 2,
-                                                     ceil_mode=True))
-                bnd = bound(9.0 * ny, (nx + ny) * isz, "float32")
-            report("max_pool_fwd", name, shape, 0.0, 0.0, 0.0, times, bnd,
-                   "; bitwise")
+            # the forward timed at all four shapes, pool1 in the kernels
+            # line
+            times = timings(fwd, lambda: pool.max_pool_fwd_plain(x, geom),
+                            lambda: F.max_pool2d(x, 3, 2, ceil_mode=True),
+                            plain_reps=3)
+            bnd = bound(9.0 * ny, (nx + ny) * isz, "float32")
+            route = pool.fwd_route(x, geom)
+            report(f"max_pool_fwd{tag if tag is not None else ' mnist'}",
+                   name, shape, 0.0, 0.0, 0.0, times, bnd,
+                   f"; route {route}; bitwise; queued "
+                   f"{queued_ms(fwd):.4f} ms device")
+            if route != "cells":
+                raise AssertionError(f"max_pool_fwd {shape}: route {route}")
             dy = (torch.round(randn(y.shape, torch.float32, 8.0)) / 8
                   ).to(dtype)
             for relu in (False, True):
@@ -787,16 +860,21 @@ def phase_cnn_kernels():
                         f"max_pool_bwd {name} {shape} relu {relu} is not "
                         "bitwise equal to its plain version")
                 times = bnd = None
+                queued = ""
                 if tag is not None:
                     xx = x.detach().requires_grad_()
                     yy = F.max_pool2d(xx, 3, 2, ceil_mode=True)
-                    times = timings(bwd, plain, lambda: torch.autograd.grad(
-                        yy, xx, dy, retain_graph=True), plain_reps=3)
+                    lib = lambda: torch.autograd.grad(yy, xx, dy,
+                                                      retain_graph=True)
+                    times = timings(bwd, plain, lib, plain_reps=3)
                     bnd = bound(9.0 * ny, (2 * nx + 2 * ny) * isz, "float32")
+                    queued = (f"; queued {queued_ms(bwd):.4f} ms device, "
+                              f"library {queued_ms(lib):.4f}")
                 route = pool.bwd_route(x, geom)
                 report(f"max_pool_bwd{' relu' if relu else ''}"
                        f"{tag or ''}", name, shape, 0.0, 0.0, 0.0, times,
-                       bnd, f"; route {route}; bitwise, bitwise repeatable")
+                       bnd, f"; route {route}; bitwise, bitwise repeatable"
+                       f"{queued}")
                 if route != "cells":
                     raise AssertionError(f"max_pool_bwd {shape}: route "
                                          f"{route}")
@@ -1006,9 +1084,10 @@ def phase_route_kernels():
                     raise AssertionError(f"layernorm_bwd ({rows}, {d}) "
                                          "disagrees with its plain version")
             del x, dy, y
-    # the pool backward's routes at pool1's input: cells (AlexNet's 3x3
-    # stride 2 window, aligned tensors) and gather (the same one element
-    # off 16-byte alignment; a 5x5 window at stride 3, padded)
+    # the pool forward's and backward's routes at pool1's input: cells
+    # (AlexNet's 3x3 stride 2 window, aligned tensors) and per-output /
+    # gather (the same one element off 16-byte alignment; a 5x5 window at
+    # stride 3, padded)
     for geom, offset, want in (((3, 3, 2, 0, 0), 0, "cells"),
                                ((3, 3, 2, 0, 0), 1, "gather"),
                                ((5, 5, 3, 1, 1), 0, "gather")):
@@ -1019,7 +1098,14 @@ def phase_route_kernels():
         x = at_offset((torch.round(torch.randn((256, 96, 55, 55),
                                                generator=gen, device=dev)
                                    * 6.0) / 4 - 0.5).to(torch.bfloat16))
-        y = at_offset(pool.max_pool_fwd(x, geom))
+        y = pool.max_pool_fwd(x, geom)
+        fwd_route = pool.fwd_route(x, geom, offset == 0)
+        if fwd_route != ("cells" if want == "cells" else "per-output"):
+            raise AssertionError(f"max_pool_fwd {geom}: route {fwd_route}")
+        if not torch.equal(y, pool.max_pool_fwd_plain(x, geom)):
+            raise AssertionError(f"max_pool_fwd route {fwd_route} is not "
+                                 "bitwise equal to its plain version")
+        y = at_offset(y)
         dy = at_offset((torch.round(torch.randn(y.shape, generator=gen,
                                                 device=dev) * 8) / 8
                         ).to(torch.bfloat16))
@@ -1034,10 +1120,11 @@ def phase_route_kernels():
                 raise AssertionError(f"max_pool_bwd route {route} relu "
                                      f"{relu} is not bitwise equal to its "
                                      "plain version")
-        log(f"max_pool_bwd route {route} (256, 96, 55, 55) window {geom} "
-            f"bf16{', one element off 16-byte alignment' if offset else ''}"
-            ": bitwise equal to the plain version, relu and not; bitwise "
-            "repeatable")
+        log(f"max_pool_fwd route {fwd_route} / max_pool_bwd route {route} "
+            f"(256, 96, 55, 55) window {geom} bf16"
+            f"{', one element off 16-byte alignment' if offset else ''}: "
+            "bitwise equal to the plain versions (the backward relu and "
+            "not, bitwise repeatable)")
         del x, y, dy, dx
     torch.cuda.empty_cache()
 
@@ -1158,11 +1245,34 @@ def phase_last_kernels():
                                lambda: (lrn.lrn_hwcn_bwd(xt, gt, *lrn_args),))
             dref = lrn.lrn_hwcn_bwd_plain(xt, gt, *lrn_args)
             torch.cuda.synchronize()
+            plan = lrn.bwd_plan(xt.shape[0] * xt.shape[1], xt.shape[2],
+                                xt.shape[3], 5, isz)
+            if plan.route != "window" or plan.vec != 16 // isz:
+                raise AssertionError(f"lrn_hwcn_bwd {tuple(xt.shape)}: "
+                                     f"plan {plan}")
             errs = [row_rel_err(a, b) if bf16 else rel_err(a, b)
                     for a, b in ((got, ref), (dx, dref))]
             abs_errs = [float((a.float() - b.float()).abs().max())
                         for a, b in ((got, ref), (dx, dref))]
-            note = ""
+            note = (f"; bwd route {plan.route} ({plan.vec} images a thread,"
+                    f" chunks of {plan.chunk} channels)")
+            if bf16 and not timed:
+                # lrn2: the backward alone
+                g = gt.permute(lrn.FROM_HWCN)
+                xx = x.detach().requires_grad_()
+                yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
+                t_bwd = timings(lambda: lrn.lrn_hwcn_bwd(xt, gt, *lrn_args),
+                                lambda: lrn.lrn_hwcn_bwd_plain(
+                                    xt, gt, *lrn_args),
+                                lambda: torch.autograd.grad(
+                                    yy, xx, g, retain_graph=True))
+                bnd = bound(30.0 * x.numel(), 3 * x.numel() * isz,
+                            "float32")
+                out["lrn_hwcn_bwd lrn2"] = dict(max_abs_err=abs_errs[1],
+                                                **t_bwd, **bnd)
+                note += (f"; bwd {times_note(t_bwd)}, bound "
+                         f"{bnd['bound_ms']:.4f} ms")
+                del xx, yy
             if timed:
                 numel = x.numel()
                 g = gt.permute(lrn.FROM_HWCN)
@@ -1183,7 +1293,7 @@ def phase_last_kernels():
                                       **bound(flops * numel,
                                               nbytes * numel * isz,
                                               "float32"))
-                note = (f"; fwd {times_note(t_fwd)}, bound "
+                note += (f"; fwd {times_note(t_fwd)}, bound "
                         f"{out['lrn_hwcn_fwd']['bound_ms']:.4f} ms; "
                         f"bwd {times_note(t_bwd)}, bound "
                         f"{out['lrn_hwcn_bwd']['bound_ms']:.4f} ms; one "

@@ -56,11 +56,11 @@ _SIGNATURES = {
     # vec, el, wpr, blocks, save_x, xdtype, gdtype, stream
     "cxn_layernorm_bwd": (_c.c_void_p,) * 10 + (_c.c_longlong,)
     + (_c.c_int,) * 9 + (_c.c_void_p,),
-    # backward, x, g, out, n, c, hw, nsize, salpha, beta, knorm, dtype,
-    # stream
+    # backward, x, g, out, outer, c, inner, nsize, salpha, beta, knorm,
+    # route, vec, chunk, dtype, stream
     "cxn_lrn": (_c.c_int,) + (_c.c_void_p,) * 3 + (_c.c_longlong, _c.c_int,
                                                    _c.c_longlong, _c.c_int)
-    + (_c.c_float,) * 3 + (_c.c_int, _c.c_void_p),
+    + (_c.c_float,) * 3 + (_c.c_int,) * 4 + (_c.c_void_p,),
     # backward, relu, x, y, dy, out, planes, h, w, oh, ow, kh, kw, s,
     # pad_y, pad_x, cells, group, dtype, stream
     "cxn_max_pool": (_c.c_int,) * 2 + (_c.c_void_p,) * 4 + (_c.c_longlong,)

@@ -34,6 +34,21 @@ __device__ __forceinline__ float cxn_param(const void* p, int f32, int c) {
              : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c]);
 }
 
+// the 16 / sizeof(T) values of T in the 16 bytes u, as float32
+template <typename T>
+__device__ __forceinline__ void cxn_unpack16(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
 // V values of T at p as float32: one scalar (V == 1), or 16 bytes (V =
 // 16 / sizeof(T), p 16-byte aligned)
 template <typename T, int V>
@@ -41,17 +56,7 @@ __device__ __forceinline__ void cxn_load(const T* __restrict__ p, float* f) {
   if constexpr (V == 1) {
     f[0] = cxn_to_f32(p[0]);
   } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (sizeof(T) == 4) {
-        f[i] = __uint_as_float(w[i]);
-      } else {
-        f[2 * i] = __uint_as_float(w[i] << 16);
-        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    }
+    cxn_unpack16<T>(*reinterpret_cast<const uint4*>(p), f);
   }
 }
 

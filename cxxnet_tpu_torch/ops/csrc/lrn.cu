@@ -17,8 +17,11 @@
 // backward's window is the transposed one (lo and hi swapped), which
 // differs from the forward's for even n.  Each window is summed in the
 // TPU kernels' order, from its lowest channel up.  norm^-0.75 is
-// rsqrt(norm * sqrt(norm)), as on the TPU.  Outputs are stored in x's
-// dtype.
+// rsqrt(norm * sqrt(norm)), as on the TPU, except in the backward's
+// window route, which takes norm^-beta and norm^-beta / norm as
+// 2^(-beta lg norm) and 2^(-(beta + 1) lg norm) (three MUFU
+// instructions, about 2 ulp each, where sqrt, rsqrt and a division cost
+// three and some twenty more).  Outputs are stored in x's dtype.
 //
 // What bounds it on the card: bytes.  The forward reads x and writes y
 // (2 * N*C*H*W * itemsize) for ~n + 6 operations an element, the
@@ -31,19 +34,41 @@
 // the transposes around it are free there; on the card they are real
 // copies, made by the wrapper).  Here both layouts are (outer, C, inner)
 // arrays: NCHW has outer = N and inner = H*W, (H, W, C, N) has outer =
-// H*W and inner = N.  One thread owns one (outer, inner) column and
-// walks its C channels (stride inner), so neighbouring threads read
-// neighbouring inner addresses (coalesced: neighbouring pixels in NCHW,
-// neighbouring images in (H, W, C, N)).  The forward re-reads the n
-// window values of each channel, which stay in L1.  The backward needs
-// inner[j] for the channels of the transposed window: each thread keeps
-// the last R = min(n, C) values of inner and norm^-beta in its own
-// column of a ring in dynamic shared memory (no other thread reads it,
-// so no barrier), and computes inner[j] once, when channel j enters the
-// window.  The block shrinks from 128 to 32 threads as R grows, so the
-// ring fits for R up to LRN_MAX_RING (908 channels); past that a second
-// instance keeps no ring and recomputes each inner[j] of the window
-// (n + 1 times the forward's reads), so every window n >= 1 runs.
+// H*W and inner = N.  A thread owns a column (or V neighbouring ones) at
+// one inner position and walks along C (stride inner), so neighbouring
+// threads read neighbouring inner addresses (coalesced: neighbouring
+// pixels in NCHW, neighbouring images in (H, W, C, N)).  The forward
+// re-reads the n window values of each channel, which stay in L1.
+//
+// The backward takes one of three routes, picked by the caller from the
+// shapes (ops/lrn.py bwd_plan) and checked here:
+// - window (n with a compile-time instance, LRN_WINDOWS): the walk is
+//   a pipeline in registers.  Step t brings in x[t] and g[t - hi], sums
+//   norm[a] (a = t - hi) over the last n x values, forms inner[a] and
+//   g[a] norm[a]^-beta, and writes dx[t - n + 1] from the last n inner
+//   values.  x, inner and g norm^-beta sit in shift registers (n, n and
+//   lo + 1 a column) that the unrolled loop renames instead of moving,
+//   and the loads of the next lrn_ahead(V) steps are in flight while a
+//   step computes, so every x and g element is loaded once a walk.  A
+//   thread owns V = 16 / sizeof(T) neighbouring columns in 16-byte
+//   loads and stores where the inner axis allows it ((H, W, C, N): N a
+//   multiple of V), else one (NCHW rows of odd length).  Where the
+//   columns are too few to fill the card, C is cut into chunks walked
+//   by threads of their own, each reading the n - 1 channels on either
+//   side of its chunk again (from L2 in the common case): every value
+//   is the same as in one walk.
+// - ring (other windows): one thread a column keeps the last R = min(n,
+//   C) values of inner and norm^-beta in its own column of a ring in
+//   dynamic shared memory (no other thread reads it, so no barrier), and
+//   computes inner[j] once, when channel j enters the window (reloading
+//   that channel's n window values of x).  The block shrinks from 128
+//   to 32 threads as R grows, so the ring fits for R up to LRN_MAX_RING
+//   (908 channels);
+// - recompute (past that): no ring; each inner[j] of the window is
+//   recomputed (n + 1 times the forward's reads), so every window n >= 1
+//   runs.
+// All three sum every window from its lowest channel up, in float32,
+// with no atomics: dx is the same bits on every run.
 #include "common.cuh"
 
 namespace {
@@ -53,6 +78,10 @@ constexpr int LRN_THREADS = 128;
 constexpr int LRN_SMEM = 232448;
 // widest ring (two floats a channel) a 32-thread block holds
 constexpr int LRN_MAX_RING = LRN_SMEM / (2 * 4 * 32);
+// the backward's routes (ops/lrn.py BWD_ROUTES)
+enum LrnRoute { LRN_WINDOW = 0, LRN_RING = 1, LRN_RECOMPUTE = 2 };
+// steps of loads a window-route thread keeps in flight
+__host__ __device__ constexpr int lrn_ahead(int v) { return v == 1 ? 8 : 2; }
 
 __device__ __forceinline__ float lrn_pow(float norm, float beta) {
   return beta == 0.75f ? rsqrtf(norm * sqrtf(norm)) : powf(norm, -beta);
@@ -162,6 +191,170 @@ lrn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// V values of T as raw bits: one T, or 16 bytes
+template <typename T, int V>
+struct LrnRaw {
+  uint4 u;
+};
+template <typename T>
+struct LrnRaw<T, 1> {
+  T u;
+};
+
+// 2^v and log2(v), one MUFU instruction each (~2 ulp)
+__device__ __forceinline__ float lrn_ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float lrn_lg2(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// the V values at p (0 when !ok: the channel lies outside [0, C))
+template <typename T, int V>
+__device__ __forceinline__ void lrn_fetch(LrnRaw<T, V>& r,
+                                          const T* __restrict__ p, bool ok) {
+  if constexpr (V == 1)
+    r.u = ok ? p[0] : cxn_from_f32<T>(0.f);
+  else
+    r.u = ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void lrn_unpack(const LrnRaw<T, V>& r, float* f) {
+  if constexpr (V == 1)
+    f[0] = cxn_to_f32(r.u);
+  else
+    cxn_unpack16<T>(r.u, f);
+}
+
+// The window route for a window of N channels: thread (chunk, group)
+// owns columns [V group, V group + V) of the (outer, inner) plane and
+// writes their dx at channels [c0, c1) of its chunk.  Blocks of one
+// column range take consecutive block indices, chunks fastest, so the
+// channels two chunks share are read again while they sit in L2.
+template <typename T, int N, int V>
+__global__ void __launch_bounds__(LRN_THREADS, V == 1 ? 8 : 3)
+lrn_bwd_window_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      T* __restrict__ dx, long long groups, int C,
+                      long long inner, int chunk, int nchunks,
+                      float salpha, float beta, float knorm) {
+  constexpr int LO = N / 2, HI = N - 1 - LO, P = lrn_ahead(V);
+  const long long grp =
+      (long long)(blockIdx.x / nchunks) * LRN_THREADS + threadIdx.x;
+  if (grp >= groups) return;
+  const int c0 = (int)(blockIdx.x % nchunks) * chunk;
+  const int c1 = c0 + chunk < C ? c0 + chunk : C;
+  const long long per = inner / V;
+  const long long o = grp / per;
+  const long long base = o * C * inner + (grp - o * per) * V;
+  const T* xc = x + base;
+  const T* gc = g + base;
+  T* dc = dx + base;
+  const float coef = 2.f * beta * salpha;
+  // norm^-beta = 2^(nb lg norm), norm^-beta / norm = 2^(nb1 lg norm)
+  const float nb = -beta, nb1 = -beta - 1.f;
+  // xr[j]: x at channel t - N + 1 + j; in[j]: inner at a - N + 1 + j;
+  // gp[j]: g norm^-beta at a - LO + j (a = t - HI, after step t)
+  float xr[N][V], in[N][V], gp[LO + 1][V];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) xr[j][v] = in[j][v] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j <= LO; ++j) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) gp[j][v] = 0.f;
+  }
+  // the N - 1 channels below the chunk, then P steps of loads ahead
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    const int ch = c0 - N + j;
+    LrnRaw<T, V> r;
+    lrn_fetch<T, V>(r, xc + (long long)(ch < 0 ? 0 : ch) * inner, ch >= 0);
+    lrn_unpack<T, V>(r, xr[j]);
+  }
+  // the walk reads x at channels < xend and g at channels < gend
+  const int xend = c1 + N - 1 < C ? c1 + N - 1 : C;
+  const int gend = c1 + LO < C ? c1 + LO : C;
+  LrnRaw<T, V> qx[P], qg[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int t = c0 + j, a = t - HI;
+    const bool gok = a >= 0 && a < gend;
+    lrn_fetch<T, V>(qx[j], xc + (long long)(t < xend ? t : 0) * inner,
+                    t < xend);
+    lrn_fetch<T, V>(qg[j], gc + (long long)(gok ? a : 0) * inner, gok);
+  }
+  // x at channel t + P, g at t + P - HI and dx at t - N + 1 (step t);
+  // a pointer off the tensor is never read: the column's base stands in
+  const T* xq = xc + (long long)(c0 + P) * inner;
+  const T* gq = gc + (long long)(c0 + P - HI) * inner;
+  T* dq = dc + (long long)(c0 - N + 1) * inner;
+  const int steps = c1 - c0 + N - 1;
+#pragma unroll N
+  for (int s = 0; s < steps; ++s) {
+    const int t = c0 + s, a = t - HI;
+    float xn[V], gn[V];
+    lrn_unpack<T, V>(qx[0], xn);
+    lrn_unpack<T, V>(qg[0], gn);
+#pragma unroll
+    for (int j = 0; j + 1 < P; ++j) {
+      qx[j] = qx[j + 1];
+      qg[j] = qg[j + 1];
+    }
+    {
+      const bool xok = t + P < xend;
+      const bool gok = a + P >= 0 && a + P < gend;
+      lrn_fetch<T, V>(qx[P - 1], xok ? xq : xc, xok);
+      lrn_fetch<T, V>(qg[P - 1], gok ? gq : gc, gok);
+      xq += inner;
+      gq += inner;
+    }
+    const bool live = a >= 0 && a < C;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int j = 0; j + 1 < N; ++j) {
+        xr[j][v] = xr[j + 1][v];
+        in[j][v] = in[j + 1][v];
+      }
+      xr[N - 1][v] = xn[v];
+#pragma unroll
+      for (int j = 0; j < LO; ++j) gp[j][v] = gp[j + 1][v];
+      // norm[a]: the forward window [a - LO, a + HI] = channels t - N + 1
+      // .. t, from the lowest up
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) sq += xr[j][v] * xr[j][v];
+      const float l = lrn_lg2(sq * salpha + knorm);
+      in[N - 1][v] = live ? gn[v] * xr[LO][v] * lrn_ex2(nb1 * l) : 0.f;
+      gp[LO][v] = gn[v] * lrn_ex2(nb * l);
+    }
+    if (s >= N - 1) {
+      // dx[c], c = a - LO: the transposed window [c - HI, c + LO] is
+      // inner at a - N + 1 .. a, summed from the lowest up
+      float d[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float acc = in[0][v];
+#pragma unroll
+        for (int j = 1; j < N; ++j) acc += in[j][v];
+        d[v] = gp[0][v] - coef * xr[0][v] * acc;
+      }
+      cxn_store<T, V>(dq, d);
+    }
+    dq += inner;
+  }
+}
+
+// window sizes with a window-route instance (ops/lrn.py WINDOW_SIZES)
+#define LRN_WINDOWS(X) X(3) X(4) X(5) X(7)
+
 // threads of a backward block whose ring of R channels fits, largest
 // first; 0 when not even a 32-thread block's ring fits
 int lrn_bwd_threads(int R) {
@@ -170,11 +363,27 @@ int lrn_bwd_threads(int R) {
   return 0;
 }
 
+// the window route at window N, V columns a thread
+template <typename T, int N, int V>
+cudaError_t lrn_window_launch(const T* x, const T* g, T* out,
+                              long long outer, int C, long long inner,
+                              int chunk, float salpha, float beta,
+                              float knorm, cudaStream_t st) {
+  const long long groups = outer * (inner / V);
+  const int nchunks = (C + chunk - 1) / chunk;
+  const long long blocks =
+      (groups + LRN_THREADS - 1) / LRN_THREADS * nchunks;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  lrn_bwd_window_kernel<T, N, V><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
+      x, g, out, groups, C, inner, chunk, nchunks, salpha, beta, knorm);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
                        long long outer, int C, long long inner, int nsize,
-                       float salpha, float beta, float knorm,
-                       cudaStream_t st) {
+                       float salpha, float beta, float knorm, int route,
+                       int vec, int chunk, cudaStream_t st) {
   const long long cols = outer * inner;
   const int lo = nsize / 2, hi = nsize - 1 - lo;
   if (!backward) {
@@ -184,8 +393,32 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
         hi, salpha, beta, knorm);
     return cudaGetLastError();
   }
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* ot = static_cast<T*>(out);
+  if (route == LRN_WINDOW) {
+    constexpr int W = 16 / sizeof(T);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                           reinterpret_cast<uintptr_t>(g) |
+                           reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    if (chunk < 1 || !(vec == 1 || (vec == W && aligned && inner % W == 0)))
+      return cudaErrorInvalidValue;
+#define LRN_WINDOW_CASE(n)                                                 \
+    if (nsize == n)                                                        \
+      return vec == 1 ? lrn_window_launch<T, n, 1>(xt, gt, ot, outer, C,   \
+                                                   inner, chunk, salpha,   \
+                                                   beta, knorm, st)        \
+                      : lrn_window_launch<T, n, W>(xt, gt, ot, outer, C,   \
+                                                   inner, chunk, salpha,   \
+                                                   beta, knorm, st);
+    LRN_WINDOWS(LRN_WINDOW_CASE)
+#undef LRN_WINDOW_CASE
+    return cudaErrorInvalidValue;
+  }
   const int R = nsize < C ? nsize : C;
   int nt = lrn_bwd_threads(R);
+  if (route != (nt > 0 ? LRN_RING : LRN_RECOMPUTE))
+    return cudaErrorInvalidValue;
   size_t smem = (size_t)2 * 4 * R * nt;
   auto kern = lrn_bwd_kernel<T, true>;
   if (nt == 0) {
@@ -196,9 +429,8 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
   cudaError_t err = cxn_allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (cols + nt - 1) / nt;
-  kern<<<(unsigned)blocks, nt, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<T*>(out), cols, C, inner, lo, hi, salpha, beta, knorm, R);
+  kern<<<(unsigned)blocks, nt, smem, st>>>(xt, gt, ot, cols, C, inner, lo,
+                                          hi, salpha, beta, knorm, R);
   return cudaGetLastError();
 }
 
@@ -208,22 +440,29 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
 // inner) in `dtype`, the window along C: logical NCHW as (N, C, H*W), its
 // (H, W, C, N) transpose as (H*W, C, N); out: y (forward) or dx
 // (backward), the same shape and dtype.  salpha = alpha / nsize; any
-// nsize >= 1.  Returns cudaGetLastError() after the launch (0 =
+// nsize >= 1.  The backward runs `route` (LrnRoute, from ops/lrn.py
+// bwd_plan): the window route with `vec` columns a thread (1, or 16 /
+// sizeof(T) with x, g and out 16-byte aligned and inner a multiple of
+// it) over chunks of `chunk` channels; the ring route where a ring of
+// min(nsize, C) channels fits a block, else the recompute route.  A
+// plan it cannot run is refused (cudaErrorInvalidValue), never
+// rerouted.  Returns cudaGetLastError() after the launch (0 =
 // launched).
 extern "C" int cxn_lrn(int backward, const void* x, const void* g, void* out,
                        long long outer, int C, long long inner, int nsize,
-                       float salpha, float beta, float knorm, int dtype,
-                       void* stream) {
+                       float salpha, float beta, float knorm, int route,
+                       int vec, int chunk, int dtype, void* stream) {
   if (outer < 1 || C < 1 || inner < 1 || nsize < 1 ||
       (outer * inner + 31) / 32 > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == CXN_F32)
     return (int)lrn_launch<float>(backward, x, g, out, outer, C, inner,
-                                  nsize, salpha, beta, knorm, st);
+                                  nsize, salpha, beta, knorm, route, vec,
+                                  chunk, st);
   if (dtype == CXN_BF16)
     return (int)lrn_launch<__nv_bfloat16>(backward, x, g, out, outer, C,
                                           inner, nsize, salpha, beta, knorm,
-                                          st);
+                                          route, vec, chunk, st);
   return (int)cudaErrorInvalidValue;
 }

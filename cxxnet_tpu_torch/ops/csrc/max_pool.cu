@@ -24,11 +24,25 @@
 // the backward reads x, y and dy and writes dx, with a few compares an
 // element.
 //
-// Design.  The forward is one thread per output element.  The backward
-// is the gather form of `_mp_hwcn_bwd_kernel` (each input element walks
-// its <= ceil(kh/s) * ceil(kw/s) candidate windows and sums in a
-// register, so no two threads write one output: no atomics, the same
-// bits on every run), on one of two routes that the caller
+// Design.  The forward takes one of two routes that the caller
+// (ops/pool.py `fwd_plan`) picks from the window:
+// - cells (the backward's cells windows, any padding; x and y 16-byte
+//   aligned): a block owns a group of whole planes and brings their x
+//   into shared memory in 16-byte pieces; a thread owns one output
+//   column of one plane and walks down it one output row at a time,
+//   keeping in registers the maxima of the K input rows of its window
+//   (over the window's columns, clipped), so a step reads only the S
+//   rows that enter the window and each x row is read from shared
+//   memory once a thread.  Neighbouring lanes own neighbouring columns
+//   and take the same branches; y goes out through shared memory in
+//   16-byte pieces.  Max is exact, so regrouping the window changes no
+//   bit of y.
+// - per-output (other windows, x or y off 16-byte alignment, or planes
+//   too large for shared memory): one thread per output element.
+// The backward is the gather form of `_mp_hwcn_bwd_kernel` (each input
+// element walks its <= ceil(kh/s) * ceil(kw/s) candidate windows and
+// sums in a register, so no two threads write one output: no atomics,
+// the same bits on every run), on one of two routes that the caller
 // (ops/pool.py `bwd_plan`) picks from the window:
 // - cells (3 x 3 windows at stride 2 or 1, 2 x 2 at stride 2, any
 //   padding; x and dx 16-byte aligned): a block owns a group of whole
@@ -283,6 +297,106 @@ max_pool_bwd_cells_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// elements a cells-route block stages of `group` planes of hw elements
+// each (x or dx, and the forward's y): the group's after a shift of up
+// to V - 1, in whole 16-byte pieces
+template <typename T>
+__host__ __device__ __forceinline__ long long mp_cap(int group, int hw) {
+  constexpr int V = 16 / sizeof(T);
+  return ((long long)group * hw + 2 * V - 2) / V * V;
+}
+
+// Thread ox of one plane of the forward's cells route: x read at `xp`,
+// y written at `yp` (both in shared memory).  rm[k] holds the max of
+// input row oy S - pad_y + k over the window's columns (-inf for a row
+// outside the input), k = 0 .. K - 1; a step keeps the last K - S of
+// them and reads the S rows that follow.
+template <typename T, int K, int S>
+__device__ __forceinline__ void mp_fwd_cells_walk(const T* xp, T* yp, int ox,
+                                                  const PoolGeom& g) {
+  const float NEG = __int_as_float(0xff800000);  // -inf
+  const int x0 = ox * S - g.px;
+  bool ok[K];
+  int col[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    ok[j] = x0 + j >= 0 && x0 + j < g.W;
+    col[j] = ok[j] ? x0 + j : 0;
+  }
+  auto row_max = [&](int iy) {
+    float m = NEG;
+    if (iy >= 0 && iy < g.H) {
+      const T* r = xp + iy * g.W;
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (ok[j]) m = fmaxf(m, cxn_to_f32(r[col[j]]));
+    }
+    return m;
+  };
+  float rm[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) rm[k] = row_max(k - g.py);
+  for (int oy = 0;; ++oy) {
+    float m = NEG;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m = fmaxf(m, rm[k]);
+    yp[oy * g.OW + ox] = cxn_from_f32<T>(m);
+    if (oy + 1 == g.OH) break;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      rm[k] = k + S < K ? rm[k + S < K ? k + S : k]
+                        : row_max((oy + 1) * S - g.py + k);
+  }
+}
+
+// The forward's cells route.  Block b owns planes [b group, min((b + 1)
+// group, planes)): their x after a shift of up to V - 1 in shared memory
+// (mp_cap elements), then their y, shifted likewise.
+template <typename T, int K, int S>
+__global__ void __launch_bounds__(MP_THREADS)
+max_pool_fwd_cells_kernel(const T* __restrict__ x, T* __restrict__ y,
+                          long long planes, int group, PoolGeom g) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char mp_smem[];
+  T* sx = reinterpret_cast<T*>(mp_smem);
+  const int hw = g.H * g.W, ohw = g.OH * g.OW;
+  T* sy = sx + mp_cap<T>(group, hw);
+  const long long p0 = (long long)blockIdx.x * group;
+  const int here = planes - p0 < group ? (int)(planes - p0) : group;
+  const long long xs = p0 * hw, xe = xs + (long long)here * hw;
+  const long long xa = xs - xs % V, xtot = planes * hw;
+  const int npieces = (int)((xe - xa + V - 1) / V);
+  for (int k = threadIdx.x; k < npieces; k += MP_THREADS) {
+    const long long e = xa + (long long)k * V;
+    mp_cp_async16(sx + k * V, x + e,
+                  (int)sizeof(T) * (xtot - e < V ? (int)(xtot - e) : V));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const long long ys = p0 * ohw, ye = ys + (long long)here * ohw;
+  const long long ya = ys - ys % V;
+  const T* sx0 = sx + (xs - xa);   // plane p0
+  T* sy0 = sy + (ys - ya);
+  for (int i = threadIdx.x; i < here * g.OW; i += MP_THREADS) {
+    const int pl = i / g.OW;
+    mp_fwd_cells_walk<T, K, S>(sx0 + pl * hw, sy0 + pl * ohw,
+                               i - pl * g.OW, g);
+  }
+  __syncthreads();
+  const int ypieces = (int)((ye - ya + V - 1) / V);
+  for (int k = threadIdx.x; k < ypieces; k += MP_THREADS) {
+    const long long e0 = ya + (long long)k * V;
+    if (e0 >= ys && e0 + V <= ye) {
+      *reinterpret_cast<uint4*>(y + e0) =
+          *reinterpret_cast<const uint4*>(sy + k * V);
+    } else {
+      for (long long e = e0 > ys ? e0 : ys; e < e0 + V && e < ye; ++e)
+        y[e] = sy[e - ya];
+    }
+  }
+}
+
 template <typename T, bool RELU>
 auto mp_cells_kernel(const PoolGeom& g) {
   if (g.kw == 3 && g.s == 1) return max_pool_bwd_cells_kernel<T, RELU, 3, 1>;
@@ -290,32 +404,37 @@ auto mp_cells_kernel(const PoolGeom& g) {
   return max_pool_bwd_cells_kernel<T, RELU, 3, 2>;
 }
 
-// elements of x (then dx) a cells-route block stages: the group's after
-// a shift of up to V - 1, in whole 16-byte pieces
-template <typename T>
-long long mp_cap(int group, int hw) {
-  constexpr int V = 16 / sizeof(T);
-  return ((long long)group * hw + 2 * V - 2) / V * V;
-}
-
 template <typename T>
 cudaError_t mp_launch(int backward, int relu, const void* x, const void* y,
                       const void* dy, void* out, long long planes,
                       PoolGeom g, int cells, int group, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  if (backward && cells > 0) {
-    // the cells route: 3 x 3 windows at stride 2 or 1, 2 x 2 at 2
+  if (cells > 0) {
+    // the cells routes: 3 x 3 windows at stride 2 or 1, 2 x 2 at 2; a
+    // thread a column cell (backward) or an output column (forward)
     const bool fits = g.kh == g.kw && ((g.kw == 3 && (g.s == 2 || g.s == 1))
                                        || (g.kw == 2 && g.s == 2));
-    const size_t smem = sizeof(T) * mp_cap<T>(group, g.H * g.W);
+    const size_t smem =
+        sizeof(T) * (mp_cap<T>(group, g.H * g.W) +
+                     (backward ? 0 : mp_cap<T>(group, g.OH * g.OW)));
     const long long blocks = (planes + group - 1) / group;
     const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                            reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-    if (!fits || !aligned || group < 1 ||
-        cells != (g.W + g.px + g.s - 1) / g.s || smem > 232448 ||
+    const int want = backward ? (g.W + g.px + g.s - 1) / g.s : g.OW;
+    if (!fits || !aligned || group < 1 || cells != want || smem > 232448 ||
         (long long)group * cells > 2147483647LL ||
         blocks > 2147483647LL)
       return cudaErrorInvalidValue;
+    if (!backward) {
+      auto kern = max_pool_fwd_cells_kernel<T, 3, 2>;
+      if (g.kw == 3 && g.s == 1) kern = max_pool_fwd_cells_kernel<T, 3, 1>;
+      if (g.kw == 2) kern = max_pool_fwd_cells_kernel<T, 2, 2>;
+      cudaError_t err = cxn_allow_smem(kern, smem);
+      if (err != cudaSuccess) return err;
+      kern<<<(unsigned)blocks, MP_THREADS, smem, st>>>(
+          xt, static_cast<T*>(out), planes, group, g);
+      return cudaGetLastError();
+    }
     auto kern = relu ? mp_cells_kernel<T, true>(g)
                      : mp_cells_kernel<T, false>(g);
     cudaError_t err = cxn_allow_smem(kern, smem);
@@ -348,12 +467,15 @@ cudaError_t mp_launch(int backward, int relu, const void* x, const void* y,
 // x: contiguous (planes = N*C, H, W) in `dtype`.  Forward (backward = 0):
 // out = y, (planes, OH, OW).  Backward: y = the forward's (pre-relu)
 // output, dy its gradient, both (planes, OH, OW); out = dx, like x;
-// relu = 1 masks dy where y <= 0; cells > 0 takes the cells route with
-// `cells` = ceil((W + pad_x) / s) column cells a plane and `group`
-// planes a block (ops/pool.py bwd_plan; x and dx 16-byte aligned), 0
-// the gather route.  The caller sizes OH / OW by the
-// reference rule (every window holds an input element).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// relu = 1 masks dy where y <= 0.  cells > 0 takes the cells route with
+// `group` planes a block and `cells` threads a plane: OW in the forward
+// (ops/pool.py fwd_plan; x and y 16-byte aligned), ceil((W + pad_x) /
+// s) column cells in the backward (bwd_plan; x and dx 16-byte aligned);
+// 0 the per-output forward or the gather backward.  A plan the kernels
+// cannot run is refused (cudaErrorInvalidValue), never rerouted.  The
+// caller sizes OH / OW by the reference rule (every window holds an
+// input element).  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int cxn_max_pool(int backward, int relu, const void* x,
                             const void* y, const void* dy, void* out,
                             long long planes, int H, int W, int OH, int OW,

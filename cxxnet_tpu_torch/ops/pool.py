@@ -105,6 +105,11 @@ def max_pool_bwd_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     return acc.to(x.dtype)
 
 
+#: the forward's routes (csrc/max_pool.cu), chosen by :func:`fwd_plan`: a
+#: block a group of whole planes whose x and y pass through shared
+#: memory, a thread an output column, for the windows in CELL_WINDOWS; or
+#: a thread an output element
+FWD_ROUTES = ("cells", "per-output")
 #: the backward's routes (csrc/max_pool.cu), chosen by :func:`bwd_plan`:
 #: a block a group of whole planes whose x and dx pass through shared
 #: memory, a thread the input columns between two window starts, for the
@@ -113,46 +118,89 @@ BWD_ROUTES = ("cells", "gather")
 #: (square window size, stride) pairs of the cells route
 #: (csrc/max_pool.cu mp_cells_kernel); any padding
 CELL_WINDOWS = ((3, 2), (3, 1), (2, 2))
-#: threads of a cells-route block; the shared memory it may take
-_BWD_THREADS = 256
+#: threads of a cells-route block; the shared memory a backward and a
+#: forward block may take
+_CELL_THREADS = 256
 BWD_SMEM = 64 * 1024
+FWD_SMEM = 64 * 1024
 
 
 class BwdPlan(NamedTuple):
-    """How the all-ties backward covers (planes, h, w) inputs."""
-    route: str      # one of BWD_ROUTES
-    cells: int      # cells route: column cells a plane, ceil((w + px) / s)
+    """How the all-ties backward (or the forward: :class:`FwdPlan`)
+    covers (planes, h, w) inputs."""
+    route: str      # one of BWD_ROUTES (FWD_ROUTES)
+    cells: int      # cells route: threads a plane: column cells,
+                    # ceil((w + px) / s) (the forward: output columns)
     group: int      # cells route: planes a block
     blocks: int     # cells route: the grid, ceil(planes / group)
     smem: int       # cells route: shared memory bytes a block
 
 
+class FwdPlan(BwdPlan):
+    """How the forward covers (planes, h, w) inputs (``cells``: output
+    columns a plane)."""
+    __slots__ = ()
+
+
 def bwd_smem(group: int, h: int, w: int, itemsize: int) -> int:
-    """Shared memory of a cells-route block (csrc/max_pool.cu mp_cap): x
-    of ``group`` planes after a shift of up to a 16-byte piece, in whole
-    pieces."""
+    """Shared memory of ``group`` (h, w) planes in a cells-route block
+    (csrc/max_pool.cu mp_cap): the group's elements after a shift of up
+    to a 16-byte piece, in whole pieces.  A backward block holds x (then
+    dx) so; a forward block holds x, then y."""
     v = 16 // itemsize
     return (group * h * w + 2 * v - 2) // v * v * itemsize
+
+
+def _cells_group(planes: int, cells: int, smem, budget: int,
+                 sms: int) -> int:
+    """Planes a cells-route block owns: as many as give each of its
+    threads one cell, fewer where ``smem(group)`` passes ``budget`` or the
+    grid would leave SMs of a card of ``sms`` without two blocks."""
+    group = max(1, min(_CELL_THREADS // cells, -(-planes // (2 * sms))))
+    while group > 1 and smem(group) > budget:
+        group -= 1
+    return group
 
 
 def bwd_plan(planes: int, h: int, w: int, geom: Geom, itemsize: int,
              aligned: bool = True, sms: int = 132) -> BwdPlan:
     """The backward's launch plan; ``aligned``: x and dx start on 16-byte
     boundaries.  Block b of the cells route owns planes [b group, (b + 1)
-    group): as many as give each of its threads one column cell, fewer
-    where shared memory runs out or the grid would leave SMs of a card
-    of ``sms`` without two blocks; cell t holds input columns [t s -
+    group) (:func:`_cells_group`); cell t holds input columns [t s -
     pad_x, (t + 1) s - pad_x)."""
     kh, kw, s, py, px = geom
     cells = -(-(w + px) // s)
-    group = max(1, min(_BWD_THREADS // cells, -(-planes // (2 * sms))))
-    while group > 1 and bwd_smem(group, h, w, itemsize) > BWD_SMEM:
-        group -= 1
-    smem = bwd_smem(group, h, w, itemsize)
+    smem = lambda g: bwd_smem(g, h, w, itemsize)  # noqa: E731
+    group = _cells_group(planes, cells, smem, BWD_SMEM, sms)
     if (kh != kw or (kw, s) not in CELL_WINDOWS or not aligned
-            or smem > BWD_SMEM):
+            or smem(group) > BWD_SMEM):
         return BwdPlan("gather", 0, 0, 0, 0)
-    return BwdPlan("cells", cells, group, -(-planes // group), smem)
+    return BwdPlan("cells", cells, group, -(-planes // group), smem(group))
+
+
+def fwd_plan(planes: int, h: int, w: int, geom: Geom, itemsize: int,
+             aligned: bool = True, sms: int = 132) -> FwdPlan:
+    """The forward's launch plan; ``aligned``: x and y start on 16-byte
+    boundaries.  Block b of the cells route owns planes [b group, (b + 1)
+    group) (:func:`_cells_group`), a thread each output column of each,
+    and stages the group's x and y."""
+    kh, kw, s, py, px = geom
+    oh = pool_out_size_padded(h, kh, s, py)
+    ow = pool_out_size_padded(w, kw, s, px)
+    smem = lambda g: (bwd_smem(g, h, w, itemsize)  # noqa: E731
+                      + bwd_smem(g, oh, ow, itemsize))
+    group = _cells_group(planes, ow, smem, FWD_SMEM, sms)
+    if (kh != kw or (kw, s) not in CELL_WINDOWS or not aligned
+            or smem(group) > FWD_SMEM):
+        return FwdPlan("per-output", 0, 0, 0, 0)
+    return FwdPlan("cells", ow, group, -(-planes // group), smem(group))
+
+
+def fwd_route(x: torch.Tensor, geom: Geom, aligned: bool = True) -> str:
+    """The forward route of (N, C, H, W) x under ``geom``; ``aligned``: x
+    and y start on 16-byte boundaries."""
+    return fwd_plan(x.shape[0] * x.shape[1], x.shape[2], x.shape[3], geom,
+                    x.element_size(), aligned).route
 
 
 def bwd_route(x: torch.Tensor, geom: Geom, aligned: bool = True) -> str:
@@ -178,14 +226,15 @@ def _launch(backward: bool, relu: bool, x, y, dy, out, geom: Geom) -> None:
     kh, kw, s, py, px = geom
     n, c, h, w = x.shape
     oh, ow = _out_shape(x, geom)
-    plan = bwd_plan(n * c, h, w, geom, x.element_size(), all(
-        t.data_ptr() % 16 == 0 for t in (x, out))) if backward else None
+    plan = (bwd_plan if backward else fwd_plan)(
+        n * c, h, w, geom, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (x, out)))
     err = build.LIBRARY.get().cxn_max_pool(
         int(backward), int(relu), x.data_ptr(),
         y.data_ptr() if backward else 0, dy.data_ptr() if backward else 0,
-        out.data_ptr(), n * c, h, w, oh, ow, kh, kw, s, py, px,
-        plan.cells if backward else 0, plan.group if backward else 0,
-        build.DTYPE_CODES[x.dtype], build.stream_handle(x.device))
+        out.data_ptr(), n * c, h, w, oh, ow, kh, kw, s, py, px, plan.cells,
+        plan.group, build.DTYPE_CODES[x.dtype],
+        build.stream_handle(x.device))
     build.check(err, "max_pool_bwd" if backward else "max_pool_fwd")
 
 

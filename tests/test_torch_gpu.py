@@ -73,6 +73,13 @@ def _grads_close(got, ref, dtype):
             assert _row_rel(g, r, GRAD_ROW_FLOOR) <= BF16_GRAD_ROW_TOL
 
 
+def _at_offset(t, offset):
+    """A copy of t whose storage starts ``offset`` elements past a fresh
+    (16-byte aligned) allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
 def _segments(b, s, gen):
     """(b, s) int64 ids: documents of random lengths, a padding tail."""
     seg = torch.zeros((b, s), dtype=torch.int64)
@@ -511,17 +518,11 @@ def test_max_pool_bwd_routes_match_plain_bitwise(cuda, shape, geom, want,
     (other windows; tensors one element off 16-byte alignment),
     each twice and bitwise equal to the plain version, relu-masked and
     not."""
-    def at_offset(t):
-        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
-        out = buf[offset:].view(t.shape)
-        out.copy_(t)
-        return out
-
-    x = at_offset(((torch.randn(shape, generator=cuda, device="cuda") * 2)
-                   .round() / 2).to(dtype))
-    y = at_offset(pool.max_pool_fwd(x, geom))
-    dy = at_offset(torch.randn(y.shape, generator=cuda, device="cuda")
-                   .to(dtype))
+    x = _at_offset(((torch.randn(shape, generator=cuda, device="cuda") * 2)
+                    .round() / 2).to(dtype), offset)
+    y = _at_offset(pool.max_pool_fwd(x, geom), offset)
+    dy = _at_offset(torch.randn(y.shape, generator=cuda, device="cuda")
+                    .to(dtype), offset)
     assert pool.bwd_route(x, geom, offset == 0) == (
         want if offset == 0 else "gather")
     for relu in (False, True):
@@ -882,6 +883,88 @@ def test_lrn_bwd_kernels_at_wide_windows(cuda, shape, nsize, dtype):
             assert _rel(dx, ref) <= F32_TOL
         else:
             assert _row_rel(dx, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("nchw", (4, 96, 27, 27)),     # AlexNet lrn1 (batch cut)
+    ("nchw", (2, 256, 13, 13)),    # AlexNet lrn2 (batch cut)
+    ("nchw", (256, 96, 27, 27)),   # lrn1 at its batch: C in one chunk
+    ("hwcn", (27, 27, 96, 128)),   # lrn1 (batch cut): 16-byte pieces
+    ("hwcn", (13, 13, 256, 128)),  # lrn2 (batch cut)
+    ("hwcn", (5, 9, 7, 3)),        # images in no whole piece
+])
+@pytest.mark.parametrize("nsize", [3, 4, 5, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lrn_bwd_window_route_matches_plain(cuda, layout, shape, nsize,
+                                            dtype, offset):
+    """The LRN backward's window route in both views (NCHW as (N, C,
+    H*W), (H, W, C, N) as (H*W, C, N)) at the compiled windows, with x
+    and g aligned ((H, W, C, N) in 16-byte pieces where N allows) or one
+    element off (a column a thread): the plan, one launch a call, two
+    runs bitwise equal, and the plain version's dx (float32 at 1e-4,
+    bf16 per row at 2^-6)."""
+    x = _at_offset((torch.randn(shape, generator=cuda, device="cuda") * 3
+                    ).to(dtype), offset)
+    g = _at_offset(torch.randn(shape, generator=cuda, device="cuda"
+                               ).to(dtype), offset)
+    args = (nsize, 0.01, 0.75, 1.0)
+    if layout == "nchw":
+        outer, c, inner = shape[0], shape[1], shape[2] * shape[3]
+        run, plain = lrn.lrn_bwd, lrn.lrn_bwd_plain
+        counter = lrn.lrn_bwd
+    else:
+        outer, c, inner = shape[0] * shape[1], shape[2], shape[3]
+        run, plain = lrn.lrn_hwcn_bwd, lrn.lrn_hwcn_bwd_plain
+        counter = lrn.lrn_hwcn_bwd
+    v = 16 // x.element_size()
+    plan = lrn.bwd_plan(outer, c, inner, nsize, x.element_size(),
+                        aligned=offset == 0)
+    assert plan.route == "window"
+    assert plan.vec == (v if offset == 0 and inner % v == 0 else 1)
+    before = counter.launches
+    dx, again = run(x, g, *args), run(x, g, *args)
+    ref = plain(x, g, *args)
+    torch.cuda.synchronize()
+    assert counter.launches - before == 2
+    assert torch.equal(dx, again) and dx.dtype == dtype
+    if dtype == torch.float32:
+        assert _rel(dx, ref) <= F32_TOL
+    else:
+        assert _row_rel(dx, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("shape,geom,want", [
+    ((4, 96, 55, 55), (3, 3, 2, 0, 0), "cells"),     # AlexNet pool1
+    ((20, 97, 27, 27), (3, 3, 2, 0, 0), "cells"),    # a ragged last group
+    ((8, 256, 13, 13), (3, 3, 2, 0, 0), "cells"),    # AlexNet pool3
+    ((3, 32, 14, 14), (3, 3, 2, 0, 0), "cells"),     # MNIST_CONV
+    ((2, 8, 28, 28), (3, 3, 2, 1, 1), "cells"),      # padded
+    ((2, 8, 9, 10), (3, 3, 1, 1, 1), "cells"),       # 3x3 at stride 1
+    ((2, 8, 12, 13), (2, 2, 2, 1, 1), "cells"),
+    ((2, 8, 9, 10), (3, 2, 1, 1, 1), "per-output"),  # not square
+    ((2, 5, 55, 55), (5, 5, 3, 1, 1), "per-output"),
+    ((1, 2, 300, 300), (3, 3, 2, 0, 0), "per-output"),  # past the budget
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_max_pool_fwd_routes_match_plain_bitwise(cuda, shape, geom, want,
+                                                 dtype, offset):
+    """The max-pool forward's cells route (the backward's cells windows,
+    any padding; x and y 16-byte aligned) and per-output route (other
+    windows, large planes, x one element off alignment): one launch a
+    call, bitwise equal to the plain version, on inputs with ties and
+    negatives."""
+    x = _at_offset(((torch.randn(shape, generator=cuda, device="cuda") * 2)
+                    .round() / 2 - 0.5).to(dtype), offset)
+    assert pool.fwd_route(x, geom, offset == 0) == (
+        want if offset == 0 else "per-output")
+    before = pool.max_pool_fwd.launches
+    y, again = pool.max_pool_fwd(x, geom), pool.max_pool_fwd(x, geom)
+    torch.cuda.synchronize()
+    assert pool.max_pool_fwd.launches - before == 2
+    assert torch.equal(y, again)
+    assert torch.equal(y, pool.max_pool_fwd_plain(x, geom))
 
 
 @pytest.mark.parametrize("dim,nhead,dense", [(256, 1, 0), (128, 1, 0),

@@ -3,14 +3,20 @@
 CUDA card.
 
     python3 tools/kernel_ab.py --kernel KERNEL ROOT_A ROOT_B [...]
+    python3 tools/kernel_ab.py --kernel KERNEL ROOT ROOT@NAME=VALUE[@...]
 
-KERNEL is one of flash, wgrad, layernorm_bwd, max_pool_bwd.
+KERNEL is one of flash, wgrad, layernorm_bwd, max_pool_bwd, lrn_bwd,
+max_pool_fwd.
 
 Each ROOT holds a ``cxxnet_tpu_torch/`` package (a checkout, or a copy
-with edited kernels under a git-ignored directory).  The trees' kernels
-are built first, all builds started together; then each tree runs in a
+with edited kernels under a git-ignored directory).  ``@NAME=VALUE``
+after a root sets the kernel's ops module's attribute NAME to the Python
+literal VALUE in that run (a plan constant: ``lrn_bwd`` and
+``max_pool_fwd`` take ``_PIECE``, ``_RESIDENT``, ``FWD_SMEM``), so one
+tree's plan variants need no second build.  The trees' kernels are
+built first, all builds started together; then each run goes in a
 process of its own, in the order A B .. B A, so drift of the card shows
-as a difference between a tree's two runs.  Each run prints one JSON
+as a difference between a run's two turns.  Each run prints one JSON
 line:
 
 - ``flash``: the flash rows of PERF.md's kernel table at chip_smoke.py's
@@ -33,6 +39,15 @@ line:
   (256, 256, 27, 27) and pool3 (256, 256, 13, 13), k3 s2 bf16, plain
   and relu-masked, on inputs with many tied maxima: device ms, and
   whether every dx is bitwise equal to the plain version's.
+- ``lrn_bwd``: rows 1 and 2's backward at AlexNet's lrn1 (256, 96, 27,
+  27) and lrn2 (256, 256, 13, 13), window 5, bf16, in both views (NCHW
+  through ``lrn_bwd``, its (H, W, C, N) transpose through
+  ``lrn_hwcn_bwd``): device ms and call ms (CUDA events around one
+  call), and the largest per-row error against the plain versions.
+- ``max_pool_fwd``: row 3 at AlexNet's pool1, pool2 and pool3 and
+  MNIST_CONV's (100, 32, 14, 14), k3 s2 bf16, on inputs with many tied
+  maxima: device ms and call ms, and whether every y is bitwise equal
+  to the plain version's.
 
 Needs a CUDA device.
 """
@@ -47,19 +62,28 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the ops module each kernel's timing imports from a tree
 MODULES = {"flash": "flash_attention", "wgrad": "conv_wgrad",
-           "layernorm_bwd": "layernorm", "max_pool_bwd": "pool"}
+           "layernorm_bwd": "layernorm", "max_pool_bwd": "pool",
+           "lrn_bwd": "lrn", "max_pool_fwd": "pool"}
 
 
-def _load(root: str, kernel: str):
-    """chip_smoke (from this checkout) and ``root``'s module of
-    ``kernel``."""
+def _load(spec: str, kernel: str):
+    """chip_smoke (from this checkout) and the module of ``kernel`` from
+    the root of ``spec`` (``ROOT[@NAME=VALUE...]``), its settings
+    applied."""
+    import ast
     import importlib
+    root, *settings = spec.split("@")
     sys.path.insert(0, REPO)
     import chip_smoke
     sys.path.insert(0, os.path.abspath(root))
     mod = importlib.import_module(f"cxxnet_tpu_torch.ops.{MODULES[kernel]}")
     if not mod.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"{root}: imported {mod.__file__}")
+    for setting in settings:
+        name, value = setting.split("=", 1)
+        if not hasattr(mod, name):
+            raise SystemExit(f"{mod.__name__} has no {name}")
+        setattr(mod, name, ast.literal_eval(value))
     return chip_smoke, mod
 
 
@@ -200,9 +224,55 @@ def time_max_pool_bwd(cs, pool) -> dict:
     return out
 
 
+def time_lrn_bwd(cs, lrn) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    args, out, errs = (5, 0.001, 0.75, 1.0), {}, []
+    for tag, shape in (("lrn1", (256, 96, 27, 27)),
+                       ("lrn2", (256, 256, 13, 13))):
+        x = (torch.randn(shape, generator=gen, device=dev) * 8).to(
+            torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        xt = x.permute(lrn.TO_HWCN).contiguous()
+        gt = g.permute(lrn.TO_HWCN).contiguous()
+        for view, run, plain in (
+                ("nchw", lambda: lrn.lrn_bwd(x, g, *args),
+                 lambda: lrn.lrn_bwd_plain(x, g, *args)),
+                ("hwcn", lambda: lrn.lrn_hwcn_bwd(xt, gt, *args),
+                 lambda: lrn.lrn_hwcn_bwd_plain(xt, gt, *args))):
+            errs.append(cs.row_rel_err(run(), plain()))
+            out[f"{tag}_{view}_ms"] = cs.device_ms(run)
+            out[f"{tag}_{view}_call_ms"] = cs.time_ms(run, 20)
+    out["max_row_err"] = max(errs)
+    return out
+
+
+def time_max_pool_fwd(cs, pool) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    geom, out, bitwise = (3, 3, 2, 0, 0), {}, True
+    for tag, shape in (("pool1", (256, 96, 55, 55)),
+                       ("pool2", (256, 256, 27, 27)),
+                       ("pool3", (256, 256, 13, 13)),
+                       ("mnist", (100, 32, 14, 14))):
+        x = (torch.round(torch.randn(shape, generator=gen, device=dev) * 6)
+             / 4 - 0.5).to(torch.bfloat16)
+        run = lambda: pool.max_pool_fwd(x, geom)
+        bitwise &= torch.equal(run(), pool.max_pool_fwd_plain(x, geom))
+        out[f"{tag}_ms"] = cs.device_ms(run)
+        out[f"{tag}_call_ms"] = cs.time_ms(run, 20)
+    out["bitwise"] = bool(bitwise)
+    return out
+
+
 TIMERS = {"flash": time_flash, "wgrad": time_wgrad,
           "layernorm_bwd": time_layernorm_bwd,
-          "max_pool_bwd": time_max_pool_bwd}
+          "max_pool_bwd": time_max_pool_bwd, "lrn_bwd": time_lrn_bwd,
+          "max_pool_fwd": time_max_pool_fwd}
 
 
 def time_tree(root: str, kernel: str) -> dict:
@@ -222,7 +292,8 @@ def main() -> int:
             sys.stdout.write(json.dumps(time_tree(rest[1], kernel)) + "\n")
         return 0
     me = [sys.executable, os.path.abspath(__file__), "--kernel", kernel]
-    builds = [subprocess.Popen(me + ["--build", r]) for r in rest]
+    roots = sorted({r.split("@")[0] for r in rest})
+    builds = [subprocess.Popen(me + ["--build", r]) for r in roots]
     if any(p.wait() != 0 for p in builds):
         raise SystemExit("a build failed")
     for r in rest + rest[::-1]:
