@@ -18,9 +18,10 @@ Phases (any failure raises and exits non-zero):
    least time the card could take (bound); each backward runs twice and
    must be bitwise equal; then each kernel route at the edge of its
    domain (layernorm warp / block, conv wgrad wgmma / mma.sync, the
-   attention layer's routes at head widths 264 (dense), 256 (the
-   CUDA-core backward), 128 and 12 (widened), the LRN backward at
-   windows of 33 and 64 channels);
+   attention layer's routes at head widths 264 (dense), 256 (the wide
+   wgmma backward), 128 and 12 (widened), the LRN backward at windows
+   of 33 and 64 channels; the forward and backward at head width 256,
+   dense and segmented, timed beside sdpa's);
 3. serve path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
    the d2048 / 12-layer / s4096 / bf16 transformer LM (random weights
    from a seed, written as a ``.model``) to concurrent clients, twice
@@ -62,7 +63,11 @@ Phases (any failure raises and exits non-zero):
    and binary) from phase 8's snapshot through example/MNIST/MNIST_pred.conf
    (its predictions' error equals the last round's test error, the raw
    rows sum to 1, the feature rows have the ``.meta`` width), with their
-   per-batch latencies, and one round of ``task = finetune`` from it.
+   per-batch latencies, and one round of ``task = finetune`` from it;
+12. head-width-256 train path (``train_hd256``): the packed LM of phase
+   5 with 8 heads of 256 columns at depth 2, WIDE_STEPS steps: finite,
+   falling loss, and every step through the segmented flash forward and
+   the wide wgmma backward.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -121,12 +126,14 @@ DEV = "gpu"
 # training: bench_transformer's batch and updater; adam at eta 1e-3
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_ETA = 4, 6, 1e-3
 UNPACKED_LAYERS, UNPACKED_STEPS = 2, 3
+# the head-width-256 LM (d 2048 / 8 heads), cut to depth 2
+WIDE_NHEAD, WIDE_LAYERS, WIDE_STEPS = 8, 2, 4
 DOC_LENS = (64, 4096)       # training document lengths
 LN_EPS = 1e-5
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
-              "alexnet_hwcn", "cnn_infer"}
+              "alexnet_hwcn", "cnn_infer", "train_hd256"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -370,17 +377,18 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 # ------------------------------------------------------------------ phases
 def wgmma_ptxas(build_log: str):
     """(kernel, "registers; spills") of each wgmma kernel (flash and
-    conv wgrad), the LRN backward's window route and the max-pool
-    forward's cells route in the nvcc -Xptxas -v output (an entry's
-    lines follow its name)."""
+    conv wgrad), the LRN window routes and the max-pool forward's cells
+    route in the nvcc -Xptxas -v output (an entry's lines follow its
+    name)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '.*(flash_(?:fwd|bwd_dq|"
-                      r"bwd_dkv)_wgmma_kernel)ILi(\d+)ELb([01])E", line)
+                      r"bwd_dkv)_(?:wgmma|wide)_kernel)ILi(\d+)ELb([01])E",
+                      line)
         c = re.search(r"Compiling entry function '.*(conv_wgrad_wgmma_"
                       r"kernel)E", line)
-        w = re.search(r"Compiling entry function '.*(lrn_bwd_window_kernel|"
-                      r"max_pool_fwd_cells_kernel)I(13__nv_bfloat16|f)"
+        w = re.search(r"Compiling entry function '.*(lrn_(?:fwd|bwd)_window_"
+                      r"kernel|max_pool_fwd_cells_kernel)I(13__nv_bfloat16|f)"
                       r"Li(\d+)ELi(\d+)E", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}, SEG={m.group(3)}>"
@@ -738,15 +746,16 @@ def phase_train_kernels():
 def phase_cnn_kernels():
     """Rows 1, 3, 4 and 5 against their plain versions at the shapes of
     the two CNN paths, bf16 and float32: the LRN forward and backward at
-    AlexNet's lrn1 (256, 96, 27, 27) and lrn2 (256, 256, 13, 13); the
+    AlexNet's lrn1 (256, 96, 27, 27) and lrn2 (256, 256, 13, 13), each
+    twice, bitwise equal, and timed at both; the
     max pool forward and the all-ties backward, plain and relu-masked, at
     pool1 (256, 96, 55, 55), pool2 (256, 256, 27, 27), pool5 (256, 256,
     13, 13) and MNIST_CONV's (100, 32, 14, 14), on inputs with many tied
     maxima, bitwise; the conv wgrad at conv1 (x (256, 3, 227, 227), 11x11
     stride 4 to 96 channels) and MNIST_CONV's (x (100, 1, 28, 28), 3x3
     stride 2 pad 1 to 32).  Every backward runs twice, bitwise equal.
-    Times are taken at lrn1, pool1 and conv1; returns the bf16 numbers
-    there."""
+    The kernels line takes the bf16 numbers at lrn1, pool1 and conv1;
+    returns those and the others, under names of their own."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
@@ -790,17 +799,22 @@ def phase_cnn_kernels():
         for shape, tag in (((256, 96, 27, 27), ""),
                            ((256, 256, 13, 13), " lrn2")):
             x, g = randn(shape, dtype, 8.0), randn(shape, dtype)
-            timed = not tag
             fwd = lambda: lrn.lrn_fwd(x, *lrn_args)
             plain = lambda: lrn.lrn_fwd_plain(x, *lrn_args)
-            err, abs_err = compare(fwd(), plain(), bf16)
+            (y,) = _run_twice("lrn_fwd", lambda: (fwd(),))
+            err, abs_err = compare(y, plain(), bf16)
             numel = x.numel()
-            times = bnd = None
-            if timed:
-                times = timings(fwd, plain, lambda: F.local_response_norm(
-                    x, 5, 0.001, 0.75, 1.0))
-                bnd = bound(14.0 * numel, 2 * numel * isz, "float32")
-            report("lrn_fwd", name, shape, err, tol, abs_err, times, bnd)
+            times = timings(fwd, plain, lambda: F.local_response_norm(
+                x, 5, 0.001, 0.75, 1.0))
+            bnd = bound(14.0 * numel, 2 * numel * isz, "float32")
+            plan = lrn.fwd_plan(shape[0], shape[1], shape[2] * shape[3], 5,
+                                isz, y.data_ptr() % 16 == 0)
+            report(f"lrn_fwd{tag}", name, shape, err, tol, abs_err, times,
+                   bnd, f"; route {plan.route} ({plan.vec} column(s) a "
+                   f"thread, chunks of {plan.chunk} channels); bitwise "
+                   "repeatable")
+            if plan.route != "window":
+                raise AssertionError(f"lrn_fwd {shape}: route {plan.route}")
             bwd = lambda: lrn.lrn_bwd(x, g, *lrn_args)
             plain = lambda: lrn.lrn_bwd_plain(x, g, *lrn_args)
             (dx,) = _run_twice("lrn_bwd", lambda: (bwd(),))
@@ -923,9 +937,10 @@ def phase_route_kernels():
     bf16 and float32; the attention layer under ``flash_attn = 1`` with a
     gradient and segment ids at head width 264 (the dense route, as the
     JAX package takes it: no flash launch, one dense route), 256 (the
-    segmented flash forward and the CUDA-core backward), 128 (wgmma) and
+    segmented flash forward and the wide wgmma backward), 128 (wgmma) and
     12 (the kernels on q, k, v widened to 16), output and input gradient
-    against ``flash_attn = 0``; and the LRN backward in both
+    against ``flash_attn = 0``; the flash kernels at head width 256
+    (:func:`wide_head_kernels`); and the LRN backward in both
     layouts at windows of 33 and 64 channels (AlexNet's lrn1, C = 96),
     launches counted."""
     import torch
@@ -1007,24 +1022,7 @@ def phase_route_kernels():
                                     and errs[1] <= BF16_GRAD_ROW_TOL):
             raise AssertionError(f"attention at hd {hd}: launches {counts} "
                                  f"(want {expect}), errors {errs}")
-    # the CUDA-core backward at the widest head, timed beside sdpa's
-    b, h, s_len, d = 1, 16, 4096, 256
-    q, k, v, do = (torch.randn((b * h, s_len, d), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    q4, k4, v4 = (t.view(b, h, s_len, d).detach().requires_grad_()
-                  for t in (q, k, v))
-    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
-                                                          is_causal=True)
-    kern = device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                    True), reps=5)
-    lib = device_ms(lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), do.view(b, h, s_len, d), retain_graph=True),
-        reps=5)
-    log(f"flash_attention_bwd ({b * h}, {s_len}, {d}) causal bf16 on the "
-        f"{fa.kernel_route(d, torch.bfloat16, backward=True)} route: "
-        f"{kern:.4f} ms device; sdpa backward {lib:.4f} ms device")
-    del q, k, v, do, o, lse, q4, k4, v4, o4
+    wide_head_kernels(gen)
     shape = (256, 96, 27, 27)
     for nsize in (33, 64):
         x = (torch.randn(shape, generator=gen, device=dev) * 8).to(
@@ -1129,6 +1127,92 @@ def phase_route_kernels():
     torch.cuda.empty_cache()
 
 
+def wide_head_kernels(gen) -> None:
+    """Rows 7-10 at head width 256, bf16: the forward (mma.sync) and the
+    wide wgmma backward, dense causal at (16, 4096, 256) and segmented at
+    the train_hd256 path's (32, 4096, 256) on seeded documents, against
+    their plain versions (the backward twice, bitwise equal), each timed
+    beside sdpa's forward or backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    d = DIM // WIDE_NHEAD
+    routes = (fa.kernel_route(d, torch.bfloat16),
+              fa.kernel_route(d, torch.bfloat16, backward=True))
+    if routes != ("mma.sync", "wgmma"):
+        raise AssertionError(f"flash at head width {d}: routes {routes}")
+    for tag, b, h in (("dense", 1, 16), ("seg", TRAIN_BATCH, WIDE_NHEAD)):
+        s_len, bh = SEQ, b * h
+        q, k, v, do = (torch.randn((bh, s_len, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        q4, k4, v4 = (t.view(b, h, s_len, d) for t in (q, k, v))
+        if tag == "seg":
+            seg_np = seeded_segments(np.random.RandomState(3), b, s_len, 512)
+            seg = torch.from_numpy(seg_np).to(dev)
+            pos = torch.arange(s_len, device=dev)
+            mask = (((seg[:, :, None] == seg[:, None, :])
+                     & (seg[:, :, None] != 0)
+                     | (pos[:, None] == pos[None, :]))
+                    & (pos[:, None] >= pos[None, :]))[:, None]
+            pairs = live_pairs(seg_np, h)
+            fwd = lambda: fa.flash_attention_seg_fwd(q, k, v, seg)
+            fwd_plain = lambda: fa.flash_attention_seg_fwd_plain(q, k, v,
+                                                                 seg)
+            bwd = lambda: fa.flash_attention_seg_bwd(q, k, v, seg, o, lse,
+                                                     do)
+            bwd_plain = lambda: fa.flash_attention_seg_bwd_plain(
+                q, k, v, seg, o, lse, do)
+            extra = 4 * b * s_len
+        else:
+            mask = None
+            pairs = bh * s_len * (s_len + 1) // 2
+            fwd = lambda: fa.flash_attention_fwd(q, k, v, True)
+            fwd_plain = lambda: fa.flash_attention_fwd_plain(q, k, v, True)
+            bwd = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+            bwd_plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                             do, True)
+            extra = 0
+        (o, lse), ref = fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        ferr = (row_rel_err(o, ref[0]), rel_err(lse, ref[1]))
+        del ref
+        got = _run_twice(f"flash {tag} backward hd {d}", bwd)
+        errs, tol, abs_err = _errors(got, bwd_plain(), True,
+                                     BF16_GRAD_ROW_TOL, GRAD_ROW_FLOOR)
+        del got
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=mask is None)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            is_causal=mask is None)
+        sdpa_bwd = lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do.view(b, h, s_len, d), retain_graph=True)
+        t_fwd = dict(ms=device_ms(fwd, 10), library_ms=device_ms(sdpa_fwd,
+                                                                 10))
+        t_bwd = timings(bwd, None, sdpa_bwd, 5)
+        fbnd = bound(4.0 * d * pairs, 4 * bh * s_len * d * 2 + 4 * bh * s_len
+                     + extra, "bfloat16")
+        bbnd = bound(10.0 * d * pairs, 8 * bh * s_len * d * 2
+                     + 4 * bh * s_len + extra, "bfloat16")
+        log(f"flash {tag} ({bh}, {s_len}, {d}) causal bf16: forward "
+            f"(mma.sync) {t_fwd['ms']:.4f} ms device, sdpa "
+            f"{t_fwd['library_ms']:.4f}, bound {fbnd['bound_ms']:.4f} ms "
+            f"({rate(4.0 * d * pairs, t_fwd['ms'], fbnd['bound_ms'])}), "
+            f"errors o {ferr[0]:.3e} (tol {BF16_ROW_TOL:g}) lse "
+            f"{ferr[1]:.3e}; backward (wgmma) {times_note(t_bwd)} (sdpa "
+            f"backward), bound {bbnd['bound_ms']:.4f} ms ("
+            f"{rate(10.0 * d * pairs, t_bwd['ms'], bbnd['bound_ms'])}), "
+            f"errors {', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); "
+            f"abs err {abs_err:.3e}; bitwise repeatable")
+        if not (ferr[0] <= BF16_ROW_TOL and ferr[1] <= F32_TOL
+                and max(errs) <= tol):
+            raise AssertionError(f"flash {tag} at head width {d} disagrees "
+                                 f"with its plain version: {ferr}, {errs}")
+        del q, k, v, do, o, lse, q4, k4, v4, qg, kg, vg, og, mask
+        torch.cuda.empty_cache()
+
+
 def bf16_within_step(p, p_ref, w, w_ref) -> bool:
     """Each bf16 param within one bf16 step (2^-7 of its magnitude) of the
     plain one, plus the masters' difference (both are roundings of
@@ -1150,10 +1234,11 @@ def phase_last_kernels():
     the plain one.  The (H, W, C, N) LRN forward and backward at AlexNet's
     lrn1 (27, 27, 96, 256) and lrn2 (13, 13, 256, 256), and the
     space-to-depth wgrad at conv1 and MNIST_CONV's conv1, bf16 and
-    float32 (the wgrad also against row 5's kernel).  Every backward runs
-    twice, bitwise equal.  Times at the LM tensor, lrn1 and conv1, with
-    the (H, W, C, N) permutes and the s2d rearrangement timed apart;
-    returns the numbers of the timed runs (bf16)."""
+    float32 (the wgrad also against row 5's kernel).  Every backward and
+    the LRN forward run twice, bitwise equal.  Times at the LM tensor,
+    lrn1, lrn2 and conv1, with the (H, W, C, N) permutes and the s2d
+    rearrangement timed apart; returns the numbers of the timed runs
+    (bf16)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
@@ -1240,38 +1325,49 @@ def phase_last_kernels():
             timed = bf16 and nchw[1] == 96
             fwd = lambda: lrn.lrn_hwcn_fwd(xt, *lrn_args)
             plain = lambda: lrn.lrn_hwcn_fwd_plain(xt, *lrn_args)
-            got, ref = fwd(), plain()
+            (got,) = _run_twice("lrn_hwcn_fwd", lambda: (fwd(),))
+            ref = plain()
             (dx,) = _run_twice("lrn_hwcn_bwd",
                                lambda: (lrn.lrn_hwcn_bwd(xt, gt, *lrn_args),))
             dref = lrn.lrn_hwcn_bwd_plain(xt, gt, *lrn_args)
             torch.cuda.synchronize()
-            plan = lrn.bwd_plan(xt.shape[0] * xt.shape[1], xt.shape[2],
-                                xt.shape[3], 5, isz)
-            if plan.route != "window" or plan.vec != 16 // isz:
-                raise AssertionError(f"lrn_hwcn_bwd {tuple(xt.shape)}: "
-                                     f"plan {plan}")
+            view = (xt.shape[0] * xt.shape[1], xt.shape[2], xt.shape[3], 5,
+                    isz)
+            plan, fplan = lrn.bwd_plan(*view), lrn.fwd_plan(*view)
+            for p in (plan, fplan):
+                if p.route != "window" or p.vec != 16 // isz:
+                    raise AssertionError(f"lrn_hwcn {tuple(xt.shape)}: plan "
+                                         f"{p}")
             errs = [row_rel_err(a, b) if bf16 else rel_err(a, b)
                     for a, b in ((got, ref), (dx, dref))]
             abs_errs = [float((a.float() - b.float()).abs().max())
                         for a, b in ((got, ref), (dx, dref))]
-            note = (f"; bwd route {plan.route} ({plan.vec} images a thread,"
-                    f" chunks of {plan.chunk} channels)")
+            note = (f"; fwd / bwd route {fplan.route} / {plan.route} "
+                    f"({plan.vec} images a thread, chunks of {fplan.chunk} / "
+                    f"{plan.chunk} channels); fwd and bwd bitwise repeatable")
             if bf16 and not timed:
-                # lrn2: the backward alone
+                # lrn2, its own names
                 g = gt.permute(lrn.FROM_HWCN)
                 xx = x.detach().requires_grad_()
                 yy = F.local_response_norm(xx, 5, 0.001, 0.75, 1.0)
+                t_fwd = timings(fwd, plain, lambda: F.local_response_norm(
+                    x, 5, 0.001, 0.75, 1.0))
                 t_bwd = timings(lambda: lrn.lrn_hwcn_bwd(xt, gt, *lrn_args),
                                 lambda: lrn.lrn_hwcn_bwd_plain(
                                     xt, gt, *lrn_args),
                                 lambda: torch.autograd.grad(
                                     yy, xx, g, retain_graph=True))
-                bnd = bound(30.0 * x.numel(), 3 * x.numel() * isz,
-                            "float32")
-                out["lrn_hwcn_bwd lrn2"] = dict(max_abs_err=abs_errs[1],
-                                                **t_bwd, **bnd)
-                note += (f"; bwd {times_note(t_bwd)}, bound "
-                         f"{bnd['bound_ms']:.4f} ms")
+                for kname, t, flops, nbytes, e in (
+                        ("lrn_hwcn_fwd lrn2", t_fwd, 14.0, 2, abs_errs[0]),
+                        ("lrn_hwcn_bwd lrn2", t_bwd, 30.0, 3, abs_errs[1])):
+                    out[kname] = dict(max_abs_err=e, **t,
+                                      **bound(flops * x.numel(),
+                                              nbytes * x.numel() * isz,
+                                              "float32"))
+                note += (f"; fwd {times_note(t_fwd)}, bound "
+                         f"{out['lrn_hwcn_fwd lrn2']['bound_ms']:.4f} ms; bwd "
+                         f"{times_note(t_bwd)}, bound "
+                         f"{out['lrn_hwcn_bwd lrn2']['bound_ms']:.4f} ms")
                 del xx, yy
             if timed:
                 numel = x.numel()
@@ -1301,7 +1397,7 @@ def phase_last_kernels():
                         "(the path makes 2 a forward, 3 a backward)")
             log(f"lrn_hwcn {tuple(xt.shape)} {name}: errors fwd {errs[0]:.3e}"
                 f", bwd {errs[1]:.3e} (tol {tol:g}); abs err "
-                f"{max(abs_errs):.3e}; bwd bitwise repeatable{note}")
+                f"{max(abs_errs):.3e}{note}")
             if not max(errs) <= tol:
                 raise AssertionError(f"lrn_hwcn {name} {tuple(xt.shape)} "
                                      f"disagrees with its plain version: "
@@ -1512,11 +1608,13 @@ def phrase_docs(rng, n_tokens: int, lens) -> list:
 
 
 def phase_train(tmp: str, packed: bool, profile: bool = False,
-                fused_vs: list = None) -> tuple:
+                fused_vs: list = None, wide: bool = False) -> tuple:
     """``task = train`` through the port's CLI: the packed flagship at
     full depth (documents of seeded lengths, segment ids, per-document
     positions, masked boundary targets), or the unpacked one at depth
-    UNPACKED_LAYERS (one long document, no segment ids).  ``fused_vs``
+    UNPACKED_LAYERS (one long document, no segment ids); ``wide``: the
+    packed one with WIDE_NHEAD heads of 256 columns at depth WIDE_LAYERS
+    for WIDE_STEPS steps (the head-width-256 LM).  ``fused_vs``
     (the packed path's losses) runs the packed path again under
     ``fused_update = 1`` and holds its losses to those; it then times the
     update of every parameter fused and unfused on the trained state.
@@ -1533,13 +1631,17 @@ def phase_train(tmp: str, packed: bool, profile: bool = False,
         else "train_unpacked"
     nlayer = NLAYER if packed else UNPACKED_LAYERS
     steps = TRAIN_STEPS if packed else UNPACKED_STEPS
+    nhead = NHEAD
+    if wide:
+        label, nlayer, steps, nhead = ("train_hd256", WIDE_LAYERS,
+                                       WIDE_STEPS, WIDE_NHEAD)
     n_tok = steps * TRAIN_BATCH * SEQ + 1
     rng = np.random.RandomState(17 if packed else 19)
     docs = phrase_docs(rng, n_tok, DOC_LENS if packed else (n_tok, n_tok))
     shard = os.path.join(tmp, f"{label}.tok")
     write_token_shard(shard, docs, itemsize=2)
     net = transformer(vocab=VOCAB, seq=SEQ, dim=DIM, nlayer=nlayer,
-                      nhead=NHEAD, packed=packed)
+                      nhead=nhead, packed=packed)
     conf = os.path.join(tmp, f"{label}.conf")
     with open(conf, "w") as f:
         f.write(f"""dev = {DEV}
@@ -1568,7 +1670,8 @@ silent = 1
 metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
 """)
     log(f"{label}: {len(docs)} documents, {sum(d.size for d in docs)} "
-        f"tokens; d{DIM} / {nlayer} layers / {NHEAD} heads / s{SEQ} / "
+        f"tokens; d{DIM} / {nlayer} layers / {nhead} heads of "
+        f"{DIM // nhead} / s{SEQ} / "
         f"vocab {VOCAB} / bf16 / adam eta {TRAIN_ETA} / batch "
         f"{TRAIN_BATCH}{' / packed' if packed else ''}")
     torch.cuda.empty_cache()
@@ -2009,6 +2112,8 @@ def main() -> int:
                 raise SystemExit("train_fused needs the train phase")
             paths["train_fused"], _ = phase_train(
                 tmp, True, args.profile, fused_vs=train_losses)
+        if "train_hd256" in phases:
+            paths["train_hd256"], _ = phase_train(tmp, True, wide=True)
         if "alexnet" in phases:
             paths["alexnet"] = phase_alexnet(tmp, args.profile)
         if "alexnet_hwcn" in phases:

@@ -24,36 +24,51 @@
 // repeated runs are bitwise equal.  The price is that s and dO v^T are
 // formed in both: 7 products against the bound's 5.
 //   * delta: one warp per row, float32.
-//   * bf16 (every head width up to 128, instantiated at 64 and 128
-//     columns; TMA fills the columns past d with zeros): wgmma fed by a
-//     TMA ring, warp-specialised as the forward (flash_attn_fwd.cu): 384
-//     threads a block, a producer warpgroup whose first warp issues the
-//     TMA loads and stages the per-row vectors, two consumer warpgroups
-//     of 64 rows with 240 registers each (setmaxnreg).
-//       - dq: one block per (b*h, 128-row q-tile), heaviest first.  Q and
-//         dO stay resident; 64-row K and V tiles stream through a 2-stage
-//         ring.  A consumer forms S = Q K^T and dP = dO V^T (wgmma from
-//         shared memory), ds in registers, and dq += ds K with ds (bf16)
-//         as the register A operand and K read MN-major from the ring.
-//       - dk/dv: one block per (b*h, 128-row k-tile), the longest causal
-//         columns first; K and V resident, 64-row Q and dO tiles (with
-//         their lse and delta) stream through a 2-stage ring from the
-//         diagonal on (the TPU's `_fa_dkv_kernel_tri`).  It works on the
-//         transposed tile: S^T = K Q^T and dP^T = V dO^T from shared
-//         memory, p^T and ds^T in registers, then dv += p^T dO and
-//         dk += ds^T Q with p^T / ds^T as register A operands: two
-//         64 x d float32 accumulators a thread-row, no halves.
+//   * bf16 (every head width, instantiated at 64, 128, 192 and 256
+//     columns; TMA fills the columns past d with zeros): wgmma fed by a TMA ring,
+//     warp-specialised as the forward (flash_attn_fwd.cu): 384 threads a
+//     block, a producer warpgroup whose first warp issues the TMA loads
+//     and stages the per-row vectors, two consumer warpgroups of 64 rows
+//     with 240 registers each (setmaxnreg).
+//       - dq: one block per (b*h, q-tile), heaviest first.  Q and dO stay
+//         resident; 64-row K and V tiles stream through a 2-stage ring.
+//         A consumer forms S = Q K^T and dP = dO V^T (wgmma from shared
+//         memory), ds in registers, and dq += ds K with ds (bf16) as the
+//         register A operand and K read MN-major from the ring.  Up to
+//         128 columns a q-tile is 128 rows, a consumer's 64 of them on
+//         every key tile.  Wider, a 128-row Q / dO pair and the ring would
+//         take ~256 KB of the 227: a q-tile is 64 rows, shared by the two
+//         consumers, which take the key tiles in turns (each its own ring
+//         stage), and consumer 1's 64 x D float32 partial sum is added to
+//         consumer 0's through shared memory at the end (a fixed order).
+//       - dk/dv: one block per (b*h, k-tile), the longest causal columns
+//         first; K and V resident, 64-row Q and dO tiles (with their lse
+//         and delta) stream through a 2-stage ring from the diagonal on
+//         (the TPU's `_fa_dkv_kernel_tri`).  It works on the transposed
+//         tile: S^T = K Q^T and dP^T = V dO^T from shared memory, p^T and
+//         ds^T in registers, then dv += p^T dO and dk += ds^T Q with p^T /
+//         ds^T as register A operands.  Up to 128 columns a k-tile is 128
+//         rows and a consumer holds both 64 x D accumulators of its 64
+//         rows.  Wider, two would take 256 registers a thread of the 240,
+//         and a 128-row K / V pair with the ring ~256 KB: a k-tile is 64
+//         rows, and the consumers split by role: consumer 0 forms S^T,
+//         p^T and dv, consumer 1 S^T, dP^T, ds^T and dk (S^T twice: 5
+//         products a stage where 4 would do; handing p^T over through
+//         shared memory instead ran no faster, and a ring of 4 stages of
+//         32 q rows ran 1.4x slower: PERF.md).  Products wider than 128
+//         columns go as 128-column pieces (and a 64-column one at 192).
+//         Widths 136-192 take the 192-column instance: at head width 192
+//         it ran 0.94 ms where the 256-column one ran 1.13 (PERF.md).
 //     Scores go to the exp2 domain (log2(e) folded into the scale and
 //     into lse as it is staged); the mask runs only on tiles that cross
 //     the diagonal or the ragged end and, under SEG, on tiles whose
 //     streamed rows do not all share the resident rows' one nonzero
 //     segment id (checked by the producer as it stages the ids).
-//   * float32, and bf16 heads of 136-256 columns: the CUDA cores (4 x 4
-//     register tiles, p and ds staged in shared memory) over 64-row
-//     tiles up to 128 columns, over 32-row tiles (2 x 2 register tiles)
-//     from 136 to 256, where four 64-row float32 tiles would not fit in
-//     shared memory.  bf16 inputs are widened as they are staged, and p
-//     and ds rounded to bf16 before their products, as above.
+//   * float32: the CUDA cores (4 x 4 register tiles, p and ds staged in
+//     shared memory) over 64-row tiles up to 128 columns, over 32-row
+//     tiles (2 x 2 register tiles) from 136 to 256, where four 64-row
+//     float32 tiles would not fit in shared memory.  wgmma in tf32 would
+//     compute another function.
 // PERF.md has the times.  The kernels allocate nothing (the caller passes
 // the delta buffer), do not synchronise, and launch on the caller's
 // stream.
@@ -90,15 +105,15 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
 }
 
 // ------------------------------------------------------------ float32
-// rows row0.. of a (s_len, d) matrix into an (R, d + 1) float tile
-template <int R, typename T>
-__device__ __forceinline__ void fb_load_rows(float* dst, const T* src,
+// rows row0.. of a (s_len, d) matrix into an (R, d + 1) tile
+template <int R>
+__device__ __forceinline__ void fb_load_rows(float* dst, const float* src,
                                              int row0, int s_len, int d) {
   const int dp = d + 1;
   for (int idx = threadIdx.x; idx < R * d; idx += FB_THREADS) {
     const int r = idx / d, c = idx - r * d;
     const int gr = row0 + r;
-    dst[r * dp + c] = gr < s_len ? cxn_to_f32(src[(size_t)gr * d + c]) : 0.f;
+    dst[r * dp + c] = gr < s_len ? src[(size_t)gr * d + c] : 0.f;
   }
 }
 
@@ -125,13 +140,14 @@ size_t fb_smem_dkv(int d, int r) {
 // against every live k-tile.  Each thread computes an R/16 x R/16 tile
 // of s and dO v^T, the block stages ds in shared memory, and each warp
 // accumulates R/8 rows of ds k (DCH columns a lane).
-template <typename T, int DCH, bool SEG, int R>
+template <int DCH, bool SEG, int R>
 __global__ void __launch_bounds__(FB_THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ seg, T* __restrict__ dq,
+                    const int* __restrict__ seg, float* __restrict__ dq,
                     int s_len, int d, int h, int causal, float scale) {
   constexpr int RT = R / 16, AR = R / 8, SP = R + 1;
   extern __shared__ float smem[];
@@ -205,7 +221,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = fa_allowed<SEG>(q0 + r, k0 + cc, s_len, causal,
                                         segq[i], SEG ? sSegK[cc] : 0);
         const float p = expf((ok ? sc[i][j] * scale : FA_NEG_INF) - sL[r]);
-        sS[r * SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[r]) * scale);
+        sS[r * SP + cc] = p * (gp[i][j] - sD[r]) * scale;
       }
     __syncthreads();
     for (int j = 0; j < R; ++j) {
@@ -230,22 +246,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) dq[base + (size_t)gq * d + col] = cxn_from_f32<T>(acc[i][c]);
+      if (col < d) dq[base + (size_t)gq * d + col] = acc[i][c];
     }
   }
 }
 
 // dk / dv: this block's R k rows against every live q-tile, on the
 // transposed tile (k row, q column).
-template <typename T, int DCH, bool SEG, int R>
+template <int DCH, bool SEG, int R>
 __global__ void __launch_bounds__(FB_THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ seg, T* __restrict__ dk,
-                     T* __restrict__ dv, int s_len, int d, int h, int causal,
-                     float scale) {
+                     const int* __restrict__ seg, float* __restrict__ dk,
+                     float* __restrict__ dv, int s_len, int d, int h,
+                     int causal, float scale) {
   constexpr int RT = R / 16, AR = R / 8, SP = R + 1;
   extern __shared__ float smem[];
   __shared__ float sL[R], sD[R];
@@ -318,8 +336,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = fa_allowed<SEG>(q0 + cc, k0 + r, s_len, causal,
                                         SEG ? sSegQ[cc] : 0, segk[i]);
         const float p = expf((ok ? sc[i][j] * scale : FA_NEG_INF) - sL[cc]);
-        sP[r * SP + cc] = cxn_round_to<T>(p);
-        sS[r * SP + cc] = cxn_round_to<T>(p * (gp[i][j] - sD[cc]) * scale);
+        sP[r * SP + cc] = p;
+        sS[r * SP + cc] = p * (gp[i][j] - sD[cc]) * scale;
       }
     __syncthreads();
     for (int j = 0; j < R; ++j) {
@@ -350,8 +368,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DCH; ++c) {
       const int col = lane + 32 * c;
       if (col < d) {
-        dk[base + (size_t)gk * d + col] = cxn_from_f32<T>(ak[i][c]);
-        dv[base + (size_t)gk * d + col] = cxn_from_f32<T>(av[i][c]);
+        dk[base + (size_t)gk * d + col] = ak[i][c];
+        dv[base + (size_t)gk * d + col] = av[i][c];
       }
     }
   }
@@ -359,13 +377,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --------------------------------------------------------------- bf16
 // Thread roles as in flash_fwd_wgmma_kernel: threads 0..127 the producer
-// warpgroup (its first warp works), 128..383 consumers c = 0, 1 owning
-// rows 64c .. 64c + 63 of the block's 128; a consumer thread holds the
-// m64n* accumulator layout (rows g, g + 8 of its warp's 16; columns
-// 8i + 2t, 8i + 2t + 1 of n8 block i in registers 4i .. 4i + 3).
+// warpgroup (its first warp works), 128..383 consumers c = 0, 1; a
+// consumer thread holds the m64n* accumulator layout (rows g, g + 8 of
+// its warp's 16; columns 8i + 2t, 8i + 2t + 1 of n8 block i in registers
+// 4i .. 4i + 3).  Up to 128 columns (not WIDE) the consumers own rows
+// 64c .. 64c + 63 of a 128-row block; wider they share one 64-row block
+// (see the file's header).
 template <int D>
 struct DqTiles {
-  static constexpr int BM = 128;               // query rows per block
+  static constexpr bool WIDE = D > 128;
+  static constexpr int BM = WIDE ? 64 : 128;   // query rows per block
   static constexpr int BK = 64;                // key rows per ring stage
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = BM * D * 2;   // resident Q or dO
@@ -374,15 +395,19 @@ struct DqTiles {
   static constexpr int OFF_K = 2 * Q_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_SEG = OFF_V + STAGES * KV_BYTES;
-  // fh_stage_seg of the two row halves, then of each stage
+  // fh_stage_seg of the row halves, then of each stage
   static constexpr int OFF_UNI = OFF_SEG + STAGES * BK * 4;
   static constexpr int OFF_BAR = OFF_UNI + 32;
   static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+  // WIDE: consumer 1's float32 partial dq, over the ring once it is done
+  static_assert(!WIDE || BM * D * 4 <= 2 * STAGES * KV_BYTES, "dq sum");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 template <int D>
 struct DkvTiles {
-  static constexpr int BN = 128;               // key rows per block
+  static constexpr bool WIDE = D > 128;
+  static constexpr int BN = WIDE ? 64 : 128;   // key rows per block
   static constexpr int BQ = 64;                // query rows per ring stage
   static constexpr int STAGES = 2;
   static constexpr int KV_BYTES = BN * D * 2;  // resident K or V
@@ -392,10 +417,11 @@ struct DkvTiles {
   static constexpr int OFF_G = OFF_Q + STAGES * Q_BYTES;
   // per stage: BQ values each of lse * log2(e), delta, segment id
   static constexpr int OFF_VEC = OFF_G + STAGES * Q_BYTES;
-  // fh_stage_seg of the two row halves, then of each stage
+  // fh_stage_seg of the row halves, then of each stage
   static constexpr int OFF_UNI = OFF_VEC + STAGES * 3 * BQ * 4;
   static constexpr int OFF_BAR = OFF_UNI + 32;
   static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 template <int D, bool SEG>
@@ -411,6 +437,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           int h, int causal, float scale, float scale_log2) {
   using L = DqTiles<D>;
   constexpr int BM = L::BM, BK = L::BK, ST = L::STAGES;
+  constexpr bool WIDE = L::WIDE;
   extern __shared__ unsigned char fh_raw[];
   unsigned char* sm = fh_align1024(fh_raw);
   int* sseg = reinterpret_cast<int*>(sm + L::OFF_SEG);
@@ -423,14 +450,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_kt = causal ? (min(q0 + BM, s_len) + BK - 1) / BK
                           : (s_len + BK - 1) / BK;
   const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
-  fh_init_barriers<ST>(bar_q);
+  // WIDE: each stage is read by the one consumer whose turn it is
+  fh_init_barriers<ST>(bar_q, WIDE ? 128 : 256);
 
   if (threadIdx.x < 128) {  // producer
     fh_producer_regs();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (SEG)
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < BM / 64; ++half) {
         const int u =
             fh_stage_seg(nullptr, segb, q0 + 64 * half, 64, s_len, lane);
         if (lane == 0) suni[half] = u;
@@ -464,7 +492,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int c = threadIdx.x / 128 - 1;
   const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + 64 * c;
+  const int row = WIDE ? 0 : 64 * c;  // the consumer's rows in the block
+  const int r0 = q0 + row;
   const int gq0 = r0 + 16 * w + g, gq1 = gq0 + 8;
   const size_t rbase = (size_t)bh * s_len;
   const float ls0 = gq0 < s_len ? lse[rbase + gq0] * FH_LOG2E : 0.f;
@@ -478,8 +507,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_q, 0);
-  const int urow = SEG ? suni[c] : 0;  // the rows' one segment, or -1
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int urow = SEG ? suni[row / 64] : 0;  // the rows' one segment, or -1
+  // WIDE: consumer c takes key tiles c, c + 2, ..., all in ring stage c
+  for (int kt = WIDE ? c : 0; kt < n_kt; kt += WIDE ? 2 : 1) {
     const int st = kt % ST, k0 = kt * BK;
     const uint32_t s_k = smem_u32(sm + L::OFF_K + st * L::KV_BYTES);
     const uint32_t s_v = smem_u32(sm + L::OFF_V + st * L::KV_BYTES);
@@ -488,12 +518,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wg_ss<BK>(sc, wg_kmajor<BM>(s_q, 64 * c, kk),
-                wg_kmajor<BK>(s_k, 0, kk), kk > 0);
+      wg_ss<BK>(sc, wg_kmajor<BM>(s_q, row, kk), wg_kmajor<BK>(s_k, 0, kk),
+                kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wg_ss<BK>(dp, wg_kmajor<BM>(s_g, 64 * c, kk),
-                wg_kmajor<BK>(s_v, 0, kk), kk > 0);
+      wg_ss<BK>(dp, wg_kmajor<BM>(s_g, row, kk), wg_kmajor<BK>(s_v, 0, kk),
+                kk > 0);
     wg_commit();
     wg_wait_all();
     wg_fence_acc<BK / 2>(sc);
@@ -529,14 +559,28 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < BK / 16; ++j) wg_acc_to_a(sa[j], dp, j);
     wg_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j)
-      wg_rs_t<D>(acc, sa[j], wg_mnmajor<BK>(s_k, j));
+    for (int j = 0; j < BK / 16; ++j) wg_rs_cols<D, BK>(acc, sa[j], s_k, j);
     wg_commit();
     wg_wait_all();
     wg_fence_acc<D / 2>(acc);
     mbar_arrive(&empty[st]);
   }
 
+  if constexpr (WIDE) {
+    // dq = consumer 0's sum + consumer 1's, through the ring, which no
+    // load or product reads once both consumers are past their tiles
+    float* part = reinterpret_cast<float*>(sm + L::OFF_K);
+    const int ct = threadIdx.x & 127;
+    fh_named_sync(1, 256);
+    if (c == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) part[i * 128 + ct] = acc[i];
+    }
+    fh_named_sync(1, 256);
+    if (c == 1) return;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i * 128 + ct];
+  }
   const size_t base = rbase * d;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -551,6 +595,111 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// The dk/dv producer: K and V of the block's BN key rows once, then the
+// 64-row Q and dO tiles of every live q-tile with their lse * log2(e),
+// delta and segment ids, through the ring.
+template <int D, bool SEG>
+__device__ __forceinline__ void fb_dkv_produce(
+    unsigned char* sm, const CUtensorMap* tq, const CUtensorMap* tg,
+    const CUtensorMap* tk, const CUtensorMap* tv, const float* lse,
+    const float* delta, const int* segb, int bh, int k0, int q_first,
+    int n_it, int s_len, int lane) {
+  using L = DkvTiles<D>;
+  constexpr int BN = L::BN, BQ = L::BQ, ST = L::STAGES;
+  float* svec = reinterpret_cast<float*>(sm + L::OFF_VEC);
+  int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+  const size_t rbase = (size_t)bh * s_len;
+  if (SEG)
+    for (int half = 0; half < BN / 64; ++half) {
+      const int u = fh_stage_seg(nullptr, segb, k0 + 64 * half, 64, s_len,
+                                 lane);
+      if (lane == 0) suni[half] = u;
+    }
+  if (lane == 0) {
+    mbar_arrive_tx(bar_kv, 2 * L::KV_BYTES);
+    tma_tile<BN, D>(sm, tk, bar_kv, k0, bh);
+    tma_tile<BN, D>(sm + L::OFF_V, tv, bar_kv, k0, bh);
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ST, q0 = (q_first + it) * BQ;
+    if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
+    float* vec = svec + st * 3 * BQ;
+    for (int r = lane; r < BQ; r += 32) {
+      const bool ok = q0 + r < s_len;
+      vec[r] = ok ? lse[rbase + q0 + r] * FH_LOG2E : 0.f;
+      vec[BQ + r] = ok ? delta[rbase + q0 + r] : 0.f;
+    }
+    if (SEG) {
+      const int u = fh_stage_seg(reinterpret_cast<int*>(vec) + 2 * BQ, segb,
+                                 q0, BQ, s_len, lane);
+      if (lane == 0) suni[2 + st] = u;
+    }
+    if (lane == 0) {
+      mbar_arrive_tx(&full[st], 2 * L::Q_BYTES);
+      tma_tile<BQ, D>(sm + L::OFF_Q + st * L::Q_BYTES, tq, &full[st], q0,
+                      bh);
+      tma_tile<BQ, D>(sm + L::OFF_G + st * L::Q_BYTES, tg, &full[st], q0,
+                      bh);
+    } else {
+      mbar_arrive(&full[st]);
+    }
+  }
+}
+
+// S^T (k rows gk0, gk1 of the thread, the stage's 64 q columns from q0)
+// to the exp2 domain and masked where the tile needs it: rows `urow`
+// share one nonzero segment (else -1), the stage's columns `ucol`.
+template <bool SEG>
+__device__ __forceinline__ void fb_mask_st(float* sc, float scale_log2,
+                                           int q0, int kr0, int gk0,
+                                           int gk1, int sk0, int sk1,
+                                           const int* vs, int urow, int ucol,
+                                           int s_len, int causal, int t) {
+  constexpr int BQ = 64;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) sc[i] *= scale_log2;
+  const bool seg_mask = SEG && !(urow > 0 && ucol == urow);
+  if (seg_mask || q0 + BQ > s_len || (causal && kr0 + 63 > q0)) {
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int qc = 8 * (i >> 2) + 2 * t + (i & 1), gq = q0 + qc;
+      const bool hi = (i & 2) != 0;
+      const int gk = hi ? gk1 : gk0;
+      bool ok = gq < s_len && (!causal || gk <= gq);
+      if (SEG) {
+        const int sk = hi ? sk1 : sk0;
+        ok = ok && ((vs[qc] == sk && sk != 0) || gq == gk);
+      }
+      if (!ok) sc[i] = FA_NEG_INF;
+    }
+  }
+}
+
+// rows gk0, gk1 of a 64 x D float32 accumulator into columns [0, d) of
+// a (bh, s, d) bf16 output at `base`
+template <int D>
+__device__ __forceinline__ void fb_store_rows(__nv_bfloat16* out,
+                                              const float* acc, size_t base,
+                                              int gk0, int gk1, int s_len,
+                                              int d, int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (n * 8 >= d) break;  // TMA's zero columns past d
+    const int col = n * 8 + 2 * t;
+    if (gk0 < s_len)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)gk0 * d + col) =
+          pack_f32(acc[4 * n], acc[4 * n + 1]);
+    if (gk1 < s_len)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)gk1 * d + col) =
+          pack_f32(acc[4 * n + 2], acc[4 * n + 3]);
+  }
+}
+
+// dk/dv up to 128 columns: consumer c owns k rows 64c .. 64c + 63 of the
+// block's 128 and both of their accumulators
 template <int D, bool SEG>
 __global__ void __launch_bounds__(FH_THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -565,11 +714,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            int h, int causal, float scale,
                            float scale_log2) {
   using L = DkvTiles<D>;
+  static_assert(!L::WIDE, "the wide dk/dv kernel takes D > 128");
   constexpr int BN = L::BN, BQ = L::BQ, ST = L::STAGES;
   extern __shared__ unsigned char fh_raw[];
   unsigned char* sm = fh_align1024(fh_raw);
-  float* svec = reinterpret_cast<float*>(sm + L::OFF_VEC);
-  int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
+  const float* svec = reinterpret_cast<const float*>(sm + L::OFF_VEC);
+  const int* suni = reinterpret_cast<const int*>(sm + L::OFF_UNI);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + ST;
@@ -577,49 +727,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int k0 = blockIdx.y * BN;  // the longest causal columns first
   const int q_first = causal ? k0 / BQ : 0;
   const int n_it = (s_len + BQ - 1) / BQ - q_first;
-  const size_t rbase = (size_t)bh * s_len;
   const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
   fh_init_barriers<ST>(bar_kv);
 
   if (threadIdx.x < 128) {  // producer
     fh_producer_regs();
     if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
-    if (SEG)
-      for (int half = 0; half < 2; ++half) {
-        const int u =
-            fh_stage_seg(nullptr, segb, k0 + 64 * half, 64, s_len, lane);
-        if (lane == 0) suni[half] = u;
-      }
-    if (lane == 0) {
-      mbar_arrive_tx(bar_kv, 2 * L::KV_BYTES);
-      tma_tile<BN, D>(sm, &tk, bar_kv, k0, bh);
-      tma_tile<BN, D>(sm + L::OFF_V, &tv, bar_kv, k0, bh);
-    }
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it % ST, q0 = (q_first + it) * BQ;
-      if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
-      float* vec = svec + st * 3 * BQ;
-      for (int r = lane; r < BQ; r += 32) {
-        const bool ok = q0 + r < s_len;
-        vec[r] = ok ? lse[rbase + q0 + r] * FH_LOG2E : 0.f;
-        vec[BQ + r] = ok ? delta[rbase + q0 + r] : 0.f;
-      }
-      if (SEG) {
-        const int u = fh_stage_seg(reinterpret_cast<int*>(vec) + 2 * BQ,
-                                   segb, q0, BQ, s_len, lane);
-        if (lane == 0) suni[2 + st] = u;
-      }
-      if (lane == 0) {
-        mbar_arrive_tx(&full[st], 2 * L::Q_BYTES);
-        tma_tile<BQ, D>(sm + L::OFF_Q + st * L::Q_BYTES, &tq, &full[st],
-                        q0, bh);
-        tma_tile<BQ, D>(sm + L::OFF_G + st * L::Q_BYTES, &tg, &full[st],
-                        q0, bh);
-      } else {
-        mbar_arrive(&full[st]);
-      }
-    }
+    fb_dkv_produce<D, SEG>(sm, &tq, &tg, &tk, &tv, lse, delta, segb, bh, k0,
+                           q_first, n_it, s_len, threadIdx.x);
     return;
   }
 
@@ -659,24 +774,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_wait_all();
     wg_fence_acc<BQ / 2>(sc);
     wg_fence_acc<BQ / 2>(dp);
-
-#pragma unroll
-    for (int i = 0; i < BQ / 2; ++i) sc[i] *= scale_log2;
-    const bool seg_mask = SEG && !(urow > 0 && suni[2 + st] == urow);
-    if (seg_mask || q0 + BQ > s_len || (causal && kr0 + 63 > q0)) {
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) {
-        const int qc = 8 * (i >> 2) + 2 * t + (i & 1), gq = q0 + qc;
-        const bool hi = (i & 2) != 0;
-        const int gk = hi ? gk1 : gk0;
-        bool ok = gq < s_len && (!causal || gk <= gq);
-        if (SEG) {
-          const int sk = hi ? sk1 : sk0;
-          ok = ok && ((vs[qc] == sk && sk != 0) || gq == gk);
-        }
-        if (!ok) sc[i] = FA_NEG_INF;
-      }
-    }
+    fb_mask_st<SEG>(sc, scale_log2, q0, kr0, gk0, gk1, sk0, sk1, vs, urow,
+                    SEG ? suni[2 + st] : 0, s_len, causal, t);
     // p^T in place of S^T, ds^T in place of dP^T
 #pragma unroll
     for (int i = 0; i < BQ / 2; ++i) {
@@ -694,38 +793,131 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wg_fence();
 #pragma unroll
-    for (int j = 0; j < BQ / 16; ++j)
-      wg_rs_t<D>(av, pa[j], wg_mnmajor<BQ>(s_g, j));
+    for (int j = 0; j < BQ / 16; ++j) wg_rs_cols<D, BQ>(av, pa[j], s_g, j);
 #pragma unroll
-    for (int j = 0; j < BQ / 16; ++j)
-      wg_rs_t<D>(ak, sa[j], wg_mnmajor<BQ>(s_qt, j));
+    for (int j = 0; j < BQ / 16; ++j) wg_rs_cols<D, BQ>(ak, sa[j], s_qt, j);
     wg_commit();
     wg_wait_all();
     wg_fence_acc<D / 2>(av);
     wg_fence_acc<D / 2>(ak);
     mbar_arrive(&empty[st]);
   }
+  const size_t base = (size_t)bh * s_len * d;
+  fb_store_rows<D>(dk, ak, base, gk0, gk1, s_len, d, t);
+  fb_store_rows<D>(dv, av, base, gk0, gk1, s_len, d, t);
+}
 
-  const size_t base = rbase * d;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (n * 8 >= d) break;  // TMA's zero columns past d
-    const int col = n * 8 + 2 * t;
-    if (gk0 < s_len) {
-      const size_t off = base + (size_t)gk0 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_f32(ak[4 * n], ak[4 * n + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off) =
-          pack_f32(av[4 * n], av[4 * n + 1]);
-    }
-    if (gk1 < s_len) {
-      const size_t off = base + (size_t)gk1 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_f32(ak[4 * n + 2], ak[4 * n + 3]);
-      *reinterpret_cast<uint32_t*>(dv + off) =
-          pack_f32(av[4 * n + 2], av[4 * n + 3]);
-    }
+// dk/dv above 128 columns: both consumers on the block's 64 k rows,
+// consumer 0 forms p^T and dv, consumer 1 ds^T and dk (one 64 x D
+// accumulator each)
+template <int D, bool SEG>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ seg,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int s_len, int d,
+                          int h, int causal, float scale,
+                          float scale_log2) {
+  using L = DkvTiles<D>;
+  static_assert(L::WIDE && L::BN == 64, "the wide dk/dv kernel");
+  constexpr int BN = L::BN, BQ = L::BQ, ST = L::STAGES;
+  extern __shared__ unsigned char fh_raw[];
+  unsigned char* sm = fh_align1024(fh_raw);
+  const float* svec = reinterpret_cast<const float*>(sm + L::OFF_VEC);
+  const int* suni = reinterpret_cast<const int*>(sm + L::OFF_UNI);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BN;  // the longest causal columns first
+  const int q_first = causal ? k0 / BQ : 0;
+  const int n_it = (s_len + BQ - 1) / BQ - q_first;
+  const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
+  fh_init_barriers<ST>(bar_kv);
+
+  if (threadIdx.x < 128) {  // producer
+    fh_producer_regs();
+    if (threadIdx.x >= 32) return;
+    fb_dkv_produce<D, SEG>(sm, &tq, &tg, &tk, &tv, lse, delta, segb, bh, k0,
+                           q_first, n_it, s_len, threadIdx.x);
+    return;
   }
+
+  fh_consumer_regs();
+  const int c = threadIdx.x / 128 - 1;  // 0: dv, 1: dk
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int gk0 = k0 + 16 * w + g, gk1 = gk0 + 8;
+  const int sk0 = SEG && gk0 < s_len ? segb[gk0] : 0;
+  const int sk1 = SEG && gk1 < s_len ? segb[gk1] : 0;
+  const uint32_t s_k = smem_u32(sm), s_v = smem_u32(sm + L::OFF_V);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+  const int urow = SEG ? suni[0] : 0;  // the rows' one segment, or -1
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ST, q0 = (q_first + it) * BQ;
+    const uint32_t s_qt = smem_u32(sm + L::OFF_Q + st * L::Q_BYTES);
+    const uint32_t s_g = smem_u32(sm + L::OFF_G + st * L::Q_BYTES);
+    const float* vl = svec + st * 3 * BQ;  // lse * log2(e) by q column
+    const float* vd = vl + BQ;             // delta
+    const int* vs = reinterpret_cast<const int*>(vl + 2 * BQ);
+    mbar_wait(&full[st], (it / ST) & 1);
+    float sc[BQ / 2], dp[BQ / 2];  // S^T and dP^T: k rows, q columns
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<BQ>(sc, wg_kmajor<BN>(s_k, 0, kk), wg_kmajor<BQ>(s_qt, 0, kk),
+                kk > 0);
+    if (c == 1) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg_ss<BQ>(dp, wg_kmajor<BN>(s_v, 0, kk), wg_kmajor<BQ>(s_g, 0, kk),
+                  kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<BQ / 2>(sc);
+    wg_fence_acc<BQ / 2>(dp);
+    fb_mask_st<SEG>(sc, scale_log2, q0, k0, gk0, gk1, sk0, sk1, vs, urow,
+                    SEG ? suni[2 + st] : 0, s_len, causal, t);
+    // p^T (consumer 0) or ds^T (consumer 1) in place of S^T
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+        sc[i] = fh_exp2(sc[i] - vl[qc]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = fh_exp2(sc[i] - vl[qc]);
+        sc[i] = p * (dp[i] - vd[qc]) * scale;
+      }
+    }
+    // dv += p^T dO or dk += ds^T Q: the register A operand, dO / Q
+    // MN-major
+    uint32_t fa[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) wg_acc_to_a(fa[j], sc, j);
+    const uint32_t s_b = c == 0 ? s_g : s_qt;
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) wg_rs_cols<D, BQ>(acc, fa[j], s_b, j);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc<D / 2>(acc);
+    mbar_arrive(&empty[st]);
+  }
+  fb_store_rows<D>(c == 0 ? dv : dk, acc, (size_t)bh * s_len * d, gk0, gk1,
+                   s_len, d, t);
 }
 
 // ------------------------------------------------------------- launch
@@ -770,7 +962,10 @@ cudaError_t fb_launch_wgmma(const BwdArgs& a) {
     if (!fh_tensor_map(m.map, m.base, a.bh, a.s, a.d, m.rows))
       return cudaErrorInvalidValue;
   auto kdq = flash_bwd_dq_wgmma_kernel<D, SEG>;
-  auto kdkv = flash_bwd_dkv_wgmma_kernel<D, SEG>;
+  auto kdkv = [] {
+    if constexpr (KV::WIDE) return flash_bwd_dkv_wide_kernel<D, SEG>;
+    else return flash_bwd_dkv_wgmma_kernel<D, SEG>;
+  }();
   static const cudaError_t ready_dq = fh_prepare(kdq, Q::SMEM);
   static const cudaError_t ready_dkv = fh_prepare(kdkv, KV::SMEM);
   if (ready_dq != cudaSuccess) return ready_dq;
@@ -791,11 +986,11 @@ cudaError_t fb_launch_wgmma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DCH, bool SEG, int R>
+template <int DCH, bool SEG, int R>
 cudaError_t fb_launch_simt(const BwdArgs& a) {
   const dim3 grid((a.s + R - 1) / R, a.bh);
-  auto kdq = flash_bwd_dq_kernel<T, DCH, SEG, R>;
-  auto kdkv = flash_bwd_dkv_kernel<T, DCH, SEG, R>;
+  auto kdq = flash_bwd_dq_kernel<DCH, SEG, R>;
+  auto kdkv = flash_bwd_dkv_kernel<DCH, SEG, R>;
   const size_t smem_dq = fb_smem_dq(a.d, R), smem_dkv = fb_smem_dkv(a.d, R);
   cudaError_t err = cxn_allow_smem(kdq, smem_dq);
   if (err == cudaSuccess) err = cxn_allow_smem(kdkv, smem_dkv);
@@ -803,32 +998,34 @@ cudaError_t fb_launch_simt(const BwdArgs& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   kdq<<<grid, FB_THREADS, smem_dq, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse, delta,
-      a.seg, static_cast<T*>(a.dq), a.s, a.d, a.h, a.causal, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      lse, delta, a.seg, static_cast<float*>(a.dq), a.s, a.d, a.h, a.causal,
+      a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kdkv<<<grid, FB_THREADS, smem_dkv, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse, delta,
-      a.seg, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s, a.d, a.h,
-      a.causal, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      lse, delta, a.seg, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.s, a.d, a.h, a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <bool SEG>
 cudaError_t fb_dispatch(const BwdArgs& a, int dtype) {
-  if (fa_route(a.d, dtype, true) == FA_ROUTE_WGMMA)
-    return a.d <= 64 ? fb_launch_wgmma<64, SEG>(a)
-                     : fb_launch_wgmma<128, SEG>(a);
-  // the CUDA cores: 64-row tiles up to 128 columns, 32-row tiles above
-  // (four (R, d + 1) float32 tiles must fit in shared memory)
-  if (a.d > 128)
-    return dtype == CXN_BF16 ? fb_launch_simt<__nv_bfloat16, 8, SEG, 32>(a)
-                             : fb_launch_simt<float, 8, SEG, 32>(a);
-  if (a.d <= 32) return fb_launch_simt<float, 1, SEG, 64>(a);
-  if (a.d <= 64) return fb_launch_simt<float, 2, SEG, 64>(a);
-  return fb_launch_simt<float, 4, SEG, 64>(a);
+  if (dtype == CXN_BF16) {  // fa_route: FA_ROUTE_WGMMA at every width
+    if (a.d <= 64) return fb_launch_wgmma<64, SEG>(a);
+    if (a.d <= 128) return fb_launch_wgmma<128, SEG>(a);
+    if (a.d <= 192) return fb_launch_wgmma<192, SEG>(a);
+    return fb_launch_wgmma<256, SEG>(a);
+  }
+  // float32 on the CUDA cores: 64-row tiles up to 128 columns, 32-row
+  // tiles above (four (R, d + 1) float32 tiles must fit in shared memory)
+  if (a.d > 128) return fb_launch_simt<8, SEG, 32>(a);
+  if (a.d <= 32) return fb_launch_simt<1, SEG, 64>(a);
+  if (a.d <= 64) return fb_launch_simt<2, SEG, 64>(a);
+  return fb_launch_simt<4, SEG, 64>(a);
 }
 
 }  // namespace

@@ -144,13 +144,12 @@ __device__ __forceinline__ void fa_load_seg(int* dst, const int* segb,
 }
 
 // The kernel a call takes (cxn_flash_attn_route): float32 on the CUDA
-// cores; bf16 through wgmma for head widths up to 128, above that through
-// mma.sync in the forward and the CUDA cores in the backward.
+// cores; bf16 through wgmma, except the forward above head width 128,
+// which goes through mma.sync.
 enum FaRoute { FA_ROUTE_SIMT = 0, FA_ROUTE_MMA = 1, FA_ROUTE_WGMMA = 2 };
 inline int fa_route(int d, int dtype, bool backward) {
   if (dtype != CXN_BF16) return FA_ROUTE_SIMT;
-  if (d <= 128) return FA_ROUTE_WGMMA;
-  return backward ? FA_ROUTE_SIMT : FA_ROUTE_MMA;
+  return d <= 128 || backward ? FA_ROUTE_WGMMA : FA_ROUTE_MMA;
 }
 
 inline bool aligned16(const void* p) {

@@ -135,15 +135,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // Barriers at `bars`: one for the tiles loaded once (the producer's lane
 // 0 and their TMA bytes), then per ring stage `full` (the producer
-// warp's 32 lanes and the stage's TMA bytes) and `empty` (every consumer
-// thread, after its products on the stage have completed).
+// warp's 32 lanes and the stage's TMA bytes) and `empty` (every thread
+// of the `readers` consumers that read the stage, after its products on
+// the stage have completed).
 template <int ST>
-__device__ __forceinline__ void fh_init_barriers(uint64_t* bars) {
+__device__ __forceinline__ void fh_init_barriers(uint64_t* bars,
+                                                 int readers = 256) {
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
     for (int i = 0; i < ST; ++i) {
       mbar_init(bars + 1 + i, 32);
-      mbar_init(bars + 1 + ST + i, 256);
+      mbar_init(bars + 1 + ST + i, readers);
     }
     mbar_fence_init();
   }
@@ -374,6 +376,28 @@ __device__ __forceinline__ void wg_rs_t(float* d, const uint32_t* a,
   static_assert(N == 64 || N == 128, "wgmma width");
   if constexpr (N == 64) wg_rs_t_n64(d, a, db);
   else wg_rs_t_n128(d, a, db);
+}
+
+// d (64 x D) += A . B, A (64 x 16) from registers, B k-step j of an
+// MN-major tile of R rows and D columns at `tile`: one wgmma up to 128
+// columns, wider in pieces of 128 (and a last one of 64) columns, each
+// piece's 64-column blocks R * 128 bytes on from the last.
+template <int D, int R>
+__device__ __forceinline__ void wg_rs_cols(float* d, const uint32_t* a,
+                                           uint32_t tile, int j) {
+  static_assert(D % 64 == 0 && D <= 256, "wgmma columns");
+  if constexpr (D <= 128) {
+    wg_rs_t<D>(d, a, wg_mnmajor<R>(tile, j));
+  } else {
+    wg_rs_t<128>(d, a, wg_mnmajor<R>(tile, j));
+    wg_rs_cols<D - 128, R>(d + 64, a, tile + 2 * R * 128, j);
+  }
+}
+
+// bar.sync on named barrier `id` (1..15) by `threads` threads (a
+// multiple of 32), leaving barrier 0 (__syncthreads) to the block
+__device__ __forceinline__ void fh_named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // The A operand of k-step j (16 columns) of a product whose left factor

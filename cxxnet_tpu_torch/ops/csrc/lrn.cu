@@ -17,11 +17,11 @@
 // backward's window is the transposed one (lo and hi swapped), which
 // differs from the forward's for even n.  Each window is summed in the
 // TPU kernels' order, from its lowest channel up.  norm^-0.75 is
-// rsqrt(norm * sqrt(norm)), as on the TPU, except in the backward's
-// window route, which takes norm^-beta and norm^-beta / norm as
-// 2^(-beta lg norm) and 2^(-(beta + 1) lg norm) (three MUFU
-// instructions, about 2 ulp each, where sqrt, rsqrt and a division cost
-// three and some twenty more).  Outputs are stored in x's dtype.
+// rsqrt(norm * sqrt(norm)), as on the TPU, except on the window routes,
+// which take norm^-beta and norm^-beta / norm as 2^(-beta lg norm) and
+// 2^(-(beta + 1) lg norm) (MUFU instructions, about 2 ulp each, where
+// sqrt, rsqrt and a division cost three and some twenty more).  Outputs
+// are stored in x's dtype.
 //
 // What bounds it on the card: bytes.  The forward reads x and writes y
 // (2 * N*C*H*W * itemsize) for ~n + 6 operations an element, the
@@ -37,8 +37,19 @@
 // H*W and inner = N.  A thread owns a column (or V neighbouring ones) at
 // one inner position and walks along C (stride inner), so neighbouring
 // threads read neighbouring inner addresses (coalesced: neighbouring
-// pixels in NCHW, neighbouring images in (H, W, C, N)).  The forward
-// re-reads the n window values of each channel, which stay in L1.
+// pixels in NCHW, neighbouring images in (H, W, C, N)).
+//
+// The forward takes one of two routes, picked by the caller from the
+// shapes (ops/lrn.py fwd_plan) and checked here:
+// - window (n with a compile-time instance, LRN_WINDOWS): the backward's
+//   walk below with x alone: step t brings in x[t] and writes y[t - hi]
+//   from the last n x values, held in shift registers; the loads of the
+//   next lrn_fwd_ahead(V) steps are in flight, each x element is loaded and
+//   each y element stored once (V columns a thread in 16-byte pieces
+//   where the inner axis allows it), and C is cut into chunks with an
+//   n - 1 halo where the columns are too few to fill the card;
+// - recompute (other windows): a column a thread, each y summing its
+//   window's n values of x again (from L1).
 //
 // The backward takes one of three routes, picked by the caller from the
 // shapes (ops/lrn.py bwd_plan) and checked here:
@@ -78,10 +89,15 @@ constexpr int LRN_THREADS = 128;
 constexpr int LRN_SMEM = 232448;
 // widest ring (two floats a channel) a 32-thread block holds
 constexpr int LRN_MAX_RING = LRN_SMEM / (2 * 4 * 32);
-// the backward's routes (ops/lrn.py BWD_ROUTES)
+// the routes (ops/lrn.py BWD_ROUTES; the forward takes window and
+// recompute)
 enum LrnRoute { LRN_WINDOW = 0, LRN_RING = 1, LRN_RECOMPUTE = 2 };
-// steps of loads a window-route thread keeps in flight
+// steps of loads a window-route thread keeps in flight (the forward's
+// thread holds one shift register, the backward's three)
 __host__ __device__ constexpr int lrn_ahead(int v) { return v == 1 ? 8 : 2; }
+__host__ __device__ constexpr int lrn_fwd_ahead(int v) {
+  return v == 1 ? 8 : 4;
+}
 
 __device__ __forceinline__ float lrn_pow(float norm, float beta) {
   return beta == 0.75f ? rsqrtf(norm * sqrtf(norm)) : powf(norm, -beta);
@@ -231,6 +247,82 @@ __device__ __forceinline__ void lrn_unpack(const LrnRaw<T, V>& r, float* f) {
     cxn_unpack16<T>(r.u, f);
 }
 
+// The forward's window route for a window of N channels: thread (chunk,
+// group) owns columns [V group, V group + V) of the (outer, inner) plane
+// and writes their y at channels [c0, c1) of its chunk; blocks ordered as
+// in lrn_bwd_window_kernel.
+template <typename T, int N, int V>
+__global__ void __launch_bounds__(LRN_THREADS, V == 1 ? 8 : 4)
+lrn_fwd_window_kernel(const T* __restrict__ x, T* __restrict__ y,
+                      long long groups, int C, long long inner, int chunk,
+                      int nchunks, float salpha, float beta, float knorm) {
+  constexpr int LO = N / 2, HI = N - 1 - LO, P = lrn_fwd_ahead(V);
+  const long long grp =
+      (long long)(blockIdx.x / nchunks) * LRN_THREADS + threadIdx.x;
+  if (grp >= groups) return;
+  const int c0 = (int)(blockIdx.x % nchunks) * chunk;
+  const int c1 = c0 + chunk < C ? c0 + chunk : C;
+  const long long per = inner / V;
+  const long long o = grp / per;
+  const long long base = o * C * inner + (grp - o * per) * V;
+  const T* xc = x + base;
+  const float nb = -beta;  // norm^-beta = 2^(nb lg norm)
+  // xr[j]: x at channel t - N + 1 + j after step t, which writes y[t - HI]
+  float xr[N][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) xr[0][v] = 0.f;
+  // channels c0 - LO .. c0 + HI - 1 before the first step (t = c0 + HI),
+  // then P steps of loads ahead; the walk reads x at channels < xend
+  const int xend = c1 + HI < C ? c1 + HI : C;
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    const int ch = c0 - LO - 1 + j;
+    const bool ok = ch >= 0 && ch < xend;
+    LrnRaw<T, V> r;
+    lrn_fetch<T, V>(r, xc + (long long)(ok ? ch : 0) * inner, ok);
+    lrn_unpack<T, V>(r, xr[j]);
+  }
+  const int t0 = c0 + HI;
+  LrnRaw<T, V> qx[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const bool ok = t0 + j < xend;
+    lrn_fetch<T, V>(qx[j], xc + (long long)(ok ? t0 + j : 0) * inner, ok);
+  }
+  // x at channel t + P and y at t - HI (step t); a pointer off the tensor
+  // is never read: the column's base stands in
+  const T* xq = xc + (long long)(t0 + P) * inner;
+  T* yq = y + base + (long long)c0 * inner;
+#pragma unroll N
+  for (int s = 0; s < c1 - c0; ++s) {
+    const int t = t0 + s;
+    float xn[V];
+    lrn_unpack<T, V>(qx[0], xn);
+#pragma unroll
+    for (int j = 0; j + 1 < P; ++j) qx[j] = qx[j + 1];
+    {
+      const bool ok = t + P < xend;
+      lrn_fetch<T, V>(qx[P - 1], ok ? xq : xc, ok);
+      xq += inner;
+    }
+    float out[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int j = 0; j + 1 < N; ++j) xr[j][v] = xr[j + 1][v];
+      xr[N - 1][v] = xn[v];
+      // the window [a - LO, a + HI] (a = t - HI) = channels t - N + 1 .. t,
+      // from the lowest up
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) sq += xr[j][v] * xr[j][v];
+      out[v] = xr[LO][v] * lrn_ex2(nb * lrn_lg2(sq * salpha + knorm));
+    }
+    cxn_store<T, V>(yq, out);
+    yq += inner;
+  }
+}
+
 // The window route for a window of N channels: thread (chunk, group)
 // owns columns [V group, V group + V) of the (outer, inner) plane and
 // writes their dx at channels [c0, c1) of its chunk.  Blocks of one
@@ -363,7 +455,8 @@ int lrn_bwd_threads(int R) {
   return 0;
 }
 
-// the window route at window N, V columns a thread
+// the window route at window N, V columns a thread: the forward (g
+// null) or the backward
 template <typename T, int N, int V>
 cudaError_t lrn_window_launch(const T* x, const T* g, T* out,
                               long long outer, int C, long long inner,
@@ -374,8 +467,12 @@ cudaError_t lrn_window_launch(const T* x, const T* g, T* out,
   const long long blocks =
       (groups + LRN_THREADS - 1) / LRN_THREADS * nchunks;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  lrn_bwd_window_kernel<T, N, V><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
-      x, g, out, groups, C, inner, chunk, nchunks, salpha, beta, knorm);
+  if (g == nullptr)
+    lrn_fwd_window_kernel<T, N, V><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
+        x, out, groups, C, inner, chunk, nchunks, salpha, beta, knorm);
+  else
+    lrn_bwd_window_kernel<T, N, V><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
+        x, g, out, groups, C, inner, chunk, nchunks, salpha, beta, knorm);
   return cudaGetLastError();
 }
 
@@ -386,20 +483,13 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
                        int vec, int chunk, cudaStream_t st) {
   const long long cols = outer * inner;
   const int lo = nsize / 2, hi = nsize - 1 - lo;
-  if (!backward) {
-    const long long blocks = (cols + LRN_THREADS - 1) / LRN_THREADS;
-    lrn_fwd_kernel<T><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), cols, C, inner, lo,
-        hi, salpha, beta, knorm);
-    return cudaGetLastError();
-  }
   const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
+  const T* gt = backward ? static_cast<const T*>(g) : nullptr;
   T* ot = static_cast<T*>(out);
   if (route == LRN_WINDOW) {
     constexpr int W = 16 / sizeof(T);
     const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
-                           reinterpret_cast<uintptr_t>(g) |
+                           reinterpret_cast<uintptr_t>(gt) |
                            reinterpret_cast<uintptr_t>(out)) & 15) == 0;
     if (chunk < 1 || !(vec == 1 || (vec == W && aligned && inner % W == 0)))
       return cudaErrorInvalidValue;
@@ -414,6 +504,13 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
     LRN_WINDOWS(LRN_WINDOW_CASE)
 #undef LRN_WINDOW_CASE
     return cudaErrorInvalidValue;
+  }
+  if (!backward) {
+    if (route != LRN_RECOMPUTE) return cudaErrorInvalidValue;
+    const long long blocks = (cols + LRN_THREADS - 1) / LRN_THREADS;
+    lrn_fwd_kernel<T><<<(unsigned)blocks, LRN_THREADS, 0, st>>>(
+        xt, ot, cols, C, inner, lo, hi, salpha, beta, knorm);
+    return cudaGetLastError();
   }
   const int R = nsize < C ? nsize : C;
   int nt = lrn_bwd_threads(R);
@@ -440,13 +537,14 @@ cudaError_t lrn_launch(int backward, const void* x, const void* g, void* out,
 // inner) in `dtype`, the window along C: logical NCHW as (N, C, H*W), its
 // (H, W, C, N) transpose as (H*W, C, N); out: y (forward) or dx
 // (backward), the same shape and dtype.  salpha = alpha / nsize; any
-// nsize >= 1.  The backward runs `route` (LrnRoute, from ops/lrn.py
-// bwd_plan): the window route with `vec` columns a thread (1, or 16 /
-// sizeof(T) with x, g and out 16-byte aligned and inner a multiple of
-// it) over chunks of `chunk` channels; the ring route where a ring of
-// min(nsize, C) channels fits a block, else the recompute route.  A
-// plan it cannot run is refused (cudaErrorInvalidValue), never
-// rerouted.  Returns cudaGetLastError() after the launch (0 =
+// nsize >= 1.  Each direction runs `route` (LrnRoute, from ops/lrn.py
+// fwd_plan / bwd_plan): the window route (windows in LRN_WINDOWS) with
+// `vec` columns a thread (1, or 16 / sizeof(T) with x, out and g
+// 16-byte aligned and inner a multiple of it) over chunks of `chunk`
+// channels; else the forward's recompute route, or the backward's ring
+// route where a ring of min(nsize, C) channels fits a block and its
+// recompute route where it does not.  A plan it cannot run is refused
+// (cudaErrorInvalidValue), never rerouted.  Returns cudaGetLastError() after the launch (0 =
 // launched).
 extern "C" int cxn_lrn(int backward, const void* x, const void* g, void* out,
                        long long outer, int C, long long inner, int nsize,

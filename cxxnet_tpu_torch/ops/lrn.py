@@ -21,6 +21,7 @@ the kernels.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -96,10 +97,11 @@ def _check(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
                              f"{x.dtype} {tuple(x.shape)} on one device")
 
 
-#: the backward's routes (csrc/lrn.cu LrnRoute), chosen by :func:`bwd_plan`:
-#: the window pipelined in registers, for the windows in WINDOW_SIZES; a
-#: ring of the last min(n, C) channels in shared memory; or, where that
-#: ring does not fit, each window recomputed
+#: the routes (csrc/lrn.cu LrnRoute): the window pipelined in registers,
+#: for the windows in WINDOW_SIZES; in the backward (:func:`bwd_plan`) a
+#: ring of the last min(n, C) channels in shared memory, or, where that
+#: ring does not fit, each window recomputed; in the forward
+#: (:func:`fwd_plan`) each output's window summed again ("recompute")
 BWD_ROUTES = ("window", "ring", "recompute")
 #: windows with a window-route instance (csrc/lrn.cu LRN_WINDOWS)
 WINDOW_SIZES = (3, 4, 5, 7)
@@ -110,12 +112,19 @@ _SMEM = 232448
 #: allows (16 / itemsize columns a thread)
 _PIECE = 16
 #: threads an SM holds on the window route, by columns a thread (the
-#: kernel's launch bounds: 8 blocks an SM at one column, 3 wider)
+#: kernels' launch bounds: the backward 8 blocks an SM at one column, 3
+#: wider; the forward 8 and 4)
 _RESIDENT = {1: 8 * _THREADS, 4: 3 * _THREADS, 8: 3 * _THREADS}
+_FWD_RESIDENT = {1: 8 * _THREADS, 4: 4 * _THREADS, 8: 4 * _THREADS}
+#: the waves of that residency a window-route grid should fill, C cut
+#: into chunks where the columns alone fill fewer: the backward half a
+#: wave, the forward two (at AlexNet's lrn1 NCHW on an H100, 1.4 waves
+#: of columns ran 0.0454 ms, 2.8 waves in two chunks 0.0376: PERF.md)
+_BWD_WAVES, _FWD_WAVES = 0.5, 2
 
 
-class BwdPlan(NamedTuple):
-    """How the backward covers an (outer, C, inner) array."""
+class Plan(NamedTuple):
+    """How a kernel covers an (outer, C, inner) array."""
     route: str      # one of BWD_ROUTES
     vec: int        # window route: columns a thread (16-byte pieces if > 1)
     chunk: int      # window route: channels a thread writes
@@ -124,54 +133,79 @@ class BwdPlan(NamedTuple):
     smem: int       # ring route: dynamic shared memory bytes a block
 
 
+def _window_plan(outer: int, c: int, inner: int, nsize: int, itemsize: int,
+                 aligned: bool, sms: int, resident: dict,
+                 waves: float) -> Plan:
+    """The window route: 16 / itemsize neighbouring columns a thread where
+    the inner axis holds whole 16-byte pieces and the tensors are
+    aligned, else one; where the columns fill fewer than ``waves`` waves
+    of the card's ``sms`` SMs (``resident`` threads an SM by columns a
+    thread), c cut into chunks of at least 4 (n - 1) channels, each
+    walked by threads of their own (a chunk reads the n - 1 channels on
+    either side of it again)."""
+    v = max(1, _PIECE // itemsize)
+    if not (aligned and inner % v == 0):
+        v = 1
+    groups = outer * (inner // v)
+    want = math.ceil(waves * sms * resident[v] / groups)
+    nchunks = max(1, min(want, c // (4 * (nsize - 1))))
+    chunk = -(-c // nchunks)
+    nchunks = -(-c // chunk)
+    return Plan("window", v, chunk, _THREADS,
+                -(-groups // _THREADS) * nchunks, 0)
+
+
+def fwd_plan(outer: int, c: int, inner: int, nsize: int, itemsize: int,
+             aligned: bool = True, sms: int = 132) -> Plan:
+    """The forward's launch plan for x viewed as (outer, c, inner), the
+    window along c; ``aligned``: x and y start on 16-byte boundaries.
+    The windows in WINDOW_SIZES take the window route
+    (:func:`_window_plan`), any other a column a thread on the recompute
+    route."""
+    if nsize in WINDOW_SIZES:
+        return _window_plan(outer, c, inner, nsize, itemsize, aligned, sms,
+                            _FWD_RESIDENT, _FWD_WAVES)
+    cols = outer * inner
+    return Plan("recompute", 1, c, _THREADS, -(-cols // _THREADS), 0)
+
+
 def bwd_plan(outer: int, c: int, inner: int, nsize: int, itemsize: int,
-             aligned: bool = True, sms: int = 132) -> BwdPlan:
+             aligned: bool = True, sms: int = 132) -> Plan:
     """The backward's launch plan for x viewed as (outer, c, inner), the
     window along c; ``aligned``: x, g and dx start on 16-byte boundaries.
 
-    The window route gives a thread 16 / itemsize neighbouring columns
-    where the inner axis holds whole 16-byte pieces ((H, W, C, N)), else
-    one (NCHW's odd H*W).  Where the columns fill less than half of the
-    card's ``sms`` SMs, c is cut into chunks of at least 4 (n - 1)
-    channels, each walked by threads of their own (a chunk reads the n -
-    1 channels on either side of it again).  Other windows take the ring
-    route while a ring of min(n, c) channels fits a block of 32 threads
-    or more, else the recompute route."""
+    The windows in WINDOW_SIZES take the window route
+    (:func:`_window_plan`).  Other windows take the ring route while a
+    ring of min(n, c) channels fits a block of 32 threads or more, else
+    the recompute route."""
     if nsize in WINDOW_SIZES:
-        v = max(1, _PIECE // itemsize)
-        if not (aligned and inner % v == 0):
-            v = 1
-        groups = outer * (inner // v)
-        want = -(-sms * _RESIDENT[v] // (2 * groups))
-        nchunks = max(1, min(want, c // (4 * (nsize - 1))))
-        chunk = -(-c // nchunks)
-        nchunks = -(-c // chunk)
-        return BwdPlan("window", v, chunk, _THREADS,
-                       -(-groups // _THREADS) * nchunks, 0)
+        return _window_plan(outer, c, inner, nsize, itemsize, aligned, sms,
+                            _RESIDENT, _BWD_WAVES)
     cols = outer * inner
     r = min(nsize, c)
     for nt in (_THREADS, _THREADS // 2, _THREADS // 4):
         if 8 * r * nt <= _SMEM:
-            return BwdPlan("ring", 1, c, nt, -(-cols // nt), 8 * r * nt)
-    return BwdPlan("recompute", 1, c, _THREADS, -(-cols // _THREADS), 0)
+            return Plan("ring", 1, c, nt, -(-cols // nt), 8 * r * nt)
+    return Plan("recompute", 1, c, _THREADS, -(-cols // _THREADS), 0)
 
 
 def _launch(what: str, x, g, outer: int, c: int, inner: int, nsize, alpha,
             beta, knorm):
-    """The kernel on x viewed as (outer, c, inner), the window along c;
-    the backward, on the route :func:`bwd_plan` picks, when the output
-    gradient g is given."""
+    """The kernel on x viewed as (outer, c, inner), the window along c:
+    the forward on the route :func:`fwd_plan` picks, or, when the output
+    gradient g is given, the backward on the route :func:`bwd_plan`
+    picks."""
     out = torch.empty_like(x)
-    route = vec = chunk = 0
-    if g is not None:
-        plan = bwd_plan(outer, c, inner, nsize, x.element_size(), all(
-            t.data_ptr() % 16 == 0 for t in (x, g, out)))
-        route, vec, chunk = BWD_ROUTES.index(plan.route), plan.vec, plan.chunk
+    tensors = (x, out) if g is None else (x, g, out)
+    plan = (fwd_plan if g is None else bwd_plan)(
+        outer, c, inner, nsize, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in tensors))
     err = build.LIBRARY.get().cxn_lrn(
         int(g is not None), x.data_ptr(), 0 if g is None else g.data_ptr(),
         out.data_ptr(), outer, c, inner, nsize, float(alpha / nsize),
-        float(beta), float(knorm), route, vec, chunk,
-        build.DTYPE_CODES[x.dtype], build.stream_handle(x.device))
+        float(beta), float(knorm), BWD_ROUTES.index(plan.route), plan.vec,
+        plan.chunk, build.DTYPE_CODES[x.dtype],
+        build.stream_handle(x.device))
     build.check(err, what)
     return out
 

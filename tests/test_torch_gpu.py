@@ -163,7 +163,9 @@ def test_layernorm_kernel_matches_plain(cuda, rows, d, xdt, gdt):
     ((1, 77, 128), False),       # widest wgmma head, ragged
     ((4, 64, 40), False),        # head width not a multiple of 32
     ((2, 320, 128), True),       # several tiles per row and column
-    ((2, 130, 136), True),       # the CUDA cores' 32-row tiles, ragged
+    ((2, 130, 136), True),       # above 128 columns, ragged: the wide
+                                 # wgmma tiles (bf16), the CUDA cores'
+                                 # 32-row tiles (float32)
     ((1, 77, 256), False),       # widest head
     ((2, 200, 192), True),
 ])
@@ -242,7 +244,8 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
 # ------------------------------------------- the wgmma kernels' tile edges
 # The bf16 forward takes 128 query rows a block and 128-row K / V stages,
 # the dq kernel 128 query rows and 64-row K / V stages, the dk/dv kernel
-# 128 key rows and 64-row Q / dO stages.
+# 128 key rows and 64-row Q / dO stages (up to 128 columns; wider, the
+# backward's blocks hold 64 rows).
 
 def _bf16_fwd_bwd(shape, causal, gen, seg=None):
     """bf16 forward and backward (twice, bitwise equal) against their
@@ -319,12 +322,12 @@ def test_flash_seg_kernels_tile_aligned_documents(cuda, d):
 
 @pytest.mark.parametrize("d,fwd_bf16,bwd_bf16", [
     (8, "wgmma", "wgmma"), (40, "wgmma", "wgmma"), (64, "wgmma", "wgmma"),
-    (128, "wgmma", "wgmma"), (136, "mma.sync", "simt"),
-    (256, "mma.sync", "simt"), (264, None, None)])
+    (128, "wgmma", "wgmma"), (136, "mma.sync", "wgmma"),
+    (256, "mma.sync", "wgmma"), (264, None, None)])
 def test_flash_route_by_head_width(cuda, d, fwd_bf16, bwd_bf16):
-    """Which kernel each head width takes: bf16 through wgmma up to 128
-    columns, above that the forward through mma.sync and the backward on
-    the CUDA cores; float32 on the CUDA cores; no kernel above 256."""
+    """Which kernel each head width takes: the bf16 backward through wgmma
+    at every width, the bf16 forward up to 128 columns and through
+    mma.sync above; float32 on the CUDA cores; no kernel above 256."""
     if fwd_bf16 is None:
         for backward in (False, True):
             for dtype in (torch.bfloat16, torch.float32):
@@ -335,6 +338,32 @@ def test_flash_route_by_head_width(cuda, d, fwd_bf16, bwd_bf16):
     assert fa.kernel_route(d, torch.float32) == "simt"
     assert fa.kernel_route(d, torch.bfloat16, backward=True) == bwd_bf16
     assert fa.kernel_route(d, torch.float32, backward=True) == "simt"
+
+
+def test_flash_bwd_wgmma_at_every_bf16_head_width(cuda):
+    """No bf16 backward reaches the CUDA-core kernels: every head width
+    the kernels take, 8 to 256, goes through wgmma."""
+    for d in range(8, 257, 8):
+        assert fa.kernel_route(d, torch.bfloat16, backward=True) == "wgmma"
+
+
+# The bf16 backward above 128 columns: the 192-column instance to 192,
+# the 256-column one above (d zero-filled to them), 64-row q- and
+# k-tiles, two 64-row stages of each ring.
+@pytest.mark.parametrize("d", [136, 144, 192, 200, 256])
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 4096])
+@pytest.mark.parametrize("mode", ["causal", "dense", "segmented"])
+def test_flash_wide_bwd_matches_plain(cuda, d, s, mode):
+    """The wide bf16 backward (and the forward before it) against the
+    plain versions at the existing tolerances, dense causal and not and
+    segmented, from one row to the main path's sequence length; two runs
+    bitwise equal."""
+    assert fa.kernel_route(d, torch.bfloat16, backward=True) == "wgmma"
+    seg = None
+    if mode == "segmented":
+        seg = _segments(2, s, torch.Generator().manual_seed(s + d))
+    _bf16_fwd_bwd((4 if seg is not None else 3, s, d), mode != "dense",
+                  cuda, seg)
 
 
 @pytest.mark.parametrize("d", [4, 12, 100])
@@ -934,6 +963,53 @@ def test_lrn_bwd_window_route_matches_plain(cuda, layout, shape, nsize,
         assert _row_rel(dx, ref) <= BF16_ROW_TOL
 
 
+@pytest.mark.parametrize("layout,shape", [
+    ("nchw", (256, 96, 27, 27)),   # AlexNet lrn1: C in one chunk
+    ("nchw", (256, 256, 13, 13)),  # lrn2: C in chunks
+    ("hwcn", (27, 27, 96, 256)),   # lrn1: 16-byte pieces, C in chunks
+    ("hwcn", (13, 13, 256, 128)),  # lrn2 (batch cut)
+    ("hwcn", (5, 9, 7, 3)),        # images in no whole piece
+])
+@pytest.mark.parametrize("nsize", [3, 4, 5, 7, 9, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lrn_fwd_routes_match_plain(cuda, layout, shape, nsize, dtype,
+                                    offset):
+    """The LRN forward in both views at AlexNet's layers: the window route
+    at the compiled windows (16-byte pieces of images where N and the
+    alignment allow, else a column a thread) and the recompute route at
+    9 and 33; x aligned or one element off.  The plan, one launch a
+    call, two runs bitwise equal, and the plain version's y (float32 at
+    1e-4, bf16 per row at 2^-6)."""
+    x = _at_offset((torch.randn(shape, generator=cuda, device="cuda") * 3
+                    ).to(dtype), offset)
+    args = (nsize, 0.01, 0.75, 1.0)
+    if layout == "nchw":
+        outer, c, inner = shape[0], shape[1], shape[2] * shape[3]
+        run, plain = lrn.lrn_fwd, lrn.lrn_fwd_plain
+    else:
+        outer, c, inner = shape[0] * shape[1], shape[2], shape[3]
+        run, plain = lrn.lrn_hwcn_fwd, lrn.lrn_hwcn_fwd_plain
+    v = 16 // x.element_size()
+    plan = lrn.fwd_plan(outer, c, inner, nsize, x.element_size(),
+                        aligned=offset == 0)
+    if nsize in lrn.WINDOW_SIZES:
+        assert plan.route == "window"
+        assert plan.vec == (v if offset == 0 and inner % v == 0 else 1)
+    else:
+        assert plan.route == "recompute"
+    before = run.launches
+    y, again = run(x, *args), run(x, *args)
+    ref = plain(x, *args)
+    torch.cuda.synchronize()
+    assert run.launches - before == 2
+    assert torch.equal(y, again) and y.dtype == dtype
+    if dtype == torch.float32:
+        assert _rel(y, ref) <= F32_TOL
+    else:
+        assert _row_rel(y, ref) <= BF16_ROW_TOL
+
+
 @pytest.mark.parametrize("shape,geom,want", [
     ((4, 96, 55, 55), (3, 3, 2, 0, 0), "cells"),     # AlexNet pool1
     ((20, 97, 27, 27), (3, 3, 2, 0, 0), "cells"),    # a ragged last group
@@ -972,7 +1048,7 @@ def test_max_pool_fwd_routes_match_plain_bitwise(cuda, shape, geom, want,
 def test_lm_step_routes_attention_by_head_width(cuda, tmp_path, dim, nhead,
                                                 dense):
     """One training step of a depth-1 bf16 packed LM: at head widths 256
-    (the CUDA-core backward), 128 (wgmma) and 12 (widened to 16) the
+    (the wide wgmma backward), 128 (wgmma) and 12 (widened to 16) the
     segmented flash kernels run forward and backward once, and at 264,
     above every kernel, the attention takes the dense route once and
     runs no flash kernel; the loss is finite either way."""

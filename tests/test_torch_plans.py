@@ -1,8 +1,9 @@
 """Launch plans of the port's kernels, decided in Python from the shape,
 on the CPU.
 
-The layernorm backward (``layernorm.bwd_plan``), the LRN backward
-(``lrn.bwd_plan``) and the max-pool forward and all-ties backward
+The layernorm backward (``layernorm.bwd_plan``), the LRN forward and
+backward (``lrn.fwd_plan``, ``lrn.bwd_plan``) and the max-pool forward
+and all-ties backward
 (``pool.fwd_plan``, ``pool.bwd_plan``) are launched by the CUDA kernels
 exactly as their plans say, so the plans carry the properties the
 kernels rely on: every row, column, channel, input and output element is
@@ -231,6 +232,110 @@ def test_lrn_bwd_window_walk_sums_chwin_windows(nsize):
                 assert xs == list(range(max(0, c0 - nsize + 1),
                                         min(c, c1 + nsize - 1)))
                 assert gs == list(range(max(0, c0 - hi), min(c, c1 + lo)))
+
+
+@pytest.mark.parametrize("nsize", [1, 2, 3, 4, 5, 7, 9, 33, 64, 1000])
+def test_lrn_fwd_plan_takes_every_window(nsize):
+    """Every window n >= 1 at every C and column count has a forward
+    route: the window route at the compiled windows, whose chunks cover
+    every channel once, else the recompute route (one thread a column,
+    every channel)."""
+    for c in range(1, 301):
+        for outer, inner in ((1, 1), (3, 5), (256, 729), (169, 256)):
+            for aligned in (False, True):
+                plan = lrn.fwd_plan(outer, c, inner, nsize, 2, aligned)
+                if nsize in lrn.WINDOW_SIZES:
+                    assert plan.route == "window" and plan.smem == 0
+                    nchunks = -(-c // plan.chunk)
+                    starts = range(0, c, plan.chunk)
+                    covered = [j for c0 in starts
+                               for j in range(c0, min(c, c0 + plan.chunk))]
+                    assert covered == list(range(c))
+                    assert (nchunks - 1) * plan.chunk < c
+                    groups = outer * inner // plan.vec
+                    assert plan.vec in (1, 8)
+                    assert plan.vec == 1 or (aligned and inner % 8 == 0)
+                    assert plan.blocks == -(-groups // plan.threads) * nchunks
+                else:
+                    assert plan.route == "recompute" and plan.chunk == c
+                    assert plan.blocks == -(-outer * inner // plan.threads)
+
+
+@pytest.mark.parametrize("layer", sorted(LRN_LAYERS))
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_lrn_fwd_plan_fast_route_at_alexnets_layers(layer, itemsize):
+    """Both views of lrn1 and lrn2 take the forward's window route: NCHW
+    a column a thread, (H, W, C, N) 16-byte pieces of images unless a
+    tensor is off 16-byte alignment; the grid fills two waves of the
+    card's window-route residency, or C is cut into the most chunks of
+    4 (n - 1) channels or more; every view of both layers runs in
+    chunks."""
+    n, c, h, w = LRN_LAYERS[layer]
+    v = 16 // itemsize
+    for outer, inner, vec in ((n, h * w, 1), (h * w, n, v)):
+        plan = lrn.fwd_plan(outer, c, inner, 5, itemsize)
+        assert plan.route == "window" and plan.vec == vec
+        assert 4 * (5 - 1) <= plan.chunk < c
+        groups = outer * inner // vec
+        nchunks = -(-c // plan.chunk)
+        assert plan.blocks == -(-groups // plan.threads) * nchunks
+        assert (groups * nchunks >= 2 * 132 * lrn._FWD_RESIDENT[vec]
+                or nchunks >= c // (4 * (5 - 1)))
+        assert lrn.fwd_plan(outer, c, inner, 5, itemsize,
+                            aligned=False).vec == 1
+
+
+def _lrn_fwd_window_walk(c, nsize, chunk, ahead=4):
+    """The forward's window route (csrc/lrn.cu lrn_fwd_window_kernel) over
+    one column, on channel indices: for each channel written, the
+    channels its norm summed (ascending), and the channels each chunk's
+    walk loaded.  None stands for a zero (a channel outside the walk)."""
+    lo, hi = nsize // 2, nsize - 1 - nsize // 2
+    ok = lambda j: j if 0 <= j < c else None  # noqa: E731
+    norms, written, loads = {}, [], []
+    for c0 in range(0, c, chunk):
+        c1 = min(c, c0 + chunk)
+        xend = min(c, c1 + hi)
+        okx = lambda j: j if 0 <= j < xend else None  # noqa: E731
+        xr = [None] + [okx(c0 - lo - 1 + j) for j in range(1, nsize)]
+        t0 = c0 + hi
+        qx = [okx(t0 + j) for j in range(ahead)]
+        xs = [j for j in xr + qx if j is not None]
+        for s in range(c1 - c0):
+            t = t0 + s
+            xn = qx.pop(0)
+            qx.append(okx(t + ahead))
+            xs += [j for j in qx[-1:] if j is not None]
+            xr = xr[1:] + [xn]
+            a = t - hi
+            assert xr[lo] == ok(a)
+            written.append(a)
+            norms[a] = [j for j in xr if j is not None]
+        loads.append(xs)
+    return norms, written, loads
+
+
+@pytest.mark.parametrize("nsize", range(1, 13))
+@pytest.mark.parametrize("ahead", [4, 8])
+def test_lrn_fwd_window_walk_sums_chwin_windows(nsize, ahead):
+    """At every chunking of C up to 40, the forward's window walk writes
+    each channel once, sums its norm over chwin_sum's window from the
+    lowest channel up, and loads each x channel of its chunk and halo
+    once."""
+    for c in range(1, 41):
+        fwd = _chwin_members(c, nsize, False)
+        for chunk in sorted({1, 2, 3, nsize, 7, 16, c}):
+            if chunk > c:
+                continue
+            norms, written, loads = _lrn_fwd_window_walk(c, nsize, chunk,
+                                                         ahead)
+            assert written == list(range(c))
+            for j in range(c):
+                assert norms[j] == fwd[j], (c, chunk, j)
+            lo, hi = nsize // 2, nsize - 1 - nsize // 2
+            for k, xs in enumerate(loads):
+                c0, c1 = k * chunk, min(c, (k + 1) * chunk)
+                assert xs == list(range(max(0, c0 - lo), min(c, c1 + hi)))
 
 
 # -------------------------------------------------------------- max pool

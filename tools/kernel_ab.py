@@ -6,13 +6,14 @@ CUDA card.
     python3 tools/kernel_ab.py --kernel KERNEL ROOT ROOT@NAME=VALUE[@...]
 
 KERNEL is one of flash, wgrad, layernorm_bwd, max_pool_bwd, lrn_bwd,
-max_pool_fwd.
+max_pool_fwd, lrn_fwd.
 
 Each ROOT holds a ``cxxnet_tpu_torch/`` package (a checkout, or a copy
 with edited kernels under a git-ignored directory).  ``@NAME=VALUE``
 after a root sets the kernel's ops module's attribute NAME to the Python
-literal VALUE in that run (a plan constant: ``lrn_bwd`` and
-``max_pool_fwd`` take ``_PIECE``, ``_RESIDENT``, ``FWD_SMEM``), so one
+literal VALUE in that run (a plan constant: ``lrn_bwd``, ``lrn_fwd`` and
+``max_pool_fwd`` take ``_PIECE``, ``_RESIDENT``, ``_FWD_RESIDENT``,
+``FWD_SMEM``), so one
 tree's plan variants need no second build.  The trees' kernels are
 built first, all builds started together; then each run goes in a
 process of its own, in the order A B .. B A, so drift of the card shows
@@ -23,7 +24,10 @@ line:
   shapes, bf16: the forward at the served (16, 4096, 128) and the
   training (64, 4096, 128) causal shapes, the backward at the training
   shape, and the segmented forward and backward on chip_smoke.py's
-  seeded documents; median milliseconds (CUDA events), with the largest
+  seeded documents; then the same at head width 256: dense causal at
+  (16, 4096, 256) and segmented at the train_hd256 path's (32, 4096,
+  256) (``hd256_``), and at head width 192 on the same shapes
+  (``hd192_``); median milliseconds (CUDA events), with the largest
   per-row error against the plain versions.
 - ``wgrad``: rows 5 and 6 at AlexNet's conv1 (x (256, 3, 227, 227) to dy
   (256, 96, 55, 55), 11x11 stride 4, bf16): ``conv_wgrad_hwcn_pallas``'s
@@ -48,6 +52,9 @@ line:
   MNIST_CONV's (100, 32, 14, 14), k3 s2 bf16, on inputs with many tied
   maxima: device ms and call ms, and whether every y is bitwise equal
   to the plain version's.
+- ``lrn_fwd``: rows 1 and 2's forward as ``lrn_bwd`` times the
+  backward: lrn1 and lrn2, window 5, bf16, both views, device ms and
+  call ms, and the largest per-row error against the plain versions.
 
 Needs a CUDA device.
 """
@@ -63,7 +70,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the ops module each kernel's timing imports from a tree
 MODULES = {"flash": "flash_attention", "wgrad": "conv_wgrad",
            "layernorm_bwd": "layernorm", "max_pool_bwd": "pool",
-           "lrn_bwd": "lrn", "max_pool_fwd": "pool"}
+           "lrn_bwd": "lrn", "max_pool_fwd": "pool", "lrn_fwd": "lrn"}
 
 
 def _load(spec: str, kernel: str):
@@ -130,28 +137,38 @@ def time_flash(cs, fa) -> dict:
     q, k, v = (randn(cs.NHEAD, cs.SEQ, cs.DIM // cs.NHEAD) for _ in range(3))
     out["fwd_served_ms"] = cs.time_ms(
         lambda: fa.flash_attention_fwd(q, k, v, True), reps=20)
-    b, h, s, d = cs.TRAIN_BATCH, cs.NHEAD, cs.SEQ, cs.DIM // cs.NHEAD
-    q, k, v, do = (randn(b * h, s, d) for _ in range(4))
-    seg = torch.from_numpy(cs.seeded_segments(np.random.RandomState(3), b, s,
-                                              512)).to(dev)
     errs = []
-    for tag, fwd, bwd, fwd_plain, bwd_plain in (
-            ("", lambda: fa.flash_attention_fwd(q, k, v, True),
-             lambda o, l: fa.flash_attention_bwd(q, k, v, o, l, do, True),
-             lambda: fa.flash_attention_fwd_plain(q, k, v, True),
-             lambda o, l: fa.flash_attention_bwd_plain(q, k, v, o, l, do,
-                                                       True)),
-            ("seg_", lambda: fa.flash_attention_seg_fwd(q, k, v, seg),
-             lambda o, l: fa.flash_attention_seg_bwd(q, k, v, seg, o, l, do),
-             lambda: fa.flash_attention_seg_fwd_plain(q, k, v, seg),
-             lambda o, l: fa.flash_attention_seg_bwd_plain(q, k, v, seg, o,
-                                                           l, do))):
-        out[f"{tag}fwd_ms"] = cs.time_ms(fwd, reps=20)
-        o, lse = fwd()
-        errs.append(cs.row_rel_err(o, fwd_plain()[0]))
-        out[f"{tag}bwd_ms"] = cs.time_ms(lambda: bwd(o, lse), reps=20)
-        errs += [cs.row_rel_err(g, r, cs.GRAD_ROW_FLOOR)
-                 for g, r in zip(bwd(o, lse), bwd_plain(o, lse))]
+    for prefix, dense_bh, b, h, d in (
+            ("", cs.TRAIN_BATCH * cs.NHEAD, cs.TRAIN_BATCH, cs.NHEAD,
+             cs.DIM // cs.NHEAD),
+            ("hd256_", 16, cs.TRAIN_BATCH, cs.WIDE_NHEAD, 256),
+            ("hd192_", 16, cs.TRAIN_BATCH, cs.WIDE_NHEAD, 192)):
+        s = cs.SEQ
+        q, k, v, do = (randn(b * h, s, d) for _ in range(4))
+        seg = torch.from_numpy(cs.seeded_segments(
+            np.random.RandomState(3), b, s, 512)).to(dev)
+        # dense causal on the first dense_bh slices, segmented on all
+        qd, kd, vd, dod = (t[:dense_bh] for t in (q, k, v, do))
+        for tag, fwd, bwd, fwd_plain, bwd_plain in (
+                ("", lambda: fa.flash_attention_fwd(qd, kd, vd, True),
+                 lambda o, l: fa.flash_attention_bwd(qd, kd, vd, o, l, dod,
+                                                     True),
+                 lambda: fa.flash_attention_fwd_plain(qd, kd, vd, True),
+                 lambda o, l: fa.flash_attention_bwd_plain(
+                     qd, kd, vd, o, l, dod, True)),
+                ("seg_", lambda: fa.flash_attention_seg_fwd(q, k, v, seg),
+                 lambda o, l: fa.flash_attention_seg_bwd(q, k, v, seg, o, l,
+                                                         do),
+                 lambda: fa.flash_attention_seg_fwd_plain(q, k, v, seg),
+                 lambda o, l: fa.flash_attention_seg_bwd_plain(
+                     q, k, v, seg, o, l, do))):
+            out[f"{prefix}{tag}fwd_ms"] = cs.time_ms(fwd, reps=20)
+            o, lse = fwd()
+            errs.append(cs.row_rel_err(o, fwd_plain()[0]))
+            out[f"{prefix}{tag}bwd_ms"] = cs.time_ms(lambda: bwd(o, lse),
+                                                     reps=20)
+            errs += [cs.row_rel_err(g, r, cs.GRAD_ROW_FLOOR)
+                     for g, r in zip(bwd(o, lse), bwd_plain(o, lse))]
     out["max_row_err"] = max(errs)
     return out
 
@@ -224,7 +241,8 @@ def time_max_pool_bwd(cs, pool) -> dict:
     return out
 
 
-def time_lrn_bwd(cs, lrn) -> dict:
+def _time_lrn(cs, lrn, backward: bool) -> dict:
+    """Rows 1 and 2's forward or backward at lrn1 and lrn2, both views."""
     import torch
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -237,16 +255,30 @@ def time_lrn_bwd(cs, lrn) -> dict:
         g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         xt = x.permute(lrn.TO_HWCN).contiguous()
         gt = g.permute(lrn.TO_HWCN).contiguous()
-        for view, run, plain in (
-                ("nchw", lambda: lrn.lrn_bwd(x, g, *args),
-                 lambda: lrn.lrn_bwd_plain(x, g, *args)),
-                ("hwcn", lambda: lrn.lrn_hwcn_bwd(xt, gt, *args),
-                 lambda: lrn.lrn_hwcn_bwd_plain(xt, gt, *args))):
+        if backward:
+            views = (("nchw", lambda: lrn.lrn_bwd(x, g, *args),
+                      lambda: lrn.lrn_bwd_plain(x, g, *args)),
+                     ("hwcn", lambda: lrn.lrn_hwcn_bwd(xt, gt, *args),
+                      lambda: lrn.lrn_hwcn_bwd_plain(xt, gt, *args)))
+        else:
+            views = (("nchw", lambda: lrn.lrn_fwd(x, *args),
+                      lambda: lrn.lrn_fwd_plain(x, *args)),
+                     ("hwcn", lambda: lrn.lrn_hwcn_fwd(xt, *args),
+                      lambda: lrn.lrn_hwcn_fwd_plain(xt, *args)))
+        for view, run, plain in views:
             errs.append(cs.row_rel_err(run(), plain()))
             out[f"{tag}_{view}_ms"] = cs.device_ms(run)
             out[f"{tag}_{view}_call_ms"] = cs.time_ms(run, 20)
     out["max_row_err"] = max(errs)
     return out
+
+
+def time_lrn_bwd(cs, lrn) -> dict:
+    return _time_lrn(cs, lrn, True)
+
+
+def time_lrn_fwd(cs, lrn) -> dict:
+    return _time_lrn(cs, lrn, False)
 
 
 def time_max_pool_fwd(cs, pool) -> dict:
@@ -272,7 +304,7 @@ def time_max_pool_fwd(cs, pool) -> dict:
 TIMERS = {"flash": time_flash, "wgrad": time_wgrad,
           "layernorm_bwd": time_layernorm_bwd,
           "max_pool_bwd": time_max_pool_bwd, "lrn_bwd": time_lrn_bwd,
-          "max_pool_fwd": time_max_pool_fwd}
+          "max_pool_fwd": time_max_pool_fwd, "lrn_fwd": time_lrn_fwd}
 
 
 def time_tree(root: str, kernel: str) -> dict:
