@@ -19,9 +19,9 @@ Phases (any failure raises and exits non-zero):
    must be bitwise equal; then each kernel route at the edge of its
    domain (layernorm warp / block, conv wgrad wgmma / mma.sync, the
    attention layer's routes at head widths 264 (dense), 256 (the wide
-   wgmma backward), 128 and 12 (widened), the LRN backward at windows
-   of 33 and 64 channels; the forward and backward at head width 256,
-   dense and segmented, timed beside sdpa's);
+   wgmma kernels), 128 and 12 (widened), the LRN backward at windows
+   of 33 and 64 channels; the forward and backward at head widths 256
+   and 192, dense and segmented, timed beside sdpa's);
 3. serve path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
    the d2048 / 12-layer / s4096 / bf16 transformer LM (random weights
    from a seed, written as a ``.model``) to concurrent clients, twice
@@ -66,8 +66,8 @@ Phases (any failure raises and exits non-zero):
    per-batch latencies, and one round of ``task = finetune`` from it;
 12. head-width-256 train path (``train_hd256``): the packed LM of phase
    5 with 8 heads of 256 columns at depth 2, WIDE_STEPS steps: finite,
-   falling loss, and every step through the segmented flash forward and
-   the wide wgmma backward.
+   falling loss, and every step through the wide wgmma segmented flash
+   forward and backward.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -422,7 +422,8 @@ def phase_env():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.LIBRARY.build_sec:.2f} s)")
     for line in build.LIBRARY.build_log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if ("registers" in line or line.startswith("==")
+                or "arning" in line or "Performance Loss" in line):
             log(f"  ptxas: {line.strip()}")
     for name, props in wgmma_ptxas(build.LIBRARY.build_log):
         log(f"  ptxas {name}: {props} (shared memory: dynamic, at launch)")
@@ -937,10 +938,10 @@ def phase_route_kernels():
     bf16 and float32; the attention layer under ``flash_attn = 1`` with a
     gradient and segment ids at head width 264 (the dense route, as the
     JAX package takes it: no flash launch, one dense route), 256 (the
-    segmented flash forward and the wide wgmma backward), 128 (wgmma) and
+    wide wgmma segmented flash forward and backward), 128 (wgmma) and
     12 (the kernels on q, k, v widened to 16), output and input gradient
-    against ``flash_attn = 0``; the flash kernels at head width 256
-    (:func:`wide_head_kernels`); and the LRN backward in both
+    against ``flash_attn = 0``; the flash kernels at head widths 256 and
+    192 (:func:`wide_head_kernels`); and the LRN backward in both
     layouts at windows of 33 and 64 channels (AlexNet's lrn1, C = 96),
     launches counted."""
     import torch
@@ -1128,21 +1129,24 @@ def phase_route_kernels():
 
 
 def wide_head_kernels(gen) -> None:
-    """Rows 7-10 at head width 256, bf16: the forward (mma.sync) and the
-    wide wgmma backward, dense causal at (16, 4096, 256) and segmented at
-    the train_hd256 path's (32, 4096, 256) on seeded documents, against
-    their plain versions (the backward twice, bitwise equal), each timed
-    beside sdpa's forward or backward on the same inputs."""
+    """Rows 7-10 at head widths 256 (the 256-column instances) and 192
+    (the 192-column ones), bf16: the wide wgmma forward and backward,
+    dense causal at (16, 4096, d) and segmented at the train_hd256 path's
+    (32, 4096, d) on seeded documents, against their plain versions (the
+    backward twice, bitwise equal), each timed beside sdpa's forward or
+    backward on the same inputs."""
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import flash_attention as fa
     dev = torch.device("cuda", 0)
-    d = DIM // WIDE_NHEAD
-    routes = (fa.kernel_route(d, torch.bfloat16),
-              fa.kernel_route(d, torch.bfloat16, backward=True))
-    if routes != ("mma.sync", "wgmma"):
-        raise AssertionError(f"flash at head width {d}: routes {routes}")
-    for tag, b, h in (("dense", 1, 16), ("seg", TRAIN_BATCH, WIDE_NHEAD)):
+    for d, tag, b, h in ((DIM // WIDE_NHEAD, "dense", 1, 16),
+                         (DIM // WIDE_NHEAD, "seg", TRAIN_BATCH, WIDE_NHEAD),
+                         (192, "dense", 1, 16),
+                         (192, "seg", TRAIN_BATCH, WIDE_NHEAD)):
+        routes = (fa.kernel_route(d, torch.bfloat16),
+                  fa.kernel_route(d, torch.bfloat16, backward=True))
+        if routes != ("wgmma", "wgmma"):
+            raise AssertionError(f"flash at head width {d}: routes {routes}")
         s_len, bh = SEQ, b * h
         q, k, v, do = (torch.randn((bh, s_len, d), generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
@@ -1188,19 +1192,19 @@ def wide_head_kernels(gen) -> None:
                                             is_causal=mask is None)
         sdpa_bwd = lambda: torch.autograd.grad(
             og, (qg, kg, vg), do.view(b, h, s_len, d), retain_graph=True)
-        t_fwd = dict(ms=device_ms(fwd, 10), library_ms=device_ms(sdpa_fwd,
-                                                                 10))
+        t_fwd = timings(fwd, None, sdpa_fwd, 10)
         t_bwd = timings(bwd, None, sdpa_bwd, 5)
         fbnd = bound(4.0 * d * pairs, 4 * bh * s_len * d * 2 + 4 * bh * s_len
                      + extra, "bfloat16")
         bbnd = bound(10.0 * d * pairs, 8 * bh * s_len * d * 2
                      + 4 * bh * s_len + extra, "bfloat16")
         log(f"flash {tag} ({bh}, {s_len}, {d}) causal bf16: forward "
-            f"(mma.sync) {t_fwd['ms']:.4f} ms device, sdpa "
-            f"{t_fwd['library_ms']:.4f}, bound {fbnd['bound_ms']:.4f} ms "
+            f"({routes[0]}) {times_note(t_fwd)} (sdpa), bound "
+            f"{fbnd['bound_ms']:.4f} ms "
             f"({rate(4.0 * d * pairs, t_fwd['ms'], fbnd['bound_ms'])}), "
             f"errors o {ferr[0]:.3e} (tol {BF16_ROW_TOL:g}) lse "
-            f"{ferr[1]:.3e}; backward (wgmma) {times_note(t_bwd)} (sdpa "
+            f"{ferr[1]:.3e} (tol {F32_TOL:g}); backward ({routes[1]}) "
+            f"{times_note(t_bwd)} (sdpa "
             f"backward), bound {bbnd['bound_ms']:.4f} ms ("
             f"{rate(10.0 * d * pairs, t_bwd['ms'], bbnd['bound_ms'])}), "
             f"errors {', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); "
@@ -1741,6 +1745,16 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
                 "layernorm_fwd": 2 * nlayer + 1,
                 "layernorm_bwd": 2 * nlayer + 1}
     short = {k: per_step[k] for k, n in want.items() if per_step[k] < n}
+    if wide:
+        from cxxnet_tpu_torch.ops import flash_attention as fa
+        hd = DIM // nhead
+        routes = (fa.kernel_route(hd, torch.bfloat16),
+                  fa.kernel_route(hd, torch.bfloat16, backward=True))
+        log(f"{label}: flash forward / backward route at head width {hd} "
+            f"bf16: {routes}")
+        if routes != ("wgmma", "wgmma"):
+            raise AssertionError(f"{label}: flash routes {routes} at head "
+                                 f"width {hd}")
     if short:
         raise AssertionError(f"{label}: launches per step {short} below "
                              f"{want}: a layer did not run its kernel")

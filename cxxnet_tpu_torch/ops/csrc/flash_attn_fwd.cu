@@ -29,31 +29,43 @@
 // carries (acc, m, l) in VMEM scratch between grid steps; here one block
 // owns a (b*h, q-tile) and loops over the k-tiles itself, stopping at the
 // diagonal under the causal mask.  Blocks are issued heaviest-first (the
-// last q-tiles of every head before the first ones).  Three routes:
-//   * bf16, d <= 128 (the served and trained width): wgmma fed by a TMA
-//     ring, warp-specialised (flash_fwd_wgmma_kernel below).  A block of
-//     384 threads owns 128 query rows: a producer warpgroup, whose first
-//     warp loads the q-tile once and streams 128-row K and V tiles
-//     through a 2-stage ring in shared memory (TMA, 128-byte swizzle,
-//     mbarriers; a stage is freed when both consumers' p.V products have
-//     completed), and two consumer warpgroups of 64 query rows each.  A
-//     consumer computes S = Q K^T (wgmma m64n128k16, both operands in
-//     shared memory), the online softmax in registers in the exp2 domain
-//     (log2(e) folded into the scale; the mask evaluated only on tiles
-//     that cross the diagonal or the ragged end and, under SEG, on tiles
-//     whose keys do not all share the rows' one nonzero segment id, which
-//     the producer checks as it stages the ids), rounds p to bf16
-//     straight from the score accumulators into the A operand of
-//     O += p V (wgmma from registers, V read MN-major from the ring): p
-//     never touches shared memory.  setmaxnreg gives the consumers 240
-//     registers and the producer 24.  Widths are instantiated at 64 and
-//     128 columns; TMA fills the columns past d with zeros.  At d = 128
-//     the block holds Q (32 KB) and two stages of K + V (128 KB).  2
-//     products of the live tiles, as the bound counts, plus the masked
+// last q-tiles of every head before the first ones).  Two routes:
+//   * bf16, every width: wgmma fed by a TMA ring, warp-specialised
+//     (flash_fwd_wgmma_kernel below).  A block of 384 threads owns 128
+//     query rows: a producer warpgroup, whose first warp loads the
+//     q-tile once and streams K and V tiles through a 2-stage ring in
+//     shared memory (TMA, 128-byte swizzle, mbarriers; K and V of a
+//     stage have barriers of their own, so a K slot is refilled once
+//     both consumers' softmax of its stage is done, before their p V
+//     products of it complete), and two consumer warpgroups of 64
+//     query rows each.  A consumer computes S = Q K^T (wgmma, both
+//     operands in shared memory), the online softmax in registers in
+//     the exp2 domain (log2(e) folded into the scale; the mask
+//     evaluated only on tiles that cross the diagonal or the ragged end
+//     and, under SEG, on tiles whose keys do not all share the rows'
+//     one nonzero segment id, which the producer checks as it stages
+//     the ids), rounds p to bf16 straight from the score accumulators
+//     into the A operand of O += p V (wgmma from registers, V read
+//     MN-major from the ring): p never touches shared memory.  A
+//     consumer issues the next stage's S before this stage's p V and
+//     runs the next softmax while p V is in flight (FlashAttention-3's
+//     overlap inside a warpgroup).  setmaxnreg gives the consumers 240
+//     registers and the producer 24.  Instances at 64, 128, 192 and 256
+//     columns; TMA fills the columns past d with zeros.
+//       - Up to 128 columns the stages hold 128 key rows: Q (32 KB at
+//         d 128) and two stages of K + V (128 KB).
+//       - Wider, Q alone takes 64 KB at 256 columns and two 128-row
+//         stages of K + V 256 KB, and a consumer's 64 x 256 float32
+//         output is 128 registers a thread: the stages hold 64 key rows
+//         (Q 64 KB + two stages of 64 KB, ~194 KB at 256 columns; 176
+//         live registers: 128 of o, 32 of scores, 16 of p).  S is 16
+//         k-steps of an m64n64 product, p V 4 k-steps of two m64n128
+//         ones (192: n128 + n64).  Under the causal mask the block's
+//         last stage lies above consumer 0's rows; it skips it.  Widths
+//         136-192 take the 192-column instance (20% faster there than
+//         the 256-column one).
+//     2 products of the live tiles, as the bound counts, plus the masked
 //     halves of the diagonal tiles.
-//   * bf16, 128 < d <= 256: the earlier mma.sync m16n8k16 kernel
-//     (flash_fwd_mma_kernel: 64-row tiles staged through registers), at
-//     d rounded up to 16 (widths 136..256).
 //   * float32: products on the CUDA cores in float32, each warp owning
 //     8 query rows with their (8 x d) accumulator in registers.
 // PERF.md has their times against the bound.  The kernels allocate
@@ -238,17 +250,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16, d <= 128: wgmma, a TMA ring and warp specialisation (see the
+// bf16, every width: wgmma, a TMA ring and warp specialisation (see the
 // header).  Thread roles: threads 0..127 the producer warpgroup (only
 // its first warp works), 128..383 consumers c = 0, 1 owning query rows
 // q0 + 64c ... q0 + 64c + 63.  A consumer thread holds the m64n* wgmma
 // accumulator layout: rows g and g + 8 of its warp's 16 (g = lane / 4),
 // columns 8i + 2t, 8i + 2t + 1 of each n8 block i (t = lane % 4), in
-// registers 4i .. 4i + 3.
+// registers 4i .. 4i + 3.  Up to 128 columns (not WIDE) the ring's
+// stages hold 128 key rows; wider, 64 (two 128-row stages of K and V
+// would not fit beside Q).
 template <int D>
 struct FwdTiles {
+  static constexpr bool WIDE = D > 128;
   static constexpr int BM = 128;               // query rows per block
-  static constexpr int BK = 128;               // key rows per ring stage
+  static constexpr int BK = WIDE ? 64 : 128;   // key rows per ring stage
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
@@ -258,7 +273,10 @@ struct FwdTiles {
   // fh_stage_seg of the two row halves, then of each stage
   static constexpr int OFF_UNI = OFF_SEG + STAGES * BK * 4;
   static constexpr int OFF_BAR = OFF_UNI + 32;
-  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;
+  // Q's barrier, then `full` and `empty` of each K and each V slot
+  static constexpr int SMEM = OFF_BAR + (1 + 4 * STAGES) * 8 + 1024;
+  static_assert(2 + STAGES <= 8, "segment flags");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 template <int D, bool SEG>
@@ -277,14 +295,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int* sseg = reinterpret_cast<int*>(sm + L::OFF_SEG);
   int* suni = reinterpret_cast<int*>(sm + L::OFF_UNI);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
-  uint64_t* full = bar_q + 1;
-  uint64_t* empty = full + ST;
+  // K and V of a stage have barriers of their own: a K slot (with the
+  // stage's segment ids) is free once both consumers' softmax of the
+  // stage is done, a V slot once their p V products have completed
+  uint64_t* kfull = bar_q + 1;
+  uint64_t* vfull = kfull + ST;
+  uint64_t* kempty = vfull + ST;
+  uint64_t* vempty = kempty + ST;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
   const int n_kt = causal ? (min(q0 + BM, s_len) + BK - 1) / BK
                           : (s_len + BK - 1) / BK;
   const int* segb = SEG ? seg + (size_t)(bh / h) * s_len : nullptr;
-  fh_init_barriers<ST>(bar_q);
+  fh_init_barriers<2 * ST>(bar_q);
 
   if (threadIdx.x < 128) {  // producer
     fh_producer_regs();
@@ -302,19 +325,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int st = kt % ST, k0 = kt * BK;
-      if (kt >= ST) mbar_wait(&empty[st], (kt / ST - 1) & 1);
+      const uint32_t ph = (kt / ST - 1) & 1;
+      if (kt >= ST) mbar_wait(&kempty[st], ph);
       if (SEG) {
         const int u = fh_stage_seg(sseg + st * BK, segb, k0, BK, s_len, lane);
         if (lane == 0) suni[2 + st] = u;
       }
       if (lane == 0) {
-        mbar_arrive_tx(&full[st], 2 * L::KV_BYTES);
-        tma_tile<BK, D>(sm + L::OFF_K + st * L::KV_BYTES, &tk, &full[st],
-                        k0, bh);
-        tma_tile<BK, D>(sm + L::OFF_V + st * L::KV_BYTES, &tv, &full[st],
+        mbar_arrive_tx(&kfull[st], L::KV_BYTES);
+        tma_tile<BK, D>(sm + L::OFF_K + st * L::KV_BYTES, &tk, &kfull[st],
                         k0, bh);
       } else {
-        mbar_arrive(&full[st]);
+        mbar_arrive(&kfull[st]);
+      }
+      if (kt >= ST) mbar_wait(&vempty[st], ph);
+      if (lane == 0) {
+        mbar_arrive_tx(&vfull[st], L::KV_BYTES);
+        tma_tile<BK, D>(sm + L::OFF_V + st * L::KV_BYTES, &tv, &vfull[st],
+                        k0, bh);
+      } else {
+        mbar_arrive(&vfull[st]);
       }
     }
     return;
@@ -328,6 +358,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int gq0 = r0 + 16 * w + g, gq1 = gq0 + 8;
   const int sq0 = SEG && gq0 < s_len ? segb[gq0] : 0;
   const int sq1 = SEG && gq1 < s_len ? segb[gq1] : 0;
+  // Under the causal mask the consumer stops after the stage that holds
+  // its last live key: with 64-row stages, consumer 0 skips the block's
+  // last stage (keys q0 + 64 ..), which lies wholly above its rows.  It
+  // neither waits for that stage nor frees it: the producer only waits
+  // for `empty` of a slot it refills, and the block's last stage is
+  // never refilled.
+  const int n_c = causal ? min(r0 + 63, s_len - 1) / BK + 1 : n_kt;
   const uint32_t s_q = smem_u32(sm);
   float acc[D / 2];
 #pragma unroll
@@ -336,21 +373,36 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
   mbar_wait(bar_q, 0);
   const int urow = SEG ? suni[c] : 0;  // the rows' one segment, or -1
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt % ST, k0 = kt * BK;
+
+  // S = Q K^T of stage kt into s, issued and committed
+  auto issue_s = [&](float* s, int kt) {
+    const int st = kt % ST;
     const uint32_t s_k = smem_u32(sm + L::OFF_K + st * L::KV_BYTES);
-    const uint32_t s_v = smem_u32(sm + L::OFF_V + st * L::KV_BYTES);
-    mbar_wait(&full[st], (kt / ST) & 1);
-    float s[BK / 2];
+    mbar_wait(&kfull[st], (kt / ST) & 1);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wg_ss<BK>(s, wg_kmajor<BM>(s_q, 64 * c, kk), wg_kmajor<BK>(s_k, 0, kk),
                 kk > 0);
     wg_commit();
-    wg_wait_all();
+  };
+  // O += p V of stage kt, p (bf16) from registers, V MN-major; issued
+  // and committed
+  auto issue_pv = [&](uint32_t (*pa)[4], int kt) {
+    const int st = kt % ST;
+    const uint32_t s_v = smem_u32(sm + L::OFF_V + st * L::KV_BYTES);
+    mbar_wait(&vfull[st], (kt / ST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) wg_rs_cols<D, BK>(acc, pa[j], s_v, j);
+    wg_commit();
+  };
+  // stage kt's completed scores s to p: the scale, the mask, the online
+  // softmax (the running max and sums updated; the output's rescale in
+  // c0, c1); then the stage's K slot is free
+  auto softmax = [&](float* s, int kt, float& c0, float& c1) {
+    const int st = kt % ST, k0 = kt * BK;
     wg_fence_acc<BK / 2>(s);
-
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] *= scale_log2;
     // the segment mask is all-live where rows and keys share one id
@@ -380,7 +432,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float c0 = fh_exp2(m0 - mx0), c1 = fh_exp2(m1 - mx1);
+    c0 = fh_exp2(m0 - mx0);
+    c1 = fh_exp2(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
     float sum0 = 0.f, sum1 = 0.f;
@@ -395,6 +448,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
+    mbar_arrive(&kempty[st]);
+  };
+
+  // Stage kt's p V overlaps stage kt + 1's S and softmax: S(kt + 1) and
+  // p(kt) V(kt) are issued in that order, S(kt + 1)'s softmax runs once
+  // it has completed (wait_group 1) while p V is in flight, and the
+  // output is rescaled after p V completes.  The last p V is peeled off
+  // the loop: a wgmma issued under a branch makes ptxas serialise them.
+  float s[BK / 2], c0, c1;
+  uint32_t pa[BK / 16][4];
+  issue_s(s, 0);
+  wg_wait_all();
+  softmax(s, 0, c0, c1);  // the output is still 0: no rescale
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) wg_acc_to_a(pa[j], s, j);
+  for (int kt = 0; kt + 1 < n_c; ++kt) {
+    issue_s(s, kt + 1);
+    issue_pv(pa, kt);
+    wg_wait_one();
+    softmax(s, kt + 1, c0, c1);
+    wg_wait_all();
+    wg_fence_acc<D / 2>(acc);
+    mbar_arrive(&vempty[kt % ST]);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       acc[4 * n] *= c0;
@@ -402,19 +478,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       acc[4 * n + 2] *= c1;
       acc[4 * n + 3] *= c1;
     }
-    // O += p V: p (bf16) from the score registers, V MN-major
-    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) wg_acc_to_a(pa[j], s, j);
-    wg_fence();
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j)
-      wg_rs_t<D>(acc, pa[j], wg_mnmajor<BK>(s_v, j));
-    wg_commit();
-    wg_wait_all();
-    wg_fence_acc<D / 2>(acc);
-    mbar_arrive(&empty[st]);
   }
+  issue_pv(pa, n_c - 1);
+  wg_wait_all();
+  wg_fence_acc<D / 2>(acc);
+  mbar_arrive(&vempty[(n_c - 1) % ST]);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -441,163 +511,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---------------------------------------------------------------------
-// bf16, 128 < d <= 256: mma.sync m16n8k16 (bf16 in, float32
-// accumulate), the FlashAttention-2 register layout.  One block of 4
-// warps per (b*h, 64-row q-tile); each warp owns 16 query rows and keeps
-// their scores (16 x 64 per k-tile), running max / sum and output
-// accumulator (16 x d) in registers.  A score accumulator tile has the
-// same thread-to-element map as the A operand of the next mma, so p goes
-// from scores to the p.V product without touching shared memory; row
-// reductions are two shuffles among the 4 lanes that share a row.  Only
-// the q / k / v tiles (and a k-tile's segment ids) live in shared
-// memory.  The kernel is instantiated for D = d rounded up to 16 (144 ..
-// 256, the widths the wgmma kernel above does not take); a head
-// width with d % 16 == 8 carries a zero column block in shared memory
-// (it adds nothing to the scores and its output columns are not stored).
-// Rows are read as 16-byte vectors, so q / k / v / o must be 16-byte
-// aligned (the caller checks).
-
-template <int D, bool SEG>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ seg,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int s_len, int d, int h, int causal, float scale) {
-  constexpr int LD = D + 8;      // padded smem row: conflict-free reads
-  constexpr int NK = D / 16;     // k-steps of the score product
-  constexpr int NO = D / 8;      // n8 tiles of the output
-  constexpr int NS = TC_BK / 8;  // n8 tiles of the scores
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __shared__ int sSegK[TC_BK];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* sK = sQ + TC_BQ * LD;
-  __nv_bfloat16* sV = sK + TC_BK * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma group / thread in group
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * s_len * d;
-  const int* segb = SEG ? seg + (size_t)(blockIdx.y / h) * s_len : nullptr;
-  tc_load_tile<D>(sQ, q + base, q0, s_len, d);
-
-  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  const int gq0 = q0 + r0, gq1 = gq0 + 8;
-  const int sq0 = SEG && gq0 < s_len ? segb[gq0] : 0;
-  const int sq1 = SEG && gq1 < s_len ? segb[gq1] : 0;
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  const int q_last = min(q0 + TC_BQ, s_len) - 1;
-  const int n_kt = causal ? q_last / TC_BK + 1 : (s_len + TC_BK - 1) / TC_BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TC_BK;
-    __syncthreads();  // the previous tile's sK / sV reads are done
-    tc_load_tile<D>(sK, k + base, k0, s_len, d);
-    tc_load_tile<D>(sV, v + base, k0, s_len, d);
-    if (SEG) fa_load_seg(sSegK, segb, k0, s_len);
-    __syncthreads();
-
-    // scores: 16 x 64 per warp, in NS n8 accumulator tiles
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t a[4];
-      tc_frag_a<LD>(a, sQ, r0, kk, t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t b[2];
-        tc_frag_bt<LD>(b, sK, n, kk, g, t);
-        mma_16816(s[n], a, b);
-      }
-    }
-
-    // scale, mask, online softmax (rows r0: elements 0,1; r0+8: 2,3)
-    float mx0 = FA_NEG_INF, mx1 = FA_NEG_INF;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const bool ok = fa_allowed<SEG>(e < 2 ? gq0 : gq1, k0 + kc, s_len,
-                                        causal, e < 2 ? sq0 : sq1,
-                                        SEG ? sSegK[kc] : 0);
-        s[n][e] = ok ? s[n][e] * scale : FA_NEG_INF;
-        if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
-        else mx1 = fmaxf(mx1, s[n][e]);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
-    }
-
-    // acc += p.V: p (bf16) straight from the score registers
-#pragma unroll
-    for (int j = 0; j < TC_BK / 16; ++j) {
-      uint32_t a[4];
-      tc_frag_acc(a, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b[2];
-        tc_frag_b<LD>(b, sV, j, n, g, t);
-        mma_16816(acc[n], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (n * 8 >= d) break;  // the zero column block of d % 16 == 8
-    if (gq0 < s_len)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)gq0 * d + col) =
-          pack_f32(acc[n][0] / l0, acc[n][1] / l0);
-    if (gq1 < s_len)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)gq1 * d + col) =
-          pack_f32(acc[n][2] / l1, acc[n][3] / l1);
-  }
-  if (t == 0) {
-    if (gq0 < s_len) lse[(size_t)blockIdx.y * s_len + gq0] = m0 + logf(l0);
-    if (gq1 < s_len) lse[(size_t)blockIdx.y * s_len + gq1] = m1 + logf(l1);
-  }
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   const int* seg;
@@ -606,22 +519,6 @@ struct FwdArgs {
   float scale;
   cudaStream_t stream;
 };
-
-template <int D, bool SEG>
-cudaError_t fa_launch_mma(const FwdArgs& a) {
-  const size_t smem = sizeof(__nv_bfloat16) * (TC_BQ + 2 * TC_BK) * (D + 8);
-  auto kern = flash_fwd_mma_kernel<D, SEG>;
-  cudaError_t err = cxn_allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.s + TC_BQ - 1) / TC_BQ, a.bh);
-  kern<<<grid, TC_THREADS, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.seg,
-      static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.s, a.d,
-      a.h, a.causal, a.scale);
-  return cudaGetLastError();
-}
 
 template <int D, bool SEG>
 cudaError_t fa_launch_wgmma(const FwdArgs& a) {
@@ -643,21 +540,11 @@ cudaError_t fa_launch_wgmma(const FwdArgs& a) {
 }
 
 template <bool SEG>
-cudaError_t fa_launch_tc(const FwdArgs& a) {
-  if (fa_route(a.d, CXN_BF16, false) == FA_ROUTE_WGMMA)
-    return a.d <= 64 ? fa_launch_wgmma<64, SEG>(a)
-                     : fa_launch_wgmma<128, SEG>(a);
-  switch ((a.d + 15) / 16) {
-    case 9: return fa_launch_mma<144, SEG>(a);
-    case 10: return fa_launch_mma<160, SEG>(a);
-    case 11: return fa_launch_mma<176, SEG>(a);
-    case 12: return fa_launch_mma<192, SEG>(a);
-    case 13: return fa_launch_mma<208, SEG>(a);
-    case 14: return fa_launch_mma<224, SEG>(a);
-    case 15: return fa_launch_mma<240, SEG>(a);
-    case 16: return fa_launch_mma<256, SEG>(a);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t fa_launch_tc(const FwdArgs& a) {  // fa_route: every width
+  if (a.d <= 64) return fa_launch_wgmma<64, SEG>(a);
+  if (a.d <= 128) return fa_launch_wgmma<128, SEG>(a);
+  if (a.d <= 192) return fa_launch_wgmma<192, SEG>(a);
+  return fa_launch_wgmma<256, SEG>(a);
 }
 
 template <int DCH, bool SEG>
@@ -717,9 +604,10 @@ extern "C" int cxn_flash_attn_fwd(const void* q, const void* k,
 
 // The route (FaRoute) of a forward (backward = 0) or backward call at
 // head width d in `dtype`, or -1 for a width the kernels do not take.
-extern "C" int cxn_flash_attn_route(int d, int dtype, int backward) {
+// Both directions take the same route at every width they take.
+extern "C" int cxn_flash_attn_route(int d, int dtype, int /*backward*/) {
   if (d < 8 || d % 8 != 0 || d > 256 ||
       (dtype != CXN_BF16 && dtype != CXN_F32))
     return -1;
-  return fa_route(d, dtype, backward != 0);
+  return fa_route(dtype);
 }

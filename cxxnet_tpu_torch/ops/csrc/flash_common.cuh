@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu; conv_wgrad.cu takes the mma.sync helpers): the mask
 // rule, warp reductions, the bf16 tensor-core helpers (mma.sync
-// m16n8k16 and its operand packing; tc_frag_acc also packs wgmma
+// m16n8k16 and its operand packing; tc_frag_acc packs wgmma
 // accumulators, whose rows of a warp share its layout) and the route a
 // flash call takes.
 #pragma once
@@ -11,11 +11,6 @@
 #include "common.cuh"
 
 constexpr float FA_NEG_INF = -1e30f;
-
-// tensor-core tiles: 64 query rows / 64 key rows, 4 warps of 16 rows
-constexpr int TC_BQ = 64;
-constexpr int TC_BK = 64;
-constexpr int TC_THREADS = 128;
 
 // The mask of the JAX package (`_causal_mask`, then `_segment_mask`):
 // a score (gq, gk) is live when both positions exist, it is causal, and
@@ -66,16 +61,11 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A operand (16 rows from `row0`, k-step kk) from a (64, D + 8) tile
+// A operand (16 rows from `row0`, k-step kk) from a tile of row stride LD
 template <int LD>
 __device__ __forceinline__ void tc_frag_a(uint32_t* a,
                                           const __nv_bfloat16* tile,
@@ -98,17 +88,6 @@ __device__ __forceinline__ void tc_frag_bt(uint32_t* b,
   b[1] = ld_u32(p + 8);
 }
 
-// B operand B[k][n] = tile[j * 16 + k][n8 * 8 + n]: the tile's rows are
-// the product's reduction axis (p.V: B = V)
-template <int LD>
-__device__ __forceinline__ void tc_frag_b(uint32_t* b,
-                                          const __nv_bfloat16* tile, int j,
-                                          int n8, int g, int t) {
-  const __nv_bfloat16* p = tile + (j * 16 + 2 * t) * LD + n8 * 8 + g;
-  b[0] = pack_bf16(p[0], p[LD]);
-  b[1] = pack_bf16(p[8 * LD], p[9 * LD]);
-}
-
 // A operand of k-step j from the accumulators of n8 tiles 2j and 2j+1
 __device__ __forceinline__ void tc_frag_acc(uint32_t* a, const float* lo,
                                             const float* hi) {
@@ -116,24 +95,6 @@ __device__ __forceinline__ void tc_frag_acc(uint32_t* a, const float* lo,
   a[1] = pack_f32(lo[2], lo[3]);
   a[2] = pack_f32(hi[0], hi[1]);
   a[3] = pack_f32(hi[2], hi[3]);
-}
-
-// rows row0.. of a (s_len, d) matrix into a (64, D + 8) tile; rows past
-// s_len and columns d..D are zero.  Rows are read as 16-byte vectors, so
-// the matrix must be 16-byte aligned and d a multiple of 8.
-template <int D>
-__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             int row0, int s_len, int d) {
-  constexpr int LD = D + 8, VEC = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < TC_BQ * VEC; idx += TC_THREADS) {
-    const int r = idx / VEC, c8 = (idx - r * VEC) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < s_len && c8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
 }
 
 // 64 segment ids from `row0` (0 past s_len) into shared memory
@@ -144,12 +105,10 @@ __device__ __forceinline__ void fa_load_seg(int* dst, const int* segb,
 }
 
 // The kernel a call takes (cxn_flash_attn_route): float32 on the CUDA
-// cores; bf16 through wgmma, except the forward above head width 128,
-// which goes through mma.sync.
-enum FaRoute { FA_ROUTE_SIMT = 0, FA_ROUTE_MMA = 1, FA_ROUTE_WGMMA = 2 };
-inline int fa_route(int d, int dtype, bool backward) {
-  if (dtype != CXN_BF16) return FA_ROUTE_SIMT;
-  return d <= 128 || backward ? FA_ROUTE_WGMMA : FA_ROUTE_MMA;
+// cores; bf16, forward and backward, through wgmma at every head width.
+enum FaRoute { FA_ROUTE_SIMT = 0, FA_ROUTE_WGMMA = 1 };
+inline int fa_route(int dtype) {
+  return dtype == CXN_BF16 ? FA_ROUTE_WGMMA : FA_ROUTE_SIMT;
 }
 
 inline bool aligned16(const void* p) {

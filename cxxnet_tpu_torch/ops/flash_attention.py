@@ -63,11 +63,10 @@ def attention_route(hd: int, causal: bool, has_seg: bool) -> str:
     return "flash_seg" if has_seg else "flash"
 
 
-#: the kernels a bf16 or float32 call can take (csrc/flash_common.cuh
-#: FaRoute): float32 on the CUDA cores; bf16 through wgmma up to head
-#: width 128, above it through mma.sync (forward) or the CUDA cores
-#: (backward)
-ROUTES = ("simt", "mma.sync", "wgmma")
+#: the kernels a bf16 or float32 call can take, indexed by the C enum
+#: (csrc/flash_common.cuh FaRoute): float32 on the CUDA cores, bf16
+#: (forward and backward, every head width) through wgmma
+ROUTES = ("simt", "wgmma")
 
 
 def kernel_route(d: int, dtype: torch.dtype, backward: bool = False) -> str:

@@ -242,9 +242,11 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
 
 
 # ------------------------------------------- the wgmma kernels' tile edges
-# The bf16 forward takes 128 query rows a block and 128-row K / V stages,
-# the dq kernel 128 query rows and 64-row K / V stages, the dk/dv kernel
-# 128 key rows and 64-row Q / dO stages (up to 128 columns; wider, the
+# The bf16 forward takes 128 query rows a block (two consumers of 64) and
+# 128-row K / V stages up to 128 columns, 64-row stages wider (the
+# block's last causal stage then lies above consumer 0's rows); the dq
+# kernel 128 query rows and 64-row K / V stages, the dk/dv kernel 128 key
+# rows and 64-row Q / dO stages (up to 128 columns; wider, the
 # backward's blocks hold 64 rows).
 
 def _bf16_fwd_bwd(shape, causal, gen, seg=None):
@@ -309,25 +311,31 @@ def test_flash_seg_kernels_one_token_documents(cuda, s, d):
     _bf16_fwd_bwd((4, s, d), True, cuda, seg.cuda())
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_flash_seg_kernels_tile_aligned_documents(cuda, d):
     """Documents that cover whole tiles: tiles whose rows and keys share
     one segment skip the segment mask, and a tile whose keys all lie in
-    an earlier document (one id, not the rows') stays masked."""
+    an earlier document (one id, not the rows') stays masked.  Cuts at
+    64-row boundaries that are not 128-row ones (192, 448) give the wide
+    forward's 64-row stages uniform ids that differ from their 128-row
+    block's."""
     seg = torch.zeros((2, 512), dtype=torch.int64)
     seg[0, :256], seg[0, 256:] = 1, 2
     seg[1, :128], seg[1, 128:428] = 5, 7
+    if d > 128:
+        seg[0, 192:256] = 3
+        seg[1, 64:128], seg[1, 448:] = 6, 8
     _bf16_fwd_bwd((4, 512, d), True, cuda, seg.cuda())
 
 
 @pytest.mark.parametrize("d,fwd_bf16,bwd_bf16", [
     (8, "wgmma", "wgmma"), (40, "wgmma", "wgmma"), (64, "wgmma", "wgmma"),
-    (128, "wgmma", "wgmma"), (136, "mma.sync", "wgmma"),
-    (256, "mma.sync", "wgmma"), (264, None, None)])
+    (128, "wgmma", "wgmma"), (136, "wgmma", "wgmma"),
+    (256, "wgmma", "wgmma"), (264, None, None)])
 def test_flash_route_by_head_width(cuda, d, fwd_bf16, bwd_bf16):
-    """Which kernel each head width takes: the bf16 backward through wgmma
-    at every width, the bf16 forward up to 128 columns and through
-    mma.sync above; float32 on the CUDA cores; no kernel above 256."""
+    """Which kernel each head width takes: the bf16 forward and backward
+    through wgmma at every width; float32 on the CUDA cores; no kernel
+    above 256."""
     if fwd_bf16 is None:
         for backward in (False, True):
             for dtype in (torch.bfloat16, torch.float32):
@@ -347,17 +355,28 @@ def test_flash_bwd_wgmma_at_every_bf16_head_width(cuda):
         assert fa.kernel_route(d, torch.bfloat16, backward=True) == "wgmma"
 
 
-# The bf16 backward above 128 columns: the 192-column instance to 192,
-# the 256-column one above (d zero-filled to them), 64-row q- and
-# k-tiles, two 64-row stages of each ring.
+def test_flash_fwd_wgmma_at_every_bf16_head_width(cuda):
+    """No bf16 forward reaches another kernel: every head width the
+    kernels take, 8 to 256, goes through wgmma."""
+    for d in range(8, 257, 8):
+        assert fa.kernel_route(d, torch.bfloat16) == "wgmma"
+
+
+# The bf16 kernels above 128 columns: the 192-column instances to 192,
+# the 256-column ones above (d zero-filled to them).  The backward takes
+# 64-row q- and k-tiles, the forward 128-row q-tiles; both stream two
+# 64-row stages of a ring.  s 64 / 65 and 193 sit at a 64-row stage's
+# edge and past one (at 193 the forward's last block has a stage that
+# lies above its first consumer's rows).
 @pytest.mark.parametrize("d", [136, 144, 192, 200, 256])
-@pytest.mark.parametrize("s", [1, 127, 128, 129, 4096])
+@pytest.mark.parametrize("s", [1, 64, 65, 127, 128, 129, 193, 4096])
 @pytest.mark.parametrize("mode", ["causal", "dense", "segmented"])
 def test_flash_wide_bwd_matches_plain(cuda, d, s, mode):
-    """The wide bf16 backward (and the forward before it) against the
+    """The wide bf16 backward and the forward before it against the
     plain versions at the existing tolerances, dense causal and not and
     segmented, from one row to the main path's sequence length; two runs
-    bitwise equal."""
+    of the backward bitwise equal."""
+    assert fa.kernel_route(d, torch.bfloat16) == "wgmma"
     assert fa.kernel_route(d, torch.bfloat16, backward=True) == "wgmma"
     seg = None
     if mode == "segmented":

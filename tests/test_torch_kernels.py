@@ -33,12 +33,17 @@ def _t(a):
 
 # ---------------------------------------------------------------- flash
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_plain_matches_pallas_interpret(causal):
+@pytest.mark.parametrize("causal,d", [
+    pytest.param(True, 64, id="True"), pytest.param(False, 64, id="False"),
+    pytest.param(True, 256, id="True-d256"),
+    pytest.param(False, 256, id="False-d256")])
+def test_flash_plain_matches_pallas_interpret(causal, d):
     """flash_attention_fwd_plain == the Pallas flash forward (interpret
-    mode) at b2/h2/s256/d64 f32: o and lse within 1e-5."""
+    mode) at b2/h2/s256 f32, head width 64 and 256 (the reference's
+    d > 128 blocks; the plain version is what the kernels are held to on
+    the card at both): o and lse within 1e-5."""
     rnd = np.random.RandomState(3)
-    b, h, s, d = 2, 2, 256, 64
+    b, h, s = 2, 2, 256
     q, k, v = (rnd.randn(b, h, s, d).astype(np.float32) * 0.5
                for _ in range(3))
     o_j = pk.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

@@ -65,9 +65,9 @@ def test_flash_bwd_plain_matches_pallas_vjp(causal, monkeypatch):
                                    np.asarray(w), atol=2e-4, err_msg=name)
 
 
-def _seg_inputs(seed, layout):
+def _seg_inputs(seed, layout, d=16):
     rnd = np.random.RandomState(seed)
-    b, h, s, d = 2, 2, 256, 16
+    b, h, s = 2, 2, 256
     q, k, v, do = (rnd.randn(b, h, s, d).astype(np.float32)
                    for _ in range(4))
     seg = np.zeros((b, s), np.int32)
@@ -87,11 +87,15 @@ def _seg_inputs(seed, layout):
     return q, k, v, do, seg
 
 
-@pytest.mark.parametrize("layout", ["boundaries", "padding"])
-def test_flash_seg_fwd_plain_matches_pallas(layout):
+@pytest.mark.parametrize("layout,d", [
+    pytest.param("boundaries", 16, id="boundaries"),
+    pytest.param("padding", 16, id="padding"),
+    pytest.param("boundaries", 256, id="boundaries-d256")])
+def test_flash_seg_fwd_plain_matches_pallas(layout, d):
     """flash_attention_seg_fwd_plain == the segmented Pallas forward
-    (interpret mode): o and lse within 1e-5."""
-    q, k, v, _, seg = _seg_inputs(12, layout)
+    (interpret mode), at head width 16 and at 256 (the widest the
+    segmented kernels take): o and lse within 1e-5."""
+    q, k, v, _, seg = _seg_inputs(12, layout, d)
     b, h, s, d = q.shape
     o_j, res = pk._flash_seg_fwd_res(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), jnp.asarray(seg),

@@ -27,7 +27,8 @@ line:
   seeded documents; then the same at head width 256: dense causal at
   (16, 4096, 256) and segmented at the train_hd256 path's (32, 4096,
   256) (``hd256_``), and at head width 192 on the same shapes
-  (``hd192_``); median milliseconds (CUDA events), with the largest
+  (``hd192_``); median milliseconds (CUDA events), the forwards' device
+  ms too (``*fwd_dev_ms``, chip_smoke.device_ms), with the largest
   per-row error against the plain versions.
 - ``wgrad``: rows 5 and 6 at AlexNet's conv1 (x (256, 3, 227, 227) to dy
   (256, 96, 55, 55), 11x11 stride 4, bf16): ``conv_wgrad_hwcn_pallas``'s
@@ -117,9 +118,17 @@ def kernel_split(fn, reps: int = 20) -> dict:
 
 
 def build_tree(root: str, kernel: str) -> None:
-    _load(root, kernel)
+    """Build the tree's kernels; print ptxas's warnings and the wgmma
+    kernels' registers and spills (to stderr, prefixed by the root)."""
+    cs, _ = _load(root, kernel)
     from cxxnet_tpu_torch.ops import build
     build.LIBRARY.get()
+    log = build.LIBRARY.build_log
+    for line in log.splitlines():
+        if "arning" in line or "Performance Loss" in line:
+            sys.stderr.write(f"{root}: {line.strip()}\n")
+    for name, props in cs.wgmma_ptxas(log):
+        sys.stderr.write(f"{root}: ptxas {name}: {props}\n")
 
 
 def time_flash(cs, fa) -> dict:
@@ -163,6 +172,7 @@ def time_flash(cs, fa) -> dict:
                  lambda o, l: fa.flash_attention_seg_bwd_plain(
                      q, k, v, seg, o, l, do))):
             out[f"{prefix}{tag}fwd_ms"] = cs.time_ms(fwd, reps=20)
+            out[f"{prefix}{tag}fwd_dev_ms"] = cs.device_ms(fwd)
             o, lse = fwd()
             errs.append(cs.row_rel_err(o, fwd_plain()[0]))
             out[f"{prefix}{tag}bwd_ms"] = cs.time_ms(lambda: bwd(o, lse),
