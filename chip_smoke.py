@@ -67,7 +67,20 @@ Phases (any failure raises and exits non-zero):
 12. head-width-256 train path (``train_hd256``): the packed LM of phase
    5 with 8 heads of 256 columns at depth 2, WIDE_STEPS steps: finite,
    falling loss, and every step through the wide wgmma segmented flash
-   forward and backward.
+   forward and backward;
+13. kill-and-continue path (``resume``): the packed LM of phase 9
+   (``fused_update = 1``) at depth RESUME_LAYERS, RESUME_ROUNDS rounds of
+   two batches, an atomic ``.ckpt`` snapshot written off the training
+   thread after each round (``ckpt_async = 1 ckpt_keep = 1``).  Run A
+   trains uninterrupted in this process; run B is the same CLI in a
+   subprocess, SIGKILLed once its metrics show the round-2 snapshot
+   committed and a step of round 3 taken, then continued here with
+   ``continue = 1``.  B's round-2 snapshot must validate after the
+   kill, the continued run must start at round 3, and A's and B's last
+   snapshots must be equal bitwise: every array of every shard, the
+   train state (the CUDA generator's state too) and the iterator state.
+   Prints each snapshot's bytes, write and blocked seconds and write
+   rate, and the step p50 of each part.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -128,12 +141,19 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_ETA = 4, 6, 1e-3
 UNPACKED_LAYERS, UNPACKED_STEPS = 2, 3
 # the head-width-256 LM (d 2048 / 8 heads), cut to depth 2
 WIDE_NHEAD, WIDE_LAYERS, WIDE_STEPS = 8, 2, 4
+# kill and continue: the packed LM cut to depth 2 (a snapshot holds each
+# parameter as float32 with its adam moments and master: 16 bytes a
+# parameter, ~2.3 GB at depth 2), RESUME_ROUNDS rounds of two batches;
+# run B is killed after snapshot RESUME_KILL_AFTER
+RESUME_LAYERS, RESUME_ROUNDS, RESUME_KILL_AFTER = 2, 3, 2
+#: seconds run B may take to reach its kill point
+RESUME_KILL_TIMEOUT = 300
 DOC_LENS = (64, 4096)       # training document lengths
 LN_EPS = 1e-5
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
-              "alexnet_hwcn", "cnn_infer", "train_hd256"}
+              "alexnet_hwcn", "cnn_infer", "train_hd256", "resume"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -1908,6 +1928,236 @@ def phase_mnist_conv(tmp: str) -> dict:
     return launches, test[-1]
 
 
+def read_records(path: str) -> list:
+    """The JSON records of a metrics file that a live process may be
+    writing (a torn last line is left out)."""
+    out = []
+    if not os.path.exists(path):
+        return out
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                break
+    return out
+
+
+def first_difference(a: dict, b: dict):
+    """The first (shard, key) whose arrays differ in shape, dtype or
+    bytes, or None."""
+    if a.keys() != b.keys():
+        return f"shards {sorted(a)} against {sorted(b)}"
+    for shard in sorted(a):
+        if a[shard].keys() != b[shard].keys():
+            return f"{shard}: keys differ"
+        for k in sorted(a[shard]):
+            x, y = a[shard][k], b[shard][k]
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or x.tobytes() != y.tobytes():
+                return f"{shard}:{k}"
+    return None
+
+
+def phase_resume(tmp: str) -> dict:
+    """The kill-and-continue path (phase 13): run A uninterrupted in this
+    process, run B as ``python -m cxxnet_tpu_torch`` in a subprocess,
+    SIGKILLed once its metrics show the round-RESUME_KILL_AFTER snapshot
+    committed and a step of the next round taken, then continued in this
+    process with ``continue = 1``.  The launch counters count A and the
+    continued part of B.  Returns the path's launch counts."""
+    import shutil
+    import torch
+    from cxxnet_tpu_torch import ckpt
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.models import transformer
+    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
+    card = card_line()
+    log(f"resume: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free in the "
+        f"temp directory before the phase ({card})")
+    rows = 2 * TRAIN_BATCH  # two batches a round; the rest carries over
+    docs = phrase_docs(np.random.RandomState(23), rows * SEQ + SEQ // 4,
+                       DOC_LENS)
+    shard = os.path.join(tmp, "resume.tok")
+    write_token_shard(shard, docs, itemsize=2)
+    net = transformer(vocab=VOCAB, seq=SEQ, dim=DIM, nlayer=RESUME_LAYERS,
+                      nhead=NHEAD, packed=True)
+
+    def conf(name: str) -> str:
+        path = os.path.join(tmp, f"resume_{name}.conf")
+        with open(path, "w") as f:
+            f.write(f"""dev = {DEV}
+task = train
+model_dir = {tmp}/resume_{name}
+save_model = 1
+ckpt_async = 1
+ckpt_keep = 1
+data = train
+iter = text
+  path_tok = {shard}
+iter = packseq
+  seqlen = {SEQ}
+iter = end
+{net}
+batch_size = {TRAIN_BATCH}
+dtype = bfloat16
+updater = adam
+eta = {TRAIN_ETA}
+flash_attn = 1
+pallas_ln = 1
+fused_update = 1
+num_round = {RESUME_ROUNDS}
+print_step = 1
+eval_train = 0
+seed = 7
+silent = 1
+metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
+""")
+        return path
+
+    conf_a, conf_b = conf("A"), conf("B")
+    metrics_b = os.path.join(tmp, "resume_B_metrics.jsonl")
+    log(f"resume: {len(docs)} documents, {sum(d.size for d in docs)} tokens "
+        f"a round; d{DIM} / {RESUME_LAYERS} layers / {NHEAD} heads / s{SEQ}"
+        f" / vocab {VOCAB} / bf16 / fused adam / batch {TRAIN_BATCH}, "
+        f"{RESUME_ROUNDS} rounds, ckpt_async = 1, ckpt_keep = 1")
+    torch.cuda.empty_cache()
+    reset_launches()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    rc = task.run([conf_a])
+    wall_a = time.perf_counter() - t0
+    st_a = task.last_train
+    want_steps = 2 * RESUME_ROUNDS
+    if rc != 0 or st_a is None or st_a["steps"] != want_steps:
+        raise AssertionError(f"resume: run A returned {rc} after "
+                             f"{None if st_a is None else st_a['steps']} "
+                             f"steps, not {want_steps}")
+    admitted = sum(fused_adam_supported(p) for g in task.net.params.values()
+                   for p in g.values())
+    del task
+    torch.cuda.empty_cache()
+    log(f"resume: run A {want_steps} steps, losses "
+        f"{[round(x, 4) for x in st_a['losses']]}, step p50 "
+        f"{st_a['step_p50_ms']:.1f} ms; CLI wall {wall_a:.1f} s")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    out_b = os.path.join(tmp, "resume_B_part1.log")
+    t0 = time.perf_counter()
+    with open(out_b, "w") as fo:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cxxnet_tpu_torch", conf_b], cwd=REPO,
+            env=env, stdout=fo, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                recs = read_records(metrics_b)
+                saved = any(r["kind"] == "ckpt"
+                            and r["round"] == RESUME_KILL_AFTER for r in recs)
+                # a train record's round counts from 0: the step of the
+                # round after snapshot N says N
+                stepped = any(r["kind"] == "train"
+                              and r["round"] == RESUME_KILL_AFTER
+                              for r in recs)
+                if saved and stepped:
+                    proc.kill()
+                    break
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"resume: run B ended (rc {proc.returncode}) before "
+                        f"its kill point:\n{open(out_b).read()[-3000:]}")
+                if time.perf_counter() - t0 > RESUME_KILL_TIMEOUT:
+                    raise AssertionError("resume: run B did not reach its "
+                                         "kill point in time")
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    wall_b1 = time.perf_counter() - t0
+    dir_b = os.path.join(tmp, "resume_B")
+    left = {n: ckpt.validate_snapshot(os.path.join(dir_b, n)) is not None
+            for n in sorted(os.listdir(dir_b))}
+    log(f"resume: run B SIGKILLed (rc {proc.returncode}) {wall_b1:.1f} s "
+        f"after its start; its snapshots (complete?): {left}")
+    if not left.get(f"{RESUME_KILL_AFTER:04d}.ckpt"):
+        raise AssertionError("resume: run B's last committed snapshot does "
+                             "not validate after the kill")
+    part1 = [r for r in read_records(metrics_b) if r["kind"] == "train"]
+    n_before = len(read_records(metrics_b))
+
+    task = LearnTask()
+    t0 = time.perf_counter()
+    rc = task.run([conf_b, "continue=1"])
+    wall_b2 = time.perf_counter() - t0
+    launches = read_launches()
+    st_b = task.last_train
+    del task
+    torch.cuda.empty_cache()
+    recs_b = read_records(metrics_b)
+    part2 = [r for r in recs_b[n_before:] if r["kind"] == "train"]
+    rounds2 = sorted({r["round"] for r in part2})
+    if rc != 0 or st_b is None or st_b["steps"] != 2 \
+            or rounds2 != [RESUME_KILL_AFTER]:
+        raise AssertionError(f"resume: the continued run returned {rc}, "
+                             f"rounds {rounds2}, steps "
+                             f"{None if st_b is None else st_b['steps']}")
+    log(f"resume: run B continued from round {RESUME_KILL_AFTER + 1}: "
+        f"{st_b['steps']} steps, losses "
+        f"{[round(x, 4) for x in st_b['losses']]}; CLI wall {wall_b2:.1f} s")
+
+    last = f"{RESUME_ROUNDS:04d}.ckpt"
+    ma, sa = ckpt.load_snapshot(os.path.join(tmp, "resume_A", last))
+    mb, sb = ckpt.load_snapshot(os.path.join(dir_b, last))
+    diff = first_difference(sa, sb)
+    narrays = sum(len(a) for a in sa.values())
+    for key in ("train_state", "iter_state"):
+        if diff is None and ma["extra"][key] != mb["extra"][key]:
+            diff = f"manifest extra.{key}"
+    log(f"resume: A's and B's {last}: {narrays} arrays in shards "
+        f"{sorted(sa)}, train_state, iter_state "
+        f"({len(ma['extra']['iter_state']['tok'])} tokens carried): "
+        f"{'bitwise equal' if diff is None else 'FIRST DIFFERENCE ' + diff}")
+    if diff is not None:
+        raise AssertionError(f"resume: run B's {last} differs from run A's "
+                             f"at {diff}")
+    del sa, sb
+
+    for name, recs in (("A", read_records(
+            os.path.join(tmp, "resume_A_metrics.jsonl"))), ("B", recs_b)):
+        for r in recs:
+            if r["kind"] == "ckpt":
+                log(f"resume: run {name} snapshot {r['round']:04d}: "
+                    f"{r['bytes']} bytes, {r['shards']} shards, write "
+                    f"{r['write_sec']} s off-thread = "
+                    f"{r['bytes'] / max(r['write_sec'], 1e-9) / 1e9:.3f} GB/s, train "
+                    f"thread blocked {r['blocked_sec']} s, pruned "
+                    f"{r['pruned']} ({card})")
+    b1_ms = [r["step_ms"] for r in part1]
+    p50_b1 = float(np.median(b1_ms[1:] or b1_ms))
+    log(f"resume: step p50 (steps after the first of each part): run A "
+        f"{st_a['step_p50_ms']:.2f} ms, run B before the kill {p50_b1:.2f} "
+        f"ms ({len(b1_ms)} steps), after the resume {st_b['step_p50_ms']:.2f}"
+        f" ms ({card})")
+    log(f"resume path launches: {launches}")
+    steps = want_steps + st_b["steps"]
+    want = {"flash_attention_seg_fwd": RESUME_LAYERS,
+            "flash_attention_seg_bwd": RESUME_LAYERS,
+            "layernorm_fwd": 2 * RESUME_LAYERS + 1,
+            "layernorm_bwd": 2 * RESUME_LAYERS + 1, "fused_adam": admitted}
+    short = {k: launches[k] / steps for k, n in want.items()
+             if launches[k] < n * steps}
+    if short:
+        raise AssertionError(f"resume: launches per step {short} below "
+                             f"{want}: a step did not run its kernel")
+    for name in ("A", "B"):
+        shutil.rmtree(os.path.join(tmp, f"resume_{name}"),
+                      ignore_errors=True)
+    return launches
+
+
 def read_mnist_labels(path: str) -> np.ndarray:
     import gzip
     with gzip.open(path, "rb") as f:
@@ -2128,6 +2378,8 @@ def main() -> int:
                 tmp, True, args.profile, fused_vs=train_losses)
         if "train_hd256" in phases:
             paths["train_hd256"], _ = phase_train(tmp, True, wide=True)
+        if "resume" in phases:
+            paths["resume"] = phase_resume(tmp)
         if "alexnet" in phases:
             paths["alexnet"] = phase_alexnet(tmp, args.profile)
         if "alexnet_hwcn" in phases:

@@ -6,7 +6,8 @@ and emits fixed-size batches, (n, 1, 1, 784) under ``input_flat = 1``
 padded with replicas of the last instance that train with zero loss
 (``tail_mask_padd``); ``round_batch = 1`` wraps real instances from the
 epoch's start instead.  Either way ``num_batch_padd`` keeps the padding
-out of evaluation."""
+out of evaluation.  :meth:`MNISTIterator.state` is the cursor, as the
+reference's, for checkpoint resume."""
 
 from __future__ import annotations
 
@@ -71,6 +72,13 @@ class MNISTIterator(IIterator):
 
     def before_first(self):
         self.loc = 0
+
+    def state(self):
+        # the shuffle is fixed at init, so the cursor is the whole state
+        return {"loc": int(self.loc)}
+
+    def set_state(self, st):
+        self.loc = int(st.get("loc", 0))
 
     def _view(self, idx: np.ndarray) -> np.ndarray:
         d = self.img[idx]

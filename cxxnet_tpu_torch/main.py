@@ -4,10 +4,17 @@
 
 Ported tasks:
 
-* ``task = train``: a fresh model (or ``model_in``) trained for
-  ``num_round`` rounds over the ``data = train`` iterator section, a
-  ``%04d.model`` snapshot in ``model_dir`` every ``save_model`` rounds
-  (``0000.model`` before the first), one ``train`` metrics record per
+* ``task = train``: a fresh model (or ``model_in``, a ``.model`` or a
+  ``.ckpt``) trained for ``num_round`` rounds over the ``data = train``
+  iterator section, a snapshot in ``model_dir`` every ``save_model``
+  rounds (``0000`` before the first): the legacy ``%04d.model``, or
+  under ``ckpt_async = 1`` an atomic ``%04d.ckpt`` directory written off
+  the training thread (the newest ``ckpt_keep`` kept), each with the
+  optimizer state (unless ``save_opt = 0``), the counters, the rng and
+  (``ckpt_iter_state = 1``) the train iterator's state.  ``continue =
+  1`` resumes from the newest complete snapshot in ``model_dir`` with
+  finite parameters, where the run that wrote it stood.  One ``train``
+  metrics record per
   ``print_step`` steps (loss, step ms, tokens/s), and after each round a
   ``[round]\ttrain-<metric>:v\t<eval>-<metric>:v`` line on stderr
   (the train metric under ``eval_train = 1``, then every ``eval = name``
@@ -31,7 +38,8 @@ Ported tasks:
 
 The other tasks (``check``), and the keys of the JAX package's train
 loop whose features are not ported (``UNPORTED_TASK_KEYS``), are refused
-by name.
+by name.  ``rollback`` is among them: its trigger, a diverged run found
+by the monitor or the sentinel, is not ported either.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import ckpt as ckptlib
 from .io.factory import create_iterator, init_iterator
 from .monitor import log as mlog
 from .nnet.trainer import NetTrainer, refuse_unported
@@ -55,12 +64,12 @@ from .utils.config import parse_config_file, parse_keyval_args
 PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 
 #: train-loop keys of the JAX package that are not ported, with the one
-#: value the port takes: rollback and NNNN.ckpt snapshots, profiling
-#: windows, sentinels, continue = 1, input-pipeline diagnostics
+#: value the port takes: rollback, profiling windows, sentinels,
+#: input-pipeline diagnostics
 UNPORTED_TASK_KEYS = {
-    "rollback": "0", "ckpt_async": "0", "continue": "0", "prof": "",
-    "prof_start_step": "-1", "prof_num_steps": "0", "prof_every": "0",
-    "sentinel": "0", "test_io": "0", "test_on_server": "0",
+    "rollback": "0", "prof": "", "prof_start_step": "-1",
+    "prof_num_steps": "0", "prof_every": "0", "sentinel": "0",
+    "test_io": "0", "test_on_server": "0",
 }
 
 
@@ -73,6 +82,21 @@ class LearnTask:
         self.print_step = 100
         self.save_period = 1
         self.save_opt = 1
+        self.continue_training = 0
+        # ckpt_async = 1: round snapshots as atomic NNNN.ckpt directories
+        # written off the training thread, the newest ckpt_keep kept;
+        # ckpt_iter_state = 1: they carry the train iterator's state
+        self.ckpt_async = 0
+        self.ckpt_keep = 3
+        self.ckpt_iter_state = 1
+        self._ckpt_writer = None
+        # counter -> seconds the train thread spent on that snapshot;
+        # written around submit() here, popped by _ckpt_done on the
+        # writer thread
+        self._ckpt_blocked_sec: dict = {}
+        self._ckpt_lock = threading.Lock()
+        self._resume_iter_state = None
+        self._warned_iter_capture = False
         # reference default 0: 0000.model is the pre-training snapshot
         # and rounds 1..num_round then train
         self.start_counter = 0
@@ -112,6 +136,14 @@ class LearnTask:
             self.save_period = int(val)
         elif name == "save_opt":
             self.save_opt = int(val)
+        elif name == "continue":
+            self.continue_training = int(val)
+        elif name == "ckpt_async":
+            self.ckpt_async = int(val)
+        elif name == "ckpt_keep":
+            self.ckpt_keep = max(int(val), 1)
+        elif name == "ckpt_iter_state":
+            self.ckpt_iter_state = int(val)
         elif name == "start_counter":
             self.start_counter = int(val)
         elif name == "num_round":
@@ -147,7 +179,88 @@ class LearnTask:
             net.set_param(k, v)
         return net
 
+    def _sync_latest_model(self) -> bool:
+        """``continue = 1`` (reference SyncLastestModel): restore the
+        newest loadable snapshot in ``model_dir``, ``NNNN.ckpt``
+        directories and ``NNNN.model`` files alike, from
+        ``start_counter`` on, skipping partial or corrupt ones and ones
+        whose parameters are not finite."""
+        cands = [(c, p) for c, p in
+                 ckptlib.list_snapshots(self.name_model_dir)
+                 if c >= self.start_counter]
+        return self._restore_newest_valid(cands) is not None
+
+    @staticmethod
+    def _reject_nonfinite(net: NetTrainer) -> Optional[str]:
+        """Reject hook of the resume scan: poisoned params would only
+        diverge again."""
+        finite = all(bool(torch.isfinite(p).all())
+                     for g in net.params.values() for p in g.values())
+        return None if finite else "carries non-finite params; walking back"
+
+    def _restore_newest_valid(self, cands):
+        """Walk ``(counter, path)`` candidates newest first and restore the
+        first loadable one into ``self.net``: partial or corrupt ``.ckpt``
+        directories (what a kill mid-write leaves) are skipped with a
+        warning, torn ``.model`` files when they fail to load, and
+        :meth:`_reject_nonfinite` refuses the rest.  Sets
+        ``start_counter`` past the restored round, holds its iterator
+        state for :meth:`_apply_iter_resume`, and returns ``(counter,
+        path)``, or None."""
+        for counter, path in reversed(cands):
+            is_ckpt = path.endswith(".ckpt")
+            if is_ckpt and ckptlib.validate_snapshot(path) is None:
+                mlog.warn(f"continue: skipping partial/corrupt snapshot "
+                          f"{path}")
+                continue
+            net = self._create_net()
+            try:
+                net.load_model(path, validated=is_ckpt)
+            except Exception as e:  # noqa: BLE001 — a torn legacy file
+                net.metrics.close()
+                mlog.warn(f"continue: snapshot {path} failed to load ({e});"
+                          " trying the previous one")
+                continue
+            why = self._reject_nonfinite(net)
+            if why:
+                net.metrics.close()
+                mlog.warn(f"continue: snapshot {path} {why}")
+                continue
+            old, self.net = self.net, net
+            if old is not None:
+                old.metrics.close()
+            self.start_counter = counter + 1
+            self._stash_resume_state(net.loaded_extra)
+            return counter, path
+        return None
+
+    def _stash_resume_state(self, extra) -> None:
+        """Hold a loaded snapshot's iterator state until the iterators
+        exist."""
+        if extra and self.ckpt_iter_state:
+            self._resume_iter_state = extra.get("iter_state")
+
+    def _apply_iter_resume(self) -> None:
+        st, self._resume_iter_state = self._resume_iter_state, None
+        if st and self.itr_train is not None:
+            try:
+                self.itr_train.set_state(st)
+            except Exception as e:  # noqa: BLE001 — resume best-effort
+                mlog.warn(f"iterator state restore failed ({e}); the "
+                          "train iterator resumes cold")
+
     def init(self) -> None:
+        if self.task == "train" and self.continue_training:
+            if self._sync_latest_model():
+                mlog.notice("Init: Continue training from round "
+                            f"{self.start_counter}")
+                self._create_iterators()
+                self._apply_iter_resume()
+                return
+            raise RuntimeError(
+                "Init: cannot find models for continue training; "
+                "specify model_in instead")
+        self.continue_training = 0
         self.net = self._create_net()
         if self.name_model_in == "NULL":
             if self.task != "train":
@@ -159,7 +272,8 @@ class LearnTask:
             self.net.copy_model_from(self.name_model_in)
         else:
             self.net.load_model(self.name_model_in)
-            m = re.search(r"(\d+)\.model$", self.name_model_in)
+            m = re.search(r"(\d+)\.(?:model|ckpt)$",
+                          self.name_model_in.rstrip(os.sep))
             if m and self.task == "train":
                 self.start_counter = int(m.group(1)) + 1
         self._create_iterators()
@@ -210,39 +324,121 @@ class LearnTask:
                 init_iterator(it, defcfg)
 
     # ---------------------------------------------------------------- train
-    def _save_model(self) -> None:
-        """Round-boundary snapshot ``model_dir/%04d.model`` (the legacy
-        single-file format, with optimizer state unless ``save_opt =
-        0``) every ``save_model`` rounds; counts the round either way."""
+    def _ckpt_extra_state(self, capture_iter: bool = True) -> dict:
+        """Resume state beside the trainer's in a snapshot: the train
+        iterator chain's state, taken at a round boundary (warned once
+        and left out when a stage cannot give it).  ``capture_iter =
+        False`` for the round-0 save: an iterator resuming cold is its
+        round-0 state."""
+        extra = {}
+        if capture_iter and self.ckpt_iter_state \
+                and self.itr_train is not None:
+            try:
+                extra["iter_state"] = self.itr_train.state()
+            except Exception as e:  # noqa: BLE001 — snapshot best-effort
+                if not self._warned_iter_capture:
+                    self._warned_iter_capture = True
+                    mlog.warn(f"iterator state capture failed ({e}); "
+                              "snapshots resume the iterator cold")
+        return extra
+
+    def _ckpt_done(self, stats: dict) -> None:
+        """The async writer's completion hook (on its thread): the
+        ``ckpt`` record lands as soon as the manifest committed."""
+        metrics = self.net.metrics
+        with self._ckpt_lock:
+            blocked = self._ckpt_blocked_sec.pop(stats["counter"], 0.0)
+        metrics.counter_inc("ckpt_saves")
+        metrics.emit("ckpt", round=stats["counter"], path=stats["path"],
+                     async_write=1, shards=stats["shards"],
+                     bytes=stats["bytes"],
+                     write_sec=round(stats["write_sec"], 4),
+                     blocked_sec=round(blocked, 4),
+                     pruned=stats["pruned"], keep=self.ckpt_keep)
+        mlog.info(f"checkpoint {stats['path']}: {stats['bytes']} bytes "
+                  f"in {stats['write_sec']:.3f} sec off-thread "
+                  f"(loop blocked {blocked:.3f} sec)")
+
+    def _save_model(self, capture_iter: bool = True) -> None:
+        """Round-boundary snapshot every ``save_model`` rounds (counts the
+        round either way): under ``ckpt_async = 1`` the host pull here
+        and an atomic ``%04d.ckpt`` written by the writer thread, else a
+        legacy ``%04d.model`` written here.  One ``ckpt`` record each."""
+        if self._ckpt_writer is not None:
+            # a writer failure latched since the last save surfaces here,
+            # at the next round boundary
+            self._ckpt_writer.poll()
         counter = self.start_counter
         self.start_counter += 1
         if self.save_period == 0 or counter % self.save_period != 0:
             return
         os.makedirs(self.name_model_dir, exist_ok=True)
-        path = os.path.join(self.name_model_dir, f"{counter:04d}.model")
+        extra_state = self._ckpt_extra_state(capture_iter)
+        metrics = self.net.metrics
         t0 = time.perf_counter()
-        self.net.save_model(path, with_opt_state=bool(self.save_opt)
-                            and self.net.opt_state is not None)
-        self.net.metrics.emit("ckpt", round=counter, path=path,
-                              bytes=os.path.getsize(path),
-                              write_sec=round(time.perf_counter() - t0, 4))
+        if self.ckpt_async:
+            from .ckpt.writer import AsyncCheckpointWriter
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter(
+                    on_done=self._ckpt_done)
+            shards, meta = self.net.checkpoint_payload(
+                with_opt=bool(self.save_opt), extra_state=extra_state)
+            path = ckptlib.snapshot_path(self.name_model_dir, counter)
+            # the pull's time is stashed before submit, so the completion
+            # hook always finds an entry; the backpressure block is added
+            # after, unless the record has landed already
+            pull = time.perf_counter() - t0
+            with self._ckpt_lock:
+                self._ckpt_blocked_sec[counter] = pull
+            block = self._ckpt_writer.submit(
+                path, shards, meta, counter=counter, keep=self.ckpt_keep)
+            with self._ckpt_lock:
+                if counter in self._ckpt_blocked_sec:
+                    self._ckpt_blocked_sec[counter] = pull + block
+            return
+        path = os.path.join(self.name_model_dir, f"{counter:04d}.model")
+        self.net.save_model(path, with_opt_state=bool(self.save_opt),
+                            extra_state=extra_state)
+        wall = time.perf_counter() - t0
+        metrics.counter_inc("ckpt_saves")
+        metrics.emit("ckpt", round=counter, path=path, async_write=0,
+                     shards=1, bytes=os.path.getsize(path),
+                     write_sec=round(wall, 4), blocked_sec=round(wall, 4),
+                     pruned=0, keep=self.ckpt_keep)
 
     def task_train(self) -> None:
         """``task = train``: rounds of updates over the train iterator
         (or the synthetic device batches).  Each step ends in a device
         synchronise, so its host time is the step's time on the card;
         the first step of the run (allocator and library warm-up) is kept
-        out of the step percentiles."""
+        out of the step percentiles.  The ``0000`` snapshot is taken
+        before the first round of a fresh model (not under ``continue =
+        1``); the async writer is drained and closed at the end, and a
+        failure it latched fails the run."""
         start = time.time()
-        if self.name_model_in == "NULL":
-            self._save_model()
         self._losses: List[float] = []
         self._step_ms: List[float] = []
         self._evals: List[dict] = []
-        if self.synth_device_data:
-            self._train_synth_device()
-        else:
-            self._train_rounds(start)
+        try:
+            if self.name_model_in == "NULL" and not self.continue_training:
+                self._save_model(capture_iter=False)
+            if self.synth_device_data:
+                self._train_synth_device()
+            else:
+                self._train_rounds(start)
+            if self._ckpt_writer is not None:
+                # closed here, outside the finally: a latched writer
+                # failure fails the run
+                w, self._ckpt_writer = self._ckpt_writer, None
+                w.close()
+        finally:
+            if self._ckpt_writer is not None:
+                # an exception is on its way out: do not mask it
+                w, self._ckpt_writer = self._ckpt_writer, None
+                try:
+                    w.close()
+                except Exception as e:  # noqa: BLE001
+                    mlog.warn(f"checkpoint writer close failed: {e}")
         self._emit_latency_record("step")
         tail = self._step_ms[1:] or self._step_ms
         p50 = float(np.median(tail)) if tail else 0.0

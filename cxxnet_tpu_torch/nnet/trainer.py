@@ -23,18 +23,25 @@ it, and with it the bias of the conv beneath
 :meth:`NetTrainer.predict` / :meth:`~NetTrainer.predict_raw` serve
 ``task = pred`` / ``pred_raw``, and :meth:`NetTrainer.copy_model_from`
 ``task = finetune``.
+
+Snapshots: :meth:`NetTrainer.save_model` writes the legacy ``.model``
+and :meth:`NetTrainer.checkpoint_payload` the shards and manifest of an
+atomic ``NNNN.ckpt`` directory (:mod:`..ckpt`); :meth:`NetTrainer.load_model`
+reads either.  Both carry :meth:`NetTrainer.train_state` (counters and
+the rng), so a resumed run continues the trajectory it was cut from.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import engine
+from .. import ckpt, engine
 from ..layers.base import ForwardContext, LabelInfo
 from ..monitor import log as mlog
 from ..monitor.metrics import Metrics
@@ -87,6 +94,14 @@ def _torch_leaf(a, dtype_name: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, np.float32)).to(DTYPES[name])
 
 
+def _torch_group(tree: Dict, group: str, dtypes: Dict[str, str]) -> Params:
+    """``{param_key: {tag: array}}`` of snapshot group ``group`` -> CPU
+    tensors in the dtypes ``dtypes`` records for its flattened keys."""
+    return {pkey: {tag: _torch_leaf(a, dtypes.get(f"{group}/{pkey}/{tag}"))
+                   for tag, a in g.items()}
+            for pkey, g in tree.items()}
+
+
 def params_from_jax(params_np: Dict, buffers_np: Dict,
                     dtypes: Optional[Dict[str, str]] = None
                     ) -> Tuple[Params, Params]:
@@ -96,13 +111,8 @@ def params_from_jax(params_np: Dict, buffers_np: Dict,
     ``wpos``).  ``dtypes`` is a ``.model`` header's map from flattened
     key (``params/<key>/<tag>``) to the dtype a float32-stored leaf had."""
     dtypes = dtypes or {}
-
-    def convert(tree: Dict, group: str) -> Params:
-        return {pkey: {tag: _torch_leaf(a, dtypes.get(f"{group}/{pkey}/{tag}"))
-                       for tag, a in g.items()}
-                for pkey, g in tree.items()}
-
-    return convert(params_np, "params"), convert(buffers_np, "buffers")
+    return (_torch_group(params_np, "params", dtypes),
+            _torch_group(buffers_np, "buffers", dtypes))
 
 
 def opt_state_from_jax(opt_np: Dict) -> Dict:
@@ -113,6 +123,45 @@ def opt_state_from_jax(opt_np: Dict) -> Dict:
                          for k, a in st.items()}
                    for tag, st in g.items()}
             for pkey, g in opt_np.items()}
+
+
+def read_snapshot(path: str, validated: bool = False
+                  ) -> Tuple[dict, Dict, Dict, Optional[Dict], Optional[Dict]]:
+    """``(header, params, buffers, opt or None, acc or None)`` of a
+    ``.model`` file or a ``NNNN.ckpt`` directory written by either
+    package, as nested dicts of numpy arrays (bfloat16 stored as float32
+    and named in ``header["dtypes"]``).  ``validated``: the caller has
+    just checked the directory's checksums, so they are not read again."""
+    if not os.path.isdir(path):
+        header, params, buffers, opt = serializer.load_model(path)
+        return header, params, buffers, opt, None
+    manifest, shards = ckpt.load_snapshot(path, assume_valid=validated)
+    tree: Dict = {}
+    for arrays in shards.values():
+        tree.update(serializer.unflatten_tree(arrays))
+    header = {"net": manifest["net"], "epoch": manifest["epoch"],
+              "has_opt_state": manifest.get("has_opt_state"),
+              "dtypes": manifest.get("dtypes") or {},
+              "extra": manifest.get("extra") or {}}
+    opt = tree.get("opt") if header["has_opt_state"] else None
+    return (header, tree.get("params", {}), tree.get("buffers", {}), opt,
+            tree.get("acc"))
+
+
+def jax_rng_key(seed: int) -> List[int]:
+    """The key the JAX package's ``jax.random.PRNGKey(seed)`` makes (two
+    uint32 words: the seed's high and low 32 bits), which its snapshots
+    carry as ``rng_key``.  The port draws from a ``torch.Generator``
+    instead and carries its state beside it."""
+    return [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF]
+
+
+def _host_tree(tree: Dict) -> Dict:
+    """Nested tensors -> independent CPU copies: the updaters rewrite
+    parameters and state in place, so a view of a CPU tensor handed to
+    the async writer would change while it is serialized."""
+    return {k: _host_tree(v) if isinstance(v, dict)
+            else v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
 
 class NetTrainer:
@@ -154,6 +203,8 @@ class NetTrainer:
         self._read_fixups: Dict[int, Tuple[str, Optional[str]]] = {}
         # the layer names the last copy_model_from copied
         self.copied_layers: List[str] = []
+        # the loaded snapshot's extra (iterator state for the task driver)
+        self.loaded_extra: Optional[Dict] = None
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -320,14 +371,20 @@ class NetTrainer:
                 self._read_fixups[cnode] = ("bias", conv.param_key)
                 self._read_fixups[v] = ("relu", conv.param_key)
 
-    def load_model(self, path: str) -> None:
-        """Load a ``.model`` written by either package.  The session's
-        config is re-applied on top of the snapshot's, as in the JAX
-        package (later pairs win); optimizer state in the file is
-        installed at the first update."""
+    def load_model(self, path: str, validated: bool = False) -> None:
+        """Load a ``.model`` or a ``NNNN.ckpt`` directory written by either
+        package.  The session's config is re-applied on top of the
+        snapshot's, as in the JAX package (later pairs win); optimizer
+        state in the snapshot is installed at the first update, and a
+        pending gradient window (the ``acc`` shard) is restored.  The
+        counters and the rng come from the snapshot's ``train_state``
+        when it has one (set after ``_post_build``, which resets them);
+        a ``.model`` without one gets ``sample_counter`` from the epoch.
+        ``validated``: the caller has just checked the directory's
+        checksums."""
         mlog.set_silent(self.silent)
         self.opt_state = None
-        header, params, buffers, opt = serializer.load_model(path)
+        header, params, buffers, opt, acc = read_snapshot(path, validated)
         netcfg = NetConfig.from_dict(header["net"])
         netcfg.defcfg = list(netcfg.defcfg) + [
             (k, v) for (k, v) in self.cfg if not k.startswith("layer[")]
@@ -335,22 +392,32 @@ class NetTrainer:
             if k == "updater":
                 netcfg.updater_type = v
         self._build_net(netcfg)
-        self.set_state(*params_from_jax(params, buffers,
-                                        header.get("dtypes")))
+        dtypes = header.get("dtypes") or {}
+        self.set_state(*params_from_jax(params, buffers, dtypes))
         self._post_build()
         if opt is not None:
             self._opt_host = opt_state_from_jax(opt)
+        if acc is not None:
+            self._grad_acc = {k: {t: v.to(self.device) for t, v in g.items()}
+                              for k, g in _torch_group(acc, "acc",
+                                                       dtypes).items()}
+        extra = header.get("extra") or {}
         self.epoch_counter = header["epoch"]
-        self.sample_counter = self.epoch_counter * self.update_period
-        self.round = header.get("extra", {}).get("round", 0)
+        self.round = extra.get("round", 0)
+        ts = extra.get("train_state")
+        if ts is not None:
+            self.set_train_state(ts)
+        else:
+            self.sample_counter = self.epoch_counter * self.update_period
+        self.loaded_extra = dict(extra)
 
     def copy_model_from(self, path: str) -> None:
         """``task = finetune``: copy the weights of every layer whose name
         (the parameter key after its ``NN-`` prefix) and tag shapes match
-        a layer of the ``.model`` at ``path``, in this net's dtypes, and
-        re-derive the float32 masters (the JAX package's
+        a layer of the ``.model`` or ``.ckpt`` at ``path``, in this net's
+        dtypes, and re-derive the float32 masters (the JAX package's
         ``copy_model_from``, reference CopyModelFrom)."""
-        _, params, _, _ = serializer.load_model(path)
+        _, params, _, _, _ = read_snapshot(path)
         by_name = {k.split("-", 1)[1]: v for k, v in params.items()}
         copied = []
         for pkey, group in self.params.items():
@@ -406,13 +473,96 @@ class NetTrainer:
                                  for tag, p in g.items()}
                           for pkey, g in self.params.items()}
 
-    def save_model(self, path: str, with_opt_state: bool = False) -> None:
-        opt = self.opt_state if with_opt_state else None
+    # ---------------------------------------------------------- checkpoints
+    def train_state(self) -> Dict[str, Any]:
+        """The non-array state exact resume needs: the counters, the JAX
+        package's keys for its rng (``rng_key``, as ``PRNGKey(seed)``
+        makes it, which is its live key in any run that never rolled
+        back) and the port's own rng, the ``torch.Generator`` state
+        (``torch_rng_state``, hex bytes), which the JAX package ignores."""
+        return {"sample_counter": int(self.sample_counter),
+                "epoch_counter": int(self.epoch_counter),
+                "round": int(self.round), "seed": int(self.seed),
+                "rng_key": jax_rng_key(int(self.seed)),
+                "rng_dtype": "uint32",
+                "torch_rng_state": self.rng.get_state().numpy()
+                .tobytes().hex()}
+
+    def set_train_state(self, st: Dict[str, Any]) -> None:
+        """Restore :meth:`train_state`.  A snapshot without the torch rng
+        state (one the JAX package wrote), or with one of a generator on
+        another device type, re-seeds the generator from ``seed``."""
+        self.sample_counter = int(st["sample_counter"])
+        self.epoch_counter = int(st["epoch_counter"])
+        self.round = int(st["round"])
+        hexed = st.get("torch_rng_state")
+        state = None if hexed is None else torch.frombuffer(
+            bytearray.fromhex(hexed), dtype=torch.uint8)
+        if state is not None and state.numel() == self.rng.get_state().numel():
+            self.rng.set_state(state)
+            return
+        if state is not None:
+            mlog.warn("snapshot rng state is of another device's "
+                      "generator; re-seeding the rng from seed")
+        self.rng.manual_seed(self.seed)
+
+    def checkpoint_payload(self, *, with_opt: bool = True,
+                           extra_state: Optional[Dict] = None
+                           ) -> Tuple[Dict[str, Dict[str, np.ndarray]],
+                                      Dict[str, Any]]:
+        """One snapshot's (shards, manifest meta), as the JAX package
+        writes them: flat host-array shards ``params``, ``buffers`` (when
+        there are any), ``opt`` (under ``with_opt``, once there is
+        optimizer state) and ``acc`` (the summed gradients of a window
+        that a round boundary cut, ``update_period > 1``), and the meta
+        (``net``, ``epoch``, ``has_opt_state``, ``dtypes``, ``extra``:
+        the round, :meth:`train_state` and ``extra_state``).  Optimizer
+        state not made yet is made here, as the first update would make
+        it, so a snapshot before the first step carries it as the JAX
+        package's does.  Runs on the train thread: the arrays are
+        independent host copies, safe to hand to the async writer."""
+        dtypes: Dict[str, str] = {}
+        shards = {"params": serializer.flatten_tree(
+            {"params": _host_tree(self.params)}, dtypes)}
+        buf = serializer.flatten_tree(
+            {"buffers": _host_tree(self.buffers)}, dtypes)
+        if buf:
+            shards["buffers"] = buf
+        if with_opt:
+            self._ensure_opt_state()
+            shards["opt"] = serializer.flatten_tree(
+                {"opt": _host_tree(self.opt_state)}, dtypes)
+        if self.sample_counter % self.update_period \
+                and self._grad_acc is not None:
+            shards["acc"] = serializer.flatten_tree(
+                {"acc": _host_tree(self._grad_acc)}, dtypes)
+        extra = {"round": int(self.round),
+                 "train_state": self.train_state()}
+        if extra_state:
+            extra.update(extra_state)
+        meta = {"net": self.netcfg.to_dict(),
+                "epoch": int(self.epoch_counter),
+                "has_opt_state": with_opt, "dtypes": dtypes,
+                "extra": extra}
+        return shards, meta
+
+    def save_model(self, path: str, with_opt_state: bool = False,
+                   extra_state: Optional[Dict] = None) -> None:
+        """Write a legacy ``.model`` (atomically), with the optimizer state
+        under ``with_opt_state`` (made here if no update has made it), and
+        the round, :meth:`train_state` and ``extra_state`` in its header's
+        extra."""
+        extra = {"round": int(self.round), "train_state": self.train_state()}
+        if extra_state:
+            extra.update(extra_state)
+        if with_opt_state:
+            self._ensure_opt_state()
         serializer.save_model(
             path, net_structure=self.netcfg.to_dict(),
             epoch=self.epoch_counter, params=self.params,
-            buffers=self.buffers, opt_state=opt,
-            extra_meta={"round": self.round})
+            buffers=self.buffers,
+            opt_state=self.opt_state if with_opt_state else None,
+            extra_meta=extra)
 
     # ------------------------------------------------------------ training
     def _batch_tensors(self, batch) -> Tuple[Dict[int, torch.Tensor],

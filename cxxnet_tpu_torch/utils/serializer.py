@@ -56,6 +56,21 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     return tree
 
 
+def flatten_tree(tree: Dict, dtypes: Dict[str, str]) -> Dict[str, np.ndarray]:
+    """Nested tree -> ``{"a/b/c": np.ndarray}`` with bfloat16 widened to
+    exact float32 and recorded in ``dtypes`` (the checkpoint shards'
+    form, as ``save_model`` stores its arrays).  A float32 CPU tensor
+    comes back as a view of its storage: a caller that hands the arrays
+    to another thread passes independent copies in."""
+    return _flatten(tree, "", dtypes)
+
+
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict:
+    """Inverse of :func:`flatten_tree`; widened leaves stay float32 and
+    are named in the ``dtypes`` map their writer recorded."""
+    return _unflatten(flat)
+
+
 def atomic_write(path: str, write_fn) -> None:
     """Write via ``<path>.tmp`` + fsync + ``os.replace`` + directory
     fsync: readers see the old complete file or the new one."""

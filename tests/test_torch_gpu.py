@@ -1107,3 +1107,61 @@ def test_lm_step_routes_attention_by_head_width(cuda, tmp_path, dim, nhead,
     flash = 1 - dense
     assert tuple(a - b for a, b in zip(counts(), before)) == (dense, flash,
                                                               flash)
+
+
+def test_ckpt_continue_on_the_card_is_bitwise(cuda, tmp_path):
+    """A bf16 packed LM (d 128, one head of 128, s 256) under fused adam
+    trains 3 rounds with ckpt_async = 1 (run A); run B stops after round
+    2 and a fresh task continues it (continue = 1) to round 3: both
+    0003.ckpt hold the same arrays bitwise, the same train_state (the
+    CUDA generator's state included) and iterator state, and the fused
+    adam kernel and the segmented flash kernels ran in the continued
+    round."""
+    from cxxnet_tpu_torch import ckpt
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.models import transformer
+    gen = torch.Generator().manual_seed(5)
+    write_token_shard(str(tmp_path / "c.tok"),
+                      [torch.randint(0, 64, (int(n),), generator=gen).numpy()
+                       for n in torch.randint(20, 300, (30,),
+                                              generator=gen)],
+                      itemsize=2)
+    net = transformer(vocab=64, seq=256, dim=128, nlayer=1, nhead=1,
+                      packed=True)
+
+    def run(name, *args):
+        conf = tmp_path / f"{name}.conf"
+        conf.write_text(
+            f"dev = gpu\ntask = train\nmodel_dir = {tmp_path}/{name}\n"
+            f"data = train\niter = text\n  path_tok = {tmp_path}/c.tok\n"
+            "iter = packseq\n  seqlen = 256\niter = end\n"
+            f"{net}\nbatch_size = 2\ndtype = bfloat16\nupdater = adam\n"
+            "eta = 1e-3\nfused_update = 1\nnum_round = 3\nsave_model = 1\n"
+            "ckpt_async = 1\nckpt_keep = 1\neval_train = 0\nsilent = 1\n")
+        task = LearnTask()
+        assert task.run([str(conf), *args]) == 0
+        return task
+
+    run("A")
+    run("B", "num_round=2")
+    before = (fu.fused_adam_pallas.launches,
+              fa.flash_attention_seg_fwd.launches,
+              fa.flash_attention_seg_bwd.launches)
+    resumed = run("B", "continue=1")
+    steps = resumed.last_train["steps"]
+    assert steps > 0
+    after = (fu.fused_adam_pallas.launches,
+             fa.flash_attention_seg_fwd.launches,
+             fa.flash_attention_seg_bwd.launches)
+    assert all(a - b >= steps for a, b in zip(after, before))
+    ma, sa = ckpt.load_snapshot(str(tmp_path / "A" / "0003.ckpt"))
+    mb, sb = ckpt.load_snapshot(str(tmp_path / "B" / "0003.ckpt"))
+    assert sa.keys() == sb.keys()
+    for shard in sa:
+        assert sa[shard].keys() == sb[shard].keys()
+        for k, v in sa[shard].items():
+            assert v.tobytes() == sb[shard][k].tobytes(), f"{shard}:{k}"
+    for key in ("train_state", "iter_state"):
+        assert ma["extra"][key] == mb["extra"][key]
+    assert "torch_rng_state" in ma["extra"]["train_state"]

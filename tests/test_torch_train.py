@@ -491,7 +491,7 @@ def test_cli_train_matches_jax_cli_and_loads_in_jax(tmp_path):
                          and r["tokens_per_sec"] > 0 for r in train)
 
 
-@pytest.mark.parametrize("key,val", [("continue", "1"),
+@pytest.mark.parametrize("key,val", [("prof_every", "1"),
                                      ("rollback", "2"),
                                      ("sentinel", "1"),
                                      ("mesh", "data:2")])
