@@ -21,7 +21,10 @@ Phases (any failure raises and exits non-zero):
    attention layer's routes at head widths 264 (dense), 256 (the wide
    wgmma kernels), 128 and 12 (widened), the LRN backward at windows
    of 33 and 64 channels; the forward and backward at head widths 256
-   and 192, dense and segmented, timed beside sdpa's);
+   and 192, dense and segmented, timed beside sdpa's); and every other
+   shape the two serving paths of phases 14 and 15 launch (the draft's
+   flash prefill and layernorm rows, the verify's and chunk tick's
+   layernorm rows, the max-pool forward at each bucket), checked only;
 3. serve path: the port's ``task = serve`` / ``serve_gen = 1`` CLI serves
    the d2048 / 12-layer / s4096 / bf16 transformer LM (random weights
    from a seed, written as a ``.model``) to concurrent clients, twice
@@ -80,7 +83,34 @@ Phases (any failure raises and exits non-zero):
    snapshots must be equal bitwise: every array of every shard, the
    train state (the CUDA generator's state too) and the iterator state.
    Prints each snapshot's bytes, write and blocked seconds and write
-   rate, and the step p50 of each part.
+   rate, and the step p50 of each part;
+14. speculative serve path (``serve_spec``, after ``serve``): on the
+   served flagship, a width-4 ``block`` against 4 sequential steps, a
+   chunked prefill (C 256) of a 1000-token prompt against the whole
+   prefill and an f32 KV cache against the bf16 one, each within
+   SERVE_TOL_BF16, and one step, verify and chunk tick timed; then the
+   serve CLI over the same 8 prompts with ``spec_k = 3``, (a) drafting
+   with a seeded d1024 / 8-head / 2-layer bf16 net under
+   ``decode_prefill_chunk = 256`` and (b) drafting with the flagship's
+   own snapshot.  Every generation equals a plain greedy decode token
+   for token, or first differs where the plain top-2 margin is a
+   near-tie (at most twice the logit noise just measured for the rows
+   the run emits from); fed back through plain steps, every emitted id
+   lies within that bound of its row's largest logit; (b) accepts at
+   least 0.9 of the proposals; every prefill
+   ran the flash forward and every forward of both nets the layernorm
+   kernel.  Prints tokens/s, prefill / chunk / round p50, accept rate,
+   verify calls, draft steps and prefill chunks;
+15. micro-batched serve path (``serve_batch``, after ``mnist_conv``):
+   ``task = serve`` of example/MNIST/serve.conf from phase 8's snapshot
+   under ``pool_layout = hwcn``, buckets 1 / 8 / 32 and 4 clients, once
+   for each ``serve_dtype`` (f32; bf16 and int8 pairtested on 2
+   calibration batches): f32 agrees with ``task = pred`` on 99.9% of the
+   rows with an error within 0.001 of the last round's test error, bf16
+   and int8 within their SERVE_TOL and within 0.01 of f32's error, no
+   retraces, and every dispatch through the max-pool kernel.  Prints
+   qps, latency p50 / p99, mean batch, the bucket histogram and pad
+   rows.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -149,11 +179,24 @@ RESUME_LAYERS, RESUME_ROUNDS, RESUME_KILL_AFTER = 2, 3, 2
 #: seconds run B may take to reach its kill point
 RESUME_KILL_TIMEOUT = 300
 DOC_LENS = (64, 4096)       # training document lengths
+# serve_spec: speculation of SPEC_K proposals a round; the chunk width of
+# run (a); the seeded small draft of run (a): d, heads, depth
+SPEC_K, SPEC_CHUNK = 3, 256
+DRAFT_DIM, DRAFT_NHEAD, DRAFT_LAYERS = 1024, 8, 2
+#: run (b) drafts with the flagship itself: its accept rate must reach this
+SELF_DRAFT_ACCEPT = 0.9
+#: serve_batch: the f32 predictions against task = pred's, and the
+#: error against the last mnist_conv round's test error (f32) and
+#: against f32's (bf16 / int8)
+BATCH_AGREE, BATCH_ERR_F32, BATCH_ERR_QUANT = 0.999, 1e-3, 1e-2
+#: serve_batch: the shape buckets (serve_shapes)
+BATCH_SHAPES = (1, 8, 32)
 LN_EPS = 1e-5
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
-              "alexnet_hwcn", "cnn_infer", "train_hd256", "resume"}
+              "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
+              "serve_spec", "serve_batch"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -526,7 +569,61 @@ def phase_kernels():
                                      f"{err}, {serr}")
             if dtype == torch.bfloat16 and rows == SEQ:
                 out["layernorm_fwd"] = dict(max_abs_err=abs_err, **t, **bnd)
+    serve_spec_shapes(gen)
     return out
+
+
+def serve_spec_shapes(gen) -> None:
+    """The shapes serve_spec launches beyond the served ones, each kernel
+    against its plain version in bf16 and float32 at the served
+    tolerances: the draft's flash prefill (DRAFT_NHEAD heads) and
+    layernorm rows (a step of SLOTS, a prefill of SEQ at DRAFT_DIM), and
+    the flagship's block dispatches (a verify of SLOTS x (SPEC_K + 1)
+    rows, a chunk tick of SLOTS x SPEC_CHUNK)."""
+    import torch
+    from cxxnet_tpu_torch.ops import flash_attention as fa
+    from cxxnet_tpu_torch.ops import layernorm as ln
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        tol = BF16_ROW_TOL if bf16 else F32_TOL
+        bh, d = DRAFT_NHEAD, DRAFT_DIM // DRAFT_NHEAD
+        q, k, v = (torch.randn((bh, SEQ, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True)
+        err = row_rel_err(o, o_ref) if bf16 else rel_err(o, o_ref)
+        lerr = rel_err(lse, lse_ref)
+        log(f"flash_attention_fwd ({bh},{SEQ},{d}) causal {name} (draft "
+            f"prefill): {'per-row ' if bf16 else ''}rel err o {err:.3e} "
+            f"(tol {tol:g}), lse {lerr:.3e} (tol {F32_TOL:g})")
+        if not (err <= tol and lerr <= F32_TOL):
+            raise AssertionError(f"flash_attention_fwd {name} (draft "
+                                 f"prefill) disagrees with its plain "
+                                 f"version: {err}, {lerr}")
+        del q, k, v, o, lse, o_ref, lse_ref
+        for rows, dim, what in ((SLOTS, DRAFT_DIM, "draft step"),
+                                (SEQ, DRAFT_DIM, "draft prefill"),
+                                (SLOTS * (SPEC_K + 1), DIM, "verify"),
+                                (SLOTS * SPEC_CHUNK, DIM, "chunk tick")):
+            x = (torch.randn((rows, dim), generator=gen, device=dev) * 2 + 3
+                 ).to(dtype)
+            g = (torch.rand((dim,), generator=gen, device=dev) + 0.5
+                 ).to(dtype)
+            b = (torch.randn((dim,), generator=gen, device=dev) * .5
+                 ).to(dtype)
+            y, mean, rstd = ln.layernorm_fwd(x, g, b, LN_EPS)
+            y_ref, m_ref, r_ref = ln.layernorm_fwd_plain(x, g, b, LN_EPS)
+            err = row_rel_err(y, y_ref) if bf16 else rel_err(y, y_ref)
+            serr = max(rel_err(mean, m_ref), rel_err(rstd, r_ref))
+            log(f"layernorm_fwd ({rows},{dim}) {name} ({what}): "
+                f"{'per-row ' if bf16 else ''}rel err y {err:.3e} (tol "
+                f"{tol:g}), mean/rstd {serr:.3e} (tol {F32_TOL:g})")
+            if not (err <= tol and serr <= F32_TOL):
+                raise AssertionError(f"layernorm_fwd {name} ({rows}, {dim})"
+                                     f" disagrees with its plain version: "
+                                     f"{err}, {serr}")
 
 
 def seeded_segments(rng, b: int, s: int, pad_max: int) -> np.ndarray:
@@ -914,6 +1011,19 @@ def phase_cnn_kernels():
                     raise AssertionError(f"max_pool_bwd {shape}: route "
                                          f"{route}")
             del x, y, dy
+        # the forward at serve_batch's buckets, bitwise
+        for n in BATCH_SHAPES:
+            shape, geom = (n, 32, 14, 14), (3, 3, 2, 0, 0)
+            x = (torch.round(randn(shape, torch.float32, 6.0)) / 4 - 0.5
+                 ).to(dtype)
+            y = pool.max_pool_fwd(x, geom)
+            if not torch.equal(y, pool.max_pool_fwd_plain(x, geom)):
+                raise AssertionError(f"max_pool_fwd {name} {shape} is not "
+                                     "bitwise equal to its plain version")
+            plan = pool.fwd_plan(n * 32, 14, 14, geom, isz)
+            report("max_pool_fwd serve_batch", name, shape, 0.0, 0.0, 0.0,
+                   note=f"; route {plan.route}, {plan.group} plane(s) a "
+                   "block; bitwise")
         torch.cuda.empty_cache()
         # row 5: conv weight and bias gradient
         for xshape, co, k, st, pad in (((256, 3, 227, 227), 96, 11, 4, 0),
@@ -1477,8 +1587,9 @@ def phase_last_kernels():
 
 def write_inputs(tmp: str) -> str:
     """A seeded flagship ``.model``, a shard of N_PROMPTS prompt
-    documents of seeded lengths and the serve conf (one request per
-    document); returns the conf path."""
+    documents of seeded lengths (and the same prompts in
+    ``prompts.npz``) and the serve conf (one request per document);
+    returns the conf path."""
     import torch
     from cxxnet_tpu_torch.io.text import write_token_shard
     from cxxnet_tpu_torch.models import transformer
@@ -1504,8 +1615,9 @@ def write_inputs(tmp: str) -> str:
     rng = np.random.RandomState(11)
     lens = rng.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_PROMPTS)
     log(f"prompt lengths: {lens.tolist()}")
-    write_token_shard(os.path.join(tmp, "prompts.tok"),
-                      [rng.randint(0, VOCAB, n) for n in lens], itemsize=2)
+    prompts = [rng.randint(0, VOCAB, n) for n in lens]
+    np.savez(os.path.join(tmp, "prompts.npz"), *prompts)
+    write_token_shard(os.path.join(tmp, "prompts.tok"), prompts, itemsize=2)
     conf = os.path.join(tmp, "serve.conf")
     with open(conf, "w") as f:
         f.write(f"""dev = {DEV}
@@ -1577,7 +1689,7 @@ def phase_serve(tmp: str):
         raise AssertionError("prefills did not all run the flash kernel")
     if launches["layernorm_fwd"] < (2 * NLAYER + 1) * (prefills + steps):
         raise AssertionError("forwards did not all run the layernorm kernel")
-    return task, launches
+    return task, launches, conf
 
 
 def phase_consistency(task):
@@ -2260,6 +2372,366 @@ def phase_cnn_infer(tmp: str, test_error: float) -> dict:
     return launches
 
 
+def top2_margin(row: np.ndarray) -> float:
+    """The largest logit less the second largest."""
+    a, b = np.partition(row, -2)[-2:]
+    return float(b - a)
+
+
+def spec_consistency(tr) -> tuple:
+    """serve_spec step 1 on the phase's trainer: a width-4 block against
+    4 sequential steps (a 200-token prompt in slot 2), a chunked prefill
+    (C SPEC_CHUNK) of a 1000-token prompt against the whole prefill, and
+    an f32 KV cache against the bf16 one over 8 steps, each within
+    SERVE_TOL_BF16.  Returns the noise levels the speculative runs are
+    read against: the largest absolute logit difference between a
+    verify row and its step's row, and between a chunk's last row and
+    the whole prefill's."""
+    import torch
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    eng = DecodeEngine(tr, slots=SLOTS, block_widths=(SPEC_K + 1,
+                                                      SPEC_CHUNK))
+    eng.warmup()
+    rng = np.random.RandomState(5)
+    prompt = rng.randint(0, VOCAB, 200).astype(np.int32)
+    toks = [int(np.argmax(eng.prefill(2, prompt)))]
+    rows = []
+    for i in range(SPEC_K + 1):
+        tokens = np.zeros((SLOTS,), np.int32)
+        positions = np.zeros((SLOTS,), np.int32)
+        tokens[2], positions[2] = toks[-1], len(prompt) + i
+        rows.append(eng.step(tokens, positions)[2])
+        toks.append(int(np.argmax(rows[-1])))
+    tokens = np.zeros((SLOTS, SPEC_K + 1), np.int32)
+    positions = np.zeros((SLOTS,), np.int32)
+    tokens[2], positions[2] = toks[:SPEC_K + 1], len(prompt)
+    blk = eng.block(tokens, positions)[2]
+    steps = np.stack(rows)
+    e_blk = rel_err(torch.from_numpy(blk), torch.from_numpy(steps))
+    d_blk = float(np.abs(blk - steps).max())
+    long = rng.randint(0, VOCAB, 1000).astype(np.int32)
+    whole = eng.prefill(0, long)
+    for off in range(0, len(long), SPEC_CHUNK):
+        tokens = np.zeros((SLOTS, SPEC_CHUNK), np.int32)
+        piece = long[off:off + SPEC_CHUNK]
+        tokens[1, :len(piece)] = piece
+        positions = np.zeros((SLOTS,), np.int32)
+        positions[1] = off
+        out = eng.block(tokens, positions)
+    last = out[1, len(long) - 1 - off]
+    e_chunk = rel_err(torch.from_numpy(last), torch.from_numpy(whole))
+    d_chunk = float(np.abs(last - whole).max())
+    eng32 = DecodeEngine(tr, slots=SLOTS, kv_dtype="f32")
+    seq = [int(np.argmax(eng.prefill(3, prompt)))]
+    eng32.prefill(3, prompt)
+    r16, r32 = [], []
+    for i in range(8):
+        tokens = np.zeros((SLOTS,), np.int32)
+        positions = np.zeros((SLOTS,), np.int32)
+        tokens[3], positions[3] = seq[-1], len(prompt) + i
+        r16.append(eng.step(tokens, positions)[3])
+        r32.append(eng32.step(tokens, positions)[3])
+        seq.append(int(np.argmax(r16[-1])))
+    e_kv = rel_err(torch.from_numpy(np.stack(r32)),
+                   torch.from_numpy(np.stack(r16)))
+    log(f"serve_spec consistency (bf16 net, tol {SERVE_TOL_BF16}): width-"
+        f"{SPEC_K + 1} block vs {SPEC_K + 1} steps {e_blk:.3e} (max |diff| "
+        f"{d_blk:.4f}); chunked prefill (C {SPEC_CHUNK}) of 1000 tokens vs "
+        f"whole {e_chunk:.3e} (max |diff| {d_chunk:.4f}); f32 KV cache vs "
+        f"bf16 over 8 steps {e_kv:.3e}; KV bytes {eng32.kv_cache_bytes()} "
+        f"vs {eng.kv_cache_bytes()}")
+    if max(e_blk, e_chunk, e_kv) > SERVE_TOL_BF16 \
+            or eng32.kv_cache_bytes() != 2 * eng.kv_cache_bytes():
+        raise AssertionError("serve_spec: block / chunk / KV dtype rows "
+                             "leave the bf16 envelope")
+    # one dispatch of each kind, logits back on the host (slot 2 writes
+    # past its prompt, which nothing reads again)
+    positions = np.full((SLOTS,), len(prompt), np.int32)
+    step_ms = time_ms(lambda: eng.step(np.zeros((SLOTS,), np.int32),
+                                       positions))
+    verify_ms = time_ms(lambda: eng.block(
+        np.zeros((SLOTS, SPEC_K + 1), np.int32), positions))
+    chunk_ms = time_ms(lambda: eng.block(
+        np.zeros((SLOTS, SPEC_CHUNK), np.int32), positions), reps=5)
+    log(f"serve_spec dispatch (median, CUDA events, logits on the host): "
+        f"step {step_ms:.3f} ms, verify (width {SPEC_K + 1}) "
+        f"{verify_ms:.3f} ms = {verify_ms / step_ms:.2f}x a step, chunk "
+        f"tick (width {SPEC_CHUNK}) {chunk_ms:.3f} ms")
+    del eng, eng32
+    torch.cuda.empty_cache()
+    return d_blk, d_chunk
+
+
+def plain_greedy(tr, prompts, n: int):
+    """Greedy ids of each prompt through DecodeEngine's prefill and
+    steps (SLOTS prompts at a time), and the top-2 logit margin at each
+    position."""
+    import torch
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    eng = DecodeEngine(tr, slots=SLOTS)
+    ids, margins = [], []
+    for at in range(0, len(prompts), SLOTS):
+        group = prompts[at:at + SLOTS]
+        rows = [eng.prefill(i, p) for i, p in enumerate(group)]
+        seqs = [[int(np.argmax(r))] for r in rows]
+        mar = [[top2_margin(r)] for r in rows]
+        for j in range(1, n):
+            tokens = np.zeros((SLOTS,), np.int32)
+            positions = np.zeros((SLOTS,), np.int32)
+            for i, p in enumerate(group):
+                tokens[i], positions[i] = seqs[i][-1], len(p) + j - 1
+            out = eng.step(tokens, positions)
+            for i in range(len(group)):
+                seqs[i].append(int(np.argmax(out[i])))
+                mar[i].append(top2_margin(out[i]))
+        ids += seqs
+        margins += mar
+    del eng
+    torch.cuda.empty_cache()
+    return ids, margins
+
+
+def teacher_forced(tr, prompts, gens, noise: float) -> tuple:
+    """Each generation fed back through DecodeEngine's prefill and
+    plain steps (SLOTS prompts at a time): at every position the emitted
+    id's logit must lie within 2 x ``noise`` of that row's largest.
+    Returns the largest shortfall and the count of positions whose
+    emitted id is not the row's argmax."""
+    import torch
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    eng = DecodeEngine(tr, slots=SLOTS)
+    worst, off_argmax = 0.0, 0
+    for at in range(0, len(prompts), SLOTS):
+        group = list(zip(prompts[at:at + SLOTS], gens[at:at + SLOTS]))
+        rows = [[eng.prefill(i, p)] for i, (p, _) in enumerate(group)]
+        for j in range(1, max(len(g) for _, g in group)):
+            tokens = np.zeros((SLOTS,), np.int32)
+            positions = np.zeros((SLOTS,), np.int32)
+            for i, (p, g) in enumerate(group):
+                if j < len(g):
+                    tokens[i], positions[i] = g[j - 1], len(p) + j - 1
+            out = eng.step(tokens, positions)
+            for i, (_, g) in enumerate(group):
+                if j < len(g):
+                    rows[i].append(out[i])
+        for (_, g), rr in zip(group, rows):
+            for j, (tok, row) in enumerate(zip(g, rr)):
+                short = float(row.max() - row[tok])
+                worst = max(worst, short)
+                off_argmax += int(short > 0)
+                if short > 2 * noise:
+                    raise AssertionError(
+                        f"serve_spec: emitted id {tok} at position {j} is "
+                        f"{short:.4f} below the plain step's largest logit "
+                        f"(2 x noise {2 * noise:.4f})")
+    del eng
+    torch.cuda.empty_cache()
+    return worst, off_argmax
+
+
+def write_draft(tmp: str) -> str:
+    """The seeded small draft of run (a), saved as a ``.model``."""
+    import torch
+    from cxxnet_tpu_torch.models import transformer
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    tr = NetTrainer()
+    for k, v in parse_config_string(transformer(
+            vocab=VOCAB, seq=SEQ, dim=DRAFT_DIM, nlayer=DRAFT_LAYERS,
+            nhead=DRAFT_NHEAD)):
+        tr.set_param(k, v)
+    for k, v in (("batch_size", str(SLOTS)), ("dtype", "bfloat16"),
+                 ("dev", DEV), ("seed", "9"), ("silent", "1")):
+        tr.set_param(k, v)
+    tr.init_model()
+    path = os.path.join(tmp, "draft.model")
+    tr.save_model(path)
+    del tr
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_serve_spec(tmp: str, task, conf: str) -> dict:
+    """Speculative decoding and chunked prefill on the served flagship:
+    the consistency of block, chunk and KV-dtype rows at the served
+    shape (:func:`spec_consistency`), then two serve CLI runs over the
+    serve phase's 8 prompts: (a) the seeded small draft with spec_k =
+    SPEC_K and decode_prefill_chunk = SPEC_CHUNK, (b) the flagship's own
+    snapshot as the draft, spec_k = SPEC_K, whole-prompt prefill.  The
+    noise of a run is what step 1 measured for the rows it emits from:
+    the verify rows (block against step), and in (a), whose first token
+    comes off a chunk's last row and whose cache the chunks wrote, the
+    chunked prefill's too.  Each generation must equal the plain greedy
+    decode's, token for token, or first differ at a near-tie: a position
+    whose plain top-2 margin is at most twice the noise.  Every emitted
+    id, past a first difference too, is then held to the plain step's
+    row by :func:`teacher_forced`.  (b) must accept at least
+    SELF_DRAFT_ACCEPT of the proposals.  The launch counters are zeroed
+    before each run and read after it."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    with np.load(os.path.join(tmp, "prompts.npz")) as z:
+        prompts = [z[f"arr_{i}"].astype(np.int32) for i in range(len(z))]
+    d_blk, d_chunk = spec_consistency(task.net)
+    plain, margins = plain_greedy(task.net, prompts, GEN_TOKENS)
+    model = re.search(r"^model_in = (.*)$", open(conf).read(), re.M)[1]
+    runs = (("a", write_draft(tmp), [f"decode_prefill_chunk={SPEC_CHUNK}"],
+             DRAFT_LAYERS, max(d_blk, d_chunk)),
+            ("b", model, [], NLAYER, d_blk))
+    total = {n: 0 for n in KERNELS}
+    for name, draft, extra, dlayers, noise in runs:
+        reset_launches()
+        t = LearnTask()
+        t0 = time.perf_counter()
+        rc = t.run([conf, f"serve_draft_model={draft}", f"spec_k={SPEC_K}"]
+                   + extra)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = t.last_serve
+        if rc != 0 or st is None or st["requests"] != N_PROMPTS:
+            raise AssertionError(f"serve_spec ({name}): CLI returned {rc}")
+        lines = open(os.path.join(tmp, "gen_out.txt")).read().splitlines()
+        got = [[int(x) for x in ln_.split()] for ln_ in lines]
+        ties = []
+        for g, want, mar in zip(got, plain, margins):
+            if g == want:
+                continue
+            j = next(i for i, (a, b) in enumerate(zip(g, want)) if a != b)
+            if len(g) != len(want) or mar[j] > 2 * noise:
+                raise AssertionError(
+                    f"serve_spec ({name}): a generation differs from plain "
+                    f"greedy at position {j} (plain margin {mar[j]:.4f}, "
+                    f"noise {noise:.4f})")
+            ties.append((j, round(mar[j], 4)))
+        worst, off_argmax = teacher_forced(task.net, prompts, got, noise)
+        flag_fwd = st["prefill_calls"] + st["step_calls"] + st["block_calls"]
+        draft_fwd = st["draft_prefill_calls"] + st["draft_step_calls"]
+        what = ("the flagship's own snapshot" if name == "b" else
+                f"d{DRAFT_DIM} x {DRAFT_LAYERS} layers")
+        log(f"serve_spec ({name}): draft {what}, {st['requests']} "
+            f"requests, {st['tokens']} tokens in {st['duration_sec']:.3f} s"
+            f" = {st['tokens_per_sec']:.1f} tok/s; prefill p50 "
+            f"{st.get('prefill_p50_ms', float('nan')):.2f} ms, "
+            f"chunk p50 {st.get('chunk_p50_ms', float('nan')):.2f} ms, "
+            f"round p50 {st['tok_p50_ms']:.2f} ms; accept rate "
+            f"{st['acceptance_rate']:.4f}, {st['verify_calls']} verify "
+            f"calls, {st['draft_steps']} draft steps, "
+            f"{st.get('prefill_chunks', 0)} prefill chunks; draft "
+            f"{st['draft_ms']:.1f} ms, verify {st['verify_ms']:.1f} ms; "
+            f"{len(ties)} request(s) first differ from plain greedy at a "
+            f"near-tie (position, plain margin: {ties}; noise "
+            f"{noise:.4f}); teacher-forced through plain steps: "
+            f"{off_argmax} of {sum(map(len, got))} emitted ids not the "
+            f"row's argmax, largest shortfall {worst:.4f} (limit "
+            f"{2 * noise:.4f}); retraces {st['retraces']}; CLI wall "
+            f"{wall:.1f} s")
+        log(f"serve_spec ({name}) launches: {launches} for {flag_fwd} "
+            f"flagship and {draft_fwd} draft forwards")
+        if st["retraces"] != 0:
+            raise AssertionError(f"serve_spec ({name}): retraces")
+        if name == "b" and st["acceptance_rate"] < SELF_DRAFT_ACCEPT:
+            raise AssertionError(f"serve_spec (b): accept rate "
+                                 f"{st['acceptance_rate']}")
+        flash_min = dlayers * st["draft_prefill_calls"] \
+            + NLAYER * st["prefill_calls"]
+        if name == "a" and st["prefill_chunks"] < N_PROMPTS:
+            raise AssertionError("serve_spec (a): no chunked prefill")
+        if launches["flash_attention_fwd"] < flash_min \
+                or st["draft_prefill_calls"] != N_PROMPTS:
+            raise AssertionError(f"serve_spec ({name}): prefills did not all"
+                                 " run the flash kernel")
+        if launches["layernorm_fwd"] < (2 * NLAYER + 1) * flag_fwd \
+                + (2 * dlayers + 1) * draft_fwd:
+            raise AssertionError(f"serve_spec ({name}): forwards did not "
+                                 "all run the layernorm kernel")
+        total = {n: total[n] + launches[n] for n in KERNELS}
+        del t
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_batch(tmp: str, test_error: float) -> dict:
+    """``task = serve`` without ``serve_gen``: example/MNIST/serve.conf
+    on the card from the mnist_conv phase's last snapshot (``input_flat =
+    0``, ``pool_layout = hwcn``, buckets BATCH_SHAPES, CLIENTS clients),
+    once for each ``serve_dtype``: f32, then bf16 and int8 with
+    ``serve_calib = 2``.  f32 must agree with ``task = pred`` on
+    BATCH_AGREE of the rows with an error within BATCH_ERR_F32 of the
+    last round's test error; bf16 and int8 must pairtest within SERVE_TOL
+    with an error within BATCH_ERR_QUANT of f32's; no run retraces, and
+    every dispatch runs the max-pool kernel."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.serve.engine import SERVE_TOL
+    data = os.path.join(tmp, "mnist")
+    snap = os.path.join(tmp, "mnist_models", f"{MNIST_ROUNDS:04d}.model")
+    labels = read_mnist_labels(os.path.join(data,
+                                            "t10k-labels-idx1-ubyte.gz"))
+    text = open(os.path.join(REPO, "example", "MNIST", "serve.conf")).read()
+    conf = os.path.join(tmp, "mnist_serve.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/")
+                .replace("dev = cpu", f"dev = {DEV}")
+                .replace("pred = serve_out.txt",
+                         f"pred = {tmp}/serve_batch_out.txt")
+                .replace("jsonl:serve_metrics.jsonl",
+                         f"jsonl:{tmp}/serve_batch.jsonl"))
+    base = [conf, f"model_in={snap}", "input_flat=0", "pool_layout=hwcn",
+            "serve_shapes=" + ",".join(map(str, BATCH_SHAPES)),
+            f"serve_clients={CLIENTS}", "silent=1"]
+    if LearnTask().run(base + ["task=pred"]) != 0:
+        raise AssertionError("serve_batch: task = pred failed")
+    pred = np.loadtxt(os.path.join(tmp, "serve_batch_out.txt"))
+    reset_launches()
+    dispatches, errs = 0, {}
+    for dt in ("f32", "bf16", "int8"):
+        extra = [f"serve_dtype={dt}"] + (["serve_calib=2"] if dt != "f32"
+                                         else [])
+        t = LearnTask()
+        t0 = time.perf_counter()
+        rc = t.run(base + extra)
+        wall = time.perf_counter() - t0
+        st = t.last_serve
+        if rc != 0 or st is None:
+            raise AssertionError(f"serve_batch ({dt}): CLI returned {rc}")
+        out = np.loadtxt(os.path.join(tmp, "serve_batch_out.txt"))
+        errs[dt] = float(np.mean(out != labels[:out.size]))
+        agree = float(np.mean(out == pred))
+        lat = t.net.metrics.histograms["serve_latency_sec"].summary()
+        eng = st["engine"]
+        dispatches += eng["dispatches"]
+        q = st["quant_rel_err"]
+        log(f"serve_batch ({dt}): {st['requests']} requests in "
+            f"{st['duration_sec']:.3f} s = {st['qps']:.1f} req/s; latency "
+            f"p50 {lat['p50'] * 1e3:.3f} ms, p99 {lat['p99'] * 1e3:.3f} ms;"
+            f" mean batch {st['mean_batch']}, buckets {eng['bucket_hist']},"
+            f" pad rows {eng['pad_rows']}, {eng['dispatches']} dispatches;"
+            f" error {errs[dt]:.6f}, agreement with task = pred {agree:.6f}"
+            + (f", pairtest {q:.3e} (tol {SERVE_TOL[dt]})" if q is not None
+               else "") + f"; retraces {st['retraces']}; CLI wall "
+            f"{wall:.1f} s")
+        if out.size != labels.size or st["retraces"] != 0:
+            raise AssertionError(f"serve_batch ({dt}): {out.size} rows, "
+                                 f"{st['retraces']} retraces")
+        if dt == "f32" and (agree < BATCH_AGREE
+                            or abs(errs[dt] - test_error) > BATCH_ERR_F32):
+            raise AssertionError(f"serve_batch (f32): agreement {agree}, "
+                                 f"error {errs[dt]} vs {test_error}")
+        if dt != "f32" and (q is None or q > SERVE_TOL[dt] or abs(
+                errs[dt] - errs["f32"]) > BATCH_ERR_QUANT):
+            raise AssertionError(f"serve_batch ({dt}): pairtest {q}, error "
+                                 f"{errs[dt]} vs f32's {errs['f32']}")
+        del t
+    launches = read_launches()
+    log(f"serve_batch path launches: {launches} for {dispatches} "
+        "dispatches (plus the buckets' warmup)")
+    if launches["max_pool_fwd"] < dispatches:
+        raise AssertionError("serve_batch: dispatches did not all run the "
+                             "max-pool kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def union_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, None
@@ -2360,10 +2832,14 @@ def main() -> int:
     paths = {}
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
         if "serve" in phases:
-            task, paths["serve"] = phase_serve(tmp)
+            task, paths["serve"], serve_conf = phase_serve(tmp)
             if "consistency" in phases:
                 phase_consistency(task)
+            if "serve_spec" in phases:
+                paths["serve_spec"] = phase_serve_spec(tmp, task, serve_conf)
             del task
+        elif "serve_spec" in phases:
+            raise SystemExit("serve_spec needs the serve phase")
         train_losses = None
         for name, packed in (("train", True), ("train_unpacked", False)):
             if name in phases:
@@ -2389,6 +2865,10 @@ def main() -> int:
             paths["mnist_conv"], test_error = phase_mnist_conv(tmp)
             if "cnn_infer" in phases:
                 paths["cnn_infer"] = phase_cnn_infer(tmp, test_error)
+            if "serve_batch" in phases:
+                paths["serve_batch"] = phase_serve_batch(tmp, test_error)
+        elif "serve_batch" in phases:
+            raise SystemExit("serve_batch needs the mnist_conv phase")
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

@@ -51,18 +51,30 @@ class DecodeState:
     * ``"prefill"`` — the forward runs a whole prompt row at the net's
       width; attention layers store their fresh ``(k, v)`` in
       ``caches[key]`` and otherwise compute the normal causal path.
-    * ``"step"`` — one position per row: attention layers write the new
-      ``(k, v)`` into ``caches[key]`` at ``positions`` (in place) and
-      attend over the whole cache under ``arange(max_seqlen) <=
-      positions``.
+    * ``"block"`` — ``W`` consecutive positions per row from
+      ``positions`` (one decode step is ``W = 1``; speculative verify,
+      chunked prefill): attention layers write their ``W`` fresh columns
+      into ``caches[key]`` in place, the ``(write_rows, write_cols)``
+      cells from query ``write_from``, and query ``w`` attends under
+      ``arange(max_seqlen) <= positions + w``.  The engine builds the
+      write's indices on the host, leaving out the columns past the
+      cache end, so the write needs no device-side mask.
 
     ``caches`` maps an attention connection's engine-stamped key to
-    ``{"k": (rows, heads, max_seqlen, head_dim), "v": ...}``.
+    ``{"k": (rows, heads, max_seqlen, head_dim), "v": ...}``, which may
+    hold a narrower or wider dtype than the activations
+    (``decode_kv_dtype``): layers cast on write.
     """
 
-    mode: str                                  # "prefill" | "step"
+    mode: str                                  # "prefill" | "block"
     caches: Dict[str, Dict[str, torch.Tensor]]
-    positions: Optional[torch.Tensor] = None   # (rows,) int64, step mode
+    # (rows,) int64, block mode: the first position written
+    positions: Optional[torch.Tensor] = None
+    # (n,) int64 each, block mode: the cache cells written (row, column)
+    # and the query each takes its (k, v) from
+    write_rows: Optional[torch.Tensor] = None
+    write_cols: Optional[torch.Tensor] = None
+    write_from: Optional[torch.Tensor] = None
     max_seqlen: int = 0
 
 

@@ -122,8 +122,9 @@ class EmbeddingLayer(Layer):
             wpos = params["wpos"]
             dec = ctx.decode
             pos = _label_field(ctx, self.pos_key)
-            if dec is not None and dec.mode == "step":
-                # incremental decode: each row sits at its own position
+            if dec is not None and dec.mode == "block":
+                # incremental decode: each row sits at its own W
+                # consecutive positions
                 pidx = (dec.positions[:, None]
                         + torch.arange(ids.shape[1], device=ids.device)
                         [None, :]).clamp(0, wpos.shape[0] - 1)
@@ -287,12 +288,16 @@ class AttentionLayer(Layer):
         """Cache-aware attention for incremental decode.
 
         Prefill stores this layer's fresh ``(k, v)`` in the decode state
-        and runs the normal causal path.  Step mode (one position per
-        row) writes the new ``(k, v)`` into the cache in place at
-        ``positions`` and attends over the whole cache under the length
-        mask ``arange(S) <= position``: masked scores get ``NEG_INF`` and
+        and runs the normal causal path.  Block mode (``W`` consecutive
+        positions per row; a decode step is ``W = 1``) writes the fresh
+        columns into the cache in place at the engine's host-built
+        ``(write_rows, write_cols)`` (columns past the cache end are left
+        out, as the JAX package's ``mode="drop"`` scatter drops them) and
+        query ``w`` attends over the whole cache under the length mask
+        ``arange(S) <= positions + w``: masked scores get ``NEG_INF`` and
         softmax to exactly 0, so never-written cache columns are
-        invisible.  Scores and ``p·V`` run in float32, as the JAX
+        invisible.  The cache is cast to on write and read back in the
+        activations' dtype; scores and ``p·V`` run in float32, as the JAX
         package's ``preferred_element_type`` does."""
         dec = ctx.decode
         key = self.decode_key
@@ -302,21 +307,23 @@ class AttentionLayer(Layer):
         if dec.mode == "prefill":
             dec.caches[key] = {"k": k, "v": v}
             return single_device_attention(q, k, v, True, ctx)
+        assert dec.mode == "block", f"unknown decode mode {dec.mode}"
         b, h, s, hd = q.shape
-        assert dec.mode == "step" and s == 1, \
-            f"decode step expects seq len 1, got mode {dec.mode} len {s}"
         cache = dec.caches[key]
-        rows = torch.arange(b, device=q.device)
         ck, cv = cache["k"], cache["v"]
-        ck[rows, :, dec.positions] = k[:, :, 0, :].to(ck.dtype)
-        cv[rows, :, dec.positions] = v[:, :, 0, :].to(cv.dtype)
+        S = ck.shape[2]
+        r, c, w = dec.write_rows, dec.write_cols, dec.write_from
+        ck[r, :, c] = k.transpose(1, 2)[r, w].to(ck.dtype)
+        cv[r, :, c] = v.transpose(1, 2)[r, w].to(cv.dtype)
         scale = 1.0 / (hd ** 0.5)
         scores = torch.matmul(q.float(),
                               ck.to(q.dtype).float().transpose(-1, -2)) \
             * scale
-        mask = torch.arange(ck.shape[2], device=q.device)[None, :] \
-            <= dec.positions[:, None]
-        scores = torch.where(mask[:, None, None, :], scores, ring.NEG_INF)
+        # query w of a row sees the columns <= positions + w
+        last = dec.positions[:, None] + torch.arange(s, device=q.device)
+        mask = torch.arange(S, device=q.device)[None, None, :] \
+            <= last[:, :, None]
+        scores = torch.where(mask[:, None, :, :], scores, ring.NEG_INF)
         p = torch.softmax(scores, dim=-1)
         return torch.matmul(p, cv.float()).to(q.dtype)
 

@@ -31,10 +31,16 @@ Ported tasks:
   ``extract_node_name``'s values (``extract``: text, or raw float32
   under ``output_format = bin``, with the row width in ``<file>.meta``);
   each emits a ``latency`` record of its per-batch times;
-* ``task = serve`` with ``serve_gen = 1``: a snapshot (``model_in``) is
-  served by the KV-cache decode engine behind the continuous-batching
-  step scheduler, the ``pred`` iterator section's rows become the
-  prompts, and the generated ids land in ``name_pred``.
+* ``task = serve``: a snapshot (``model_in``) is served to
+  ``serve_clients`` concurrent client threads replaying the ``pred``
+  iterator section: by default one single-row predict request a row,
+  coalesced by the micro-batcher into ``serve_shapes`` bucket dispatches
+  of the ``serve_dtype`` variant, the predictions in ``name_pred`` as
+  ``task = pred`` writes them; with ``serve_gen = 1`` the rows become
+  prompts for the KV-cache decode engine behind the continuous-batching
+  step scheduler (speculative with a ``serve_draft_model``, chunked
+  prefill with ``decode_prefill_chunk``), the generated ids in
+  ``name_pred``.
 
 The other tasks (``check``), and the keys of the JAX package's train
 loop whose features are not ported (``UNPORTED_TASK_KEYS``), are refused
@@ -613,16 +619,181 @@ class LearnTask:
         mlog.notice(f"finished extraction, write into {self.name_pred}")
 
     def task_serve(self) -> None:
+        """``task = serve``: the loaded model behind the pinned-shape
+        predict engine and the micro-batcher, the ``pred`` iterator
+        replayed as a concurrent request stream: ``serve_clients``
+        threads each submit single-row requests, which the batcher
+        coalesces into bucket dispatches.  Predictions land in
+        ``name_pred`` as ``task = pred`` writes them; the run emits a
+        ``latency`` record (``op = serve``) and a ``serve`` record (QPS,
+        dtype, buckets, the batcher's and the engine's accounting, the
+        footprint and, after ``serve_calib``, the quantized variant's
+        pairtest error).  ``serve_gen = 1`` goes to
+        :meth:`task_serve_gen`."""
         assert self.itr_pred is not None, (
             "task=serve requires a 'pred = <out>' iterator section "
             "(the request stream)")
         from .serve import ServeConfig
         cfg = ServeConfig.from_pairs(self.cfg)
-        if not cfg.gen:
-            raise NotImplementedError(
-                "task = serve without serve_gen = 1 (the micro-batched "
-                "predict path) is not ported to cxxnet_tpu_torch yet")
-        self.task_serve_gen(cfg)
+        if cfg.gen:
+            return self.task_serve_gen(cfg)
+        from .serve.engine import SERVE_TOL
+        from .serve.host import ModelHost, ServeModel
+        metrics = self.net.metrics
+        sm = ServeModel(self.net, cfg, metrics=metrics)
+        host = ModelHost()
+        host.attach(sm, warmup=False)
+        mlog.notice(f"serve: warming {len(cfg.shapes)} shape bucket(s) "
+                    f"{list(cfg.shapes)}, dtype={cfg.dtype}, device "
+                    f"{self.net.device} ...")
+        try:
+            sm.warmup()
+            mlog.info(f"serve: warmup in {sm.engine.warmup_sec:.1f} sec")
+            footprint = sm.footprint()
+            metrics.set_gauge("serve_footprint_bytes",
+                              footprint["total_bytes"])
+            mlog.info(f"serve: model footprint "
+                      f"{footprint['total_bytes'] / 1e6:.1f} MB "
+                      f"(weights {footprint['weight_bytes'] / 1e6:.1f} MB, "
+                      f"{footprint['buckets']} bucket(s))")
+            if cfg.dtype != "f32" and cfg.calib > 0:
+                # the quantized variant against f32 on the first
+                # serve_calib request batches
+                calib = []
+                for batch in self._pred_batches("to calibrate on"):
+                    calib.append(np.array(batch.data[:batch.batch_size
+                                                     - batch.num_batch_padd],
+                                          np.float32))
+                    if len(calib) >= cfg.calib:
+                        break
+                if calib:
+                    err = max(sm.engine.pairtest(r) for r in calib)
+                    metrics.set_gauge("serve_quant_rel_err", err)
+                    mlog.result(
+                        f"serve: {cfg.dtype} pairtest vs f32 on "
+                        f"{len(calib)} calibration batch(es): max rel err "
+                        f"{err:.3g} (envelope {SERVE_TOL[cfg.dtype]:g})")
+            if not host.mark_ready():
+                mlog.warn("serve: host failed the ready admission check")
+
+            def rows():
+                for batch in self._pred_batches("(the request stream)"):
+                    valid = np.array(batch.data[:batch.batch_size
+                                                - batch.num_batch_padd],
+                                     np.float32)
+                    for i in range(valid.shape[0]):
+                        yield valid[i:i + 1]
+
+            mlog.notice(f"serve: streaming requests over {cfg.clients} "
+                        "client thread(s)")
+            results, dur = self._stream_clients(
+                rows(), sm.predict, cfg.clients,
+                max(cfg.queue_depth, 2 * cfg.max_batch), "cxxnet-serve")
+            with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
+                for out in results:
+                    row = out[0]
+                    v = float(row.argmax()) if row.shape[0] > 1 \
+                        else float(row[0])
+                    fo.write(f"{v:g}\n")
+            self._emit_latency_record("serve")
+            metrics.set_gauge("serve_retraces", sm.retraces)
+            stats = sm.batcher.stats()
+            qps = len(results) / max(dur, 1e-9)
+            quant = metrics.gauges.get("serve_quant_rel_err")
+            self.last_serve = dict(stats, duration_sec=dur, qps=qps,
+                                   dtype=cfg.dtype, retraces=sm.retraces,
+                                   engine=sm.engine.stats(),
+                                   quant_rel_err=quant)
+            metrics.emit("serve", model=sm.name, duration_sec=round(dur, 3),
+                         qps=round(qps, 1), dtype=cfg.dtype,
+                         shapes=list(cfg.shapes), clients=cfg.clients,
+                         retraces=sm.retraces, device=str(self.net.device),
+                         engine=sm.engine.stats(), footprint=footprint,
+                         **stats,
+                         **({} if quant is None else {"quant_rel_err": quant}))
+            if sm.retraces:
+                mlog.warn(f"serve: {sm.retraces} dispatch(es) at a shape "
+                          "warmup did not run")
+            mlog.result(
+                f"serve: {len(results)} requests in {dur:.2f} sec "
+                f"({qps:.1f} req/s), {stats['batches']} dispatches (mean "
+                f"batch {stats['mean_batch']}), retraces {sm.retraces}")
+        finally:
+            host.close()
+        mlog.notice(f"finished serving, wrote {self.name_pred}")
+
+    @staticmethod
+    def _stream_clients(items, call, clients: int, depth: int, name: str):
+        """Feed ``items`` through a bounded work queue to ``clients``
+        threads, each calling ``call(item)``; returns the results in
+        item order and the wall seconds.  The first client or producer
+        exception stops the stream and is raised."""
+        results: dict = {}
+        errors: List[BaseException] = []
+        abort = threading.Event()
+        work: "queue.Queue" = queue.Queue(maxsize=depth)
+        done = object()
+        n_total = [0]
+
+        def put(item) -> bool:
+            while not abort.is_set():
+                try:
+                    work.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                idx = 0
+                for item in items:
+                    if not put((idx, item)):
+                        return
+                    idx += 1
+                n_total[0] = idx
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                abort.set()
+            finally:
+                for _ in range(clients):
+                    if not put(done):
+                        return
+
+        def client():
+            while True:
+                try:
+                    item = work.get(timeout=0.05)
+                except queue.Empty:
+                    if abort.is_set():
+                        return
+                    continue
+                if item is done:
+                    return
+                i, x = item
+                try:
+                    results[i] = call(x)
+                except BaseException as e:  # noqa: BLE001 — reported
+                    errors.append(e)
+                    abort.set()
+                    return
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, daemon=True,
+                                    name=f"{name}-client-{j}")
+                   for j in range(clients)]
+        prod = threading.Thread(target=producer, daemon=True,
+                                name=f"{name}-producer")
+        prod.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        prod.join()
+        dur = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        return [results[i] for i in range(n_total[0])], dur
 
     @staticmethod
     def _prompts(batch, cfg) -> List[np.ndarray]:
@@ -650,118 +821,94 @@ class LearnTask:
         leading ``serve_gen_prompt`` ids (or each of its documents, see
         :meth:`_prompts`) become one request,
         ``serve_clients`` threads submit them concurrently, and the step
-        scheduler keeps the ``decode_slots`` batch full.  Generated ids
+        scheduler keeps the ``decode_slots`` batch full, speculatively
+        with a ``serve_draft_model`` and ``spec_k >= 1``.  Generated ids
         land in ``name_pred``, space-separated, one request per line."""
-        from .serve.host import GenModel
+        from .serve.host import GenModel, ModelHost, load_draft_trainer
         metrics = self.net.metrics
-        gm = GenModel(self.net, cfg, metrics=metrics)
-        mlog.notice(f"serve: warming decode engine ({cfg.slots} slot(s), "
-                    f"max_seqlen {gm.engine.max_seqlen}, device "
-                    f"{self.net.device}) ...")
-        results: dict = {}
-        errors: List[BaseException] = []
-        abort = threading.Event()
-        work: "queue.Queue" = queue.Queue(maxsize=cfg.queue_depth)
-        done = object()
-        n_total = [0]
-
-        def put(item) -> bool:
-            while not abort.is_set():
-                try:
-                    work.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def producer():
-            try:
-                self.itr_pred.before_first()
-                idx = 0
-                while True:
-                    batch = self.itr_pred.next()
-                    if batch is None:
-                        break
-                    for prompt in self._prompts(batch, cfg):
-                        if not put((idx, prompt)):
-                            return
-                        idx += 1
-                n_total[0] = idx
-            except BaseException as e:  # noqa: BLE001 — reported below
-                errors.append(e)
-                abort.set()
-            finally:
-                for _ in range(cfg.clients):
-                    if not put(done):
-                        return
-
-        def client():
-            while True:
-                try:
-                    item = work.get(timeout=0.05)
-                except queue.Empty:
-                    if abort.is_set():
-                        return
-                    continue
-                if item is done:
-                    return
-                i, prompt = item
-                try:
-                    results[i] = gm.generate(prompt)
-                except BaseException as e:  # noqa: BLE001 — reported
-                    errors.append(e)
-                    abort.set()
-                    return
-
+        if cfg.spec_k >= 1 and not cfg.draft_model:
+            raise ValueError(f"spec_k = {cfg.spec_k} without "
+                             "serve_draft_model: speculation needs a draft "
+                             "snapshot")
+        draft = None
+        if cfg.draft_model:
+            if cfg.spec_k >= 1:
+                mlog.notice(f"serve: loading draft model {cfg.draft_model} "
+                            f"(speculative decoding, spec_k = {cfg.spec_k})")
+                draft = load_draft_trainer(self.cfg, cfg.draft_model)
+            else:
+                mlog.warn("serve: serve_draft_model set but spec_k = 0 — "
+                          "speculation stays off")
+        host = ModelHost()
         try:
+            gm = host.attach(GenModel(self.net, cfg, draft_trainer=draft,
+                                      metrics=metrics), warmup=False)
+            mlog.notice(f"serve: warming decode engine ({cfg.slots} "
+                        f"slot(s), max_seqlen {gm.engine.max_seqlen}, block "
+                        f"widths {list(gm.engine.block_widths)}, KV cache "
+                        f"{gm.engine.kv_dtype}, device {self.net.device}) "
+                        "...")
             gm.warmup()
             mlog.info(f"serve: decode warmup in "
                       f"{gm.engine.warmup_sec:.1f} sec")
+            if not host.mark_ready():
+                mlog.warn("serve: host failed the ready admission check")
             footprint = gm.footprint()
             metrics.set_gauge("serve_footprint_bytes",
                               footprint["total_bytes"])
+
+            def prompts():
+                for batch in self._pred_batches("(the prompt stream)"):
+                    yield from self._prompts(batch, cfg)
+
             mlog.notice(f"serve: streaming generation over {cfg.clients} "
                         "client thread(s)")
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, daemon=True,
-                                        name=f"cxxnet-serve-gen-{j}")
-                       for j in range(cfg.clients)]
-            prod = threading.Thread(target=producer, daemon=True,
-                                    name="cxxnet-serve-gen-producer")
-            prod.start()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
-            prod.join()
-            dur = time.perf_counter() - t0
-            if errors:
-                raise errors[0]
+            results, dur = self._stream_clients(
+                prompts(), gm.generate, cfg.clients, cfg.queue_depth,
+                "cxxnet-serve-gen")
             with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
-                for i in range(n_total[0]):
-                    fo.write(" ".join(str(t) for t in results[i]) + "\n")
+                for toks in results:
+                    fo.write(" ".join(str(t) for t in toks) + "\n")
             self._emit_latency_record("token")
             self._emit_latency_record("gen")
+            metrics.set_gauge("serve_retraces", gm.retraces)
             stats = gm.scheduler.stats()
             tps = stats["tokens"] / max(dur, 1e-9)
+            calls = {"prefill_calls": gm.engine.prefill_calls,
+                     "step_calls": gm.engine.step_calls,
+                     "block_calls": gm.engine.block_calls}
+            if gm.draft is not None:
+                calls.update(draft_prefill_calls=gm.draft.prefill_calls,
+                             draft_step_calls=gm.draft.step_calls)
             self.last_serve = dict(stats, duration_sec=dur,
                                    tokens_per_sec=tps,
-                                   prefill_calls=gm.engine.prefill_calls,
-                                   step_calls=gm.engine.step_calls)
+                                   retraces=gm.retraces, **calls)
             metrics.emit("serve_gen", model=gm.name,
                          duration_sec=round(dur, 3),
                          tokens_per_sec=round(tps, 1), slots=cfg.slots,
                          max_seqlen=gm.engine.max_seqlen,
                          gen_tokens=cfg.gen_tokens, clients=cfg.clients,
-                         sample=cfg.gen_sample, device=str(self.net.device),
-                         footprint=footprint, **stats)
+                         sample=cfg.gen_sample, retraces=gm.retraces,
+                         kv_dtype=gm.engine.kv_dtype,
+                         device=str(self.net.device), footprint=footprint,
+                         **calls, **stats)
+            if gm.retraces:
+                mlog.warn(f"serve: {gm.retraces} block dispatch(es) at a "
+                          "width warmup did not run")
+            spec_note = (
+                f", acceptance {stats['acceptance_rate']:.0%} over "
+                f"{stats['verify_calls']} verify dispatch(es)"
+                if "acceptance_rate" in stats else "")
             mlog.result(
                 f"serve: generated {stats['tokens']} tokens for "
-                f"{n_total[0]} requests in {dur:.2f} sec ({tps:.1f} tok/s, "
-                f"mean occupancy {stats['mean_occupancy']}, "
-                f"{stats['batching']} batching)")
+                f"{len(results)} requests in {dur:.2f} sec ({tps:.1f} "
+                f"tok/s, mean occupancy {stats['mean_occupancy']}, "
+                f"{stats['batching']} batching{spec_note}), retraces "
+                f"{gm.retraces}")
         finally:
-            gm.close()
+            host.close()
+            if draft is not None:
+                draft.metrics.close()
         mlog.notice(f"finished serving, wrote {self.name_pred}")
 
     def run(self, argv: List[str]) -> int:

@@ -1,28 +1,91 @@
-"""Serving: ``task = serve`` with ``serve_gen = 1`` — KV-cached
-incremental decode (:mod:`.decode`) behind the token-level
-continuous-batching step scheduler (:mod:`.batcher`), hosted by
-:class:`~cxxnet_tpu_torch.serve.host.GenModel`.
+"""Serving: ``task = serve``.
+
+* :class:`~cxxnet_tpu_torch.serve.engine.PredictEngine` — pinned-shape
+  predict: every request pads up to the nearest declared batch bucket
+  (``serve_shapes``); ``serve_dtype`` selects the f32 / bf16 /
+  per-channel-int8 weight variants.
+* :class:`~cxxnet_tpu_torch.serve.batcher.MicroBatcher` — a bounded
+  request queue and one dispatcher thread that coalesces concurrent
+  client requests into bucket dispatches.
+* ``serve_gen = 1``: KV-cached incremental decode (:mod:`.decode`)
+  behind the token-level continuous-batching step scheduler
+  (:class:`~cxxnet_tpu_torch.serve.batcher.StepScheduler`), with
+  speculative decoding (``serve_draft_model`` + ``spec_k``), chunked
+  prefill (``decode_prefill_chunk``) and a KV-cache dtype of its own
+  (``decode_kv_dtype``).
+* :mod:`.host` — engine + batcher bundles (``ServeModel``, ``GenModel``)
+  routed by model name (``ModelHost``).
 
 :class:`ServeConfig` parses the same ``serve_*`` / ``decode_*`` keys as
 the JAX package, plus one of the port's own: ``serve_gen_prompt_doc =
 1`` makes every document of a ``packseq`` prompt row its own request
 (its first ``serve_gen_prompt`` ids), so prompts keep their own lengths;
 the default ``0`` takes each row's leading ``serve_gen_prompt`` ids, as
-the JAX package does.  Keys of pieces not ported yet (speculative decoding,
-chunked prefill, a KV-cache dtype other than the net's, the admin
-plane) are parsed and rejected when set, rather than ignored.
+the JAX package does.  The keys of the admin plane, the serve-side
+sentinels, the SLO tracker and the flight capture are parsed and
+refused when set away from their defaults, rather than ignored: they
+need the observability plane (spans, SLO, Prometheus text), which is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+
+def parse_shapes(val: str) -> List[int]:
+    """Parse a ``serve_shapes`` spec ("1,8,32"); raises ValueError with
+    the message :func:`shapes_check` gives."""
+    msg = shapes_check(val)
+    if msg is not None:
+        raise ValueError(f"serve_shapes = {val!r}: {msg}")
+    return [int(p) for p in val.split(",") if p.strip()]
+
+
+def shapes_check(val: str) -> Optional[str]:
+    """Validator for ``serve_shapes``: the buckets must be positive,
+    strictly ascending ints (None when they are)."""
+    try:
+        parts = [int(p) for p in val.split(",") if p.strip()]
+    except ValueError:
+        return "expected comma-separated batch-size buckets, e.g. 1,8,32"
+    if not parts:
+        return "expected at least one batch-size bucket"
+    if any(p <= 0 for p in parts):
+        return "buckets must be positive"
+    if sorted(set(parts)) != parts:
+        return "buckets must be strictly ascending (sorted, no duplicates)"
+    return None
+
+
+#: keys of the observability plane: (config key, field, default).  Any
+#: other value is refused by name
+UNPORTED_SERVE_KEYS = (
+    ("serve_admin_port", "admin_port", 0),
+    ("serve_sentinel", "sentinel", 0),
+    ("serve_sentinel_window", "sentinel_window", 1.0),
+    ("serve_slo_p99_ms", "slo_p99_ms", 0.0),
+    ("serve_slo_avail", "slo_avail", 0.999),
+    ("serve_slo_fast_sec", "slo_fast_sec", 60.0),
+    ("serve_slo_slow_sec", "slo_slow_sec", 600.0),
+    ("serve_slo_fast_burn", "slo_fast_burn", 14.4),
+    ("serve_slo_slow_burn", "slo_slow_burn", 6.0),
+    ("serve_flight_requests", "flight_requests", 16),
+    ("serve_flight_boost", "flight_boost", 1),
+)
 
 
 @dataclasses.dataclass
 class ServeConfig:
+    shapes: Tuple[int, ...] = (1, 8, 32)
+    max_batch: int = 0          # 0 = the largest bucket
+    max_wait_ms: float = 2.0
+    dtype: str = "f32"
     clients: int = 4
+    calib: int = 0
     queue_depth: int = 64
+    # incremental decode / generation (serve/decode.py)
     gen: int = 0
     slots: int = 4
     max_seqlen: int = 0         # 0 = the netconfig input width
@@ -35,14 +98,35 @@ class ServeConfig:
     gen_prompt: int = 8
     gen_prompt_doc: int = 0
     gen_batching: str = "continuous"
-    # not ported yet: rejected when set
-    draft_model: str = ""
-    spec_k: int = 0
-    prefill_chunk: int = 0
-    kv_dtype: str = ""
+    # speculative decoding + chunked prefill (serve/batcher.py)
+    draft_model: str = ""       # draft-net snapshot; "" = no speculation
+    spec_k: int = 0             # proposals per round; 0 = speculation off
+    prefill_chunk: int = 0      # 0 = whole-prompt prefill
+    kv_dtype: str = ""          # "" = the net's dtype
+    # the observability plane: not ported, refused when set
     admin_port: int = 0
+    sentinel: int = 0
+    sentinel_window: float = 1.0
+    slo_p99_ms: float = 0.0
+    slo_avail: float = 0.999
+    slo_fast_sec: float = 60.0
+    slo_slow_sec: float = 600.0
+    slo_fast_burn: float = 14.4
+    slo_slow_burn: float = 6.0
+    flight_requests: int = 16
+    flight_boost: int = 1
 
     def __post_init__(self):
+        self.shapes = tuple(self.shapes)
+        if not (self.shapes and all(s > 0 for s in self.shapes)
+                and list(self.shapes) == sorted(set(self.shapes))):
+            raise ValueError(f"serve_shapes must be positive ascending, got "
+                             f"{self.shapes}")
+        if self.dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(f"serve_dtype = {self.dtype!r}: expected f32, "
+                             "bf16, or int8")
+        if self.max_batch <= 0:
+            self.max_batch = max(self.shapes)
         if self.gen_sample not in ("greedy", "temperature", "topk"):
             raise ValueError(f"serve_gen_sample = {self.gen_sample!r}: "
                              "expected greedy, temperature, or topk")
@@ -55,24 +139,35 @@ class ServeConfig:
         if self.gen_prompt_doc not in (0, 1):
             raise ValueError(f"serve_gen_prompt_doc = {self.gen_prompt_doc}: "
                              "expected 0 or 1")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k = {self.spec_k}: must be >= 0")
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"decode_prefill_chunk = {self.prefill_chunk}: must be >= 0 "
+                "(0 = whole-prompt prefill)")
         if self.kv_dtype not in ("", "f32", "bf16"):
             raise ValueError(f"decode_kv_dtype = {self.kv_dtype!r}: "
                              "expected f32 or bf16")
-        for key, val, off in (("serve_draft_model", self.draft_model, ""),
-                              ("spec_k", self.spec_k, 0),
-                              ("decode_prefill_chunk", self.prefill_chunk, 0),
-                              ("serve_admin_port", self.admin_port, 0)):
+        for key, field, off in UNPORTED_SERVE_KEYS:
+            val = getattr(self, field)
             if val != off:
-                raise ValueError(f"{key} = {val}: not ported to "
-                                 "cxxnet_tpu_torch yet (ROADMAP.md)")
+                raise ValueError(
+                    f"{key} = {val}: not ported to cxxnet_tpu_torch yet (it "
+                    "needs the observability plane; ROADMAP.md)")
 
     @classmethod
     def from_pairs(cls, pairs: Sequence[Tuple[str, str]]) -> "ServeConfig":
         """Build from ordered config pairs (last occurrence wins)."""
         last = dict(pairs)
         kw = {}
+        if "serve_shapes" in last:
+            kw["shapes"] = tuple(parse_shapes(last["serve_shapes"]))
         for key, field, conv in (
+                ("serve_max_batch", "max_batch", int),
+                ("serve_max_wait_ms", "max_wait_ms", float),
+                ("serve_dtype", "dtype", str),
                 ("serve_clients", "clients", int),
+                ("serve_calib", "calib", int),
                 ("serve_queue_depth", "queue_depth", int),
                 ("serve_gen", "gen", int),
                 ("decode_slots", "slots", int),
@@ -89,8 +184,10 @@ class ServeConfig:
                 ("serve_draft_model", "draft_model", str),
                 ("spec_k", "spec_k", int),
                 ("decode_prefill_chunk", "prefill_chunk", int),
-                ("decode_kv_dtype", "kv_dtype", str),
-                ("serve_admin_port", "admin_port", int)):
+                ("decode_kv_dtype", "kv_dtype", str)):
             if key in last:
                 kw[field] = conv(last[key])
+        for key, field, off in UNPORTED_SERVE_KEYS:
+            if key in last:
+                kw[field] = type(off)(last[key])
         return cls(**kw)

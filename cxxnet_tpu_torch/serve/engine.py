@@ -1,0 +1,269 @@
+"""Pinned-shape predict engine (the JAX package's ``serve/engine.py``).
+
+The engine declares its batch shapes up front (``serve_shapes =
+1,8,32``), runs each bucket once at :meth:`PredictEngine.warmup` (the
+kernels build and the libraries pick their algorithms there), and pads
+every request up to the nearest bucket, so the device only ever sees
+the declared shapes: a later CUDA-graph capture can take each.
+:attr:`PredictEngine.retraces` counts dispatches at a shape warmup did
+not run, which the bucketing makes 0 by construction; it stays so the
+records match the JAX package's.
+
+``serve_dtype`` selects the predict variant:
+
+* ``f32`` — the reference: the trainer's own parameter tensors.
+* ``bf16`` — a bfloat16 copy of the floating parameters; each dispatch
+  casts its input to bfloat16 (the net then computes in its own dtype on
+  the rounded values, as the JAX package's does).
+* ``int8`` — per-output-channel symmetric int8 quantization of the
+  ``wmat`` of every ``conv`` / ``fullc`` connection that owns its
+  parameters (scale = absmax / 127 per channel on dim 0); the int8
+  tensors and their scales stay on the device and each dispatch
+  dequantizes them (``q * scale``) before the forward: weight-only
+  quantization, in plain PyTorch as the reference's is plain XLA.
+
+Each quantized variant is pairtested against the f32 reference within
+the declared :data:`SERVE_TOL` envelope (:meth:`PredictEngine.pairtest`,
+run by ``serve_calib`` at task startup).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..layers.conv import ConvolutionLayer
+from ..layers.fullc import FullConnectLayer
+from ..monitor import log as mlog
+from .decode import _tree_bytes
+
+#: declared pairtest envelopes per predict variant (the JAX package's):
+#: max |variant - f32| / (max |f32| + 1e-6) over one predict call
+SERVE_TOL = {"f32": 0.0, "bf16": 2e-2, "int8": 6e-2}
+
+
+def quantize_per_channel(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-channel int8 quantization of a weight whose
+    dim 0 is the output channel (fullc ``(nhidden, nin)``, conv
+    ``(nchannel, cin/g, kh, kw)``).  Returns ``(q, scale)`` with ``q *
+    scale ~= w``; a dead channel (all zeros) gets scale 0."""
+    w = np.asarray(w, np.float32)
+    absmax = np.max(np.abs(w).reshape(w.shape[0], -1), axis=1)
+    scale = absmax / 127.0
+    safe = np.where(scale > 0, scale, 1.0)
+    q = np.clip(np.round(w / safe.reshape((-1,) + (1,) * (w.ndim - 1))),
+                -127, 127).astype(np.int8)
+    return q, scale.reshape((-1,) + (1,) * (w.ndim - 1)).astype(np.float32)
+
+
+class PredictEngine:
+    """Pinned-shape predict over a loaded trainer: build once,
+    :meth:`warmup` once, then :meth:`predict` from one thread at a time
+    (concurrent callers go through
+    :class:`~cxxnet_tpu_torch.serve.batcher.MicroBatcher`, which also
+    coalesces them into fuller buckets)."""
+
+    def __init__(self, trainer, *, shapes: Sequence[int] = (1, 8, 32),
+                 dtype: str = "f32"):
+        if trainer.net is None:
+            raise ValueError("PredictEngine needs an initialized/loaded "
+                             "trainer")
+        self.trainer = trainer
+        self.shapes = tuple(sorted(set(int(s) for s in shapes)))
+        if not self.shapes or any(s <= 0 for s in self.shapes):
+            raise ValueError(f"serve_shapes must be positive, got {shapes}")
+        if dtype not in SERVE_TOL:
+            raise ValueError(f"serve_dtype = {dtype!r}: expected one of "
+                             f"{'/'.join(SERVE_TOL)}")
+        self.dtype = dtype
+        self.device = trainer.device
+        self._params, self._scales = self._prepare_params()
+        self._warm: Optional[set] = None
+        self.retraces = 0
+        self.warmup_sec = 0.0
+        # dispatch accounting: which bucket each dispatch landed in and
+        # how many pad rows it cost (dispatcher-thread writer only)
+        self.bucket_hist: Dict[int, int] = {}
+        self.pad_rows = 0
+        self.dispatches = 0
+
+    # ------------------------------------------------------------- params
+    def _quant_keys(self) -> set:
+        return {c.param_key for c in self.trainer.net.connections
+                if c.owns_params
+                and type(c.layer) in (ConvolutionLayer, FullConnectLayer)}
+
+    def _prepare_params(self):
+        """The serve-side parameters (and, for int8, the per-channel
+        scales).  f32 aliases the trainer's tensors: a variant costs
+        extra weight memory only where it transforms them."""
+        t = self.trainer
+        if self.dtype == "f32":
+            return t.params, {}
+        if self.dtype == "bf16":
+            return {k: {tag: p.to(torch.bfloat16) if p.is_floating_point()
+                        else p for tag, p in g.items()}
+                    for k, g in t.params.items()}, {}
+        qkeys = self._quant_keys()
+        params, scales = {}, {}
+        for pkey, group in t.params.items():
+            if pkey in qkeys and "wmat" in group:
+                q, s = quantize_per_channel(
+                    group["wmat"].float().cpu().numpy())
+                params[pkey] = dict(group, wmat=torch.from_numpy(q)
+                                    .to(self.device))
+                scales[pkey] = {"wmat": torch.from_numpy(s)
+                                .to(self.device)}
+            else:
+                params[pkey] = group
+        return params, scales
+
+    def _dequant(self):
+        """The weights one dispatch computes with: int8 ``q * scale`` in
+        float32, the other variants as stored."""
+        if not self._scales:
+            return self._params
+        out = dict(self._params)
+        for pkey, sg in self._scales.items():
+            out[pkey] = dict(out[pkey], wmat=out[pkey]["wmat"].float()
+                             * sg["wmat"])
+        return out
+
+    @property
+    def _in_shape(self) -> Tuple[int, ...]:
+        return tuple(self.trainer.net.node_shapes[0][1:])
+
+    def _forward(self, params, rows: np.ndarray, cast: bool) -> np.ndarray:
+        """Final-node values of ``rows`` as (n, values) float32."""
+        t = self.trainer
+        with torch.inference_mode():
+            x = torch.as_tensor(np.ascontiguousarray(rows, np.float32),
+                                device=self.device)
+            if cast:
+                x = x.to(torch.bfloat16)
+            nodes = t.net.forward(params, {0: x}, t.context())
+            out = nodes[t.net.final_node]
+            return out.reshape(out.shape[0], -1).float().cpu().numpy()
+
+    def _padded(self, x: np.ndarray, i: int, take: int, b: int):
+        chunk = x[i:i + take]
+        if take < b:
+            chunk = np.concatenate(
+                [chunk, np.zeros((b - take,) + self._in_shape, np.float32)])
+        return chunk
+
+    def warmup(self) -> None:
+        """Run every declared bucket once (kernel builds, library
+        algorithm choice) and wait for the device; from here on a
+        dispatch at any other shape counts in :attr:`retraces`."""
+        t0 = time.perf_counter()
+        for b in self.shapes:
+            self._forward(self._dequant(),
+                          np.zeros((b,) + self._in_shape, np.float32),
+                          self.dtype == "bf16")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warm = set(self.shapes)
+        self.warmup_sec = time.perf_counter() - t0
+
+    @property
+    def warmed(self) -> bool:
+        return self._warm is not None
+
+    def footprint(self) -> Dict[str, int]:
+        """Resident device bytes this model costs: the serve-variant
+        weights and scales counted once, the trainer's buffers, and for
+        a cast or quantized variant the trainer's own copies of what it
+        transformed (the trainer stays alive); ``opt_bytes`` is the
+        optimizer state the trainer holds on the device.  Empty before
+        warmup."""
+        if self._warm is None:
+            return {}
+        t = self.trainer
+        weight = _tree_bytes(self._params) + _tree_bytes(self._scales) \
+            + _tree_bytes(t.buffers)
+        if self.dtype == "bf16":
+            weight += _tree_bytes(t.params)
+        elif self.dtype == "int8":
+            for pkey in self._scales:
+                weight += _tree_bytes(t.params[pkey]["wmat"])
+        opt = _tree_bytes(t.opt_state or {})
+        return {"weight_bytes": weight, "opt_bytes": opt,
+                "buckets": len(self._warm), "total_bytes": weight + opt}
+
+    def stats(self) -> Dict[str, object]:
+        """Dispatch accounting: bucket occupancy and padding waste."""
+        return {"dispatches": self.dispatches,
+                "bucket_hist": {str(k): v
+                                for k, v in sorted(self.bucket_hist.items())},
+                "pad_rows": self.pad_rows,
+                "warmup_sec": round(self.warmup_sec, 3)}
+
+    # ------------------------------------------------------------ predict
+    def bucket_for(self, n: int) -> int:
+        """Smallest declared bucket holding ``n`` rows (the largest for
+        more)."""
+        for b in self.shapes:
+            if n <= b:
+                return b
+        return self.shapes[-1]
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        """Final-node rows for ``x`` (``(n,) + input_shape``), any ``n``:
+        an oversize request splits into largest-bucket dispatches, the
+        remainder pads up to its nearest bucket."""
+        if self._warm is None:
+            self.warmup()
+        x = np.asarray(x, np.float32)
+        if x.shape[1:] != self._in_shape:
+            raise ValueError(f"predict: rows of shape {x.shape[1:]} but the "
+                             f"model takes {self._in_shape}")
+        n = x.shape[0]
+        outs, i = [], 0
+        while i < n:
+            take = min(n - i, self.shapes[-1])
+            b = self.bucket_for(take)
+            if b not in self._warm:
+                self._warm.add(b)
+                self.retraces += 1
+            self.bucket_hist[b] = self.bucket_hist.get(b, 0) + 1
+            self.pad_rows += b - take
+            self.dispatches += 1
+            out = self._forward(self._dequant(), self._padded(x, i, take, b),
+                                self.dtype == "bf16")
+            outs.append(out[:take])
+            i += take
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    # ----------------------------------------------------------- pairtest
+    def reference_predict(self, x: np.ndarray) -> np.ndarray:
+        """The f32 reference: the trainer's own parameters, the rows
+        padded to the declared buckets as :meth:`predict` pads them
+        (not counted as dispatches)."""
+        x = np.asarray(x, np.float32)
+        n = x.shape[0]
+        outs, i = [], 0
+        while i < n:
+            take = min(n - i, self.shapes[-1])
+            b = self.bucket_for(take)
+            outs.append(self._forward(self.trainer.params,
+                                      self._padded(x, i, take, b),
+                                      False)[:take])
+            i += take
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    def pairtest(self, x: np.ndarray) -> float:
+        """Max relative error of this variant against the f32 reference
+        on ``x``: the measured side of the :data:`SERVE_TOL` envelope."""
+        got = self.predict(x)
+        ref = self.reference_predict(np.asarray(x, np.float32))
+        denom = float(np.max(np.abs(ref))) + 1e-6
+        err = float(np.max(np.abs(got - ref))) / denom
+        tol = SERVE_TOL[self.dtype]
+        if tol and err > tol:
+            mlog.warn(f"serve pairtest: {self.dtype} predict deviates "
+                      f"{err:.3g} from f32 (envelope {tol:g})")
+        return err

@@ -1165,3 +1165,103 @@ def test_ckpt_continue_on_the_card_is_bitwise(cuda, tmp_path):
     for key in ("train_state", "iter_state"):
         assert ma["extra"][key] == mb["extra"][key]
     assert "torch_rng_state" in ma["extra"]["train_state"]
+
+
+def _bf16_lm(vocab, seq, dim, nlayer, nhead, slots):
+    from cxxnet_tpu_torch.models import transformer
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    tr = NetTrainer()
+    for k, v in parse_config_string(transformer(vocab=vocab, seq=seq,
+                                                dim=dim, nlayer=nlayer,
+                                                nhead=nhead)):
+        tr.set_param(k, v)
+    for k, v in (("batch_size", str(slots)), ("dtype", "bfloat16"),
+                 ("dev", "gpu"), ("seed", "3"), ("silent", "1")):
+        tr.set_param(k, v)
+    tr.init_model()
+    return tr
+
+
+def test_decode_block_against_steps_on_the_card(cuda):
+    """A bf16 LM (d 128, 2 heads of 64, depth 2, s 256, 2 slots) with
+    block widths 4 and 16: one width-4 block against four sequential
+    steps, and a chunked prefill (C 16) of a 100-token prompt against
+    the whole prefill, within the serving envelope (SERVE_TOL bf16);
+    every forward ran the layernorm kernel (2 * depth + 1 launches) and
+    each whole prefill the flash forward (one a layer)."""
+    import numpy as np
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    from cxxnet_tpu_torch.serve.engine import SERVE_TOL
+    eng = DecodeEngine(_bf16_lm(256, 256, 128, 2, 2, 2), slots=2,
+                       block_widths=(4, 16))
+    eng.warmup()
+    ln0, fa0 = ln.layernorm_fwd.launches, fa.flash_attention_fwd.launches
+    prompt = np.random.RandomState(1).randint(0, 256, 100).astype(np.int32)
+    toks = [int(np.argmax(eng.prefill(1, prompt)))]
+    rows = []
+    for i in range(4):
+        step = eng.step(np.asarray([0, toks[-1]], np.int32),
+                        np.asarray([0, 100 + i], np.int32))
+        rows.append(step[1])
+        toks.append(int(np.argmax(step[1])))
+    blk = eng.block(np.asarray([[0] * 4, toks[:4]], np.int32),
+                    np.asarray([0, 100], np.int32))
+    tol = SERVE_TOL["bf16"]
+    for i in range(4):
+        assert _rel(torch.from_numpy(blk[1, i]),
+                    torch.from_numpy(rows[i])) <= tol, i
+    whole = eng.prefill(0, prompt)
+    for off in range(0, 100, 16):
+        tokens = np.zeros((2, 16), np.int32)
+        tokens[0, :len(prompt[off:off + 16])] = prompt[off:off + 16]
+        chunk = eng.block(tokens, np.asarray([off, 0], np.int32))
+    assert _rel(torch.from_numpy(chunk[0, 99 - 96]),
+                torch.from_numpy(whole)) <= tol
+    forwards = 2 + 4 + 1 + 7
+    assert ln.layernorm_fwd.launches - ln0 >= 5 * forwards
+    assert fa.flash_attention_fwd.launches - fa0 >= 2 * 2
+    assert eng.retraces == 0 and eng.block_calls == 8
+
+
+def test_int8_predict_engine_on_the_card(cuda):
+    """An int8 PredictEngine of a conv / pool / fullc net under
+    pool_layout = hwcn on the card: the int8 weights and their scales
+    live on the device, one dispatch per bucket goes through the max-pool
+    kernel, and the rows are within SERVE_TOL int8 of the f32 engine's."""
+    import numpy as np
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve.engine import SERVE_TOL, PredictEngine
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    net = ("netconfig=start\nlayer[0->1] = conv:cv1\n  kernel_size = 3\n"
+           "  pad = 1\n  stride = 2\n  nchannel = 16\n"
+           "layer[1->2] = max_pooling\n  kernel_size = 3\n  stride = 2\n"
+           "layer[2->3] = flatten\nlayer[3->4] = fullc:fc1\n"
+           "  nhidden = 32\nlayer[4->5] = sigmoid\n"
+           "layer[5->6] = fullc:fc2\n  nhidden = 10\n"
+           "layer[6->6] = softmax\nnetconfig=end\ninput_shape = 1,28,28\n")
+    tr = NetTrainer()
+    for k, v in parse_config_string(net):
+        tr.set_param(k, v)
+    for k, v in (("batch_size", "32"), ("dev", "gpu"),
+                 ("pool_layout", "hwcn"), ("random_type", "xavier"),
+                 ("silent", "1")):
+        tr.set_param(k, v)
+    tr.init_model()
+    f32 = PredictEngine(tr, shapes=(1, 8, 32), dtype="f32")
+    q8 = PredictEngine(tr, shapes=(1, 8, 32), dtype="int8")
+    f32.warmup()
+    q8.warmup()
+    for key in q8._quant_keys():
+        assert q8._params[key]["wmat"].dtype == torch.int8
+        assert q8._params[key]["wmat"].is_cuda
+        assert q8._scales[key]["wmat"].is_cuda
+    x = np.random.RandomState(2).rand(45, 1, 28, 28).astype(np.float32)
+    before = pool.max_pool_fwd.launches
+    got = q8.predict(x)
+    assert pool.max_pool_fwd.launches - before == 2     # 32 + 13 -> 32
+    assert got.shape == (45, 10)
+    assert q8.retraces == 0 and q8.stats()["bucket_hist"] == {"32": 2}
+    assert _rel(torch.from_numpy(got),
+                torch.from_numpy(f32.predict(x))) <= SERVE_TOL["int8"]
+    assert q8.pairtest(x[:8]) <= SERVE_TOL["int8"]

@@ -478,8 +478,8 @@ def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
 
 def test_unported_serve_keys_are_refused():
     from cxxnet_tpu_torch.serve import ServeConfig
-    for key, val in (("spec_k", "2"), ("decode_prefill_chunk", "16"),
-                     ("serve_draft_model", "d.model"),
+    for key, val in (("serve_sentinel", "1"), ("serve_slo_p99_ms", "50"),
+                     ("serve_flight_requests", "4"),
                      ("serve_admin_port", "8080")):
         with pytest.raises(ValueError, match="not ported"):
             ServeConfig.from_pairs([(key, val)])
