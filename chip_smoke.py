@@ -110,7 +110,31 @@ Phases (any failure raises and exits non-zero):
    and int8 within their SERVE_TOL and within 0.01 of f32's error, no
    retraces, and every dispatch through the max-pool kernel.  Prints
    qps, latency p50 / p99, mean batch, the bucket histogram and pad
-   rows.
+   rows;
+16. GoogLeNet path (``googlenet``): ``task = train`` of
+   example/ImageNet/GoogLeNet.conf with its own keys (batch 256, bf16,
+   ``input_s2d``, ``conv_sibling_fuse``, ``pallas_lrn = bandconv``,
+   ``concat_virtual``, ``batch_split = 2``) on ``synth_device_data = 1``
+   for 2 rounds of 10 steps: finite losses, and no hand-written kernel
+   launched (its keys choose the plain lowerings);
+17. GoogLeNet through the kernels (``googlenet_hwcn``): first one float32
+   step of a narrow two-module inception net (the zoo's pieces) under
+   the keys below, on the card and on the CPU from the same weights,
+   every gradient within 5e-3; then the conf as in phase 16 under
+   ``pool_layout = hwcn pool_relu_fuse = 1 pallas_lrn = 1 fast_wgrad =
+   hwcn input_s2d = 0``: finite losses, and every step launches rows 1,
+   3, 4 and 5 as often as the graph says (``googlenet_per_step``: per
+   chain, the two LRNs, each max pool once a segment of its input,
+   pool1's backward relu-masked, conv1's wgrad);
+18. ResNet path (``resnet``): the zoo's resnet(depth = 56) at batch 128,
+   bf16, on synthetic batches for 2 rounds of 10 steps: finite losses,
+   and the last snapshot's moving statistics of every batch_norm layer
+   finite and moved from their initial values.
+
+The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
+at the shapes phase 17 launches them (a batch_split chain of 128 images:
+the LRNs at 56x56 with 64 and 192 channels, pool1 and the inception
+pools, conv1's 7x7 stride-2 wgrad), timed in bf16.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after.  The last two lines are a ``{"kernels": [...]}`` JSON
@@ -196,7 +220,8 @@ LN_EPS = 1e-5
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
-              "serve_spec", "serve_batch"}
+              "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
+              "resnet"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -242,6 +267,35 @@ ALEXNET_HWCN_STEPS = 30
 ALEXNET_HWCN_PER_STEP = {"lrn_hwcn_fwd": 2, "lrn_hwcn_bwd": 2,
                          "max_pool_fwd": 3, "max_pool_bwd": 3,
                          "conv_wgrad_s2d": 1}
+# GoogLeNet: example/ImageNet/GoogLeNet.conf as shipped (batch 256, bf16,
+# input_s2d / conv_sibling_fuse / pallas_lrn = bandconv / concat_virtual
+# / batch_split = 2), 2 rounds of 10 steps on synthetic batches: no
+# hand-written kernel on its path
+GOOGLENET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
+                  "num_round=2", "save_model=0")
+GOOGLENET_STEPS = 20
+# the same conf through rows 1, 3, 4 and 5; the launches a step are read
+# from the graph (googlenet_per_step)
+GOOGLENET_HWCN_ARGS = GOOGLENET_ARGS + (
+    "pool_layout=hwcn", "pool_relu_fuse=1", "pallas_lrn=1",
+    "fast_wgrad=hwcn", "input_s2d=0")
+#: relu-masked pool backwards a step, under GOOGLENET_HWCN_ARGS, of
+#: GoogLeNet.conf and of the narrow inception net (narrow_inception) at
+#: INCEPTION_BATCH: pool1 (k3 s2, unpadded) is the one pool whose relu is
+#: deferred to it with no bias, and the JAX package's pool gate
+#: (cxxnet_tpu/ops/nn.py _hwcn_pool_ok, read with a TPU backend) holds
+#: for it at each chain of 128 images, so one a chain, two a step.  A
+#: literal, so that a wrong gate on the card cannot move the expected
+#: count with the measured one.
+GOOGLENET_RELU_PER_STEP = INCEPTION_RELU_PER_STEP = 2
+#: the card-vs-CPU step of the narrow inception net: batch (two chains
+#: of 128, so pool1's relu fuses into the pool on the card) and the f32
+#: gradient envelope
+INCEPTION_BATCH, INCEPTION_GRAD_TOL = 256, 5e-3
+# ResNet: the zoo's resnet(depth = 56) (widths 16 / 32 / 64, 3x32x32),
+# batch 128, bf16, sgd with momentum, 2 rounds of 10 steps on synthetic
+# batches, its last snapshot read back
+RESNET_DEPTH, RESNET_BATCH, RESNET_STEPS = 56, 128, 20
 MNIST_ROUNDS = 4
 #: the MNIST_CONV node whose values task = extract writes (se1's output)
 EXTRACT_NODE, EXTRACT_WIDTH = "5", 100
@@ -1058,7 +1112,126 @@ def phase_cnn_kernels():
                 raise AssertionError(f"conv_wgrad {name}: route {route}")
             del x, dy, got, ref
         torch.cuda.empty_cache()
+        googlenet_cnn_kernels(dtype, randn, report, compare, out)
     return out
+
+
+def googlenet_cnn_kernels(dtype, randn, report, compare, out) -> None:
+    """Rows 1, 3, 4 and 5 at the shapes googlenet_hwcn launches them (a
+    batch_split chain of 128 images): the LRN forward and backward at n1
+    (128, 64, 56, 56) and n2 (128, 192, 56, 56), local_size 5; the pool
+    forward and all-ties backward, plain and relu-masked, at pool1
+    (128, 64, 112, 112) k3 s2 (its backward relu-masked on the path),
+    pool2 (128, 192, 56, 56), the inception pool of i3a (128, 192, 28,
+    28) k3 s1 p1 and segments of the virtual concats that later pools
+    read, on relu'd inputs on a grid, bitwise; conv1's wgrad (x (128, 3,
+    224, 224), 7x7 stride 2 pad 3 to 64).  Every backward twice, bitwise
+    equal.  bf16 timed at n1, n2, pool1, i3a's pool and conv1: their
+    numbers go into ``out`` under names of their own."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+    from cxxnet_tpu_torch.ops import conv_wgrad as cw
+    from cxxnet_tpu_torch.ops import lrn, pool
+    name = str(dtype).split(".")[1]
+    bf16 = dtype == torch.bfloat16
+    isz = 2 if bf16 else 4
+    tol = BF16_ROW_TOL if bf16 else F32_TOL
+    args = (5, 1e-4, 0.75, 1.0)
+    for shape, tag in (((128, 64, 56, 56), "n1"), ((128, 192, 56, 56), "n2")):
+        x, g = randn(shape, dtype, 8.0), randn(shape, dtype)
+        numel = x.numel()
+        for what, run, plain, lib, flops, nbytes in (
+                ("lrn_fwd", lambda: (lrn.lrn_fwd(x, *args),),
+                 lambda: lrn.lrn_fwd_plain(x, *args),
+                 lambda: F.local_response_norm(x, 5, 1e-4, 0.75, 1.0),
+                 14.0, 2),
+                ("lrn_bwd", lambda: (lrn.lrn_bwd(x, g, *args),),
+                 lambda: lrn.lrn_bwd_plain(x, g, *args), None, 30.0, 3)):
+            (got,) = _run_twice(what, run)
+            err, abs_err = compare(got, plain(), bf16)
+            if what == "lrn_bwd":
+                xx = x.detach().requires_grad_()
+                yy = F.local_response_norm(xx, 5, 1e-4, 0.75, 1.0)
+                lib = lambda: torch.autograd.grad(yy, xx, g,
+                                                  retain_graph=True)
+            times = timings(lambda: run()[0], plain, lib) if bf16 else None
+            report(f"{what} googlenet {tag}", name, shape, err, tol,
+                   abs_err, times, bound(flops * numel, nbytes * numel * isz,
+                                         "float32"), "; bitwise repeatable")
+        del x, g
+    for shape, geom, tag in (
+            ((128, 64, 112, 112), (3, 3, 2, 0, 0), "pool1"),
+            ((128, 192, 56, 56), (3, 3, 2, 0, 0), "pool2"),
+            ((128, 192, 28, 28), (3, 3, 1, 1, 1), "i3a"),
+            ((128, 64, 28, 28), (3, 3, 1, 1, 1), None),
+            ((128, 96, 28, 28), (3, 3, 2, 0, 0), None),
+            ((128, 320, 14, 14), (3, 3, 1, 1, 1), None),
+            ((128, 128, 14, 14), (3, 3, 2, 0, 0), None),
+            ((128, 384, 7, 7), (3, 3, 1, 1, 1), None)):
+        # relu'd values on a grid: whole windows tie, at zero and above
+        x = torch.relu(torch.round(randn(shape, torch.float32, 4.0)) / 2
+                       ).to(dtype)
+        fwd = lambda: pool.max_pool_fwd(x, geom)
+        y = fwd()
+        if not torch.equal(y, pool.max_pool_fwd_plain(x, geom)):
+            raise AssertionError(f"max_pool_fwd {name} {shape} {geom} is "
+                                 "not bitwise equal to its plain version")
+        nx, ny = x.numel(), y.numel()
+        k, _, st, pd, _ = geom
+        lib_fwd = lambda: F.max_pool2d(x, k, st, padding=pd, ceil_mode=True)
+        timed = bf16 and tag is not None
+        times = (timings(fwd, lambda: pool.max_pool_fwd_plain(x, geom),
+                         lib_fwd, plain_reps=3) if timed else None)
+        report(f"max_pool_fwd googlenet {tag or 'segment'}", name,
+               (shape, geom), 0.0, 0.0, 0.0, times,
+               bound(9.0 * ny, (nx + ny) * isz, "float32"),
+               f"; route {pool.fwd_route(x, geom)}; bitwise")
+        dy = (torch.round(randn(y.shape, torch.float32, 8.0)) / 8).to(dtype)
+        for relu in (False, True):
+            bwd = lambda: pool.max_pool_bwd(x, y, dy, geom, relu)
+            plain = lambda: pool.max_pool_bwd_plain(x, y, dy, geom, relu)
+            (dx,) = _run_twice("max_pool_bwd", lambda: (bwd(),))
+            if not torch.equal(dx, plain()):
+                raise AssertionError(
+                    f"max_pool_bwd {name} {shape} {geom} relu {relu} is not "
+                    "bitwise equal to its plain version")
+            times = None
+            if timed and relu == (tag == "pool1"):
+                xx = x.detach().requires_grad_()
+                yy = F.max_pool2d(xx, k, st, padding=pd, ceil_mode=True)
+                times = timings(bwd, plain, lambda: torch.autograd.grad(
+                    yy, xx, dy, retain_graph=True), plain_reps=3)
+            report(f"max_pool_bwd{' relu' if relu else ''} googlenet "
+                   f"{tag or 'segment'}", name, (shape, geom), 0.0, 0.0, 0.0,
+                   times, bound(9.0 * ny, (2 * nx + 2 * ny) * isz,
+                                "float32"),
+                   f"; route {pool.bwd_route(x, geom)}; bitwise, bitwise "
+                   "repeatable")
+        del x, y, dy
+    torch.cuda.empty_cache()
+    x = torch.rand((128, 3, 224, 224), device="cuda").to(dtype)
+    dy = randn((128, 64, 112, 112), dtype)
+    wargs = (7, 7, 2, 3, 3)
+    run = lambda: cw.conv_wgrad_hwcn_pallas(x, dy, *wargs)
+    plain = lambda: cw.conv_wgrad_plain(x, dy, *wargs)
+    got, ref = _run_twice("conv_wgrad", run), plain()
+    err = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    times = (timings(run, plain, lambda: (
+        conv2d_weight(x, (64, 3, 7, 7), dy, stride=2, padding=3),
+        dy.sum((0, 2, 3))), reps=10) if bf16 else None)
+    positions = 128 * 112 * 112
+    report("conv_wgrad googlenet conv1", name, ((128, 3, 224, 224), 64, 7,
+                                               2, 3),
+           err, WGRAD_TOL, abs_err, times,
+           bound(2.0 * positions * 64 * 3 * 49 + positions * 64,
+                 (x.numel() + dy.numel()) * isz + (64 * 3 * 49 + 64) * 4,
+                 name),
+           f"; route {cw.kernel_route(3, 64, 112, 7, 7, 2, dtype)}; "
+           "bitwise repeatable")
+    del x, dy, got, ref
+    torch.cuda.empty_cache()
 
 
 def phase_route_kernels():
@@ -1988,6 +2161,310 @@ def phase_alexnet(tmp: str, profile: bool = False, hwcn: bool = False
     return launches
 
 
+def googlenet_per_step(tr) -> dict:
+    """``{kernel: launches}`` that one step of trainer ``tr`` makes, read
+    from its graph after the peepholes: each chain of ``batch_split``
+    runs every LRN (``pallas_lrn = 1``: row 1's forward and backward),
+    every max pool once a segment of its input (a virtual concat's
+    segments, ``concat_virtual = 1``; rows 3 and 4), and the wgrad of
+    every fast-wgrad conv that keeps its bias (row 5).  Under
+    ``pool_layout = hwcn``, where every max pool goes through the
+    kernels.  The relu-masked pool backwards are a literal
+    (GOOGLENET_RELU_PER_STEP)."""
+    from cxxnet_tpu_torch.layers.conv import (AvgPoolingLayer,
+                                              ConvolutionLayer, LRNLayer,
+                                              MaxPoolingLayer,
+                                              SumPoolingLayer)
+    from cxxnet_tpu_torch.layers.shape_ops import ChConcatLayer, SplitLayer
+    from cxxnet_tpu_torch.ops import nn as N
+    net, opts = tr.net, tr.opts
+    assert opts.pool_layout == "hwcn", opts.pool_layout
+    chains = tr.batch_split
+    virtual = opts.concat_virtual == "1"
+    segs = {}
+    n = dict.fromkeys(("lrn_fwd", "lrn_bwd", "max_pool_fwd",
+                       "max_pool_bwd", "conv_wgrad"), 0)
+    for i, c in enumerate(net.connections):
+        if i in net.fuse_skip:
+            continue
+        layer, p = c.layer, c.layer.param
+        k = segs.get(c.nindex_in[0], 1)
+        out = 1
+        if virtual and type(layer) is ChConcatLayer:
+            out = sum(segs.get(m, 1) for m in c.nindex_in)
+        elif virtual and type(layer) is SplitLayer:
+            out = k
+        elif type(layer) is MaxPoolingLayer:
+            if layer.deferred_bias_key is not None:
+                k = 1
+            n["max_pool_fwd"] += k
+            n["max_pool_bwd"] += k
+            out = k if virtual else 1
+        elif virtual and type(layer) in (AvgPoolingLayer, SumPoolingLayer):
+            out = k
+        elif type(layer) is LRNLayer and opts.pallas_lrn == "1":
+            n["lrn_fwd"] += 1
+            n["lrn_bwd"] += 1
+        elif (type(layer) is ConvolutionLayer and not p.no_bias
+              and not layer.defer_bias and not layer.s2d_input
+              and not layer.space_to_depth
+              and N.use_fast_wgrad(net.node_shapes[c.nindex_in[0]][1],
+                                   p.stride, p.num_group, opts)):
+            n["conv_wgrad"] += 1
+        for m in c.nindex_out:
+            segs[m] = out
+    return {k: v * chains for k, v in n.items()}
+
+
+def narrow_inception() -> str:
+    """The zoo's GoogLeNet pieces (``_conv_relu``, ``_inception``) cut to
+    two modules at channels 4-32 and input 3x64x64: conv1 k7 s2 p3,
+    pool1, LRN, conv2r / conv2, LRN, pool2, inception 3a and 3b, pool3,
+    average pool, fullc 10, softmax."""
+    from cxxnet_tpu_torch.models.zoo import _conv_relu, _inception
+    lines = ["netconfig=start"]
+    _conv_relu(lines, "0", "c1", "conv1", 16, 7, pad=3, stride=2)
+    lrn = ["  local_size = 5", "  alpha = 0.0001", "  beta = 0.75",
+           "  knorm = 1"]
+    lines += ["layer[c1->p1] = max_pooling", "  kernel_size = 3",
+              "  stride = 2", "layer[p1->n1] = lrn"] + lrn
+    _conv_relu(lines, "n1", "c2r", "conv2r", 16, 1)
+    _conv_relu(lines, "c2r", "c2", "conv2", 32, 3, pad=1)
+    lines += ["layer[c2->n2] = lrn"] + lrn + [
+        "layer[n2->p2] = max_pooling", "  kernel_size = 3", "  stride = 2"]
+    top = _inception(lines, "i3a", "p2", 8, 8, 16, 4, 8, 8)
+    top = _inception(lines, "i3b", top, 16, 8, 16, 4, 8, 8)
+    lines += [f"layer[{top}->p3] = max_pooling", "  kernel_size = 3",
+              "  stride = 2", "layer[p3->gp] = avg_pooling",
+              "  kernel_size = 4", "  stride = 1", "layer[gp->fl] = flatten",
+              "layer[fl->fc] = fullc:fc", "  nhidden = 10",
+              "layer[fc->fc] = softmax", "netconfig=end",
+              "input_shape = 3,64,64"]
+    return "\n".join(lines) + "\n"
+
+
+def inception_step_card_vs_cpu(conf: str) -> None:
+    """One float32 step of the narrow inception net (narrow_inception)
+    under GoogLeNet.conf's keys with googlenet_hwcn's overrides, batch
+    INCEPTION_BATCH: on the card (rows 1, 3, 4 and 5 launched, pool1's
+    backward relu-masked) and on the port's CPU path (the plain versions)
+    from the same weights and batch; every gradient within
+    INCEPTION_GRAD_TOL (max |diff| / max |ref|) of the CPU's, the loss
+    within 1e-4."""
+    import torch
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import (parse_config_file,
+                                               parse_config_string)
+    keys = [(k, v) for k, v in parse_config_file(conf)
+            if k in ("input_s2d", "conv_sibling_fuse", "pallas_lrn",
+                     "concat_virtual", "batch_split", "momentum",
+                     "wmat:lr", "wmat:wd", "bias:wd")]
+    keys += [tuple(a.split("=")) for a in GOOGLENET_HWCN_ARGS[-5:]]
+    keys += [("batch_size", str(INCEPTION_BATCH)), ("dtype", "float32"),
+             ("random_type", "xavier"), ("eval_train", "0"),
+             ("silent", "1"), ("seed", "5")]
+    rnd = np.random.RandomState(6)
+    batch = DataBatch(
+        data=rnd.rand(INCEPTION_BATCH, 3, 64, 64).astype(np.float32),
+        label=rnd.randint(0, 10, (INCEPTION_BATCH, 1)).astype(np.float32),
+        index=np.arange(INCEPTION_BATCH, dtype=np.uint32))
+    out = {}
+    for dev in ("gpu", "cpu"):
+        tr = NetTrainer()
+        for k, v in parse_config_string(narrow_inception()) + keys + [
+                ("dev", dev)]:
+            tr.set_param(k, v)
+        tr.init_model()
+        if dev == "cpu":
+            tr.set_state(*[{k: {t: v.cpu() for t, v in g.items()}
+                            for k, g in tree.items()}
+                           for tree in (card.params, card.buffers)])
+        else:
+            card = tr
+        reset_launches()
+        loss, grads = tr.loss_and_grads(batch)
+        out[dev] = (float(loss), {k: {t: v.float().cpu() for t, v in
+                                      g.items()} for k, g in grads.items()})
+        if dev == "gpu":
+            launches = read_launches()
+            relu = kernel_fn("max_pool_bwd").relu_launches
+            per = googlenet_per_step(tr)
+            want_relu = INCEPTION_RELU_PER_STEP
+            want = {n: per.get(n, 0) for n in KERNELS}
+            if launches != want or relu != want_relu:
+                raise AssertionError(
+                    f"inception step: launches {launches} (relu-masked "
+                    f"{relu}), expected {want} ({want_relu})")
+    (lc, gc), (lg, gg) = out["cpu"], out["gpu"]
+    worst = max((rel_err(gg[k][t], g), f"{k}/{t}")
+                for k, grp in gc.items() for t, g in grp.items())
+    log(f"inception step (f32, batch {INCEPTION_BATCH}, googlenet_hwcn "
+        f"keys): loss card {lg:.6f} cpu {lc:.6f}; worst gradient "
+        f"{worst[0]:.3e} ({worst[1]}; tol {INCEPTION_GRAD_TOL:g}); launches "
+        f"{launches}, relu-masked {relu}")
+    if abs(lg - lc) > 1e-4 * abs(lc) or worst[0] > INCEPTION_GRAD_TOL:
+        raise AssertionError(f"inception step: the card's loss {lg} / "
+                             f"gradients ({worst}) disagree with the CPU's")
+
+
+def phase_googlenet(tmp: str, hwcn: bool = False,
+                    profile: bool = False) -> dict:
+    """``task = train`` of example/ImageNet/GoogLeNet.conf through the
+    port's CLI with GOOGLENET_ARGS (its own keys: the plain lowerings,
+    no hand-written kernel may launch) or GOOGLENET_HWCN_ARGS (rows 1,
+    3, 4 and 5: the launches of every step must equal
+    googlenet_per_step's, the relu-masked pool backwards apart; before
+    it, inception_step_card_vs_cpu).  Every loss must be finite.  Prints
+    the step p50 and images/s, the peak memory and the first and last
+    losses; returns the path's launch counts."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    label = "googlenet_hwcn" if hwcn else "googlenet"
+    conf = os.path.join(REPO, "example", "ImageNet", "GoogLeNet.conf")
+    if hwcn:
+        inception_step_card_vs_cpu(conf)
+    args = list(GOOGLENET_HWCN_ARGS if hwcn else GOOGLENET_ARGS) + [
+        f"model_dir={tmp}/{label}", "silent=1"]
+    log(f"{label}: GoogLeNet.conf {' '.join(args)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = LearnTask()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    try:
+        rc = task.run([conf] + args)
+    finally:
+        if prof is not None:
+            prof.stop()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    relu = kernel_fn("max_pool_bwd").relu_launches
+    st = task.last_train
+    if prof is not None and st is not None:
+        report_profile(prof.events(), st["step_ms"])
+    if rc != 0 or st is None or st["steps"] != GOOGLENET_STEPS:
+        raise AssertionError(f"{label}: CLI returned {rc} after "
+                             f"{None if st is None else st['steps']} steps")
+    losses = st["losses"]
+    tr = task.net
+    log(f"{label}: {GOOGLENET_STEPS} steps, losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f} (min {min(losses):.4f}, max {max(losses):.4f});"
+        f" step p50 {st['step_p50_ms']:.2f} ms (steps after the first) = "
+        f"{st['examples_per_sec']:.1f} images/s; first step "
+        f"{st['step_ms'][0]:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; CLI wall "
+        f"{wall:.1f} s; {len(tr.net.fuse_groups)} fused conv groups, "
+        f"batch_split {tr.batch_split}, input_s2d {tr.input_s2d}")
+    log(f"{label} path launches: {launches}, relu-masked pool backward "
+        f"{relu}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    per, per_relu = ((googlenet_per_step(tr), GOOGLENET_RELU_PER_STEP)
+                     if hwcn else ({}, 0))
+    want = {n: per.get(n, 0) * GOOGLENET_STEPS for n in KERNELS}
+    if launches != want or relu != per_relu * GOOGLENET_STEPS:
+        raise AssertionError(f"{label}: launches {launches} (relu-masked "
+                             f"{relu}), expected {want} "
+                             f"({per_relu * GOOGLENET_STEPS} relu-masked)")
+    if hwcn:
+        log(f"googlenet_hwcn per step: {per}, relu-masked {per_relu}")
+    del task, tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resnet(tmp: str, profile: bool = False) -> dict:
+    """``task = train`` of the zoo's resnet(depth = RESNET_DEPTH) through
+    the port's CLI: batch RESNET_BATCH, bf16, sgd with momentum, 2
+    rounds of 10 steps on synthetic batches held on the card, the last
+    round's snapshot saved.  Every loss must be finite, and the
+    snapshot's moving_mean / moving_var of every batch_norm layer finite
+    and moved from their initial 0 / 1.  No hand-written kernel is on
+    this path.  Prints the step p50 and images/s, the peak memory and the
+    first and last losses; ``profile`` traces the run as phase_alexnet
+    does."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.models import resnet
+    from cxxnet_tpu_torch.utils import serializer
+    conf = os.path.join(tmp, "resnet.conf")
+    with open(conf, "w") as f:
+        f.write(resnet(num_class=10, depth=RESNET_DEPTH) + f"""
+batch_size = {RESNET_BATCH}
+dtype = bfloat16
+updater = sgd
+momentum = 0.9
+eta = 0.05
+wd = 0.0001
+random_type = kaiming
+""")
+    args = ["dev=gpu", "synth_device_data=1", "multi_step=10",
+            "num_round=2", "save_model=2", f"model_dir={tmp}/resnet",
+            "silent=1"]
+    log(f"resnet: zoo resnet(depth={RESNET_DEPTH}) {' '.join(args)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = LearnTask()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    try:
+        rc = task.run([conf] + args)
+    finally:
+        if prof is not None:
+            prof.stop()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = task.last_train
+    if prof is not None and st is not None:
+        report_profile(prof.events(), st["step_ms"])
+    if rc != 0 or st is None or st["steps"] != RESNET_STEPS:
+        raise AssertionError(f"resnet: CLI returned {rc}")
+    losses = st["losses"]
+    log(f"resnet: {RESNET_STEPS} steps, losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f} (min {min(losses):.4f}, max {max(losses):.4f});"
+        f" step p50 {st['step_p50_ms']:.2f} ms (steps after the first) = "
+        f"{st['examples_per_sec']:.1f} images/s; first step "
+        f"{st['step_ms'][0]:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; CLI wall "
+        f"{wall:.1f} s")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet: non-finite loss {losses}")
+    _, _, buffers, _ = serializer.load_model(
+        os.path.join(tmp, "resnet", "0002.model"))
+    nbn = sum(1 for c in task.net.net.connections
+              if c.layer.type_names[0] == "batch_norm")
+    moved = [(k, float(np.abs(g["moving_mean"]).max()),
+              float(np.abs(g["moving_var"] - 1).max()))
+             for k, g in buffers.items()]
+    log(f"resnet snapshot: {len(buffers)} of {nbn} batch_norm layers' "
+        f"buffers; least change from init: mean "
+        f"{min(m for _, m, _ in moved):.3e}, var "
+        f"{min(v for _, _, v in moved):.3e}")
+    if len(buffers) != nbn or not all(
+            np.isfinite(g[t]).all() and m > 0 and v > 0
+            for (_, m, v), g in zip(moved, buffers.values())
+            for t in ("moving_mean", "moving_var")):
+        raise AssertionError(f"resnet: snapshot buffers {moved}")
+    if any(launches.values()):
+        raise AssertionError(f"resnet: launched kernels {launches}")
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_mnist_conv(tmp: str) -> dict:
     """``task = train`` of example/MNIST/MNIST_CONV.conf through the
     port's CLI (``iter = mnist``, ``eval = test``, ``metric = error``,
@@ -2803,9 +3280,10 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(sorted(ALL_PHASES)),
                     help="comma-separated subset of the phases")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the packed train, train_fused, alexnet "
-                         "and alexnet_hwcn phases with torch.profiler and "
-                         "print where the time goes")
+                    help="trace the packed train, train_fused, alexnet, "
+                         "alexnet_hwcn, googlenet, googlenet_hwcn and "
+                         "resnet phases with torch.profiler and print "
+                         "where the time goes")
     ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
                     help="steps of the packed train and train_fused "
                          "phases (30 for a step p50 to compare trees by)")
@@ -2861,6 +3339,13 @@ def main() -> int:
         if "alexnet_hwcn" in phases:
             paths["alexnet_hwcn"] = phase_alexnet(tmp, args.profile,
                                                   hwcn=True)
+        if "googlenet" in phases:
+            paths["googlenet"] = phase_googlenet(tmp, profile=args.profile)
+        if "googlenet_hwcn" in phases:
+            paths["googlenet_hwcn"] = phase_googlenet(tmp, hwcn=True,
+                                                      profile=args.profile)
+        if "resnet" in phases:
+            paths["resnet"] = phase_resnet(tmp, args.profile)
         if "mnist_conv" in phases:
             paths["mnist_conv"], test_error = phase_mnist_conv(tmp)
             if "cnn_infer" in phases:

@@ -16,14 +16,21 @@ Options the port acts on (``PORTED``):
 | pallas_ln         | 1 (default), x, 0 | 0 = plain torch layernorm; x = the |
 |                   |                   | kernels, backward from the input   |
 | pool_layout       | nchw (default),   | hwcn = every max pool through the  |
-|                   | hwcn              | all-ties pool kernels              |
+|                   | chwn, hwcn        | all-ties pool kernels; chwn = the  |
+|                   |                   | same lowering as nchw on the card  |
 | pool_bwd          | sas (default),    | eq / gather = the all-ties pool    |
-|                   | eq, gather        | kernels (one function); sas = the  |
-|                   |                   | one-winner plain torch pool        |
+|                   | eq, gather, auto  | kernels (one function); sas = the  |
+|                   |                   | one-winner plain torch pool; auto  |
+|                   |                   | = all-ties through the kernels     |
+|                   |                   | where ``ops.nn.hwcn_pool_ok``      |
+|                   |                   | holds (on the card), else sas      |
 | pool_relu_reorder | 1 (default), 0    | relu before a max pool moves after |
 |                   |                   | it (and a conv bias with it)       |
 | pool_relu_fuse    | 0 (default), 1    | 1 = relu(max pool) through the     |
 |                   |                   | relu-fused all-ties pool kernels   |
+|                   |                   | where ``ops.nn.hwcn_pool_ok``      |
+|                   |                   | holds, else the configured pool    |
+|                   |                   | and relu                           |
 | pallas_lrn        | band (default),   | 1 = the LRN kernels; hwcn = the    |
 |                   | bandconv, hwcn,   | (H, W, C, N) LRN kernels where the |
 |                   | 1, 0              | shape fits their gate; the others  |
@@ -39,13 +46,29 @@ Options the port acts on (``PORTED``):
 |                   |                   | float32 master whose size is a     |
 |                   |                   | multiple of 8192 in one fused      |
 |                   |                   | update kernel                      |
+| group_conv        | fgc (default),    | split = the same lowering as fgc   |
+|                   | split             | on the card (one grouped conv)     |
+| conv1_fwd         | conv (default),   | s2d = the fast-wgrad conv class's  |
+|                   | s2d               | forward through the space-to-depth |
+|                   |                   | identity                           |
+| relu_vjp          | out (default),    | out = relu's gradient masked by    |
+|                   | xla               | its output; xla = max(x, 0)'s (half|
+|                   |                   | the gradient at x == 0)            |
+| conv_sibling_fuse | 0 (default), 1    | 1 = convs of one input and one     |
+|                   |                   | geometry run as one conv (the      |
+|                   |                   | trainer's ``_fuse_sibling_convs``) |
+| concat_virtual    | 0 (default), 1    | 1 = a ch_concat stays a list of    |
+|                   |                   | segments (``layers.base.ChSegs``)  |
+|                   |                   | that convs and pools consume       |
 
-Unlike the JAX package, no gate reads the device: the CPU and the card
-build the same graph, and only the kernel-or-plain choice inside a
-wrapper follows the tensor's device.  The other keys and values keep
-the JAX package's table so a conf reads the same, but their layers and
-kernels come with later slices (ROADMAP.md): any value the port does
-not implement is refused, from a conf or from the environment, rather
+One gate reads the device, as the JAX package's reads its backend: the
+pool gate ``ops.nn.hwcn_pool_ok`` of ``pool_bwd = auto`` and
+``pool_relu_fuse = 1`` holds only for a tensor on the card.  Elsewhere
+the CPU and the card build the same graph, and only the kernel-or-plain
+choice inside a wrapper follows the tensor's device.  The ``dp_*``
+options keep the JAX package's table so a conf reads the same, but
+their feature comes with the multi-GPU slice (ROADMAP.md): any value but
+the default is refused, from a conf or from the environment, rather
 than ignored.
 """
 
@@ -93,17 +116,8 @@ _DEFS = {
 
 #: the values the port implements, by option; every other option takes
 #: only its default
-PORTED = {
-    "flash_attn": ("1", "0"),
-    "pallas_ln": ("1", "x", "0"),
-    "pool_layout": ("nchw", "hwcn"),
-    "pool_bwd": ("sas", "eq", "gather"),
-    "pool_relu_reorder": ("1", "0"),
-    "pool_relu_fuse": ("0", "1"),
-    "pallas_lrn": ("band", "bandconv", "hwcn", "1", "0"),
-    "fast_wgrad": ("s2d", "hwcn", "pallas", "off"),
-    "fused_update": ("0", "1"),
-}
+PORTED = {name: valid for name, (_, _, valid) in _DEFS.items()
+          if not name.startswith("dp_")}
 
 
 def _check(name: str, val: str, where: str) -> None:

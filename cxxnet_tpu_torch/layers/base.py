@@ -5,7 +5,14 @@ the trainer's ``{param_key: {tag: tensor}}`` dict — the JAX package's
 layout, tags ``wmat`` / ``bias`` / ``wqkv`` / ... — so snapshots and
 parity tests line up key for key.  ``forward(params, inputs, ctx)``
 returns the output tensors; a training forward runs under autograd, and
-loss layers append their scalar terms to ``ctx.losses``.
+loss layers append their scalar terms to ``ctx.losses``.  A layer with
+running buffers (``batch_norm``'s moving statistics, ``fixconn``'s
+table) makes them in ``init_buffers`` and overrides ``forward_buffers``,
+which returns its outputs and its new buffers.
+
+Under ``concat_virtual = 1`` a ``ch_concat`` node holds a :class:`ChSegs`
+(its branch segments) instead of one tensor; a layer that does not take
+segments gets them concatenated (:func:`materialize`).
 """
 
 from __future__ import annotations
@@ -24,6 +31,43 @@ Params = Dict[str, torch.Tensor]
 
 class ShapeError(ValueError):
     pass
+
+
+class ChSegs:
+    """The value of a ``ch_concat`` node kept as its branch segments
+    (``concat_virtual = 1``): split passes it on, channelwise pools map
+    over the segments and a conv takes it as a sum of convs over the
+    weight's channel slices (``nnet.net.conv_over_segs``), so an
+    inception module's concat is never written.  Any other consumer
+    concatenates it once (:meth:`materialize`, cached); autograd sees
+    the underlying ops."""
+
+    __slots__ = ("segs", "_mat")
+
+    def __init__(self, segs):
+        self.segs = list(segs)
+        self._mat = None
+
+    @property
+    def shape(self):
+        n, _, h, w = self.segs[0].shape
+        return (n, sum(s.shape[1] for s in self.segs), h, w)
+
+    def materialize(self) -> torch.Tensor:
+        if self._mat is None:
+            self._mat = torch.cat(self.segs, dim=1)
+        return self._mat
+
+
+def materialize(x):
+    """A node's tensor: a :class:`ChSegs` concatenated, else ``x``."""
+    return x.materialize() if isinstance(x, ChSegs) else x
+
+
+def as_mat(x) -> torch.Tensor:
+    """The (batch, c*h*w) view of a node (reference Node::mat())."""
+    x = materialize(x)
+    return x.reshape(x.shape[0], -1)
 
 
 @dataclasses.dataclass
@@ -84,7 +128,8 @@ class ForwardContext:
     forward carries the labels and collects each loss layer's scalar in
     ``losses``, already times ``loss_scale`` = 1 / (batch_size *
     update_period), the reference's per-instance gradient scaling.
-    ``rng`` draws a training forward's random masks (dropout)."""
+    ``rng`` draws a training forward's random masks (dropout, insanity);
+    ``epoch`` is the update count, which anneals insanity's range."""
 
     train: bool
     opts: EngineOptions
@@ -93,6 +138,7 @@ class ForwardContext:
     losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
     loss_scale: float = 1.0
     rng: Optional[torch.Generator] = None
+    epoch: int = 0
 
 
 def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:
@@ -190,6 +236,8 @@ class Layer:
     :meth:`set_param`."""
 
     type_names: Tuple[str, ...] = ()
+    # loss layers (the self-loops at a net's heads)
+    is_loss: bool = False
     # embedding-style layers read their input as integer ids: the net
     # then keeps that input in float32 instead of casting it to a
     # narrow compute dtype (bf16 holds integers exactly only to 256)
@@ -211,9 +259,21 @@ class Layer:
                     dtype=torch.float32) -> Params:
         return {}
 
+    def init_buffers(self, in_shapes: List[Shape4],
+                     device: torch.device) -> Params:
+        """Non-learned state (moving statistics, a fixed table)."""
+        return {}
+
     def forward(self, params: Params, inputs: List[torch.Tensor],
                 ctx: ForwardContext) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def forward_buffers(self, params: Params, buffers: Params,
+                        inputs: List[torch.Tensor], ctx: ForwardContext
+                        ) -> Tuple[List[torch.Tensor], Params]:
+        """``(outputs, new buffers)``: the JAX package's ``forward``.  A
+        layer without buffers passes them through."""
+        return self.forward(params, inputs, ctx), buffers
 
     def check_n_inputs(self, inputs: Sequence, lo: int,
                        hi: Optional[int] = None) -> None:

@@ -1,7 +1,6 @@
-"""Convolution, pooling and LRN layers (the JAX package's
-``layers/conv.py``; reference ``convolution_layer-inl.hpp``,
-``pooling_layer``, ``lrn_layer``).  ``insanity_max_pooling`` is not
-ported (ROADMAP.md)."""
+"""Convolution, pooling, LRN and insanity pooling layers (the JAX
+package's ``layers/conv.py``; reference ``convolution_layer-inl.hpp``,
+``pooling_layer``, ``lrn_layer``, ``insanity_pooling_layer``)."""
 
 from __future__ import annotations
 
@@ -21,14 +20,19 @@ class ConvolutionLayer(Layer):
 
     def __init__(self):
         super().__init__()
+        # space_to_depth = 1: a strided ungrouped conv runs as the
+        # stride-1 conv of its space-to-depth input (ops.nn.conv2d_s2d)
+        self.space_to_depth = 0
+        # set by the trainer under input_s2d = 1: the input arrives in
+        # space-to-depth form, and the conv is the stride-1 conv of it
+        self.s2d_input = 0
         # set by the trainer's relu/bias -> pool reorder: the bias add
         # moves to the downstream max pool (max(z + b) == max(z) + b)
         self.defer_bias = 0
 
     def set_param(self, name: str, val: str) -> None:
-        if name == "space_to_depth" and val != "0":
-            raise ValueError(f"conv: space_to_depth = {val}: not ported to "
-                             "cxxnet_tpu_torch yet (only '0'; ROADMAP.md)")
+        if name == "space_to_depth":
+            self.space_to_depth = int(val)
         super().set_param(name, val)
 
     def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
@@ -65,12 +69,21 @@ class ConvolutionLayer(Layer):
         p = self.param
         x = inputs[0]
         bias = params.get("bias") if not self.defer_bias else None
-        if bias is not None and N.use_fast_wgrad(x.shape[1], p.stride,
-                                                 p.num_group, ctx.opts):
+        if self.s2d_input:
+            out = N.conv2d_pres2d(x, params["wmat"], stride=p.stride)
+        elif (bias is not None and not self.space_to_depth
+              and N.use_fast_wgrad(x.shape[1], p.stride, p.num_group,
+                                   ctx.opts)):
             return [N.conv_bias_fast(x, params["wmat"], bias, p.stride,
-                                     p.pad_y, p.pad_x, ctx.opts.fast_wgrad)]
-        out = N.conv2d(x, params["wmat"], stride=p.stride, pad_y=p.pad_y,
-                       pad_x=p.pad_x, num_group=p.num_group)
+                                     p.pad_y, p.pad_x, ctx.opts.fast_wgrad,
+                                     ctx.opts.conv1_fwd == "s2d")]
+        elif self.space_to_depth and p.stride > 1 and p.num_group == 1:
+            out = N.conv2d_s2d(x, params["wmat"], stride=p.stride,
+                               pad_y=p.pad_y, pad_x=p.pad_x)
+        else:
+            out = N.conv2d(x, params["wmat"], stride=p.stride,
+                           pad_y=p.pad_y, pad_x=p.pad_x,
+                           num_group=p.num_group)
         if bias is not None:
             out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
         return [out]
@@ -124,7 +137,7 @@ class MaxPoolingLayer(_PoolingBase):
             out = out + params["deferred_bias"].to(out.dtype).reshape(
                 1, -1, 1, 1)
         if self.relu_after:
-            out = torch.relu(out)
+            out = N.relu(out, ctx.opts)
         return [out]
 
 
@@ -137,7 +150,7 @@ class ReluMaxPoolingLayer(_PoolingBase):
 
     def forward(self, params, inputs, ctx):
         if ctx.opts.pool_relu_reorder != "1":
-            return [N.max_pool2d(torch.relu(inputs[0]), *self._geom(),
+            return [N.max_pool2d(N.relu(inputs[0], ctx.opts), *self._geom(),
                                  opts=ctx.opts)]
         return [N.max_pool2d_relu(inputs[0], *self._geom(), opts=ctx.opts)]
 
@@ -154,6 +167,42 @@ class AvgPoolingLayer(_PoolingBase):
 
     def forward(self, params, inputs, ctx):
         return [N.avg_pool2d(inputs[0], *self._geom())]
+
+
+class InsanityPoolingLayer(_PoolingBase):
+    """Stochastic-neighbourhood max pooling
+    (insanity_pooling_layer-inl.hpp): in a training forward each input
+    position reads itself or, with probability 1 - ``keep``, one of its
+    4 neighbours (``ops.nn.jitter5``), the max pool runs over the
+    jittered image, and the all-ties gradient goes to the window
+    position (``ops.nn.insanity_max_pool``); eval is the plain max pool.
+    No padding, as in the reference."""
+
+    type_names = ("insanity_max_pooling",)
+
+    def __init__(self):
+        super().__init__()
+        self.p_keep = 1.0
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "keep":
+            self.p_keep = float(val)
+        super().set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
+        assert self.param.pad_y == 0 and self.param.pad_x == 0, \
+            "insanity_max_pooling does not support padding"
+        return super().infer_shapes(in_shapes)
+
+    def forward(self, params, inputs, ctx):
+        p = self.param
+        x = inputs[0]
+        if not ctx.train:
+            return [N.max_pool2d(x, p.kernel_height, p.kernel_width,
+                                 p.stride, opts=ctx.opts)]
+        mask = N.uniform(ctx.rng, x.shape, torch.float32)
+        return [N.insanity_max_pool(x, mask, p.kernel_height,
+                                    p.kernel_width, p.stride, self.p_keep)]
 
 
 class LRNLayer(Layer):

@@ -6,17 +6,20 @@ from __future__ import annotations
 
 from typing import Dict, Type
 
-from .activation import (GeluLayer, ReluLayer, SigmoidLayer, SoftplusLayer,
-                         TanhLayer)
+from .activation import (BiasLayer, GeluLayer, InsanityLayer, PReluLayer,
+                         ReluLayer, SigmoidLayer, SoftplusLayer, TanhLayer,
+                         XeluLayer)
 from .base import Layer
-from .conv import (AvgPoolingLayer, ConvolutionLayer, LRNLayer,
-                   MaxPoolingLayer, ReluMaxPoolingLayer, SumPoolingLayer)
-from .fullc import FullConnectLayer
+from .conv import (AvgPoolingLayer, ConvolutionLayer, InsanityPoolingLayer,
+                   LRNLayer, MaxPoolingLayer, ReluMaxPoolingLayer,
+                   SumPoolingLayer)
+from .fullc import FixConnectLayer, FullConnectLayer
 from .loss import L2LossLayer, MultiLogisticLayer, SoftmaxLayer
-from .norm import DropoutLayer
+from .norm import BatchNormLayer, DropoutLayer
 from .sequence import (AttentionLayer, EmbeddingLayer, LayerNormLayer,
                        SeqFullcLayer, SoftmaxSeqLayer)
-from .shape_ops import EltSumLayer, FlattenLayer, SplitLayer
+from .shape_ops import (ChConcatLayer, ConcatLayer, EltSumLayer,
+                        FlattenLayer, MaxoutLayer, SplitLayer)
 
 _REGISTRY: Dict[str, Type[Layer]] = {}
 
@@ -26,18 +29,21 @@ def register(cls: Type[Layer]) -> None:
         _REGISTRY[name] = cls
 
 
-for _cls in (SplitLayer, EltSumLayer, FlattenLayer, GeluLayer, ReluLayer,
-             SigmoidLayer, TanhLayer, SoftplusLayer, ConvolutionLayer,
-             MaxPoolingLayer, ReluMaxPoolingLayer, SumPoolingLayer,
-             AvgPoolingLayer, LRNLayer, FullConnectLayer, DropoutLayer,
-             SoftmaxLayer, L2LossLayer, MultiLogisticLayer, EmbeddingLayer,
-             LayerNormLayer, SeqFullcLayer, AttentionLayer, SoftmaxSeqLayer):
+for _cls in (SplitLayer, EltSumLayer, FlattenLayer, ConcatLayer,
+             ChConcatLayer, MaxoutLayer, GeluLayer, ReluLayer, SigmoidLayer,
+             TanhLayer, SoftplusLayer, XeluLayer, InsanityLayer, PReluLayer,
+             BiasLayer, ConvolutionLayer, MaxPoolingLayer,
+             ReluMaxPoolingLayer, SumPoolingLayer, AvgPoolingLayer,
+             InsanityPoolingLayer, LRNLayer, FullConnectLayer,
+             FixConnectLayer, BatchNormLayer, DropoutLayer, SoftmaxLayer,
+             L2LossLayer, MultiLogisticLayer, EmbeddingLayer, LayerNormLayer,
+             SeqFullcLayer, AttentionLayer, SoftmaxSeqLayer):
     register(_cls)
 
-#: layers of the JAX package that the port does not implement yet
-NOT_PORTED = ("xelu", "insanity", "prelu", "bias", "fixconn",
-              "insanity_max_pooling", "batch_norm", "concat", "ch_concat",
-              "maxout", "moe", "pairtest", "torch")
+#: layers of the JAX package that the port does not implement yet: moe
+#: (the expert axis) with the multi-GPU plane, pairtest with the
+#: pair-test gate, torch with the frontends (ROADMAP.md §A items 6, 8, 9)
+NOT_PORTED = ("moe", "pairtest", "torch")
 
 
 def layer_type_names():

@@ -520,7 +520,8 @@ class LearnTask:
         made once and held on the device: uniform [0, 1) data and
         uniform class labels from ``numpy.random.RandomState(0)``, drawn
         in the JAX package's order, so both packages see the same
-        batches."""
+        batches (under ``input_s2d = 1`` staged once in space-to-depth
+        form, as the JAX package stages them)."""
         net = self.net
         k = max(self.multi_step, 1)
         shape = net.net.node_shapes[0]
@@ -530,6 +531,9 @@ class LearnTask:
             .to(net.device).to(net.dtype)
         labels = torch.from_numpy(rnd.randint(0, nclass, (k, shape[0], 1))
                                   .astype(np.float32)).to(net.device)
+        # input_s2d = 1: the stack staged in space-to-depth form once
+        staged = net.stage_input(datas.reshape(-1, *shape[1:]))
+        datas = staged.reshape(k, shape[0], *staged.shape[1:])
         while self.start_counter <= self.num_round:
             net.start_round(self.start_counter)
             t = sum(self._timed_step(lambda: net.update_step(

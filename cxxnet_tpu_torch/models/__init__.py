@@ -1,3 +1,4 @@
 """Netconfig generators (:mod:`.zoo`)."""
 
-from .zoo import alexnet, lenet, transformer  # noqa: F401
+from .zoo import (alexnet, googlenet, lenet, mlp, resnet,  # noqa: F401
+                  transformer, vgg)

@@ -7,16 +7,26 @@ rebind their node).  ``share[tag]`` connections reuse the primary's
 layer and parameter group.  A max pool that carries a conv's deferred
 bias (the trainer's relu/bias -> pool reorder) reads that bias from the
 conv's group as ``deferred_bias`` (:func:`conn_params`).
+
+Running buffers (``{param_key: {tag: tensor}}``, batch_norm's moving
+statistics) go through :meth:`Network.run` and come back updated; a
+shared connection updates its primary's group, and the next use reads
+the chained update (last write wins).  Two peepholes the trainer sets
+up change how connections execute, not what they compute:
+``conv_sibling_fuse = 1`` (``fuse_groups``: convs of one input and one
+geometry run as one conv, :meth:`Network._forward_fused`) and
+``concat_virtual = 1`` (a ch_concat's value stays a
+:class:`~..layers.base.ChSegs`, :meth:`Network._virtual_forward`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..layers.base import ForwardContext, Layer, Shape4
+from ..layers.base import ChSegs, ForwardContext, Layer, Shape4, materialize
 from ..layers.registry import create_layer
 from ..layers.shape_ops import SplitLayer
 from .netconfig import NetConfig
@@ -49,6 +59,11 @@ class Network:
         # would round ids above 256)
         self.id_inputs = {n for c in self.connections if c.layer.takes_ids
                           for n in c.nindex_in}
+        # conv_sibling_fuse = 1 (the trainer's _fuse_sibling_convs): the
+        # group head's index -> the member indices, and the members the
+        # head runs
+        self.fuse_groups: Dict[int, List[int]] = {}
+        self.fuse_skip = frozenset()
 
     def _layer_key(self, index: int, info) -> str:
         base = info.name if info.name else info.type_name
@@ -115,24 +130,138 @@ class Network:
                 params[conn.param_key] = p
         return params
 
+    def init_buffers(self, device: torch.device) -> Params:
+        """Each layer's running buffers (float32, on ``device``)."""
+        buffers: Params = {}
+        for conn in self.connections:
+            if not conn.owns_params:
+                continue
+            b = conn.layer.init_buffers(
+                [self.node_shapes[n] for n in conn.nindex_in], device)
+            if b:
+                buffers[conn.param_key] = b
+        return buffers
+
     def forward(self, params: Params, inputs: Dict[int, torch.Tensor],
-                ctx: ForwardContext, until: Optional[int] = None
-                ) -> List[Optional[torch.Tensor]]:
-        """Run the connections in declaration order and return the node
-        list.  ``until`` stops BEFORE connection ``until`` — the decode
-        engine reads raw LM-head logits without the softmax self-loop."""
-        nodes: List[Optional[torch.Tensor]] = [None] * self.cfg.num_nodes
+                ctx: ForwardContext, until: Optional[int] = None,
+                buffers: Optional[Params] = None) -> List:
+        """:meth:`run`'s node list (the new buffers dropped)."""
+        return self.run(params, buffers or {}, inputs, ctx, until)[0]
+
+    def run(self, params: Params, buffers: Params,
+            inputs: Dict[int, torch.Tensor], ctx: ForwardContext,
+            until: Optional[int] = None) -> Tuple[List, Params]:
+        """Run the connections in declaration order; return the node list
+        and the updated buffers.  ``until`` stops BEFORE connection
+        ``until`` — the decode engine reads raw LM-head logits without
+        the softmax self-loop.  Under ``concat_virtual = 1`` a node may
+        hold a :class:`ChSegs` (:func:`~..layers.base.materialize`)."""
+        nodes: List = [None] * self.cfg.num_nodes
         for nid, v in inputs.items():
             want = torch.float32 if nid in self.id_inputs else self.dtype
             nodes[nid] = v.to(want)
+        new_buffers = dict(buffers)
+        virtual = ctx.opts.concat_virtual == "1"
         for i, conn in enumerate(self.connections):
             if until is not None and i >= until:
                 break
-            ins = [nodes[n] for n in conn.nindex_in]
-            outs = conn.layer.forward(conn_params(params, conn), ins, ctx)
+            if i in self.fuse_skip:
+                continue
+            if i in self.fuse_groups:
+                self._forward_fused(self.fuse_groups[i], params, nodes, ctx)
+                continue
+            if virtual and self._virtual_forward(conn, params, nodes, ctx):
+                continue
+            ins = [materialize(nodes[n]) for n in conn.nindex_in]
+            outs, nb = conn.layer.forward_buffers(
+                conn_params(params, conn),
+                new_buffers.get(conn.param_key, {}), ins, ctx)
+            if nb:
+                new_buffers[conn.param_key] = nb
             for n, v in zip(conn.nindex_out, outs):
                 nodes[n] = v
-        return nodes
+        return nodes, new_buffers
+
+    def _virtual_forward(self, conn: Connection, params: Params, nodes,
+                         ctx: ForwardContext) -> bool:
+        """``concat_virtual = 1``: run ``conn`` on channel segments where
+        its layer takes them, and return whether it did.  A ch_concat
+        makes a :class:`ChSegs`; split passes it on; channelwise pools
+        map over its segments; an ungrouped conv takes it as a sum of
+        convs (:func:`conv_over_segs`)."""
+        from ..layers.conv import (AvgPoolingLayer, ConvolutionLayer,
+                                   MaxPoolingLayer, SumPoolingLayer)
+        from ..layers.shape_ops import ChConcatLayer
+        from ..ops import nn as N
+        layer = conn.layer
+        if type(layer) is ChConcatLayer and len(conn.nindex_out) == 1:
+            segs = []
+            for n in conn.nindex_in:
+                v = nodes[n]
+                segs.extend(v.segs if isinstance(v, ChSegs) else [v])
+            nodes[conn.nindex_out[0]] = ChSegs(segs)
+            return True
+        if len(conn.nindex_in) != 1 or not conn.nindex_out:
+            return False
+        v = nodes[conn.nindex_in[0]]
+        if not isinstance(v, ChSegs):
+            return False
+        p = layer.param
+        if type(layer) is SplitLayer:
+            for n in conn.nindex_out:
+                nodes[n] = v
+            return True
+        if (type(layer) is ConvolutionLayer and p.num_group == 1
+                and not layer.space_to_depth and not layer.s2d_input):
+            group = params[conn.param_key]
+            out = conv_over_segs(v.segs, group["wmat"], p.stride, p.pad_y,
+                                 p.pad_x)
+            if "bias" in group and not layer.defer_bias:
+                out = out + group["bias"].to(out.dtype).reshape(1, -1, 1, 1)
+            nodes[conn.nindex_out[0]] = out
+            return True
+        pools = {MaxPoolingLayer: N.max_pool2d, AvgPoolingLayer: N.avg_pool2d,
+                 SumPoolingLayer: N.sum_pool2d}
+        if (type(layer) in pools
+                and getattr(layer, "deferred_bias_key", None) is None):
+            geom = (p.kernel_height, p.kernel_width, p.stride, p.pad_y,
+                    p.pad_x)
+            if type(layer) is MaxPoolingLayer:
+                segs = [N.max_pool2d(s, *geom, opts=ctx.opts)
+                        for s in v.segs]
+                if layer.relu_after:
+                    segs = [N.relu(s, ctx.opts) for s in segs]
+            else:
+                segs = [pools[type(layer)](s, *geom) for s in v.segs]
+            nodes[conn.nindex_out[0]] = ChSegs(segs)
+            return True
+        return False
+
+    def _forward_fused(self, members: List[int], params: Params, nodes,
+                       ctx: ForwardContext) -> None:
+        """A ``conv_sibling_fuse`` group as one conv: the members read one
+        value with one geometry, so their weights (and biases) join on
+        the output channels; each member's output is its channel slice.
+        Each member keeps its own parameters: autograd slices the fused
+        gradient back."""
+        from ..ops import nn as N
+        mconns = [self.connections[j] for j in members]
+        x = nodes[mconns[0].nindex_in[0]]
+        p0 = mconns[0].layer.param
+        w = torch.cat([params[c.param_key]["wmat"] for c in mconns], dim=0)
+        if isinstance(x, ChSegs):
+            out = conv_over_segs(x.segs, w, p0.stride, p0.pad_y, p0.pad_x)
+        else:
+            out = N.conv2d(x, w, stride=p0.stride, pad_y=p0.pad_y,
+                           pad_x=p0.pad_x)
+        if "bias" in params[mconns[0].param_key]:
+            b = torch.cat([params[c.param_key]["bias"] for c in mconns])
+            out = out + b.to(out.dtype).reshape(1, -1, 1, 1)
+        off = 0
+        for c in mconns:
+            co = c.layer.param.num_channel
+            nodes[c.nindex_out[0]] = out[:, off:off + co]
+            off += co
 
     def node_id(self, name: str) -> int:
         if name.startswith("top[") and name.endswith("]"):
@@ -157,6 +286,23 @@ class Network:
             lines.append(f"{i:3d} {conn.layer.type_names[0]:>20s}{share} "
                          f"[{ins} -> {outs}] out={shapes}")
         return "\n".join(lines)
+
+
+def conv_over_segs(segs: List[torch.Tensor], w: torch.Tensor, stride: int,
+                   pad_y: int, pad_x: int) -> torch.Tensor:
+    """conv(concat(segs), w) as the sum of each segment's conv with its
+    slice of w's input channels: the consumer side of the virtual
+    concat, whose backward hands each segment its own gradient."""
+    from ..ops import nn as N
+    out, off = None, 0
+    for s in segs:
+        ci = s.shape[1]
+        o = N.conv2d(s, w[:, off:off + ci], stride=stride, pad_y=pad_y,
+                     pad_x=pad_x)
+        out = o if out is None else out + o
+        off += ci
+    assert off == w.shape[1], (off, tuple(w.shape))
+    return out
 
 
 def conn_params(params: Params, conn: Connection) -> Dict[str, torch.Tensor]:

@@ -12,6 +12,18 @@ With ``update_period = K > 1`` the gradients of K batches are summed
 before one update, as in the JAX package.  Optimizer state is made at
 the first update (a serving trainer never holds it).
 
+Lowering keys of the JAX package's trainer, each the same function
+computed another way: ``remat = K`` checkpoints K segments of the body
+(:meth:`NetTrainer._remat_forward`; dropout and insanity masks drawn
+again in the recompute from the generator state of the forward),
+``batch_split = K`` runs the batch as K sub-batch chains whose losses
+add (their masks drawn one chain after the other), ``input_s2d = 1``
+feeds the first conv its input in space-to-depth form
+(:meth:`NetTrainer.stage_input`) and ``conv_sibling_fuse = 1`` runs convs
+of one input and one geometry as one conv
+(:meth:`NetTrainer._fuse_sibling_convs`).  Running buffers
+(batch_norm's moving statistics) are updated by every training forward.
+
 ``metric[label,node] = name`` keys bind evaluation metrics to nodes (the
 final node by default): :meth:`NetTrainer.evaluate` runs them over an
 eval iterator, and with ``eval_train = 1`` (the default) every training
@@ -42,7 +54,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import ckpt, engine
-from ..layers.base import ForwardContext, LabelInfo
+from ..layers.base import ForwardContext, LabelInfo, materialize
 from ..monitor import log as mlog
 from ..monitor.metrics import Metrics
 from ..updater.updaters import UpdaterHyper, create_updater
@@ -55,10 +67,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 #: trainer keys of the JAX package whose features are not ported: any
-#: value but the default is refused by name (ROADMAP.md)
-UNPORTED_KEYS = {"monitor": "0", "remat": "0", "batch_split": "1",
-                 "shard_opt_state": "0", "update_on_server": "0",
-                 "input_s2d": "0", "fullc_gather": "0"}
+#: value but the default is refused by name (ROADMAP.md: the monitor with
+#: the observability plane, the others with the multi-GPU plane)
+UNPORTED_KEYS = {"monitor": "0", "shard_opt_state": "0",
+                 "update_on_server": "0", "fullc_gather": "0"}
 
 
 def refuse_unported(name: str, val: str, default: str) -> None:
@@ -205,6 +217,16 @@ class NetTrainer:
         self.copied_layers: List[str] = []
         # the loaded snapshot's extra (iterator state for the task driver)
         self.loaded_extra: Optional[Dict] = None
+        # remat = K: K checkpointed segments of the body (0: none); the
+        # partition is made at the first step
+        self.remat = 0
+        self._remat_partition = None
+        # batch_split = K: K sub-batch chains a step
+        self.batch_split = 1
+        # input_s2d = 1: the first conv takes its input in space-to-depth
+        # form; its geometry (stride, kh, kw, oh, ow, pad_y, pad_x)
+        self.input_s2d = 0
+        self._s2d_args: Optional[Tuple[int, ...]] = None
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -227,6 +249,14 @@ class NetTrainer:
             if int(np.prod(sizes or [1])) > 1:
                 raise ValueError(f"mesh = {val}: multi-GPU meshes are not "
                                  "ported to cxxnet_tpu_torch yet (ROADMAP.md)")
+        elif name == "remat":
+            self.remat = int(val)
+        elif name == "batch_split":
+            self.batch_split = int(val)
+            if self.batch_split < 1:
+                raise ValueError(f"batch_split = {val}: expected >= 1")
+        elif name == "input_s2d":
+            self.input_s2d = int(val)
         elif name in UNPORTED_KEYS:
             refuse_unported(name, val, UNPORTED_KEYS[name])
         elif name == "metric" or name.startswith("metric["):
@@ -262,7 +292,7 @@ class NetTrainer:
         netcfg.configure(self.cfg)
         self._build_net(netcfg)
         self.params = self.net.init_params(self.seed * 100 + 11, self.device)
-        self.buffers = {}
+        self.buffers = self.net.init_buffers(self.device)
         self._post_build()
         mlog.info(self.net.describe())
 
@@ -301,7 +331,13 @@ class NetTrainer:
             self.train_metric.add_metric(name, field)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(self.seed)
+        self._remat_partition = None
+        if self.batch_split > 1 and self.buffers:
+            raise ValueError("batch_split needs stateless layers (batch_norm "
+                             "running stats would chain per sub-batch)")
+        self._setup_input_s2d()
         self._reorder_relu_pool()
+        self._fuse_sibling_convs()
 
     def _reorder_relu_pool(self) -> None:
         """Peephole (``pool_relu_reorder = 1``, the JAX package's
@@ -315,7 +351,8 @@ class NetTrainer:
         shared layer instances and eval nodes.  The relu's node then
         holds the pre-activation and the conv's node the bias-less
         output: ``_read_fixups`` records what a call-time read of either
-        must add back."""
+        must add back.  (A conv fed by ``input_s2d`` is not of the
+        fast-wgrad class: it is a stride-1 conv.)"""
         from ..layers.activation import ReluLayer
         from ..layers.conv import ConvolutionLayer, MaxPoolingLayer
         from ..ops.nn import use_fast_wgrad
@@ -362,14 +399,115 @@ class NetTrainer:
                                                     else [j])
                     and cnode not in self.eval_node_ids
                     and conv.nindex_in != conv.nindex_out
-                    and not use_fast_wgrad(
+                    and (conv.layer.s2d_input or not use_fast_wgrad(
                         self.net.node_shapes[conv.nindex_in[0]][1],
                         conv.layer.param.stride, conv.layer.param.num_group,
-                        self.opts)):
+                        self.opts))):
                 conv.layer.defer_bias = 1
                 c.layer.deferred_bias_key = conv.param_key
                 self._read_fixups[cnode] = ("bias", conv.param_key)
                 self._read_fixups[v] = ("relu", conv.param_key)
+
+    def _fuse_sibling_convs(self) -> None:
+        """Peephole (``conv_sibling_fuse = 1``, the JAX package's
+        ``_fuse_sibling_convs``): convs that read the same value (split
+        outputs alias their input) with the same geometry, ungrouped,
+        run as one conv whose weights join on the output channels, at
+        the first member's place (``Network._forward_fused``); an
+        inception module's three 1x1 reduce convs become one.  Each
+        member keeps its parameters, updater state and snapshot layout.
+        A member that rebinds a node written before it, a shared layer,
+        a space-to-depth conv and a conv whose bias moved to a pool stay
+        apart."""
+        from ..layers.conv import ConvolutionLayer
+        from ..layers.shape_ops import SplitLayer
+        self.net.fuse_groups = {}
+        self.net.fuse_skip = frozenset()
+        if self.opts.conv_sibling_fuse != "1":
+            return
+        conns = self.net.connections
+        uses: Dict[int, int] = {}
+        for c in conns:
+            uses[id(c.layer)] = uses.get(id(c.layer), 0) + 1
+
+        def eligible(c):
+            return (type(c.layer) is ConvolutionLayer
+                    and uses[id(c.layer)] == 1
+                    and len(c.nindex_in) == 1 and len(c.nindex_out) == 1
+                    and c.nindex_in != c.nindex_out
+                    and c.layer.param.num_group == 1
+                    and not c.layer.space_to_depth
+                    and not c.layer.s2d_input
+                    and not c.layer.defer_bias)
+
+        def writers_before(node, before):
+            return [j for j in range(before) if node in conns[j].nindex_out]
+
+        def value_id(v, before):
+            """Node ``v``'s value at position ``before``: a split's
+            outputs are its input's value."""
+            w = writers_before(v, before)
+            if not w:
+                return ("in", v)
+            j = w[-1]
+            if type(conns[j].layer) is SplitLayer \
+                    and len(conns[j].nindex_in) == 1:
+                return value_id(conns[j].nindex_in[0], j)
+            return ("conn", j)
+
+        groups: Dict[tuple, List[int]] = {}
+        for i, c in enumerate(conns):
+            if not eligible(c) or writers_before(c.nindex_out[0], i):
+                continue
+            p = c.layer.param
+            key = (value_id(c.nindex_in[0], i), p.kernel_height,
+                   p.kernel_width, p.stride, p.pad_y, p.pad_x, p.no_bias)
+            groups.setdefault(key, []).append(i)
+        fuse = {m[0]: m for m in groups.values() if len(m) > 1}
+        self.net.fuse_groups = fuse
+        self.net.fuse_skip = frozenset(j for m in fuse.values()
+                                       for j in m[1:])
+        if fuse:
+            mlog.info(f"conv_sibling_fuse: {len(fuse)} groups "
+                      f"({sum(len(m) for m in fuse.values())} convs)")
+
+    def _setup_input_s2d(self) -> None:
+        """``input_s2d = 1``: the data node must feed one ungrouped
+        strided conv, which then takes its input in space-to-depth form
+        (:meth:`stage_input`) as a stride-1 conv."""
+        from ..layers.conv import ConvolutionLayer
+        from ..ops.nn import conv_out_size
+        self._s2d_args = None
+        if not self.input_s2d:
+            return
+        consumers = [c for c in self.net.connections if 0 in c.nindex_in]
+        assert len(consumers) == 1, \
+            "input_s2d: the data node must feed exactly one layer"
+        layer = consumers[0].layer
+        p = getattr(layer, "param", None)
+        assert (isinstance(layer, ConvolutionLayer) and p.stride > 1
+                and p.num_group == 1 and not layer.space_to_depth), (
+            "input_s2d: the first layer must be an ungrouped strided conv")
+        _, c, h, w = self.net.node_shapes[0]
+        layer.s2d_input = 1
+        self._s2d_args = (p.stride, p.kernel_height, p.kernel_width,
+                          conv_out_size(h, p.kernel_height, p.stride,
+                                        p.pad_y),
+                          conv_out_size(w, p.kernel_width, p.stride,
+                                        p.pad_x), p.pad_y, p.pad_x)
+
+    def stage_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The data node's (n, c, h, w) tensor as the first layer takes
+        it: under ``input_s2d = 1`` its space-to-depth form (the JAX
+        package's ``_s2d_transform``, made once a batch outside the
+        step); a tensor already in that form passes unchanged."""
+        if self._s2d_args is None:
+            return x
+        from ..ops.nn import s2d_input
+        s, kh, kw, oh, ow, py, px = self._s2d_args
+        if x.shape[1] == self.net.node_shapes[0][1] * s * s:
+            return x
+        return s2d_input(x, s, kh, kw, oh, ow, py, px)[0]
 
     def load_model(self, path: str, validated: bool = False) -> None:
         """Load a ``.model`` or a ``NNNN.ckpt`` directory written by either
@@ -568,8 +706,8 @@ class NetTrainer:
     def _batch_tensors(self, batch) -> Tuple[Dict[int, torch.Tensor],
                                              LabelInfo]:
         dev = self.device
-        inputs = {0: torch.as_tensor(np.asarray(batch.data, np.float32),
-                                     device=dev)}
+        inputs = {0: self.stage_input(torch.as_tensor(
+            np.asarray(batch.data, np.float32), device=dev))}
         for i, e in enumerate(getattr(batch, "extra_data", None) or ()):
             inputs[1 + i] = torch.as_tensor(np.asarray(e, np.float32),
                                             device=dev)
@@ -587,29 +725,44 @@ class NetTrainer:
 
     def loss_and_grads(self, batch) -> Tuple[torch.Tensor, Dict]:
         """The summed, scaled loss of one batch and its gradient for
-        every parameter (same nesting as ``params``)."""
-        loss, grads, _ = self._loss_grads_outs(*self._batch_tensors(batch))
+        every parameter (same nesting as ``params``); the buffers are
+        left as they were."""
+        loss, grads, _, _ = self._loss_grads_outs(*self._batch_tensors(batch))
         return loss, grads
 
+    def _ctx(self, labels: Optional[LabelInfo], epoch: int
+             ) -> ForwardContext:
+        return ForwardContext(train=True, opts=self.opts, labels=labels,
+                              loss_scale=self.loss_scale, rng=self.rng,
+                              epoch=epoch)
+
     def _loss_grads_outs(self, inputs: Dict[int, torch.Tensor],
-                         labels: LabelInfo
-                         ) -> Tuple[torch.Tensor, Dict, Dict]:
-        """(loss, grads, {eval node: its training-forward output})."""
-        ctx = ForwardContext(train=True, opts=self.opts, labels=labels,
-                             loss_scale=self.loss_scale, rng=self.rng)
+                         labels: LabelInfo, epoch: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, Dict, Dict, Dict]:
+        """(loss, grads, {eval node: its training-forward output}, new
+        buffers)."""
+        epoch = self.epoch_counter if epoch is None else epoch
         leaves = [(k, t, p) for k, g in self.params.items()
                   for t, p in g.items()]
         for _, _, p in leaves:
             p.requires_grad_(True)
         try:
             with record_function("train_forward"):
-                nodes = self.net.forward(self.params, inputs, ctx)
-                if not ctx.losses:
+                if self.remat:
+                    nodes, buffers, losses = self._remat_forward(
+                        inputs, labels, epoch)
+                elif self.batch_split > 1:
+                    nodes, buffers, losses = self._split_forward(
+                        inputs, labels, epoch)
+                else:
+                    ctx = self._ctx(labels, epoch)
+                    nodes, buffers = self.net.run(self.params, self.buffers,
+                                                  inputs, ctx)
+                    losses = ctx.losses
+                if not losses:
                     raise RuntimeError("network has no loss layer; cannot "
                                        "train")
-                total = ctx.losses[0]
-                for term in ctx.losses[1:]:
-                    total = total + term
+                total = sum(losses[1:], losses[0])
             with record_function("train_backward"):
                 grads = torch.autograd.grad(total, [p for _, _, p in leaves])
         finally:
@@ -618,8 +771,95 @@ class NetTrainer:
         out: Dict[str, Dict[str, torch.Tensor]] = {}
         for (k, t, _), g in zip(leaves, grads):
             out.setdefault(k, {})[t] = g
-        outs = {n: nodes[n].detach() for n in self.eval_node_ids}
-        return total.detach(), out, outs
+        outs = {n: materialize(nodes[n]).detach() for n in self.eval_node_ids}
+        return total.detach(), out, outs, buffers
+
+    def _split_forward(self, inputs, labels: LabelInfo, epoch: int):
+        """``batch_split = K``: K sub-batch chains through the net, their
+        loss terms summed (the scale stays 1 / batch, so the total is the
+        unsplit batch's), the eval nodes' rows concatenated; each chain
+        draws its masks after the one before it."""
+        if len(inputs) != 1:
+            raise ValueError("batch_split: extra-data inputs unsupported")
+        data, k = inputs[0], self.batch_split
+        if data.shape[0] % k:
+            raise ValueError(f"batch_split = {k} does not divide the batch "
+                             f"of {data.shape[0]}")
+        step = data.shape[0] // k
+        losses, parts = [], []
+        for j in range(k):
+            sl = slice(j * step, (j + 1) * step)
+            ctx = self._ctx(LabelInfo(
+                fields={n: f[sl] for n, f in labels.fields.items()},
+                mask=None if labels.mask is None else labels.mask[sl]), epoch)
+            nodes, _ = self.net.run(self.params, self.buffers,
+                                    {0: data[sl]}, ctx)
+            losses += ctx.losses
+            parts.append({n: materialize(nodes[n]) for n in self.eval_node_ids})
+        nodes = [None] * self.net.cfg.num_nodes
+        for n in self.eval_node_ids:
+            nodes[n] = torch.cat([p[n] for p in parts])
+        return nodes, self.buffers, losses
+
+    def _remat_forward(self, inputs, labels: LabelInfo, epoch: int):
+        """``remat = K``: the body's K segments
+        (``pipeline_net.partition_network``) each run under
+        ``torch.utils.checkpoint``, which keeps only a segment's frontier
+        and runs it again in the backward; the trailing loss layers run
+        after them.  A segment's loss terms (mid-body heads) leave it as
+        an output.  The recompute redraws the masks of the forward: the
+        generator's state before the segment is set for it, and the
+        state after put back (``torch.utils.checkpoint`` restores only
+        the global generators).  Connections run one by one, without
+        the sibling-fuse and virtual-concat peepholes, as in the JAX
+        package's segments."""
+        from torch.utils.checkpoint import checkpoint
+        from . import pipeline_net
+        from .net import conn_params
+        net = self.net
+        if len(inputs) != 1:
+            raise ValueError("remat: extra-data inputs unsupported")
+        if self._remat_partition is None:
+            self._remat_partition = pipeline_net.partition_network(
+                net, self.remat)
+        stages, body_end = self._remat_partition
+        want = torch.float32 if 0 in net.id_inputs else net.dtype
+        nodes = {0: inputs[0].to(want)}
+
+        def run_conns(lo, hi, env, ctx):
+            for j in range(lo, hi):
+                conn = net.connections[j]
+                outs = conn.layer.forward(conn_params(self.params, conn),
+                                          [env[n] for n in conn.nindex_in],
+                                          ctx)
+                for n, v in zip(conn.nindex_out, outs):
+                    env[n] = v
+            return env
+
+        def stage_fn(lo, hi, ins, outs):
+            def fn(*acts):
+                ctx = self._ctx(labels, epoch)
+                env = run_conns(lo, hi, dict(zip(ins, acts)), ctx)
+                loss = sum(ctx.losses, torch.zeros((), device=acts[0].device))
+                return tuple(env[n] for n in outs) + (loss,)
+            return fn
+
+        body_loss = None
+        for lo, hi in stages:
+            ins = pipeline_net.frontier_nodes(net, lo)
+            outs = pipeline_net.frontier_nodes(net, hi)
+            res = checkpoint(_replaying(stage_fn(lo, hi, ins, outs),
+                                        self.rng),
+                             *[nodes[n] for n in ins], use_reentrant=False)
+            nodes = dict(zip(outs, res[:-1]))
+            body_loss = res[-1] if body_loss is None else body_loss + res[-1]
+        ctx = self._ctx(labels, epoch)
+        env = run_conns(body_end, len(net.connections), nodes, ctx)
+        for nid in self.eval_node_ids:
+            assert nid in env, ("remat: train-metric eval nodes must sit at "
+                                "or after the last segment boundary")
+        node_list = [env.get(n) for n in range(net.cfg.num_nodes)]
+        return node_list, self.buffers, ctx.losses + [body_loss]
 
     def update(self, batch) -> None:
         """One training step on a host :class:`~..io.data.DataBatch`;
@@ -638,12 +878,14 @@ class NetTrainer:
         """One training step on device tensors (node id -> input, label
         fields); returns the eval-node outputs of its forward."""
         self._ensure_opt_state()
+        inputs = {**inputs, 0: self.stage_input(inputs[0])}
         self.sample_counter += 1
         do_update = self.sample_counter % self.update_period == 0
         epoch = self.epoch_counter
         if do_update:
             self.epoch_counter += 1
-        loss, grads, outs = self._loss_grads_outs(inputs, labels)
+        loss, grads, outs, self.buffers = self._loss_grads_outs(
+            inputs, labels, epoch)
         self.last_loss = loss
         if self.update_period > 1:
             if self._grad_acc is None:
@@ -690,9 +932,12 @@ class NetTrainer:
         inputs = {i: torch.as_tensor(np.asarray(a, np.float32),
                                      device=self.device)
                   for i, a in enumerate([data, *extra_data])}
+        inputs[0] = self.stage_input(inputs[0])
         with torch.inference_mode():
-            nodes = self.net.forward(self.params, inputs, self.context())
-        return [nodes[n].float().cpu().numpy() for n in node_ids]
+            nodes = self.net.forward(self.params, inputs, self.context(),
+                                     buffers=self.buffers)
+        return [materialize(nodes[n]).float().cpu().numpy()
+                for n in node_ids]
 
     def _node_rows(self, batch, nid: int) -> np.ndarray:
         """Node ``nid`` of a batch's eval forward as (valid rows, values)
@@ -764,3 +1009,26 @@ class NetTrainer:
 
     def context(self, decode=None) -> ForwardContext:
         return ForwardContext(train=False, opts=self.opts, decode=decode)
+
+
+def _replaying(fn, gen: Optional[torch.Generator]):
+    """``fn`` for ``torch.utils.checkpoint`` whose second call (the
+    recompute in the backward) draws what its first call drew from
+    ``gen``: ``gen``'s state before the first call is set for the
+    second, and its state then put back, so the stream goes on as if
+    nothing ran again."""
+    if gen is None:
+        return fn
+    before = []
+
+    def run(*args):
+        if not before:
+            before.append(gen.get_state())
+            return fn(*args)
+        now = gen.get_state()
+        gen.set_state(before[0])
+        try:
+            return fn(*args)
+        finally:
+            gen.set_state(now)
+    return run

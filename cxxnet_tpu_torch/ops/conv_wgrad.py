@@ -79,6 +79,48 @@ def s2d_input(x: torch.Tensor, stride: int, kh: int, kw: int, oh: int,
     return xb.reshape(n, c * s * s, hb, wb), kb_y, kb_x
 
 
+def s2d_staged_shape(c: int, stride: int, kh: int, kw: int, oh: int,
+                     ow: int) -> Tuple[int, int, int]:
+    """The per-image (c * s * s, hb, wb) shape :func:`s2d_input` makes:
+    what ``input_s2d = 1`` feeds the first conv."""
+    kb_y, kb_x = -(-kh // stride), -(-kw // stride)
+    return (c * stride * stride, oh - 1 + kb_y, ow - 1 + kb_x)
+
+
+def s2d_weights(w: torch.Tensor, stride: int) -> torch.Tensor:
+    """(co, ci, kh, kw) -> the stride-1 weights (co, ci*s*s, kb_y, kb_x)
+    over :func:`s2d_input`'s (c, sy, sx) channel order; taps past kh / kw
+    are zero."""
+    s = stride
+    co, ci, kh, kw = w.shape
+    kb_y, kb_x = -(-kh // s), -(-kw // s)
+    wp = F.pad(w, (0, kb_x * s - kw, 0, kb_y * s - kh))
+    wb = wp.reshape(co, ci, kb_y, s, kb_x, s).permute(0, 1, 3, 5, 2, 4)
+    return wb.reshape(co, ci * s * s, kb_y, kb_x)
+
+
+def conv2d_pres2d(xb: torch.Tensor, w: torch.Tensor, *,
+                  stride: int) -> torch.Tensor:
+    """The stride-``stride`` conv of an input already in space-to-depth
+    form (:func:`s2d_input`): a stride-1 conv with :func:`s2d_weights`.
+    ``w`` keeps the canonical (co, ci, kh, kw) layout; autograd folds its
+    gradient back."""
+    return F.conv2d(xb, s2d_weights(w, stride).to(xb.dtype))
+
+
+def conv2d_s2d(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+               pad_y: int = 0, pad_x: int = 0) -> torch.Tensor:
+    """An ungrouped strided conv through the space-to-depth identity: the
+    same contraction as ``F.conv2d`` in another order."""
+    kh, kw = w.shape[2], w.shape[3]
+    if w.shape[1] != x.shape[1]:
+        raise ValueError("conv2d_s2d: grouped conv not supported")
+    oh = (x.shape[2] + 2 * pad_y - kh) // stride + 1
+    ow = (x.shape[3] + 2 * pad_x - kw) // stride + 1
+    xb, _, _ = s2d_input(x, stride, kh, kw, oh, ow, pad_y, pad_x)
+    return conv2d_pres2d(xb, w, stride=stride)
+
+
 def s2d_fold(dwb: torch.Tensor, ci: int, stride: int, kh: int,
              kw: int) -> torch.Tensor:
     """The stride-1 weight gradient (co, ci*s*s, kb_y, kb_x) of the
@@ -238,15 +280,19 @@ class ConvBiasFast(torch.autograd.Function):
     :func:`conv_wgrad_s2d_pallas`; ``s2d``: the same function as
     :func:`wgrad_s2d` and a sum, as the JAX package's default computes
     it with XLA), cast to w's dtype; dx through the conv transpose, only
-    when x needs a gradient."""
+    when x needs a gradient.  ``fwd_s2d`` (``conv1_fwd = s2d``): the
+    forward through :func:`conv2d_s2d`."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride: int, pad_y: int, pad_x: int,
-                mode: str):
+                mode: str, fwd_s2d: bool = False):
         ctx.save_for_backward(x, w)
         ctx.args = (stride, pad_y, pad_x, mode)
-        out = F.conv2d(x, w.to(x.dtype), stride=stride,
-                       padding=(pad_y, pad_x))
+        if fwd_s2d:
+            out = conv2d_s2d(x, w, stride=stride, pad_y=pad_y, pad_x=pad_x)
+        else:
+            out = F.conv2d(x, w.to(x.dtype), stride=stride,
+                           padding=(pad_y, pad_x))
         return out + b.to(out.dtype).reshape(1, -1, 1, 1)
 
     @staticmethod
@@ -268,10 +314,11 @@ class ConvBiasFast(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv2d_input(x.shape, w.to(x.dtype), dy, stride=stride,
                               padding=(pad_y, pad_x))
-        return dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None
+        return (dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None,
+                None)
 
 
 def conv_bias_fast(x, w, b, stride: int, pad_y: int, pad_x: int,
-                   mode: str = "hwcn"):
+                   mode: str = "hwcn", fwd_s2d: bool = False):
     """Differentiable ungrouped conv + bias with the fast wgrad."""
-    return ConvBiasFast.apply(x, w, b, stride, pad_y, pad_x, mode)
+    return ConvBiasFast.apply(x, w, b, stride, pad_y, pad_x, mode, fwd_s2d)

@@ -3,11 +3,13 @@ the reference's size rules, grouped convolution, pooling, LRN, and the
 dispatch of each to its hand-written kernel or its plain torch form by
 the trainer's engine options.
 
-All tensors are logical NCHW, as in the JAX package.  Unlike the JAX
-package, no choice here reads the device: the gates depend only on the
-options and shapes, so the CPU and the card build the same graph, and
-the kernel wrappers alone pick kernel (CUDA tensor) or plain version
-(CPU tensor).
+All tensors are logical NCHW, as in the JAX package.  One choice here
+reads the device, as the JAX package's reads its backend: the pool gate
+:func:`hwcn_pool_ok` of ``pool_bwd = auto`` and ``pool_relu_fuse = 1``
+holds only for a tensor on the card, so on the CPU those pools take the
+one-winner backward as the JAX package's do off the TPU.  Every other
+gate depends only on the options and shapes, and the kernel wrappers
+alone pick kernel (CUDA tensor) or plain version (CPU tensor).
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch.nn.functional as F
 
 from ..engine import EngineOptions
 from . import lrn as lrn_ops, pool
-from .conv_wgrad import conv_bias_fast, s2d_input  # noqa: F401
+from .conv_wgrad import (conv2d_pres2d, conv2d_s2d,  # noqa: F401
+                         conv_bias_fast, s2d_input, s2d_staged_shape,
+                         s2d_weights)
 from .pool import pool_out_size, pool_out_size_padded  # noqa: F401
 
 
@@ -33,9 +37,21 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            ) -> torch.Tensor:
     """Grouped 2-D convolution, NCHW x OIHW -> NCHW, w of shape (out_c,
     in_c // num_group, kh, kw).  ``F.conv2d``: the JAX package leaves
-    this to XLA, outside any Pallas kernel."""
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(pad_y, pad_x),
-                    groups=num_group)
+    this to XLA, outside any Pallas kernel.  Both values of
+    ``group_conv`` lower to this one call: ``split``'s conv a group and
+    concat computes the same function in more launches."""
+    return F.conv2d(x, w.to(x.dtype), stride=stride,
+                    padding=(pad_y, pad_x), groups=num_group)
+
+
+def relu(x: torch.Tensor, opts: EngineOptions) -> torch.Tensor:
+    """relu under ``relu_vjp``: ``out`` (default) masks the gradient by
+    the output, as the reference's relu_grad (torch's relu backward);
+    ``xla`` is ``max(x, 0)``, whose gradient torch, like XLA, halves
+    where x == 0."""
+    if opts.relu_vjp == "xla":
+        return torch.maximum(x, x.new_zeros(()))
+    return torch.relu(x)
 
 
 def use_fast_wgrad(cin: int, stride: int, num_group: int,
@@ -76,8 +92,44 @@ def _max_pool_sas(x, kh, kw, stride, pad_y, pad_x):
     return F.max_pool2d(xp, (kh, kw), stride)
 
 
-def _all_ties(opts: EngineOptions) -> bool:
-    return opts.pool_layout == "hwcn" or opts.pool_bwd in ("eq", "gather")
+#: the JAX package's budget for the multi-row pool backward's channel
+#: tile (pallas_kernels._MR_BWD_VMEM_CAP); its pool gate reads it
+_MR_BWD_CAP = 12 << 20
+
+
+def _pick_cb(c: int, per_cb_bytes: int, cap: int) -> int:
+    """The largest channel tile dividing c (a multiple of 8 or c itself)
+    within ``cap``, else the smallest such tile (pallas_kernels._pick_cb)."""
+    legal = [cb for cb in range(1, c + 1)
+             if c % cb == 0 and (cb == c or cb % 8 == 0)]
+    return next((cb for cb in reversed(legal)
+                 if cb * per_cb_bytes <= cap), legal[0])
+
+
+def hwcn_pool_fits(shape, kh: int, kw: int, stride: int, pad_y: int,
+                   pad_x: int) -> bool:
+    """The shape half of the JAX package's pool gate
+    (``ops.nn._hwcn_pool_ok`` with ``max_pool_hwcn_supported``): an
+    unpadded square window, a batch of whole 128-image tiles, and a
+    channel tile of its multi-row backward within the budget
+    (``_mp_mr_plan``: 3 * stride rows of (w, 128 images) at 12 bytes
+    an element a channel)."""
+    n, c, h, w = shape
+    if not (pad_y == 0 and pad_x == 0 and kh == kw and n % 128 == 0):
+        return False
+    per = w * 128 * 12 * 3 * stride
+    return _pick_cb(c, per, _MR_BWD_CAP) * per <= _MR_BWD_CAP
+
+
+def hwcn_pool_ok(x: torch.Tensor, kh: int, kw: int, stride: int,
+                 pad_y: int, pad_x: int) -> bool:
+    """The JAX package's pool gate, the tensor on the card in place of
+    its TPU backend (:func:`hwcn_pool_fits`).  Where it holds,
+    ``pool_relu_fuse = 1`` fuses the relu into the all-ties pool and
+    ``pool_bwd = auto`` takes the all-ties pool; elsewhere both keep the
+    configured backward, one-winner by default."""
+    return x.device.type == "cuda" and hwcn_pool_fits(
+        x.shape, kh, kw, stride, pad_y, pad_x)
 
 
 def max_pool2d(x: torch.Tensor, ksize_y: int, ksize_x: int, stride: int,
@@ -85,25 +137,62 @@ def max_pool2d(x: torch.Tensor, ksize_y: int, ksize_x: int, stride: int,
                opts: EngineOptions) -> torch.Tensor:
     """Max pool.  ``pool_layout = hwcn`` or ``pool_bwd = eq | gather``:
     the all-ties pool kernels (mshadow unpool: every tied maximum gets
-    the window's gradient), for every shape; otherwise the one-winner
-    plain torch pool."""
-    if _all_ties(opts):
-        return pool.max_pool_hwcn(x, ksize_y, ksize_x, stride, pad_y, pad_x)
-    return _max_pool_sas(x, ksize_y, ksize_x, stride, pad_y, pad_x)
+    the window's gradient) at every shape, as the JAX package keeps
+    all-ties where its kernel declines a shape; ``pool_bwd = auto``: the
+    same where :func:`hwcn_pool_ok` holds; otherwise the one-winner
+    plain torch pool.  ``pool_layout = chwn`` is ``nchw``'s lowering:
+    the JAX package's (C, H, W, N) transpose changes only the layout XLA
+    pools in, not the function or its tie order."""
+    geom = (ksize_y, ksize_x, stride, pad_y, pad_x)
+    if (opts.pool_layout == "hwcn" or opts.pool_bwd in ("eq", "gather")
+            or (opts.pool_bwd == "auto" and hwcn_pool_ok(x, *geom))):
+        return pool.max_pool_hwcn(x, *geom)
+    return _max_pool_sas(x, *geom)
 
 
 def max_pool2d_relu(x: torch.Tensor, ksize_y: int, ksize_x: int,
                     stride: int, pad_y: int = 0, pad_x: int = 0, *,
                     opts: EngineOptions) -> torch.Tensor:
     """``relu(max_pool2d(x))``, the deferred-relu pool of the relu->pool
-    reorder.  ``pool_relu_fuse = 1``: the relu backward fuses into the
-    all-ties pool backward kernel (which implies the all-ties backward
-    for this pool); otherwise the configured pool, then relu."""
-    if opts.pool_relu_fuse == "1":
-        return pool.max_pool_relu_hwcn(x, ksize_y, ksize_x, stride, pad_y,
-                                       pad_x)
-    return torch.relu(max_pool2d(x, ksize_y, ksize_x, stride, pad_y, pad_x,
-                                 opts=opts))
+    reorder.  ``pool_relu_fuse = 1`` where :func:`hwcn_pool_ok` holds:
+    the relu backward fuses into the all-ties pool backward kernel
+    (which implies the all-ties backward for this pool); otherwise the
+    configured pool, then relu."""
+    geom = (ksize_y, ksize_x, stride, pad_y, pad_x)
+    if opts.pool_relu_fuse == "1" and hwcn_pool_ok(x, *geom):
+        return pool.max_pool_relu_hwcn(x, *geom)
+    return relu(max_pool2d(x, *geom, opts=opts), opts)
+
+
+def jitter5(x: torch.Tensor, mask: torch.Tensor, p_keep: float
+            ) -> torch.Tensor:
+    """Insanity pooling's neighbour redirect
+    (insanity_pooling_layer-inl.hpp:70-93): where ``mask`` (uniform [0,
+    1), x's shape) falls in the band [p, p + d), [p + d, p + 2d), ...
+    (d = (1 - p) / 4) a position reads its y-1, y+1, x-1 or x+1
+    neighbour (clamped at the edge), below p itself."""
+    d = (1.0 - p_keep) / 4.0
+    up = torch.cat([x[:, :, :1], x[:, :, :-1]], dim=2)
+    down = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+    left = torch.cat([x[:, :, :, :1], x[:, :, :, :-1]], dim=3)
+    right = torch.cat([x[:, :, :, 1:], x[:, :, :, -1:]], dim=3)
+    return torch.where(mask < p_keep, x,
+           torch.where(mask < p_keep + d, up,
+           torch.where(mask < p_keep + 2 * d, down,
+           torch.where(mask < p_keep + 3 * d, left, right))))
+
+
+def insanity_max_pool(x: torch.Tensor, mask: torch.Tensor, ksize_y: int,
+                      ksize_x: int, stride: int, p_keep: float
+                      ) -> torch.Tensor:
+    """Training insanity pooling (insanity_pooling_layer-inl.hpp): the
+    all-ties max pool of the jittered image, whose gradient goes to the
+    window position itself (the reference's insanity_unpool), not
+    through the redirect: the value is the jittered image, the gradient
+    passes straight through to x."""
+    xj = jitter5(x, mask, p_keep)
+    xj = x + (xj - x).detach()
+    return pool.max_pool_hwcn(xj, ksize_y, ksize_x, stride)
 
 
 def sum_pool2d(x: torch.Tensor, ksize_y: int, ksize_x: int, stride: int,
@@ -142,6 +231,14 @@ def lrn(x: torch.Tensor, nsize: int, alpha: float, beta: float,
         return lrn_ops.lrn_pallas_hwcn(x, nsize, alpha, beta, knorm)
     norm = chpool_sum(torch.square(x), nsize) * (alpha / nsize) + knorm
     return x * lrn_ops.norm_pow(norm, beta)
+
+
+def uniform(gen: torch.Generator, shape, dtype: torch.dtype
+            ) -> torch.Tensor:
+    """Uniform [0, 1) draws from ``gen`` on its device (insanity,
+    prelu's noise)."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device,
+                      dtype=dtype)
 
 
 def dropout_mask(gen: torch.Generator, shape, pkeep: float,

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..layers.base import materialize
 from ..layers.conv import ConvolutionLayer
 from ..layers.fullc import FullConnectLayer
 from ..monitor import log as mlog
@@ -144,8 +145,9 @@ class PredictEngine:
                                 device=self.device)
             if cast:
                 x = x.to(torch.bfloat16)
-            nodes = t.net.forward(params, {0: x}, t.context())
-            out = nodes[t.net.final_node]
+            nodes = t.net.forward(params, {0: t.stage_input(x)}, t.context(),
+                                  buffers=t.buffers)
+            out = materialize(nodes[t.net.final_node])
             return out.reshape(out.shape[0], -1).float().cpu().numpy()
 
     def _padded(self, x: np.ndarray, i: int, take: int, b: int):

@@ -940,10 +940,11 @@ def test_cli_mnist_conv_round_matches_jax_cli(jopts, tmp_path, capsys):
 
 def test_engine_values_ported_and_refused():
     """The slices' values are accepted (pallas_lrn = hwcn: row 2,
-    fast_wgrad = pallas: row 6, fused_update = 1: row 13 among them);
-    the values whose features are not ported (pool_bwd = auto,
+    fast_wgrad = pallas: row 6, fused_update = 1: row 13 among them), and
+    every value of the CNN stack's lowering options (pool_bwd = auto,
     pool_layout = chwn, group_conv = split, conv1_fwd = s2d, relu_vjp =
-    xla, conv_sibling_fuse = 1) raise "not ported" by name."""
+    xla, conv_sibling_fuse = 1, concat_virtual = 1); the dp_* options,
+    whose feature is not ported, raise "not ported" by name."""
     opts = EngineOptions()
     for k, v in SLICE_OPTS + (("pool_bwd", "gather"), ("pool_bwd", "eq"),
                               ("pallas_lrn", "bandconv"),
@@ -951,12 +952,15 @@ def test_engine_values_ported_and_refused():
                               ("pool_relu_reorder", "0"),
                               ("pallas_lrn", "hwcn"),
                               ("fast_wgrad", "pallas"),
-                              ("fused_update", "1")):
+                              ("fused_update", "1"),
+                              ("relu_vjp", "xla"), ("conv_sibling_fuse", "1"),
+                              ("pool_bwd", "auto"), ("pool_layout", "chwn"),
+                              ("group_conv", "split"), ("conv1_fwd", "s2d"),
+                              ("concat_virtual", "1")):
         opts.set(k, v)
         assert getattr(opts, k) == v
-    for k, v in (("relu_vjp", "xla"), ("conv_sibling_fuse", "1"),
-                 ("pool_bwd", "auto"), ("pool_layout", "chwn"),
-                 ("group_conv", "split"), ("conv1_fwd", "s2d")):
+    for k, v in (("dp_overlap", "1"), ("dp_reduce_dtype", "bf16"),
+                 ("dp_reduce_at", "step"), ("dp_bucket_mb", "8")):
         with pytest.raises(ValueError, match="not ported"):
             opts.set(k, v)
 

@@ -1265,3 +1265,96 @@ def test_int8_predict_engine_on_the_card(cuda):
     assert _rel(torch.from_numpy(got),
                 torch.from_numpy(f32.predict(x))) <= SERVE_TOL["int8"]
     assert q8.pairtest(x[:8]) <= SERVE_TOL["int8"]
+
+
+# ------------------------------------------ GoogLeNet's shapes, the pool
+# gate on the card
+
+@pytest.mark.parametrize("shape", [(128, 64, 56, 56), (128, 192, 56, 56)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_kernels_at_googlenet_shapes(cuda, shape, dtype):
+    """GoogLeNet's two LRNs (local_size 5, a batch_split chain of 128
+    images) against the plain versions: float32 at 1e-4, bf16 per row at
+    2^-6; the backward twice, bitwise equal."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(dtype)
+    g = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    args = (5, 1e-4, 0.75, 1.0)
+    y, dx = lrn.lrn_fwd(x, *args), lrn.lrn_bwd(x, g, *args)
+    assert torch.equal(dx, lrn.lrn_bwd(x, g, *args))
+    for got, ref in ((y, lrn.lrn_fwd_plain(x, *args)),
+                     (dx, lrn.lrn_bwd_plain(x, g, *args))):
+        if dtype == torch.float32:
+            assert _rel(got, ref) <= F32_TOL
+        else:
+            assert _row_rel(got, ref) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("shape,geom", [
+    ((128, 64, 112, 112), (3, 3, 2, 0, 0)),   # pool1
+    ((128, 192, 56, 56), (3, 3, 2, 0, 0)),    # pool2
+    ((128, 192, 28, 28), (3, 3, 1, 1, 1)),    # i3a's inception pool
+    ((128, 64, 28, 28), (3, 3, 1, 1, 1)),     # a segment of i3a_out
+    ((128, 96, 28, 28), (3, 3, 2, 0, 0)),     # pool3 on a segment
+    ((128, 320, 14, 14), (3, 3, 1, 1, 1)),    # i4 pools on segments
+    ((128, 128, 14, 14), (3, 3, 2, 0, 0)),    # pool4 on a segment
+    ((128, 384, 7, 7), (3, 3, 1, 1, 1)),      # i5b's pool on a segment
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_kernels_at_googlenet_shapes(cuda, shape, geom, dtype):
+    """GoogLeNet's pools (a batch_split chain of 128 images) on relu'd
+    inputs on a grid, so whole windows tie at zero and above: forward
+    and the all-ties backward, plain and relu-masked, bitwise equal to
+    the plain versions, each backward twice."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2).round()
+    x = torch.relu(x / 2).to(dtype)
+    y = pool.max_pool_fwd(x, geom)
+    assert torch.equal(y, pool.max_pool_fwd_plain(x, geom))
+    dy = ((torch.randn(y.shape, generator=cuda, device="cuda") * 8).round()
+          / 8).to(dtype)
+    for relu in (False, True):
+        dx = pool.max_pool_bwd(x, y, dy, geom, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, pool.max_pool_bwd(x, y, dy, geom, relu))
+        assert torch.equal(dx, pool.max_pool_bwd_plain(x, y, dy, geom,
+                                                       relu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_wgrad_kernel_at_googlenet_conv1(cuda, dtype):
+    """GoogLeNet's conv1 (x (128, 3, 224, 224), 7x7 stride 2 pad 3 to 64
+    channels) dW and db against the plain version within WGRAD_TOL;
+    twice, bitwise equal; on the mma.sync split-K route in both dtypes
+    (the wgmma route takes output rows of at most 64, and conv1's are
+    112 wide)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand((128, 3, 224, 224), generator=cuda,
+                   device="cuda").to(dtype)
+    dy = torch.randn((128, 64, 112, 112), generator=cuda,
+                     device="cuda").to(dtype)
+    got = cw.conv_wgrad_hwcn_pallas(x, dy, 7, 7, 2, 3, 3)
+    again = cw.conv_wgrad_hwcn_pallas(x, dy, 7, 7, 2, 3, 3)
+    ref = cw.conv_wgrad_plain(x, dy, 7, 7, 2, 3, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel(got[0], ref[0]) <= WGRAD_TOL
+    assert _rel(got[1], ref[1]) <= WGRAD_TOL
+    assert cw.kernel_route(3, 64, 112, 7, 7, 2, dtype) == "mma.sync"
+
+
+@pytest.mark.parametrize("batch,fused", [(128, 1), (64, 0), (130, 0)])
+def test_relu_pool_gate_on_the_card(cuda, batch, fused):
+    """``pool_relu_fuse = 1`` under ``pool_layout = nchw pool_bwd = sas``
+    on the card: a deferred-relu pool (k3 s2, no padding) fuses into the
+    relu-masked all-ties kernels only at a batch of whole 128-image
+    tiles, as the JAX package's gate admits it on the TPU; elsewhere it
+    launches no kernel (the one-winner pool, then relu)."""
+    from cxxnet_tpu_torch.engine import EngineOptions
+    from cxxnet_tpu_torch.ops import nn as N
+    opts = EngineOptions()
+    opts.set("pool_relu_fuse", "1")
+    x = torch.randn((batch, 16, 27, 27), generator=cuda,
+                    device="cuda").requires_grad_()
+    before = (pool.max_pool_fwd.launches, pool.max_pool_bwd.relu_launches)
+    N.max_pool2d_relu(x, 3, 3, 2, opts=opts).sum().backward()
+    torch.cuda.synchronize()
+    assert (pool.max_pool_fwd.launches - before[0],
+            pool.max_pool_bwd.relu_launches - before[1]) == (fused, fused)

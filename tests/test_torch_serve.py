@@ -263,21 +263,33 @@ def test_config_netconfig_and_engine_options_match_jax():
                                      ("concat_virtual", "1"),
                                      ("group_conv", "split"),
                                      ("conv1_fwd", "s2d"),
-                                     ("dp_bucket_mb", "8")])
+                                     ("dp_bucket_mb", "8"),
+                                     ("dp_reduce_dtype", "bf16"),
+                                     ("dp_reduce_at", "step")])
 def test_unported_engine_options_are_refused(monkeypatch, key, val):
-    """A key or value whose kernel is not ported is refused: from a
-    conf or from the environment, it raises."""
+    """A key or value whose feature is not ported (the dp_* options) is
+    refused: from a conf, the trainer or the environment, it raises.
+    The CNN stack's lowering values, refused until they were ported,
+    are taken the same three ways and read back."""
     from cxxnet_tpu_torch import engine as tengine
     opts = tengine.EngineOptions()
     opts.set(key, tengine._DEFS[key][1])
-    with pytest.raises(ValueError, match="not ported"):
-        opts.set(key, val)
     t = NetTrainer()
-    with pytest.raises(ValueError, match="not ported"):
-        t.set_param(key, val)
+    if key.startswith("dp_"):
+        with pytest.raises(ValueError, match="not ported"):
+            opts.set(key, val)
+        with pytest.raises(ValueError, match="not ported"):
+            t.set_param(key, val)
+        monkeypatch.setenv(tengine._DEFS[key][0], val)
+        with pytest.raises(ValueError, match="not ported"):
+            tengine.EngineOptions()
+        return
+    assert val in tengine.PORTED[key]
+    opts.set(key, val)
+    t.set_param(key, val)
+    assert getattr(opts, key) == getattr(t.opts, key) == val
     monkeypatch.setenv(tengine._DEFS[key][0], val)
-    with pytest.raises(ValueError, match="not ported"):
-        tengine.EngineOptions()
+    assert getattr(tengine.EngineOptions(), key) == val
 
 
 def test_packed_iterator_batches_match_jax(tmp_path):
