@@ -82,6 +82,8 @@ Phases (any failure raises and exits non-zero):
    kill, the continued run must start at round 3, and A's and B's last
    snapshots must be equal bitwise: every array of every shard, the
    train state (the CUDA generator's state too) and the iterator state.
+   The train chain reads through ``iter = threadbuffer``; run A stages
+   its batches inline (``prefetch_device = 0``), run B ahead (2).
    Prints each snapshot's bytes, write and blocked seconds and write
    rate, and the step p50 of each part;
 14. speculative serve path (``serve_spec``, after ``serve``): on the
@@ -129,7 +131,30 @@ Phases (any failure raises and exits non-zero):
 18. ResNet path (``resnet``): the zoo's resnet(depth = 56) at batch 128,
    bf16, on synthetic batches for 2 rounds of 10 steps: finite losses,
    and the last snapshot's moving statistics of every batch_norm layer
-   finite and moved from their initial values.
+   finite and moved from their initial values;
+19. AlexNet from a packed dataset (``alexnet_data``): ImageNet.conf with
+   its own data sections (``iter = imgbin`` with the mean image built on
+   first use, random crops and mirrors, ``iter = threadbuffer``; the train
+   pack shuffled) over seeded JPEG packs of DATA_IMAGES train and
+   DATA_EVAL_IMAGES test images of 3 x DATA_SIDE x DATA_SIDE made here
+   with cv2 (labels in [0, 1000)), under the kernel keys of phase 7 and
+   ``prefetch_device = 2``, DATA_ROUNDS rounds: finite losses, per step
+   the launches of phase 7 and per eval batch 2 LRN and 3 max-pool
+   forwards; prints the step p50 and images/s beside phase 7's and each
+   round record's input fields, then one ``test_io = 1`` round (the host
+   pipeline alone, no kernel launched) and its images/s.  The machine's
+   JPEG libraries are printed first (phase 1): the native loader
+   (``iter = imbin_native``) needs libjpeg's headers to build;
+20. staging race check (``staging``): a ``DevicePrefetcher`` of depth 2
+   stages STAGING_BATCHES batches of three chains on its copy stream,
+   each normalised and copied out on the compute stream and then
+   dropped, once while bf16 matmuls keep that stream busy (the
+   ``record_stream`` hazard) and once read the moment it is handed over
+   on an idle stream (the hazard of a read that does not wait on the
+   batch's event); every result must equal bitwise what
+   ``prefetch_device = 0`` stages for the same batch: phase 19's train
+   chain, MNIST_CONV's train chain and seeded u8 batches at AlexNet's
+   shape (normalised with ImageNet's mean).
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -221,7 +246,7 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
-              "resnet"}
+              "resnet", "alexnet_data", "staging"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -264,6 +289,26 @@ ALEXNET_HWCN_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=10",
                      "num_round=3", "pool_layout=hwcn", "pool_relu_fuse=1",
                      "pallas_lrn=hwcn", "fast_wgrad=pallas", "save_model=0")
 ALEXNET_HWCN_STEPS = 30
+# AlexNet from packed data: ImageNet.conf's own data sections over seeded
+# JPEG packs (DATA_SIDE square, the reference's ImageNet resize), through
+# the kernels of ALEXNET_ARGS and the device prefetcher
+DATA_IMAGES, DATA_EVAL_IMAGES, DATA_SIDE, DATA_ROUNDS = 2560, 512, 256, 2
+ALEXNET_DATA_ARGS = ("dev=gpu", f"num_round={DATA_ROUNDS}",
+                     "pool_layout=hwcn", "pool_relu_fuse=1", "pallas_lrn=1",
+                     "fast_wgrad=hwcn", "save_model=0", "print_step=5",
+                     "prefetch_device=2")
+#: ``prefetch_device=N`` appended to the CLI runs of the train, mnist_conv,
+#: cnn_infer and alexnet_data phases (``--prefetch-device``; none: each
+#: conf's own value)
+PREFETCH_ARGS: list = []
+#: AlexNet's eval forward, a batch: the two LRNs and the three pools
+ALEXNET_EVAL_PER_BATCH = {"lrn_fwd": 2, "max_pool_fwd": 3}
+#: the staging race check: batches a chain stages each way, and the bf16
+#: matmuls (8192 square) queued on the compute stream before each is read
+STAGING_BATCHES, STAGING_MATMULS = 4, 8
+#: ImageNet's RGB channel means: the u8 batches of the staging check are
+#: normalised with them
+IMAGENET_MEAN = "123.68,116.78,103.94"
 ALEXNET_HWCN_PER_STEP = {"lrn_hwcn_fwd": 2, "lrn_hwcn_bwd": 2,
                          "max_pool_fwd": 3, "max_pool_bwd": 3,
                          "conv_wgrad_s2d": 1}
@@ -311,6 +356,8 @@ FUSED_LOSS_TOL = 1e-2
 WGRAD_TOL = 1e-3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+#: numbers one phase prints beside another's (alexnet's step p50)
+MEASURED = {}
 
 
 def log(msg: str) -> None:
@@ -544,6 +591,26 @@ def phase_env():
             log(f"  ptxas: {line.strip()}")
     for name, props in wgmma_ptxas(build.LIBRARY.build_log):
         log(f"  ptxas {name}: {props} (shared memory: dynamic, at launch)")
+    log(f"JPEG: {jpeg_libraries()}")
+
+
+def jpeg_libraries() -> str:
+    """What of the machine can decode JPEG: libjpeg's header and shared
+    library (the native loader, native/imbin_iter.cc, builds against
+    them) and cv2 (the Python chain's decoder)."""
+    import ctypes.util
+    import glob
+    header = [p for p in ("/usr/include/jpeglib.h",
+                          "/usr/local/include/jpeglib.h") if os.path.exists(p)]
+    libs = sorted(glob.glob("/usr/lib/x86_64-linux-gnu/libjpeg.so*")
+                  + glob.glob("/usr/local/lib/libjpeg.so*"))
+    try:
+        import cv2
+        cv = f"cv2 {cv2.__version__}"
+    except ImportError as e:
+        cv = f"no cv2 ({e})"
+    return (f"jpeglib.h {header or 'absent'}; libjpeg.so "
+            f"{libs or ctypes.util.find_library('jpeg') or 'absent'}; {cv}")
 
 
 def phase_kernels():
@@ -1995,7 +2062,7 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
         prof.start()
     t0 = time.perf_counter()
     try:
-        rc = task.run([conf])
+        rc = task.run([conf] + PREFETCH_ARGS)
     finally:
         if prof is not None:
             prof.stop()
@@ -2146,6 +2213,7 @@ def phase_alexnet(tmp: str, profile: bool = False, hwcn: bool = False
         f"{wall:.1f} s")
     log(f"{label} path launches: {launches}, relu-masked pool backward "
         f"{relu}")
+    MEASURED[label] = st
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss {losses}")
     want = {n: per_step.get(n, 0) * nsteps for n in KERNELS}
@@ -2159,6 +2227,274 @@ def phase_alexnet(tmp: str, profile: bool = False, hwcn: bool = False
     del task
     torch.cuda.empty_cache()
     return launches
+
+
+def write_jpeg_pack(tmp: str, name: str, n: int, seed: int):
+    """A seeded pack of ``n`` JPEGs of 3 x DATA_SIDE x DATA_SIDE (smooth
+    random images with a little noise, cv2 at quality 90) written by the
+    port's BinaryPageWriter, and its list (labels in [0, 1000)); returns
+    (pack, list, JPEG bytes)."""
+    import cv2
+    from cxxnet_tpu_torch.io.imbin import BinaryPageWriter
+    rng = np.random.RandomState(seed)
+    pack, lst = (os.path.join(tmp, f"{name}.{ext}") for ext in ("bin", "lst"))
+    w = BinaryPageWriter(pack)
+    nbytes = 0
+    with open(lst, "w") as f:
+        for i in range(n):
+            small = rng.randint(0, 256, (16, 16, 3)).astype(np.uint8)
+            img = cv2.resize(small, (DATA_SIDE, DATA_SIDE),
+                             interpolation=cv2.INTER_LINEAR)
+            img = cv2.add(img, rng.randint(0, 16, img.shape).astype(np.uint8))
+            ok, enc = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+            assert ok, "cv2.imencode failed"
+            w.push(enc.tobytes())
+            nbytes += enc.size
+            f.write(f"{i}\t{rng.randint(0, 1000)}\timg{i}.jpg\n")
+    w.close()
+    return pack, lst, nbytes
+
+
+def alexnet_data_conf(tmp: str) -> str:
+    """example/ImageNet/ImageNet.conf with its data sections pointed at
+    seeded JPEG packs (made once) and its mean image in ``tmp``, the train
+    pack shuffled; returns the conf's path."""
+    conf = os.path.join(tmp, "alexnet_data.conf")
+    if os.path.exists(conf):
+        return conf
+    t0 = time.perf_counter()
+    train_bin, train_lst, nb = write_jpeg_pack(tmp, "train", DATA_IMAGES, 21)
+    test_bin, test_lst, nb_test = write_jpeg_pack(tmp, "test",
+                                                  DATA_EVAL_IMAGES, 22)
+    log(f"alexnet_data: {DATA_IMAGES} + {DATA_EVAL_IMAGES} JPEGs of 3 x "
+        f"{DATA_SIDE} x {DATA_SIDE}, {nb / 1e6:.1f} + {nb_test / 1e6:.1f} MB,"
+        f" packed in {time.perf_counter() - t0:.1f} s")
+    text = open(os.path.join(REPO, "example", "ImageNet",
+                             "ImageNet.conf")).read()
+    for a, b in (('"./NameList.train"', train_lst),
+                 ('"./TRAIN.BIN"', train_bin),
+                 ('"./NameList.test"', test_lst), ('"./TEST.BIN"', test_bin),
+                 ('"models/image_net_mean.npz"',
+                  os.path.join(tmp, "image_net_mean.npz")),
+                 ("  rand_mirror = 1\n", "  rand_mirror = 1\n  shuffle = 1\n")):
+        assert a in text, f"ImageNet.conf lacks {a!r}"
+        text = text.replace(a, b)
+    with open(conf, "w") as f:
+        f.write(text)
+    return conf
+
+
+def phase_alexnet_data(tmp: str) -> dict:
+    """Phase 19: ImageNet.conf over the seeded JPEG packs through the
+    port's CLI with ALEXNET_DATA_ARGS.  Every loss finite; the kernels
+    launched ALEXNET_PER_STEP times a step and ALEXNET_EVAL_PER_BATCH
+    times an eval batch (one pool backward a step relu-masked).  Prints
+    the step p50 and images/s beside the alexnet phase's, each round's
+    input fields, then runs one ``test_io = 1`` round.  Returns the
+    path's launch counts."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    conf = alexnet_data_conf(tmp)
+    sink = os.path.join(tmp, "alexnet_data.jsonl")
+    args = list(ALEXNET_DATA_ARGS) + [f"metrics_sink=jsonl:{sink}",
+                                      "silent=1"] + PREFETCH_ARGS
+    log(f"alexnet_data: ImageNet.conf (imgbin + threadbuffer over the "
+        f"packs) {' '.join(args)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    rc = task.run([conf] + args)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    relu = kernel_fn("max_pool_bwd").relu_launches
+    st = task.last_train
+    steps = DATA_IMAGES // 256 * DATA_ROUNDS
+    evals = DATA_EVAL_IMAGES // 256 * DATA_ROUNDS
+    if rc != 0 or st is None or st["steps"] != steps:
+        raise AssertionError(f"alexnet_data: CLI returned {rc} after "
+                             f"{None if st is None else st['steps']} steps")
+    losses = st["losses"]
+    card = card_line()
+    ref = MEASURED.get("alexnet")
+    beside = ("" if ref is None else
+              f"; alexnet (synthetic batches on the card) "
+              f"{ref['step_p50_ms']:.2f} ms = {ref['examples_per_sec']:.1f}"
+              " images/s")
+    log(f"alexnet_data: {steps} steps, losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f}; step p50 {st['step_p50_ms']:.2f} ms (steps "
+        f"after the first) = {st['examples_per_sec']:.1f} images/s{beside}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB;"
+        f" CLI wall {wall:.1f} s ({card})")
+    for r in st["rounds"]:
+        log(f"alexnet_data: round {r['round']}: {r['examples']} images in "
+            f"{r['wall_sec']} s = {r['examples_per_sec']} images/s, "
+            f"iter_wait {r['iter_wait_sec']} s, h2d {r['h2d_sec']} s, eval "
+            f"{r['eval_sec']} s, {', '.join(f'{k} {v:.4f}' for k, v in r.items() if '-' in k)}")
+    recs = [r for r in read_records(sink) if r["kind"] == "train"]
+    log("alexnet_data: train records (every 5 steps): " + "; ".join(
+        f"step {r['step']} {r['step_ms']} ms, {r['examples_per_sec']} "
+        f"images/s, iter_wait {r['iter_wait_sec']} s, h2d {r['h2d_sec']} s,"
+        f" depth {r['staging_depth']}" for r in recs))
+    log(f"alexnet_data path launches: {launches}, relu-masked pool backward "
+        f"{relu}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"alexnet_data: non-finite loss {losses}")
+    want = {n: ALEXNET_PER_STEP.get(n, 0) * steps
+            + ALEXNET_EVAL_PER_BATCH.get(n, 0) * evals for n in KERNELS}
+    if launches != want or relu != steps:
+        raise AssertionError(f"alexnet_data: launches {launches} (relu-"
+                             f"masked {relu}), expected {want} ({steps} "
+                             "relu-masked)")
+    del task
+    torch.cuda.empty_cache()
+    task = LearnTask()
+    rc = task.run([conf, "dev=gpu", "test_io=1", "num_round=1",
+                   "save_model=0", "silent=1"])
+    [r] = task.last_train["rounds"]
+    io_launches = {n: c for n, c in read_launches().items()
+                   if c != launches[n]}
+    log(f"alexnet_data: test_io = 1 round (the host pipeline alone): "
+        f"{r['examples']} images in {r['wall_sec']} s = "
+        f"{r['examples_per_sec']} images/s ({card})")
+    if rc != 0 or r["examples"] != DATA_IMAGES or io_launches:
+        raise AssertionError(f"alexnet_data: test_io returned {rc}, "
+                             f"{r['examples']} images, launches "
+                             f"{io_launches}")
+    del task
+    return launches
+
+
+class _Batches:
+    """An iterator over a list of host batches."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def before_first(self):
+        self.i = 0
+
+    def next(self):
+        if self.i >= len(self.batches):
+            return None
+        self.i += 1
+        return self.batches[self.i - 1]
+
+    def close(self):
+        pass
+
+
+def _train_chain(conf: str, extra=()):
+    """The train iterator of ``conf`` as the CLI builds it (a fresh,
+    initialised chain)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    task = LearnTask()
+    for k, v in list(parse_config_file(conf)) + list(extra):
+        task.set_param(k, v)
+    task._create_iterators()
+    for it in task.itr_evals:
+        it.close()
+    return task.itr_train
+
+
+def staged_values(make_chain, tr, depth: int, busy: bool) -> list:
+    """STAGING_BATCHES batches of a fresh chain staged by a
+    DevicePrefetcher of ``depth``, each read on the compute stream the
+    moment it is handed over (``_normalize_input`` and a copy, nothing
+    that waits on the host, so the consumer outruns the producer), then
+    dropped; ``busy``: STAGING_MATMULS bf16 matmuls queued before each
+    read.  Returns the host copies."""
+    import torch
+    from cxxnet_tpu_torch.io.device_prefetch import DevicePrefetcher
+    chain = make_chain()
+    pf = DevicePrefetcher(chain, tr, depth=depth)
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    outs = []
+    try:
+        pf.before_first()
+        while len(outs) < STAGING_BATCHES:
+            item = pf.next()
+            if item is None:
+                break
+            [sb] = item
+            if busy:
+                for _ in range(STAGING_MATMULS):
+                    a = (a @ a) * (8192 ** -0.5)
+            sb.handover()
+            outs.append((tr._normalize_input(sb.data).clone(),
+                         sb.label.clone()))
+            del sb, item
+    finally:
+        pf.close()
+        chain.close()
+    torch.cuda.synchronize()
+    return [(x.cpu(), lab.cpu()) for x, lab in outs]
+
+
+def phase_staging(tmp: str) -> None:
+    """Phase 20: each chain staged at depth 2 and read behind a busy
+    compute stream (a staged tensor recycled under its reader would
+    differ) or at once on an idle one (a read that did not wait for its
+    copy would differ), and at depth 0; the batches must agree
+    bitwise."""
+    import torch
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+
+    def trainer(conf, extra=()):
+        tr = NetTrainer()
+        for k, v in list(parse_config_file(conf)) + list(extra):
+            tr.set_param(k, v)
+        tr.init_model()
+        return tr
+
+    alex_conf = alexnet_data_conf(tmp)
+    mnist_conf = mnist_conv_conf(tmp)
+    # the mean image made before the chains compared: the chain that made
+    # it would read its pack an epoch later than one that loads it
+    _train_chain(alex_conf, [("dev", "gpu")]).close()
+    alex = trainer(alex_conf, [("dev", "gpu"), ("silent", "1"),
+                               ("mean_value", IMAGENET_MEAN)])
+    mnist = trainer(mnist_conf, [("dev", "gpu"), ("silent", "1")])
+    rng = np.random.RandomState(31)
+    u8 = [DataBatch(rng.randint(0, 256, (256, 3, 227, 227)).astype(np.uint8),
+                    rng.randint(0, 1000, (256, 1)).astype(np.float32),
+                    np.arange(256, dtype=np.uint32))
+          for _ in range(STAGING_BATCHES)]
+    # the u8 batches first: no earlier phase staged them, so no block the
+    # allocator hands out holds a stale copy that could pass for them
+    chains = (
+        ("u8 batches at AlexNet's shape", alex, lambda: _Batches(u8)),
+        ("alexnet_data's train chain (imgbin + threadbuffer, f32)", alex,
+         lambda: _train_chain(alex_conf, [("dev", "gpu")])),
+        ("MNIST_CONV's train chain (mnist, f32)", mnist,
+         lambda: _train_chain(mnist_conf, [("dev", "gpu")])))
+    card = card_line()
+    for label, tr, make in chains:
+        t0 = time.perf_counter()
+        # the idle-stream read before depth 0 stages the same batches
+        raced = {busy: staged_values(make, tr, 2, busy=busy)
+                 for busy in (False, True)}
+        inline = staged_values(make, tr, 0, busy=False)
+        same = {busy: len(r) == len(inline) == STAGING_BATCHES
+                and all(torch.equal(x, y) and torch.equal(lx, ly)
+                        for (x, lx), (y, ly) in zip(r, inline))
+                for busy, r in raced.items()}
+        log(f"staging: {label}: {len(inline)} batches of "
+            f"{tuple(inline[0][0].shape)} {inline[0][0].dtype} staged at "
+            f"depth 2, read behind {STAGING_MATMULS} bf16 matmuls each / "
+            f"at once on an idle stream, against depth 0: "
+            + " / ".join("bitwise equal" if same[k] else "DIFFERENT"
+                         for k in (True, False))
+            + f" ({time.perf_counter() - t0:.1f} s; {card})")
+        if not all(same.values()):
+            raise AssertionError(f"staging: {label}: the prefetched batches "
+                                 "differ from the inline ones")
+    del alex, mnist
+    torch.cuda.empty_cache()
 
 
 def googlenet_per_step(tr) -> dict:
@@ -2465,6 +2801,23 @@ random_type = kaiming
     return launches
 
 
+def mnist_conv_conf(tmp: str) -> str:
+    """example/MNIST/MNIST_CONV.conf over tools/make_synth_mnist.py data
+    in ``tmp`` (made once); returns the conf's path."""
+    conf = os.path.join(tmp, "mnist_conv.conf")
+    if os.path.exists(conf):
+        return conf
+    data = os.path.join(tmp, "mnist")
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "make_synth_mnist.py"),
+                    "--out", data], check=True, capture_output=True)
+    text = open(os.path.join(REPO, "example", "MNIST",
+                             "MNIST_CONV.conf")).read()
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/"))
+    return conf
+
+
 def phase_mnist_conv(tmp: str) -> dict:
     """``task = train`` of example/MNIST/MNIST_CONV.conf through the
     port's CLI (``iter = mnist``, ``eval = test``, ``metric = error``,
@@ -2475,19 +2828,11 @@ def phase_mnist_conv(tmp: str) -> dict:
     backward; every eval batch the pool forward."""
     import torch
     from cxxnet_tpu_torch.main import LearnTask
-    data = os.path.join(tmp, "mnist")
-    subprocess.run([sys.executable,
-                    os.path.join(REPO, "tools", "make_synth_mnist.py"),
-                    "--out", data], check=True, capture_output=True)
-    text = open(os.path.join(REPO, "example", "MNIST",
-                             "MNIST_CONV.conf")).read()
-    conf = os.path.join(tmp, "mnist_conv.conf")
-    with open(conf, "w") as f:
-        f.write(text.replace("./data/", data + "/"))
+    conf = mnist_conv_conf(tmp)
     args = ["dev=gpu", f"num_round={MNIST_ROUNDS}",
             f"max_round={MNIST_ROUNDS}", "pool_layout=hwcn",
             "fast_wgrad=hwcn", f"model_dir={tmp}/mnist_models",
-            f"save_model={MNIST_ROUNDS}", "silent=1"]
+            f"save_model={MNIST_ROUNDS}", "silent=1"] + PREFETCH_ARGS
     log(f"mnist_conv: MNIST_CONV.conf {' '.join(args)}")
     reset_launches()
     task = LearnTask()
@@ -2501,9 +2846,11 @@ def phase_mnist_conv(tmp: str) -> dict:
     test = [r["test-error"] for r in st["evals"]]
     train = [r["train-error"] for r in st["evals"]]
     steps = st["steps"]
+    rounds = st.get("rounds") or []
     log(f"mnist_conv: {steps} steps, test-error by round {test}, "
         f"train-error {train}; step p50 {st['step_p50_ms']:.2f} ms; CLI "
-        f"wall {wall:.1f} s")
+        f"wall {wall:.2f} s; train wall a round (staging and steps) "
+        f"{[r['wall_sec'] for r in rounds]} s")
     log(f"mnist_conv path launches: {launches}")
     if not (test[-1] < test[0] and test[-1] < 0.5 * test[0]):
         raise AssertionError(f"mnist_conv: test error did not fall below "
@@ -2587,6 +2934,7 @@ iter = text
   path_tok = {shard}
 iter = packseq
   seqlen = {SEQ}
+iter = threadbuffer
 iter = end
 {net}
 batch_size = {TRAIN_BATCH}
@@ -2615,7 +2963,7 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
     reset_launches()
     task = LearnTask()
     t0 = time.perf_counter()
-    rc = task.run([conf_a])
+    rc = task.run([conf_a, "prefetch_device=0"])
     wall_a = time.perf_counter() - t0
     st_a = task.last_train
     want_steps = 2 * RESUME_ROUNDS
@@ -2627,7 +2975,7 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
                    for p in g.values())
     del task
     torch.cuda.empty_cache()
-    log(f"resume: run A {want_steps} steps, losses "
+    log(f"resume: run A (prefetch_device = 0) {want_steps} steps, losses "
         f"{[round(x, 4) for x in st_a['losses']]}, step p50 "
         f"{st_a['step_p50_ms']:.1f} ms; CLI wall {wall_a:.1f} s")
 
@@ -2693,7 +3041,8 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
         raise AssertionError(f"resume: the continued run returned {rc}, "
                              f"rounds {rounds2}, steps "
                              f"{None if st_b is None else st_b['steps']}")
-    log(f"resume: run B continued from round {RESUME_KILL_AFTER + 1}: "
+    log(f"resume: run B (prefetch_device = 2) continued from round "
+        f"{RESUME_KILL_AFTER + 1}: "
         f"{st_b['steps']} steps, losses "
         f"{[round(x, 4) for x in st_b['losses']]}; CLI wall {wall_b2:.1f} s")
 
@@ -2707,7 +3056,8 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
             diff = f"manifest extra.{key}"
     log(f"resume: A's and B's {last}: {narrays} arrays in shards "
         f"{sorted(sa)}, train_state, iter_state "
-        f"({len(ma['extra']['iter_state']['tok'])} tokens carried): "
+        f"({len(ma['extra']['iter_state']['base']['tok'])} tokens "
+        "carried): "
         f"{'bitwise equal' if diff is None else 'FIRST DIFFERENCE ' + diff}")
     if diff is not None:
         raise AssertionError(f"resume: run B's {last} differs from run A's "
@@ -2790,7 +3140,8 @@ def phase_cnn_infer(tmp: str, test_error: float) -> dict:
                              "output_format=bin"])):
         task = LearnTask()
         t0 = time.perf_counter()
-        rc = task.run(base + [f"task={task_name.split('_bin')[0]}"] + extra)
+        rc = task.run(base + [f"task={task_name.split('_bin')[0]}"] + extra
+                      + PREFETCH_ARGS)
         wall = time.perf_counter() - t0
         op = "extract" if task_name.startswith("extract") else "pred"
         lat = task.net.metrics.histograms[f"{op}_latency_sec"].summary()
@@ -2799,7 +3150,7 @@ def phase_cnn_infer(tmp: str, test_error: float) -> dict:
                                  f"{rc}")
         log(f"cnn_infer {task_name}: {int(lat['count'])} batches, latency "
             f"p50 {lat['p50'] * 1e3:.3f} ms, p99 {lat['p99'] * 1e3:.3f} ms,"
-            f" mean {lat['mean'] * 1e3:.3f} ms; CLI wall {wall:.1f} s")
+            f" mean {lat['mean'] * 1e3:.3f} ms; CLI wall {wall:.3f} s")
         if task_name == "extract_bin":
             meta = int(open(out + ".meta").read())
             results[task_name] = np.fromfile(out, "<f4").reshape(-1, meta)
@@ -3284,11 +3635,17 @@ def main() -> int:
                          "alexnet_hwcn, googlenet, googlenet_hwcn and "
                          "resnet phases with torch.profiler and print "
                          "where the time goes")
+    ap.add_argument("--prefetch-device", type=int, default=None,
+                    help="prefetch_device of the train, mnist_conv, "
+                         "cnn_infer and alexnet_data CLI runs (default: "
+                         "each conf's own; to compare staging modes)")
     ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
                     help="steps of the packed train and train_fused "
                          "phases (30 for a step p50 to compare trees by)")
     args = ap.parse_args()
     TRAIN_STEPS = args.train_steps
+    if args.prefetch_device is not None:
+        PREFETCH_ARGS.append(f"prefetch_device={args.prefetch_device}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3336,6 +3693,8 @@ def main() -> int:
             paths["resume"] = phase_resume(tmp)
         if "alexnet" in phases:
             paths["alexnet"] = phase_alexnet(tmp, args.profile)
+        if "alexnet_data" in phases:
+            paths["alexnet_data"] = phase_alexnet_data(tmp)
         if "alexnet_hwcn" in phases:
             paths["alexnet_hwcn"] = phase_alexnet(tmp, args.profile,
                                                   hwcn=True)
@@ -3354,6 +3713,8 @@ def main() -> int:
                 paths["serve_batch"] = phase_serve_batch(tmp, test_error)
         elif "serve_batch" in phases:
             raise SystemExit("serve_batch needs the mnist_conv phase")
+        if "staging" in phases:
+            phase_staging(tmp)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

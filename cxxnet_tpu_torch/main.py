@@ -20,7 +20,13 @@ Ported tasks:
   (the train metric under ``eval_train = 1``, then every ``eval = name``
   section).  ``synth_device_data = 1`` trains instead on ``multi_step``
   seeded synthetic batches held on the device, the JAX package's
-  no-data entry, drawn with numpy exactly as it draws them;
+  no-data entry, drawn with numpy exactly as it draws them.  The train
+  loop reads batches through a
+  :class:`~.io.device_prefetch.DevicePrefetcher` that stages
+  ``prefetch_device`` (default 2) batches onto the device ahead of the
+  step on a producer thread (0: inline, still outside the step's
+  timer); ``test_io = 1`` runs the host pipeline alone (no staging, no
+  update) and prints its examples/sec;
 * ``task = finetune``: a fresh model whose layers matching a layer of
   ``model_in`` by name and shapes take its weights, then trained as
   ``task = train``;
@@ -62,6 +68,7 @@ import numpy as np
 import torch
 
 from . import ckpt as ckptlib
+from .io.device_prefetch import DevicePrefetcher, item_h2d_sec
 from .io.factory import create_iterator, init_iterator
 from .monitor import log as mlog
 from .nnet.trainer import NetTrainer, refuse_unported
@@ -70,12 +77,12 @@ from .utils.config import parse_config_file, parse_keyval_args
 PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 
 #: train-loop keys of the JAX package that are not ported, with the one
-#: value the port takes: rollback, profiling windows, sentinels,
-#: input-pipeline diagnostics
+#: value the port takes: rollback, profiling windows, sentinels, the
+#: replica weight check
 UNPORTED_TASK_KEYS = {
     "rollback": "0", "prof": "", "prof_start_step": "-1",
     "prof_num_steps": "0", "prof_every": "0", "sentinel": "0",
-    "test_io": "0", "test_on_server": "0",
+    "test_on_server": "0",
 }
 
 
@@ -115,6 +122,13 @@ class LearnTask:
         # of the JAX package otherwise (the port runs each batch eagerly)
         self.multi_step = 0
         self.synth_device_data = 0
+        # test_io = 1: the host input pipeline alone, no staging, no update
+        self.test_io = 0
+        # staged batches a producer thread keeps ahead of the step (0:
+        # staged inline on the consumer thread)
+        self.prefetch_device = 2
+        self._eval_prefetchers: Optional[list] = None
+        self._pred_prefetcher = None
         self.extract_node_name = ""
         # 1 = text rows, 0 = raw float32 rows (task = extract)
         self.output_format = 1
@@ -166,6 +180,10 @@ class LearnTask:
             self.multi_step = int(val)
         elif name == "synth_device_data":
             self.synth_device_data = int(val)
+        elif name == "test_io":
+            self.test_io = int(val)
+        elif name == "prefetch_device":
+            self.prefetch_device = int(val)
         elif name == "extract_node_name":
             self.extract_node_name = val
         elif name == "output_format":
@@ -325,9 +343,71 @@ class LearnTask:
                 itcfg = []
                 continue
             (itcfg if flag != 0 else defcfg).append((name, val))
+        # input_s2d: emit space-to-depth batches from the host pipeline,
+        # wrapped before init so a threadbuffer's producer thread runs the
+        # transform in the prefetch overlap
+        self.itr_train = self._wrap_s2d(self.itr_train)
+        self.itr_evals = [self._wrap_s2d(it) for it in self.itr_evals]
+        self.itr_pred = self._wrap_s2d(self.itr_pred)
         for it in [self.itr_train, self.itr_pred] + self.itr_evals:
             if it is not None:
                 init_iterator(it, defcfg)
+
+    def _wrap_s2d(self, it):
+        """Under ``input_s2d = 1``, an :class:`~.io.iter_proc.S2DEmitIterator`
+        spliced beneath the deepest buffering stage of ``it`` (so the
+        transform runs on the threadbuffer's producer thread, or once at a
+        membuffer's fill), or on top of a chain without one."""
+        s2d_args = getattr(self.net, "_s2d_args", None) if self.net else None
+        if s2d_args is None or it is None:
+            return it
+        from .io.iter_proc import (DenseBufferIterator, S2DEmitIterator,
+                                   ThreadBufferIterator)
+        deepest = None
+        cur = it
+        while getattr(cur, "base", None) is not None:
+            if isinstance(cur, (ThreadBufferIterator, DenseBufferIterator)):
+                deepest = cur
+            cur = cur.base
+        if deepest is not None:
+            deepest.base = S2DEmitIterator(deepest.base, s2d_args)
+            return it
+        return S2DEmitIterator(it, s2d_args)
+
+    def _eval_sources(self):
+        """The eval iterators, each behind a device prefetcher (a batch an
+        item, staged ``prefetch_device`` ahead) when prefetching is on;
+        made once and reused every round."""
+        if self.prefetch_device <= 0 or self.net is None:
+            return self.itr_evals
+        if self._eval_prefetchers is None:
+            self._eval_prefetchers = [
+                DevicePrefetcher(it, self.net, depth=self.prefetch_device,
+                                 metrics=self.net.metrics, for_eval=True)
+                for it in self.itr_evals]
+        return self._eval_prefetchers
+
+    def _pred_source(self):
+        """The pred iterator, staged a batch an item ahead of the inference
+        loop when prefetching is on."""
+        if self.prefetch_device <= 0 or self.itr_pred is None:
+            return self.itr_pred
+        if self._pred_prefetcher is None:
+            self._pred_prefetcher = DevicePrefetcher(
+                self.itr_pred, self.net, depth=self.prefetch_device,
+                metrics=self.net.metrics, for_eval=True)
+        return self._pred_prefetcher
+
+    def _close_prefetchers(self) -> None:
+        """Join every eval / pred prefetcher's producer thread (the train
+        loop closes its own).  Idempotent: the tasks call it from their
+        ``finally`` so a raise mid-round leaves no staging thread behind,
+        and :meth:`run` keeps it as a backstop."""
+        for pf in (self._eval_prefetchers or []) + \
+                ([self._pred_prefetcher] if self._pred_prefetcher else []):
+            pf.close()
+        self._eval_prefetchers = None
+        self._pred_prefetcher = None
 
     # ---------------------------------------------------------------- train
     def _ckpt_extra_state(self, capture_iter: bool = True) -> dict:
@@ -425,6 +505,7 @@ class LearnTask:
         self._losses: List[float] = []
         self._step_ms: List[float] = []
         self._evals: List[dict] = []
+        self._rounds: List[dict] = []
         try:
             if self.name_model_in == "NULL" and not self.continue_training:
                 self._save_model(capture_iter=False)
@@ -455,7 +536,7 @@ class LearnTask:
                             if p50 else 0.0),
             examples_per_sec=(self.net.batch_size / (p50 / 1e3)
                               if p50 else 0.0),
-            steps=len(self._losses), evals=self._evals)
+            steps=len(self._losses), evals=self._evals, rounds=self._rounds)
         mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
 
     def _timed_step(self, step) -> float:
@@ -472,47 +553,136 @@ class LearnTask:
         return dt
 
     def _train_rounds(self, start: float) -> None:
+        """Rounds over the train iterator.  Batches come through a
+        :class:`~.io.device_prefetch.DevicePrefetcher`, so the step's
+        timer holds the update alone; under ``test_io = 1`` the host
+        iterator is read alone.  Every ``print_step`` steps a ``train``
+        record and after each round a ``round`` record carry the input
+        pipeline's fields: ``iter_wait_sec`` (the loop blocked on input:
+        the host iterator when staging inline, the staging queue when
+        prefetching), ``h2d_sec`` (the staging wall: off the loop when
+        prefetching), ``staging_depth`` (staged items ready at a get) and
+        ``examples_per_sec``."""
         net = self.net
         if self.itr_train is None:
             raise RuntimeError("task = train but the config has no "
                                "'data = train' iterator section")
         seq = int(np.prod(net.net.node_shapes[0][1:]))
+        if self.test_io:
+            mlog.notice("start I/O test")
+        src = None if self.test_io else DevicePrefetcher(
+            self.itr_train, net, depth=self.prefetch_device,
+            metrics=net.metrics)
         cc = self.max_round
-        while self.start_counter <= self.num_round and cc > 0:
-            cc -= 1
-            mlog.info(f"update round {self.start_counter - 1}")
-            net.start_round(self.start_counter)
-            self.itr_train.before_first()
-            sample_counter = 0
-            while True:
-                batch = self.itr_train.next()
-                if batch is None:
-                    break
-                dt = self._timed_step(lambda: net.update(batch))
-                sample_counter += 1
-                if sample_counter % self.print_step == 0:
-                    loss = self._losses[-1]
-                    net.metrics.emit(
-                        "train", round=self.start_counter - 1,
-                        step=sample_counter, global_step=net.sample_counter,
-                        loss=loss, step_ms=round(dt * 1e3, 3),
-                        tokens_per_sec=round(batch.batch_size * seq / dt, 1),
-                        device=str(net.device))
-                    mlog.info(f"round {self.start_counter - 1:8d}:"
-                              f"[{sample_counter:8d}] "
-                              f"{int(time.time() - start)} sec elapsed, "
-                              f"loss {loss:.4f}, {dt * 1e3:.1f} ms/step")
-            line = f"[{self.start_counter}]"
-            evals = {}
-            if self.eval_train:
-                line += net.train_metric.print_line("train")
-                evals.update(net.train_metric.values("train"))
-            for it, name in zip(self.itr_evals, self.eval_names):
-                line += net.evaluate(it, name)
-                evals.update(net.metric.values(name))
-            self._evals.append(evals)
-            mlog.result(line)
-            self._save_model()
+        try:
+            while self.start_counter <= self.num_round and cc > 0:
+                cc -= 1
+                mlog.info(f"update round {self.start_counter - 1}")
+                net.start_round(self.start_counter)
+                round_t0 = time.perf_counter()
+                (src or self.itr_train).before_first()
+                sample_counter = n_round = 0
+                # the window since the last record, and the round's totals
+                win = dict(n=0, t=round_t0, wait=0.0, h2d=0.0, depth=0, gets=0)
+                wait_total = h2d_total = 0.0
+                while True:
+                    t0 = time.perf_counter()
+                    if src is None:
+                        batch = self.itr_train.next()
+                        wait, h2d = time.perf_counter() - t0, 0.0
+                        batches = [] if batch is None else [batch]
+                    else:
+                        item = src.next()
+                        wall = time.perf_counter() - t0
+                        if src.async_:
+                            wait = wall
+                            win["depth"] += src.last_depth
+                            win["gets"] += 1
+                        else:
+                            wait = src.last_wait_sec
+                        h2d = 0.0 if item is None else item_h2d_sec(item)
+                        batches = item or []
+                    win["wait"] += wait
+                    win["h2d"] += h2d
+                    wait_total += wait
+                    h2d_total += h2d
+                    if not batches:
+                        break
+                    for b in batches:
+                        if src is not None:
+                            dt = self._timed_step(lambda: net.update(b))
+                        sample_counter += 1
+                        n_real = b.batch_size - b.num_batch_padd
+                        n_round += n_real
+                        win["n"] += n_real
+                        if sample_counter % self.print_step == 0:
+                            self._window_record(win, sample_counter, start,
+                                                None if src is None else dt,
+                                                b.batch_size * seq)
+                train_wall = time.perf_counter() - round_t0
+                evals = {}
+                if not self.test_io:
+                    line = f"[{self.start_counter}]"
+                    if self.eval_train:
+                        line += net.train_metric.print_line("train")
+                        evals.update(net.train_metric.values("train"))
+                    for it, name in zip(self._eval_sources(),
+                                        self.eval_names):
+                        line += net.evaluate(it, name)
+                        evals.update(net.metric.values(name))
+                    self._evals.append(evals)
+                    mlog.result(line)
+                rec = dict(round=self.start_counter,
+                           wall_sec=round(train_wall, 4),
+                           eval_sec=round(time.perf_counter() - round_t0
+                                          - train_wall, 4),
+                           examples=n_round,
+                           examples_per_sec=round(
+                               n_round / max(train_wall, 1e-9), 1),
+                           iter_wait_sec=round(wait_total, 4),
+                           h2d_sec=round(h2d_total, 4), **evals)
+                self._rounds.append(rec)
+                net.metrics.emit("round", **rec)
+                if self.test_io:
+                    mlog.info(f"round {self.start_counter - 1:8d}: I/O test "
+                              f"{n_round} examples in {train_wall:.2f} sec, "
+                              f"{rec['examples_per_sec']:.1f} examples/sec")
+                self._save_model()
+        finally:
+            # no staging thread outlives the loop, a raise mid-round
+            # included
+            if src is not None:
+                src.close()
+            self._close_prefetchers()
+
+    def _window_record(self, win: dict, step: int, start: float,
+                       dt: Optional[float], tokens: int) -> None:
+        """The ``print_step`` line and (unless ``test_io = 1``, ``dt``
+        None) the ``train`` record of the window in ``win``, which then
+        restarts."""
+        net = self.net
+        now = time.perf_counter()
+        rate = win["n"] / max(now - win["t"], 1e-9)
+        head = (f"round {self.start_counter - 1:8d}:[{step:8d}] "
+                f"{int(time.time() - start)} sec elapsed")
+        if dt is None:
+            mlog.info(f"{head}, {rate:.1f} examples/sec")
+        else:
+            loss = self._losses[-1]
+            net.metrics.emit(
+                "train", round=self.start_counter - 1, step=step,
+                global_step=net.sample_counter, loss=loss,
+                step_ms=round(dt * 1e3, 3),
+                tokens_per_sec=round(tokens / dt, 1),
+                examples_per_sec=round(rate, 1),
+                iter_wait_sec=round(win["wait"], 4),
+                h2d_sec=round(win["h2d"], 4),
+                staging_depth=round(win["depth"] / win["gets"], 2)
+                if win["gets"] else 0.0,
+                device=str(net.device))
+            mlog.info(f"{head}, loss {loss:.4f}, {dt * 1e3:.1f} ms/step, "
+                      f"{rate:.1f} examples/sec")
+        win.update(n=0, t=now, wait=0.0, h2d=0.0, depth=0, gets=0)
 
     def _train_synth_device(self) -> None:
         """``synth_device_data = 1``: every round takes ``multi_step``
@@ -560,14 +730,16 @@ class LearnTask:
                         for k in ("mean", "min", "max", "p50", "p95", "p99")},
                      unit="ms")
 
-    def _pred_batches(self, what: str):
-        """The pred iterator's batches, from the first; raises before any
-        output file is opened when there is no pred section."""
+    def _pred_batches(self, what: str, staged: bool = False):
+        """The pred iterator's batches, from the first (``staged``: through
+        :meth:`_pred_source`); raises before any output file is opened
+        when there is no pred section."""
         if self.itr_pred is None:
             raise RuntimeError(f"task = {self.task}: must specify a pred "
                                f"iterator section {what}")
-        self.itr_pred.before_first()
-        return iter(self.itr_pred.next, None)
+        src = self._pred_source() if staged else self.itr_pred
+        src.before_first()
+        return iter(src.next, None)
 
     def _timed(self, op: str, fn, batch):
         """``fn(batch)``, a host array (so the device work is done), its
@@ -584,12 +756,15 @@ class LearnTask:
         space-separated."""
         mlog.notice(f"start predicting{' raw scores' if raw else ''}...")
         fn = self.net.predict_raw if raw else self.net.predict
-        batches = self._pred_batches("to predict")
-        with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
-            for batch in batches:
-                for row in self._timed("pred", fn, batch):
-                    fo.write((" ".join(f"{v:g}" for v in row) if raw
-                              else f"{row:g}") + "\n")
+        try:
+            batches = self._pred_batches("to predict", staged=True)
+            with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
+                for batch in batches:
+                    for row in self._timed("pred", fn, batch):
+                        fo.write((" ".join(f"{v:g}" for v in row) if raw
+                                  else f"{row:g}") + "\n")
+        finally:
+            self._close_prefetchers()
         self._emit_latency_record("pred")
         mlog.notice(f"finished prediction, write into {self.name_pred}")
 
@@ -604,21 +779,24 @@ class LearnTask:
         mlog.notice(f"start extracting feature from node {node} ...")
         binary = self.output_format == 0
         wrote_meta = False
-        batches = self._pred_batches("to extract from")
-        with open(self.name_pred, "wb" if binary else "w") as fo:  # disclint: ok(atomic-write)
-            for batch in batches:
-                feat = self._timed(
-                    "extract", lambda b: self.net.extract_feature(b, node),
-                    batch)
-                if not wrote_meta:
-                    with open(self.name_pred + ".meta", "w") as fm:  # disclint: ok(atomic-write)
-                        fm.write(f"{feat.shape[1]}\n")
-                    wrote_meta = True
-                if binary:
-                    fo.write(np.ascontiguousarray(feat, "<f4").tobytes())
-                else:
-                    for row in feat:
-                        fo.write(" ".join(f"{v:g}" for v in row) + "\n")
+        try:
+            batches = self._pred_batches("to extract from", staged=True)
+            with open(self.name_pred, "wb" if binary else "w") as fo:  # disclint: ok(atomic-write)
+                for batch in batches:
+                    feat = self._timed(
+                        "extract",
+                        lambda b: self.net.extract_feature(b, node), batch)
+                    if not wrote_meta:
+                        with open(self.name_pred + ".meta", "w") as fm:  # disclint: ok(atomic-write)
+                            fm.write(f"{feat.shape[1]}\n")
+                        wrote_meta = True
+                    if binary:
+                        fo.write(np.ascontiguousarray(feat, "<f4").tobytes())
+                    else:
+                        for row in feat:
+                            fo.write(" ".join(f"{v:g}" for v in row) + "\n")
+        finally:
+            self._close_prefetchers()
         self._emit_latency_record("extract")
         mlog.notice(f"finished extraction, write into {self.name_pred}")
 
@@ -940,9 +1118,19 @@ class LearnTask:
             else:
                 self.task_serve()
         finally:
+            # each close guarded: the broken iterator that aborted the task
+            # often fails its close too, and that must neither mask the
+            # first exception nor keep the closes after it from running
+            try:
+                self._close_prefetchers()
+            except Exception as e:  # noqa: BLE001
+                mlog.warn(f"prefetcher close failed: {e}")
             for it in [self.itr_train, self.itr_pred] + self.itr_evals:
                 if it is not None:
-                    it.close()
+                    try:
+                        it.close()
+                    except Exception as e:  # noqa: BLE001
+                        mlog.warn(f"iterator close failed: {e}")
             if self.net is not None:
                 self.net.metrics.close()
         return 0

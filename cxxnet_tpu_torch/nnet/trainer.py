@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import os
 import re
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -227,6 +228,12 @@ class NetTrainer:
         # form; its geometry (stride, kh, kw, oh, ow, pad_y, pad_x)
         self.input_s2d = 0
         self._s2d_args: Optional[Tuple[int, ...]] = None
+        # u8 batches (output_u8 = 1 iterators) are normalised on the
+        # device: (x - mean_value[c]) * scale, the host iterators' rule;
+        # the mean held on the device once
+        self.input_scale = 1.0
+        self.input_mean: Optional[np.ndarray] = None
+        self._mean_dev: Dict[Tuple[str, int], torch.Tensor] = {}
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -257,6 +264,14 @@ class NetTrainer:
                 raise ValueError(f"batch_split = {val}: expected >= 1")
         elif name == "input_s2d":
             self.input_s2d = int(val)
+        elif name == "scale":
+            # device-side normalisation of u8 batches: the same global
+            # keys the host iterators consume
+            self.input_scale = float(val)
+        elif name == "mean_value":
+            self.input_mean = np.array(
+                [float(v) for v in val.split(",") if v.strip()], np.float32)
+            self._mean_dev = {}
         elif name in UNPORTED_KEYS:
             refuse_unported(name, val, UNPORTED_KEYS[name])
         elif name == "metric" or name.startswith("metric["):
@@ -506,8 +521,41 @@ class NetTrainer:
         from ..ops.nn import s2d_input
         s, kh, kw, oh, ow, py, px = self._s2d_args
         if x.shape[1] == self.net.node_shapes[0][1] * s * s:
+            if x.dtype == torch.uint8 and (py or px):
+                raise ValueError(
+                    "input_s2d: pre-s2d u8 delivery is unsupported for a "
+                    "padded first conv (u8 can only encode padding as raw "
+                    "0, which normalises to (0 - mean) * scale instead of "
+                    "the zeros the reference pads with); deliver plain u8 "
+                    "batches or normalised float32")
             return x
-        return s2d_input(x, s, kh, kw, oh, ow, py, px)[0]
+        return s2d_input(self._normalize_input(x), s, kh, kw, oh, ow, py,
+                         px)[0]
+
+    def _normalize_input(self, x: torch.Tensor) -> torch.Tensor:
+        """Device-side normalisation of a raw u8 batch (``output_u8 = 1``):
+        ``(x - mean_value[c]) * scale`` in float32, the host iterators'
+        SetData rule (the JAX package's ``_normalize_input``); the mean
+        repeats over the (c, sy, sx) channels of a batch delivered in
+        space-to-depth form.  Other dtypes pass unchanged."""
+        if x.dtype != torch.uint8:
+            return x
+        x = x.float()
+        if self.input_mean is not None:
+            n = self.input_mean.size
+            if self._s2d_args is not None \
+                    and x.shape[-3] == n * self._s2d_args[0] ** 2:
+                n *= self._s2d_args[0] ** 2
+            key = (str(x.device), n)
+            mean = self._mean_dev.get(key)
+            if mean is None:
+                mean = torch.from_numpy(np.repeat(
+                    self.input_mean, n // self.input_mean.size)).to(x.device)
+                self._mean_dev[key] = mean
+            x = x - mean.reshape(1, -1, 1, 1)
+        if self.input_scale != 1.0:
+            x = x * self.input_scale
+        return x
 
     def load_model(self, path: str, validated: bool = False) -> None:
         """Load a ``.model`` or a ``NNNN.ckpt`` directory written by either
@@ -702,32 +750,78 @@ class NetTrainer:
             opt_state=self.opt_state if with_opt_state else None,
             extra_meta=extra)
 
-    # ------------------------------------------------------------ training
-    def _batch_tensors(self, batch) -> Tuple[Dict[int, torch.Tensor],
-                                             LabelInfo]:
-        dev = self.device
-        inputs = {0: self.stage_input(torch.as_tensor(
-            np.asarray(batch.data, np.float32), device=dev))}
-        for i, e in enumerate(getattr(batch, "extra_data", None) or ()):
-            inputs[1 + i] = torch.as_tensor(np.asarray(e, np.float32),
-                                            device=dev)
-        label = torch.as_tensor(np.asarray(batch.label, np.float32),
-                                device=dev)
-        info = self.label_info(label)
+    # -------------------------------------------------------------- staging
+    def _host_tensor(self, a, keep_u8: bool = False) -> torch.Tensor:
+        """A host array as a tensor on the trainer's device: float32 (a u8
+        data batch stays u8 under ``keep_u8``), copied on the card from
+        pinned memory without blocking the calling thread's stream."""
+        arr = np.asarray(a)
+        if not (keep_u8 and arr.dtype == np.uint8):
+            arr = arr.astype(np.float32, copy=False)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def stage_batch(self, batch):
+        """Host :class:`~..io.data.DataBatch` -> device-resident
+        :class:`~..io.device_prefetch.StagedBatch`, on the calling
+        thread's current stream (the prefetcher's copy stream on its
+        producer thread): the transfer (u8 data stays u8), the
+        ``input_s2d`` staging transform, float32 labels and side inputs
+        (token ids stay float32), the tail loss mask.  The copies are
+        asynchronous; on the card an event recorded after them is what a
+        consumer's stream waits on (:meth:`StagedBatch.handover`)."""
+        from ..io.device_prefetch import StagedBatch
+        t0 = time.perf_counter()
+        data = self._host_tensor(batch.data, keep_u8=True)
+        if self._s2d_args is not None:
+            data = self.stage_input(data)
+        label = self._host_tensor(batch.label)
+        extras = tuple(self._host_tensor(e)
+                       for e in getattr(batch, "extra_data", None) or ())
         n_padd = int(getattr(batch, "tail_mask_padd", 0))
+        mask = None
         if n_padd:
             # tail-batch replica padding trains nothing (DataBatch)
             mask = torch.ones((label.shape[0],), dtype=torch.float32,
-                              device=dev)
+                              device=self.device)
             mask[label.shape[0] - n_padd:] = 0.0
-            info.mask = mask
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return StagedBatch(
+            data=data, label=label, label_host=np.asarray(batch.label),
+            index=batch.index, num_batch_padd=int(batch.num_batch_padd),
+            tail_mask_padd=n_padd, extra_data=extras, mask=mask,
+            h2d_sec=time.perf_counter() - t0, ready=ready)
+
+    def _staged(self, batch):
+        """The batch staged and safe to read on the current stream: a
+        host batch is staged here, a prefetched one handed over."""
+        from ..io.device_prefetch import StagedBatch
+        if not isinstance(batch, StagedBatch):
+            batch = self.stage_batch(batch)
+        return batch.handover()
+
+    # ------------------------------------------------------------ training
+    def _batch_tensors(self, sb) -> Tuple[Dict[int, torch.Tensor],
+                                          LabelInfo]:
+        """A handed-over staged batch's input nodes and label fields."""
+        inputs = {0: sb.data}
+        for i, e in enumerate(sb.extra_data):
+            inputs[1 + i] = e
+        info = self.label_info(sb.label)
+        info.mask = sb.mask
         return inputs, info
 
     def loss_and_grads(self, batch) -> Tuple[torch.Tensor, Dict]:
         """The summed, scaled loss of one batch and its gradient for
         every parameter (same nesting as ``params``); the buffers are
         left as they were."""
-        loss, grads, _, _ = self._loss_grads_outs(*self._batch_tensors(batch))
+        loss, grads, _, _ = self._loss_grads_outs(
+            *self._batch_tensors(self._staged(batch)))
         return loss, grads
 
     def _ctx(self, labels: Optional[LabelInfo], epoch: int
@@ -862,23 +956,24 @@ class NetTrainer:
         return node_list, self.buffers, ctx.losses + [body_loss]
 
     def update(self, batch) -> None:
-        """One training step on a host :class:`~..io.data.DataBatch`;
-        with ``eval_train`` the step's eval-node outputs go to the train
-        metric (padding excluded)."""
-        outs = self.update_step(*self._batch_tensors(batch))
+        """One training step on a host :class:`~..io.data.DataBatch` or a
+        staged batch; with ``eval_train`` the step's eval-node outputs go
+        to the train metric (padding excluded)."""
+        sb = self._staged(batch)
+        outs = self.update_step(*self._batch_tensors(sb))
         if self.eval_train and self.train_metric.evals:
             self._add_eval(self.train_metric,
                            [outs[n].float().cpu().numpy()
                             for n in self.eval_node_ids],
-                           batch.label,
-                           int(getattr(batch, "num_batch_padd", 0)))
+                           sb.label_host, sb.num_batch_padd)
 
     def update_step(self, inputs: Dict[int, torch.Tensor],
                     labels: LabelInfo) -> Dict[int, torch.Tensor]:
         """One training step on device tensors (node id -> input, label
         fields); returns the eval-node outputs of its forward."""
         self._ensure_opt_state()
-        inputs = {**inputs, 0: self.stage_input(inputs[0])}
+        inputs = {**inputs,
+                  0: self.stage_input(self._normalize_input(inputs[0]))}
         self.sample_counter += 1
         do_update = self.sample_counter % self.update_period == 0
         epoch = self.epoch_counter
@@ -924,15 +1019,14 @@ class NetTrainer:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ forward
-    def forward_eval(self, data: np.ndarray, node_ids: Sequence[int],
-                     extra_data: Sequence[np.ndarray] = ()
+    def forward_eval(self, data: torch.Tensor, node_ids: Sequence[int],
+                     extra_data: Sequence[torch.Tensor] = ()
                      ) -> List[np.ndarray]:
         """Eval forward of a ``(n, c, y, x)`` batch (and its extra input
-        nodes); float32 numpy values of the requested nodes."""
-        inputs = {i: torch.as_tensor(np.asarray(a, np.float32),
-                                     device=self.device)
-                  for i, a in enumerate([data, *extra_data])}
-        inputs[0] = self.stage_input(inputs[0])
+        nodes), tensors on the trainer's device as a staged batch holds
+        them; float32 numpy values of the requested nodes."""
+        inputs = dict(enumerate([data, *extra_data]))
+        inputs[0] = self.stage_input(self._normalize_input(inputs[0]))
         with torch.inference_mode():
             nodes = self.net.forward(self.params, inputs, self.context(),
                                      buffers=self.buffers)
@@ -940,11 +1034,11 @@ class NetTrainer:
                 for n in node_ids]
 
     def _node_rows(self, batch, nid: int) -> np.ndarray:
-        """Node ``nid`` of a batch's eval forward as (valid rows, values)
-        float32, the padding rows dropped."""
-        [out] = self.forward_eval(batch.data, [nid],
-                                  getattr(batch, "extra_data", None) or ())
-        n = batch.batch_size - int(batch.num_batch_padd)
+        """Node ``nid`` of a batch's (host or staged) eval forward as
+        (valid rows, values) float32, the padding rows dropped."""
+        sb = self._staged(batch)
+        [out] = self.forward_eval(sb.data, [nid], sb.extra_data)
+        n = sb.batch_size - sb.num_batch_padd
         return out.reshape(out.shape[0], -1)[:n]
 
     def predict_raw(self, batch) -> np.ndarray:
@@ -994,13 +1088,17 @@ class NetTrainer:
                          for name, a, b in self._label_fields})
 
     def evaluate(self, data_iter, name: str) -> str:
-        """One pass of ``data_iter`` through the eval forward into the
-        metric; returns its ``\tname-metric:value`` line fragment."""
+        """One pass of ``data_iter`` (host batches, or a
+        :class:`~..io.device_prefetch.DevicePrefetcher`'s staged ones)
+        through the eval forward into the metric, a batch a dispatch;
+        returns its ``\tname-metric:value`` line fragment."""
         self.metric.clear()
         for batch in data_iter:
+            sb = self._staged(batch)
             self._add_eval(self.metric,
-                           self.forward_eval(batch.data, self.eval_node_ids),
-                           batch.label, int(batch.num_batch_padd))
+                           self.forward_eval(sb.data, self.eval_node_ids,
+                                             sb.extra_data),
+                           sb.label_host, sb.num_batch_padd)
         return self.metric.print_line(name)
 
     def start_round(self, r: int) -> None:

@@ -762,7 +762,8 @@ def test_batch_norm_buffers_step_and_cross_both_ways(jopts, numpy_init, tmp_path
     want = jt.forward_eval(jt.params, jt.buffers,
                            jnp.asarray(batches[0].data),
                            (jt.net.final_node,))[jt.net.final_node]
-    [got] = tt.forward_eval(batches[0].data, [tt.net.final_node])
+    [got] = tt.forward_eval(torch.from_numpy(batches[0].data),
+                            [tt.net.final_node])
     np.testing.assert_allclose(got.reshape(4, -1),
                                np.asarray(want).reshape(4, -1), atol=1e-5)
     with pytest.raises(ValueError, match="batch_split needs stateless"):

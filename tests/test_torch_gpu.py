@@ -12,6 +12,7 @@ served model's shapes.
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -1358,3 +1359,179 @@ def test_relu_pool_gate_on_the_card(cuda, batch, fused):
     torch.cuda.synchronize()
     assert (pool.max_pool_fwd.launches - before[0],
             pool.max_pool_bwd.relu_launches - before[1]) == (fused, fused)
+
+
+# ------------------------------------------------------- staged batches
+
+def _alexnet_like_trainer(extra=""):
+    """A small conv net's trainer on the card with AlexNet's input
+    normalisation keys (no kernel key: the staging is what is held)."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    t = NetTrainer()
+    for k, v in parse_config_string(f"""netconfig=start
+layer[0->1] = conv
+  kernel_size = 11
+  stride = 4
+  nchannel = 8
+layer[1->2] = flatten
+layer[2->3] = fullc
+  nhidden = 10
+layer[3->3] = softmax
+netconfig=end
+input_shape = 3,67,67
+batch_size = 64
+dev = gpu
+dtype = bfloat16
+mean_value = 123.68,116.78,103.94
+scale = 0.017
+silent = 1
+{extra}"""):
+        t.set_param(k, v)
+    t.init_model()
+    return t
+
+
+def _u8_batches(n, seed=0, shape=(64, 3, 67, 67)):
+    from cxxnet_tpu_torch.io.data import DataBatch
+    rnd = np.random.RandomState(seed)
+    return [DataBatch(rnd.randint(0, 256, shape).astype(np.uint8),
+                      rnd.randint(0, 10, (shape[0], 1)).astype(np.float32),
+                      np.arange(shape[0], dtype=np.uint32),
+                      num_batch_padd=i % 2, tail_mask_padd=i % 2)
+            for i in range(n)]
+
+
+class _List:
+    def __init__(self, items):
+        self.items = items
+
+    def before_first(self):
+        self.i = 0
+
+    def next(self):
+        if self.i >= len(self.items):
+            return None
+        self.i += 1
+        return self.items[self.i - 1]
+
+
+@pytest.mark.parametrize("s2d", [0, 1])
+def test_u8_normalisation_on_the_card_matches_cpu(cuda, s2d):
+    """A staged u8 batch normalised on the card equals the CPU's
+    normalisation bitwise (float32 subtract and multiply), plain and in
+    the ``input_s2d`` staged form."""
+    t = _alexnet_like_trainer(f"input_s2d = {s2d}")
+    [b] = _u8_batches(1)
+    sb = t.stage_batch(b)
+    assert sb.data.is_cuda and sb.ready is not None
+    got = t._normalize_input(sb.handover().data).cpu()
+    t.device = torch.device("cpu")
+    want = t._normalize_input(t.stage_batch(b).data)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def _busy(n=6):
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    for _ in range(n):
+        a = a @ a
+        a = a / a.abs().amax().clamp_min(1.0)
+    return a
+
+
+@pytest.mark.parametrize("depth", [2, 0])
+def test_prefetcher_race_against_a_busy_stream(cuda, depth):
+    """Batches staged on the copy stream while bf16 matmuls keep the
+    compute stream busy, each normalised there and then dropped: every
+    result equals the CPU's bitwise (a staged tensor recycled under the
+    step, or read before its copy ended, would differ)."""
+    from cxxnet_tpu_torch.io.device_prefetch import DevicePrefetcher
+    t = _alexnet_like_trainer()
+    batches = _u8_batches(8, seed=1)
+    pf = DevicePrefetcher(_List(batches), t, depth=depth)
+    outs = []
+    try:
+        for [sb] in pf:
+            _busy()
+            sb.handover()
+            outs.append(t._normalize_input(sb.data))
+            del sb
+            torch.empty(64 * 3 * 67 * 67, dtype=torch.uint8,
+                        device="cuda").fill_(7)
+    finally:
+        pf.close()
+    torch.cuda.synchronize()
+    cpu = _alexnet_like_trainer()
+    cpu.device = torch.device("cpu")
+    assert len(outs) == len(batches)
+    for b, got in zip(batches, outs):
+        want = cpu._normalize_input(torch.from_numpy(b.data))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_prefetcher_race_against_an_idle_stream(cuda):
+    """u8 batches at AlexNet's shape (a copy of milliseconds) read on an
+    idle compute stream the moment the depth-2 prefetcher hands them
+    over, while their copies may still be in flight: every result equals
+    the CPU's bitwise (a read that did not wait on the batch's event
+    would see a partly copied batch)."""
+    from cxxnet_tpu_torch.io.device_prefetch import DevicePrefetcher
+    t = _alexnet_like_trainer()
+    batches = _u8_batches(6, seed=4, shape=(256, 3, 227, 227))
+    pf = DevicePrefetcher(_List(batches), t, depth=2)
+    outs = []
+    try:
+        for [sb] in pf:
+            sb.handover()
+            outs.append(t._normalize_input(sb.data))
+            del sb
+    finally:
+        pf.close()
+    cpu = _alexnet_like_trainer()
+    cpu.device = torch.device("cpu")
+    assert len(outs) == len(batches)
+    for b, got in zip(batches, outs):
+        want = cpu._normalize_input(torch.from_numpy(b.data))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_record_stream_keeps_a_freed_staged_batch(cuda):
+    """A staged batch freed while the step that reads it is still queued
+    behind a busy stream: ``handover``'s ``record_stream`` keeps its
+    block from the copy stream's next allocation, which is filled at
+    once; the step still reads the batch's values."""
+    t = _alexnet_like_trainer()
+    [b] = _u8_batches(1, seed=2)
+    copy = torch.cuda.Stream()
+    with torch.cuda.stream(copy):
+        sb = t.stage_batch(b)
+    _busy(12)
+    sb.handover()
+    total = sb.data.to(torch.int64).sum()
+    del sb
+    with torch.cuda.stream(copy):
+        for _ in range(4):
+            torch.empty(b.data.size, dtype=torch.uint8,
+                        device="cuda").fill_(255)
+    assert int(total) == int(b.data.astype(np.int64).sum())
+
+
+def test_staged_steps_equal_host_steps_on_the_card(cuda):
+    """Training from prefetched staged batches (depth 2) equals training
+    from the host batches bitwise on the card."""
+    from cxxnet_tpu_torch.io.device_prefetch import DevicePrefetcher
+    a, b = _alexnet_like_trainer(), _alexnet_like_trainer()
+    batches = _u8_batches(4, seed=3)
+    for x in batches:
+        a.update(x)
+    pf = DevicePrefetcher(_List(batches), b, depth=2)
+    try:
+        for item in pf:
+            for sb in item:
+                b.update(sb)
+    finally:
+        pf.close()
+    for k, g in a.params.items():
+        for tag, v in g.items():
+            assert torch.equal(v, b.params[k][tag]), f"{k}/{tag}"

@@ -95,7 +95,7 @@ def test_eval_forward_matches_jax(pair):
     nid = tt.net.final_node
     want = jt.forward_eval(jt.params, jt.buffers, jnp.asarray(data),
                            (nid,))[nid]                  # (b, 1*32*64)
-    [got] = tt.forward_eval(data, [nid])
+    [got] = tt.forward_eval(torch.from_numpy(data), [nid])
     assert got.shape == (2, 1, 32, 64)
     np.testing.assert_allclose(got.reshape(2, -1), np.asarray(want),
                                atol=1e-6)
