@@ -154,7 +154,26 @@ Phases (any failure raises and exits non-zero):
    batch's event); every result must equal bitwise what
    ``prefetch_device = 0`` stages for the same batch: phase 19's train
    chain, MNIST_CONV's train chain and seeded u8 batches at AlexNet's
-   shape (normalised with ImageNet's mean).
+   shape (normalised with ImageNet's mean);
+21. training observatory and span tracing (``observe``, after
+   ``serve`` and ``mnist_conv``): (a) the packed LM of phase 9 at full
+   width and depth with ``monitor = 1 monitor_interval = 2``, a profile
+   window over dispatches 2-4, ``sentinel = 1``, ``trace_sample = 1``,
+   ``ckpt_async = 1`` and ``prefetch_device = 2``: the ``trace``
+   record's device time within 5% of the window profiler's own device
+   events, the segmented flash and layernorm kernels (rows 9-12) under
+   their attention and layernorm connections (the backward ones through
+   the autograd join) and the fused adam kernel (row 13) unattributed,
+   a finite ``monitor`` record a parameter leaf a tick, the ledger's
+   categories tiling its wall within 1%, the prefetcher's and the
+   checkpoint writer's spans; (b) the step p50 of phase 9's LM at depth
+   2 with the plane off and on (``trace_sample = 1 sentinel = 1``), off,
+   on, on, off; (c) MNIST_CONV.conf with ``monitor_nan = fatal rollback
+   = 2``, one batch of round 3 NaN-poisoned: one rollback to round 2, a
+   completed run, a valid last snapshot, finite losses; (d)
+   ``serve_batch`` (f32) and ``serve`` with ``trace_sample = 1``: the
+   per-stage breakdown, and the ``request`` spans' p99 equal to the
+   ``latency`` record's within 1%.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -241,12 +260,22 @@ BATCH_AGREE, BATCH_ERR_F32, BATCH_ERR_QUANT = 0.999, 1e-3, 1e-2
 #: serve_batch: the shape buckets (serve_shapes)
 BATCH_SHAPES = (1, 8, 32)
 LN_EPS = 1e-5
+# observe: the profile window's first dispatch and its dispatches; the
+# monitor's tick interval; device_sec against the profiler's own events,
+# the ledger's categories against its wall, the request spans' p99
+# against the latency record's (relative); the overhead runs' depth and
+# steps; the rollback run's poisoned round and batch
+OBSERVE_PROF = (2, 3)
+OBSERVE_MONITOR_INTERVAL = 2
+OBSERVE_DEVICE_TOL, OBSERVE_LEDGER_TOL, OBSERVE_LATENCY_TOL = 0.05, 0.01, 0.01
+OBSERVE_LAYERS, OBSERVE_STEPS = 2, 10
+ROLLBACK_ROUND, ROLLBACK_AT = 3, 2
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
-              "resnet", "alexnet_data", "staging"}
+              "resnet", "alexnet_data", "staging", "observe"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -513,13 +542,20 @@ def kernel_fn(name):
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        kernel_fn(name).launches = 0
-    kernel_fn("max_pool_bwd").relu_launches = 0
+    from cxxnet_tpu_torch import ops
+    ops.reset_launches()
 
 
 def read_launches() -> dict:
-    return {name: kernel_fn(name).launches for name in KERNELS}
+    """``{row name: launches}`` from the port's one registry of wrappers
+    (``ops.WRAPPERS``), which KERNELS must name exactly."""
+    from cxxnet_tpu_torch import ops
+    counts = ops.launch_counts()
+    rows = {KERNELS[name][1]: name for name in KERNELS}
+    if set(rows) != set(counts):
+        raise AssertionError(f"KERNELS names wrappers {sorted(rows)}, "
+                             f"ops.WRAPPERS {sorted(counts)}")
+    return {rows[fn]: n for fn, n in counts.items()}
 
 
 def rate(flops: float, ms: float, bound_ms: float) -> str:
@@ -1983,34 +2019,15 @@ def phrase_docs(rng, n_tokens: int, lens) -> list:
     return docs
 
 
-def phase_train(tmp: str, packed: bool, profile: bool = False,
-                fused_vs: list = None, wide: bool = False) -> tuple:
-    """``task = train`` through the port's CLI: the packed flagship at
-    full depth (documents of seeded lengths, segment ids, per-document
-    positions, masked boundary targets), or the unpacked one at depth
-    UNPACKED_LAYERS (one long document, no segment ids); ``wide``: the
-    packed one with WIDE_NHEAD heads of 256 columns at depth WIDE_LAYERS
-    for WIDE_STEPS steps (the head-width-256 LM).  ``fused_vs``
-    (the packed path's losses) runs the packed path again under
-    ``fused_update = 1`` and holds its losses to those; it then times the
-    update of every parameter fused and unfused on the trained state.
-    Returns the path's launch counts and losses.  ``profile`` traces the
-    whole run with ``torch.profiler`` and prints where its device time
-    goes."""
-    import torch
+def lm_train_conf(tmp: str, label: str, packed: bool, nlayer: int,
+                  nhead: int, steps: int, fused: bool) -> str:
+    """The port's ``task = train`` conf of the LM at width DIM, depth
+    ``nlayer`` (packed: documents of seeded lengths, segment ids,
+    per-document positions; else one long document) over a seeded,
+    learnable corpus of ``steps`` batches, adam (fused under ``fused``),
+    one round, a ``step`` record a step; returns its path."""
     from cxxnet_tpu_torch.io.text import write_token_shard
-    from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.models import transformer
-    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
-    fused = fused_vs is not None
-    label = ("train_fused" if fused else "train") if packed \
-        else "train_unpacked"
-    nlayer = NLAYER if packed else UNPACKED_LAYERS
-    steps = TRAIN_STEPS if packed else UNPACKED_STEPS
-    nhead = NHEAD
-    if wide:
-        label, nlayer, steps, nhead = ("train_hd256", WIDE_LAYERS,
-                                       WIDE_STEPS, WIDE_NHEAD)
     n_tok = steps * TRAIN_BATCH * SEQ + 1
     rng = np.random.RandomState(17 if packed else 19)
     docs = phrase_docs(rng, n_tok, DOC_LENS if packed else (n_tok, n_tok))
@@ -2050,6 +2067,36 @@ metrics_sink = jsonl:{tmp}/{label}_metrics.jsonl
         f"{DIM // nhead} / s{SEQ} / "
         f"vocab {VOCAB} / bf16 / adam eta {TRAIN_ETA} / batch "
         f"{TRAIN_BATCH}{' / packed' if packed else ''}")
+    return conf
+
+
+def phase_train(tmp: str, packed: bool, profile: bool = False,
+                fused_vs: list = None, wide: bool = False) -> tuple:
+    """``task = train`` through the port's CLI: the packed flagship at
+    full depth (documents of seeded lengths, segment ids, per-document
+    positions, masked boundary targets), or the unpacked one at depth
+    UNPACKED_LAYERS (one long document, no segment ids); ``wide``: the
+    packed one with WIDE_NHEAD heads of 256 columns at depth WIDE_LAYERS
+    for WIDE_STEPS steps (the head-width-256 LM).  ``fused_vs``
+    (the packed path's losses) runs the packed path again under
+    ``fused_update = 1`` and holds its losses to those; it then times the
+    update of every parameter fused and unfused on the trained state.
+    Returns the path's launch counts and losses.  ``profile`` traces the
+    whole run with ``torch.profiler`` and prints where its device time
+    goes."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
+    fused = fused_vs is not None
+    label = ("train_fused" if fused else "train") if packed \
+        else "train_unpacked"
+    nlayer = NLAYER if packed else UNPACKED_LAYERS
+    steps = TRAIN_STEPS if packed else UNPACKED_STEPS
+    nhead = NHEAD
+    if wide:
+        label, nlayer, steps, nhead = ("train_hd256", WIDE_LAYERS,
+                                       WIDE_STEPS, WIDE_NHEAD)
+    conf = lm_train_conf(tmp, label, packed, nlayer, nhead, steps, fused)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2332,9 +2379,10 @@ def phase_alexnet_data(tmp: str) -> dict:
             f"{r['wall_sec']} s = {r['examples_per_sec']} images/s, "
             f"iter_wait {r['iter_wait_sec']} s, h2d {r['h2d_sec']} s, eval "
             f"{r['eval_sec']} s, {', '.join(f'{k} {v:.4f}' for k, v in r.items() if '-' in k)}")
-    recs = [r for r in read_records(sink) if r["kind"] == "train"]
-    log("alexnet_data: train records (every 5 steps): " + "; ".join(
-        f"step {r['step']} {r['step_ms']} ms, {r['examples_per_sec']} "
+    recs = [r for r in read_records(sink) if r["kind"] == "step"]
+    log("alexnet_data: step records (every 5 steps): " + "; ".join(
+        f"step {r['step']} dispatch {r['dispatch_sec']} s, "
+        f"{r['examples_per_sec']} "
         f"images/s, iter_wait {r['iter_wait_sec']} s, h2d {r['h2d_sec']} s,"
         f" depth {r['staging_depth']}" for r in recs))
     log(f"alexnet_data path launches: {launches}, relu-masked pool backward "
@@ -2993,9 +3041,9 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
                 recs = read_records(metrics_b)
                 saved = any(r["kind"] == "ckpt"
                             and r["round"] == RESUME_KILL_AFTER for r in recs)
-                # a train record's round counts from 0: the step of the
+                # a step record's round counts from 0: the step of the
                 # round after snapshot N says N
-                stepped = any(r["kind"] == "train"
+                stepped = any(r["kind"] == "step"
                               and r["round"] == RESUME_KILL_AFTER
                               for r in recs)
                 if saved and stepped:
@@ -3022,7 +3070,7 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
     if not left.get(f"{RESUME_KILL_AFTER:04d}.ckpt"):
         raise AssertionError("resume: run B's last committed snapshot does "
                              "not validate after the kill")
-    part1 = [r for r in read_records(metrics_b) if r["kind"] == "train"]
+    part1 = [r for r in read_records(metrics_b) if r["kind"] == "step"]
     n_before = len(read_records(metrics_b))
 
     task = LearnTask()
@@ -3034,7 +3082,7 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
     del task
     torch.cuda.empty_cache()
     recs_b = read_records(metrics_b)
-    part2 = [r for r in recs_b[n_before:] if r["kind"] == "train"]
+    part2 = [r for r in recs_b[n_before:] if r["kind"] == "step"]
     rounds2 = sorted({r["round"] for r in part2})
     if rc != 0 or st_b is None or st_b["steps"] != 2 \
             or rounds2 != [RESUME_KILL_AFTER]:
@@ -3074,7 +3122,9 @@ metrics_sink = jsonl:{tmp}/resume_{name}_metrics.jsonl
                     f"{r['bytes'] / max(r['write_sec'], 1e-9) / 1e9:.3f} GB/s, train "
                     f"thread blocked {r['blocked_sec']} s, pruned "
                     f"{r['pruned']} ({card})")
-    b1_ms = [r["step_ms"] for r in part1]
+    # print_step = 1: a record's dispatch wall is its step's (0 for the
+    # first dispatch, the compile record's)
+    b1_ms = [r["dispatch_sec"] * 1e3 for r in part1]
     p50_b1 = float(np.median(b1_ms[1:] or b1_ms))
     log(f"resume: step p50 (steps after the first of each part): run A "
         f"{st_a['step_p50_ms']:.2f} ms, run B before the kill {p50_b1:.2f} "
@@ -3478,6 +3528,27 @@ def phase_serve_spec(tmp: str, task, conf: str) -> dict:
     return total
 
 
+def mnist_serve_args(tmp: str) -> list:
+    """The CLI arguments of example/MNIST/serve.conf on the card from the
+    mnist_conv phase's last snapshot (``input_flat = 0``, ``pool_layout =
+    hwcn``, buckets BATCH_SHAPES, CLIENTS clients), the conf written
+    into ``tmp`` with its data, output and metrics paths there."""
+    data = os.path.join(tmp, "mnist")
+    snap = os.path.join(tmp, "mnist_models", f"{MNIST_ROUNDS:04d}.model")
+    text = open(os.path.join(REPO, "example", "MNIST", "serve.conf")).read()
+    conf = os.path.join(tmp, "mnist_serve.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/")
+                .replace("dev = cpu", f"dev = {DEV}")
+                .replace("pred = serve_out.txt",
+                         f"pred = {tmp}/serve_batch_out.txt")
+                .replace("jsonl:serve_metrics.jsonl",
+                         f"jsonl:{tmp}/serve_batch.jsonl"))
+    return [conf, f"model_in={snap}", "input_flat=0", "pool_layout=hwcn",
+            "serve_shapes=" + ",".join(map(str, BATCH_SHAPES)),
+            f"serve_clients={CLIENTS}", "silent=1"]
+
+
 def phase_serve_batch(tmp: str, test_error: float) -> dict:
     """``task = serve`` without ``serve_gen``: example/MNIST/serve.conf
     on the card from the mnist_conv phase's last snapshot (``input_flat =
@@ -3491,22 +3562,9 @@ def phase_serve_batch(tmp: str, test_error: float) -> dict:
     import torch
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.serve.engine import SERVE_TOL
-    data = os.path.join(tmp, "mnist")
-    snap = os.path.join(tmp, "mnist_models", f"{MNIST_ROUNDS:04d}.model")
-    labels = read_mnist_labels(os.path.join(data,
+    labels = read_mnist_labels(os.path.join(tmp, "mnist",
                                             "t10k-labels-idx1-ubyte.gz"))
-    text = open(os.path.join(REPO, "example", "MNIST", "serve.conf")).read()
-    conf = os.path.join(tmp, "mnist_serve.conf")
-    with open(conf, "w") as f:
-        f.write(text.replace("./data/", data + "/")
-                .replace("dev = cpu", f"dev = {DEV}")
-                .replace("pred = serve_out.txt",
-                         f"pred = {tmp}/serve_batch_out.txt")
-                .replace("jsonl:serve_metrics.jsonl",
-                         f"jsonl:{tmp}/serve_batch.jsonl"))
-    base = [conf, f"model_in={snap}", "input_flat=0", "pool_layout=hwcn",
-            "serve_shapes=" + ",".join(map(str, BATCH_SHAPES)),
-            f"serve_clients={CLIENTS}", "silent=1"]
+    base = mnist_serve_args(tmp)
     if LearnTask().run(base + ["task=pred"]) != 0:
         raise AssertionError("serve_batch: task = pred failed")
     pred = np.loadtxt(os.path.join(tmp, "serve_batch_out.txt"))
@@ -3557,6 +3615,393 @@ def phase_serve_batch(tmp: str, test_error: float) -> dict:
         raise AssertionError("serve_batch: dispatches did not all run the "
                              "max-pool kernel")
     torch.cuda.empty_cache()
+    return launches
+
+
+def fresh(path: str) -> str:
+    """``path``, with no file there (a metrics sink appends)."""
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def device_busy_sec(prof, steps: int) -> float:
+    """The union of the device events (kernels, copies, fills) of a
+    finished ``torch.profiler`` run, over ``steps``: the busy time
+    ``report_profile`` reads, from the profiler's own events."""
+    from torch.autograd import DeviceType
+    ivs = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return union_us(ivs) / 1e6 / max(steps, 1)
+
+
+def orphan_launches(events) -> str:
+    """The kernel launches of a trace whose device event is not in it
+    (the launch's ``correlation`` names no kernel), each with its time
+    from the trace's first launch and the thread that made it, and the
+    least time from a launch to its kernel's start (below 0: the card's
+    clock, as the trace reads it, lags the host's)."""
+    from cxxnet_tpu_torch.monitor.trace import LAUNCH_CATS
+    kern = {(e.get("args") or {}).get("correlation") for e in events
+            if e.get("cat") == "kernel"}
+    launch = sorted((e for e in events if e.get("cat") in LAUNCH_CATS
+                     and "LaunchKernel" in e.get("name", "")),
+                    key=lambda e: e["ts"])
+    lost = [e for e in launch
+            if (e.get("args") or {}).get("correlation") not in kern]
+    t0 = launch[0]["ts"] if launch else 0.0
+    at = {(e.get("args") or {}).get("correlation"): e["ts"] for e in launch}
+    lead = [e["ts"] - at[c] for e in events if e.get("cat") == "kernel"
+            for c in [(e.get("args") or {}).get("correlation")] if c in at]
+    return (f"{len(launch)} kernel launches in the trace, {len(kern)} "
+            f"kernels (start minus launch from "
+            f"{min(lead, default=0.0) / 1e3:.3f} ms), {len(lost)} launches "
+            f"without their kernel"
+            + "".join(f"; {e['name']} at {(e['ts'] - t0) / 1e3:.3f} ms "
+                      f"(thread {e.get('tid')})" for e in lost[:10]))
+
+
+def check_attribution(events, scopes) -> dict:
+    """Where layer attribution put the hand-written kernels of a train
+    window: the segmented flash forward and backward (rows 9, 10) under
+    the attention connections, the layernorm forward and backward (rows
+    11, 12) under the layernorm connections, the backward ones through
+    the autograd join, and the fused adam kernel (row 13) in
+    (unattributed).  Returns ``{row: {scope kind: count}}``."""
+    from cxxnet_tpu_torch.monitor import attribution
+    from cxxnet_tpu_torch.monitor.trace import kernel_base
+    rows = {9: ("flash_fwd", "_att", False), 10: ("flash_bwd", "_att", True),
+            11: ("layernorm_fwd", "_ln", False), 12: ("lnb_", "_ln", True),
+            13: ("fused_adam_kernel", None, False)}
+    seen = {r: {} for r in rows}
+    bases = set()
+    for p in attribution.attribute_events(events, scopes):
+        base = kernel_base(p["name"])
+        bases.add(base)
+        for r, (prefix, part, bwd) in rows.items():
+            if not base.startswith(prefix):
+                continue
+            where = p["scope"] if p["scope"] is None else \
+                ("bwd " if p["backward"] else "fwd ") + p["scope"][3:]
+            seen[r][where] = seen[r].get(where, 0) + 1
+            ok = (p["scope"] is None) if part is None else (
+                p["scope"] is not None and part in p["scope"]
+                and p["backward"] == bwd)
+            if not ok:
+                raise AssertionError(
+                    f"observe: row {r} kernel {base} placed in "
+                    f"{p['scope']} (backward {p['backward']})")
+    missing = [r for r, s in seen.items() if not s]
+    if missing:
+        raise AssertionError(f"observe: no kernel of rows {missing} in the "
+                             f"window's trace, which holds {sorted(bases)}")
+    return seen
+
+
+class PoisonRound:
+    """The train iterator with one batch of round ``rnd`` NaN-poisoned,
+    once (the divergence injection of tests/test_ckpt.py); its state is
+    its base's."""
+
+    def __init__(self, base, rnd: int, at: int):
+        self.base, self.rnd, self.at = base, rnd, at
+        self.passes = self.count = 0
+        self.fired = False
+
+    def before_first(self):
+        self.passes += 1
+        self.count = 0
+        self.base.before_first()
+
+    def next(self):
+        import dataclasses
+        b = self.base.next()
+        if b is None:
+            return None
+        self.count += 1
+        if (not self.fired and self.passes == self.rnd
+                and self.count == self.at):
+            self.fired = True
+            b = dataclasses.replace(b, data=np.full_like(b.data, np.nan))
+        return b
+
+    def state(self):
+        return self.base.state()
+
+    def set_state(self, st):
+        self.base.set_state(st)
+
+    def close(self):
+        self.base.close()
+
+
+def observe_window(tmp: str, attempt: int = 1) -> None:
+    """(a) The packed LM of ``train_fused`` at full width and depth with
+    the plane on: ``monitor = 1 monitor_interval = 2``, a profile window
+    over dispatches OBSERVE_PROF, ``sentinel = 1``, ``trace_sample = 1``,
+    ``ckpt_async = 1`` (parameters only), ``prefetch_device = 2`` and a
+    sink.  The ``trace`` record's device_sec within OBSERVE_DEVICE_TOL of
+    the window's own profiler events, with no event of a hand-written
+    kernel lost; rows 9-13 where attribution must put them; a finite
+    ``monitor`` record a parameter leaf a tick; the ledger's categories
+    tiling its wall within OBSERVE_LEDGER_TOL; the prefetcher's and the
+    writer's spans present; no ``anomaly`` or ``flight`` record from the
+    healthy run.  A window whose trace lost events of a hand-written
+    kernel (the trace record then has no device_sec, rightly) is run
+    once more, as ``device_ms`` retakes such traces."""
+    import shutil
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.monitor import trace
+    conf = lm_train_conf(tmp, "observe", True, NLAYER, NHEAD, TRAIN_STEPS,
+                         True)
+    sink = fresh(os.path.join(tmp, f"observe_metrics_{attempt}.jsonl"))
+    start, num = OBSERVE_PROF
+    args = ["monitor=1", f"monitor_interval={OBSERVE_MONITOR_INTERVAL}",
+            f"prof={tmp}/observe_prof_{attempt}",
+            f"prof_start_step={start}",
+            f"prof_num_steps={num}", "sentinel=1", "trace_sample=1",
+            "ckpt_async=1", "save_model=1", "save_opt=0",
+            f"model_dir={tmp}/observe_models_{attempt}", "prefetch_device=2",
+            f"metrics_sink=jsonl:{sink}"]
+    log(f"observe (a): {' '.join(args)}")
+    torch.cuda.empty_cache()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    rc = task.run([conf] + args)
+    wall = time.perf_counter() - t0
+    st = task.last_train
+    if rc != 0 or st is None or st["steps"] != TRAIN_STEPS:
+        raise AssertionError(f"observe (a): CLI returned {rc}")
+    recs = read_records(sink)
+    kinds = {}
+    for r in recs:
+        kinds.setdefault(r["kind"], []).append(r)
+    log(f"observe (a): {TRAIN_STEPS} steps, losses "
+        f"{[round(x, 4) for x in st['losses']]}, step ms "
+        f"{[round(x, 1) for x in st['step_ms']]} (window over steps "
+        f"{start + 1}-{start + num}, ticks every {OBSERVE_MONITOR_INTERVAL}"
+        f"), p50 {st['step_p50_ms']:.1f} ms, compile "
+        f"{st['compile_sec']:.2f} s, "
+        f"CLI wall {wall:.1f} s; records "
+        f"{ {k: len(v) for k, v in sorted(kinds.items())} }")
+    (tr,) = kinds.get("trace", [None])
+    rep = task.last_trace_report
+    win = task.prof_window
+    own = device_busy_sec(win.last_profiler, win.last_window_steps)
+    events = trace.load_trace(win.last_trace)
+    log("observe (a): " + orphan_launches(events))
+    log(f"observe (a): trace record {json.dumps(tr, sort_keys=True)}; "
+        f"window launches {rep['launches']} "
+        f"({ {k: n for k, n in win.last_launches.items() if n} }), lost "
+        f"events {rep['lost_events']} (short: {rep['short']}); the "
+        f"profiler's own device busy {own * 1e3:.3f} ms a step")
+    if rep["lost_events"] and attempt == 1 and tr is not None \
+            and "device_sec" not in tr:
+        log("observe (a): the profiler lost events of the window; run "
+            "again")
+        del task
+        torch.cuda.empty_cache()
+        shutil.rmtree(f"{tmp}/observe_models_1", ignore_errors=True)
+        return observe_window(tmp, attempt=2)
+    if tr is None or "device_sec" not in tr or tr["steps"] != num \
+            or rep["lost_events"]:
+        raise AssertionError(f"observe (a): trace record {tr}")
+    if abs(tr["device_sec"] - own) > OBSERVE_DEVICE_TOL * own:
+        raise AssertionError(f"observe (a): device_sec {tr['device_sec']} "
+                             f"vs the profiler's {own}")
+    (lp,) = kinds.get("layer_profile", [None])
+    log(f"observe (a): layer_profile {lp['device_total_ms']} ms a step, "
+        f"{lp['attributed_ms']} attributed (coverage {lp['coverage']}); "
+        "top rows: " + "; ".join(
+            f"{r['layer']} {r['device_ms']} ms (bwd {r['bwd_ms']})"
+            for r in lp["rows"][:8]))
+    seen = check_attribution(trace.window_events(events),
+                             task.net.layer_scopes())
+    log("observe (a): kernels by connection: " + "; ".join(
+        f"row {r}: {len(s)} places, {sum(s.values())} events"
+        + (" (unattributed)" if None in s else "")
+        for r, s in seen.items()))
+    leaves = sorted(f"{k}/{t}" for k, g in task.net.params.items() for t in g)
+    ticks = {}
+    for r in kinds.get("monitor", []):
+        ticks.setdefault(r["step"], []).append(r)
+        if not all(np.isfinite(r[f]) for f in ("w_norm", "g_norm", "u_norm",
+                                                "u_ratio")):
+            raise AssertionError(f"observe (a): non-finite monitor {r}")
+    want = list(range(OBSERVE_MONITOR_INTERVAL, TRAIN_STEPS + 1,
+                      OBSERVE_MONITOR_INTERVAL))
+    if sorted(ticks) != want or any(
+            sorted(r["layer"] for r in rs) != leaves
+            for rs in ticks.values()):
+        raise AssertionError(f"observe (a): monitor ticks {sorted(ticks)} "
+                             f"(want {want}, {len(leaves)} leaves each)")
+    last = ticks[want[-1]]
+    log(f"observe (a): {len(leaves)} leaves a tick at steps {want}; at step "
+        f"{want[-1]} u/w from {min(r['u_ratio'] for r in last):.3e} to "
+        f"{max(r['u_ratio'] for r in last):.3e}")
+    led = recs[-1]
+    tiled = sum(led.get("categories", {}).values())
+    log(f"observe (a): ledger {json.dumps(led, sort_keys=True)}")
+    if led["kind"] != "ledger" or abs(tiled - led["wall_sec"]) \
+            > OBSERVE_LEDGER_TOL * led["wall_sec"]:
+        raise AssertionError(f"observe (a): ledger categories {tiled} s vs "
+                             f"wall {led.get('wall_sec')} s")
+    spans = {}
+    for r in kinds.get("span", []):
+        spans.setdefault(r["span"], []).append(r["dur_us"] / 1e3)
+    log("observe (a): spans " + "; ".join(
+        f"{k} x{len(v)} p50 {np.median(v):.3f} ms max {max(v):.3f} ms"
+        for k, v in sorted(spans.items())))
+    need = {"prefetch_stage", "prefetch_wait", "ckpt_blocked", "ckpt_shard",
+            "ckpt_manifest", "ckpt_prune"}
+    if not need <= set(spans):
+        raise AssertionError(f"observe (a): spans {sorted(spans)} lack "
+                             f"{sorted(need - set(spans))}")
+    anomalies = kinds.get("anomaly", [])
+    log(f"observe (a): step records' examples/s "
+        f"{[r['examples_per_sec'] for r in kinds['step']]}; sentinel "
+        f"anomalies {len(anomalies)} {anomalies}, flight records "
+        f"{len(kinds.get('flight', []))}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if anomalies or kinds.get("flight"):
+        raise AssertionError("observe (a): a healthy run set off the "
+                             "sentinel")
+    del task
+    torch.cuda.empty_cache()
+
+
+def observe_overhead(tmp: str) -> None:
+    """(b) The step p50 of ``train_fused`` at depth OBSERVE_LAYERS, the
+    plane off (no sink) and on (``trace_sample = 1 sentinel = 1`` with a
+    sink), in the order off, on, on, off."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    conf = lm_train_conf(tmp, "observe_overhead", True, OBSERVE_LAYERS,
+                         NHEAD, OBSERVE_STEPS, True)
+    out = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        extra = (["metrics_sink=none"] if mode == "off" else
+                 ["trace_sample=1", "sentinel=1",
+                  f"metrics_sink=jsonl:{tmp}/observe_overhead_{i}.jsonl"])
+        task = LearnTask()
+        if task.run([conf] + extra) != 0:
+            raise AssertionError(f"observe (b): run {i} ({mode}) failed")
+        out[mode].append(task.last_train["step_p50_ms"])
+        del task
+        torch.cuda.empty_cache()
+    log(f"observe (b): train_fused at depth {OBSERVE_LAYERS}, "
+        f"{OBSERVE_STEPS} steps a run, step p50 (ms, steps after the first)"
+        f": off {out['off'][0]:.3f}, on {out['on'][0]:.3f}, on "
+        f"{out['on'][1]:.3f}, off {out['off'][1]:.3f} ({card_line()})")
+
+
+def observe_rollback(tmp: str) -> None:
+    """(c) MNIST_CONV.conf under ``monitor = 1 monitor_interval = 1
+    monitor_nan = fatal rollback = 2 ckpt_async = 1``, batch
+    ROLLBACK_AT of round ROLLBACK_ROUND NaN-poisoned: one ``rollback``
+    record restoring round ROLLBACK_ROUND - 1, a run that completes, a
+    last ``.ckpt`` that validates and finite losses."""
+    import torch
+    from cxxnet_tpu_torch import ckpt
+    from cxxnet_tpu_torch.main import LearnTask
+
+    class PoisonTask(LearnTask):
+        def _create_iterators(self):
+            super()._create_iterators()
+            if self.itr_train is not None:
+                self.itr_train = PoisonRound(self.itr_train, ROLLBACK_ROUND,
+                                             ROLLBACK_AT)
+
+    sink = fresh(os.path.join(tmp, "observe_rollback.jsonl"))
+    mdir = os.path.join(tmp, "rollback_models")
+    args = [f"dev={DEV}", f"num_round={MNIST_ROUNDS}",
+            f"max_round={MNIST_ROUNDS}", "pool_layout=hwcn",
+            "fast_wgrad=hwcn", f"model_dir={mdir}", "save_model=1",
+            "ckpt_async=1", "monitor=1", "monitor_interval=1",
+            "monitor_nan=fatal", "rollback=2", f"metrics_sink=jsonl:{sink}",
+            "silent=1"]
+    task = PoisonTask()
+    rc = task.run([mnist_conv_conf(tmp)] + args)
+    st = task.last_train
+    recs = read_records(sink)
+    rbs = [r for r in recs if r["kind"] == "rollback"]
+    nans = [r for r in recs if r["kind"] == "nan"]
+    last = os.path.join(mdir, f"{MNIST_ROUNDS:04d}.ckpt")
+    valid = ckpt.validate_snapshot(last) is not None
+    losses = st["losses"] if st else []
+    log(f"observe (c): rc {rc}; nan records "
+        f"{[(r['round'], r['step']) for r in nans]}; rollback records "
+        f"{[{k: r[k] for k in ('retry', 'from_round', 'restored_round')} for r in rbs]}"
+        f"; {len(losses)} losses, last {losses[-1] if losses else None}; "
+        f"test-error by round {[e.get('test-error') for e in st['evals']]}"
+        f"; {last} valid {valid}; ledger rollback_lost "
+        f"{recs[-1].get('categories', {}).get('rollback_lost')} s")
+    if rc != 0 or len(rbs) != 1 or rbs[0]["restored_round"] \
+            != ROLLBACK_ROUND - 1 or not valid \
+            or not np.isfinite(losses).all() or not nans:
+        raise AssertionError("observe (c): the rollback run failed its "
+                             "checks")
+    del task
+    torch.cuda.empty_cache()
+
+
+def request_p99_check(label: str, recs: list, op: str) -> None:
+    """The p99 of the ``request`` spans against the ``latency`` record's
+    (``op``) within OBSERVE_LATENCY_TOL, and the per-stage breakdown."""
+    from cxxnet_tpu_torch.monitor.metrics import nearest_rank
+    from cxxnet_tpu_torch.monitor.spans import stage_decomposition
+    spans = [r for r in recs if r["kind"] == "span"]
+    req = sorted(r["dur_us"] / 1e3 for r in spans if r["span"] == "request")
+    (lat,) = [r for r in recs if r["kind"] == "latency" and r["op"] == op]
+    p99 = nearest_rank(req, 99)
+    dec = stage_decomposition(recs)
+    by = {}
+    for r in spans:
+        by.setdefault(r["span"], []).append(r["dur_us"] / 1e3)
+    log(f"observe (d) {label}: {len(req)} request spans, p99 {p99:.3f} ms "
+        f"vs the latency record's {lat['p99']:.3f} ms ({lat['count']} "
+        "samples); stages: " + "; ".join(
+            f"{s['stage']} p50 {s['p50_ms']} p99 {s['p99_ms']} ms share "
+            f"{s['share']}" for s in dec["stages"]))
+    log(f"observe (d) {label}: spans by name: " + "; ".join(
+        f"{k} x{len(v)} p50 {nearest_rank(sorted(v), 50):.3f} p99 "
+        f"{nearest_rank(sorted(v), 99):.3f} ms" for k, v in sorted(by.items())))
+    if len(req) != lat["count"] or abs(p99 - lat["p99"]) \
+            > OBSERVE_LATENCY_TOL * lat["p99"]:
+        raise AssertionError(f"observe (d) {label}: request p99 {p99} vs "
+                             f"latency p99 {lat['p99']}")
+
+
+def observe_serving(tmp: str, serve_conf: str) -> None:
+    """(d) ``serve_batch`` (f32) and ``serve`` again with ``trace_sample =
+    1``: each stage's p99, and the ``request`` spans' p99 equal to the
+    ``latency`` record's."""
+    from cxxnet_tpu_torch.main import LearnTask
+    sink = fresh(os.path.join(tmp, "observe_serve_batch.jsonl"))
+    if LearnTask().run(mnist_serve_args(tmp) + [
+            "serve_dtype=f32", "trace_sample=1",
+            f"metrics_sink=jsonl:{sink}"]) != 0:
+        raise AssertionError("observe (d): serve_batch failed")
+    request_p99_check("serve_batch", read_records(sink), "serve")
+    sink = fresh(os.path.join(tmp, "observe_serve.jsonl"))
+    if LearnTask().run([serve_conf, "trace_sample=1",
+                        f"metrics_sink=jsonl:{sink}"]) != 0:
+        raise AssertionError("observe (d): serve failed")
+    request_p99_check("serve", read_records(sink), "gen")
+
+
+def phase_observe(tmp: str, serve_conf: str) -> dict:
+    """Phase 21 (``observe``): the training observatory and the span
+    tracer on the card, (a)-(d) above; returns the path's launches."""
+    reset_launches()
+    observe_window(tmp)
+    observe_overhead(tmp)
+    observe_rollback(tmp)
+    observe_serving(tmp, serve_conf)
+    launches = read_launches()
+    log(f"observe path launches: {launches}")
     return launches
 
 
@@ -3665,6 +4110,7 @@ def main() -> int:
         numbers.update(phase_last_kernels())
         phase_route_kernels()
     paths = {}
+    serve_conf = None
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
         if "serve" in phases:
             task, paths["serve"], serve_conf = phase_serve(tmp)
@@ -3715,6 +4161,11 @@ def main() -> int:
             raise SystemExit("serve_batch needs the mnist_conv phase")
         if "staging" in phases:
             phase_staging(tmp)
+        if "observe" in phases:
+            if serve_conf is None or "mnist_conv" not in phases:
+                raise SystemExit("observe needs the serve and mnist_conv "
+                                 "phases")
+            paths["observe"] = phase_observe(tmp, serve_conf)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

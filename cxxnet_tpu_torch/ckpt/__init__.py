@@ -58,7 +58,7 @@ def _crc32(path: str) -> int:
 
 
 def write_snapshot(path: str, shards: Dict[str, Dict[str, np.ndarray]],
-                   meta: dict, fault_hook=None) -> dict:
+                   meta: dict, fault_hook=None, tracer=None) -> dict:
     """Write one snapshot directory atomically (manifest last).
 
     ``shards`` maps shard name -> flat ``{key: np.ndarray}`` (the
@@ -66,8 +66,13 @@ def write_snapshot(path: str, shards: Dict[str, Dict[str, np.ndarray]],
     ``fault_hook(stage)`` is the crash-injection point for tests, called
     after each shard (``"shard:<name>"``) and before the manifest
     (``"manifest"``): raising there leaves exactly the partial state a
-    kill at that byte would.  Returns ``{"bytes": total, "shards": n}``.
+    kill at that byte would.  ``tracer`` (a span tracer) times each
+    shard (``ckpt_shard``) and the manifest commit (``ckpt_manifest``).
+    Returns ``{"bytes": total, "shards": n}``.
     """
+    if tracer is None:
+        from ..monitor import spans
+        tracer = spans.NULL
     os.makedirs(path, exist_ok=True)
     # rewriting a committed snapshot: drop the manifest FIRST, so a kill
     # mid-rewrite leaves an uncommitted directory, not a manifest that
@@ -79,13 +84,14 @@ def write_snapshot(path: str, shards: Dict[str, Dict[str, np.ndarray]],
     total = 0
     for name, arrays in shards.items():
         fpath = os.path.join(path, f"{name}.npz")
-        atomic_write(fpath, lambda f, a=arrays: np.savez(f, **a))
-        size = os.path.getsize(fpath)
-        # a read-back of the committed file: np.savez seeks back to
-        # rewrite zip headers, so a checksum taken while writing would
-        # not be of the bytes on disk
-        shard_meta[name] = {"file": f"{name}.npz", "bytes": size,
-                            "crc32": _crc32(fpath)}
+        with tracer.span("ckpt_shard", shard=name):
+            atomic_write(fpath, lambda f, a=arrays: np.savez(f, **a))
+            size = os.path.getsize(fpath)
+            # a read-back of the committed file: np.savez seeks back to
+            # rewrite zip headers, so a checksum taken while writing
+            # would not be of the bytes on disk
+            shard_meta[name] = {"file": f"{name}.npz", "bytes": size,
+                                "crc32": _crc32(fpath)}
         total += size
         if fault_hook is not None:
             fault_hook(f"shard:{name}")
@@ -93,8 +99,9 @@ def write_snapshot(path: str, shards: Dict[str, Dict[str, np.ndarray]],
         fault_hook("manifest")
     manifest = {"format_version": FORMAT_VERSION, "shards": shard_meta}
     manifest.update(meta)
-    atomic_write(mpath, lambda f: f.write(
-        json.dumps(manifest, sort_keys=True).encode("utf-8")))
+    with tracer.span("ckpt_manifest"):
+        atomic_write(mpath, lambda f: f.write(
+            json.dumps(manifest, sort_keys=True).encode("utf-8")))
     return {"bytes": total, "shards": len(shard_meta)}
 
 

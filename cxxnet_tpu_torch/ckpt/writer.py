@@ -39,15 +39,16 @@ FAULT_HOOK: Optional[Callable[[str], None]] = None
 
 
 class _Job:
-    __slots__ = ("path", "shards", "meta", "counter", "keep")
+    __slots__ = ("path", "shards", "meta", "counter", "keep", "tracer")
 
     def __init__(self, path: str, shards: Dict[str, Dict[str, np.ndarray]],
-                 meta: dict, counter: int, keep: int):
+                 meta: dict, counter: int, keep: int, tracer):
         self.path = path
         self.shards = shards
         self.meta = meta
         self.counter = counter
         self.keep = keep
+        self.tracer = tracer
 
 
 class AsyncCheckpointWriter:
@@ -88,15 +89,22 @@ class AsyncCheckpointWriter:
         return False
 
     def submit(self, path: str, shards: Dict[str, Dict[str, np.ndarray]],
-               meta: dict, *, counter: int, keep: int) -> float:
+               meta: dict, *, counter: int, keep: int,
+               tracer=None) -> float:
         """Enqueue one snapshot job (host arrays only); blocks while the
-        queue is full.  Returns the seconds the caller spent blocked
-        here."""
+        queue is full.  ``tracer`` (the submitter's span tracer, looked up
+        per job: a rollback swaps the trainer and its metrics) times the
+        write's shards, manifest and retention pass (``ckpt_shard``,
+        ``ckpt_manifest``, ``ckpt_prune``).  Returns the seconds the
+        caller spent blocked here."""
         self.poll()
+        if tracer is None:
+            from ..monitor import spans
+            tracer = spans.NULL
         t0 = time.perf_counter()
         with self._lock:
             self._pending += 1
-        if not self._put(_Job(path, shards, meta, counter, keep)):
+        if not self._put(_Job(path, shards, meta, counter, keep, tracer)):
             self.poll()  # the writer died while we were blocked
         return time.perf_counter() - t0
 
@@ -126,9 +134,11 @@ class AsyncCheckpointWriter:
             try:
                 t0 = time.perf_counter()
                 stats = write_snapshot(job.path, job.shards, job.meta,
-                                       fault_hook=FAULT_HOOK)
-                pruned = prune_snapshots(os.path.dirname(job.path) or ".",
-                                         job.keep)
+                                       fault_hook=FAULT_HOOK,
+                                       tracer=job.tracer)
+                with job.tracer.span("ckpt_prune", keep=job.keep):
+                    pruned = prune_snapshots(
+                        os.path.dirname(job.path) or ".", job.keep)
                 stats.update(write_sec=time.perf_counter() - t0,
                              path=job.path, counter=job.counter,
                              pruned=pruned)

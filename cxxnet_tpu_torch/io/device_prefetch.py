@@ -32,6 +32,10 @@ dispatches a batch at a time, so the JAX package's grouped items
 (``StagedGroup``, ``StagedEvalGroup`` and their ``StagedMeta``) have no
 counterpart: a train item is the list of one window's staged batches,
 an eval item one staged batch.
+
+Under ``trace_sample = N`` every Nth item's staging is a
+``prefetch_stage`` span (producer side) and every Nth wait of the
+consumer on the queue a ``prefetch_wait`` span.
 """
 
 from __future__ import annotations
@@ -168,6 +172,9 @@ class DevicePrefetcher:
         self._failed: Optional[BaseException] = None
         self._done = False
         self._stream = None
+        # items staged and items waited for, the span sampler's counts
+        self._span_staged = 0
+        self._span_waited = 0
 
     @property
     def async_(self) -> bool:
@@ -195,10 +202,23 @@ class DevicePrefetcher:
                 pending.append(b)
             if pending and (done or len(pending) >= group_n):
                 group, pending = pending, []
-                yield self._stage(group), wait
+                yield self._stage_traced(group), wait
                 wait = 0.0
             if done:
                 return
+
+    def _stage_traced(self, group: List[DataBatch]) -> StagedItem:
+        """:meth:`_stage` in a sampled ``prefetch_stage`` span (the
+        producer's staging wall an item)."""
+        tracer = getattr(self.metrics, "tracer", None)
+        if tracer is not None and tracer.enabled:
+            n = self._span_staged
+            self._span_staged += 1
+            if tracer.sampled(n):
+                with tracer.span("prefetch_stage", batches=len(group),
+                                 mode="async" if self.async_ else "sync"):
+                    return self._stage(group)
+        return self._stage(group)
 
     # ------------------------------------------------------ thread plumbing
     def before_first(self) -> None:
@@ -264,7 +284,17 @@ class DevicePrefetcher:
                 raise
             return item
         assert self._queue is not None, "call before_first() first"
+        # the consumer's wall blocked on the producer, sampled
+        tracer = getattr(self.metrics, "tracer", None)
+        tok = None
+        if tracer is not None and tracer.enabled:
+            n = self._span_waited
+            self._span_waited += 1
+            if tracer.sampled(n):
+                tok = tracer.begin("prefetch_wait")
         v = self._queue.get()
+        if tok is not None:
+            tracer.end(tok)
         if v is None:
             self._done = True
             return None

@@ -18,6 +18,7 @@ segments gets them concatenated (:func:`materialize`).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +69,33 @@ def as_mat(x) -> torch.Tensor:
     """The (batch, c*h*w) view of a node (reference Node::mat())."""
     x = materialize(x)
     return x.reshape(x.shape[0], -1)
+
+
+#: characters a scope name does not keep (the JAX package's rule)
+_SCOPE_BAD = re.compile(r"[^A-Za-z0-9_.\-]")
+
+
+def conn_scope_name(index: int, conn) -> str:
+    """Canonical per-connection scope string: ``"<NN>-<name-or-type>"``.
+
+    This is the SHARED contract between the three sides of layer
+    attribution (doc/monitor.md "Layer attribution"): the net builder
+    stamps each connection's forward with ``jax.named_scope`` under this
+    string, the analytic cost model keys per-layer flops/bytes by it,
+    and ``monitor/attribution.py`` matches it against profiler-trace op
+    metadata.  The base comes from the connection's ``param_key``
+    (``Network._layer_key``'s name-or-type resolution), so a
+    ``layer_profile`` row and a monitor record like ``"16-fc6/wmat"``
+    name the same layer the same way — modulo scope sanitization, since
+    ``jax.named_scope`` rejects characters configs allow.  A SHARED
+    connection reuses its primary's base under its OWN index (it
+    executes separately even though parameters alias).  The zero-padded
+    connection index makes scopes pairwise non-substring (no two
+    connections share an index), so substring matching inside
+    transform-wrapped paths like ``transpose(jvp(03-conv))`` is
+    unambiguous."""
+    base = conn.param_key.split("-", 1)[1]
+    return f"{index:02d}-" + _SCOPE_BAD.sub("_", base)
 
 
 @dataclasses.dataclass

@@ -13,9 +13,15 @@ Ported tasks:
   optimizer state (unless ``save_opt = 0``), the counters, the rng and
   (``ckpt_iter_state = 1``) the train iterator's state.  ``continue =
   1`` resumes from the newest complete snapshot in ``model_dir`` with
-  finite parameters, where the run that wrote it stood.  One ``train``
-  metrics record per
-  ``print_step`` steps (loss, step ms, tokens/s), and after each round a
+  finite parameters, where the run that wrote it stood.  The metrics
+  sink gets the JAX package's records (doc/monitor.md): ``run`` at model
+  build, ``compile`` (the first dispatch), a ``step`` record per
+  ``print_step`` steps, a ``round`` record a round, ``monitor`` / ``nan``
+  (``monitor = 1``), ``trace`` / ``layer_profile`` per profile window
+  (``prof``), ``anomaly`` / ``flight`` (``sentinel = 1``), ``ckpt``,
+  ``rollback`` and, last, the ``ledger``.  ``rollback = N`` restores the
+  newest finite snapshot when the run diverges (``TrainingDiverged``),
+  reseeds the rng and goes on, N times at most.  After each round a
   ``[round]\ttrain-<metric>:v\t<eval>-<metric>:v`` line on stderr
   (the train metric under ``eval_train = 1``, then every ``eval = name``
   section).  ``synth_device_data = 1`` trains instead on ``multi_step``
@@ -49,9 +55,8 @@ Ported tasks:
   ``name_pred``.
 
 The other tasks (``check``), and the keys of the JAX package's train
-loop whose features are not ported (``UNPORTED_TASK_KEYS``), are refused
-by name.  ``rollback`` is among them: its trigger, a diverged run found
-by the monitor or the sentinel, is not ported either.
+loop whose features are not ported (``UNPORTED_TASK_KEYS``: the replica
+weight check of the multi-GPU plane), are refused by name.
 """
 
 from __future__ import annotations
@@ -70,20 +75,16 @@ import torch
 from . import ckpt as ckptlib
 from .io.device_prefetch import DevicePrefetcher, item_h2d_sec
 from .io.factory import create_iterator, init_iterator
-from .monitor import log as mlog
+from .monitor import TrainingDiverged, log as mlog
+from .monitor.trace import ProfileWindow
 from .nnet.trainer import NetTrainer, refuse_unported
 from .utils.config import parse_config_file, parse_keyval_args
 
 PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 
 #: train-loop keys of the JAX package that are not ported, with the one
-#: value the port takes: rollback, profiling windows, sentinels, the
-#: replica weight check
-UNPORTED_TASK_KEYS = {
-    "rollback": "0", "prof": "", "prof_start_step": "-1",
-    "prof_num_steps": "0", "prof_every": "0", "sentinel": "0",
-    "test_on_server": "0",
-}
+#: value the port takes: the replica weight check (the multi-GPU plane)
+UNPORTED_TASK_KEYS = {"test_on_server": "0"}
 
 
 class LearnTask:
@@ -142,6 +143,35 @@ class LearnTask:
         # the last train run's per-step losses, step ms and rates, and
         # each round's metric values
         self.last_train: Optional[dict] = None
+        # profile windows (doc/monitor.md): the trace directory, the
+        # dispatch the window opens before (-1: the round past the first
+        # dispatch), its dispatches (0: to the round's end), a recurring
+        # window every prof_every rounds
+        self.prof_dir = ""
+        self.prof_start_step = -1
+        self.prof_num_steps = 0
+        self.prof_every = 0
+        # the last train loop's window and its last trace report
+        self.prof_window: Optional[ProfileWindow] = None
+        self.last_trace_report: Optional[dict] = None
+        # regression sentinels and the flight ring (monitor/sentinel.py)
+        self.sentinel = 0
+        self.sentinel_rel = 0.2
+        self.sentinel_warmup = 3
+        self.sentinel_ring = 64
+        self._sentinel_bank = None
+        self._resume_sentinel_state = None
+        # the end-of-run goodput ledger; its wall starts in run(), and it
+        # folds the sink from where this session began
+        self.ledger = 1
+        self._run_t0: Optional[float] = None
+        self._sink_offset = 0
+        # rollback = N: restore the newest finite snapshot on
+        # TrainingDiverged, N times at most
+        self.rollback = 0
+        # the first dispatch's wall (kernel builds, library autotune,
+        # allocator warm-up)
+        self.compile_sec: Optional[float] = None
 
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
@@ -192,6 +222,26 @@ class LearnTask:
                 mlog.warn(f"output_format={val!r} not 'txt'/'bin'; "
                           "treating as binary")
             self.output_format = 1 if val == "txt" else 0
+        elif name == "prof":
+            self.prof_dir = val
+        elif name == "prof_start_step":
+            self.prof_start_step = int(val)
+        elif name == "prof_num_steps":
+            self.prof_num_steps = int(val)
+        elif name == "prof_every":
+            self.prof_every = int(val)
+        elif name == "sentinel":
+            self.sentinel = int(val)
+        elif name == "sentinel_rel":
+            self.sentinel_rel = float(val)
+        elif name == "sentinel_warmup":
+            self.sentinel_warmup = int(val)
+        elif name == "sentinel_ring":
+            self.sentinel_ring = int(val)
+        elif name == "ledger":
+            self.ledger = int(val)
+        elif name == "rollback":
+            self.rollback = int(val)
         elif name in UNPORTED_TASK_KEYS:
             refuse_unported(name, val, UNPORTED_TASK_KEYS[name])
         self.cfg.append((name, val))
@@ -212,7 +262,7 @@ class LearnTask:
         cands = [(c, p) for c, p in
                  ckptlib.list_snapshots(self.name_model_dir)
                  if c >= self.start_counter]
-        return self._restore_newest_valid(cands) is not None
+        return self._restore_newest_valid(cands, "continue") is not None
 
     @staticmethod
     def _reject_nonfinite(net: NetTrainer) -> Optional[str]:
@@ -222,19 +272,20 @@ class LearnTask:
                      for g in net.params.values() for p in g.values())
         return None if finite else "carries non-finite params; walking back"
 
-    def _restore_newest_valid(self, cands):
+    def _restore_newest_valid(self, cands, who: str):
         """Walk ``(counter, path)`` candidates newest first and restore the
         first loadable one into ``self.net``: partial or corrupt ``.ckpt``
         directories (what a kill mid-write leaves) are skipped with a
         warning, torn ``.model`` files when they fail to load, and
-        :meth:`_reject_nonfinite` refuses the rest.  Sets
-        ``start_counter`` past the restored round, holds its iterator
-        state for :meth:`_apply_iter_resume`, and returns ``(counter,
-        path)``, or None."""
+        :meth:`_reject_nonfinite` refuses the rest.  Shared by
+        ``continue = 1`` and rollback (``who`` names it in the warnings).
+        Sets ``start_counter`` past the restored round, holds its
+        iterator and sentinel state for the loop, and returns
+        ``(counter, path)``, or None."""
         for counter, path in reversed(cands):
             is_ckpt = path.endswith(".ckpt")
             if is_ckpt and ckptlib.validate_snapshot(path) is None:
-                mlog.warn(f"continue: skipping partial/corrupt snapshot "
+                mlog.warn(f"{who}: skipping partial/corrupt snapshot "
                           f"{path}")
                 continue
             net = self._create_net()
@@ -242,13 +293,13 @@ class LearnTask:
                 net.load_model(path, validated=is_ckpt)
             except Exception as e:  # noqa: BLE001 — a torn legacy file
                 net.metrics.close()
-                mlog.warn(f"continue: snapshot {path} failed to load ({e});"
+                mlog.warn(f"{who}: snapshot {path} failed to load ({e});"
                           " trying the previous one")
                 continue
             why = self._reject_nonfinite(net)
             if why:
                 net.metrics.close()
-                mlog.warn(f"continue: snapshot {path} {why}")
+                mlog.warn(f"{who}: snapshot {path} {why}")
                 continue
             old, self.net = self.net, net
             if old is not None:
@@ -260,9 +311,13 @@ class LearnTask:
 
     def _stash_resume_state(self, extra) -> None:
         """Hold a loaded snapshot's iterator state until the iterators
-        exist."""
-        if extra and self.ckpt_iter_state:
+        exist, and its sentinel state until the loop's sentinel bank
+        does."""
+        if not extra:
+            return
+        if self.ckpt_iter_state:
             self._resume_iter_state = extra.get("iter_state")
+        self._resume_sentinel_state = extra.get("sentinel_state")
 
     def _apply_iter_resume(self) -> None:
         st, self._resume_iter_state = self._resume_iter_state, None
@@ -413,7 +468,8 @@ class LearnTask:
     def _ckpt_extra_state(self, capture_iter: bool = True) -> dict:
         """Resume state beside the trainer's in a snapshot: the train
         iterator chain's state, taken at a round boundary (warned once
-        and left out when a stage cannot give it).  ``capture_iter =
+        and left out when a stage cannot give it), and the sentinels'
+        baselines and flight ring.  ``capture_iter =
         False`` for the round-0 save: an iterator resuming cold is its
         round-0 state."""
         extra = {}
@@ -426,6 +482,8 @@ class LearnTask:
                     self._warned_iter_capture = True
                     mlog.warn(f"iterator state capture failed ({e}); "
                               "snapshots resume the iterator cold")
+        if self._sentinel_bank is not None:
+            extra["sentinel_state"] = self._sentinel_bank.state()
         return extra
 
     def _ckpt_done(self, stats: dict) -> None:
@@ -477,10 +535,17 @@ class LearnTask:
             with self._ckpt_lock:
                 self._ckpt_blocked_sec[counter] = pull
             block = self._ckpt_writer.submit(
-                path, shards, meta, counter=counter, keep=self.ckpt_keep)
+                path, shards, meta, counter=counter, keep=self.ckpt_keep,
+                tracer=metrics.tracer)
             with self._ckpt_lock:
                 if counter in self._ckpt_blocked_sec:
                     self._ckpt_blocked_sec[counter] = pull + block
+            # what the train thread paid for this snapshot: the host pull
+            # and the queue's backpressure
+            tr = metrics.tracer
+            if tr.enabled:
+                tr.emit("ckpt_blocked", t0, time.perf_counter(),
+                        counter=counter)
             return
         path = os.path.join(self.name_model_dir, f"{counter:04d}.model")
         self.net.save_model(path, with_opt_state=bool(self.save_opt),
@@ -494,25 +559,40 @@ class LearnTask:
 
     def task_train(self) -> None:
         """``task = train``: rounds of updates over the train iterator
-        (or the synthetic device batches).  Each step ends in a device
-        synchronise, so its host time is the step's time on the card;
-        the first step of the run (allocator and library warm-up) is kept
-        out of the step percentiles.  The ``0000`` snapshot is taken
-        before the first round of a fresh model (not under ``continue =
-        1``); the async writer is drained and closed at the end, and a
+        (or the synthetic device batches) under the rollback guard.  Each
+        step ends in a device synchronise, so its host time is the step's
+        time on the card; the first dispatch of the session (kernel
+        builds, library autotune, allocator warm-up) is the ``compile``
+        record and stays out of the step percentiles and the rates.  The
+        ``0000`` snapshot is taken before the first round of a fresh
+        model (not under ``continue = 1``).  ``rollback = N``: on
+        :class:`~.monitor.TrainingDiverged` (``monitor_nan = fatal``) the
+        newest snapshot with finite parameters is restored, the rng
+        reseeded past the bad window (``NetTrainer.reseed_rng``) and the
+        loop entered again, N times at most before the exception goes
+        on.  The async writer is drained and closed at the end, and a
         failure it latched fails the run."""
         start = time.time()
         self._losses: List[float] = []
         self._step_ms: List[float] = []
         self._evals: List[dict] = []
         self._rounds: List[dict] = []
+        attempt = 0
         try:
             if self.name_model_in == "NULL" and not self.continue_training:
                 self._save_model(capture_iter=False)
-            if self.synth_device_data:
-                self._train_synth_device()
-            else:
-                self._train_rounds(start)
+            while True:
+                try:
+                    if self.synth_device_data:
+                        self._train_synth_device()
+                    else:
+                        self._train_rounds(start)
+                    break
+                except TrainingDiverged as e:
+                    if attempt >= self.rollback \
+                            or not self._rollback_restore(e, attempt + 1):
+                        raise
+                    attempt += 1
             if self._ckpt_writer is not None:
                 # closed here, outside the finally: a latched writer
                 # failure fails the run
@@ -526,7 +606,6 @@ class LearnTask:
                     w.close()
                 except Exception as e:  # noqa: BLE001
                     mlog.warn(f"checkpoint writer close failed: {e}")
-        self._emit_latency_record("step")
         tail = self._step_ms[1:] or self._step_ms
         p50 = float(np.median(tail)) if tail else 0.0
         seq = int(np.prod(self.net.net.node_shapes[0][1:]))
@@ -536,55 +615,137 @@ class LearnTask:
                             if p50 else 0.0),
             examples_per_sec=(self.net.batch_size / (p50 / 1e3)
                               if p50 else 0.0),
-            steps=len(self._losses), evals=self._evals, rounds=self._rounds)
+            steps=len(self._losses), evals=self._evals, rounds=self._rounds,
+            compile_sec=self.compile_sec)
         mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
+
+    def _rollback_restore(self, exc: BaseException, attempt: int) -> bool:
+        """Restore the newest loadable snapshot before the round that
+        diverged whose parameters are finite, reseed its rng and emit a
+        ``rollback`` record; False when there is none (the caller
+        re-raises)."""
+        died_round = self.start_counter
+        if self._ckpt_writer is not None:
+            # "newest" counts only once an in-flight write committed; a
+            # latched writer failure raises here
+            self._ckpt_writer.drain()
+        cands = [(c, p) for c, p in
+                 ckptlib.list_snapshots(self.name_model_dir)
+                 if c < died_round]
+        restored = self._restore_newest_valid(cands, "rollback")
+        if restored is None:
+            mlog.warn(f"rollback: no finite snapshot found in "
+                      f"{self.name_model_dir}; re-raising")
+            return False
+        counter, path = restored
+        self.net.reseed_rng(attempt)
+        self._apply_iter_resume()
+        self.net.metrics.counter_inc("rollbacks")
+        self.net.metrics.emit(
+            "rollback", retry=attempt, max_retry=self.rollback,
+            from_round=died_round, restored_round=counter, path=path,
+            reason=f"{type(exc).__name__}: {exc}")
+        mlog.result(
+            f"rollback {attempt}/{self.rollback}: {type(exc).__name__} in "
+            f"round {died_round}; restored {path}, reseeded rng, resuming "
+            f"from round {self.start_counter}")
+        return True
 
     def _timed_step(self, step) -> float:
         """Run ``step()`` (one update), wait for the device, and record
-        its loss and time; returns the time in seconds."""
+        its loss and time; returns the time in seconds.  The session's
+        first dispatch is the ``compile`` record instead of a step
+        sample."""
         t0 = time.perf_counter()
         step()
         self.net.sync()
         dt = time.perf_counter() - t0
         self._losses.append(float(self.net.last_loss))
         self._step_ms.append(dt * 1e3)
-        if len(self._step_ms) > 1:
+        if self.compile_sec is None:
+            self.compile_sec = dt
+            self.net.metrics.emit("compile", compile_sec=round(dt, 3),
+                                  round=self.start_counter - 1)
+            mlog.info(f"compile: {dt:.1f} sec (first dispatch, excluded "
+                      "from examples/sec)")
+        else:
             self.net.metrics.observe("step_latency_sec", dt)
         return dt
+
+    def _open_sentinels(self) -> None:
+        """``sentinel = 1`` with a sink: this loop's sentinel bank, its
+        baselines carried on from a resumed snapshot."""
+        metrics = self.net.metrics
+        self._sentinel_bank = None
+        if not self.sentinel:
+            return
+        if not metrics.active:
+            mlog.warn("sentinel=1 without metrics_sink: sentinels disarmed")
+            return
+        from .monitor.sentinel import SentinelBank
+        self._sentinel_bank = SentinelBank(
+            metrics, rel=self.sentinel_rel, warmup=self.sentinel_warmup,
+            ring=self.sentinel_ring)
+        if self._resume_sentinel_state:
+            self._sentinel_bank.set_state(self._resume_sentinel_state)
+            self._resume_sentinel_state = None
+        if not self.net.memory_gauges():
+            mlog.warn("sentinel: this device reports no allocator memory; "
+                      "the HBM watcher stays unarmed")
 
     def _train_rounds(self, start: float) -> None:
         """Rounds over the train iterator.  Batches come through a
         :class:`~.io.device_prefetch.DevicePrefetcher`, so the step's
         timer holds the update alone; under ``test_io = 1`` the host
-        iterator is read alone.  Every ``print_step`` steps a ``train``
-        record and after each round a ``round`` record carry the input
-        pipeline's fields: ``iter_wait_sec`` (the loop blocked on input:
-        the host iterator when staging inline, the staging queue when
-        prefetching), ``h2d_sec`` (the staging wall: off the loop when
-        prefetching), ``staging_depth`` (staged items ready at a get) and
-        ``examples_per_sec``."""
+        iterator is read alone.  Every ``print_step`` steps a ``step``
+        record and after each round a ``round`` record carry the host
+        wall split: ``iter_wait_sec`` (the loop blocked on input: the
+        host iterator when staging inline, the staging queue when
+        prefetching), ``dispatch_sec`` (the steps), ``h2d_sec`` (the
+        staging wall: off the loop when prefetching), ``staging_depth``
+        (staged items ready at a get) and ``examples_per_sec``.  A
+        profile window (``prof``) opens and closes around dispatches
+        here; the sentinels watch the records; a raise mid-round dumps
+        the flight ring first."""
         net = self.net
+        metrics = net.metrics
         if self.itr_train is None:
             raise RuntimeError("task = train but the config has no "
                                "'data = train' iterator section")
-        seq = int(np.prod(net.net.node_shapes[0][1:]))
         if self.test_io:
             mlog.notice("start I/O test")
+        if self.prof_every > 0 and self.prof_start_step >= 0:
+            mlog.warn("prof_every ignored: prof_start_step pins a one-shot "
+                      "step-addressed window")
+            self.prof_every = 0
+        prof = ProfileWindow(self.prof_dir, self.prof_start_step,
+                             self.prof_num_steps, every=self.prof_every,
+                             net=net.net, device=net.device)
+        self.prof_window = prof
+        self._open_sentinels()
+        bank = self._sentinel_bank
+        will_run = min(self.num_round - self.start_counter + 1,
+                       self.max_round)
+        prof_round = 1 if will_run > 1 else 0
+        dispatches = rounds_done = 0
         src = None if self.test_io else DevicePrefetcher(
             self.itr_train, net, depth=self.prefetch_device,
-            metrics=net.metrics)
+            metrics=metrics)
         cc = self.max_round
         try:
             while self.start_counter <= self.num_round and cc > 0:
                 cc -= 1
                 mlog.info(f"update round {self.start_counter - 1}")
+                prof.maybe_start_round(rounds_done, prof_round)
                 net.start_round(self.start_counter)
                 round_t0 = time.perf_counter()
                 (src or self.itr_train).before_first()
                 sample_counter = n_round = 0
                 # the window since the last record, and the round's totals
-                win = dict(n=0, t=round_t0, wait=0.0, h2d=0.0, depth=0, gets=0)
-                wait_total = h2d_total = 0.0
+                win = dict(n=0, t=round_t0, wait=0.0, h2d=0.0, disp=0.0,
+                           depth=0, gets=0, ticks=net.monitor_ticks,
+                           prof=False)
+                wait_total = h2d_total = disp_total = 0.0
                 while True:
                     t0 = time.perf_counter()
                     if src is None:
@@ -609,16 +770,39 @@ class LearnTask:
                     if not batches:
                         break
                     for b in batches:
+                        first = False
                         if src is not None:
+                            prof.maybe_start_step(dispatches)
+                            dispatches += 1
+                            first = self.compile_sec is None
                             dt = self._timed_step(lambda: net.update(b))
+                            if first:
+                                # the rates start after the compile
+                                win.update(n=0, t=time.perf_counter(),
+                                           ticks=net.monitor_ticks)
+                            else:
+                                win["disp"] += dt
+                                disp_total += dt
+                            # a profiled dispatch: the window's open,
+                            # tracing and close slow this window
+                            win["prof"] = win["prof"] or prof.active
+                            if prof.after_step():
+                                mlog.info("profile trace written to "
+                                          f"{prof.last_window_dir}")
+                                self._emit_trace_report(prof)
                         sample_counter += 1
                         n_real = b.batch_size - b.num_batch_padd
                         n_round += n_real
-                        win["n"] += n_real
+                        if not first:
+                            win["n"] += n_real
                         if sample_counter % self.print_step == 0:
                             self._window_record(win, sample_counter, start,
-                                                None if src is None else dt,
-                                                b.batch_size * seq)
+                                                src is not None, bank)
+                if prof.round_end():
+                    mlog.info(f"profile trace written to "
+                              f"{prof.last_window_dir}")
+                    self._emit_trace_report(prof)
+                rounds_done += 1
                 train_wall = time.perf_counter() - round_t0
                 evals = {}
                 if not self.test_io:
@@ -640,49 +824,151 @@ class LearnTask:
                            examples_per_sec=round(
                                n_round / max(train_wall, 1e-9), 1),
                            iter_wait_sec=round(wait_total, 4),
-                           h2d_sec=round(h2d_total, 4), **evals)
+                           dispatch_sec=round(disp_total, 4),
+                           h2d_sec=round(h2d_total, 4),
+                           train_step_traces=metrics.counters.get(
+                               "train_step_traces", 0),
+                           eval_step_traces=metrics.counters.get(
+                               "eval_step_traces", 0),
+                           **evals)
+                if rounds_done == 1 and self.compile_sec is not None:
+                    rec["compile_sec"] = round(self.compile_sec, 3)
+                rec.update(net.memory_gauges())
                 self._rounds.append(rec)
-                net.metrics.emit("round", **rec)
+                metrics.emit("round", **rec)
+                if bank is not None:
+                    bank.observe_round(rec)
                 if self.test_io:
                     mlog.info(f"round {self.start_counter - 1:8d}: I/O test "
                               f"{n_round} examples in {train_wall:.2f} sec, "
                               f"{rec['examples_per_sec']:.1f} examples/sec")
                 self._save_model()
+        except BaseException as e:
+            # the steps leading into the failure land before it goes on
+            if bank is not None:
+                bank.flight_dump(f"{type(e).__name__}: {e}")
+            raise
         finally:
             # no staging thread outlives the loop, a raise mid-round
             # included
             if src is not None:
                 src.close()
             self._close_prefetchers()
+            if prof.active:
+                # a window the run never closed (past the last dispatch,
+                # or a raise inside it): its reports still land; a flush
+                # failure must not mask the exception on its way out
+                try:
+                    prof.stop()
+                    mlog.info(f"profile trace written to "
+                              f"{prof.last_window_dir} (window truncated "
+                              "at training end)")
+                    self._emit_trace_report(prof)
+                except Exception as pe:  # noqa: BLE001
+                    mlog.warn(f"profile window flush failed: {pe}")
 
     def _window_record(self, win: dict, step: int, start: float,
-                       dt: Optional[float], tokens: int) -> None:
-        """The ``print_step`` line and (unless ``test_io = 1``, ``dt``
-        None) the ``train`` record of the window in ``win``, which then
-        restarts."""
+                       staged: bool, bank) -> None:
+        """The ``print_step`` line and (unless ``test_io = 1``) the
+        ``step`` record of the window in ``win``, which then restarts."""
         net = self.net
         now = time.perf_counter()
         rate = win["n"] / max(now - win["t"], 1e-9)
         head = (f"round {self.start_counter - 1:8d}:[{step:8d}] "
                 f"{int(time.time() - start)} sec elapsed")
-        if dt is None:
+        if not staged:
             mlog.info(f"{head}, {rate:.1f} examples/sec")
         else:
             loss = self._losses[-1]
-            net.metrics.emit(
-                "train", round=self.start_counter - 1, step=step,
-                global_step=net.sample_counter, loss=loss,
-                step_ms=round(dt * 1e3, 3),
-                tokens_per_sec=round(tokens / dt, 1),
-                examples_per_sec=round(rate, 1),
-                iter_wait_sec=round(win["wait"], 4),
-                h2d_sec=round(win["h2d"], 4),
-                staging_depth=round(win["depth"] / win["gets"], 2)
-                if win["gets"] else 0.0,
-                device=str(net.device))
-            mlog.info(f"{head}, loss {loss:.4f}, {dt * 1e3:.1f} ms/step, "
+            rec = dict(round=self.start_counter - 1, step=step,
+                       global_step=net.sample_counter,
+                       elapsed_sec=round(time.time() - start, 3),
+                       examples_per_sec=round(rate, 1),
+                       iter_wait_sec=round(win["wait"], 4),
+                       dispatch_sec=round(win["disp"], 4),
+                       h2d_sec=round(win["h2d"], 4),
+                       staging_depth=round(win["depth"] / win["gets"], 2)
+                       if win["gets"] else 0.0,
+                       loss=loss)
+            net.metrics.emit("step", **rec)
+            if bank is not None:
+                bank.observe_step(rec, judge=self._plain_window(win))
+            mlog.info(f"{head}, loss {loss:.4f}, "
+                      f"{self._step_ms[-1]:.1f} ms/step, "
                       f"{rate:.1f} examples/sec")
-        win.update(n=0, t=now, wait=0.0, h2d=0.0, depth=0, gets=0)
+        win.update(n=0, t=now, wait=0.0, h2d=0.0, disp=0.0, depth=0, gets=0,
+                   ticks=self.net.monitor_ticks, prof=False)
+
+    def _plain_window(self, win: dict) -> bool:
+        """Whether the throughput sentinel judges the window in ``win``:
+        not when the plane's own work slowed it, a profiled dispatch (the
+        profiler's start, tracing, trace export and reports) or more
+        monitor ticks than every window holds (``print_step //
+        monitor_interval``), which would read as a regression on a
+        healthy run."""
+        net = self.net
+        least = (self.print_step // net.monitor_interval
+                 if net.monitor and net.monitor_interval > 0 else 0)
+        return not win["prof"] and \
+            net.monitor_ticks - win["ticks"] <= least
+
+    def _emit_trace_report(self, prof: ProfileWindow) -> None:
+        """The reports of one closed profile window, read from its trace
+        once: the ``comm_sec`` / ``overlap_frac`` gauges, a ``trace``
+        record and a ``layer_profile`` record.  A trace holding fewer
+        events of any hand-written kernel than its wrappers launched in
+        the window lost device events: warned, and its ``device_sec``
+        (and ``comm_share``) left out rather than reported low.  A
+        failure here never stops training."""
+        from .monitor import trace
+        metrics = self.net.metrics
+        steps = max(prof.last_window_steps, 1)
+        launches = sum(prof.last_launches.values())
+        try:
+            events = trace.window_events(trace.load_trace(prof.last_trace))
+            rep = trace.comm_report_in(events, steps=steps)
+            short = trace.kernel_shortfall(events, prof.last_launches)
+        except Exception as e:  # noqa: BLE001 — telemetry only
+            mlog.warn(f"trace summary of {prof.last_window_dir} failed: {e}")
+            return
+        lost = sum(n - got for n, got in short.values())
+        if lost:
+            mlog.warn(f"profile window {prof.last_window_dir}: the trace "
+                      f"lost {lost} events of hand-written kernels ("
+                      + ", ".join(f"{k}: {got} of {n}"
+                                  for k, (n, got) in sorted(short.items()))
+                      + "); device_sec left out")
+            rep.pop("device_sec")
+            rep.pop("comm_share")
+        self.last_trace_report = dict(rep, lost_events=lost, short=short,
+                                      launches=launches)
+        metrics.set_gauge("comm_sec", rep["comm_sec"])
+        metrics.set_gauge("overlap_frac", rep["overlap_frac"])
+        if metrics.active:
+            metrics.emit("trace", round=self.start_counter - 1, **rep)
+            if self._sentinel_bank is not None:
+                self._sentinel_bank.observe_trace(
+                    dict(rep, round=self.start_counter - 1))
+            self._emit_layer_profile(events, steps)
+
+    def _emit_layer_profile(self, events, steps: int) -> None:
+        """One ``layer_profile`` record: the window's device time per
+        connection (monitor/attribution.py)."""
+        from .monitor import attribution
+        try:
+            table = attribution.layer_table(events, self.net.layer_scopes(),
+                                            steps=steps)
+        except Exception as e:  # noqa: BLE001 — telemetry only
+            mlog.warn(f"layer attribution failed: {e}")
+            return
+        self.net.metrics.emit("layer_profile", round=self.start_counter - 1,
+                              **table)
+        if not mlog.is_silent() and table["rows"]:
+            top = ", ".join(f"{r['layer']} {r['device_ms']:.3g} ms"
+                            for r in table["rows"][:3])
+            mlog.info(f"layer_profile: {table['attributed_ms']:.3g} of "
+                      f"{table['device_total_ms']:.3g} ms/step attributed "
+                      f"({table['coverage'] * 100:.0f}%); top: {top}")
 
     def _train_synth_device(self) -> None:
         """``synth_device_data = 1``: every round takes ``multi_step``
@@ -691,7 +977,8 @@ class LearnTask:
         uniform class labels from ``numpy.random.RandomState(0)``, drawn
         in the JAX package's order, so both packages see the same
         batches (under ``input_s2d = 1`` staged once in space-to-depth
-        form, as the JAX package stages them)."""
+        form, as the JAX package stages them).  A ``step`` record a
+        round."""
         net = self.net
         k = max(self.multi_step, 1)
         shape = net.net.node_shapes[0]
@@ -715,8 +1002,34 @@ class LearnTask:
                 "step", round=self.start_counter - 1, step=k,
                 global_step=net.sample_counter, synth_device=1,
                 examples_per_sec=round(shape[0] * k / t, 1),
-                loss=self._losses[-1], device=str(net.device))
+                dispatch_sec=round(t, 4), iter_wait_sec=0.0,
+                loss=self._losses[-1])
             self._save_model()
+
+    def _emit_ledger(self) -> None:
+        """The end-of-run goodput ledger (monitor/ledger.py): this
+        session's records, re-read from the sink (flushed per record, a
+        diverged run's flight dump included), folded into one ``ledger``
+        record, the stream's last.  Called from :meth:`run`'s finally
+        before the sink closes; ``train`` / ``finetune`` only."""
+        if not self.ledger or self.task not in ("train", "finetune"):
+            return
+        net = self.net
+        if net is None or not net.metrics.active or self._run_t0 is None:
+            return
+        try:
+            from .monitor import ledger as ledgerlib
+            recs = ledgerlib.load_records(net.metrics.sink_path,
+                                          who="ledger",
+                                          offset=self._sink_offset)
+            led = ledgerlib.build_ledger(
+                recs, wall_sec=time.perf_counter() - self._run_t0)
+            if led is None:
+                return
+            net.metrics.emit("ledger", **led)
+            mlog.info("ledger: " + ledgerlib.format_ledger(led))
+        except Exception as e:  # noqa: BLE001 — telemetry only
+            mlog.warn(f"ledger emit failed: {e}")
 
     # ---------------------------------------------------------------- tasks
     def _emit_latency_record(self, op: str) -> None:
@@ -1098,10 +1411,20 @@ class LearnTask:
             mlog.notice("Usage: python -m cxxnet_tpu_torch <config> "
                         "[key=value ...]")
             return 0
+        # the ledger's wall starts here: init, iterators and the first
+        # dispatch are part of the run it accounts for
+        self._run_t0 = time.perf_counter()
         for k, v in parse_config_file(argv[0]):
             self.set_param(k, v)
         for k, v in parse_keyval_args(argv[1:]):
             self.set_param(k, v)
+        # the sink appends: the ledger folds from where this session began
+        spec = dict(self.cfg).get("metrics_sink", "")
+        if spec.startswith("jsonl:"):
+            try:
+                self._sink_offset = os.path.getsize(spec[len("jsonl:"):])
+            except OSError:
+                self._sink_offset = 0
         if self.task not in PORTED_TASKS:
             raise NotImplementedError(
                 f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
@@ -1131,6 +1454,9 @@ class LearnTask:
                         it.close()
                     except Exception as e:  # noqa: BLE001
                         mlog.warn(f"iterator close failed: {e}")
+            # the ledger is the stream's last record, after the task's own
+            # (a flight dump included)
+            self._emit_ledger()
             if self.net is not None:
                 self.net.metrics.close()
         return 0

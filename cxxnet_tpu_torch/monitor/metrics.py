@@ -1,11 +1,12 @@
-"""Counters, gauges, latency histograms and a JSONL record sink.
+"""Counters, gauges, latency histograms, a JSONL record sink and the
+host span tracer (the JAX package's ``MetricsRegistry``).
 
-The slice of the JAX package's ``MetricsRegistry`` that serving and
-training need:
-``counter_inc`` / ``set_gauge`` / ``observe`` / ``emit``.  Records keep
-the JAX package's schema (``ts`` + ``kind`` + fields, one JSON object
-per line) so the same readers take both.  Span tracing and the admin
-plane come with the observability slice.
+``counter_inc`` / ``set_gauge`` / ``observe`` / ``emit``, and
+``tracer`` (:class:`~.spans.SpanTracer`, armed by ``trace_sample``).
+Records keep the JAX package's schema (``ts`` + ``kind`` + fields, one
+JSON object per line) so the same readers take both.
+:func:`device_memory_gauges` reads the caching allocator's high-water
+and live bytes.  The admin plane is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ class Metrics:
         self.sink_path: Optional[str] = None
         self._fo = None
         self._lock = threading.Lock()
+        from .spans import SpanTracer
+        self.tracer = SpanTracer(self)
 
     def configure_sink(self, spec: str) -> None:
         self.close()
@@ -71,6 +74,10 @@ class Metrics:
         self.sink_path = spec[len("jsonl:"):]
         # append-only record stream, flushed per record
         self._fo = open(self.sink_path, "a")  # disclint: ok(atomic-write)
+
+    def configure_tracer(self, sample: int) -> None:
+        """``trace_sample = N``: span-trace every Nth request (0 off)."""
+        self.tracer.configure(sample)
 
     @property
     def active(self) -> bool:
@@ -103,3 +110,15 @@ class Metrics:
             fo, self._fo = self._fo, None
         if fo is not None:
             fo.close()
+
+
+def device_memory_gauges(device) -> Dict[str, int]:
+    """``hbm_peak_bytes`` / ``hbm_bytes_in_use`` of a CUDA ``device`` from
+    the caching allocator (``max_memory_allocated`` / ``memory_allocated``);
+    empty on the CPU, where the fields are left out rather than written
+    as zeros."""
+    if device is None or getattr(device, "type", "cpu") != "cuda":
+        return {}
+    import torch
+    return {"hbm_peak_bytes": int(torch.cuda.max_memory_allocated(device)),
+            "hbm_bytes_in_use": int(torch.cuda.memory_allocated(device))}

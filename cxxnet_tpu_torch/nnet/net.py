@@ -17,6 +17,13 @@ up change how connections execute, not what they compute:
 geometry run as one conv, :meth:`Network._forward_fused`) and
 ``concat_virtual = 1`` (a ch_concat's value stays a
 :class:`~..layers.base.ChSegs`, :meth:`Network._virtual_forward`).
+
+While a profile window is open (``profile_scopes``, set by the
+trainer's :class:`~..monitor.trace.ProfileWindow`), :meth:`Network.run`
+enters a ``torch.profiler.record_function`` range named
+:func:`~..layers.base.conn_scope_name` around each connection's forward,
+the ranges layer attribution joins kernels against; outside a window it
+enters none.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from ..layers.base import ChSegs, ForwardContext, Layer, Shape4, materialize
+from ..layers.base import ChSegs, ForwardContext, Layer, Shape4, \
+    conn_scope_name, materialize
 from ..layers.registry import create_layer
 from ..layers.shape_ops import SplitLayer
-from .netconfig import NetConfig
+from .netconfig import NetConfig, global_pairs
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -64,6 +73,11 @@ class Network:
         # head runs
         self.fuse_groups: Dict[int, List[int]] = {}
         self.fuse_skip = frozenset()
+        # a record_function range per connection while a profile window
+        # is open
+        self.profile_scopes = False
+        self.scope_names = [conn_scope_name(i, c)
+                            for i, c in enumerate(self.connections)]
 
     def _layer_key(self, index: int, info) -> str:
         base = info.name if info.name else info.type_name
@@ -84,7 +98,7 @@ class Network:
             if isinstance(layer, SplitLayer):
                 layer.num_out = len(info.nindex_out)
             # global keys first, then the layer's own section
-            for k, v in cfg.defcfg:
+            for k, v in global_pairs(cfg.defcfg):
                 layer.set_param(k, v)
             for k, v in cfg.layercfg[i]:
                 layer.set_param(k, v)
@@ -161,26 +175,37 @@ class Network:
             want = torch.float32 if nid in self.id_inputs else self.dtype
             nodes[nid] = v.to(want)
         new_buffers = dict(buffers)
-        virtual = ctx.opts.concat_virtual == "1"
+        scoped = self.profile_scopes
         for i, conn in enumerate(self.connections):
             if until is not None and i >= until:
                 break
             if i in self.fuse_skip:
                 continue
-            if i in self.fuse_groups:
-                self._forward_fused(self.fuse_groups[i], params, nodes, ctx)
-                continue
-            if virtual and self._virtual_forward(conn, params, nodes, ctx):
-                continue
-            ins = [materialize(nodes[n]) for n in conn.nindex_in]
-            outs, nb = conn.layer.forward_buffers(
-                conn_params(params, conn),
-                new_buffers.get(conn.param_key, {}), ins, ctx)
-            if nb:
-                new_buffers[conn.param_key] = nb
-            for n, v in zip(conn.nindex_out, outs):
-                nodes[n] = v
+            if scoped:
+                with record_function(self.scope_names[i]):
+                    self._run_conn(i, conn, params, new_buffers, nodes, ctx)
+            else:
+                self._run_conn(i, conn, params, new_buffers, nodes, ctx)
         return nodes, new_buffers
+
+    def _run_conn(self, i: int, conn: Connection, params: Params,
+                  new_buffers: Params, nodes, ctx: ForwardContext) -> None:
+        """Connection ``i``'s forward into ``nodes`` (a fused group's
+        head runs the group)."""
+        if i in self.fuse_groups:
+            self._forward_fused(self.fuse_groups[i], params, nodes, ctx)
+            return
+        if ctx.opts.concat_virtual == "1" \
+                and self._virtual_forward(conn, params, nodes, ctx):
+            return
+        ins = [materialize(nodes[n]) for n in conn.nindex_in]
+        outs, nb = conn.layer.forward_buffers(
+            conn_params(params, conn),
+            new_buffers.get(conn.param_key, {}), ins, ctx)
+        if nb:
+            new_buffers[conn.param_key] = nb
+        for n, v in zip(conn.nindex_out, outs):
+            nodes[n] = v
 
     def _virtual_forward(self, conn: Connection, params: Params, nodes,
                          ctx: ForwardContext) -> bool:

@@ -25,6 +25,24 @@ from typing import Dict, List, Optional, Tuple
 from ..utils.config import ConfigError, ConfigPairs
 
 
+def global_pairs(defcfg: ConfigPairs) -> ConfigPairs:
+    """The pairs of ``defcfg`` that every layer (and updater group)
+    takes: those outside ``netconfig = start ... end`` blocks.  A loaded
+    snapshot's net appends the session's config to its ``defcfg`` as the
+    JAX package does (and saves it so), netconfig blocks included; a key
+    of a layer's own section there must not reach every layer, or a
+    conv's ``pad`` would reach the max pool after it and change its
+    output shape (MNIST_CONV.conf's pool: 8 x 8 for 7 x 7)."""
+    out, inside = [], False
+    for k, v in defcfg:
+        if k == "netconfig":
+            inside = v == "start"
+            continue
+        if not inside:
+            out.append((k, v))
+    return out
+
+
 @dataclasses.dataclass
 class LayerInfo:
     type_name: str

@@ -40,7 +40,19 @@ Snapshots: :meth:`NetTrainer.save_model` writes the legacy ``.model``
 and :meth:`NetTrainer.checkpoint_payload` the shards and manifest of an
 atomic ``NNNN.ckpt`` directory (:mod:`..ckpt`); :meth:`NetTrainer.load_model`
 reads either.  Both carry :meth:`NetTrainer.train_state` (counters and
-the rng), so a resumed run continues the trajectory it was cut from.
+the rng), so a resumed run continues the trajectory it was cut from;
+:meth:`NetTrainer.reseed_rng` moves the rng past a diverged window for a
+rollback.
+
+Telemetry (doc/monitor.md): a ``run`` record at model build; ``monitor
+= 1`` takes per-leaf weight / grad / update norms and checks the loss
+every ``monitor_interval`` steps (:meth:`NetTrainer._monitor_tick`;
+nothing of it runs on other steps or at ``monitor = 0``);
+``trace_sample`` arms the metrics' span tracer; the
+``train_step_traces`` / ``eval_step_traces`` counters count the batch
+shapes each step saw; :meth:`NetTrainer.memory_gauges` reads the
+caching allocator and :meth:`NetTrainer.layer_scopes` names the
+connection ranges a profile window joins kernels against.
 """
 
 from __future__ import annotations
@@ -56,22 +68,22 @@ from torch.profiler import record_function
 
 from .. import ckpt, engine
 from ..layers.base import ForwardContext, LabelInfo, materialize
-from ..monitor import log as mlog
-from ..monitor.metrics import Metrics
+from ..monitor import TrainingDiverged, ingraph, log as mlog
+from ..monitor.metrics import Metrics, device_memory_gauges
 from ..updater.updaters import UpdaterHyper, create_updater
 from ..utils import serializer
 from ..utils.metric import MetricSet
 from .net import Network, Params
-from .netconfig import NetConfig
+from .netconfig import NetConfig, global_pairs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 #: trainer keys of the JAX package whose features are not ported: any
-#: value but the default is refused by name (ROADMAP.md: the monitor with
-#: the observability plane, the others with the multi-GPU plane)
-UNPORTED_KEYS = {"monitor": "0", "shard_opt_state": "0",
-                 "update_on_server": "0", "fullc_gather": "0"}
+#: value but the default is refused by name (ROADMAP.md: the multi-GPU
+#: plane)
+UNPORTED_KEYS = {"shard_opt_state": "0", "update_on_server": "0",
+                 "fullc_gather": "0"}
 
 
 def refuse_unported(name: str, val: str, default: str) -> None:
@@ -234,6 +246,21 @@ class NetTrainer:
         self.input_scale = 1.0
         self.input_mean: Optional[np.ndarray] = None
         self._mean_dev: Dict[Tuple[str, int], torch.Tensor] = {}
+        # monitor = 1: per-leaf weight / grad / update norms and the
+        # NaN / inf loss guard every monitor_interval steps; monitor_nan
+        # is the guard's action (warn, fatal or off)
+        self.monitor = 0
+        self.monitor_interval = 100
+        self.monitor_nan = "warn"
+        self._last_monitor: Optional[Dict[str, torch.Tensor]] = None
+        # monitored steps taken (the train loop keeps the windows holding
+        # an extra tick out of the throughput sentinel)
+        self.monitor_ticks = 0
+        # distinct batch shapes the train step and the eval forward saw
+        # (the JAX package's retrace counters: a new shape retraces its
+        # jitted step)
+        self._train_shapes: set = set()
+        self._eval_shapes: set = set()
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -274,6 +301,17 @@ class NetTrainer:
             self._mean_dev = {}
         elif name in UNPORTED_KEYS:
             refuse_unported(name, val, UNPORTED_KEYS[name])
+        elif name == "monitor":
+            self.monitor = int(val)
+        elif name == "monitor_interval":
+            self.monitor_interval = int(val)
+        elif name == "monitor_nan":
+            if val not in ("warn", "fatal", "off"):
+                raise ValueError(f"monitor_nan = {val}: expected warn, fatal "
+                                 "or off")
+            self.monitor_nan = val
+        elif name == "trace_sample":
+            self.metrics.configure_tracer(int(val))
         elif name == "metric" or name.startswith("metric["):
             # metric[label,node] = m | metric[label] = m | metric = m
             m = re.match(r"^metric\[([^,\]]+)(?:,([^\]]+))?\]$", name)
@@ -324,7 +362,7 @@ class NetTrainer:
             self.hypers[pkey] = {}
             for tag in group:
                 h = UpdaterHyper(tag=tag)
-                for k, v in self.netcfg.defcfg:
+                for k, v in global_pairs(self.netcfg.defcfg):
                     h.set_param(k, v)
                 if li is not None:
                     for k, v in self.netcfg.layercfg[li]:
@@ -353,6 +391,14 @@ class NetTrainer:
         self._setup_input_s2d()
         self._reorder_relu_pool()
         self._fuse_sibling_convs()
+        # run header: the record binding the stream to the config it
+        # measures
+        self.metrics.emit(
+            "run", updater=self.netcfg.updater_type,
+            batch_size=self.batch_size, dtype=str(self.dtype).split(".")[-1],
+            mesh={"data": 1}, monitor=self.monitor,
+            monitor_interval=self.monitor_interval,
+            monitor_nan=self.monitor_nan, engine_opts=self.opts.snapshot())
 
     def _reorder_relu_pool(self) -> None:
         """Peephole (``pool_relu_reorder = 1``, the JAX package's
@@ -661,11 +707,15 @@ class NetTrainer:
 
     # ---------------------------------------------------------- checkpoints
     def train_state(self) -> Dict[str, Any]:
-        """The non-array state exact resume needs: the counters, the JAX
-        package's keys for its rng (``rng_key``, as ``PRNGKey(seed)``
-        makes it, which is its live key in any run that never rolled
-        back) and the port's own rng, the ``torch.Generator`` state
-        (``torch_rng_state``, hex bytes), which the JAX package ignores."""
+        """The non-array state exact resume needs: the counters, the
+        port's rng, the ``torch.Generator`` state (``torch_rng_state``,
+        hex bytes, which the JAX package ignores), and the JAX package's
+        keys for its rng, ``rng_key`` as ``PRNGKey(seed)`` makes it.
+        That key is the JAX package's live key in any run that never
+        rolled back; after a rollback (:meth:`reseed_rng`) the port's
+        stream is the generator's state, reseeded, and no JAX key draws
+        that stream, so ``rng_key`` stays the seed's and the generator
+        state alone carries the resume."""
         return {"sample_counter": int(self.sample_counter),
                 "epoch_counter": int(self.epoch_counter),
                 "round": int(self.round), "seed": int(self.seed),
@@ -691,6 +741,19 @@ class NetTrainer:
             mlog.warn("snapshot rng state is of another device's "
                       "generator; re-seeding the rng from seed")
         self.rng.manual_seed(self.seed)
+
+    def reseed_rng(self, salt: int) -> None:
+        """Fold ``salt`` into the generator: the rollback path's "reseed
+        past the bad window".  The new seed is a hash of the generator's
+        current state and the salt (deterministic), so the retried rounds
+        draw other dropout / augment masks, and a later snapshot carries
+        the reseeded state in :meth:`train_state`, so its own resume is
+        exact."""
+        import hashlib
+        digest = hashlib.sha256(self.rng.get_state().numpy().tobytes()
+                                + int(7919 + salt).to_bytes(8, "little"))
+        self.rng.manual_seed(int.from_bytes(digest.digest()[:8], "little")
+                             & ((1 << 63) - 1))
 
     def checkpoint_payload(self, *, with_opt: bool = True,
                            extra_state: Optional[Dict] = None
@@ -974,6 +1037,7 @@ class NetTrainer:
         self._ensure_opt_state()
         inputs = {**inputs,
                   0: self.stage_input(self._normalize_input(inputs[0]))}
+        self._count_shape(self._train_shapes, "train_step_traces", inputs)
         self.sample_counter += 1
         do_update = self.sample_counter % self.update_period == 0
         epoch = self.epoch_counter
@@ -989,11 +1053,70 @@ class NetTrainer:
                 for k, g in grads.items():
                     for t, v in g.items():
                         self._grad_acc[k][t].add_(v)
-            if not do_update:
-                return outs
-            grads, self._grad_acc = self._grad_acc, None
-        self.apply_update(grads, epoch)
+            grads = self._grad_acc
+            if do_update:
+                self._grad_acc = None
+        # monitor = 1, a tick step: the weights before the update (which
+        # writes them in place) for the update norm
+        tick = (self.monitor and self.monitor_interval > 0
+                and self.sample_counter % self.monitor_interval == 0)
+        before = ingraph.snapshot(self.params) if tick else None
+        if do_update:
+            self.apply_update(grads, epoch)
+        if tick:
+            self._last_monitor = ingraph.group_stats(before, grads,
+                                                     self.params)
+            self._monitor_tick(loss, self._last_monitor)
         return outs
+
+    def _count_shape(self, seen: set, counter: str, inputs) -> None:
+        """Count a batch shape the step has not seen (what retraces the
+        JAX package's jitted step) into ``counter``."""
+        key = tuple(tuple(v.shape) for v in inputs.values())
+        if key not in seen:
+            seen.add(key)
+            self.metrics.counter_inc(counter)
+
+    def _monitor_tick(self, loss: torch.Tensor, mon) -> None:
+        """One monitored step on the host: a ``monitor`` record per
+        parameter leaf (first: on a fatal NaN they are the diagnostics
+        worth having), the reference-style monitor line, then the NaN /
+        inf loss guard (``monitor_nan``: a ``nan`` record, and a warning
+        or :class:`~..monitor.TrainingDiverged`).  The step's one
+        deliberate host sync."""
+        self.monitor_ticks += 1
+        lval = float(loss)
+        stats = ingraph.unpack_stats(ingraph.to_host(mon))
+        for name, st in stats.items():
+            self.metrics.emit("monitor", step=self.sample_counter,
+                              round=self.round, layer=name, **st)
+        if not mlog.is_silent():
+            parts = " ".join(
+                f"{name}[|w|={st['w_norm']:.4g},|dw|={st['g_norm']:.4g},"
+                f"u/w={st['u_ratio']:.3g}]" for name, st in stats.items())
+            mlog.info(f"monitor[{self.sample_counter}] loss={lval:.6g} "
+                      f"{parts}")
+        if not np.isfinite(lval) and self.monitor_nan != "off":
+            msg = (f"monitor: non-finite loss {lval} at step "
+                   f"{self.sample_counter} (round {self.round}); "
+                   f"monitor_nan={self.monitor_nan}")
+            self.metrics.counter_inc("nonfinite_loss_steps")
+            self.metrics.emit("nan", step=self.sample_counter,
+                              round=self.round, loss=lval,
+                              action=self.monitor_nan)
+            if self.monitor_nan == "fatal":
+                raise TrainingDiverged(msg)
+            mlog.warn(msg)
+
+    def memory_gauges(self) -> Dict[str, int]:
+        """``hbm_peak_bytes`` / ``hbm_bytes_in_use`` of the trainer's
+        device from the caching allocator (empty on the CPU)."""
+        return device_memory_gauges(self.device)
+
+    def layer_scopes(self) -> List[str]:
+        """Each connection's :func:`~..layers.base.conn_scope_name`, the
+        range names layer attribution joins kernels against."""
+        return list(self.net.scope_names)
 
     def label_info(self, label: torch.Tensor) -> LabelInfo:
         """The label fields of a (batch, label width) device tensor."""
@@ -1027,6 +1150,7 @@ class NetTrainer:
         them; float32 numpy values of the requested nodes."""
         inputs = dict(enumerate([data, *extra_data]))
         inputs[0] = self.stage_input(self._normalize_input(inputs[0]))
+        self._count_shape(self._eval_shapes, "eval_step_traces", inputs)
         with torch.inference_mode():
             nodes = self.net.forward(self.params, inputs, self.context(),
                                      buffers=self.buffers)

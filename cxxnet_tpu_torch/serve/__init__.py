@@ -59,8 +59,10 @@ def shapes_check(val: str) -> Optional[str]:
     return None
 
 
-#: keys of the observability plane: (config key, field, default).  Any
-#: other value is refused by name
+#: keys of the serving half of the observability plane not ported yet
+#: (the admin endpoint, serve-side sentinels, the SLO, the flight
+#: capture): (config key, field, default).  Any other value is refused
+#: by name
 UNPORTED_SERVE_KEYS = (
     ("serve_admin_port", "admin_port", 0),
     ("serve_sentinel", "sentinel", 0),
@@ -152,8 +154,8 @@ class ServeConfig:
             val = getattr(self, field)
             if val != off:
                 raise ValueError(
-                    f"{key} = {val}: not ported to cxxnet_tpu_torch yet (it "
-                    "needs the observability plane; ROADMAP.md)")
+                    f"{key} = {val}: not ported to cxxnet_tpu_torch yet (the "
+                    "serving observability plane; ROADMAP.md)")
 
     @classmethod
     def from_pairs(cls, pairs: Sequence[Tuple[str, str]]) -> "ServeConfig":

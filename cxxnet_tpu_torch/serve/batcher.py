@@ -19,6 +19,14 @@ package's ``serve/batcher.py``).
 
 In both, a runner exception latches the front dead and reaches every
 waiting client: clients get the exception, never a hang.
+
+Under ``trace_sample`` (the metrics' span tracer) a sampled request's
+path is a chain of ``span`` records (doc/monitor.md): the batcher's
+``queue_wait`` / ``coalesce`` / ``dispatch`` (the engine's ``pad`` /
+``device`` / ``unpad`` inside it) / ``respond`` / ``request``, the
+scheduler's ``prefill`` / ``prefill_chunk`` / ``decode`` / ``sample`` /
+``draft`` / ``verify`` / ``request``.  A ``request`` span lasts exactly
+the latency the request's histogram sample records.
 """
 
 from __future__ import annotations
@@ -47,6 +55,12 @@ class _Request:
     t0: float
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
+    # span tracing: the sampled request's id and client thread, when the
+    # dispatcher dequeued it and when its dispatch finished
+    trace_id: Optional[int] = None
+    tid: str = ""
+    t_deq: float = 0.0
+    t_served: float = 0.0
 
 
 class MicroBatcher:
@@ -103,8 +117,13 @@ class MicroBatcher:
         if self._closing:
             raise ServeClosed(f"batcher {self.name!r} is shut down")
         assert self._thread is not None, "call start() first"
+        tracer = self.metrics.tracer if self.metrics is not None else None
         req = _Request(data=np.asarray(x), event=threading.Event(),
                        t0=time.perf_counter())
+        if tracer is not None and tracer.enabled:
+            req.trace_id = tracer.new_trace()
+            if req.trace_id is not None:
+                req.tid = threading.current_thread().name
         # a bounded put that re-checks the latch: never block forever on
         # a dead batcher's full queue, nor enqueue behind the shutdown
         while True:
@@ -128,9 +147,17 @@ class MicroBatcher:
                 self._drain(self._failed)
         if req.error is not None:
             raise req.error
+        latency = time.perf_counter() - req.t0
+        # t_served stays 0 when tracing went off before the dispatch
+        if req.trace_id is not None and req.t_served > 0.0:
+            # respond: the dispatch done -> this client returning;
+            # request: the whole wall, the histogram's own sample
+            tracer.emit("respond", req.t_served, req.t0 + latency,
+                        trace_id=req.trace_id, model=self.name)
+            tracer.emit("request", req.t0, req.t0 + latency,
+                        trace_id=req.trace_id, model=self.name)
         if self.metrics is not None:
-            self.metrics.observe("serve_latency_sec",
-                                 time.perf_counter() - req.t0)
+            self.metrics.observe("serve_latency_sec", latency)
         return req.result
 
     def _observe_depth(self, depth: int) -> None:
@@ -149,6 +176,7 @@ class MicroBatcher:
                 first = self._q.get()
                 if first is None:
                     return
+                first.t_deq = time.perf_counter()
             batch = [first]
             rows = first.data.shape[0]
             stop = False
@@ -164,6 +192,7 @@ class MicroBatcher:
                 if r is None:       # shutdown mid-coalesce: serve what
                     stop = True     # we have, then exit
                     break
+                r.t_deq = time.perf_counter()
                 if rows + r.data.shape[0] > self.max_batch:
                     carry = r
                     break
@@ -182,10 +211,36 @@ class MicroBatcher:
                 return
 
     def _run(self, batch, rows: int) -> bool:
+        tracer = self.metrics.tracer if self.metrics is not None else None
+        riders = [r.trace_id for r in batch if r.trace_id is not None] \
+            if tracer is not None and tracer.enabled else []
         try:
+            t_disp = time.perf_counter()
+            for r in batch:
+                if riders and r.trace_id is not None:
+                    # a sampled rider's stages before the dispatch, on its
+                    # client's track
+                    tracer.emit("queue_wait", r.t0, r.t_deq,
+                                trace_id=r.trace_id, tid=r.tid,
+                                model=self.name)
+                    tracer.emit("coalesce", r.t_deq, t_disp,
+                                trace_id=r.trace_id, tid=r.tid,
+                                model=self.name)
             data = batch[0].data if len(batch) == 1 else \
                 np.concatenate([r.data for r in batch], axis=0)
-            out = self.runner(data)
+            if riders:
+                # the engine's pad / device / unpad spans take the riders
+                # from the link
+                with tracer.link(riders):
+                    out = self.runner(data)
+                t_done = time.perf_counter()
+                tracer.emit("dispatch", t_disp, t_done, riders=riders,
+                            rows=rows, requests=len(batch), model=self.name)
+                for r in batch:
+                    if r.trace_id is not None:
+                        r.t_served = t_done
+            else:
+                out = self.runner(data)
             self.n_batches += 1
             self.n_requests += len(batch)
             self.rows_served += rows
@@ -276,6 +331,9 @@ class _GenRequest:
     # chunked prefill: the next chunk's offset into the prompt
     chunk_off: int = 0
     error: Optional[BaseException] = None
+    # span tracing: the sampled request's id and client thread
+    trace_id: Optional[int] = None
+    tid: str = ""
 
 
 class StepScheduler:
@@ -378,10 +436,15 @@ class StepScheduler:
             rid = self._req_seq
         rng = np.random.RandomState((self.seed * 1000003 + rid) % (2 ** 31)) \
             if self.sample_kind != "greedy" else None
+        tracer = self.metrics.tracer if self.metrics is not None else None
         req = _GenRequest(prompt=prompt,
                           max_new=int(max_new_tokens or self.max_new_tokens),
                           event=threading.Event(), t0=time.perf_counter(),
                           rng=rng)
+        if tracer is not None and tracer.enabled:
+            req.trace_id = tracer.new_trace()
+            if req.trace_id is not None:
+                req.tid = threading.current_thread().name
         while True:
             if self._failed is not None:
                 raise self._failed
@@ -398,9 +461,13 @@ class StepScheduler:
                 self._drain(self._failed)
         if req.error is not None:
             raise req.error
+        latency = time.perf_counter() - req.t0
+        if req.trace_id is not None:
+            tracer.emit("request", req.t0, req.t0 + latency,
+                        trace_id=req.trace_id, tid=req.tid,
+                        model=self.name, tokens=len(req.tokens))
         if self.metrics is not None:
-            self.metrics.observe("gen_latency_sec",
-                                 time.perf_counter() - req.t0)
+            self.metrics.observe("gen_latency_sec", latency)
         return req.tokens
 
     # --------------------------------------------------------- dispatcher
@@ -466,7 +533,12 @@ class StepScheduler:
         try:
             t0 = time.perf_counter()
             logits = self.runner.prefill(slot, req.prompt)
-            self._prefill_lats.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self._prefill_lats.append(t1 - t0)
+            if req.trace_id is not None:
+                self.metrics.tracer.emit(
+                    "prefill", t0, t1, trace_id=req.trace_id, slot=slot,
+                    prompt=int(req.prompt.shape[0]), model=self.name)
             self.n_prefills += 1
             self._activate(slot, req, logits)
             return True
@@ -484,7 +556,12 @@ class StepScheduler:
         if self._spec:
             t0 = time.perf_counter()
             self.draft.prefill(slot, req.prompt)
-            self._draft_wall += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self._draft_wall += t1 - t0
+            if req.trace_id is not None:
+                self.metrics.tracer.emit("draft", t0, t1,
+                                         trace_id=req.trace_id, slot=slot,
+                                         prompt=plen, model=self.name)
         req.dpos = plen
         tok = self._sample(logits, req)
         req.tokens = [tok]
@@ -527,7 +604,12 @@ class StepScheduler:
         try:
             t0 = time.perf_counter()
             logits = self.runner.block(tokens, positions)
-            self._chunk_lats.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self._chunk_lats.append(t1 - t0)
+            if req.trace_id is not None:
+                self.metrics.tracer.emit(
+                    "prefill_chunk", t0, t1, trace_id=req.trace_id,
+                    slot=slot, offset=off, model=self.name)
             self.n_prefill_chunks += 1
             req.chunk_off = off + C
             if req.chunk_off >= plen:
@@ -553,9 +635,15 @@ class StepScheduler:
             tokens[slot] = req.tokens[-1]
             positions[slot] = req.pos
         n_active = len(self._active)
+        riders = self._riders()
         try:
             t0 = time.perf_counter()
-            logits = self.runner.step(tokens, positions)
+            if riders:
+                with self.metrics.tracer.link(riders):
+                    logits = self.runner.step(tokens, positions)
+            else:
+                logits = self.runner.step(tokens, positions)
+            t1 = time.perf_counter()
             for slot in list(self._active):
                 req = self._active[slot]
                 tok = self._sample(logits[slot], req)
@@ -564,11 +652,27 @@ class StepScheduler:
                 self.n_tokens += 1
                 if self._done(req, tok):
                     self._finish(slot, req)
-            self._round_done(n_active, time.perf_counter() - t0)
+            t2 = time.perf_counter()
+            if riders:
+                tr = self.metrics.tracer
+                tr.emit("decode", t0, t1, riders=riders, active=n_active,
+                        model=self.name)
+                tr.emit("sample", t1, t2, riders=riders, active=n_active,
+                        model=self.name)
+            self._round_done(n_active, t2 - t0)
             return True
         except BaseException as e:  # noqa: BLE001 — must reach clients
             self._fail(e)
             return False
+
+    def _riders(self) -> List[int]:
+        """The trace ids of the sampled active requests (empty when the
+        tracer is off)."""
+        tracer = self.metrics.tracer if self.metrics is not None else None
+        if tracer is None or not tracer.enabled:
+            return []
+        return [r.trace_id for r in self._active.values()
+                if r.trace_id is not None]
 
     def _round_done(self, n_active: int, wall: float) -> None:
         self.n_steps += 1
@@ -598,6 +702,7 @@ class StepScheduler:
         k = self.spec_k
         greedy = self.sample_kind == "greedy"
         n_active = len(self._active)
+        riders = self._riders()
         round_draft_steps = 0
         try:
             t0 = time.perf_counter()
@@ -645,7 +750,12 @@ class StepScheduler:
             for slot, req in self._active.items():
                 vtokens[slot, 0] = req.tokens[-1]
                 vtokens[slot, 1:] = props[slot]
-            logits = self.runner.block(vtokens, self._base_positions())
+            if riders:
+                with self.metrics.tracer.link(riders):
+                    logits = self.runner.block(vtokens,
+                                               self._base_positions())
+            else:
+                logits = self.runner.block(vtokens, self._base_positions())
             self.n_verify_calls += 1
             t2 = time.perf_counter()
             self._verify_wall += t2 - t1
@@ -666,7 +776,16 @@ class StepScheduler:
                     if self._done(req, tok):
                         self._finish(slot, req)
                         break
-            self._round_done(n_active, time.perf_counter() - t0)
+            t3 = time.perf_counter()
+            if riders:
+                tr = self.metrics.tracer
+                tr.emit("draft", t0, t1, riders=riders, active=n_active,
+                        model=self.name)
+                tr.emit("verify", t1, t2, riders=riders, active=n_active,
+                        model=self.name)
+                tr.emit("sample", t2, t3, riders=riders, active=n_active,
+                        model=self.name)
+            self._round_done(n_active, t3 - t0)
             self.n_draft_steps += round_draft_steps
             if self.metrics is not None:
                 self.metrics.counter_inc("spec_draft_steps",

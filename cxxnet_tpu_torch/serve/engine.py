@@ -68,7 +68,7 @@ class PredictEngine:
     coalesces them into fuller buckets)."""
 
     def __init__(self, trainer, *, shapes: Sequence[int] = (1, 8, 32),
-                 dtype: str = "f32"):
+                 dtype: str = "f32", metrics=None):
         if trainer.net is None:
             raise ValueError("PredictEngine needs an initialized/loaded "
                              "trainer")
@@ -81,6 +81,8 @@ class PredictEngine:
                              f"{'/'.join(SERVE_TOL)}")
         self.dtype = dtype
         self.device = trainer.device
+        # the span tracer's registry (the pad / device / unpad spans)
+        self.metrics = metrics if metrics is not None else trainer.metrics
         self._params, self._scales = self._prepare_params()
         self._warm: Optional[set] = None
         self.retraces = 0
@@ -139,12 +141,18 @@ class PredictEngine:
 
     def _forward(self, params, rows: np.ndarray, cast: bool) -> np.ndarray:
         """Final-node values of ``rows`` as (n, values) float32."""
+        return self._run(params, self._to_device(rows, cast))
+
+    def _to_device(self, rows: np.ndarray, cast: bool) -> torch.Tensor:
+        x = torch.as_tensor(np.ascontiguousarray(rows, np.float32),
+                            device=self.device)
+        return x.to(torch.bfloat16) if cast else x
+
+    def _run(self, params, x: torch.Tensor) -> np.ndarray:
+        """The eval forward of device rows ``x``, read back to the host
+        (the device sync) as (n, values) float32."""
         t = self.trainer
         with torch.inference_mode():
-            x = torch.as_tensor(np.ascontiguousarray(rows, np.float32),
-                                device=self.device)
-            if cast:
-                x = x.to(torch.bfloat16)
             nodes = t.net.forward(params, {0: t.stage_input(x)}, t.context(),
                                   buffers=t.buffers)
             out = materialize(nodes[t.net.final_node])
@@ -224,6 +232,13 @@ class PredictEngine:
             raise ValueError(f"predict: rows of shape {x.shape[1:]} but the "
                              f"model takes {self._in_shape}")
         n = x.shape[0]
+        # pad (host pad + the copy to the device) / device (the forward and
+        # the read-back) / unpad spans inside the batcher's dispatch span,
+        # the riders from the tracer's link: a dispatch with no sampled
+        # rider emits none
+        tracer = self.metrics.tracer if self.metrics is not None else None
+        tracing = tracer is not None and tracer.enabled \
+            and tracer.linked() is not None
         outs, i = [], 0
         while i < n:
             take = min(n - i, self.shapes[-1])
@@ -234,9 +249,21 @@ class PredictEngine:
             self.bucket_hist[b] = self.bucket_hist.get(b, 0) + 1
             self.pad_rows += b - take
             self.dispatches += 1
-            out = self._forward(self._dequant(), self._padded(x, i, take, b),
-                                self.dtype == "bf16")
+            t_pad0 = time.perf_counter() if tracing else 0.0
+            params = self._dequant()
+            rows = self._to_device(self._padded(x, i, take, b),
+                                   self.dtype == "bf16")
+            if tracing:
+                t_dev0 = time.perf_counter()
+                tracer.emit("pad", t_pad0, t_dev0, bucket=b, rows=take)
+            out = self._run(params, rows)
+            if tracing:
+                t_unpad0 = time.perf_counter()
+                tracer.emit("device", t_dev0, t_unpad0, bucket=b, rows=take)
             outs.append(out[:take])
+            if tracing:
+                tracer.emit("unpad", t_unpad0, time.perf_counter(), bucket=b,
+                            rows=take)
             i += take
         return outs[0] if len(outs) == 1 else np.concatenate(outs)
 

@@ -39,7 +39,8 @@ class ServeModel:
         self.trainer = trainer
         self.metrics = metrics if metrics is not None else trainer.metrics
         self.engine = PredictEngine(trainer, shapes=self.cfg.shapes,
-                                    dtype=self.cfg.dtype)
+                                    dtype=self.cfg.dtype,
+                                    metrics=self.metrics)
         max_batch = min(self.cfg.max_batch, max(self.cfg.shapes))
         if self.cfg.max_batch > max(self.cfg.shapes):
             mlog.warn(f"serve[{name}]: serve_max_batch = "
@@ -53,8 +54,11 @@ class ServeModel:
             name=name)
 
     def warmup(self) -> None:
-        """Run every bucket once and start the dispatcher."""
-        self.engine.warmup()
+        """Run every bucket once (a ``serve_warmup`` span under
+        ``trace_sample``) and start the dispatcher."""
+        with self.metrics.tracer.span("serve_warmup", model=self.name,
+                                      buckets=len(self.engine.shapes)):
+            self.engine.warmup()
         self.batcher.start()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -131,10 +135,13 @@ class GenModel:
 
     def warmup(self) -> None:
         """Warm the flagship (prefill, step, each block width) and the
-        draft (prefill, step), then start the scheduler."""
-        self.engine.warmup()
-        if self.draft is not None:
-            self.draft.warmup()
+        draft (prefill, step), a ``decode_warmup`` span under
+        ``trace_sample``, then start the scheduler."""
+        with self.metrics.tracer.span("decode_warmup", model=self.name,
+                                      slots=self.engine.slots):
+            self.engine.warmup()
+            if self.draft is not None:
+                self.draft.warmup()
         self.scheduler.start()
 
     def generate(self, prompt: np.ndarray,

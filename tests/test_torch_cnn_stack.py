@@ -889,8 +889,8 @@ def test_remaining_refusals_name_their_item():
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
     from cxxnet_tpu_torch.nnet.trainer import UNPORTED_KEYS
     assert NOT_PORTED == ("moe", "pairtest", "torch")
-    assert set(UNPORTED_KEYS) == {"monitor", "shard_opt_state",
-                                  "fullc_gather", "update_on_server"}
+    assert set(UNPORTED_KEYS) == {"shard_opt_state", "fullc_gather",
+                                  "update_on_server"}
     for name in NOT_PORTED + ("pairtest[a,b]",):
         with pytest.raises(ValueError, match="not ported"):
             create_layer(name)

@@ -1535,3 +1535,105 @@ def test_staged_steps_equal_host_steps_on_the_card(cuda):
     for k, g in a.params.items():
         for tag, v in g.items():
             assert torch.equal(v, b.params[k][tag]), f"{k}/{tag}"
+
+
+# ------------------------------------------------ profile window, on the card
+
+def _lm_window(tmp_path):
+    """A small packed LM (bf16, flash_attn = 1, pallas_ln = 1, adam,
+    fused_update = 1) on the card: one warm-up step, then one step inside
+    a ProfileWindow.  Returns (trainer, window, trace events)."""
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.models import transformer
+    from cxxnet_tpu_torch.monitor import trace
+    from cxxnet_tpu_torch.monitor.trace import ProfileWindow
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    s = 128
+    t = NetTrainer()
+    for k, v in parse_config_string(transformer(
+            vocab=64, seq=s, dim=128, nlayer=2, nhead=2, packed=True)) + [
+            ("batch_size", "2"), ("dev", "gpu"), ("dtype", "bfloat16"),
+            ("updater", "adam"), ("eta", "0.001"), ("flash_attn", "1"),
+            ("pallas_ln", "1"), ("fused_update", "1"), ("eval_train", "0"),
+            ("silent", "1")]:
+        t.set_param(k, v)
+    t.init_model()
+    rnd = np.random.RandomState(0)
+    ids = rnd.randint(0, 64, (2, s)).astype(np.float32)
+    seg = np.ones((2, s), np.float32)
+    pos = np.tile(np.arange(s, dtype=np.float32), (2, 1))
+    batch = DataBatch(data=ids.reshape(2, 1, 1, s),
+                      label=np.concatenate([np.roll(ids, -1, 1), seg, pos], 1),
+                      index=np.arange(2, dtype=np.uint32))
+    t.update(batch)
+    t.sync()
+    win = ProfileWindow(str(tmp_path / "prof"), start_step=0, num_steps=1,
+                        net=t.net, device=t.device)
+    win.maybe_start_step(0)
+    t.update(batch)
+    t.sync()
+    assert win.after_step()
+    return t, win, trace.load_trace(win.last_trace)
+
+
+def test_trace_reader_on_cuda_events(cuda, tmp_path):
+    """The Chrome-trace reader's device time of a window equals the
+    union of the profiler's own device events of the same window within
+    5%, each hand-written kernel's events cover its launches, and one
+    card has no collective."""
+    from torch.autograd import DeviceType
+    from cxxnet_tpu_torch.monitor import trace
+    _, win, events = _lm_window(tmp_path)
+    rep = trace.comm_report_in(events, steps=1)
+    own = [(e.time_range.start, e.time_range.end)
+           for e in win.last_profiler.events()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    own_sec = trace.union_us(own) / 1e6
+    assert rep["device_sec"] > 0
+    assert abs(rep["device_sec"] - own_sec) <= 0.05 * own_sec, (rep, own_sec)
+    assert rep["comm_sec"] == 0 and rep["comm_by_kind"] == {}
+    assert sum(win.last_launches.values()) > 0
+    assert trace.kernel_shortfall(events, win.last_launches) == {}
+
+
+def test_backward_attribution_across_the_autograd_thread(cuda, tmp_path):
+    """On the card the backward kernels launch from the autograd
+    engine's thread, outside every connection range: the flash backward
+    books to its attention connection and the layernorm backward to its
+    layernorm connection through the sequence-number join, the forward
+    kernels to the same connections directly, and the fused adam kernel
+    to (unattributed)."""
+    from cxxnet_tpu_torch.monitor import attribution, trace
+    t, _, events = _lm_window(tmp_path)
+    placed = attribution.attribute_events(events, t.layer_scopes())
+    launch_tid = {(e.get("args") or {}).get("correlation"): e.get("tid")
+                  for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")}
+    by = {}
+    for p, e in zip(placed, [e for e in events
+                             if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")]):
+        by.setdefault(trace.kernel_base(p["name"]), []).append(
+            (p, launch_tid.get((e.get("args") or {}).get("correlation"))))
+
+    def check(prefix, scope_part, backward):
+        hits = [(p, tid) for name, ps in by.items() if name.startswith(prefix)
+                for p, tid in ps]
+        assert hits, (prefix, sorted(by))
+        for p, _ in hits:
+            assert p["scope"] is not None and scope_part in p["scope"], p
+            assert p["backward"] == backward, p
+        return {tid for _, tid in hits}
+
+    fwd_tids = check("flash_fwd", "_att", False)
+    bwd_tids = check("flash_bwd", "_att", True)
+    assert not fwd_tids & bwd_tids
+    check("layernorm_fwd", "_ln", False)
+    check("lnb_", "_ln", True)
+    for p, _ in by["fused_adam_kernel"]:
+        assert p["scope"] is None
+    table = attribution.layer_table(events, t.layer_scopes())
+    att = [r for r in table["rows"] if r["layer"].endswith("_att")]
+    assert att and all(0 < r["bwd_ms"] < r["device_ms"] for r in att)

@@ -622,7 +622,7 @@ def test_prefetch_on_off_bitwise_cli(pkg, tmp_path):
                          f"model_dir={mdir}", "save_model=2",
                          f"metrics_sink=jsonl:{sink}"]) == 0
         recs = [json.loads(line) for line in open(sink)]
-        losses = [r["loss"] for r in recs if r["kind"] in ("step", "train")]
+        losses = [r["loss"] for r in recs if r["kind"] == "step"]
         rounds = [{k: v for k, v in r.items() if "error" in k}
                   for r in recs if r["kind"] == "round"]
         _, params, _, _, _ = read_snapshot(str(mdir / "0002.model"))
@@ -637,7 +637,7 @@ def test_prefetch_on_off_bitwise_cli(pkg, tmp_path):
 
 def test_test_io_batch_counts_match_jax_cli(tmp_path):
     """``test_io = 1`` through both CLIs over an imgbin + threadbuffer
-    chain: the same examples a round, no update (no train record in
+    chain: the same examples a round, no update (no step record in
     either), and the port's round line of examples/sec."""
     from cxxnet_tpu.main import LearnTask as JTask
     from cxxnet_tpu_torch.main import LearnTask as TTask
@@ -649,7 +649,7 @@ def test_test_io_batch_counts_match_jax_cli(tmp_path):
         assert t.run([str(conf), "save_model=0",
                       f"metrics_sink=jsonl:{sink}"]) == 0
         recs = [json.loads(line) for line in open(sink)]
-        assert not [r for r in recs if r["kind"] in ("step", "train")]
+        assert not [r for r in recs if r["kind"] == "step"]
         counts[name] = [r["examples"] for r in recs if r["kind"] == "round"]
     assert counts["port"] == counts["jax"] == [300, 300]
     assert t.last_train["steps"] == 0

@@ -453,7 +453,7 @@ def test_cli_train_matches_jax_cli_and_loads_in_jax(tmp_path):
     """task = train through both CLIs from one JAX-written 0000.model on
     the same corpus (dev = cpu, sgd): the 0001.model params agree within
     1e-5, the port's snapshot (with its sgd state) loads in the JAX
-    package, and the port writes a train record per printed step."""
+    package, and the port writes a step record per printed step."""
     import json
     from cxxnet_tpu.main import LearnTask as JTask
     from cxxnet_tpu.nnet.trainer import NetTrainer as JNetTrainer
@@ -486,18 +486,19 @@ def test_cli_train_matches_jax_cli_and_loads_in_jax(tmp_path):
         for tag, v in group.items():
             assert np.array_equal(np.asarray(v), got[key][tag])
     recs = [json.loads(line) for line in open(tmp_path / "port.jsonl")]
-    train = [r for r in recs if r["kind"] == "train"]
-    assert train and all(np.isfinite(r["loss"]) and r["step_ms"] > 0
-                         and r["tokens_per_sec"] > 0 for r in train)
+    steps = [r for r in recs if r["kind"] == "step"]
+    assert steps and all(np.isfinite(r["loss"]) and r["dispatch_sec"] > 0
+                         and r["examples_per_sec"] > 0 for r in steps)
 
 
-@pytest.mark.parametrize("key,val", [("prof_every", "1"),
-                                     ("rollback", "2"),
-                                     ("sentinel", "1"),
+@pytest.mark.parametrize("key,val", [("test_on_server", "1"),
+                                     ("shard_opt_state", "1"),
+                                     ("fullc_gather", "1"),
                                      ("mesh", "data:2")])
 def test_unported_train_keys_are_refused(tmp_path, key, val):
     """Each key of the JAX train loop that the port does not implement
-    raises "not ported" instead of being ignored."""
+    (the multi-GPU plane's) raises "not ported" instead of being
+    ignored."""
     from cxxnet_tpu_torch.main import LearnTask
     _write_corpus(tmp_path / "c.tok", ndocs=10)
     conf = tmp_path / "t.conf"
