@@ -173,7 +173,28 @@ Phases (any failure raises and exits non-zero):
    completed run, a valid last snapshot, finite losses; (d)
    ``serve_batch`` (f32) and ``serve`` with ``trace_sample = 1``: the
    per-stage breakdown, and the ``request`` spans' p99 equal to the
-   ``latency`` record's within 1%.
+   ``latency`` record's within 1%;
+22. serving observability plane (``serve_admin``, after ``serve`` and
+   ``serve_batch``): (a) example/MNIST/serve.conf as in phase 15 (f32)
+   with ``serve_admin_port``, ``serve_sentinel = 1``,
+   ``serve_sentinel_window = 0.25``, ``serve_flight_requests = 16`` and
+   ``serve_slo_p99_ms`` at half phase 15's f32 p50, and a scraper
+   process polling ``/readyz`` every millisecond and ``/metrics`` and
+   ``/statusz`` at 10 Hz: ``/readyz`` 503 before 200 and the socket
+   closed after the run, every scrape parsed with the port's promtext and no counter
+   falling, ``last_window`` in ``/statusz``, ``serve_window`` records at
+   about the run's length over the window, totalling the served rows, a
+   fast ``slo`` record, exactly one ``serve_flight`` record whose
+   trace-id range has its ``request`` spans in the sink, one max-pool
+   launch a dispatch (and a bucket at warmup) and no retrace; then the
+   same conf over 10,000 seeded test rows with the endpoint on, without
+   (A) and with (B) a scraper process at 10 Hz, A B B A, each run's qps
+   and latency p50 / p99 printed; (b) the LM serve of phase 3 with
+   ``serve_admin_port``, without and with a scraper at 20 Hz, A B B A,
+   each run's tok/s printed; in each scraped run ``/statusz``
+   says ``kind = generate`` with tokens, steps and the occupancy
+   histogram, ``/metrics`` has ``decode_occupancy_hist`` buckets, every
+   prefill through row 7 and every forward through row 11.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -270,12 +291,31 @@ OBSERVE_MONITOR_INTERVAL = 2
 OBSERVE_DEVICE_TOL, OBSERVE_LEDGER_TOL, OBSERVE_LATENCY_TOL = 0.05, 0.01, 0.01
 OBSERVE_LAYERS, OBSERVE_STEPS = 2, 10
 ROLLBACK_ROUND, ROLLBACK_AT = 3, 2
+# serve_admin: the reporter's window (s), the flight's boosted requests,
+# the SLO target as a share of serve_batch's f32 p50 (below it, so the
+# fast burn tier must fire), the scrapers' rate (Hz) and sentinel_rel:
+# a threshold no healthy window crosses, since an anomaly after the
+# SLO's flight would arm a second one
+ADMIN_WINDOW, ADMIN_FLIGHT, ADMIN_SLO_SHARE = 0.25, 16, 0.5
+ADMIN_SCRAPE_HZ, ADMIN_SENTINEL_REL = 10, 100.0
+#: serve_admin's A B B A of the scrape's cost: seeded test rows a run
+#: (micro-batched), seeded prompts a run (the LM serve, PROMPT_LENS and
+#: GEN_TOKENS as the serve phase's)
+ADMIN_COST_ROWS, ADMIN_GEN_PROMPTS = 10000, 200
+#: serve_admin's anomaly run: sentinel_rel (a window's p99 more than 11x
+#: its EWMA; the healthy windows' p99 jitter stays far below it, while
+#: the queue-depth sentinel, whose baseline sits near 0 under 4 clients,
+#: fires at any threshold on a window with a standing queue), and a stall
+#: of the card (s of matmuls queued on the default stream) injected that
+#: many seconds after /readyz turns 200
+ADMIN_STALL_REL, ADMIN_STALL_SEC, ADMIN_STALL_AFTER = 10.0, 1.0, 3.0
 
 ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "train_unpacked", "alexnet", "mnist_conv", "train_fused",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
-              "resnet", "alexnet_data", "staging", "observe"}
+              "resnet", "alexnet_data", "staging", "observe",
+              "serve_admin"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -3584,6 +3624,8 @@ def phase_serve_batch(tmp: str, test_error: float) -> dict:
         errs[dt] = float(np.mean(out != labels[:out.size]))
         agree = float(np.mean(out == pred))
         lat = t.net.metrics.histograms["serve_latency_sec"].summary()
+        if dt == "f32":
+            MEASURED["serve_batch_f32_p50_ms"] = lat["p50"] * 1e3
         eng = st["engine"]
         dispatches += eng["dispatches"]
         q = st["quant_rel_err"]
@@ -3623,6 +3665,555 @@ def fresh(path: str) -> str:
     if os.path.exists(path):
         os.remove(path)
     return path
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+#: the scraper, a process of its own as a load balancer's health check
+#: and a Prometheus server are: argv port, scrape period (s), 1 to poll
+#: /readyz every millisecond, output path.  It writes a JSON line for each
+#: change of /readyz's status and for each /metrics + /statusz scrape
+#: until SIGTERM; nothing bound yet (or any more) is skipped
+SCRAPER = r"""
+import json, signal, sys, time, urllib.error, urllib.request
+port, every, watch, out = (int(sys.argv[1]), float(sys.argv[2]),
+                           sys.argv[3] == "1", sys.argv[4])
+base = "http://127.0.0.1:%d" % port
+stop = []
+signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+print("started", flush=True)
+
+def get(path, timeout=2.0):
+    try:
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+with open(out, "w") as fo:
+    t0 = time.perf_counter()
+    nxt, last = t0, None
+    while not stop:
+        if watch:
+            try:
+                code = get("/readyz", 0.5)[0]
+            except OSError:
+                code = None
+            if code is not None and code != last:
+                fo.write(json.dumps({"readyz": code}) + "\n")
+                last = code
+        now = time.perf_counter()
+        if now >= nxt:
+            nxt = now + every
+            try:
+                mc, metrics = get("/metrics")
+                sc, status = get("/statusz")
+                fo.write(json.dumps({"t": now - t0, "codes": [mc, sc],
+                                     "metrics": metrics,
+                                     "statusz": status}) + "\n")
+            except OSError:
+                pass
+        time.sleep(0.001 if watch else max(nxt - time.perf_counter(), 0.0))
+"""
+
+
+class Scraper:
+    """SCRAPER in a subprocess over ``port`` for the ``with`` block: its
+    /readyz statuses (``ready_seen``) and its scrapes (``scrapes``: time,
+    /metrics text, /statusz dict) once it has stopped."""
+
+    def __init__(self, tmp: str, port: int, every: float, watch: bool):
+        self.args = [sys.executable, "-c", SCRAPER, str(port), str(every),
+                     "1" if watch else "0",
+                     os.path.join(tmp, f"scrapes_{port}.jsonl")]
+        self.proc = None
+        self.ready_seen: list = []
+        self.scrapes: list = []
+
+    def __enter__(self):
+        # the run starts once the scraper polls, so that it sees warmup
+        self.proc = subprocess.Popen(self.args, stdout=subprocess.PIPE,
+                                     text=True)
+        if self.proc.stdout.readline().strip() != "started":
+            raise AssertionError("serve_admin: the scraper did not start")
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+        for line in open(self.args[-1]):
+            rec = json.loads(line)
+            if "readyz" in rec:
+                self.ready_seen.append(rec["readyz"])
+            elif rec["codes"] != [200, 200]:
+                raise AssertionError(f"serve_admin: scrape answered "
+                                     f"{rec['codes']}")
+            else:
+                self.scrapes.append((rec["t"], rec["metrics"],
+                                     json.loads(rec["statusz"])))
+        return False
+
+
+def admin_run(tmp: str, args: list, every: float = 0.0,
+              watch: bool = False, port: int = 0):
+    """One port CLI run of ``args`` plus ``serve_admin_port`` (``port``,
+    else a free one); with ``every`` (s) or ``watch`` under a Scraper.
+    Returns (task, scraper or None, port); the endpoint must be closed
+    after the run."""
+    from cxxnet_tpu_torch.main import LearnTask
+    port = port or free_port()
+    task = LearnTask()
+    args = args + [f"serve_admin_port={port}"]
+    if every or watch:
+        with Scraper(tmp, port, every or 3600.0, watch) as scraper:
+            rc = task.run(args)
+    else:
+        scraper = None
+        rc = task.run(args)
+    if rc != 0 or task.last_serve is None:
+        raise AssertionError(f"serve_admin: CLI returned {rc}")
+    import urllib.request
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                               timeout=0.5).close()
+    except OSError:
+        return task, scraper, port
+    raise AssertionError("serve_admin: the endpoint outlived the host")
+
+
+def check_counters_monotone(scrapes: list, label: str) -> None:
+    """Every /metrics scrape parses (the port's promtext) and no counter
+    falls between two scrapes."""
+    from cxxnet_tpu_torch.monitor import promtext
+    prev: dict = {}
+    for _, text, _ in scrapes:
+        vals = promtext.counter_values(promtext.parse(text))
+        fell = {k: (prev[k], v) for k, v in vals.items()
+                if k in prev and v < prev[k]}
+        if fell:
+            raise AssertionError(f"serve_admin {label}: counters fell "
+                                 f"between scrapes: {fell}")
+        prev.update(vals)
+
+
+def check_flights(recs: list, label: str, reason: str,
+                  one: bool = True) -> list:
+    """The ``serve_flight`` records in ``recs`` (exactly one if ``one``,
+    else at least one), each with a reason starting with ``reason``,
+    ADMIN_FLIGHT boosted requests and as many ``request`` spans in its
+    trace-id range; trace_sample is 0 outside the boosts, so every span
+    id lies in a flight's range (a request still in flight when a capture
+    restored the rate emits no more spans).  Returns them."""
+    flights = [r for r in recs if r["kind"] == "serve_flight"]
+    if not flights or (one and len(flights) != 1) \
+            or not all(f["reason"].startswith(reason) for f in flights):
+        raise AssertionError(f"serve_admin {label}: serve_flight records "
+                             f"{[f['reason'] for f in flights]}, not "
+                             f"{'one' if one else 'all'} '{reason} ...'")
+    span_ids = {r.get("trace_id") for r in recs if r["kind"] == "span"}
+    requests = {r["trace_id"] for r in recs
+                if r["kind"] == "span" and r["span"] == "request"}
+    every: set = set()
+    for f in flights:
+        ids = set(range(f["trace_first"], f["trace_last"] + 1))
+        every |= ids
+        log(f"serve_admin {label}: flight ({f['reason']}) ids "
+            f"{f['trace_first']}..{f['trace_last']}, "
+            f"{len(requests & ids)} with a request span, "
+            f"{len(ids - requests)} cut by the restore")
+        if not f["trace_first"] or len(requests & ids) < ADMIN_FLIGHT \
+                or f["requests_boosted"] < ADMIN_FLIGHT:
+            raise AssertionError(f"serve_admin {label}: flight {f}: "
+                                 f"{len(requests & ids)} request spans in "
+                                 "it")
+    if not span_ids - {None} <= every:
+        raise AssertionError(f"serve_admin {label}: span ids "
+                             f"{sorted(span_ids - {None} - every)[:5]} "
+                             "outside every flight's range")
+    return flights
+
+
+def check_windows(wins: list, srv: dict, label: str) -> None:
+    """The ``serve_window`` records hold every served row, one a window
+    (the run's duration over ADMIN_WINDOW, give or take two)."""
+    expect = srv["duration_sec"] / ADMIN_WINDOW + 1
+    if sum(w["requests"] for w in wins) != srv["rows"] \
+            or not expect - 2 <= len(wins) <= expect + 2:
+        raise AssertionError(
+            f"serve_admin {label}: {len(wins)} windows (about {expect:.1f} "
+            f"expected) holding {sum(w['requests'] for w in wins)} "
+            f"requests for {srv['rows']} rows")
+
+
+def check_pool_launches(launches: dict, st: dict, label: str) -> None:
+    """One max-pool forward a dispatch, one a bucket at warmup."""
+    if launches["max_pool_fwd"] != st["engine"]["dispatches"] \
+            + len(BATCH_SHAPES):
+        raise AssertionError(f"serve_admin {label}: "
+                             f"{launches['max_pool_fwd']} max-pool launches "
+                             f"for {st['engine']['dispatches']} dispatches")
+
+
+def admin_batch(tmp: str) -> dict:
+    """(a): serve.conf on the card with the admin endpoint, the sentinels,
+    an SLO below serve_batch's f32 p50 and the flight capture, under a
+    scraper that polls /readyz every millisecond; returns the launches
+    of the run."""
+    import torch
+    sink = fresh(os.path.join(tmp, "serve_admin.jsonl"))
+    slo = ADMIN_SLO_SHARE * MEASURED["serve_batch_f32_p50_ms"]
+    args = mnist_serve_args(tmp) + [
+        "serve_dtype=f32", f"metrics_sink=jsonl:{sink}", "serve_sentinel=1",
+        f"serve_sentinel_window={ADMIN_WINDOW}",
+        f"sentinel_rel={ADMIN_SENTINEL_REL}",
+        f"serve_flight_requests={ADMIN_FLIGHT}", f"serve_slo_p99_ms={slo}"]
+    reset_launches()
+    task, scraper, port = admin_run(tmp, args, 1.0 / ADMIN_SCRAPE_HZ,
+                                    watch=True)
+    launches = read_launches()
+    st = task.last_serve
+    recs = read_records(sink)
+    kinds = [r["kind"] for r in recs]
+    wins = [r for r in recs if r["kind"] == "serve_window"]
+    slos = [r for r in recs if r["kind"] == "slo"]
+    flights = [r for r in recs if r["kind"] == "serve_flight"]
+    (srv,) = [r for r in recs if r["kind"] == "serve"]
+    ready = [sc for sc in scraper.scrapes if sc[2]["ready"]]
+    log(f"serve_admin (a): port {port}; /readyz {scraper.ready_seen}; "
+        f"{len(scraper.scrapes)} scrapes ({len(ready)} while ready); "
+        f"{st['requests']} requests in {st['duration_sec']:.3f} s = "
+        f"{st['qps']:.1f} req/s, {st['engine']['dispatches']} dispatches, "
+        f"retraces {st['retraces']}; SLO p99 {slo:.3f} ms; "
+        f"{len(wins)} serve_window records (requests "
+        f"{[w['requests'] for w in wins]}, viol "
+        f"{[w.get('viol') for w in wins]}); slo records "
+        f"{[(r['tier'], r['burn']) for r in slos]}; anomalies "
+        f"{kinds.count('anomaly')}; serve_flight "
+        f"{[(f['reason'], f['requests_boosted']) for f in flights]}")
+    seen = scraper.ready_seen
+    # after the run admin_run found the socket closed
+    if 503 not in seen or 200 not in seen \
+            or seen.index(503) > seen.index(200):
+        raise AssertionError(f"serve_admin (a): /readyz answered {seen}: "
+                             "not 503 before 200")
+    if not ready:
+        raise AssertionError("serve_admin (a): no scrape while ready")
+    check_counters_monotone(scraper.scrapes, "(a)")
+    last = ready[-1][2]["models"].get("default", {})
+    if "last_window" not in last or last.get("kind") != "predict":
+        raise AssertionError(f"serve_admin (a): /statusz {ready[-1][2]}")
+    check_windows(wins, srv, "(a)")
+    if not any(r["tier"] == "fast" for r in slos):
+        raise AssertionError("serve_admin (a): no fast slo record")
+    check_flights(recs, "(a)", "slo:")
+    if st["retraces"] != 0 or srv["retraces"] != 0:
+        raise AssertionError("serve_admin (a): retraces")
+    check_pool_launches(launches, st, "(a)")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def admin_cost_args(tmp: str, sink: str) -> list:
+    """mnist_serve_args at f32 over ADMIN_COST_ROWS seeded test rows (made
+    on the first call), writing to the sink ``sink``."""
+    data = os.path.join(tmp, "mnist_cost")
+    if not os.path.exists(data):
+        subprocess.run([sys.executable,
+                        os.path.join(REPO, "tools", "make_synth_mnist.py"),
+                        "--out", data, "--train", "1",
+                        "--test", str(ADMIN_COST_ROWS)],
+                       check=True, capture_output=True)
+    args = mnist_serve_args(tmp) + ["serve_dtype=f32",
+                                    f"metrics_sink=jsonl:{sink}"]
+    text = open(args[0]).read().replace(os.path.join(tmp, "mnist") + "/",
+                                        data + "/")
+    args[0] = os.path.join(tmp, "mnist_serve_cost.conf")
+    with open(args[0], "w") as f:
+        f.write(text)
+    return args
+
+
+class LatencyLog:
+    """Every ``serve_latency_sec`` observation made inside the ``with``
+    block (``values``): the histogram keeps a 2048-value reservoir, so
+    its percentiles over a longer run are estimates."""
+
+    def __enter__(self):
+        from cxxnet_tpu_torch.monitor.metrics import Metrics
+        self.values: list = []
+        self._orig = orig = Metrics.observe
+        values = self.values
+
+        def observe(metrics, name, value):
+            if name == "serve_latency_sec":
+                values.append(value)
+            orig(metrics, name, value)
+        Metrics.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        from cxxnet_tpu_torch.monitor.metrics import Metrics
+        Metrics.observe = self._orig
+        return False
+
+
+def spread(vals: list) -> float:
+    """(max - min) / mean, in %."""
+    return 100.0 * (max(vals) - min(vals)) / (sum(vals) / len(vals))
+
+
+def admin_scrape_cost(tmp: str) -> dict:
+    """serve.conf over ADMIN_COST_ROWS seeded test rows with the admin
+    endpoint on, without a scraper (A) and with a scraper of /metrics and
+    /statusz at ADMIN_SCRAPE_HZ (B), A B B A; prints each run's qps and
+    its exact latency p50 / p99 over every request (the reservoir's
+    estimates beside them); returns the runs' launches."""
+    from cxxnet_tpu_torch.monitor.metrics import nearest_rank
+    sink = os.path.join(tmp, "serve_admin_cost.jsonl")
+    args = admin_cost_args(tmp, sink)
+    reset_launches()
+    rows = []
+    for label in "ABBA":
+        fresh(sink)
+        with LatencyLog() as lat:
+            task, scraper, _ = admin_run(
+                tmp, args, 1.0 / ADMIN_SCRAPE_HZ if label == "B" else 0.0)
+        st = task.last_serve
+        est = task.net.metrics.histograms["serve_latency_sec"].summary()
+        exact = sorted(lat.values)
+        rows.append((label, st["qps"], nearest_rank(exact, 50) * 1e3,
+                     nearest_rank(exact, 99) * 1e3, est["p50"] * 1e3,
+                     est["p99"] * 1e3,
+                     len(scraper.scrapes) if scraper else 0))
+        if scraper is not None:
+            check_counters_monotone(scraper.scrapes, "scrape cost")
+        if st["retraces"] != 0 or st["requests"] != ADMIN_COST_ROWS \
+                or len(exact) != ADMIN_COST_ROWS:
+            raise AssertionError(f"serve_admin: {st['requests']} requests "
+                                 f"({len(exact)} latencies), "
+                                 f"{st['retraces']} retraces")
+        del task
+    log(f"serve_admin scrape cost ({ADMIN_COST_ROWS} requests a run; A: no "
+        f"scraper, B: /metrics + /statusz at {ADMIN_SCRAPE_HZ} Hz from "
+        "another process; p50 / p99 exact over every request, the "
+        "2048-value reservoir's in brackets), A B B A: " + "; ".join(
+            f"{lb} {q:.1f} req/s p50 {p50:.3f} ms p99 {p99:.3f} ms "
+            f"[{e50:.3f} / {e99:.3f}] ({n} scrapes)"
+            for lb, q, p50, p99, e50, e99, n in rows)
+        + f"; A's qps spread {spread([r[1] for r in rows[::3]]):.2f}%, "
+        f"B's {spread([r[1] for r in rows[1:3]]):.2f}%")
+    return read_launches()
+
+
+def admin_anomaly(tmp: str) -> dict:
+    """(c): the cost runs' stream with the sentinels at ADMIN_STALL_REL,
+    no SLO, and the card stalled for ~ADMIN_STALL_SEC (matmuls queued on
+    the default stream from another thread) ADMIN_STALL_AFTER s after
+    /readyz turns 200: no p99 or qps anomaly before the stall, a
+    ``serve_p99_ms`` anomaly after it and a ``serve_flight`` armed by it;
+    every flight armed by an anomaly (the queue-depth sentinel may arm
+    more), with its spans in its range.  Returns the run's launches."""
+    import threading
+    import urllib.request
+    import torch
+    sink = fresh(os.path.join(tmp, "serve_admin_stall.jsonl"))
+    args = admin_cost_args(tmp, sink) + [
+        "serve_sentinel=1", f"serve_sentinel_window={ADMIN_WINDOW}",
+        f"sentinel_rel={ADMIN_STALL_REL}",
+        f"serve_flight_requests={ADMIN_FLIGHT}"]
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty_like(a)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.mm(a, a, out=out)
+    ev[0].record()
+    for _ in range(10):
+        torch.mm(a, a, out=out)
+    ev[1].record()
+    ev[1].synchronize()
+    n_mm = max(1, round(ADMIN_STALL_SEC * 1e3 / (ev[0].elapsed_time(ev[1])
+                                                 / 10)))
+    port, done, stall = free_port(), threading.Event(), {}
+
+    def inject():
+        while not done.is_set():
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                       timeout=0.5).close()
+                break
+            except OSError:          # nothing bound yet, or 503
+                done.wait(0.005)
+        if done.wait(ADMIN_STALL_AFTER):
+            return
+        stall["t0"] = time.time()
+        ev[2].record()
+        for _ in range(n_mm):
+            torch.mm(a, a, out=out)
+        ev[3].record()
+        stall["queued"] = True
+
+    injector = threading.Thread(target=inject, name="smoke-stall")
+    injector.start()
+    reset_launches()
+    try:
+        task, _, _ = admin_run(tmp, args, port=port)
+    finally:
+        done.set()
+        injector.join()
+    launches = read_launches()
+    if not stall.get("queued"):
+        raise AssertionError("serve_admin (c): the run ended before the "
+                             "stall")
+    ev[3].synchronize()
+    st = task.last_serve
+    recs = read_records(sink)
+    wins = [r for r in recs if r["kind"] == "serve_window"]
+    hits = [r for r in recs if r["kind"] == "anomaly"]
+    (srv,) = [r for r in recs if r["kind"] == "serve"]
+    log(f"serve_admin (c): {st['requests']} requests in "
+        f"{st['duration_sec']:.3f} s = {st['qps']:.1f} req/s; a stall of "
+        f"{n_mm} matmuls ({ev[2].elapsed_time(ev[3]):.1f} ms on the card) "
+        f"{ADMIN_STALL_AFTER} s after ready; {len(wins)} serve_window "
+        f"records, p99 ms {[w.get('p99_ms') for w in wins]}; anomalies "
+        f"{[(h['metric'], h['value'], h['ewma'], h['rel_dev']) for h in hits]}"
+        f" at {[round(h['ts'] - stall['t0'], 3) for h in hits]} s from the "
+        "stall")
+    check_windows(wins, srv, "(c)")
+    t0 = round(stall["t0"], 3) - 0.001
+    p99 = [h["ts"] for h in hits if h["metric"] == "serve_p99_ms"]
+    if any(h["ts"] < t0 for h in hits if h["metric"] != "serve_queue_depth") \
+            or not p99 or p99[0] < t0:
+        raise AssertionError("serve_admin (c): a p99 or qps anomaly before "
+                             "the stall, or no serve_p99_ms anomaly after it")
+    flights = check_flights(recs, "(c)", "anomaly:", one=False)
+    if not any(f["ts"] >= p99[0] and "serve_p99_ms" in f["reason"]
+               for f in flights):
+        raise AssertionError("serve_admin (c): the p99 anomaly armed no "
+                             "flight")
+    if st["retraces"] != 0 or srv["retraces"] != 0:
+        raise AssertionError("serve_admin (c): retraces")
+    check_pool_launches(launches, st, "(c)")
+    del a, out, task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def admin_gen_conf(tmp: str, serve_conf: str) -> str:
+    """The serve phase's LM conf over ADMIN_GEN_PROMPTS seeded prompts
+    (its length range), with its own output and sink; returns the path."""
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    rng = np.random.RandomState(13)
+    lens = rng.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1, ADMIN_GEN_PROMPTS)
+    write_token_shard(os.path.join(tmp, "prompts_admin.tok"),
+                      [rng.randint(0, VOCAB, n) for n in lens], itemsize=2)
+    text = open(serve_conf).read()
+    for old, new in (("prompts.tok", "prompts_admin.tok"),
+                     ("gen_out.txt", "gen_admin_out.txt"),
+                     ("serve_metrics.jsonl", "serve_admin_gen.jsonl")):
+        if os.path.join(tmp, old) not in text:
+            raise AssertionError(f"serve_admin (b): {old} not in the conf")
+        text = text.replace(os.path.join(tmp, old), os.path.join(tmp, new))
+    conf = os.path.join(tmp, "serve_admin_gen.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    return conf
+
+
+def admin_generate(tmp: str, serve_conf: str) -> dict:
+    """(b): the LM serve of the serve phase over ADMIN_GEN_PROMPTS prompts
+    with the admin endpoint, without (A) and with (B) a scraper at
+    ADMIN_SCRAPE_HZ, A B B A: in each B run /statusz says kind = generate
+    with tokens, steps and the occupancy histogram, and /metrics carries
+    decode_occupancy_hist buckets; every prefill runs row 7 and every
+    forward row 11.  Prints each run's tok/s; returns the runs'
+    launches."""
+    import torch
+    from cxxnet_tpu_torch.monitor import promtext
+    conf = admin_gen_conf(tmp, serve_conf)
+    reset_launches()
+    prefills = steps = 0
+    rows = []
+    for label in "ABBA":
+        fresh(os.path.join(tmp, "serve_admin_gen.jsonl"))
+        task, scraper, port = admin_run(
+            tmp, [conf], 1.0 / ADMIN_SCRAPE_HZ if label == "B" else 0)
+        st = task.last_serve
+        prefills += st["prefill_calls"]
+        steps += st["step_calls"]
+        rows.append((label, st["tokens_per_sec"], st["tokens"],
+                     st["duration_sec"], st["tok_p50_ms"],
+                     len(scraper.scrapes) if scraper else 0))
+        if st["retraces"] != 0 or st["requests"] != ADMIN_GEN_PROMPTS:
+            raise AssertionError(f"serve_admin (b): {st['requests']} "
+                                 f"requests, {st['retraces']} retraces")
+        del task
+        if scraper is None:
+            continue
+        ready = [sc for sc in scraper.scrapes if sc[2]["ready"]
+                 and sc[2]["models"].get("default", {}).get("steps")]
+        if not ready:
+            raise AssertionError(f"serve_admin (b): no scrape while "
+                                 f"generating ({len(scraper.scrapes)} "
+                                 "scrapes)")
+        check_counters_monotone(scraper.scrapes, "(b)")
+        _, text, status = ready[-1]
+        m = status["models"]["default"]
+        occ = promtext.parse(text).get("cxxnet_decode_occupancy_hist", {})
+        buckets = [sm for sm in occ.get("samples", ())
+                   if sm[0].endswith("_bucket")]
+        log(f"serve_admin (b): port {port}; {len(ready)} scrapes while "
+            f"generating; last /statusz: kind {m.get('kind')}, requests "
+            f"{m.get('requests')}, tokens {m.get('tokens')}, steps "
+            f"{m.get('steps')}, prefills {m.get('prefills')}, occupancy "
+            f"{m.get('occupancy_hist')}")
+        if m.get("kind") != "generate" or not m.get("tokens") \
+                or not m.get("occupancy_hist") \
+                or occ.get("type") != "histogram" or not buckets \
+                or buckets[-1][1].get("le") != "+Inf":
+            raise AssertionError(f"serve_admin (b): /statusz {m}, "
+                                 f"occupancy family {occ}")
+    launches = read_launches()
+    a_mean = (rows[0][1] + rows[3][1]) / 2
+    log(f"serve_admin (b) scrape cost ({ADMIN_GEN_PROMPTS} requests a run; "
+        f"A: no scraper, B: /metrics + /statusz at {ADMIN_SCRAPE_HZ} Hz "
+        "from another process), A B B A: " + "; ".join(
+            f"{lb} {tps:.1f} tok/s ({tok} tokens in {dur:.3f} s, step p50 "
+            f"{p50:.2f} ms; {n} scrapes)"
+            for lb, tps, tok, dur, p50, n in rows)
+        + f"; A's spread {spread([rows[0][1], rows[3][1]]):.2f}%, B "
+        f"{100 * (rows[1][1] / a_mean - 1):+.2f}% / "
+        f"{100 * (rows[2][1] / a_mean - 1):+.2f}% against A's mean")
+    if launches["flash_attention_fwd"] < NLAYER * prefills \
+            or launches["layernorm_fwd"] \
+            < (2 * NLAYER + 1) * (prefills + steps):
+        raise AssertionError("serve_admin (b): prefills / forwards not "
+                             "through rows 7 / 11")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_admin(tmp: str, serve_conf: str) -> dict:
+    """Phase 22 (``serve_admin``): (a) the micro-batched path with the
+    admin endpoint, the sentinels, an SLO and the flight capture, and
+    the scrape's cost A B B A; (c) a stall of the card caught by the
+    serve sentinels; (b) the LM serve with the endpoint, and the
+    scrape's cost A B B A there.  Returns the path's launches (each
+    part's counted from 0)."""
+    parts = [admin_batch(tmp), admin_scrape_cost(tmp), admin_anomaly(tmp),
+             admin_generate(tmp, serve_conf)]
+    launches = {n: sum(p[n] for p in parts) for n in KERNELS}
+    log(f"serve_admin path launches: {launches}")
+    return launches
 
 
 def device_busy_sec(prof, steps: int) -> float:
@@ -4166,6 +4757,11 @@ def main() -> int:
                 raise SystemExit("observe needs the serve and mnist_conv "
                                  "phases")
             paths["observe"] = phase_observe(tmp, serve_conf)
+        if "serve_admin" in phases:
+            if serve_conf is None or "serve_batch" not in phases:
+                raise SystemExit("serve_admin needs the serve and "
+                                 "serve_batch phases")
+            paths["serve_admin"] = phase_serve_admin(tmp, serve_conf)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

@@ -52,7 +52,13 @@ Ported tasks:
   prompts for the KV-cache decode engine behind the continuous-batching
   step scheduler (speculative with a ``serve_draft_model``, chunked
   prefill with ``decode_prefill_chunk``), the generated ids in
-  ``name_pred``.
+  ``name_pred``.  ``serve_admin_port`` serves ``/metrics`` /
+  ``/healthz`` / ``/readyz`` / ``/statusz`` from before warmup to the
+  end of the drain; on the micro-batched path a reporter thread emits a
+  ``serve_window`` record every ``serve_sentinel_window`` seconds, which
+  feeds the serve sentinels (``serve_sentinel = 1``), the SLO burn
+  alerts (``serve_slo_*``: ``slo`` records) and the flight capture
+  (``serve_flight_*``: one ``serve_flight`` record per anomaly storm).
 
 The other tasks (``check``), and the keys of the JAX package's train
 loop whose features are not ported (``UNPORTED_TASK_KEYS``: the replica
@@ -61,6 +67,7 @@ weight check of the multi-GPU plane), are refused by name.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue
 import re
@@ -1138,10 +1145,16 @@ class LearnTask:
         sm = ServeModel(self.net, cfg, metrics=metrics)
         host = ModelHost()
         host.attach(sm, warmup=False)
-        mlog.notice(f"serve: warming {len(cfg.shapes)} shape bucket(s) "
-                    f"{list(cfg.shapes)}, dtype={cfg.dtype}, device "
-                    f"{self.net.device} ...")
+        stop_reporter = None
         try:
+            # the admin endpoint is up before warmup, so /readyz reads
+            # 503 while the buckets warm
+            admin = host.start_admin(
+                metrics, port=cfg.admin_port,
+                config=dataclasses.asdict(cfg)) if cfg.admin_port else None
+            mlog.notice(f"serve: warming {len(cfg.shapes)} shape bucket(s) "
+                        f"{list(cfg.shapes)}, dtype={cfg.dtype}, device "
+                        f"{self.net.device} ...")
             sm.warmup()
             mlog.info(f"serve: warmup in {sm.engine.warmup_sec:.1f} sec")
             footprint = sm.footprint()
@@ -1168,8 +1181,17 @@ class LearnTask:
                         f"serve: {cfg.dtype} pairtest vs f32 on "
                         f"{len(calib)} calibration batch(es): max rel err "
                         f"{err:.3g} (envelope {SERVE_TOL[cfg.dtype]:g})")
+            bank, slo, flight = self._serve_watchers(sm, cfg, metrics)
+            if admin is not None:
+                admin.slo = slo
+                admin.flight = flight
+                # /statusz shows the last window even without sentinels
+                sm.batcher.track_window = True
             if not host.mark_ready():
                 mlog.warn("serve: host failed the ready admission check")
+            if bank is not None or admin is not None:
+                stop_reporter = self._start_serve_reporter(
+                    sm, cfg, metrics, admin, bank, slo, flight)
 
             def rows():
                 for batch in self._pred_batches("(the request stream)"):
@@ -1181,9 +1203,14 @@ class LearnTask:
 
             mlog.notice(f"serve: streaming requests over {cfg.clients} "
                         "client thread(s)")
-            results, dur = self._stream_clients(
-                rows(), sm.predict, cfg.clients,
-                max(cfg.queue_depth, 2 * cfg.max_batch), "cxxnet-serve")
+            try:
+                results, dur = self._stream_clients(
+                    rows(), sm.predict, cfg.clients,
+                    max(cfg.queue_depth, 2 * cfg.max_batch), "cxxnet-serve")
+            except BaseException as e:
+                if bank is not None:
+                    bank.flight_dump("serve aborted: " + repr(e))
+                raise
             with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
                 for out in results:
                     row = out[0]
@@ -1213,9 +1240,116 @@ class LearnTask:
                 f"serve: {len(results)} requests in {dur:.2f} sec "
                 f"({qps:.1f} req/s), {stats['batches']} dispatches (mean "
                 f"batch {stats['mean_batch']}), retraces {sm.retraces}")
+            if bank is not None and bank.anomalies:
+                mlog.warn(f"serve: {len(bank.anomalies)} sentinel "
+                          "anomaly(ies): see the anomaly records "
+                          "(tools/obsv.py)")
         finally:
+            if stop_reporter is not None:
+                stop_reporter()
+            # not ready first, then the batcher's drain, the admin last
             host.close()
         mlog.notice(f"finished serving, wrote {self.name_pred}")
+
+    def _serve_watchers(self, sm, cfg, metrics):
+        """``(bank, slo, flight)`` of the micro-batched path: the serve
+        sentinels (``serve_sentinel = 1`` with an active sink), the SLO
+        tracker (``serve_slo_p99_ms`` > 0) and the flight capture that an
+        anomaly or a burn arms; ``None`` where off.  Both ride the
+        reporter's ``serve_window`` records."""
+        if cfg.sentinel and not metrics.active:
+            mlog.warn("serve_sentinel = 1 without an active metrics_sink: "
+                      "serve_window/anomaly records have nowhere to land; "
+                      "sentinels disarmed")
+        if not (cfg.sentinel and metrics.active):
+            if cfg.slo_p99_ms > 0.0:
+                mlog.warn("serve_slo_p99_ms without serve_sentinel = 1 "
+                          "(and an active metrics_sink): the SLO evaluates "
+                          "over the sentinel reporter's serve_window "
+                          "stream; targets ignored")
+            return None, None, None
+        from .monitor.sentinel import SentinelBank
+        from .serve.admin import FlightCapture
+        bank = SentinelBank(metrics, rel=self.sentinel_rel,
+                            warmup=self.sentinel_warmup,
+                            ring=self.sentinel_ring)
+        sm.batcher.track_window = True
+        flight = FlightCapture(
+            metrics, lambda: sm.batcher.n_requests, model=sm.name,
+            boost=cfg.flight_boost, requests=cfg.flight_requests,
+            stats_fn=sm.batcher.stats)
+        bank.on_anomaly = lambda hit: flight.trigger(
+            f"anomaly: {hit['metric']} {hit['direction']} "
+            f"{hit['rel_dev']:+.0%}")
+        slo = None
+        if cfg.slo_p99_ms > 0.0:
+            from .monitor.slo import SloSpec, SloTracker
+            sm.batcher.slo_ms = cfg.slo_p99_ms
+            slo = SloTracker(
+                SloSpec(p99_ms=cfg.slo_p99_ms, avail=cfg.slo_avail,
+                        fast_sec=cfg.slo_fast_sec, slow_sec=cfg.slo_slow_sec,
+                        fast_burn=cfg.slo_fast_burn,
+                        slow_burn=cfg.slo_slow_burn),
+                cfg.sentinel_window, metrics=metrics, model=sm.name,
+                on_burn=lambda rec: flight.trigger(
+                    f"slo: {rec['tier']} burn {rec['burn']:.1f} >= "
+                    f"{rec['threshold']:g}"))
+        return bank, slo, flight
+
+    @staticmethod
+    def _start_serve_reporter(sm, cfg, metrics, admin, bank, slo, flight):
+        """Start the ``cxxnet-serve-sentinel`` thread: every
+        ``serve_sentinel_window`` seconds it drains the batcher's window
+        into one ``serve_window`` record (qps over the window's actual
+        length) and hands it to the admin's cache, the sentinel bank,
+        the SLO tracker and the flight capture.  Returns the function
+        that stops it, after a last tick over the tail window."""
+        stop = threading.Event()
+        win = [0, time.perf_counter()]
+
+        def tick():
+            ws = sm.batcher.window_stats()
+            now = time.perf_counter()
+            dt, win[1] = max(now - win[1], 1e-6), now
+            win[0] += 1
+            rec = {"model": sm.name, "window": win[0],
+                   "window_sec": round(dt, 3), "requests": ws["requests"],
+                   "qps": round(ws["requests"] / dt, 2),
+                   "queue_depth": ws["queue_depth"]}
+            for k in ("viol", "p50_ms", "p95_ms", "p99_ms"):
+                if k in ws:
+                    rec[k] = ws[k]
+            metrics.emit("serve_window", **rec)
+            if admin is not None:
+                admin.note_window(sm.name, rec)
+            elif flight is not None:
+                flight.note_window(rec)
+            # an idle window too: a stalled dispatcher grows the queue
+            # while nothing completes
+            if bank is not None:
+                bank.observe_serve(rec)
+            if slo is not None:
+                slo.observe(rec)
+            if flight is not None:
+                flight.tick()
+
+        def run():
+            try:
+                while not stop.wait(cfg.sentinel_window):
+                    tick()
+                tick()
+            except BaseException as e:  # noqa: BLE001 — must surface
+                mlog.warn(f"serve sentinel reporter died: {e!r}; "
+                          "serve_window records stop here")
+
+        th = threading.Thread(target=run, daemon=True,
+                              name="cxxnet-serve-sentinel")
+        th.start()
+
+        def stop_reporter():
+            stop.set()
+            th.join()
+        return stop_reporter
 
     @staticmethod
     def _stream_clients(items, call, clients: int, depth: int, name: str):
@@ -1338,6 +1472,11 @@ class LearnTask:
         try:
             gm = host.attach(GenModel(self.net, cfg, draft_trainer=draft,
                                       metrics=metrics), warmup=False)
+            # the admin endpoint only: the generation path has no
+            # reporter, so /statusz shows the scheduler's live counters
+            if cfg.admin_port:
+                host.start_admin(metrics, port=cfg.admin_port,
+                                 config=dataclasses.asdict(cfg))
             mlog.notice(f"serve: warming decode engine ({cfg.slots} "
                         f"slot(s), max_seqlen {gm.engine.max_seqlen}, block "
                         f"widths {list(gm.engine.block_widths)}, KV cache "

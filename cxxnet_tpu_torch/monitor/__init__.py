@@ -11,6 +11,8 @@ ledger (the JAX package's ``monitor`` package; doc/monitor.md).
   reader of its Chrome-trace JSON (the ``trace`` record);
 * :mod:`.attribution` — device time per connection (``layer_profile``);
 * :mod:`.sentinel` — EWMA regression sentinels and the flight ring;
+* :mod:`.promtext` — the Prometheus text of ``/metrics`` (serve/admin.py);
+* :mod:`.slo` — SLO burn-rate tiers over the ``serve_window`` records;
 * :mod:`.ledger` / :mod:`.diff` — the goodput ledger and the run
   comparator that ``tools/obsv.py`` renders.
 """

@@ -5,14 +5,17 @@ host span tracer (the JAX package's ``MetricsRegistry``).
 ``tracer`` (:class:`~.spans.SpanTracer`, armed by ``trace_sample``).
 Records keep the JAX package's schema (``ts`` + ``kind`` + fields, one
 JSON object per line) so the same readers take both.
-:func:`device_memory_gauges` reads the caching allocator's high-water
-and live bytes.  The admin plane is not ported (ROADMAP.md).
+:meth:`Metrics.snapshot` is what the admin endpoint's ``/metrics``
+renders: counters and gauges read through :func:`copy_racy`, never
+under the writers' lock.  :func:`device_memory_gauges` reads the caching
+allocator's high-water and live bytes.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import random
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -25,29 +28,72 @@ def nearest_rank(sorted_vals: List[float], q: float) -> float:
     return sorted_vals[min(i, len(sorted_vals) - 1)]
 
 
+def copy_racy(d: Dict, tries: int = 8) -> Dict:
+    """Copy a dict another thread may be growing without locking the
+    writer: a copy that meets an insert raises RuntimeError, so retry a
+    few times, then copy item by item (the JAX package's
+    ``serve/admin.copy_racy``)."""
+    for _ in range(tries):
+        try:
+            return dict(d)
+        except RuntimeError:
+            continue
+    out = {}
+    for k in list(d.keys()):
+        try:
+            out[k] = d[k]
+        except KeyError:
+            continue
+    return out
+
+
 class Histogram:
-    """Every observation kept (serving runs are short); thread-safe."""
+    """Streaming summary (count / sum / min / max / last + p50 / p95 /
+    p99), the JAX package's: percentiles come from a reservoir of at
+    most ``_RESERVOIR`` values (exact until it fills, a uniform sample
+    after, replaced from a fixed-seed generator so equal streams give
+    equal summaries), so a long serve's ``/metrics`` scrape costs the
+    same at every hour.  Thread-safe: one lock over the update."""
+
+    _RESERVOIR = 2048
+
+    __slots__ = ("count", "total", "min", "max", "last", "_samples",
+                 "_rng", "_lock")
 
     def __init__(self):
-        self._vals: List[float] = []
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self.last: Optional[float] = None
+        self._samples: List[float] = []
+        self._rng = random.Random(0x5EED)
         self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
+        v = float(value)
         with self._lock:
-            self._vals.append(float(value))
-
-    @property
-    def count(self) -> int:
-        return len(self._vals)
+            self.count += 1
+            self.total += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+            self.last = v
+            if len(self._samples) < self._RESERVOIR:
+                self._samples.append(v)
+            else:
+                j = self._rng.randrange(self.count)
+                if j < self._RESERVOIR:
+                    self._samples[j] = v
 
     def summary(self) -> Dict[str, float]:
         with self._lock:
-            s = sorted(self._vals)
-        out: Dict[str, float] = {"count": len(s), "sum": sum(s)}
-        if s:
-            out.update(min=s[0], max=s[-1], mean=sum(s) / len(s),
-                       p50=nearest_rank(s, 50), p95=nearest_rank(s, 95),
-                       p99=nearest_rank(s, 99))
+            out: Dict[str, float] = {"count": self.count, "sum": self.total}
+            if self.count:
+                s = sorted(self._samples)
+                out.update(min=self.min, max=self.max,
+                           mean=self.total / self.count, last=self.last,
+                           p50=nearest_rank(s, 50), p95=nearest_rank(s, 95),
+                           p99=nearest_rank(s, 99))
         return out
 
 
@@ -92,7 +138,18 @@ class Metrics:
         self.gauges[name] = float(value)
 
     def observe(self, name: str, value: float) -> None:
-        self.histograms.setdefault(name, Histogram()).observe(value)
+        h = self.histograms.get(name)
+        if h is None:
+            h = self.histograms.setdefault(name, Histogram())
+        h.observe(value)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Counters, gauges and histogram summaries, copied without the
+        lock (the scrape path must not wait on the instruments)."""
+        return {"counters": copy_racy(self.counters),
+                "gauges": copy_racy(self.gauges),
+                "histograms": {k: h.summary() for k, h
+                               in copy_racy(self.histograms).items()}}
 
     def emit(self, kind: str, **fields: Any) -> None:
         """Write one record (no-op without a sink)."""

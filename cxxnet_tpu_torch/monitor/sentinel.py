@@ -17,9 +17,8 @@ Serving runs (``serve_sentinel = 1``, doc/serve.md) arm three more
 over the ``serve_window`` records the task's reporter thread emits:
 ``serve_p99_ms`` (rise — tail-latency regression), ``serve_qps``
 (drop — throughput collapse), and ``serve_queue_depth`` (rise —
-standing-queue growth, the saturation precursor).  These are the
-serving-regression signal a hot-swap or rollback consumes (the serve
-side's windows are not ported: ROADMAP.md).
+standing-queue growth, the saturation precursor).  ``on_anomaly``
+arms the serve host's flight capture (serve/admin.py).
 
 Each watcher smooths its series with an EWMA and fires an ``anomaly``
 record when a new value deviates more than ``sentinel_rel`` (relative)

@@ -119,7 +119,7 @@ class SpanTracer:
         # last allocated trace_id
         self._next_id = 0
         # requests offered to the sampler
-        self._n_seen = 0 
+        self._n_seen = 0
         self._tls = threading.local()
 
     # ------------------------------------------------------------- state
@@ -131,8 +131,17 @@ class SpanTracer:
     def configure(self, sample: int) -> None:
         """(Re)arm: ``trace_sample = N`` traces every Nth request,
         ``0`` disables.  The tracer object is stable so components that
-        grabbed ``metrics.tracer`` early see the change."""
+        grabbed ``metrics.tracer`` early see the change; the flight
+        capture re-arms it from the serve reporter's thread."""
         self.sample = int(sample)
+
+    @property
+    def watermark(self) -> int:
+        """The last issued trace_id (an int read, no lock): two reads
+        bracket the id range of the requests traced between them, which
+        the flight capture's ``serve_flight`` record names
+        (``trace_first`` / ``trace_last``)."""
+        return self._next_id
 
     # -------------------------------------------------------------- ids
     def new_trace(self) -> Optional[int]:
@@ -225,6 +234,7 @@ class NullTracer:
 
     sample = 0
     enabled = False
+    watermark = 0
 
     def new_trace(self):
         return None

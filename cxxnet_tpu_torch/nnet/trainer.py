@@ -95,20 +95,44 @@ def refuse_unported(name: str, val: str, default: str) -> None:
 def resolve_device(dev: str) -> torch.device:
     """``dev`` -> torch device.  ``cpu`` runs on the CPU; ``gpu``,
     ``cuda`` and the JAX package's accelerator names (``tpu``, with
-    optional ``:i`` or ``:i-j``) run on the card, and raise when there is
-    none — an accelerator request never lands on the CPU."""
+    optional ``:i``) run on the card, and raise when there is none — an
+    accelerator request never lands on the CPU.  Several ids (``:i-j``,
+    ``:i,j``), which the JAX package turns into a data mesh, are refused
+    by name: the multi-GPU plane is not ported."""
     platform, _, ids = dev.strip().lower().partition(":")
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("gpu", "cuda", "tpu"):
+    if platform not in ("cpu", "gpu", "cuda", "tpu"):
         raise ValueError(f"dev = {dev!r}: expected cpu, gpu[:i], cuda[:i] "
                          "or tpu[:i]")
+    listed = device_ids(ids) if ids else []
+    if len(listed) > 1:
+        raise ValueError(
+            f"dev = {dev}: {len(listed)} devices; a data mesh over several "
+            "device ids (multi-GPU) is not ported to cxxnet_tpu_torch yet "
+            "(ROADMAP.md, Multi-GPU)")
+    if platform == "cpu":
+        return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"dev = {dev}: no CUDA device is available; set dev = cpu to "
             "run on the CPU")
-    index = int(re.split(r"[-,]", ids)[0]) if ids else 0
-    return torch.device("cuda", index)
+    return torch.device("cuda", listed[0] if listed else 0)
+
+
+def device_ids(spec: str) -> List[int]:
+    """The ids of a ``dev`` suffix: ``0``, ``0-3``, ``1,3`` (the JAX
+    package's ``parallel/mesh.parse_device_spec``)."""
+    ids: List[int] = []
+    for part in spec.split(","):
+        try:
+            if "-" in part:
+                a, b = part.split("-")
+                ids.extend(range(int(a), int(b) + 1))
+            else:
+                ids.append(int(part))
+        except ValueError:
+            raise ValueError(f"dev suffix {spec!r}: expected i, i-j or "
+                             "i,j") from None
+    return ids
 
 
 def _torch_leaf(a, dtype_name: Optional[str]) -> torch.Tensor:

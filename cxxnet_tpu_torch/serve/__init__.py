@@ -14,18 +14,19 @@
   prefill (``decode_prefill_chunk``) and a KV-cache dtype of its own
   (``decode_kv_dtype``).
 * :mod:`.host` — engine + batcher bundles (``ServeModel``, ``GenModel``)
-  routed by model name (``ModelHost``).
+  routed by model name (``ModelHost``), which owns the admin endpoint.
+* :mod:`.admin` — ``serve_admin_port``: ``/metrics`` (Prometheus text),
+  ``/healthz``, ``/readyz``, ``/statusz``; and the flight capture
+  (``serve_flight_*``) that a serve sentinel's anomaly
+  (``serve_sentinel*``, over the reporter's ``serve_window`` records)
+  or an SLO burn (``serve_slo_*``, :mod:`..monitor.slo`) arms.
 
 :class:`ServeConfig` parses the same ``serve_*`` / ``decode_*`` keys as
 the JAX package, plus one of the port's own: ``serve_gen_prompt_doc =
 1`` makes every document of a ``packseq`` prompt row its own request
 (its first ``serve_gen_prompt`` ids), so prompts keep their own lengths;
 the default ``0`` takes each row's leading ``serve_gen_prompt`` ids, as
-the JAX package does.  The keys of the admin plane, the serve-side
-sentinels, the SLO tracker and the flight capture are parsed and
-refused when set away from their defaults, rather than ignored: they
-need the observability plane (spans, SLO, Prometheus text), which is not
-ported.
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -59,25 +60,6 @@ def shapes_check(val: str) -> Optional[str]:
     return None
 
 
-#: keys of the serving half of the observability plane not ported yet
-#: (the admin endpoint, serve-side sentinels, the SLO, the flight
-#: capture): (config key, field, default).  Any other value is refused
-#: by name
-UNPORTED_SERVE_KEYS = (
-    ("serve_admin_port", "admin_port", 0),
-    ("serve_sentinel", "sentinel", 0),
-    ("serve_sentinel_window", "sentinel_window", 1.0),
-    ("serve_slo_p99_ms", "slo_p99_ms", 0.0),
-    ("serve_slo_avail", "slo_avail", 0.999),
-    ("serve_slo_fast_sec", "slo_fast_sec", 60.0),
-    ("serve_slo_slow_sec", "slo_slow_sec", 600.0),
-    ("serve_slo_fast_burn", "slo_fast_burn", 14.4),
-    ("serve_slo_slow_burn", "slo_slow_burn", 6.0),
-    ("serve_flight_requests", "flight_requests", 16),
-    ("serve_flight_boost", "flight_boost", 1),
-)
-
-
 @dataclasses.dataclass
 class ServeConfig:
     shapes: Tuple[int, ...] = (1, 8, 32)
@@ -105,11 +87,12 @@ class ServeConfig:
     spec_k: int = 0             # proposals per round; 0 = speculation off
     prefill_chunk: int = 0      # 0 = whole-prompt prefill
     kv_dtype: str = ""          # "" = the net's dtype
-    # the observability plane: not ported, refused when set
-    admin_port: int = 0
+    # serve-side sentinels (the reporter's serve_window records)
     sentinel: int = 0
     sentinel_window: float = 1.0
-    slo_p99_ms: float = 0.0
+    # the admin endpoint (serve/admin.py) and the SLO (monitor/slo.py)
+    admin_port: int = 0         # 0 = no admin endpoint
+    slo_p99_ms: float = 0.0     # 0 = no SLO
     slo_avail: float = 0.999
     slo_fast_sec: float = 60.0
     slo_slow_sec: float = 600.0
@@ -119,6 +102,10 @@ class ServeConfig:
     flight_boost: int = 1
 
     def __post_init__(self):
+        if self.sentinel_window <= 0:
+            raise ValueError(
+                f"serve_sentinel_window = {self.sentinel_window}: must "
+                "be > 0 (seconds per observation window)")
         self.shapes = tuple(self.shapes)
         if not (self.shapes and all(s > 0 for s in self.shapes)
                 and list(self.shapes) == sorted(set(self.shapes))):
@@ -150,12 +137,17 @@ class ServeConfig:
         if self.kv_dtype not in ("", "f32", "bf16"):
             raise ValueError(f"decode_kv_dtype = {self.kv_dtype!r}: "
                              "expected f32 or bf16")
-        for key, field, off in UNPORTED_SERVE_KEYS:
-            val = getattr(self, field)
-            if val != off:
-                raise ValueError(
-                    f"{key} = {val}: not ported to cxxnet_tpu_torch yet (the "
-                    "serving observability plane; ROADMAP.md)")
+        if not 0 <= self.admin_port <= 65535:
+            raise ValueError(
+                f"serve_admin_port = {self.admin_port}: expected "
+                "0 (off) or a port in 1..65535")
+        if self.slo_p99_ms > 0.0 and not 0.0 < self.slo_avail < 1.0:
+            raise ValueError(
+                f"serve_slo_avail = {self.slo_avail}: must be in "
+                "(0, 1) when serve_slo_p99_ms is set (1.0 leaves a "
+                "zero error budget)")
+        if self.slo_fast_sec <= 0 or self.slo_slow_sec <= 0:
+            raise ValueError("serve_slo_*_sec windows must be > 0")
 
     @classmethod
     def from_pairs(cls, pairs: Sequence[Tuple[str, str]]) -> "ServeConfig":
@@ -186,10 +178,18 @@ class ServeConfig:
                 ("serve_draft_model", "draft_model", str),
                 ("spec_k", "spec_k", int),
                 ("decode_prefill_chunk", "prefill_chunk", int),
-                ("decode_kv_dtype", "kv_dtype", str)):
+                ("decode_kv_dtype", "kv_dtype", str),
+                ("serve_sentinel", "sentinel", int),
+                ("serve_sentinel_window", "sentinel_window", float),
+                ("serve_admin_port", "admin_port", int),
+                ("serve_slo_p99_ms", "slo_p99_ms", float),
+                ("serve_slo_avail", "slo_avail", float),
+                ("serve_slo_fast_sec", "slo_fast_sec", float),
+                ("serve_slo_slow_sec", "slo_slow_sec", float),
+                ("serve_slo_fast_burn", "slo_fast_burn", float),
+                ("serve_slo_slow_burn", "slo_slow_burn", float),
+                ("serve_flight_requests", "flight_requests", int),
+                ("serve_flight_boost", "flight_boost", int)):
             if key in last:
                 kw[field] = conv(last[key])
-        for key, field, off in UNPORTED_SERVE_KEYS:
-            if key in last:
-                kw[field] = type(off)(last[key])
         return cls(**kw)

@@ -6,7 +6,10 @@ package's ``serve/batcher.py``).
   coalesces concurrent requests into one predict call of up to
   ``max_batch`` rows, or whatever arrived within ``max_wait_ms`` of the
   batch opening.  Every op of an eval forward is row-independent, so a
-  row's result does not depend on what it was batched with.
+  row's result does not depend on what it was batched with.  With
+  ``track_window`` on it also counts the open window's requests,
+  latencies and SLO violations for :meth:`MicroBatcher.window_stats`
+  (the ``serve_window`` record).
 * :class:`StepScheduler` — token-level continuous batching for
   generation.  Requests join and leave the in-flight batch between
   decode steps: a finished sequence's cache slot is freed and refilled
@@ -99,6 +102,16 @@ class MicroBatcher:
         self.depth_samples = 0
         self.depth_max = 0
         self._stats_lock = threading.Lock()
+        # the serve_window stream (task_serve's reporter turns it on and
+        # drains it with window_stats; off, submit pays one bool test):
+        # latencies and requests of the open window and, with slo_ms set
+        # (serve_slo_p99_ms), the requests slower than the SLO
+        self.track_window = False
+        self.slo_ms = 0.0
+        self._win_lock = threading.Lock()
+        self._win_lats: List[float] = []
+        self._win_requests = 0
+        self._win_viol = 0
 
     # ------------------------------------------------------------- client
     def start(self) -> None:
@@ -158,6 +171,12 @@ class MicroBatcher:
                         trace_id=req.trace_id, model=self.name)
         if self.metrics is not None:
             self.metrics.observe("serve_latency_sec", latency)
+        if self.track_window:
+            with self._win_lock:
+                self._win_lats.append(latency)
+                self._win_requests += 1
+                if self.slo_ms > 0.0 and latency * 1e3 > self.slo_ms:
+                    self._win_viol += 1
         return req.result
 
     def _observe_depth(self, depth: int) -> None:
@@ -165,6 +184,26 @@ class MicroBatcher:
             self.depth_sum += depth
             self.depth_samples += 1
             self.depth_max = max(self.depth_max, depth)
+
+    def window_stats(self) -> Dict[str, Any]:
+        """Drain the open window: its requests, the live queue depth, its
+        latency p50 / p95 / p99 (ms) and, with ``slo_ms`` set, ``viol``
+        (requests over it).  The reporter calls this once a
+        ``serve_sentinel_window``."""
+        with self._win_lock:
+            lats, self._win_lats = self._win_lats, []
+            n, self._win_requests = self._win_requests, 0
+            viol, self._win_viol = self._win_viol, 0
+        out: Dict[str, Any] = {"requests": n,
+                               "queue_depth": self._q.qsize()}
+        if self.slo_ms > 0.0:
+            out["viol"] = viol
+        if lats:
+            lats.sort()
+            out.update(p50_ms=round(nearest_rank(lats, 50) * 1e3, 3),
+                       p95_ms=round(nearest_rank(lats, 95) * 1e3, 3),
+                       p99_ms=round(nearest_rank(lats, 99) * 1e3, 3))
+        return out
 
     # --------------------------------------------------------- dispatcher
     def _loop(self) -> None:

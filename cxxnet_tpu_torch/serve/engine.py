@@ -39,6 +39,7 @@ from ..layers.base import materialize
 from ..layers.conv import ConvolutionLayer
 from ..layers.fullc import FullConnectLayer
 from ..monitor import log as mlog
+from ..monitor.metrics import copy_racy
 from .decode import _tree_bytes
 
 #: declared pairtest envelopes per predict variant (the JAX package's):
@@ -207,8 +208,8 @@ class PredictEngine:
     def stats(self) -> Dict[str, object]:
         """Dispatch accounting: bucket occupancy and padding waste."""
         return {"dispatches": self.dispatches,
-                "bucket_hist": {str(k): v
-                                for k, v in sorted(self.bucket_hist.items())},
+                "bucket_hist": {str(k): v for k, v in sorted(
+                    copy_racy(self.bucket_hist).items())},
                 "pad_rows": self.pad_rows,
                 "warmup_sec": round(self.warmup_sec, 3)}
 

@@ -6,10 +6,11 @@ JAX package's ``serve/host.py``).
 * :class:`GenModel` — a KV-cache :class:`DecodeEngine` (and, for
   speculative decoding, a draft net's engine) behind the
   :class:`StepScheduler`;
-* :class:`ModelHost` — the routing table over the process's device, and
-  the ready lifecycle: ready only once every hosted model has warmed
-  with zero retraces, and not ready from the first line of ``close``.
-  The admin endpoint is not ported (``start_admin`` raises).
+* :class:`ModelHost` — the routing table over the process's device, the
+  ready lifecycle (ready only once every hosted model has warmed with
+  zero retraces, and not ready from the first line of ``close``) and the
+  admin endpoint (:meth:`ModelHost.start_admin`, serve/admin.py), which
+  ``close`` joins last, so ``/healthz`` answers through the drain.
 
 :func:`load_serve_model` and :func:`load_draft_trainer` build a model's
 trainer from config pairs and a snapshot.
@@ -181,6 +182,7 @@ class ModelHost:
     def __init__(self):
         self._models: Dict[str, object] = {}
         self._ready = False
+        self.admin = None       # AdminServer once start_admin ran
 
     @property
     def ready(self) -> bool:
@@ -193,15 +195,22 @@ class ModelHost:
         warmed = bool(self._models) and all(
             m.warmed for m in self._models.values())
         self._ready = warmed and self.retraces() == 0
-        if warmed and not self._ready:
+        if self._ready and self.admin is not None:
+            self.admin.note_ready()     # footprints cached for /statusz
+        elif warmed and not self._ready:
             mlog.warn(f"host not ready: {self.retraces()} retraces after "
                       "warmup")
         return self._ready
 
     def start_admin(self, metrics, *, port: int, config=None):
-        raise NotImplementedError(
-            "the admin endpoint (serve_admin_port) is not ported to "
-            "cxxnet_tpu_torch yet (ROADMAP.md)")
+        """Start the admin endpoint on ``port`` (0 binds an ephemeral
+        one); the host owns it."""
+        from .admin import AdminServer
+        if self.admin is not None:
+            raise RuntimeError("admin endpoint already started")
+        self.admin = AdminServer(self, metrics, port=port, config=config)
+        self.admin.start()
+        return self.admin
 
     def add(self, name: str, trainer, cfg: Optional[ServeConfig] = None, *,
             metrics=None, warmup: bool = True) -> ServeModel:
@@ -245,10 +254,13 @@ class ModelHost:
                                    for fp in per.values())}
 
     def close(self) -> None:
-        self._ready = False
+        self._ready = False     # /readyz flips before any drain begins
         for m in self._models.values():
             m.close()
         self._models.clear()
+        if self.admin is not None:
+            self.admin.close()
+            self.admin = None
 
 
 def _trainer(pairs: Sequence[Tuple[str, str]], path: str):

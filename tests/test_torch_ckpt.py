@@ -40,6 +40,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 import cxxnet_tpu.ckpt as jckpt  # noqa: E402
 import cxxnet_tpu_torch.ckpt as ckptlib  # noqa: E402

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu import engine as jengine  # noqa: E402
 from cxxnet_tpu.ops import nn as JN  # noqa: E402

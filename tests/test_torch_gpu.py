@@ -17,6 +17,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu_torch.ops import conv_wgrad as cw  # noqa: E402
 from cxxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402

@@ -30,6 +30,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu import engine as jengine  # noqa: E402
 

@@ -38,6 +38,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 import cxxnet_tpu.io.native as jnative  # noqa: E402
 from cxxnet_tpu.io import factory as jfactory  # noqa: E402

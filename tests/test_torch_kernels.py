@@ -19,6 +19,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu.ops import pallas_kernels as pk  # noqa: E402
 from cxxnet_tpu.parallel import ring as jring  # noqa: E402

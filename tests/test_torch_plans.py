@@ -23,6 +23,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu_torch.ops import layernorm as ln  # noqa: E402
 from cxxnet_tpu_torch.ops import lrn  # noqa: E402

@@ -22,6 +22,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu.models import transformer  # noqa: E402
 from cxxnet_tpu.serve.batcher import StepScheduler as JScheduler  # noqa: E402
@@ -470,7 +471,9 @@ def test_cli_serves_one_request_per_document(tmp_path):
 
 def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
     """An accelerator request never lands on the CPU: dev unset (gpu),
-    dev = tpu and dev = cuda:0 all raise when no card is present."""
+    dev = tpu and dev = cuda:0 all raise when no card is present; dev =
+    tpu:0-3 (several ids) is refused by name before any device is
+    looked for."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from cxxnet_tpu_torch.main import LearnTask
@@ -480,23 +483,35 @@ def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
     conf = tmp_path / "s.conf"
     conf.write_text(f"task = serve\nmodel_in = {model}\nserve_gen = 1\n"
                     f"batch_size = 2\n")
-    for extra in ([], ["dev=tpu:0-3"], ["dev=cuda:0"], ["dev=gpu"]):
+    for extra in ([], ["dev=tpu"], ["dev=cuda:0"], ["dev=gpu"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LearnTask().run([str(conf)] + extra)
+    with pytest.raises(ValueError, match="not ported"):
+        LearnTask().run([str(conf), "dev=tpu:0-3"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("fpga")
 
 
-def test_unported_serve_keys_are_refused():
-    from cxxnet_tpu_torch.serve import ServeConfig
-    for key, val in (("serve_sentinel", "1"), ("serve_slo_p99_ms", "50"),
-                     ("serve_flight_requests", "4"),
-                     ("serve_admin_port", "8080")):
-        with pytest.raises(ValueError, match="not ported"):
-            ServeConfig.from_pairs([(key, val)])
-    cfg = ServeConfig.from_pairs([("serve_gen", "1"), ("decode_slots", "3")])
-    assert cfg.gen == 1 and cfg.slots == 3
+@pytest.mark.parametrize("dev", ["cpu:0-3", "gpu:0-3", "tpu:0-3",
+                                 "cuda:0,1", "gpu:1,3"])
+def test_dev_with_several_ids_is_refused(dev):
+    """The JAX package turns several device ids into a data mesh; the
+    port refuses them by name instead of running on the first id (on the
+    CPU and on the card alike), as it refuses a multi-device mesh."""
+    with pytest.raises(ValueError, match="not ported.*Multi-GPU"):
+        resolve_device(dev)
+    t = _port_trainer(NET, 2)
+    t.set_param("dev", dev)
+    with pytest.raises(ValueError, match="not ported"):
+        t.init_model()
+
+
+def test_dev_with_one_id_is_kept():
+    assert resolve_device("cpu:0") == torch.device("cpu")
+    assert resolve_device("cpu:2-2") == torch.device("cpu")
+    with pytest.raises(ValueError, match="dev suffix"):
+        resolve_device("gpu:a")
 
 
 # ---------------------------------------------------------------- isolation

@@ -27,6 +27,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu.serve.engine import PredictEngine as JEngine  # noqa: E402
 from cxxnet_tpu_torch.monitor.metrics import Metrics  # noqa: E402
@@ -493,11 +494,11 @@ def test_model_host_routes_and_marks_ready(pairs):
         assert set(fp["models"]) == {"alpha", "beta"}
         assert fp["total_bytes"] == sum(m["total_bytes"]
                                         for m in fp["models"].values())
-        with pytest.raises(NotImplementedError, match="not ported"):
-            host.start_admin(None, port=0)
+        adm = host.start_admin(Metrics(), port=0)
+        assert host.admin is adm and adm.port > 0
     finally:
         host.close()
-    assert not host.ready and host.names == []
+    assert not host.ready and host.names == [] and host.admin is None
     assert not _serve_threads()
 
 

@@ -26,6 +26,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu.models import transformer  # noqa: E402
 from cxxnet_tpu.serve.batcher import StepScheduler as JScheduler  # noqa: E402

@@ -28,6 +28,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu_torch.monitor import spans as tspans  # noqa: E402
 from cxxnet_tpu_torch.monitor.metrics import Metrics  # noqa: E402
@@ -159,7 +160,7 @@ def test_request_span_equals_latency_sample(tmp_path):
     _clients(4, lambda i: [sm.predict(x) for _ in range(5)])
     sm.close()
     metrics.close()
-    lat = sorted(metrics.histograms["serve_latency_sec"]._vals)
+    lat = sorted(metrics.histograms["serve_latency_sec"]._samples)
     req = sorted(r["dur_us"] for r in _spans(sink) if r["span"] == "request")
     assert len(req) == len(lat) == 20
     np.testing.assert_allclose(np.array(req) / 1e6, lat, atol=2e-6)

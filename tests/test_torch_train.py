@@ -27,6 +27,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+import torch_threads  # noqa: E402,F401 — torch threads under xdist
 
 from cxxnet_tpu.ops import pallas_kernels as pk  # noqa: E402
 from cxxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
