@@ -166,7 +166,11 @@ Phases (any failure raises and exits non-zero):
    the autograd join) and the fused adam kernel (row 13) unattributed,
    a finite ``monitor`` record a parameter leaf a tick, the ledger's
    categories tiling its wall within 1%, the prefetcher's and the
-   checkpoint writer's spans; (b) the step p50 of phase 9's LM at depth
+   checkpoint writer's spans, the ``layer_profile`` rows' cost columns
+   (``mfu_pct`` / ``roofline_x`` against the card's peaks) and a
+   well-formed ``mem_profile`` record of the window's first step read
+   from the caching allocator (coverage above 0), printed beside the
+   memory model's estimate and ``max_memory_allocated``; (b) the step p50 of phase 9's LM at depth
    2 with the plane off and on (``trace_sample = 1 sentinel = 1``), off,
    on, on, off; (c) MNIST_CONV.conf with ``monitor_nan = fatal rollback
    = 2``, one batch of round 3 NaN-poisoned: one rollback to round 2, a
@@ -194,7 +198,16 @@ Phases (any failure raises and exits non-zero):
    each run's tok/s printed; in each scraped run ``/statusz``
    says ``kind = generate`` with tokens, steps and the occupancy
    histogram, ``/metrics`` has ``decode_occupancy_hist`` buckets, every
-   prefill through row 7 and every forward through row 11.
+   prefill through row 7 and every forward through row 11;
+23. config analysis (``check``): the port's ``task = check``, which does
+   no device work: (a) ``mem_check = 1 mem_chip = h100`` on phase 9's LM
+   conf at full width exits 0 with an ``info`` pre-flight finding (its %
+   full), timed; (b) the same conf at the least batch whose modelled
+   peak passes the card's 80 GB (found on meta tensors, never run)
+   exits 1 with an error carrying remediations; (c) every
+   example/**/*.conf, each exit code and error count printed.  The
+   allocator's live and reserved bytes must not move and no kernel may
+   launch.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -242,10 +255,6 @@ GRAD_ROW_FLOOR = 2.0 ** -10
 #: bf16 dgamma / dbeta (stored in bf16 like gamma): one rounding apart
 BF16_VEC_TOL = 2.0 ** -7
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, and FLOP/s
-# of the tensor cores in bf16 and of the CUDA cores in float32
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: back-to-back calls whose device time device_ms averages
 DEVICE_REPS = 50
 
@@ -315,7 +324,7 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
               "resnet", "alexnet_data", "staging", "observe",
-              "serve_admin"}
+              "serve_admin", "check"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -605,11 +614,22 @@ def rate(flops: float, ms: float, bound_ms: float) -> str:
             "bound")
 
 
+def peaks() -> tuple:
+    """The H100 SXM's published peaks (NVIDIA data sheet, dense), from the
+    port's cost model (cxxnet_tpu_torch/analysis/costmodel.py): bytes/s
+    of HBM3, and FLOP/s by dtype of the tensor cores (bf16) and of the
+    CUDA cores (float32)."""
+    from cxxnet_tpu_torch.analysis import costmodel as cm
+    return cm.PEAK_BW[cm.H100], {"bfloat16": cm.PEAK_FLOPS[cm.H100],
+                                 "float32": cm.PEAK_FLOPS_F32[cm.H100]}
+
+
 def bound(flops: float, nbytes: float, dtype: str) -> dict:
     """The least time for ``flops`` operations and ``nbytes`` of traffic
     on this card's published peaks, and which of the two bounds it."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bw, peak = peaks()
+    t_ops = flops / peak[dtype] * 1e3
+    t_bytes = nbytes / bw * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -4408,6 +4428,8 @@ def observe_window(tmp: str, attempt: int = 1) -> None:
         "top rows: " + "; ".join(
             f"{r['layer']} {r['device_ms']} ms (bwd {r['bwd_ms']})"
             for r in lp["rows"][:8]))
+    observe_costs(lp, task.net)
+    observe_memory(kinds.get("mem_profile", []), task.net)
     seen = check_attribution(trace.window_events(events),
                              task.net.layer_scopes())
     log("observe (a): kernels by connection: " + "; ".join(
@@ -4454,13 +4476,106 @@ def observe_window(tmp: str, attempt: int = 1) -> None:
     log(f"observe (a): step records' examples/s "
         f"{[r['examples_per_sec'] for r in kinds['step']]}; sentinel "
         f"anomalies {len(anomalies)} {anomalies}, flight records "
-        f"{len(kinds.get('flight', []))}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{len(kinds.get('flight', []))}, the run's peak memory "
+        f"{task.net.memory_gauges()['hbm_peak_bytes'] / 2 ** 30:.2f} GiB "
+        "(the allocator's high-water across the mem probe's reset)")
     if anomalies or kinds.get("flight"):
         raise AssertionError("observe (a): a healthy run set off the "
                              "sentinel")
     del task
     torch.cuda.empty_cache()
+
+
+def observe_costs(lp: dict, tr) -> None:
+    """(a) The ``layer_profile`` record's cost columns: every connection
+    row carries the cost model's ``flops`` / ``bytes`` and, against the
+    card's peaks, ``mfu_pct``, ``roofline_ms`` and ``roofline_x``
+    (finite; positive but ``mfu_pct``); prints the rows with the most
+    device time."""
+    scopes = set(tr.layer_scopes())
+    rows = [r for r in lp["rows"] if r["layer"] in scopes]
+    cols = ("flops", "bytes", "mfu_pct", "roofline_ms", "roofline_x")
+    # mfu_pct is rounded to 0.01%: a light row may read 0
+    bad = [r for r in rows if not all(
+        k in r and np.isfinite(r[k]) and (r[k] > 0 or k == "mfu_pct")
+        for k in cols)]
+    if not rows or bad:
+        raise AssertionError(f"observe (a): layer_profile rows without "
+                             f"the cost columns: {bad[:3] or lp['rows']}")
+    log("observe (a): layer_profile cost columns, top rows: " + "; ".join(
+        f"{r['layer']} {r['device_ms']} ms, {r['flops'] / 1e9:.1f} GFLOP, "
+        f"mfu {r['mfu_pct']}%, roofline {r['roofline_ms']} ms "
+        f"(x{r['roofline_x']})" for r in rows[:8]))
+    log("observe (a): layer_profile by kind: " + "; ".join(
+        f"{kind} x{len(rs)} {sum(r['device_ms'] for r in rs):.3f} ms, mfu "
+        f"{min(r['mfu_pct'] for r in rs)}-{max(r['mfu_pct'] for r in rs)}%"
+        f", roofline_x {min(r['roofline_x'] for r in rs)}-"
+        f"{max(r['roofline_x'] for r in rs)}"
+        for kind, rs in by_kind(rows).items()))
+
+
+def by_kind(rows: list) -> dict:
+    """Rows grouped by connection name without its index and digits
+    (``03-l0_att`` -> ``l_att``), heaviest group first."""
+    out = {}
+    for r in rows:
+        out.setdefault(re.sub(r"\d+", "", r["layer"].split("-", 1)[1]),
+                       []).append(r)
+    return dict(sorted(out.items(), key=lambda kv: -sum(
+        r.get("device_ms", r.get("total_bytes", 0)) for r in kv[1])))
+
+
+def observe_memory(recs: list, tr) -> None:
+    """(a) The ``mem_profile`` record of the window's first step, read from
+    the caching allocator: the JAX package's keys, a coverage above 0,
+    rows of connections, the model's totals and the card's capacity.
+    Prints the top rows, ``peak_live_bytes`` and the step's high-water
+    (``args_bytes`` + ``temp_bytes``) beside the model's
+    ``est_peak_bytes``, ``torch.cuda.max_memory_allocated()`` since the
+    probe's reset, and the ratios.  The model counts each connection's
+    output alone, so nothing asserts that it bounds the measurement."""
+    import torch
+    if len(recs) != 1:
+        raise AssertionError(f"observe (a): {len(recs)} mem_profile "
+                             "records")
+    (mp,) = recs
+    need = {"peak_live_bytes", "peak_frac", "timeline", "coverage", "rows",
+            "exec", "model", "hbm_capacity_bytes", "hbm_peak_bytes"}
+    row_keys = {"layer", "param_bytes", "opt_bytes", "act_bytes",
+                "total_bytes", "model_bytes", "model_x", "share"}
+    scopes = set(tr.layer_scopes())
+    if not need <= set(mp) or not mp["coverage"] > 0 \
+            or not mp["peak_live_bytes"] > 0 or not mp["rows"] \
+            or any(not row_keys <= set(r) or r["layer"] not in scopes
+                   for r in mp["rows"]):
+        raise AssertionError(f"observe (a): mem_profile {mp}")
+    est = mp["model"]["est_peak_bytes"]
+    step_peak = mp["exec"]["args_bytes"] + mp["exec"]["temp_bytes"]
+    run_peak = torch.cuda.max_memory_allocated()
+    gb = 1e9
+    log("observe (a): mem_profile top rows: " + "; ".join(
+        f"{r['layer']} param {r['param_bytes'] / gb:.3f} + opt "
+        f"{r['opt_bytes'] / gb:.3f} + act {r['act_bytes'] / gb:.3f} GB "
+        f"(model x{r['model_x']})" for r in mp["rows"][:6]))
+    log(f"observe (a): mem_profile peak live {mp['peak_live_bytes'] / gb:.3f}"
+        f" GB over the step's start ({mp['exec']['args_bytes'] / gb:.3f} "
+        f"GB: params, optimizer state, batch) at {mp['peak_frac']:.0%} of "
+        f"the step, coverage {mp['coverage']}; the step's high-water "
+        f"{step_peak / gb:.3f} GB, the model's est_peak_bytes "
+        f"{est / gb:.3f} GB (model / measured {est / step_peak:.3f}; "
+        f"acts {mp['model']['act_bytes'] / gb:.3f} GB modelled), "
+        f"max_memory_allocated since the probe's reset "
+        f"{run_peak / gb:.3f} GB (model / it "
+        f"{est / run_peak:.3f}), the run's hbm_peak_bytes "
+        f"{mp['hbm_peak_bytes'] / gb:.3f} GB, capacity "
+        f"{mp['hbm_capacity_bytes'] / gb:.3f} GB; timeline (GB) "
+        f"{[round(v / gb, 2) for v in mp['timeline']]}")
+    log("observe (a): mem_profile by kind (measured act / modelled bytes): "
+        + "; ".join(
+            f"{kind} x{len(rs)} act {sum(r['act_bytes'] for r in rs) / gb:.3f}"
+            f" GB, model_x {min(r['model_x'] for r in rs)}-"
+            f"{max(r['model_x'] for r in rs)}"
+            for kind, rs in by_kind(mp["rows"]).items()))
 
 
 def observe_overhead(tmp: str) -> None:
@@ -4593,6 +4708,108 @@ def phase_observe(tmp: str, serve_conf: str) -> dict:
     observe_serving(tmp, serve_conf)
     launches = read_launches()
     log(f"observe path launches: {launches}")
+    return launches
+
+
+def check_run(conf: str, args=()) -> tuple:
+    """``task = check`` of ``conf`` through the port's CLI: (exit code,
+    the ``check`` record of the conf's sink, seconds)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    sink = re.search(r"^metrics_sink = jsonl:(.*)$", open(conf).read(),
+                     re.M).group(1)
+    fresh(sink)
+    t0 = time.perf_counter()
+    rc = LearnTask().run([conf, "task=check"] + list(args))
+    sec = time.perf_counter() - t0
+    (rec,) = [r for r in read_records(sink) if r["kind"] == "check"]
+    return rc, rec, sec
+
+
+def check_estimate(conf: str, batch: int) -> int:
+    """The memory model's est_peak_bytes of ``conf`` at ``batch`` (the
+    trainer built on meta tensors, as task = check builds it)."""
+    import torch
+    from cxxnet_tpu_torch.analysis import memmodel
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    tr = NetTrainer()
+    for k, v in parse_config_file(conf):
+        if k != "metrics_sink":
+            tr.set_param(k, v)
+    tr.set_param("batch_size", str(batch))
+    tr.init_model(torch.device("meta"))
+    return memmodel.totals(tr)["est_peak_bytes"]
+
+
+def phase_check(tmp: str) -> dict:
+    """Phase 23 (``check``): the port's ``task = check`` on the card's
+    machine, which does no device work: (a) ``mem_check = 1 mem_chip =
+    h100`` on phase 9's LM conf at full width (d 2048, 12 layers, s 4096,
+    batch 4, fused adam): exit 0 and an ``info`` pre-flight finding with
+    its % full, timed; (b) the same conf at the least batch whose modelled
+    peak passes the card's 80 GB (found from the model on meta tensors,
+    never run): exit 1 with an error carrying remediations; (c) every
+    example/**/*.conf: each exit code and error count printed.  The
+    allocator's live and reserved bytes must not move, and no kernel may
+    launch.  Returns the path's launches."""
+    import glob
+    import torch
+    from cxxnet_tpu_torch.analysis import costmodel
+    reset_launches()
+    conf = lm_train_conf(tmp, "check", True, NLAYER, NHEAD, TRAIN_STEPS,
+                         True)
+    torch.cuda.synchronize()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    rc, rec, sec = check_run(conf, ["mem_check=1", "mem_chip=h100"])
+    mem = [f for f in rec["findings"] if f.get("scope") == "mem"]
+    log(f"check (a): exit {rc} in {sec:.2f} s; {rec['n_error']} errors, "
+        f"{rec['n_warn']} warnings, {rec['n_info']} info; pre-flight: "
+        + "; ".join(f"{f['severity']} {f['message']}" for f in mem))
+    if rc != 0 or len(mem) != 1 or mem[0]["severity"] != "info" \
+            or "full;" not in mem[0]["message"]:
+        raise AssertionError(f"check (a): exit {rc}, {rec}")
+    cap = costmodel.HBM_BYTES[costmodel.H100]
+    e0 = check_estimate(conf, TRAIN_BATCH)
+    e1 = check_estimate(conf, TRAIN_BATCH + 1)
+    over = TRAIN_BATCH + max(int(np.ceil((cap - e0) / (e1 - e0))), 1)
+    while check_estimate(conf, over) <= cap:
+        over += 1
+    while over - 1 > TRAIN_BATCH and check_estimate(conf, over - 1) > cap:
+        over -= 1
+    rc, rec, sec = check_run(conf, ["mem_check=1", "mem_chip=h100",
+                                    f"batch_size={over}"])
+    err = [f for f in rec["findings"] if f.get("scope") == "mem"
+           and f["severity"] == "error"]
+    log(f"check (b): batch {over} (the model: {e0 / 1e9:.2f} GB at batch "
+        f"{TRAIN_BATCH}, +{(e1 - e0) / 1e9:.2f} GB a row): exit {rc} in "
+        f"{sec:.2f} s; " + "; ".join(f["message"] for f in err))
+    if rc != 1 or len(err) != 1 or "did you mean: remat" not in \
+            err[0]["message"]:
+        raise AssertionError(f"check (b): exit {rc}, {rec}")
+    confs = sorted(glob.glob(os.path.join(REPO, "example", "**", "*.conf"),
+                             recursive=True))
+    from cxxnet_tpu_torch.main import LearnTask
+    cwd = os.getcwd()
+    os.chdir(tmp)  # relative sinks of the example confs land here
+    try:
+        out = []
+        for c in confs:
+            t0 = time.perf_counter()
+            task = LearnTask()
+            code = task.run([c, "task=check"])
+            n_err = sum(f.severity == "error" for f in task.last_check)
+            out.append(f"{os.path.relpath(c, REPO)} exit {code}, {n_err} "
+                       f"errors ({time.perf_counter() - t0:.2f} s)")
+    finally:
+        os.chdir(cwd)
+    log("check (c): " + "; ".join(out))
+    torch.cuda.synchronize()
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    launches = read_launches()
+    log(f"check: allocator live / reserved bytes {mem0} before, {mem1} "
+        f"after; launches {sum(launches.values())}")
+    if mem1 != mem0 or any(launches.values()):
+        raise AssertionError("check: task = check touched the card")
     return launches
 
 
@@ -4762,6 +4979,8 @@ def main() -> int:
                 raise SystemExit("serve_admin needs the serve and "
                                  "serve_batch phases")
             paths["serve_admin"] = phase_serve_admin(tmp, serve_conf)
+        if "check" in phases:
+            paths["check"] = phase_check(tmp)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

@@ -36,10 +36,30 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..analysis.schema import K
 from ..utils.serializer import atomic_write
 
 FORMAT_VERSION = 1
 MANIFEST = "MANIFEST.json"
+
+#: checkpoint / rollback keys the task driver consumes
+#: (``main.LearnTask.set_param``), declared next to their subsystem and
+#: appended to ``main.TASK_KEYS``
+CKPT_KEYS = (
+    K("ckpt_async", "int", lo=0, hi=1,
+      help="write snapshots off the training thread (atomic .ckpt dirs)"),
+    K("ckpt_keep", "int", lo=1,
+      help="retention: keep the newest N .ckpt snapshots"),
+    K("rollback", "int", lo=0,
+      help="on TrainingDiverged: restore the last good snapshot, reseed "
+           "the rng stream, retry up to N times"),
+    K("save_opt", "int", lo=0, hi=1,
+      help="include optimizer state in snapshots (default 1: exact "
+           "resume)"),
+    K("ckpt_iter_state", "int", lo=0, hi=1,
+      help="carry the train-iterator chain state in snapshots (default "
+           "1: cross-round iterator rng/cache state resumes exactly)"),
+)
 
 
 def snapshot_path(model_dir: str, counter: int) -> str:

@@ -75,7 +75,7 @@ than ignored.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 
 def _is_positive_float(val: str) -> bool:
@@ -120,14 +120,24 @@ PORTED = {name: valid for name, (_, _, valid) in _DEFS.items()
           if not name.startswith("dp_")}
 
 
+def not_ported_message(name: str, val: str,
+                       where: str = "") -> Optional[str]:
+    """The refusal of a valid value the port does not implement (the
+    runtime's and ``task = check``'s words), or None when it is ported."""
+    ported = PORTED.get(name, (_DEFS[name][1],))
+    if val in ported:
+        return None
+    return (f"{where or 'engine option ' + name} = {val}: not ported to "
+            f"cxxnet_tpu_torch yet (only {', '.join(map(repr, ported))}; "
+            "ROADMAP.md)")
+
+
 def _check(name: str, val: str, where: str) -> None:
     if not _valid(name, val):
         raise ValueError(f"{where} = {val}: expected {_expectation(name)}")
-    ported = PORTED.get(name, (_DEFS[name][1],))
-    if val not in ported:
-        raise ValueError(f"{where} = {val}: not ported to cxxnet_tpu_torch "
-                         f"yet (only {', '.join(map(repr, ported))}; "
-                         "ROADMAP.md)")
+    msg = not_ported_message(name, val, where)
+    if msg:
+        raise ValueError(msg)
 
 
 def _valid(name: str, val: str) -> bool:
@@ -168,3 +178,24 @@ class EngineOptions:
 
     def snapshot(self) -> Dict[str, str]:
         return {k: getattr(self, k) for k in _DEFS}
+
+
+def key_specs():
+    """The options as lint KeySpecs (``analysis/registry.py``): the value
+    check is the ``_valid`` the runtime enforces, so the lint and
+    :meth:`EngineOptions.set` never disagree on a spelling.  A valid
+    value the port does not implement is the lint's not-ported rule
+    (``analysis/conflint._not_ported_rules``)."""
+    from .analysis.schema import KeySpec
+
+    def make_check(name):
+        def check(val):
+            if not _valid(name, val):
+                return f"expected {_expectation(name)}"
+            return None
+        return check
+
+    return tuple(
+        KeySpec(name=name, kind="str", check=make_check(name),
+                help=f"engine option (env {env}, default {default!r})")
+        for name, (env, default, _) in _DEFS.items())

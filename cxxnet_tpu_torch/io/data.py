@@ -51,6 +51,10 @@ class DataBatch:
 class IIterator:
     """Iterator interface (data.h:19-39)."""
 
+    #: the keys this stage's ``set_param`` consumes (the declared-key
+    #: registry, ``analysis/registry.py``, reads them)
+    config_keys: tuple = ()
+
     def set_param(self, name: str, val: str) -> None:
         pass
 

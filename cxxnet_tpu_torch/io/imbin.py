@@ -35,6 +35,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..analysis.schema import K
 from ..monitor import log as mlog
 from .data import DataInst, IIterator
 
@@ -133,6 +134,18 @@ def _decode_jpeg(buf: bytes) -> np.ndarray:
 class ImageBinIterator(IIterator):
     """Paged binary reader with background page prefetch
     (iter_thread_imbin-inl.hpp:16-283)."""
+
+    config_keys = (
+        K("image_bin", "path"), K("path_imgbin", "path"),
+        K("image_list", "path"), K("path_imglst", "path"),
+        K("imgbin_count", "int", lo=0),
+        K("shuffle", "int", lo=0, hi=1),
+        K("silent", "int", lo=0, hi=1),
+        K("dist_num_worker", "int", lo=1),
+        K("dist_worker_rank", "int", lo=0),
+        K("label_width", "int", lo=1), K("seed_data", "int"),
+        K("decode_thread_num", "int", lo=0),
+    )
 
     def __init__(self):
         self.path_imgbin = ""
@@ -340,6 +353,14 @@ class ImageBinIterator(IIterator):
 
 class ImageIterator(IIterator):
     """jpg-per-file list iterator (iter_img-inl.hpp:16-137)."""
+
+    config_keys = (
+        K("image_list", "path"), K("path_imglst", "path"),
+        K("image_root", "path"), K("path_root", "path"),
+        K("shuffle", "int", lo=0, hi=1),
+        K("silent", "int", lo=0, hi=1),
+        K("label_width", "int", lo=1), K("seed_data", "int"),
+    )
 
     def __init__(self):
         self.path_imglst = ""

@@ -16,6 +16,7 @@ import struct
 
 import numpy as np
 
+from ..analysis.schema import K
 from ..monitor import log as mlog
 from .data import DataBatch, IIterator
 
@@ -23,6 +24,15 @@ _RAND_MAGIC = 27  # the reference's fixed shuffle seed of this iterator
 
 
 class MNISTIterator(IIterator):
+    config_keys = (
+        K("silent", "int", lo=0, hi=1), K("batch_size", "int", lo=1),
+        K("input_flat", "int", lo=0, hi=1),
+        K("shuffle", "int", lo=0, hi=1), K("index_offset", "int"),
+        K("path_img", "path"), K("path_label", "path"),
+        K("round_batch", "int", lo=0, hi=1),
+        K("seed_data", "int"),
+    )
+
     def __init__(self):
         self.silent = 0
         self.batch_size = 0

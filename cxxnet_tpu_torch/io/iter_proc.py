@@ -19,6 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..analysis.schema import K
 from ..monitor import log as mlog
 from .data import DataBatch, DataInst, IIterator
 from .device_prefetch import ProducerError, generation_put
@@ -37,6 +38,12 @@ class BatchAdaptIterator(IIterator):
     the same batch without reading (I/O isolation benchmark mode, :72-74).
     """
 
+    config_keys = (
+        K("batch_size", "int", lo=1),
+        K("round_batch", "int", lo=0, hi=1),
+        K("test_skipread", "int", lo=0, hi=1),
+        K("label_width", "int", lo=1),
+    )
 
     def __init__(self, base: IIterator):
         self.base = base
@@ -233,6 +240,24 @@ class AugmentIterator(IIterator):
     random/fixed crop, mirror, mean subtraction (mean image file generated on
     first use, :171-198, or mean_value RGB), scale."""
 
+    config_keys = (
+        K("rotate", "float"), K("max_rotate_angle", "float", lo=0),
+        K("max_shear_ratio", "float", lo=0),
+        K("max_aspect_ratio", "float", lo=0),
+        K("min_crop_size", "int", lo=0),
+        K("max_crop_size", "int", lo=0),
+        K("rotate_list", "str", help="comma-separated angles"),
+        K("fill_value", "float"),
+        K("rand_crop", "int", lo=0, hi=1),
+        K("rand_mirror", "int", lo=0, hi=1),
+        K("mirror", "int", lo=0, hi=1),
+        K("input_shape", "str", help="c,y,x"),
+        K("image_mean", "path"), K("mean_value", "str"),
+        K("scale", "float"),
+        K("max_random_contrast", "float", lo=0),
+        K("max_random_illumination", "float", lo=0),
+        K("crop_y_start", "int", lo=0), K("crop_x_start", "int", lo=0),
+    )
 
     def __init__(self, base: IIterator):
         self.base = base
@@ -400,6 +425,8 @@ class ThreadBufferIterator(IIterator):
     (ROADMAP.md §C).
     """
 
+    config_keys = (K("buffer_size", "int", lo=1),)
+
     def __init__(self, base: IIterator, max_buffer: int = 4):
         self.base = base
         self.max_buffer = max_buffer
@@ -490,6 +517,7 @@ class DenseBufferIterator(IIterator):
     """Caches the first max_nbatch batches in RAM and loops over them
     (iter_mem_buffer-inl.hpp:16-76)."""
 
+    config_keys = (K("max_nbatch", "int", lo=1),)
 
     def __init__(self, base: IIterator):
         self.base = base
@@ -577,6 +605,10 @@ class AttachTxtIterator(IIterator):
     (iter_attach_txt-inl.hpp:15-99).  File format: each line is
     ``inst_index v1 v2 ... vk``; shape from ``extra_shape[i] = c,y,x``."""
 
+    config_keys = (
+        K("path_attach_txt", "path"), K("path_txt", "path"),
+        K("extra_data_shape[*]", "str", help="c,y,x per side input"),
+    )
 
     def __init__(self, base: IIterator):
         self.base = base

@@ -24,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..analysis.schema import K
 from .data import DataBatch, IIterator
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -122,6 +123,23 @@ class NativeImageBinIterator(IIterator):
     ``output_u8 = 1`` the batches are raw u8 and the trainer normalises
     them on the device (``scale``, ``mean_value``).
     """
+
+    config_keys = (
+        K("image_bin", "path"), K("path_imgbin", "path"),
+        K("image_list", "path"), K("path_imglst", "path"),
+        K("batch_size", "int", lo=1),
+        K("round_batch", "int", lo=0, hi=1),
+        K("label_width", "int", lo=1),
+        K("shuffle", "int", lo=0, hi=1),
+        K("silent", "int", lo=0, hi=1), K("seed_data", "int"),
+        K("input_shape", "str", help="c,y,x"),
+        K("image_mean", "path"), K("mean_value", "str"),
+        K("scale", "float"), K("output_u8", "int", lo=0, hi=1),
+        K("rand_crop", "int", lo=0, hi=1),
+        K("rand_mirror", "int", lo=0, hi=1),
+        K("mirror", "int", lo=0, hi=1),
+        K("decode_thread_num", "int", lo=0),
+    )
 
     def __init__(self):
         self._cfg = []

@@ -61,6 +61,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..analysis.schema import K
 from ..monitor import log as mlog
 from .data import DataBatch, DataInst, IIterator
 
@@ -141,6 +142,17 @@ class TextIterator(IIterator):
     ``gen`` is therefore the whole cross-round resume state (positions
     rewind at each ``before_first`` — the ImageBinIterator contract)."""
 
+    config_keys = (
+        K("path_tok", "path", help="token shard, %d with tok_count"),
+        K("tok_count", "int", lo=0),
+        K("shuffle", "int", lo=0, hi=1),
+        K("silent", "int", lo=0, hi=1),
+        K("seed_data", "int"),
+        K("dist_num_worker", "int", lo=1),
+        K("dist_worker_rank", "int", lo=0),
+        K("text_max_docs", "int", lo=0,
+          help="cap documents per epoch (0 = all; debug/CI sizing)"),
+    )
 
     def __init__(self):
         self.path_tok = ""
@@ -248,6 +260,14 @@ class PackedSeqIterator(IIterator):
     token ids and ``label`` ``(b, 3S)`` = [targets | segments |
     positions] (module docstring has the exact field semantics)."""
 
+    config_keys = (
+        K("seqlen", "int", lo=2),
+        K("batch_size", "int", lo=1),
+        K("pack_split", "int", lo=0, hi=1,
+          help="1 = chop the doc stream (no padding, ragged carry); "
+               "0 = whole docs per row, padded flush"),
+        K("silent", "int", lo=0, hi=1),
+    )
 
     def __init__(self, base: IIterator):
         self.base = base

@@ -21,6 +21,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..analysis.schema import K
 from ..ops import nn as N
 from .base import Layer, Shape4
 
@@ -88,6 +89,7 @@ class XeluLayer(_UnaryLayer):
     default b = 5)."""
 
     type_names = ("xelu",)
+    extra_config_keys = (K("b", "float", help="leak divisor"),)
 
     def __init__(self):
         super().__init__()
@@ -111,6 +113,10 @@ class InsanityLayer(_UnaryLayer):
     form of the update count (``ctx.epoch``)."""
 
     type_names = ("insanity",)
+    extra_config_keys = (
+        K("lb", "float"), K("ub", "float"),
+        K("calm_start", "int", lo=0), K("calm_end", "int", lo=0),
+    )
 
     def __init__(self):
         super().__init__()
@@ -155,6 +161,10 @@ class PReluLayer(_UnaryLayer):
     the reference's visitor names it."""
 
     type_names = ("prelu",)
+    extra_config_keys = (
+        K("init_slope", "float"), K("random_slope", "int", lo=0, hi=1),
+        K("random", "float"),
+    )
 
     def __init__(self):
         super().__init__()

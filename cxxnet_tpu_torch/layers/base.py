@@ -24,10 +24,56 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.schema import K, KeySpec
 from ..engine import EngineOptions
 
 Shape4 = Tuple[int, int, int, int]  # (batch, channel, y, x)
 Params = Dict[str, torch.Tensor]
+
+# ``strict_config = 1`` (global key, default off): a key that reaches the
+# base ``set_param`` unconsumed is reported through the lint reporter
+# (``analysis/conflint.report_ignored_layer_key``) instead of dropped
+# silently.  The reference rule (components ignore keys they do not
+# know) stays the default, since globals reach every layer.
+_STRICT_CONFIG = False
+
+
+def set_strict_config(flag: bool) -> None:
+    global _STRICT_CONFIG
+    _STRICT_CONFIG = bool(flag)
+    # a fresh dedup window per toggle: a net built under a new
+    # strict_config = 1 warns again for the same (type, key)
+    import sys
+    conflint = sys.modules.get("cxxnet_tpu_torch.analysis.conflint")
+    if conflint is not None:
+        conflint._reported.clear()
+
+
+def strict_config_enabled() -> bool:
+    return _STRICT_CONFIG
+
+
+#: keys LayerParam.set_param consumes, shared by every layer (the common
+#: hyperparameters of the reference's ``src/layer/param.h``)
+LAYER_PARAM_KEYS: Tuple[KeySpec, ...] = (
+    K("init_sigma", "float", help="gaussian init stddev"),
+    K("init_uniform", "float", help="uniform init bound (<=0 = xavier)"),
+    K("init_bias", "float"),
+    K("random_type", "enum",
+      choices=("gaussian", "uniform", "xavier", "kaiming")),
+    K("nhidden", "int", lo=1),
+    K("nchannel", "int", lo=1),
+    K("ngroup", "int", lo=1),
+    K("kernel_size", "int", lo=1),
+    K("kernel_height", "int", lo=1),
+    K("kernel_width", "int", lo=1),
+    K("stride", "int", lo=1),
+    K("pad", "int", lo=0),
+    K("pad_y", "int", lo=0),
+    K("pad_x", "int", lo=0),
+    K("no_bias", "int", lo=0, hi=1),
+    K("silent", "int", lo=0, hi=1),
+)
 
 
 class ShapeError(ValueError):
@@ -270,6 +316,10 @@ class Layer:
     # then keeps that input in float32 instead of casting it to a
     # narrow compute dtype (bf16 holds integers exactly only to 256)
     takes_ids: bool = False
+    # keys this class's set_param consumes beyond LAYER_PARAM_KEYS (the
+    # declared-key registry, analysis/registry.py, reads them along the
+    # MRO); keep them in step with the set_param branches
+    extra_config_keys: Tuple[KeySpec, ...] = ()
 
     def __init__(self) -> None:
         self.param = LayerParam()
@@ -277,8 +327,23 @@ class Layer:
 
     def set_param(self, name: str, val: str) -> None:
         """Consume a config key; unknown keys are ignored (reference
-        rule: global keys are broadcast to every layer)."""
-        self.param.set_param(name, val)
+        rule: global keys are broadcast to every layer) unless
+        ``strict_config = 1`` routes them through the lint reporter as
+        warnings (keys this layer type declares, or any subsystem does,
+        stay silent)."""
+        consumed = self.param.set_param(name, val)
+        if not consumed and _STRICT_CONFIG:
+            from ..analysis.conflint import report_ignored_layer_key
+            report_ignored_layer_key(self, name, val)
+
+    @classmethod
+    def config_keys(cls) -> Tuple[KeySpec, ...]:
+        """Every key this layer type accepts: the common LayerParam keys
+        and each class's declared extras along the MRO."""
+        out = list(LAYER_PARAM_KEYS)
+        for klass in cls.__mro__:
+            out.extend(klass.__dict__.get("extra_config_keys", ()))
+        return tuple(out)
 
     def infer_shapes(self, in_shapes: List[Shape4]) -> List[Shape4]:
         raise NotImplementedError

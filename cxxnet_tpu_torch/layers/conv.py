@@ -8,6 +8,7 @@ from typing import List
 
 import torch
 
+from ..analysis.schema import K
 from ..ops import nn as N
 from .base import Layer, Shape4
 
@@ -17,6 +18,13 @@ class ConvolutionLayer(Layer):
     kh, kw), bias ``bias`` (out_c,)."""
 
     type_names = ("conv",)
+    extra_config_keys = (
+        K("space_to_depth", "int", lo=0, hi=1,
+          help="lower a strided conv through space-to-depth"),
+        K("temp_col_max", "int",
+          help="accepted and ignored: the conv library tiles its "
+               "scratch itself"),
+    )
 
     def __init__(self):
         super().__init__()
@@ -179,6 +187,9 @@ class InsanityPoolingLayer(_PoolingBase):
     No padding, as in the reference."""
 
     type_names = ("insanity_max_pooling",)
+    extra_config_keys = (
+        K("keep", "float", lo=0.0, hi=1.0, help="jitter keep probability"),
+    )
 
     def __init__(self):
         super().__init__()
@@ -210,6 +221,10 @@ class LRNLayer(Layer):
     (lrn_layer-inl.hpp:11-89)."""
 
     type_names = ("lrn",)
+    extra_config_keys = (
+        K("local_size", "int", lo=1), K("alpha", "float"),
+        K("beta", "float"), K("knorm", "float"),
+    )
 
     def __init__(self):
         super().__init__()

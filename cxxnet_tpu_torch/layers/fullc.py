@@ -11,6 +11,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..analysis.schema import K
 from .base import Layer, Shape4, as_mat
 
 
@@ -48,6 +49,10 @@ class FixConnectLayer(Layer):
     "row col value" triples; held densely as the ``wmat`` buffer."""
 
     type_names = ("fixconn",)
+    extra_config_keys = (
+        K("fixconn_weight", "path",
+          help="sparse projection table file"),
+    )
 
     def __init__(self):
         super().__init__()

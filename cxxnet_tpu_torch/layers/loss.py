@@ -20,11 +20,16 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..analysis.schema import K
 from .base import ForwardContext, Layer, Shape4
 
 
 class LossLayerBase(Layer):
     is_loss = True
+    extra_config_keys = (
+        K("target", "str", help="label field this loss consumes"),
+        K("grad_scale", "float"),
+    )
 
     def __init__(self):
         super().__init__()

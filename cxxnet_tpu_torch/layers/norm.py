@@ -12,6 +12,7 @@ from typing import List
 
 import torch
 
+from ..analysis.schema import K
 from ..ops import nn as N
 from .base import Layer, Shape4
 
@@ -27,6 +28,11 @@ class BatchNormLayer(Layer):
     of the batch statistics."""
 
     type_names = ("batch_norm",)
+    extra_config_keys = (
+        K("init_slope", "float"), K("eps", "float", lo=0.0),
+        K("moving_average", "int", lo=0, hi=1),
+        K("bn_momentum", "float", lo=0.0, hi=1.0),
+    )
 
     def __init__(self):
         super().__init__()
@@ -105,6 +111,10 @@ class DropoutLayer(Layer):
     training forward, identity otherwise."""
 
     type_names = ("dropout",)
+    extra_config_keys = (
+        K("threshold", "float", lo=0.0, hi=0.999,
+          help="drop probability (1 - pkeep)"),
+    )
 
     def __init__(self):
         super().__init__()

@@ -50,13 +50,23 @@ def layer_type_names():
     return sorted(_REGISTRY)
 
 
+def is_not_ported(type_name: str) -> bool:
+    return type_name in NOT_PORTED or type_name.startswith("pairtest")
+
+
+def not_ported_message(type_name: str) -> str:
+    """The refusal of a layer type the port lacks (the runtime's and
+    ``task = check``'s words)."""
+    return (f"layer type {type_name!r} is not ported to cxxnet_tpu_torch "
+            "yet (ROADMAP.md)")
+
+
 def create_layer(type_name: str) -> Layer:
     """Create a layer from its config type name."""
     if type_name.startswith("share"):
         raise ValueError("shared layers are resolved by the net graph")
-    if type_name in NOT_PORTED or type_name.startswith("pairtest"):
-        raise ValueError(f"layer type {type_name!r} is not ported to "
-                         "cxxnet_tpu_torch yet (ROADMAP.md)")
+    if is_not_ported(type_name):
+        raise ValueError(not_ported_message(type_name))
     if type_name not in _REGISTRY:
         raise ValueError(f"unknown layer type: {type_name!r} (not ported to "
                          f"cxxnet_tpu_torch yet?); known: "

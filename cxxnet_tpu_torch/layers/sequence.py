@@ -26,6 +26,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..analysis.schema import K
 from ..monitor import log as mlog
 from ..ops.flash_attention import (attention_route, dense_reason,
                                    flash_attention,
@@ -81,6 +82,14 @@ class EmbeddingLayer(Layer):
 
     type_names = ("embedding",)
     takes_ids = True
+    extra_config_keys = (
+        K("vocab_size", "int", lo=1),
+        K("pos_embed", "int", lo=0, hi=1),
+        K("pos_key", "str",
+          help="label field carrying per-position ids (packed documents "
+               "reset positions at each doc start — io/text.py); empty = "
+               "sequential 0..s-1"),
+    )
 
     def __init__(self):
         super().__init__()
@@ -143,6 +152,7 @@ class LayerNormLayer(Layer):
     ``wmat`` / ``bias`` tags."""
 
     type_names = ("layernorm",)
+    extra_config_keys = (K("eps", "float", lo=0.0),)
 
     def __init__(self):
         super().__init__()
@@ -223,6 +233,13 @@ class AttentionLayer(Layer):
     ``nhead`` (required), ``causal``, ``segment_key``."""
 
     type_names = ("attention",)
+    extra_config_keys = (
+        K("nhead", "int", lo=1), K("causal", "int", lo=0, hi=1),
+        K("segment_key", "str",
+          help="label field with per-position segment ids (packed "
+               "documents, io/text.py): attention is block-diagonal — "
+               "cross-segment scores masked, segment 0 = padding"),
+    )
 
     def __init__(self):
         super().__init__()
@@ -339,6 +356,11 @@ class SoftmaxSeqLayer(LossLayerBase):
     mean divides by its count of valid targets (at least 1)."""
 
     type_names = ("softmax_seq",)
+    extra_config_keys = (
+        K("packed", "int", lo=0, hi=1,
+          help="mask target ids < 0 (packed-document boundaries/padding) "
+               "out of the loss; mean over valid tokens only"),
+    )
 
     def __init__(self):
         super().__init__()

@@ -18,10 +18,12 @@ Ported tasks:
   build, ``compile`` (the first dispatch), a ``step`` record per
   ``print_step`` steps, a ``round`` record a round, ``monitor`` / ``nan``
   (``monitor = 1``), ``trace`` / ``layer_profile`` per profile window
-  (``prof``), ``anomaly`` / ``flight`` (``sentinel = 1``), ``ckpt``,
-  ``rollback`` and, last, the ``ledger``.  ``rollback = N`` restores the
-  newest finite snapshot when the run diverges (``TrainingDiverged``),
-  reseeds the rng and goes on, N times at most.  After each round a
+  (``prof``) and, on the card, ``mem_profile`` (its first step read
+  from the caching allocator), ``anomaly`` / ``flight`` (``sentinel =
+  1``), ``ckpt``, ``rollback`` and, last, the ``ledger``.  ``rollback =
+  N`` restores the newest finite snapshot when the run diverges
+  (``TrainingDiverged``), reseeds the rng and goes on, N times at most.
+  After each round a
   ``[round]\ttrain-<metric>:v\t<eval>-<metric>:v`` line on stderr
   (the train metric under ``eval_train = 1``, then every ``eval = name``
   section).  ``synth_device_data = 1`` trains instead on ``multi_step``
@@ -60,9 +62,18 @@ Ported tasks:
   alerts (``serve_slo_*``: ``slo`` records) and the flight capture
   (``serve_flight_*``: one ``serve_flight`` record per anomaly storm).
 
-The other tasks (``check``), and the keys of the JAX package's train
-loop whose features are not ported (``UNPORTED_TASK_KEYS``: the replica
-weight check of the multi-GPU plane), are refused by name.
+* ``task = check``: the config lint of ``analysis/``: every key against
+  the declared-key registry (did-you-mean suggestions), type, enum and
+  range checks, the netconfig's structure, the cross-key rules, what
+  the port does not implement, and with ``mem_check = 1`` the OOM
+  pre-flight against the card's memory on a trainer built on ``meta``
+  tensors.  No device work and no data files.  The findings are
+  printed, one ``check`` record lands in the sink, and the exit code is
+  1 iff a finding is an error.
+
+The keys of the JAX package's train loop whose features are not ported
+(``UNPORTED_TASK_KEYS``: the replica weight check of the multi-GPU
+plane) are refused by name.
 """
 
 from __future__ import annotations
@@ -80,14 +91,87 @@ import numpy as np
 import torch
 
 from . import ckpt as ckptlib
+from .analysis.schema import K
+from .ckpt import CKPT_KEYS
 from .io.device_prefetch import DevicePrefetcher, item_h2d_sec
 from .io.factory import create_iterator, init_iterator
 from .monitor import TrainingDiverged, log as mlog
 from .monitor.trace import ProfileWindow
 from .nnet.trainer import NetTrainer, refuse_unported
+from .serve import SERVE_KEYS
 from .utils.config import parse_config_file, parse_keyval_args
 
-PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
+PORTED_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve",
+                "check")
+
+#: keys LearnTask.set_param consumes: the task half of the config
+#: surface (the trainer half is nnet/trainer.TRAINER_KEYS), read by the
+#: declared-key registry (analysis/registry.py); keep in step with
+#: set_param below
+TASK_KEYS = (
+    K("print_step", "int", lo=1),
+    K("continue", "int", lo=0, hi=1),
+    K("save_model", "int", lo=0),
+    K("start_counter", "int", lo=0),
+    K("model_in", "path"), K("model_dir", "path"),
+    K("num_round", "int", lo=0), K("max_round", "int", lo=0),
+    K("silent", "int", lo=0, hi=1),
+    K("task", "enum", choices=("train", "finetune", "pred", "pred_raw",
+                               "extract", "check", "serve")),
+    K("dev", "str"),
+    K("test_io", "int", lo=0, hi=1),
+    K("multi_step", "int", lo=0),
+    K("prefetch_device", "int", lo=0),
+    K("synth_device_data", "int", lo=0, hi=1),
+    K("extract_node_name", "str"),
+    K("eval_train", "int", lo=0, hi=1),
+    K("prof", "path"),
+    K("prof_start_step", "int", lo=-1),
+    K("prof_num_steps", "int", lo=0),
+    K("prof_every", "int", lo=0,
+      help="recurring profiling windows: trace every Nth round"),
+    K("sentinel", "int", lo=0, hi=1,
+      help="EWMA regression sentinels over step time / comm_share / "
+           "HBM high-water (anomaly records need metrics_sink)"),
+    K("sentinel_rel", "float", lo=0.01, hi=10.0,
+      help="relative deviation vs the EWMA that fires an anomaly "
+           "(must be > 0: a zero threshold fires on every observation)"),
+    K("sentinel_warmup", "int", lo=1),
+    K("sentinel_ring", "int", lo=1,
+      help="flight-recorder depth: last K step records dumped on an "
+           "anomaly or TrainingDiverged"),
+    # goodput ledger (monitor/ledger.py): end-of-run wall accounting,
+    # emitted from the task's finally so a diverged run still lands it;
+    # tools/obsv.py --diff compares two of them
+    K("ledger", "int", lo=0, hi=1,
+      help="emit the end-of-run goodput ledger record (default 1; "
+           "needs metrics_sink, train/finetune tasks only)"),
+    K("test_on_server", "int", lo=0, hi=1),
+    # OOM pre-flight (analysis/memmodel.py): task=check runs the
+    # analytic memory model against the target card's memory
+    K("mem_check", "int", lo=0, hi=1,
+      help="task=check: error when the estimated peak memory exceeds "
+           "the target card's capacity (warn inside mem_margin_pct)"),
+    K("mem_margin_pct", "float", lo=0, hi=90,
+      help="pre-flight warning margin: warn when the estimate lands "
+           "within this % of capacity (default 10)"),
+    K("mem_chip", "str",
+      help="pre-flight capacity selector (h100 or a full device "
+           "name); defaults to dev= when it names a card"),
+    # the SPMD deep lint of the JAX package (not ported: ROADMAP.md)
+    K("spmd_check", "int", lo=0, hi=1,
+      help="task=check: run the SPMD deep lint (default 1; 0 skips the "
+           "collective/donation/dtype-flow pass)"),
+    # the runtime deliberately tolerates unknown spellings (treated as
+    # binary, with a warning) — soft keeps the lint at warn severity
+    K("output_format", "enum", choices=("txt", "bin"), soft=True),
+    K("dist_coordinator", "str"),
+    K("dist_num_proc", "int", lo=1),
+    K("dist_proc_rank", "int", lo=0),
+    # serving keys (serve/__init__.py declares them next to their
+    # consumer, ServeConfig.from_pairs) and checkpoint / rollback keys
+    # (ckpt/__init__.py)
+) + SERVE_KEYS + CKPT_KEYS
 
 #: train-loop keys of the JAX package that are not ported, with the one
 #: value the port takes: the replica weight check (the multi-GPU plane)
@@ -179,6 +263,10 @@ class LearnTask:
         # the first dispatch's wall (kernel builds, library autotune,
         # allocator warm-up)
         self.compile_sec: Optional[float] = None
+        # the allocator probe of the open profile window's measured step
+        self._mem_probe = None
+        # task = check's findings
+        self.last_check: Optional[list] = None
 
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
@@ -249,8 +337,6 @@ class LearnTask:
             self.ledger = int(val)
         elif name == "rollback":
             self.rollback = int(val)
-        elif name in UNPORTED_TASK_KEYS:
-            refuse_unported(name, val, UNPORTED_TASK_KEYS[name])
         self.cfg.append((name, val))
 
     # ---------------------------------------------------------------- init
@@ -782,6 +868,7 @@ class LearnTask:
                             prof.maybe_start_step(dispatches)
                             dispatches += 1
                             first = self.compile_sec is None
+                            self._arm_mem_probe(prof)
                             dt = self._timed_step(lambda: net.update(b))
                             if first:
                                 # the rates start after the compile
@@ -957,14 +1044,76 @@ class LearnTask:
                 self._sentinel_bank.observe_trace(
                     dict(rep, round=self.start_counter - 1))
             self._emit_layer_profile(events, steps)
+            self._emit_mem_profile()
+
+    def _device_name(self) -> str:
+        """The card's name (the cost model's table key), "" on the CPU."""
+        dev = self.net.device
+        return torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+
+    def _arm_mem_probe(self, prof: ProfileWindow) -> None:
+        """On the card with a sink, the first dispatch of each profile
+        window reads the caching allocator connection by connection
+        (``NetTrainer.arm_mem_probe``) for the window's ``mem_profile``
+        record."""
+        net = self.net
+        if prof.active and self._mem_probe is None \
+                and net.device.type == "cuda" and net.metrics.active:
+            self._mem_probe = net.arm_mem_probe()
+
+    def _emit_mem_profile(self) -> None:
+        """One ``mem_profile`` record (monitor/memory.py): the window's
+        measured step, connection by connection, beside the trainer's
+        parameter / optimizer bytes and the analytic memory model
+        (analysis/memmodel.py), the card's capacity and the allocator
+        gauges."""
+        from .analysis import costmodel, memmodel
+        from .monitor import memory as memlib
+        probe, self._mem_probe = self._mem_probe, None
+        if probe is None or not probe.done:
+            return
+        net = self.net
+        try:
+            model = memmodel.layer_mem(net)
+            table = memlib.mem_table(
+                probe, param_rows=memmodel.param_rows(net),
+                # the measured row is param + opt + live activation, so
+                # the transient gradient stays out of the model's row
+                model_rows={s: {k: v for k, v in r.items()
+                                if k != "grad_bytes"}
+                            for s, r in model.items()})
+            table["model"] = memmodel.totals(net, model)
+            cap = costmodel.hbm_bytes(self._device_name(), net.device)
+            if cap:
+                table["hbm_capacity_bytes"] = int(cap)
+            table.update(net.memory_gauges())
+        except Exception as e:  # noqa: BLE001 — telemetry only
+            mlog.warn(f"memory attribution failed: {e}")
+            return
+        net.metrics.emit("mem_profile", round=self.start_counter - 1,
+                         **table)
+        if not mlog.is_silent() and table["rows"]:
+            top = ", ".join(f"{r['layer']} {r['total_bytes'] / 1e6:.2f} MB"
+                            for r in table["rows"][:3])
+            mlog.info(f"mem_profile: peak live "
+                      f"{table['peak_live_bytes'] / 1e6:.2f} MB over the "
+                      f"step's start at {table['peak_frac']:.0%} of the "
+                      f"step; top: {top}")
 
     def _emit_layer_profile(self, events, steps: int) -> None:
         """One ``layer_profile`` record: the window's device time per
-        connection (monitor/attribution.py)."""
+        connection (monitor/attribution.py) beside the analytic cost
+        model (analysis/costmodel.py) and, on the card, its peaks."""
+        from .analysis import costmodel
         from .monitor import attribution
+        net = self.net
+        name = self._device_name()
         try:
-            table = attribution.layer_table(events, self.net.layer_scopes(),
-                                            steps=steps)
+            table = attribution.layer_table(
+                events, net.layer_scopes(), steps=steps,
+                costs=costmodel.layer_costs(net.net),
+                peak_flops=costmodel.peak_flops(name),
+                peak_bw=costmodel.peak_bw(name))
         except Exception as e:  # noqa: BLE001 — telemetry only
             mlog.warn(f"layer attribution failed: {e}")
             return
@@ -1545,6 +1694,34 @@ class LearnTask:
                 draft.metrics.close()
         mlog.notice(f"finished serving, wrote {self.name_pred}")
 
+    def task_check(self, path: str) -> int:
+        """``task = check``: the config lint and the device-free traced
+        pass (``analysis.run_check``); each finding printed, a summary
+        line, one ``check`` record in the sink (and no ``run`` header).
+        Returns 1 iff a finding is an error."""
+        from .analysis import run_check
+        from .monitor.metrics import Metrics
+        findings, code = run_check(self.cfg, path=path)
+        self.last_check = findings
+        counts = {"error": 0, "warn": 0, "info": 0}
+        for f in findings:
+            counts[f.severity] = counts.get(f.severity, 0) + 1
+            emit = mlog.result if f.severity in ("error", "warn") \
+                else mlog.info
+            emit("check: " + f.format())
+        mlog.result(
+            f"check: {path or '<config>'}: {counts['error']} error(s), "
+            f"{counts['warn']} warning(s), {counts['info']} info")
+        metrics = Metrics()
+        for k, v in self.cfg:
+            if k == "metrics_sink":
+                metrics.configure_sink(v)
+        metrics.emit("check", config=path, n_error=counts["error"],
+                     n_warn=counts["warn"], n_info=counts["info"],
+                     findings=[f.to_dict() for f in findings])
+        metrics.close()
+        return code
+
     def run(self, argv: List[str]) -> int:
         if len(argv) < 1:
             mlog.notice("Usage: python -m cxxnet_tpu_torch <config> "
@@ -1568,6 +1745,13 @@ class LearnTask:
             raise NotImplementedError(
                 f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
                 f"(ported: {', '.join(PORTED_TASKS)}; ROADMAP.md)")
+        if self.task == "check":
+            # lint only: no iterators, no device, no data files; what the
+            # port refuses below is one of its findings
+            return self.task_check(argv[0])
+        for k, v in self.cfg:
+            if k in UNPORTED_TASK_KEYS:
+                refuse_unported(k, v, UNPORTED_TASK_KEYS[k])
         try:
             self.init()
             mlog.info("initializing end, start working")

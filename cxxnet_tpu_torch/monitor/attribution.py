@@ -24,9 +24,10 @@ names:
   ``(collectives)``.
 
 On the CPU the timeline is the outermost CPU ops (:func:`~.trace.timeline`),
-each placed the same way from its own thread and time.  The cost-model
-columns of the JAX package's table (``flops``, ``bytes``, ``mfu_pct``,
-``roofline_*``) wait for a cost model of the port and are left out.
+each placed the same way from its own thread and time.  Given the
+analytic costs (``analysis/costmodel.layer_costs``) and the card's peaks,
+each connection's row carries the JAX package's cost columns:
+``flops``, ``bytes``, ``mfu_pct``, ``roofline_ms`` and ``roofline_x``.
 """
 
 from __future__ import annotations
@@ -135,14 +136,38 @@ def attribute_events(events: Sequence[dict], scopes: Sequence[str]
     return out
 
 
+def _cost_columns(row: dict, c: Dict[str, float], sec: float,
+                  peak_flops: Optional[float],
+                  peak_bw: Optional[float]) -> None:
+    """The JAX package's cost columns of one row: the analytic ``flops``
+    / ``bytes`` of a step, ``mfu_pct`` (flops over the row's device time
+    against the card's peak) and ``roofline_ms`` (the larger of flops
+    over the peak and bytes over the bandwidth) with ``roofline_x`` (the
+    device time over it).  Without peaks (the CPU) only the analytic
+    pair is written."""
+    row["flops"] = c["flops"]
+    row["bytes"] = c["bytes"]
+    if sec > 0 and peak_flops:
+        row["mfu_pct"] = round(c["flops"] / sec / peak_flops * 100.0, 2)
+    if peak_flops and peak_bw:
+        floor_ms = max(c["flops"] / peak_flops, c["bytes"] / peak_bw) * 1e3
+        row["roofline_ms"] = round(floor_ms, 4)
+        if floor_ms > 0:
+            row["roofline_x"] = round(sec * 1e3 / floor_ms, 2)
+
+
 def layer_table(events: Sequence[dict], scopes: Sequence[str],
-                steps: int = 1) -> Dict[str, object]:
+                steps: int = 1,
+                costs: Optional[Dict[str, Dict[str, float]]] = None,
+                peak_flops: Optional[float] = None,
+                peak_bw: Optional[float] = None) -> Dict[str, object]:
     """The ``layer_profile`` record's payload: per dispatch,
     ``device_total_ms`` (the timeline's busy union), ``ops_total_ms``
     (summed event time), ``attributed_ms`` and ``coverage``
     (attributed / ops), and ``rows`` by device time, each ``{layer,
     device_ms, bwd_ms, count, share, comm_ms}`` (``bwd_ms``: the part
-    placed through the backward join)."""
+    placed through the backward join), and a connection's row the cost
+    columns of :func:`_cost_columns` where ``costs`` has its scope."""
     steps = max(int(steps), 1)
     placed = attribute_events(events, scopes)
     buckets: Dict[str, List[float]] = {}  # row -> [us, count, comm, bwd]
@@ -159,11 +184,17 @@ def layer_table(events: Sequence[dict], scopes: Sequence[str],
         ops_us += p["dur_us"]
     busy = union_us((p["start"], p["start"] + p["dur_us"]) for p in placed)
     per = lambda us: round(us / 1e3 / steps, 4)  # noqa: E731
-    rows = [{"layer": row, "device_ms": per(us), "bwd_ms": per(bwd),
+    costs = costs or {}
+    rows = []
+    for row, (us, n, comm, bwd) in sorted(buckets.items(),
+                                          key=lambda kv: -kv[1][0]):
+        r = {"layer": row, "device_ms": per(us), "bwd_ms": per(bwd),
              "count": n, "share": round(us / ops_us, 4) if ops_us else 0.0,
              "comm_ms": per(comm)}
-            for row, (us, n, comm, bwd) in sorted(
-                buckets.items(), key=lambda kv: -kv[1][0])]
+        if row in costs:
+            _cost_columns(r, costs[row], us / 1e6 / steps, peak_flops,
+                          peak_bw)
+        rows.append(r)
     attributed = sum(v[0] for k, v in buckets.items()
                      if k not in (COMM_ROW, OTHER_ROW))
     return {"steps": steps, "device_total_ms": per(busy or ops_us),

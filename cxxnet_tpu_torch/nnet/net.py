@@ -23,7 +23,10 @@ trainer's :class:`~..monitor.trace.ProfileWindow`), :meth:`Network.run`
 enters a ``torch.profiler.record_function`` range named
 :func:`~..layers.base.conn_scope_name` around each connection's forward,
 the ranges layer attribution joins kernels against; outside a window it
-enters none.
+enters none.  On one step of such a window an armed ``mem_probe``
+(``monitor/memory.AllocProbe``) reads the allocator after each
+connection's forward (under ``remat`` the trainer's segments read it
+in its place).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.profiler import record_function
 
 from ..layers.base import ChSegs, ForwardContext, Layer, Shape4, \
@@ -76,6 +80,9 @@ class Network:
         # a record_function range per connection while a profile window
         # is open
         self.profile_scopes = False
+        # an armed monitor/memory.AllocProbe reads the allocator after
+        # each connection's forward (one step of a profile window)
+        self.mem_probe = None
         self.scope_names = [conn_scope_name(i, c)
                             for i, c in enumerate(self.connections)]
 
@@ -131,7 +138,14 @@ class Network:
     def init_params(self, seed: int, device: torch.device) -> Params:
         """Fresh parameters from ``seed``: connection ``i`` draws from its
         own ``torch.Generator`` seeded ``seed * 1000003 + i`` on
-        ``device``, so one layer's init does not depend on another's."""
+        ``device``, so one layer's init does not depend on another's.  On
+        ``meta`` the parameters are meta tensors: their shapes and
+        dtypes, no values."""
+        if device.type == "meta":
+            # a meta generator does not exist: draw "from" a CPU one with
+            # every tensor made on meta (shapes and dtypes, no storage)
+            with _OnMeta():
+                return self.init_params(seed, torch.device("cpu"))
         params: Params = {}
         for i, conn in enumerate(self.connections):
             if not conn.owns_params:
@@ -186,6 +200,8 @@ class Network:
                     self._run_conn(i, conn, params, new_buffers, nodes, ctx)
             else:
                 self._run_conn(i, conn, params, new_buffers, nodes, ctx)
+            if self.mem_probe is not None:
+                self.mem_probe.mark(self.scope_names[i])
         return nodes, new_buffers
 
     def _run_conn(self, i: int, conn: Connection, params: Params,
@@ -311,6 +327,18 @@ class Network:
             lines.append(f"{i:3d} {conn.layer.type_names[0]:>20s}{share} "
                          f"[{ins} -> {outs}] out={shapes}")
         return "\n".join(lines)
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a factory call makes with a ``device`` argument is
+    made on ``meta`` (the layers place their parameters on their
+    generator's device)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = dict(kwargs, device="meta")
+        return func(*args, **kwargs)
 
 
 def conv_over_segs(segs: List[torch.Tensor], w: torch.Tensor, stride: int,

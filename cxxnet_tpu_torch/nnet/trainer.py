@@ -51,8 +51,12 @@ nothing of it runs on other steps or at ``monitor = 0``);
 ``trace_sample`` arms the metrics' span tracer; the
 ``train_step_traces`` / ``eval_step_traces`` counters count the batch
 shapes each step saw; :meth:`NetTrainer.memory_gauges` reads the
-caching allocator and :meth:`NetTrainer.layer_scopes` names the
-connection ranges a profile window joins kernels against.
+caching allocator, :meth:`NetTrainer.arm_mem_probe` reads it through one
+step, connection by connection, and :meth:`NetTrainer.layer_scopes`
+names the connection ranges a profile window joins kernels against.
+:meth:`NetTrainer.init_model` builds the net on ``meta`` tensors for
+``task = check``; ``strict_config = 1`` has the layers report the keys
+they drop.
 """
 
 from __future__ import annotations
@@ -67,9 +71,12 @@ import torch
 from torch.profiler import record_function
 
 from .. import ckpt, engine
+from ..analysis.schema import K
 from ..layers.base import ForwardContext, LabelInfo, materialize
 from ..monitor import TrainingDiverged, ingraph, log as mlog
+from ..monitor.memory import BACKWARD, UPDATE, AllocProbe
 from ..monitor.metrics import Metrics, device_memory_gauges
+from ..parallel.mesh import MeshSpec, parse_device_spec
 from ..updater.updaters import UpdaterHyper, create_updater
 from ..utils import serializer
 from ..utils.metric import MetricSet
@@ -79,6 +86,60 @@ from .netconfig import NetConfig, global_pairs
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
+def _metric_check(val: str):
+    """Lint-time metric-name validation through the real factory."""
+    from ..utils.metric import create_metric
+    try:
+        create_metric(val)
+        return None
+    except ValueError as e:
+        return str(e)
+
+
+def _mesh_check(val: str):
+    try:
+        MeshSpec.parse(val)
+        return None
+    except ValueError as e:
+        return f"invalid mesh spec: {e}"
+
+
+#: keys NetTrainer.set_param consumes (the engine options declare
+#: themselves in engine.py; ``metric[...]`` spellings match as a
+#: template).  The declared-key registry (analysis/registry.py) reads
+#: them; keep them in step with set_param below.
+TRAINER_KEYS = (
+    K("batch_size", "int", lo=1), K("update_period", "int", lo=1),
+    K("seed", "int"), K("dev", "str"),
+    K("dtype", "enum", choices=("float32", "bfloat16", "float16")),
+    K("mesh", "str", check=_mesh_check, help="axis:size[,axis:size...]"),
+    K("fullc_gather", "int", lo=0, hi=1),
+    K("pipe_microbatch", "int", lo=0),
+    K("pipe_schedule", "enum", choices=("gpipe", "1f1b")),
+    K("batch_split", "int", lo=1), K("remat", "int", lo=0),
+    K("scale", "float"), K("mean_value", "str"),
+    K("shard_opt_state", "int", lo=0, hi=1),
+    K("update_on_server", "int", lo=0, hi=1),
+    K("silent", "int", lo=0, hi=1),
+    K("monitor", "int", lo=0, hi=1),
+    K("monitor_interval", "int", lo=1),
+    K("monitor_nan", "enum", choices=("warn", "fatal", "off")),
+    K("metrics_sink", "str", help="jsonl:<path> or none"),
+    K("trace_sample", "int", lo=0, hi=1000000,
+      help="host-side span tracing: trace every Nth request/item "
+           "through the request path (span records; 0 = off; needs "
+           "metrics_sink)"),
+    K("eval_train", "int", lo=0, hi=1), K("eval_group", "int", lo=1),
+    K("input_s2d", "int", lo=0, hi=1), K("print_step", "int", lo=1),
+    K("metric", "str", check=_metric_check,
+      help="error/rmse/logloss/rec@n, repeatable"),
+    K("metric[*]", "str", check=_metric_check,
+      help="scoped metric[field] / metric[field,node]"),
+    K("strict_config", "int", lo=0, hi=1,
+      help="route silently-ignored config keys through the lint "
+           "reporter as warnings"),
+)
+
 #: trainer keys of the JAX package whose features are not ported: any
 #: value but the default is refused by name (ROADMAP.md: the multi-GPU
 #: plane)
@@ -86,10 +147,27 @@ UNPORTED_KEYS = {"shard_opt_state": "0", "update_on_server": "0",
                  "fullc_gather": "0"}
 
 
+def unported_message(name: str, val: str, default: str) -> str:
+    """The refusal of a key whose feature is not ported (the runtime's
+    and ``task = check``'s words)."""
+    return (f"{name} = {val}: not ported to cxxnet_tpu_torch yet (only "
+            f"{default!r}; ROADMAP.md)")
+
+
 def refuse_unported(name: str, val: str, default: str) -> None:
     if val != default:
-        raise ValueError(f"{name} = {val}: not ported to cxxnet_tpu_torch "
-                         f"yet (only {default!r}; ROADMAP.md)")
+        raise ValueError(unported_message(name, val, default))
+
+
+def several_ids_message(dev: str, n: int) -> str:
+    return (f"dev = {dev}: {n} devices; a data mesh over several device "
+            "ids (multi-GPU) is not ported to cxxnet_tpu_torch yet "
+            "(ROADMAP.md, Multi-GPU)")
+
+
+def mesh_message(val: str) -> str:
+    return (f"mesh = {val}: multi-GPU meshes are not ported to "
+            "cxxnet_tpu_torch yet (ROADMAP.md)")
 
 
 def resolve_device(dev: str) -> torch.device:
@@ -99,16 +177,14 @@ def resolve_device(dev: str) -> torch.device:
     accelerator request never lands on the CPU.  Several ids (``:i-j``,
     ``:i,j``), which the JAX package turns into a data mesh, are refused
     by name: the multi-GPU plane is not ported."""
-    platform, _, ids = dev.strip().lower().partition(":")
+    spec = parse_device_spec(dev.lower())
+    platform = spec["platform"]
     if platform not in ("cpu", "gpu", "cuda", "tpu"):
         raise ValueError(f"dev = {dev!r}: expected cpu, gpu[:i], cuda[:i] "
                          "or tpu[:i]")
-    listed = device_ids(ids) if ids else []
+    listed = spec["ids"] or []
     if len(listed) > 1:
-        raise ValueError(
-            f"dev = {dev}: {len(listed)} devices; a data mesh over several "
-            "device ids (multi-GPU) is not ported to cxxnet_tpu_torch yet "
-            "(ROADMAP.md, Multi-GPU)")
+        raise ValueError(several_ids_message(dev, len(listed)))
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -116,23 +192,6 @@ def resolve_device(dev: str) -> torch.device:
             f"dev = {dev}: no CUDA device is available; set dev = cpu to "
             "run on the CPU")
     return torch.device("cuda", listed[0] if listed else 0)
-
-
-def device_ids(spec: str) -> List[int]:
-    """The ids of a ``dev`` suffix: ``0``, ``0-3``, ``1,3`` (the JAX
-    package's ``parallel/mesh.parse_device_spec``)."""
-    ids: List[int] = []
-    for part in spec.split(","):
-        try:
-            if "-" in part:
-                a, b = part.split("-")
-                ids.extend(range(int(a), int(b) + 1))
-            else:
-                ids.append(int(part))
-        except ValueError:
-            raise ValueError(f"dev suffix {spec!r}: expected i, i-j or "
-                             "i,j") from None
-    return ids
 
 
 def _torch_leaf(a, dtype_name: Optional[str]) -> torch.Tensor:
@@ -285,6 +344,11 @@ class NetTrainer:
         # jitted step)
         self._train_shapes: set = set()
         self._eval_shapes: set = set()
+        # a monitor/memory.AllocProbe the next update step reads the
+        # allocator into (arm_mem_probe), and the allocator's high-water
+        # before the probe last reset it (memory_gauges keeps it)
+        self.mem_probe = None
+        self._hbm_floor = 0
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -303,10 +367,8 @@ class NetTrainer:
                                  f"{sorted(DTYPES)}")
             self.dtype = DTYPES[val]
         elif name == "mesh":
-            sizes = [int(p.split(":")[1]) for p in val.split(",") if ":" in p]
-            if int(np.prod(sizes or [1])) > 1:
-                raise ValueError(f"mesh = {val}: multi-GPU meshes are not "
-                                 "ported to cxxnet_tpu_torch yet (ROADMAP.md)")
+            if MeshSpec.parse(val).size > 1:
+                raise ValueError(mesh_message(val))
         elif name == "remat":
             self.remat = int(val)
         elif name == "batch_split":
@@ -353,21 +415,32 @@ class NetTrainer:
             mlog.set_silent(self.silent)
         elif name == "metrics_sink":
             self.metrics.configure_sink(val)
+        elif name == "strict_config":
+            # default off: layers report, rather than drop, keys no
+            # subsystem declares
+            from ..layers import base as layer_base
+            layer_base.set_strict_config(bool(int(val)))
         self.cfg.append((name, val))
 
     # ---------------------------------------------------------------- init
-    def _build_net(self, netcfg: NetConfig) -> None:
+    def _build_net(self, netcfg: NetConfig,
+                   device: Optional[torch.device] = None) -> None:
         assert self.batch_size > 0, "batch_size must be set"
         self.netcfg = netcfg
-        self.device = resolve_device(self.dev)
+        self.device = device if device is not None \
+            else resolve_device(self.dev)
         self.net = Network(netcfg, self.batch_size, self.dtype)
 
-    def init_model(self) -> None:
-        """Fresh weights from ``seed``, drawn on the trainer's device."""
+    def init_model(self, device: Optional[torch.device] = None) -> None:
+        """Fresh weights from ``seed``, drawn on the trainer's device.
+        ``device = torch.device("meta")`` builds the net with its
+        parameters and buffers as meta tensors: shapes and dtypes, no
+        storage and no device work, at any width (what ``task = check``
+        models, ``analysis/memmodel.py``; such a trainer does not run)."""
         mlog.set_silent(self.silent)
         netcfg = NetConfig()
         netcfg.configure(self.cfg)
-        self._build_net(netcfg)
+        self._build_net(netcfg, device)
         self.params = self.net.init_params(self.seed * 100 + 11, self.device)
         self.buffers = self.net.init_buffers(self.device)
         self._post_build()
@@ -406,7 +479,8 @@ class NetTrainer:
         for name, field, _ in self._metric_req:
             self.metric.add_metric(name, field)
             self.train_metric.add_metric(name, field)
-        self.rng = torch.Generator(device=self.device)
+        self.rng = torch.Generator(
+            device="cpu" if self.device.type == "meta" else self.device)
         self.rng.manual_seed(self.seed)
         self._remat_partition = None
         if self.batch_split > 1 and self.buffers:
@@ -944,9 +1018,13 @@ class NetTrainer:
                     raise RuntimeError("network has no loss layer; cannot "
                                        "train")
                 total = sum(losses[1:], losses[0])
+            # a probe reads the first forward only, never a remat
+            # segment's recompute in the backward
+            self.net.mem_probe = None
             with record_function("train_backward"):
                 grads = torch.autograd.grad(total, [p for _, _, p in leaves])
         finally:
+            self.net.mem_probe = None
             for _, _, p in leaves:
                 p.requires_grad_(False)
         out: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -993,7 +1071,9 @@ class NetTrainer:
         state after put back (``torch.utils.checkpoint`` restores only
         the global generators).  Connections run one by one, without
         the sibling-fuse and virtual-concat peepholes, as in the JAX
-        package's segments."""
+        package's segments; an armed ``mem_probe`` reads the allocator
+        after each of them in the forward (the backward's recompute
+        runs with none)."""
         from torch.utils.checkpoint import checkpoint
         from . import pipeline_net
         from .net import conn_params
@@ -1015,6 +1095,8 @@ class NetTrainer:
                                           ctx)
                 for n, v in zip(conn.nindex_out, outs):
                     env[n] = v
+                if net.mem_probe is not None:
+                    net.mem_probe.mark(net.scope_names[j])
             return env
 
         def stage_fn(lo, hi, ins, outs):
@@ -1062,6 +1144,10 @@ class NetTrainer:
         inputs = {**inputs,
                   0: self.stage_input(self._normalize_input(inputs[0]))}
         self._count_shape(self._train_shapes, "train_step_traces", inputs)
+        probe, self.mem_probe = self.mem_probe, None
+        if probe is not None:
+            probe.start()
+            self.net.mem_probe = probe
         self.sample_counter += 1
         do_update = self.sample_counter % self.update_period == 0
         epoch = self.epoch_counter
@@ -1069,6 +1155,8 @@ class NetTrainer:
             self.epoch_counter += 1
         loss, grads, outs, self.buffers = self._loss_grads_outs(
             inputs, labels, epoch)
+        if probe is not None:
+            probe.mark(BACKWARD)
         self.last_loss = loss
         if self.update_period > 1:
             if self._grad_acc is None:
@@ -1087,6 +1175,9 @@ class NetTrainer:
         before = ingraph.snapshot(self.params) if tick else None
         if do_update:
             self.apply_update(grads, epoch)
+        if probe is not None:
+            probe.mark(UPDATE)
+            probe.finish()
         if tick:
             self._last_monitor = ingraph.group_stats(before, grads,
                                                      self.params)
@@ -1134,8 +1225,31 @@ class NetTrainer:
 
     def memory_gauges(self) -> Dict[str, int]:
         """``hbm_peak_bytes`` / ``hbm_bytes_in_use`` of the trainer's
-        device from the caching allocator (empty on the CPU)."""
-        return device_memory_gauges(self.device)
+        device from the caching allocator (empty on the CPU); the peak is
+        the process's high-water, across the resets of
+        :meth:`arm_mem_probe`."""
+        g = device_memory_gauges(self.device)
+        if g:
+            g["hbm_peak_bytes"] = max(g["hbm_peak_bytes"], self._hbm_floor)
+        return g
+
+    def arm_mem_probe(self) -> AllocProbe:
+        """Read the caching allocator through the next update step (the
+        card only): returns the :class:`~..monitor.memory.AllocProbe`,
+        which holds the step's readings once it ran.  Its start resets
+        the allocator's peak, whose earlier high-water
+        :meth:`memory_gauges` keeps."""
+        dev = self.device
+
+        def reset() -> None:
+            self._hbm_floor = max(self._hbm_floor,
+                                  torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        self.mem_probe = AllocProbe(
+            lambda: torch.cuda.memory_allocated(dev),
+            peak=lambda: torch.cuda.max_memory_allocated(dev), reset=reset)
+        return self.mem_probe
 
     def layer_scopes(self) -> List[str]:
         """Each connection's :func:`~..layers.base.conn_scope_name`, the

@@ -34,6 +34,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+from ..analysis.schema import K
+
 
 def parse_shapes(val: str) -> List[int]:
     """Parse a ``serve_shapes`` spec ("1,8,32"); raises ValueError with
@@ -58,6 +60,121 @@ def shapes_check(val: str) -> Optional[str]:
     if sorted(set(parts)) != parts:
         return "buckets must be strictly ascending (sorted, no duplicates)"
     return None
+
+
+#: config keys the serving subsystem consumes (ServeConfig.from_pairs);
+#: merged into main.TASK_KEYS so the declared-key registry and the
+#: cross-key rules of ``task = check`` see them
+SERVE_KEYS = (
+    K("serve_shapes", "str", check=shapes_check,
+      help="pinned batch-size buckets, ascending (requests pad up to "
+           "the nearest; one pre-lowered executable each)"),
+    K("serve_max_batch", "int", lo=1,
+      help="coalesce at most this many rows per dispatch "
+           "(0/unset = the largest bucket)"),
+    K("serve_max_wait_ms", "float", lo=0.0,
+      help="max time the batcher holds a request open for coalescing"),
+    K("serve_dtype", "enum", choices=("f32", "bf16", "int8"),
+      help="predict variant: f32 reference, bf16 cast, or per-channel "
+           "int8 weights for fullc/conv (doc/serve.md)"),
+    K("serve_clients", "int", lo=1,
+      help="task=serve: concurrent client threads replaying the pred "
+           "iterator as single-row requests"),
+    K("serve_calib", "int", lo=0,
+      help="pairtest the quantized variant against f32 on this many "
+           "request batches at startup (serve_dtype != f32)"),
+    K("serve_queue_depth", "int", lo=1,
+      help="bounded request-queue depth (backpressure past it)"),
+    K("serve_sentinel", "int", lo=0, hi=1,
+      help="serve-side EWMA regression sentinels (p99 rise / QPS drop "
+           "/ queue-depth rise) over windowed serve_window records; "
+           "needs metrics_sink (doc/serve.md)"),
+    K("serve_sentinel_window", "float", lo=0.01,
+      help="seconds per sentinel observation window (the reporter "
+           "thread's cadence)"),
+    # -- incremental decode / generation (serve/decode.py, doc/serve.md)
+    K("serve_gen", "int", lo=0, hi=1,
+      help="task=serve: autoregressive generation through the KV-cache "
+           "decode engine instead of batch predict (LM netconfigs)"),
+    K("decode_slots", "int", lo=1,
+      help="in-flight decode batch: cache rows the step executable "
+           "carries (token-level continuous batching keeps them full)"),
+    K("decode_max_seqlen", "int", lo=1,
+      help="KV-cache length per slot; must equal the netconfig input "
+           "width (the prefill executable runs the net at its declared "
+           "width).  Unset = the input width"),
+    K("serve_gen_tokens", "int", lo=1,
+      help="max new tokens generated per request"),
+    K("serve_gen_sample", "enum",
+      choices=("greedy", "temperature", "topk"),
+      help="sampling off the LM head: greedy argmax (deterministic), "
+           "temperature softmax, or top-k restricted"),
+    K("serve_gen_temp", "float", lo=1e-6,
+      help="softmax temperature for temperature/topk sampling"),
+    K("serve_gen_topk", "int", lo=1,
+      help="top-k cutoff for serve_gen_sample = topk"),
+    K("serve_gen_seed", "int", lo=0,
+      help="per-request deterministic sampling seed"),
+    K("serve_gen_eos", "int", lo=-1,
+      help="stop token id (-1 = never; generation runs to "
+           "serve_gen_tokens or the cache end)"),
+    K("serve_gen_prompt", "int", lo=1,
+      help="task=serve: prompt length taken from each pred-iterator "
+           "row's leading token ids"),
+    K("serve_gen_prompt_doc", "int", lo=0, hi=1,
+      help="task=serve: every document of a packseq prompt row is its "
+           "own request (its first serve_gen_prompt ids)"),
+    K("serve_gen_batching", "enum", choices=("continuous", "request"),
+      help="continuous = requests join/leave the decode batch between "
+           "steps; request = fill a batch and run it to completion "
+           "(the A/B baseline)"),
+    # -- speculative decoding + chunked prefill (doc/serve.md)
+    K("serve_draft_model", "path",
+      help="snapshot of the small DRAFT net for speculative decoding "
+           "(loaded through the load_serve_model path; same vocab and "
+           "decode_max_seqlen as the flagship)"),
+    K("spec_k", "int", lo=0,
+      help="draft tokens proposed per speculative round; the flagship "
+           "verifies all spec_k+1 positions in ONE block dispatch "
+           "(0 = speculation off; requires serve_draft_model)"),
+    K("decode_prefill_chunk", "int", lo=0,
+      help="chunked prefill: stream the prompt into the KV cache this "
+           "many columns per dispatch, interleaved between decode "
+           "rounds (0 = whole-prompt prefill)"),
+    K("decode_kv_dtype", "enum", choices=("f32", "bf16"),
+      help="KV-cache storage dtype: bf16 halves the dominant serve "
+           "memory term (cast on write, f32 accumulation on read; "
+           "pairtested within SERVE_TOL)"),
+    # -- live control plane (serve/admin.py, doc/serve.md "Operating a
+    #    serve host")
+    K("serve_admin_port", "int", lo=0, hi=65535,
+      help="in-process admin HTTP endpoint (/metrics /healthz /readyz "
+           "/statusz) on this port; 0 = off (the range check IS the "
+           "lint: 1-65535 to enable)"),
+    K("serve_slo_p99_ms", "float", lo=0.0,
+      help="latency SLO threshold: requests slower than this spend "
+           "error budget (monitor/slo.py); 0 = SLO off"),
+    K("serve_slo_avail", "float", lo=0.0, hi=1.0,
+      help="fraction of requests that must meet serve_slo_p99_ms "
+           "(budget = 1 - avail); must be < 1.0 when the SLO is on"),
+    K("serve_slo_fast_sec", "float", lo=0.01,
+      help="fast burn window seconds (acute outage tier); must be an "
+           "integer multiple of serve_sentinel_window"),
+    K("serve_slo_slow_sec", "float", lo=0.01,
+      help="slow burn window seconds (simmering regression tier); "
+           "must be an integer multiple of serve_sentinel_window"),
+    K("serve_slo_fast_burn", "float", lo=1e-6,
+      help="fast-tier firing threshold (budget-spend velocity; 14.4 "
+           "= a 30-day budget gone in 2 days)"),
+    K("serve_slo_slow_burn", "float", lo=1e-6,
+      help="slow-tier firing threshold"),
+    K("serve_flight_requests", "int", lo=1,
+      help="anomaly flight capture: boost trace_sample for this many "
+           "requests before dumping the serve_flight record"),
+    K("serve_flight_boost", "int", lo=1,
+      help="trace_sample value while a flight capture is armed (1 = "
+           "trace every request)"),
+)
 
 
 @dataclasses.dataclass

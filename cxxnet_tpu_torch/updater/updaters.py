@@ -28,9 +28,33 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..analysis.schema import K
 from ..ops.fused_adam import fused_adam_pallas, fused_adam_supported
 
 State = Dict[str, torch.Tensor]
+
+#: keys UpdaterHyper.set_param consumes (global, per-layer, or
+#: tag-scoped ``wmat:lr``: the registry matches the tagged spellings
+#: through its tag prefixes)
+HYPER_KEYS = (
+    K("lr", "float", lo=0.0), K("eta", "float", lo=0.0),
+    K("wd", "float"), K("momentum", "float"),
+    K("clip_gradient", "float", lo=0.0),
+    K("momentum_schedule", "int", lo=0, hi=1),
+    K("base_momentum", "float"), K("final_momentum", "float"),
+    K("saturation_epoch", "int", lo=0),
+    K("beta1", "float"), K("beta2", "float"),
+    K("lr:schedule", "enum",
+      choices=("constant", "expdecay", "polydecay", "factor")),
+    K("lr:gamma", "float"), K("lr:alpha", "float"),
+    K("lr:step", "int", lo=1), K("lr:factor", "float"),
+    K("lr:minimum_lr", "float"), K("lr:start_epoch", "int", lo=0),
+    K("eta:schedule", "enum",
+      choices=("constant", "expdecay", "polydecay", "factor")),
+    K("eta:gamma", "float"), K("eta:alpha", "float"),
+    K("eta:step", "int", lo=1), K("eta:factor", "float"),
+    K("eta:minimum_lr", "float"), K("eta:start_epoch", "int", lo=0),
+)
 
 
 @dataclasses.dataclass

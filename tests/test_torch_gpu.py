@@ -1638,3 +1638,49 @@ def test_backward_attribution_across_the_autograd_thread(cuda, tmp_path):
     table = attribution.layer_table(events, t.layer_scopes())
     att = [r for r in table["rows"] if r["layer"].endswith("_att")]
     assert att and all(0 < r["bwd_ms"] < r["device_ms"] for r in att)
+
+
+@pytest.mark.parametrize("remat", ["0", "2"])
+def test_mem_probe_reads_the_allocator_on_the_card(cuda, remat):
+    """One update step of a small MLP on the card through the allocator
+    probe (``NetTrainer.arm_mem_probe``): a reading before the step,
+    after each connection's forward (once, under ``remat`` too), after
+    the backward and after the update; each forward leaves its output
+    live; the peak holds every reading; the gauges keep the process's
+    high-water across the probe's reset; the card's tables resolve
+    (``costmodel``)."""
+    from cxxnet_tpu_torch.analysis import costmodel, memmodel
+    from cxxnet_tpu_torch.monitor import memory
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    net = ("netconfig=start\nlayer[+1] = fullc:fc1\n  nhidden = 1024\n"
+           "layer[+1] = relu\nlayer[+1] = fullc:fc2\n  nhidden = 16\n"
+           "layer[+0] = softmax\nnetconfig=end\ninput_shape = 1,1,512\n"
+           "batch_size = 256\nupdater = adam\ndev = gpu\nsilent = 1\n"
+           f"remat = {remat}\n")
+    t = NetTrainer()
+    for k, v in parse_config_string(net):
+        t.set_param(k, v)
+    t.init_model()
+    x = torch.rand(256, 1, 1, 512, device="cuda")
+    lab = torch.randint(0, 16, (256, 1), device="cuda").float()
+    t.update_step({0: x}, t.label_info(lab))        # optimizer state made
+    big = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    del big                                          # a high-water to keep
+    before = torch.cuda.max_memory_allocated()
+    probe = t.arm_mem_probe()
+    t.update_step({0: x}, t.label_info(lab))
+    assert probe.done and t.mem_probe is None and t.net.mem_probe is None
+    labels = [m for m, _ in probe.marks]
+    assert labels == [memory.START] + t.layer_scopes() + [memory.BACKWARD,
+                                                          memory.UPDATE]
+    assert probe.peak_bytes >= max(b for _, b in probe.marks)
+    table = memory.mem_table(probe, memmodel.param_rows(t))
+    rows = {r["layer"]: r for r in table["rows"]}
+    assert rows["00-fc1"]["act_bytes"] >= 256 * 1024 * 4
+    assert table["coverage"] > 0 and table["peak_live_bytes"] > 0
+    assert t.memory_gauges()["hbm_peak_bytes"] >= before
+    name = torch.cuda.get_device_name(0)
+    assert costmodel.peak_flops(name) and costmodel.peak_bw(name)
+    assert costmodel.hbm_bytes(name, torch.device("cuda", 0)) \
+        == torch.cuda.get_device_properties(0).total_memory

@@ -24,6 +24,11 @@ the CPU (doc/monitor.md).
   on synthetic events.
 * Nothing when off: at ``monitor = 0`` and no ``prof`` an update enters
   no per-connection profiler range and runs no norm code.
+* The cost and memory records: ``layer_profile`` rows carry the JAX
+  package's cost columns (``mfu_pct`` / ``roofline_*`` only with the
+  card's peaks); ``mem_table`` over a scripted allocator gives the JAX
+  payload's keys; a CLI run's ``mem_profile`` record (the probe patched
+  in on the CPU) reads in tools/obsv.py and the port's monitor/diff.py.
 """
 
 import dataclasses
@@ -711,3 +716,191 @@ def test_reload_keeps_layer_sections_apart(tmp_path):
     loaded.load_model(str(tmp_path / "0001.model"))
     assert loaded.net.node_shapes == fresh.net.node_shapes
     assert fresh.net.node_shapes[2][2:] == (7, 7)
+
+
+# ------------------------------------------------- cost and memory records
+
+def _jax_cost_columns(c, ms, steps, peak_flops, peak_bw):
+    """The JAX package's row columns (cxxnet_tpu/monitor/attribution.py
+    ``layer_table``) for a row of ``ms`` device time over ``steps``."""
+    row = {"flops": c["flops"], "bytes": c["bytes"]}
+    sec = ms / steps / 1e3
+    if sec > 0 and peak_flops:
+        row["mfu_pct"] = round(c["flops"] / sec / peak_flops * 100.0, 2)
+    if peak_flops and peak_bw:
+        floor_ms = max(c["flops"] / peak_flops, c["bytes"] / peak_bw) * 1e3
+        row["roofline_ms"] = round(floor_ms, 4)
+        if floor_ms > 0:
+            row["roofline_x"] = round(ms / steps / floor_ms, 2)
+    return row
+
+
+@pytest.mark.parametrize("peaks", [True, False], ids=["h100", "cpu"])
+def test_layer_table_cost_columns_match_jax(peaks):
+    """Scripted events: a connection's row carries the JAX package's
+    cost columns against the card's peaks; without peaks (the CPU) only
+    flops and bytes, as in the JAX package; the unattributed row none."""
+    from cxxnet_tpu_torch.analysis import costmodel
+    from cxxnet_tpu_torch.monitor import attribution
+    evs = [_ev("user_annotation", "00-fc1", 0, 10),
+           _ev("cuda_runtime", "cudaLaunchKernel", 2, 1, correlation=1),
+           _ev("cuda_runtime", "cudaLaunchKernel", 80, 1, correlation=3),
+           _ev("kernel", "gemm_fwd", 3, 40, tid=7, correlation=1),
+           _ev("kernel", "fused_adam_kernel", 81, 2, tid=7, correlation=3)]
+    costs = {"00-fc1": {"flops": 6.0e9, "bytes": 1.2e7}}
+    pf = costmodel.peak_flops(costmodel.H100) if peaks else None
+    pb = costmodel.peak_bw(costmodel.H100) if peaks else None
+    table = attribution.layer_table(evs, ["00-fc1"], steps=2, costs=costs,
+                                    peak_flops=pf, peak_bw=pb)
+    rows = {r["layer"]: r for r in table["rows"]}
+    want = _jax_cost_columns(costs["00-fc1"], 0.040, 2, pf, pb)
+    got = {k: rows["00-fc1"][k] for k in ("flops", "bytes", "mfu_pct",
+                                          "roofline_ms", "roofline_x")
+           if k in rows["00-fc1"]}
+    assert got == want
+    assert set(want) == ({"flops", "bytes", "mfu_pct", "roofline_ms",
+                          "roofline_x"} if peaks else {"flops", "bytes"})
+    assert not {"flops", "mfu_pct"} & set(rows["(unattributed)"])
+
+
+def _scripted_probe(steps):
+    """An AllocProbe over a scripted counter: ``steps`` bytes added at
+    each reading in turn, and a peak 500 bytes above the last."""
+    from cxxnet_tpu_torch.monitor.memory import AllocProbe
+    live = [10_000]
+    it = iter(steps)
+
+    def read():
+        live[0] += next(it)
+        return live[0]
+
+    return AllocProbe(read, peak=lambda: live[0] + 500)
+
+
+def test_mem_table_keys_match_jax_and_scripted_values():
+    """mem_table over a scripted allocator: the JAX package's payload
+    keys (its mem_table over its HLO fixture), each connection's rise as
+    its act_bytes, the model's columns, peak and timeline over the
+    step's start."""
+    from cxxnet_tpu.monitor import memory as jmemory
+    from cxxnet_tpu_torch.monitor import memory
+    probe = _scripted_probe([0, 400, 0, 1200, -100, 3000, -2000])
+    probe.start()
+    for scope in ("00-fc1", "01-relu", "02-fc2", "03-softmax"):
+        probe.mark(scope)
+    probe.mark(memory.BACKWARD)
+    probe.mark(memory.UPDATE)
+    probe.finish()
+    table = memory.mem_table(
+        probe, param_rows={"00-fc1": {"param_bytes": 800,
+                                      "opt_bytes": 1600}},
+        model_rows={"00-fc1": {"param_bytes": 800, "opt_bytes": 1600,
+                               "act_bytes": 400},
+                    "02-fc2": {"act_bytes": 1000}})
+    text = open(os.path.join(REPO, "tests", "fixtures",
+                             "step_mlp.hlo")).read()
+    jtable = jmemory.mem_table(
+        text, ["00-fc1", "01-act", "02-loss"],
+        exec_stats={"temp_bytes": 1, "args_bytes": 1},
+        param_rows={"00-fc1": {"param_bytes": 1, "opt_bytes": 1}},
+        model_rows={"00-fc1": {"param_bytes": 1}})
+    assert set(table) == set(jtable)
+    assert {k for r in table["rows"] for k in r} \
+        == {k for r in jtable["rows"] for k in r}
+    rows = {r["layer"]: r for r in table["rows"]}
+    assert {s: r["act_bytes"] for s, r in rows.items()} == {
+        "00-fc1": 400, "01-relu": 0, "02-fc2": 1200, "03-softmax": 0}
+    assert rows["00-fc1"]["total_bytes"] == 2800
+    assert rows["00-fc1"]["model_bytes"] == 2800
+    assert rows["00-fc1"]["model_x"] == 1.0
+    assert rows["02-fc2"]["model_x"] == 1.2
+    assert table["rows"][0]["layer"] == "00-fc1"
+    assert table["timeline"] == [0, 400, 400, 1600, 1500, 4500, 2500]
+    # the peak: the allocator's (12_500 + 500) or the highest reading
+    # (14_500, after the backward), whichever is higher, over the start's
+    assert table["peak_live_bytes"] == 4500
+    assert table["peak_frac"] == round(5 / 6, 4)
+    assert table["coverage"] == round(1600 / 4500, 4)
+    assert table["exec"] == {"args_bytes": 10_000, "out_bytes": 2500,
+                             "temp_bytes": 4500}
+    # a connection that frees bytes: the rises add up without the fall
+    # between them, so coverage passes 1 (the JAX ratio, uncapped)
+    probe = _scripted_probe([0, 3000, -2500, 3000, -2000, 0, -1000])
+    probe.start()
+    for scope in ("00-fc1", "01-relu", "02-fc2", "03-softmax"):
+        probe.mark(scope)
+    probe.mark(memory.BACKWARD)
+    probe.mark(memory.UPDATE)
+    probe.finish()
+    table = memory.mem_table(probe)
+    assert table["peak_live_bytes"] == 3500
+    assert table["coverage"] == round(6000 / 3500, 4) > 1
+
+
+@pytest.mark.parametrize("remat", ["0", "2"])
+def test_mem_probe_reads_each_connection_once(remat):
+    """A probe reads the allocator once after each connection's forward,
+    under ``remat`` too, where the segments run their connections
+    themselves and run them again in the backward (the recompute is not
+    read): every connection gets a nonzero act_bytes."""
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.monitor import memory
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    tr = NetTrainer()
+    for k, v in parse_config_string(MLP_NET) + [
+            ("input_shape", "1,1,16"), ("batch_size", "4"), ("dev", "cpu"),
+            ("remat", remat)]:
+        tr.set_param(k, v)
+    tr.init_model()
+    rnd = np.random.RandomState(0)
+    batch = DataBatch(data=rnd.rand(4, 1, 1, 16).astype(np.float32),
+                      label=rnd.randint(0, 4, (4, 1)).astype(np.float32),
+                      index=np.arange(4))
+    probe = memory.AllocProbe(lambda: 1000 * len(probe.marks))
+    tr.mem_probe = probe
+    tr.update(batch)
+    scopes = tr.layer_scopes()
+    assert [m for m, _ in probe.marks] == (
+        [memory.START] + scopes + [memory.BACKWARD, memory.UPDATE])
+    rows = {r["layer"]: r for r in memory.mem_table(probe)["rows"]}
+    assert {s: rows[s]["act_bytes"] for s in scopes} \
+        == {s: 1000 for s in scopes}
+
+
+def test_mem_profile_record_through_the_cli_reads_in_obsv_and_diff(
+        golden, tmp_path, monkeypatch):
+    """A CPU train run with a profile window whose first dispatch reads a
+    scripted allocator (the card's probe patched in): one ``mem_profile``
+    record with the model's totals, which tools/obsv.py renders and the
+    port's monitor/diff.py reads, unedited."""
+    from cxxnet_tpu_torch.monitor import diff, memory
+
+    def arm(self, prof):
+        if prof.active and self._mem_probe is None:
+            self._mem_probe = self.net.mem_probe = memory.AllocProbe(
+                lambda: 1000 * len(self._mem_probe.marks),
+                peak=lambda: 50_000)
+
+    monkeypatch.setattr(LearnTask, "_arm_mem_probe", arm)
+    sink = tmp_path / "m.jsonl"
+    assert LearnTask().run([_golden_conf(golden, "mem"), "num_round=1",
+                            f"metrics_sink=jsonl:{sink}",
+                            f"prof={tmp_path}/prof", "prof_start_step=1",
+                            "prof_num_steps=2"]) == 0
+    recs = _records(sink)
+    (mp,) = [r for r in recs if r["kind"] == "mem_profile"]
+    assert [r["layer"] for r in mp["rows"]][:2] == ["00-fc1", "02-fc2"]
+    assert {r["layer"] for r in mp["rows"]} == {
+        "00-fc1", "01-relu", "02-fc2", "03-softmax"}
+    assert all(r["act_bytes"] == 1000 for r in mp["rows"])
+    assert mp["peak_live_bytes"] == 50_000 and mp["coverage"] > 0
+    assert mp["model"]["est_peak_bytes"] > mp["model"]["param_bytes"] > 0
+    assert "hbm_capacity_bytes" not in mp      # no card, no capacity
+    assert diff.run_metrics(recs)["peak_live_bytes"][0] == 50_000
+    obsv = os.path.join(REPO, "tools", "obsv.py")
+    r = subprocess.run([sys.executable, obsv, str(sink)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "memory (round 0): peak live" in r.stdout
+    assert "x_model" in r.stdout
