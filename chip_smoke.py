@@ -205,9 +205,28 @@ Phases (any failure raises and exits non-zero):
    full), timed; (b) the same conf at the least batch whose modelled
    peak passes the card's 80 GB (found on meta tensors, never run)
    exits 1 with an error carrying remediations; (c) every
-   example/**/*.conf, each exit code and error count printed.  The
-   allocator's live and reserved bytes must not move and no kernel may
-   launch.
+   example/**/*.conf, each exit code and error count printed.  In (a)
+   the graph lint (analysis/graph_lint.py) traces the full-width fused
+   step on meta tensors and gives one ``info`` finding and no error; it
+   runs once more alone, its node count and seconds printed.  The
+   allocator's live and reserved bytes and its count of allocations
+   must not move and no kernel may launch;
+24. pair test (``pairtest``): ImageNet.conf with conv1 rewritten as
+   ``pairtest-conv-torch`` (batch 256, bf16, ``synth_device_data = 1``,
+   the kernel keys of phase 7) for PAIR_STEPS steps: the master's
+   backward is row 5, the slave's cuDNN under autograd, rows 1, 3 and 4
+   run around them; each step's fwd / in_grad / wgrad / weight relative
+   errors printed and held to their stated bounds, the last step's
+   weight and bias gradients of both sides held normwise, the same
+   normwise at conv1's shape in a separate call (row 5 launched once,
+   not counted with the path), then one float32 step with TF32 off (the
+   reference's 1e-5 the yardstick);
+25. Python and C frontends (``wrapper``): ``wrapper.api.train`` of
+   MNIST_CONV.conf's net (rows 3-5) over synthetic MNIST on the card,
+   predict / extract / get and set weight / save / reload, a
+   ``ServingHost`` answering from 4 threads, the C ABI in process
+   through ctypes, and the C demo from a fresh interpreter (train,
+   save, reload) on the card.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -224,6 +243,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -324,7 +344,7 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
               "resnet", "alexnet_data", "staging", "observe",
-              "serve_admin", "check"}
+              "serve_admin", "check", "pairtest", "wrapper"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -432,6 +452,43 @@ FUSED_LOSS_TOL = 1e-2
 #: both sides sum float32 products (exact for bf16 inputs) over up to
 #: 774,400 positions, in different orders
 WGRAD_TOL = 1e-3
+
+# pairtest: ImageNet.conf with conv1 as pairtest-conv-torch (row 5 in the
+# master's backward, cuDNN / autograd in the slave's), PAIR_STEPS steps
+# at batch 256 in bf16 under ALEXNET_ARGS' kernel keys, then PAIR_F32_STEPS
+# at float32 with TF32 off
+PAIR_STEPS, PAIR_F32_STEPS = 4, 1
+PAIR_ARGS = ("dev=gpu", "synth_device_data=1", "num_round=1",
+             "pool_layout=hwcn", "pool_relu_fuse=1", "pallas_lrn=1",
+             "fast_wgrad=hwcn", "save_model=0", "silent=1")
+#: the pairtest layer's diagnostics are the reference's elementwise max
+#: of |m - s| / max(|m|, |s|) (pairtest_layer-inl.hpp:194, its yardstick
+#: 1e-5).  In bf16 an output or gradient element that cancels to ~0 reads
+#: the two sides' float32 summation orders as an error of order 1, and
+#: one whose sides round to neighbouring bf16 values as 2^-8 .. 2^-7: the
+#: bound is the metric's range for finite values, 2 (a sign flip), so
+#: the diagnostics must be finite, and the values below are held
+#: normwise.  The slave's float32 conv runs with cuDNN's default
+#: allow_tf32 = True; bf16 values are exact in TF32, so it changes
+#: nothing but the summation order
+PAIR_BF16_DIAG_BOUND = 2.0
+#: normwise (max |m - s| / max |s|): the weight and bias gradients of
+#: both sides in the trainer's own last step, and a separate call at
+#: conv1's shape.  The bf16 output and input gradient within two bf16
+#: ulps of the largest element (BF16_ROW_TOL), the float32 weight and
+#: bias gradients of row 5 against cuDNN's within WGRAD_TOL before their
+#: one rounding to bf16, so within one bf16 ulp after it
+PAIR_WGRAD_BF16_TOL = 2.0 ** -7
+#: the float32 step with TF32 off: the reference's yardstick (printed;
+#: the elementwise metric may exceed it where a value cancels to ~0, and
+#: the normwise errors are held to F32_TOL and WGRAD_TOL)
+PAIRTEST_RTOL = 1e-5
+
+# wrapper: example/MNIST/MNIST_CONV.conf's net through wrapper.api.train
+# over the synthetic MNIST of mnist_conv_conf (rows 3-5), WRAPPER_ROUNDS
+# rounds, then a ServingHost answering from WRAPPER_CLIENTS threads, the
+# C ABI in process and the C demo
+WRAPPER_ROUNDS, WRAPPER_CLIENTS = 2, 4
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: numbers one phase prints beside another's (alexnet's step p50)
@@ -4082,7 +4139,7 @@ def admin_anomaly(tmp: str) -> dict:
         ev[3].record()
         stall["queued"] = True
 
-    injector = threading.Thread(target=inject, name="smoke-stall")
+    injector = threading.Thread(target=inject, name="cxxnet-smoke-stall")
     injector.start()
     reset_launches()
     try:
@@ -4741,16 +4798,48 @@ def check_estimate(conf: str, batch: int) -> int:
     return memmodel.totals(tr)["est_peak_bytes"]
 
 
+def check_graph_lint(conf: str) -> tuple:
+    """The graph lint (analysis/graph_lint.py) of ``conf``'s train step
+    on the meta-built trainer, as task = check runs it: (findings,
+    seconds)."""
+    import torch
+    from cxxnet_tpu_torch.analysis import graph_lint
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    tr = NetTrainer()
+    for k, v in parse_config_file(conf):
+        if k != "metrics_sink":
+            tr.set_param(k, v)
+    tr.set_param("silent", "1")
+    tr.init_model(torch.device("meta"))
+    t0 = time.perf_counter()
+    findings = graph_lint.lint_trainer(tr)
+    return findings, time.perf_counter() - t0
+
+
+def alloc_state() -> tuple:
+    """The caching allocator's live bytes, reserved bytes and count of
+    allocations ever made, after the card is idle."""
+    import torch
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+            torch.cuda.memory_stats().get("allocation.all.allocated", 0))
+
+
 def phase_check(tmp: str) -> dict:
     """Phase 23 (``check``): the port's ``task = check`` on the card's
     machine, which does no device work: (a) ``mem_check = 1 mem_chip =
     h100`` on phase 9's LM conf at full width (d 2048, 12 layers, s 4096,
-    batch 4, fused adam): exit 0 and an ``info`` pre-flight finding with
-    its % full, timed; (b) the same conf at the least batch whose modelled
+    batch 4, fused adam): exit 0, an ``info`` pre-flight finding with its
+    % full and the graph lint's one ``info`` finding (its node count),
+    timed, and the lint alone on the same trainer, its node count and
+    seconds printed; (b) the same conf at the least batch whose modelled
     peak passes the card's 80 GB (found from the model on meta tensors,
     never run): exit 1 with an error carrying remediations; (c) every
-    example/**/*.conf: each exit code and error count printed.  The
-    allocator's live and reserved bytes must not move, and no kernel may
+    example/**/*.conf: each exit code, error count and graph node count
+    printed, every conf with a net the port builds linted (one info
+    line of the graph lint).  The allocator's live and reserved bytes
+    and its count of allocations must not move, and no kernel may
     launch.  Returns the path's launches."""
     import glob
     import torch
@@ -4758,8 +4847,17 @@ def phase_check(tmp: str) -> dict:
     reset_launches()
     conf = lm_train_conf(tmp, "check", True, NLAYER, NHEAD, TRAIN_STEPS,
                          True)
+    # an earlier phase's frees that are still pending (tensors held in
+    # reference cycles until the collector runs; blocks used on a side
+    # stream, released by the allocator's next event sweep) are settled
+    # before the first reading: one landed inside the phase once
     torch.cuda.synchronize()
-    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    live = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = alloc_state()
+    log(f"check: {live - mem0[0]} bytes of earlier phases' frees settled "
+        "before the phase")
     rc, rec, sec = check_run(conf, ["mem_check=1", "mem_chip=h100"])
     mem = [f for f in rec["findings"] if f.get("scope") == "mem"]
     log(f"check (a): exit {rc} in {sec:.2f} s; {rec['n_error']} errors, "
@@ -4768,6 +4866,16 @@ def phase_check(tmp: str) -> dict:
     if rc != 0 or len(mem) != 1 or mem[0]["severity"] != "info" \
             or "full;" not in mem[0]["message"]:
         raise AssertionError(f"check (a): exit {rc}, {rec}")
+    jx = [f for f in rec["findings"] if f.get("scope") == "jaxpr"]
+    lint, lsec = check_graph_lint(conf)
+    log(f"check (a): graph lint of the fused LM's step: "
+        + "; ".join(f"{f.severity} {f.message}" for f in lint)
+        + f" ({lsec:.1f} s); in the check record: "
+        + "; ".join(f"{f['severity']} {f['message']}" for f in jx))
+    if [f.severity for f in lint] != ["info"] or [f["severity"] for f in jx] \
+            != ["info"] or not jx[0]["message"].startswith(
+                "traced train step: "):
+        raise AssertionError(f"check (a): graph lint {lint}, {jx}")
     cap = costmodel.HBM_BYTES[costmodel.H100]
     e0 = check_estimate(conf, TRAIN_BATCH)
     e1 = check_estimate(conf, TRAIN_BATCH + 1)
@@ -4792,24 +4900,402 @@ def phase_check(tmp: str) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)  # relative sinks of the example confs land here
     try:
-        out = []
+        out, unlinted = [], []
         for c in confs:
             t0 = time.perf_counter()
             task = LearnTask()
             code = task.run([c, "task=check"])
             n_err = sum(f.severity == "error" for f in task.last_check)
+            jx = [f for f in task.last_check if f.scope == "jaxpr"]
+            nodes = [f.message.split()[3] for f in jx
+                     if f.message.startswith("traced train step: ")]
             out.append(f"{os.path.relpath(c, REPO)} exit {code}, {n_err} "
-                       f"errors ({time.perf_counter() - t0:.2f} s)")
+                       f"errors, {nodes[0] if nodes else 'no'} graph "
+                       f"nodes ({time.perf_counter() - t0:.2f} s)")
+            # a conf with a net the port builds gets the graph lint's
+            # one info line, nothing else of that scope
+            has_net = re.search(r"(?m)^netconfig\s*=\s*start",
+                                open(c).read())
+            if code == 0 and has_net and (not nodes or len(jx) != 1):
+                unlinted.append((c, [f.format() for f in jx]))
     finally:
         os.chdir(cwd)
     log("check (c): " + "; ".join(out))
-    torch.cuda.synchronize()
-    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    if unlinted:
+        raise AssertionError(f"check (c): graph lint: {unlinted}")
+    gc.collect()
+    mem1 = alloc_state()
     launches = read_launches()
-    log(f"check: allocator live / reserved bytes {mem0} before, {mem1} "
-        f"after; launches {sum(launches.values())}")
+    log(f"check: allocator live / reserved bytes and allocations made "
+        f"{mem0} before, {mem1} after; launches {sum(launches.values())}")
     if mem1 != mem0 or any(launches.values()):
         raise AssertionError("check: task = check touched the card")
+    return launches
+
+
+def pairtest_conf(tmp: str) -> str:
+    """example/ImageNet/ImageNet.conf with conv1 rewritten as
+    ``pairtest-conv-torch`` (named conv1, its slave ``op = conv``)."""
+    text = open(os.path.join(REPO, "example", "ImageNet",
+                             "ImageNet.conf")).read()
+    old = "layer[0->1] = conv\n"
+    if text.count(old) != 1:
+        raise AssertionError("pairtest: ImageNet.conf's conv1 line moved")
+    conf = os.path.join(tmp, "pairtest.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace(old, "layer[0->1] = pairtest-conv-torch:conv1\n"
+                                  "  slave:op = conv\n"))
+    return conf
+
+
+def pairtest_normwise(dtype) -> tuple:
+    """One pairtest-conv-torch layer at conv1's shape (batch 256, 3 x 227
+    x 227 -> 96 x 55 x 55, k 11 s 4) on the card: its master (the conv
+    layer under fast_wgrad = hwcn: cuDNN's forward, row 5's wgrad) and
+    its slave (plain torch autograd) on one seeded input, the same
+    weights and one output gradient.  Returns max |m - s| / max |s| of
+    the output, the input gradient and the weight and bias gradients,
+    and the launches of the call (row 5 once, in the master's
+    backward)."""
+    import torch
+    from cxxnet_tpu_torch.engine import EngineOptions
+    from cxxnet_tpu_torch.layers.base import ForwardContext
+    from cxxnet_tpu_torch.layers.registry import create_layer
+    layer = create_layer("pairtest-conv-torch")
+    for k, v in (("slave:op", "conv"), ("kernel_size", "11"),
+                 ("stride", "4"), ("nchannel", "96")):
+        layer.set_param(k, v)
+    shape = (256, 3, 227, 227)
+    (oshape,) = layer.infer_shapes([shape])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = {t: v for t, v in layer.init_params(gen, [shape], dtype).items()
+              if t.startswith("master/")}
+    x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(oshape, generator=gen, device="cuda").to(dtype)
+    opts = EngineOptions()
+    for k, v in (("pool_layout", "hwcn"), ("fast_wgrad", "hwcn")):
+        opts.set(k, v)
+    res = []
+    reset_launches()
+    for side in (layer.master, layer.slave):
+        p = {t[len("master/"):]: v.detach().clone().requires_grad_()
+             for t, v in params.items()}
+        xi = x.detach().clone().requires_grad_()
+        (out,) = side.forward(p, [xi], ForwardContext(train=True,
+                                                      opts=opts))
+        dx, dw, db = torch.autograd.grad(out, [xi, p["wmat"], p["bias"]], g)
+        res.append((out.detach(), dx, dw, db))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    return {name: rel_err(m, s) for name, m, s in
+            zip(("fwd", "in_grad", "wgrad", "bgrad"), *res)}, launches
+
+
+def pairtest_run(tmp: str, label: str, steps: int, extra=()) -> tuple:
+    """``task = train`` of pairtest_conf through the CLI for ``steps``
+    steps (``synth_device_data = 1``): (the run's per-step diagnostics,
+    its losses, the path's launches, and the last step's conv1 weight
+    and bias gradients of both sides as ``{"wgrad": (master, slave),
+    "bgrad": (master, slave)}``, taken where the trainer hands them to
+    the updater)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    conf = pairtest_conf(tmp)
+    grads_seen = {}
+    apply_update = NetTrainer.apply_update
+
+    def keep_grads(self, grads, epoch):
+        (g,) = [g for g in grads.values() if "master/wmat" in g]
+        for name, tag in (("wgrad", "wmat"), ("bgrad", "bias")):
+            grads_seen[name] = tuple(g[f"{side}/{tag}"].detach().clone()
+                                     for side in ("master", "slave"))
+        return apply_update(self, grads, epoch)
+
+    NetTrainer.apply_update = keep_grads
+    try:
+        reset_launches()
+        task = LearnTask()
+        rc = task.run([conf] + list(PAIR_ARGS) + [
+            f"multi_step={steps}", f"model_dir={tmp}/{label}"]
+            + list(extra))
+        launches = read_launches()
+    finally:
+        NetTrainer.apply_update = apply_update
+    st = task.last_train
+    if rc != 0 or st is None or st["steps"] != steps or not grads_seen:
+        raise AssertionError(f"pairtest {label}: CLI returned {rc}")
+    del task
+    return st["diags"], st["losses"], launches, grads_seen
+
+
+def phase_pairtest(tmp: str) -> dict:
+    """Phase 24 (``pairtest``): ImageNet.conf at batch 256 with conv1
+    rewritten as ``pairtest-conv-torch`` under ALEXNET_ARGS' kernel keys,
+    PAIR_STEPS steps in bf16: the master's backward is row 5's wgrad,
+    the slave's cuDNN under autograd; rows 1, 3 and 4 run around them.
+    Each step's diagnostics are printed (fwd / in_grad / wgrad / weight
+    relative errors, the reference's elementwise metric) and must be
+    finite and within PAIR_BF16_DIAG_BOUND; each step launches row 5
+    twice (the step's backward and the probe's) and rows 1, 3 and 4 as
+    the alexnet path does.  The last step's weight and bias gradients
+    of master and slave, as the trainer hands them to the updater, are
+    held normwise within PAIR_WGRAD_BF16_TOL.  Then the same at conv1's
+    shape in a separate call, which must launch row 5 once: the output
+    and input gradient within BF16_ROW_TOL, the weight and bias
+    gradients within PAIR_WGRAD_BF16_TOL.  Then PAIR_F32_STEPS step(s)
+    at float32 with TF32 off in cuDNN and cuBLAS, the reference's 1e-5
+    the yardstick of the printed diagnostics, the last step's gradients
+    within WGRAD_TOL, and the separate call's errors within F32_TOL
+    (output, input gradient) and WGRAD_TOL (weight and bias gradients).
+    Returns the path's launches (both runs; the separate calls' are not
+    counted)."""
+    import torch
+    out = {}
+    for label, dtype, steps, extra, tf32 in (
+            ("bf16", torch.bfloat16, PAIR_STEPS, (), True),
+            ("f32", torch.float32, PAIR_F32_STEPS, ("dtype=float32",),
+             False)):
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            t0 = time.perf_counter()
+            diags, losses, launches, grads = pairtest_run(
+                tmp, f"pairtest_{label}", steps, extra)
+            wall = time.perf_counter() - t0
+            norm, norm_launches = pairtest_normwise(dtype)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        for i, d in enumerate(diags):
+            log(f"pairtest {label} step {i + 1}: " + " ".join(
+                f"{k.split(':')[1]} {v:.3e}" for k, v in sorted(d.items()))
+                + f"; loss {losses[i]:.4f}")
+        step = {k: rel_err(m, s) for k, (m, s) in grads.items()}
+        log(f"pairtest {label}: {steps} steps in {wall:.1f} s (cuDNN "
+            f"allow_tf32 = {tf32}); normwise, the last step's "
+            + " ".join(f"{k} {v:.3e}" for k, v in step.items())
+            + "; normwise at conv1's shape: "
+            + " ".join(f"{k} {v:.3e}" for k, v in norm.items())
+            + f"; launches {launches}; the comparison's row 5 launches "
+            f"{norm_launches['conv_wgrad']}")
+        grad_tol = PAIR_WGRAD_BF16_TOL if label == "bf16" else WGRAD_TOL
+        if max(step.values()) > grad_tol \
+                or norm_launches["conv_wgrad"] != 1:
+            raise AssertionError(f"pairtest {label}: the last step's "
+                                 f"gradients {step} (tol {grad_tol}), the "
+                                 f"comparison's launches {norm_launches}")
+        vals = [v for d in diags for v in d.values()]
+        if len(diags) != steps or not all(len(d) == 4 for d in diags) \
+                or not np.all(np.isfinite(vals + losses)):
+            raise AssertionError(f"pairtest {label}: diagnostics {diags}, "
+                                 f"losses {losses}")
+        want = {n: ALEXNET_PER_STEP.get(n, 0) * steps for n in KERNELS}
+        want["conv_wgrad"] = 2 * steps
+        if label == "bf16":
+            if max(vals) > PAIR_BF16_DIAG_BOUND \
+                    or norm["fwd"] > BF16_ROW_TOL \
+                    or norm["in_grad"] > BF16_ROW_TOL \
+                    or norm["wgrad"] > PAIR_WGRAD_BF16_TOL \
+                    or norm["bgrad"] > PAIR_WGRAD_BF16_TOL:
+                raise AssertionError(f"pairtest bf16: {diags}, {norm}")
+            if launches != want:
+                raise AssertionError(f"pairtest bf16: launches {launches}, "
+                                     f"expected {want}")
+        else:
+            over = {k: v for d in diags for k, v in d.items()
+                    if v > PAIRTEST_RTOL}
+            log(f"pairtest f32: over the reference's {PAIRTEST_RTOL:g}: "
+                f"{over or 'none'}")
+            if norm["fwd"] > F32_TOL or norm["in_grad"] > F32_TOL \
+                    or norm["wgrad"] > WGRAD_TOL or norm["bgrad"] > WGRAD_TOL \
+                    or launches["conv_wgrad"] != want["conv_wgrad"]:
+                raise AssertionError(f"pairtest f32: {norm}, {launches}")
+        for n, c in launches.items():
+            out[n] = out.get(n, 0) + c
+        MEASURED[f"pairtest_{label}"] = dict(diags=diags, step=step,
+                                             normwise=norm)
+    torch.cuda.empty_cache()
+    return out
+
+
+def wrapper_cfg() -> str:
+    """example/MNIST/MNIST_CONV.conf's net and keys as a wrapper config
+    string (its data sections and ``dev`` dropped), under the keys that
+    take rows 3-5 (``pool_layout = hwcn fast_wgrad = hwcn``)."""
+    text = open(os.path.join(REPO, "example", "MNIST",
+                             "MNIST_CONV.conf")).read()
+    body = text[text.index("netconfig=start"):]
+    body = re.sub(r"(?m)^(dev|save_model|model_dir|max_round|num_round)"
+                  r"\s*=.*$", "", body)
+    return body + "\npool_layout = hwcn\nfast_wgrad = hwcn\nsilent = 1\n"
+
+
+def capi_lib(path: str):
+    """The port's C ABI library, loaded in this process by ctypes, with
+    the signatures this phase calls."""
+    import ctypes
+    lib = ctypes.CDLL(path)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.CXNGetLastError.restype = ctypes.c_char_p
+    lib.CXNNetCreate.restype = ctypes.c_void_p
+    lib.CXNNetCreate.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.CXNNetFree.argtypes = [ctypes.c_void_p]
+    lib.CXNNetLoadModel.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.CXNNetUpdateBatch.argtypes = [ctypes.c_void_p, f32p, u64p,
+                                      ctypes.c_int, f32p, u64p, ctypes.c_int]
+    lib.CXNNetPredictBatch.restype = f32p
+    lib.CXNNetPredictBatch.argtypes = [ctypes.c_void_p, f32p, u64p,
+                                       ctypes.c_int, u64p, ip]
+    lib.CXNNetGetWeight.restype = f32p
+    lib.CXNNetGetWeight.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                    ctypes.c_char_p, u64p, ip]
+    return lib
+
+
+def phase_wrapper(tmp: str) -> dict:
+    """Phase 25 (``wrapper``): the port's Python and C frontends on the
+    card.  (a) ``wrapper.api.train`` of MNIST_CONV.conf's net (rows 3-5
+    under ``pool_layout = hwcn fast_wgrad = hwcn``) over
+    tools/make_synth_mnist.py data through ``DataIter``, WRAPPER_ROUNDS
+    rounds of 60 batches of 100, an eval line a round; then
+    ``predict`` / ``extract`` / ``get_weight`` / ``set_weight`` (a
+    weight written and read back) / ``save_model`` / ``load_model``:
+    a reloaded net predicts as the trained one, row for row.  (b) a
+    ``ServingHost`` over the snapshot answering the test rows from
+    WRAPPER_CLIENTS threads: its rows within F32_TOL of the net's raw
+    forward, the argmax equal to ``Net.predict``'s on BATCH_AGREE of
+    them, no retrace.  (c) the C ABI (cxxnet_tpu_torch/native/capi.cc,
+    built here) in this process through ctypes: the snapshot loaded on
+    the card predicts as the wrapper's net, a batch updates it, and a
+    weight reads back; then the C demo from a fresh interpreter on the
+    card (train, save, reload, accuracy).  Returns the path's launches
+    (rows 3-5 every training step)."""
+    import ctypes
+    import threading
+    import torch
+    from cxxnet_tpu_torch.native import build
+    from cxxnet_tpu_torch.wrapper import api
+    mnist_conv_conf(tmp)  # makes the data in tmp/mnist once
+    data = os.path.join(tmp, "mnist")
+    it_cfg = (f"iter = mnist\npath_img = {data}/train-images-idx3-ubyte.gz\n"
+              f"path_label = {data}/train-labels-idx1-ubyte.gz\n"
+              "input_flat = 0\nbatch_size = 100\nshuffle = 1\n")
+    test_cfg = (f"iter = mnist\npath_img = {data}/t10k-images-idx3-ubyte.gz\n"
+                f"path_label = {data}/t10k-labels-idx1-ubyte.gz\n"
+                "input_flat = 0\nbatch_size = 100\n")
+    cfg = wrapper_cfg()
+    reset_launches()
+    t0 = time.perf_counter()
+    net = api.train(cfg, api.DataIter(it_cfg), WRAPPER_ROUNDS, {},
+                    eval_data=api.DataIter(test_cfg))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = net._trainer.sample_counter
+    line = net.evaluate(api.DataIter(test_cfg), "test")
+    log(f"wrapper (a): train {WRAPPER_ROUNDS} rounds, {steps} steps on "
+        f"{net._trainer.device} in {wall:.1f} s; {line.strip()}; launches "
+        f"{launches}")
+    if net._trainer.device.type != "cuda" or any(
+            launches[n] < steps for n in ("max_pool_fwd", "max_pool_bwd",
+                                          "conv_wgrad")):
+        raise AssertionError(f"wrapper (a): {launches} over {steps} steps")
+    it = api.DataIter(test_cfg)
+    it.before_first()
+    assert it.next()
+    x = it.get_data().copy()
+    pred = net.predict(x)
+    feat = net.extract(x, EXTRACT_NODE)
+    w = net.get_weight("fc2", "bias")
+    net.set_weight(w + 0.5, "fc2", "bias")
+    back = net.get_weight("fc2", "bias")
+    net.set_weight(w, "fc2", "bias")
+    model = os.path.join(tmp, "wrapper.model")
+    net.save_model(model)
+    net2 = api.Net(cfg="batch_size = 100\nsilent = 1\n")
+    net2.load_model(model)
+    same = bool((net2.predict(x) == pred).all())
+    log(f"wrapper (a): predict {pred.shape}, extract node {EXTRACT_NODE} "
+        f"{feat.shape}, "
+        f"set/get weight {np.abs(back - w - 0.5).max():.1e}, reloaded "
+        f"predictions equal: {same}")
+    if not same or feat.shape != (100, EXTRACT_WIDTH) or \
+            np.abs(back - w - 0.5).max() > 1e-6:
+        raise AssertionError("wrapper (a): predict / extract / weights")
+    raw = net._trainer.predict_raw(api._as_batch(x, None))
+    host = api.ServingHost()
+    try:
+        host.add_model("mnist", f"model_in = {model}\nbatch_size = 100\n"
+                                "serve_shapes = 1,8,32\nsilent = 1\n"
+                                "pool_layout = hwcn\n")
+        rows = [None] * len(x)
+
+        def client(j):
+            for i in range(j, len(x), WRAPPER_CLIENTS):
+                rows[i] = host.predict("mnist", x[i:i + 1])
+
+        ths = [threading.Thread(target=client, args=(j,),
+                                name=f"cxxnet-smoke-client-{j}")
+               for j in range(WRAPPER_CLIENTS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        got = np.concatenate(rows)
+        retraces = host.retraces()
+    finally:
+        host.close()
+    err = rel_err(torch.from_numpy(got), torch.from_numpy(raw))
+    agree = float((got.argmax(1) == pred).mean())
+    log(f"wrapper (b): ServingHost {len(x)} rows from {WRAPPER_CLIENTS} "
+        f"threads: max err {err:.2e} against the raw forward, argmax "
+        f"agreement {agree:.4f}, retraces {retraces}")
+    if err > F32_TOL or agree < BATCH_AGREE or retraces:
+        raise AssertionError("wrapper (b): serving rows differ")
+    t0 = time.perf_counter()
+    built = build.build()
+    log(f"wrapper (c): C ABI built in {time.perf_counter() - t0:.1f} s: "
+        f"{os.path.basename(built['lib'])}")
+    lib = capi_lib(str(built["lib"]))
+    h = lib.CXNNetCreate(b"gpu", b"batch_size = 100\nsilent = 1\n")
+    if not h or lib.CXNNetLoadModel(h, model.encode()) != 0:
+        raise AssertionError(f"wrapper (c): {lib.CXNGetLastError()}")
+    f32p = ctypes.POINTER(ctypes.c_float)
+    dshape = (ctypes.c_uint64 * 4)(*x.shape)
+    oshape, ondim = (ctypes.c_uint64 * 4)(), ctypes.c_int(0)
+    p = lib.CXNNetPredictBatch(h, x.ctypes.data_as(f32p), dshape, 4, oshape,
+                               ctypes.byref(ondim))
+    cpred = np.ctypeslib.as_array(p, shape=(len(x),)).copy() if p else None
+    y = np.asarray(it.get_label(), np.float32).copy()
+    upd = lib.CXNNetUpdateBatch(h, x.ctypes.data_as(f32p), dshape, 4,
+                                y.ctypes.data_as(f32p),
+                                (ctypes.c_uint64 * 2)(*y.shape), 2)
+    wp = lib.CXNNetGetWeight(h, b"fc2", b"wmat", oshape, ctypes.byref(ondim))
+    wshape = tuple(oshape[:ondim.value])
+    lib.CXNNetFree(h)
+    log(f"wrapper (c): ctypes predict equal to the wrapper's: "
+        f"{cpred is not None and bool((cpred == pred).all())}; update "
+        f"{upd}; fc2 wmat {wshape}")
+    if cpred is None or not (cpred == pred).all() or upd != 0 \
+            or wshape != (10, 100):
+        raise AssertionError(f"wrapper (c): {lib.CXNGetLastError()}")
+    t0 = time.perf_counter()
+    r = subprocess.run([str(built["demo"]), "gpu",
+                        os.path.join(tmp, "capi_demo.model")],
+                       capture_output=True, text=True, cwd=tmp,
+                       env=build.embed_env(), timeout=600)
+    log(f"wrapper (c): C demo rc {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + (r.stdout.strip().splitlines() or [""])[-1])
+    if r.returncode != 0 or "capi_demo: gpu accuracy" not in r.stdout:
+        raise AssertionError(f"wrapper (c): C demo failed: "
+                             f"{r.stderr[-2000:]}")
+    del net, net2
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4981,6 +5467,10 @@ def main() -> int:
             paths["serve_admin"] = phase_serve_admin(tmp, serve_conf)
         if "check" in phases:
             paths["check"] = phase_check(tmp)
+        if "pairtest" in phases:
+            paths["pairtest"] = phase_pairtest(tmp)
+        if "wrapper" in phases:
+            paths["wrapper"] = phase_wrapper(tmp)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

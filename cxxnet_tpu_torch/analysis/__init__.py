@@ -1,5 +1,5 @@
-"""Static analysis: the config lint behind ``task = check`` (the JAX
-package's ``analysis/`` over the port).
+"""Static analysis: the config lint and the traced-graph lint behind
+``task = check`` (the JAX package's ``analysis/`` over the port).
 
 ``run_check`` runs ``task = check`` (``main.py``).  Only the
 dependency-free schema is imported here; the passes import the package
@@ -19,10 +19,10 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
 
     The static config lint always runs.  When the config carries a
     ``netconfig`` block, the traced pass builds the configured trainer
-    on ``meta`` tensors (no storage, no device work, at any width) and
-    runs the OOM pre-flight (``mem_check = 1``) on it.  The JAX
-    package's traced-graph lints (its jaxpr lint and SPMD lint) have no
-    counterpart in the port yet: one ``info`` finding says so, and an
+    on ``meta`` tensors (no storage, no device work, at any width),
+    traces its train step for the graph lint (``graph_lint.py``, the
+    JAX package's jaxpr lint) and runs the OOM pre-flight (``mem_check
+    = 1``) on it.  The SPMD lint waits for the multi-GPU plane: an
     explicit ``spmd_check = 1`` warns that it has no effect.  Exit code
     1 iff any finding is an error."""
     from . import conflint
@@ -58,22 +58,18 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
 
 
 def _trace_findings(cfg) -> List[Finding]:
-    """Build the configured trainer on ``meta`` and run the pre-flight.
-    Build failures become findings instead of crashes: a config whose
-    net cannot be built (bad shapes, undefined nodes) is what ``task =
-    check`` exists to report.  The build changes no process state: the
-    engine options are the trainer's own, and the log's silence and
-    ``strict_config`` are put back."""
+    """Build the configured trainer on ``meta``, lint its traced step
+    and run the pre-flight.  Build failures become findings instead of
+    crashes: a config whose net cannot be built (bad shapes, undefined
+    nodes) is what ``task = check`` exists to report.  The build changes
+    no process state: the engine options are the trainer's own, and the
+    log's silence and ``strict_config`` are put back."""
     import torch
     from ..layers import base as layer_base
     from ..monitor import log as mlog
     from ..nnet.trainer import NetTrainer
     from ..utils.config import ConfigError
-    out = [Finding(
-        "info", "", "the traced-graph lints (the JAX package's jaxpr "
-        "lint and SPMD lint) are not ported to cxxnet_tpu_torch yet "
-        "(ROADMAP.md); the net was built on meta tensors for the memory "
-        "pre-flight", scope="jaxpr")]
+    out: List[Finding] = []
     was_silent = mlog.is_silent()
     was_strict = layer_base.strict_config_enabled()
     net = NetTrainer()
@@ -95,6 +91,12 @@ def _trace_findings(cfg) -> List[Finding]:
             return out + [Finding(
                 "warn", "", "traced-graph pass skipped: could not build "
                 f"the net on meta tensors ({e})", scope="jaxpr")]
+        try:
+            from . import graph_lint
+            out.extend(graph_lint.lint_trainer(net))
+        except Exception as e:  # noqa: BLE001 — lint must not crash check
+            out.append(Finding("warn", "", f"traced-graph lint failed: {e}",
+                               scope="jaxpr"))
         try:
             from . import memmodel
             out.extend(memmodel.preflight(net, cfg))

@@ -109,7 +109,12 @@ def _all_layer_keys() -> Tuple[KeySpec, ...]:
     from ..layers import registry as lreg
     from ..layers.base import LAYER_PARAM_KEYS
     out: List[KeySpec] = list(LAYER_PARAM_KEYS)
-    for entry in lreg._REGISTRY.values():
+    for name, entry in lreg._REGISTRY.items():
+        if name in lreg.PLUGIN_TYPES:
+            # a plugin's keys are its section's only, never global keys
+            # (the JAX package registers it through a factory, which its
+            # global scope does not read)
+            continue
         for klass in entry.__mro__:
             out.extend(klass.__dict__.get("extra_config_keys", ()))
     return tuple(out)
@@ -132,19 +137,44 @@ def layer_scope(type_name: str) -> Optional[KeyScope]:
     """Scope of one layer section, or None for a type the port does not
     implement: the caller then skips the section's key lint rather than
     guess."""
-    from ..layers import registry as lreg
     from ..updater.updaters import HYPER_KEYS
+    specs = _layer_type_specs(type_name)
+    if specs is None:
+        return None
+    return KeyScope(f"layer:{type_name}", tuple(specs) + tuple(HYPER_KEYS))
+
+
+def _layer_type_specs(type_name: str) -> Optional[List[KeySpec]]:
+    """The keys a layer type takes; a ``pairtest-<master>-<slave>``
+    takes the union of its sides' (it broadcasts an untagged key to
+    both)."""
+    from ..layers import registry as lreg
+    if type_name.startswith("pairtest-"):
+        rest = type_name[len("pairtest-"):]
+        if "-" not in rest:
+            return None
+        master, slave = rest.split("-", 1)
+        m, s = _layer_type_specs(master), _layer_type_specs(slave)
+        if m is None or s is None:
+            return None
+        return list(m) + list(s)
     entry = lreg._REGISTRY.get(type_name)
     if entry is None:
         return None
-    return KeyScope(f"layer:{type_name}",
-                    tuple(entry.config_keys()) + tuple(HYPER_KEYS))
+    return list(entry.config_keys())
 
 
 def layer_key_match(type_name: str, key: str) -> List[KeySpec]:
-    """The specs accepting ``key`` in a ``type_name`` layer section."""
+    """The specs accepting ``key`` in a ``type_name`` layer section,
+    a pairtest's ``master:`` / ``slave:`` routing prefixes honoured."""
     scope = layer_scope(type_name)
-    return [] if scope is None else scope.match(key)
+    if scope is None:
+        return []
+    head, _, tail = key.partition(":")
+    if tail and head in ("master", "slave") \
+            and type_name.startswith("pairtest-"):
+        return layer_key_match(type_name, tail) or scope.match(key)
+    return scope.match(key)
 
 
 def iterator_scope(chain: Tuple[str, ...]) -> KeyScope:

@@ -61,12 +61,12 @@ class AsyncCheckpointWriter:
 
     def __init__(self, on_done=None):
         self._queue: "queue.Queue[Optional[_Job]]" = queue.Queue(maxsize=1)
-        # written once by the writer thread; re-raised on the train thread
+        # racelint: latch(write-once by the writer thread; poll() re-raises on the train thread)
         self._failed: Optional[BaseException] = None
         self._on_done = on_done
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
-        self._pending = 0  # guarded by self._lock
+        self._pending = 0  # racelint: guarded-by(self._lock, self._idle)
         self._thread: Optional[threading.Thread] = threading.Thread(
             target=self._run, daemon=True, name="cxxnet-ckpt-writer")
         self._thread.start()

@@ -173,6 +173,7 @@ class DevicePrefetcher:
         self._done = False
         self._stream = None
         # items staged and items waited for, the span sampler's counts
+        # racelint: atomic(single-writer int bump: staged on the producer in async mode, on the consumer in sync mode — never both)
         self._span_staged = 0
         self._span_waited = 0
 
@@ -213,6 +214,7 @@ class DevicePrefetcher:
         tracer = getattr(self.metrics, "tracer", None)
         if tracer is not None and tracer.enabled:
             n = self._span_staged
+            # racelint: ok(race_rmw) — async and sync staging are mutually exclusive modes; one context ever bumps this
             self._span_staged += 1
             if tracer.sampled(n):
                 with tracer.span("prefetch_stage", batches=len(group),

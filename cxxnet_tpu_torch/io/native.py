@@ -59,6 +59,7 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # disclint: ok(atomic-write) — an empty lock file, never read
     with open(BUILD_DIR / "native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():

@@ -203,13 +203,17 @@ class ForwardContext:
     ``losses``, already times ``loss_scale`` = 1 / (batch_size *
     update_period), the reference's per-instance gradient scaling.
     ``rng`` draws a training forward's random masks (dropout, insanity);
-    ``epoch`` is the update count, which anneals insanity's range."""
+    ``epoch`` is the update count, which anneals insanity's range.
+    ``diagnostics`` collects the step's 0-d diagnostic tensors
+    (pairtest layers' relative errors), keyed ``<layer>:<what>``."""
 
     train: bool
     opts: EngineOptions
     labels: Optional[LabelInfo] = None
     decode: Optional[DecodeState] = None
     losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    diagnostics: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
     loss_scale: float = 1.0
     rng: Optional[torch.Generator] = None
     epoch: int = 0

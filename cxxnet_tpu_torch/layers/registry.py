@@ -1,6 +1,9 @@
 """Layer factory: config type name -> layer instance (the JAX package's
-``layers/registry.py``, over the layers ported so far).  A layer of the
-JAX package that is not ported yet raises "not ported" by name."""
+``layers/registry.py``).  ``pairtest-<master>-<slave>`` composes
+recursively (the reference encodes it as kPairTestGap*master+slave); the
+``torch`` plugin layer is registered beside the native types.  A layer
+of the JAX package that is not ported yet raises "not ported" by
+name."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from .conv import (AvgPoolingLayer, ConvolutionLayer, InsanityPoolingLayer,
 from .fullc import FixConnectLayer, FullConnectLayer
 from .loss import L2LossLayer, MultiLogisticLayer, SoftmaxLayer
 from .norm import BatchNormLayer, DropoutLayer
+from .pairtest import PairTestLayer
 from .sequence import (AttentionLayer, EmbeddingLayer, LayerNormLayer,
                        SeqFullcLayer, SoftmaxSeqLayer)
 from .shape_ops import (ChConcatLayer, ConcatLayer, EltSumLayer,
@@ -40,10 +44,22 @@ for _cls in (SplitLayer, EltSumLayer, FlattenLayer, ConcatLayer,
              SeqFullcLayer, AttentionLayer, SoftmaxSeqLayer):
     register(_cls)
 
+
+def _register_plugins() -> None:
+    # the plugin layer (caffe-adapter analogue) imports layers through
+    # this module, so it registers after them
+    from ..plugin.torch_adapter import TorchLayer
+    register(TorchLayer)
+
+
+_register_plugins()
+
+#: plugin layer types: their keys are their sections' only
+PLUGIN_TYPES = ("torch",)
+
 #: layers of the JAX package that the port does not implement yet: moe
-#: (the expert axis) with the multi-GPU plane, pairtest with the
-#: pair-test gate, torch with the frontends (ROADMAP.md §A items 6, 8, 9)
-NOT_PORTED = ("moe", "pairtest", "torch")
+#: (the expert axis) with the multi-GPU plane (ROADMAP.md)
+NOT_PORTED = ("moe",)
 
 
 def layer_type_names():
@@ -51,7 +67,10 @@ def layer_type_names():
 
 
 def is_not_ported(type_name: str) -> bool:
-    return type_name in NOT_PORTED or type_name.startswith("pairtest")
+    if type_name.startswith("pairtest-"):
+        return any(is_not_ported(t) for t in
+                   type_name[len("pairtest-"):].split("-", 1))
+    return type_name in NOT_PORTED
 
 
 def not_ported_message(type_name: str) -> str:
@@ -63,6 +82,10 @@ def not_ported_message(type_name: str) -> str:
 
 def create_layer(type_name: str) -> Layer:
     """Create a layer from its config type name."""
+    if type_name.startswith("pairtest-"):
+        # reference format: pairtest-<master>-<slave>
+        master, slave = type_name[len("pairtest-"):].split("-", 1)
+        return PairTestLayer(create_layer(master), create_layer(slave))
     if type_name.startswith("share"):
         raise ValueError("shared layers are resolved by the net graph")
     if is_not_ported(type_name):

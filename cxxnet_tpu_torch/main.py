@@ -23,7 +23,9 @@ Ported tasks:
   1``), ``ckpt``, ``rollback`` and, last, the ``ledger``.  ``rollback =
   N`` restores the newest finite snapshot when the run diverges
   (``TrainingDiverged``), reseeds the rng and goes on, N times at most.
-  After each round a
+  A net with ``pairtest`` layers prints their diagnostics (``diag:``,
+  the last step's relative errors, and a warning for each over the
+  reference's 1e-5) every ``print_step`` steps.  After each round a
   ``[round]\ttrain-<metric>:v\t<eval>-<metric>:v`` line on stderr
   (the train metric under ``eval_train = 1``, then every ``eval = name``
   section).  ``synth_device_data = 1`` trains instead on ``multi_step``
@@ -85,7 +87,7 @@ import re
 import sys
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,7 +99,7 @@ from .io.device_prefetch import DevicePrefetcher, item_h2d_sec
 from .io.factory import create_iterator, init_iterator
 from .monitor import TrainingDiverged, log as mlog
 from .monitor.trace import ProfileWindow
-from .nnet.trainer import NetTrainer, refuse_unported
+from .nnet.trainer import NetTrainer, diagnostics_to_host, refuse_unported
 from .serve import SERVE_KEYS
 from .utils.config import parse_config_file, parse_keyval_args
 
@@ -378,7 +380,7 @@ class LearnTask:
         for counter, path in reversed(cands):
             is_ckpt = path.endswith(".ckpt")
             if is_ckpt and ckptlib.validate_snapshot(path) is None:
-                mlog.warn(f"{who}: skipping partial/corrupt snapshot "
+                mlog.warn(f"{who}: skipping partial/corrupt snapshot "  # disclint: ok(warn-once)
                           f"{path}")
                 continue
             net = self._create_net()
@@ -386,13 +388,13 @@ class LearnTask:
                 net.load_model(path, validated=is_ckpt)
             except Exception as e:  # noqa: BLE001 — a torn legacy file
                 net.metrics.close()
-                mlog.warn(f"{who}: snapshot {path} failed to load ({e});"
+                mlog.warn(f"{who}: snapshot {path} failed to load ({e});"  # disclint: ok(warn-once)
                           " trying the previous one")
                 continue
             why = self._reject_nonfinite(net)
             if why:
                 net.metrics.close()
-                mlog.warn(f"{who}: snapshot {path} {why}")
+                mlog.warn(f"{who}: snapshot {path} {why}")  # disclint: ok(warn-once)
                 continue
             old, self.net = self.net, net
             if old is not None:
@@ -668,6 +670,11 @@ class LearnTask:
         start = time.time()
         self._losses: List[float] = []
         self._step_ms: List[float] = []
+        # each step's diagnostics (pairtest nets only): kept on the device
+        # and read in one transfer at each print_step and at the end
+        self._diags: List[Dict[str, float]] = []
+        self._diags_dev: List[Dict[str, torch.Tensor]] = []
+        self._has_diags = self.net.has_diagnostics
         self._evals: List[dict] = []
         self._rounds: List[dict] = []
         attempt = 0
@@ -702,6 +709,7 @@ class LearnTask:
         tail = self._step_ms[1:] or self._step_ms
         p50 = float(np.median(tail)) if tail else 0.0
         seq = int(np.prod(self.net.net.node_shapes[0][1:]))
+        self._read_diags()
         self.last_train = dict(
             losses=self._losses, step_ms=self._step_ms, step_p50_ms=p50,
             tokens_per_sec=(self.net.batch_size * seq / (p50 / 1e3)
@@ -709,7 +717,7 @@ class LearnTask:
             examples_per_sec=(self.net.batch_size / (p50 / 1e3)
                               if p50 else 0.0),
             steps=len(self._losses), evals=self._evals, rounds=self._rounds,
-            compile_sec=self.compile_sec)
+            compile_sec=self.compile_sec, diags=self._diags)
         mlog.info(f"\nupdating end, {int(time.time() - start)} sec in all")
 
     def _rollback_restore(self, exc: BaseException, attempt: int) -> bool:
@@ -755,6 +763,8 @@ class LearnTask:
         dt = time.perf_counter() - t0
         self._losses.append(float(self.net.last_loss))
         self._step_ms.append(dt * 1e3)
+        if self._has_diags:
+            self._diags_dev.append(self.net.last_diags)
         if self.compile_sec is None:
             self.compile_sec = dt
             self.net.metrics.emit("compile", compile_sec=round(dt, 3),
@@ -990,8 +1000,35 @@ class LearnTask:
             mlog.info(f"{head}, loss {loss:.4f}, "
                       f"{self._step_ms[-1]:.1f} ms/step, "
                       f"{rate:.1f} examples/sec")
+        self._report_diagnostics()
         win.update(n=0, t=now, wait=0.0, h2d=0.0, disp=0.0, depth=0, gets=0,
                    ticks=self.net.monitor_ticks, prof=False)
+
+    def _report_diagnostics(self) -> None:
+        """Print the last step's diagnostics (pairtest forward / backward
+        / weight relative errors), and warn for each value over the
+        reference's 1e-5, the way the reference prints exceedances to
+        stderr (pairtest_layer-inl.hpp:190-196)."""
+        self._read_diags()
+        diags = self._diags[-1] if self._diags else {}
+        if not diags:
+            return
+        from .layers.pairtest import PAIRTEST_RTOL
+        parts, bad = [], []
+        for k in sorted(diags):
+            v = diags[k]
+            parts.append(f"{k}={v:.3g}")
+            if k.endswith("_rel_err") and not v <= PAIRTEST_RTOL:
+                bad.append(f"{k}: err={v:g} exceeds {PAIRTEST_RTOL:g}")
+        mlog.info("diag: " + " ".join(parts))
+        for b in bad:  # one line per exceeded pairtest diag, bounded
+            mlog.warn(b)  # disclint: ok(warn-once)
+
+    def _read_diags(self) -> None:
+        """Move the steps' diagnostics kept on the device to the host."""
+        if self._diags_dev:
+            self._diags.extend(diagnostics_to_host(self._diags_dev))
+            self._diags_dev = []
 
     def _plain_window(self, win: dict) -> bool:
         """Whether the throughput sentinel judges the window in ``win``:
@@ -1191,9 +1228,9 @@ class LearnTask:
     def _emit_latency_record(self, op: str) -> None:
         metrics = self.net.metrics
         h = metrics.histograms.get(f"{op}_latency_sec")
-        if h is None or not h.count:
+        s = h.summary() if h is not None else {"count": 0}
+        if not s["count"]:
             return
-        s = h.summary()
         metrics.emit("latency", op=op, count=int(s["count"]),
                      **{k: round(s[k] * 1e3, 3)
                         for k in ("mean", "min", "max", "p50", "p95", "p99")},
@@ -1355,7 +1392,7 @@ class LearnTask:
             try:
                 results, dur = self._stream_clients(
                     rows(), sm.predict, cfg.clients,
-                    max(cfg.queue_depth, 2 * cfg.max_batch), "cxxnet-serve")
+                    max(cfg.queue_depth, 2 * cfg.max_batch), "serve")
             except BaseException as e:
                 if bank is not None:
                     bank.flight_dump("serve aborted: " + repr(e))
@@ -1503,8 +1540,9 @@ class LearnTask:
     @staticmethod
     def _stream_clients(items, call, clients: int, depth: int, name: str):
         """Feed ``items`` through a bounded work queue to ``clients``
-        threads, each calling ``call(item)``; returns the results in
-        item order and the wall seconds.  The first client or producer
+        threads (named ``cxxnet-<name>-client-<j>``), each calling
+        ``call(item)``; returns the results in item order and the wall
+        seconds.  The first client or producer
         exception stops the stream and is raised."""
         results: dict = {}
         errors: List[BaseException] = []
@@ -1558,10 +1596,10 @@ class LearnTask:
 
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, daemon=True,
-                                    name=f"{name}-client-{j}")
+                                    name=f"cxxnet-{name}-client-{j}")
                    for j in range(clients)]
         prod = threading.Thread(target=producer, daemon=True,
-                                name=f"{name}-producer")
+                                name=f"cxxnet-{name}-producer")
         prod.start()
         for th in threads:
             th.start()
@@ -1648,7 +1686,7 @@ class LearnTask:
                         "client thread(s)")
             results, dur = self._stream_clients(
                 prompts(), gm.generate, cfg.clients, cfg.queue_depth,
-                "cxxnet-serve-gen")
+                "serve-gen")
             with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
                 for toks in results:
                     fo.write(" ".join(str(t) for t in toks) + "\n")
@@ -1776,7 +1814,7 @@ class LearnTask:
                     try:
                         it.close()
                     except Exception as e:  # noqa: BLE001
-                        mlog.warn(f"iterator close failed: {e}")
+                        mlog.warn(f"iterator close failed: {e}")  # disclint: ok(warn-once)
             # the ledger is the stream's last record, after the task's own
             # (a flight dump included)
             self._emit_ledger()

@@ -61,15 +61,16 @@ class Histogram:
                  "_rng", "_lock")
 
     def __init__(self):
-        self.count = 0
-        self.total = 0.0
-        self.min: Optional[float] = None
-        self.max: Optional[float] = None
-        self.last: Optional[float] = None
-        self._samples: List[float] = []
+        self.count = 0                        # racelint: guarded-by(self._lock)
+        self.total = 0.0                      # racelint: guarded-by(self._lock)
+        self.min: Optional[float] = None      # racelint: guarded-by(self._lock)
+        self.max: Optional[float] = None      # racelint: guarded-by(self._lock)
+        self.last: Optional[float] = None     # racelint: guarded-by(self._lock)
+        self._samples: List[float] = []       # racelint: guarded-by(self._lock)
         self._rng = random.Random(0x5EED)
         self._lock = threading.Lock()
 
+    # racelint: thread(shared)
     def observe(self, value: float) -> None:
         v = float(value)
         with self._lock:
@@ -101,11 +102,14 @@ class Metrics:
     """Per-trainer instruments plus an optional ``jsonl:<path>`` sink."""
 
     def __init__(self):
+        # racelint: atomic(per-key bumps under _lock in counter_inc; the scrape path reads via copy_racy)
         self.counters: Dict[str, int] = {}
+        # racelint: atomic(per-key float store; scrape reads via copy_racy)
         self.gauges: Dict[str, float] = {}
+        # racelint: atomic(per-key insert via setdefault; Histogram itself is internally locked)
         self.histograms: Dict[str, Histogram] = {}
         self.sink_path: Optional[str] = None
-        self._fo = None
+        self._fo = None  # racelint: guarded-by(self._lock)
         self._lock = threading.Lock()
         from .spans import SpanTracer
         self.tracer = SpanTracer(self)
@@ -119,7 +123,9 @@ class Metrics:
                 f"metrics_sink = {spec!r}: expected jsonl:<path> (or none)")
         self.sink_path = spec[len("jsonl:"):]
         # append-only record stream, flushed per record
-        self._fo = open(self.sink_path, "a")  # disclint: ok(atomic-write)
+        fo = open(self.sink_path, "a")  # disclint: ok(atomic-write)
+        with self._lock:
+            self._fo = fo
 
     def configure_tracer(self, sample: int) -> None:
         """``trace_sample = N``: span-trace every Nth request (0 off)."""
@@ -127,16 +133,20 @@ class Metrics:
 
     @property
     def active(self) -> bool:
-        return self._fo is not None
+        with self._lock:
+            return self._fo is not None
 
+    # racelint: thread(shared)
     def counter_inc(self, name: str, n: int = 1) -> int:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
             return self.counters[name]
 
+    # racelint: thread(shared)
     def set_gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
 
+    # racelint: thread(shared)
     def observe(self, name: str, value: float) -> None:
         h = self.histograms.get(name)
         if h is None:
@@ -151,6 +161,7 @@ class Metrics:
                 "histograms": {k: h.summary() for k, h
                                in copy_racy(self.histograms).items()}}
 
+    # racelint: thread(shared)
     def emit(self, kind: str, **fields: Any) -> None:
         """Write one record (no-op without a sink)."""
         with self._lock:

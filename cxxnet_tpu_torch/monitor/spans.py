@@ -113,13 +113,14 @@ class SpanTracer:
 
     def __init__(self, metrics, sample: int = 0):
         self.metrics = metrics
+        # racelint: atomic(int swap: the flight capture's reporter thread re-arms it; every reader reads it once per call)
         self.sample = int(sample)
         self._epoch = time.perf_counter()
         self._lock = threading.Lock()
         # last allocated trace_id
-        self._next_id = 0
+        self._next_id = 0  # racelint: guarded-by(self._lock)
         # requests offered to the sampler
-        self._n_seen = 0
+        self._n_seen = 0   # racelint: guarded-by(self._lock)
         self._tls = threading.local()
 
     # ------------------------------------------------------------- state
@@ -128,6 +129,7 @@ class SpanTracer:
         """True only when sampling is armed AND records can land."""
         return self.sample > 0 and self.metrics.active
 
+    # racelint: thread(reporter)
     def configure(self, sample: int) -> None:
         """(Re)arm: ``trace_sample = N`` traces every Nth request,
         ``0`` disables.  The tracer object is stable so components that
@@ -141,6 +143,7 @@ class SpanTracer:
         bracket the id range of the requests traced between them, which
         the flight capture's ``serve_flight`` record names
         (``trace_first`` / ``trace_last``)."""
+        # racelint: ok(race_unguarded) — GIL-atomic int read; the flight heuristic tolerates a watermark one id stale
         return self._next_id
 
     # -------------------------------------------------------------- ids
@@ -148,13 +151,15 @@ class SpanTracer:
         """The per-request sampling decision: every ``sample``-th
         request gets a fresh, process-unique trace_id; the rest get
         ``None`` (and no downstream span touches them).  Thread-safe;
-        near-free when disabled."""
-        if self.sample <= 0 or not self.metrics.active:
+        near-free when disabled.  ``sample`` is read once: the flight
+        capture's reporter thread may set it to 0 between two reads."""
+        sample = self.sample
+        if sample <= 0 or not self.metrics.active:
             return None
         with self._lock:
             n = self._n_seen
             self._n_seen += 1
-            if n % self.sample:
+            if n % sample:
                 return None
             self._next_id += 1
             return self._next_id
@@ -162,8 +167,10 @@ class SpanTracer:
     def sampled(self, n: int) -> bool:
         """Stateless sampling helper for non-request series (prefetch
         items, ...): does the caller's ``n``-th event fall on this
-        tracer's sampling grid?"""
-        return self.sample > 0 and n % self.sample == 0
+        tracer's sampling grid?  ``sample`` is read once, as in
+        :meth:`new_trace`."""
+        sample = self.sample
+        return sample > 0 and n % sample == 0
 
     # ------------------------------------------------------------- emit
     def emit(self, name: str, t0: float, t1: float, *,

@@ -202,11 +202,38 @@ def _torch_leaf(a, dtype_name: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, np.float32)).to(DTYPES[name])
 
 
+def flat_tags(group: Dict, depth: int = 0) -> Dict:
+    """A layer group with nested sub-groups (a pairtest layer's
+    ``{"master": {...}, "slave": {...}}``, as the JAX package keeps it)
+    as the port's flat ``{"master/wmat": leaf}`` tags.  ``depth`` is how
+    many dict levels a leaf keeps (1 for optimizer state, whose leaf is
+    ``{name: array}``)."""
+    out: Dict = {}
+
+    def walk(d: Dict, prefix: str) -> None:
+        for k, v in d.items():
+            if isinstance(v, dict) and _nesting(v) > depth:
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[prefix + k] = v
+
+    walk(group, "")
+    return out
+
+
+def _nesting(v) -> int:
+    """Dict levels above the leaves of ``v``."""
+    if not isinstance(v, dict) or not v:
+        return 0
+    return 1 + max(_nesting(x) for x in v.values())
+
+
 def _torch_group(tree: Dict, group: str, dtypes: Dict[str, str]) -> Params:
     """``{param_key: {tag: array}}`` of snapshot group ``group`` -> CPU
-    tensors in the dtypes ``dtypes`` records for its flattened keys."""
+    tensors in the dtypes ``dtypes`` records for its flattened keys
+    (nested sub-groups become ``a/b`` tags, :func:`flat_tags`)."""
     return {pkey: {tag: _torch_leaf(a, dtypes.get(f"{group}/{pkey}/{tag}"))
-                   for tag, a in g.items()}
+                   for tag, a in flat_tags(g).items()}
             for pkey, g in tree.items()}
 
 
@@ -229,7 +256,7 @@ def opt_state_from_jax(opt_np: Dict) -> Dict:
     masters; all float32) -> the port's CPU float32 tensors."""
     return {pkey: {tag: {k: torch.from_numpy(np.array(a, np.float32))
                          for k, a in st.items()}
-                   for tag, st in g.items()}
+                   for tag, st in flat_tags(g, depth=1).items()}
             for pkey, g in opt_np.items()}
 
 
@@ -270,6 +297,20 @@ def _host_tree(tree: Dict) -> Dict:
     the async writer would change while it is serialized."""
     return {k: _host_tree(v) if isinstance(v, dict)
             else v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
+def diagnostics_to_host(steps: Sequence[Dict[str, torch.Tensor]]
+                        ) -> List[Dict[str, float]]:
+    """Each step's diagnostics (:attr:`NetTrainer.last_diags`, 0-d device
+    tensors) as host floats, all of them read in one transfer."""
+    keys = [sorted(d) for d in steps]
+    flat = [d[k].detach().float().reshape(())
+            for d, ks in zip(steps, keys) for k in ks]
+    if not flat:
+        return [{} for _ in steps]
+    vals = iter(torch.stack([v.to(flat[0].device) for v in flat])
+                .cpu().tolist())
+    return [{k: next(vals) for k in ks} for ks in keys]
 
 
 class NetTrainer:
@@ -349,6 +390,10 @@ class NetTrainer:
         # before the probe last reset it (memory_gauges keeps it)
         self.mem_probe = None
         self._hbm_floor = 0
+        # the last training step's diagnostics (pairtest layers' relative
+        # errors: 0-d tensors on the device, the JAX package's
+        # _last_diags)
+        self.last_diags: Dict[str, torch.Tensor] = {}
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -458,7 +503,8 @@ class NetTrainer:
             li = key_to_layer.get(pkey)
             self.hypers[pkey] = {}
             for tag in group:
-                h = UpdaterHyper(tag=tag)
+                # a pairtest side's "master/wmat" takes wmat's overrides
+                h = UpdaterHyper(tag=tag.rsplit("/", 1)[-1])
                 for k, v in global_pairs(self.netcfg.defcfg):
                     h.set_param(k, v)
                 if li is not None:
@@ -748,7 +794,8 @@ class NetTrainer:
         dtypes, and re-derive the float32 masters (the JAX package's
         ``copy_model_from``, reference CopyModelFrom)."""
         _, params, _, _, _ = read_snapshot(path)
-        by_name = {k.split("-", 1)[1]: v for k, v in params.items()}
+        by_name = {k.split("-", 1)[1]: flat_tags(v)
+                   for k, v in params.items()}
         copied = []
         for pkey, group in self.params.items():
             name = pkey.split("-", 1)[1]
@@ -772,6 +819,45 @@ class NetTrainer:
                            for k, g in tree.items()}
         self.params = to(params)
         self.buffers = to(buffers)
+        if self.opt_state is not None:
+            self._refresh_masters()
+
+    # ----------------------------------------------------------- weights IO
+    def _resolve_param_key(self, layer_name: str) -> str:
+        for conn in self.net.connections:
+            if conn.param_key.split("-", 1)[1] == layer_name:
+                return conn.param_key
+        raise KeyError(f"unknown layer name {layer_name!r}")
+
+    def _leaf_tag(self, pkey: str, tag: str, layer_name: str) -> str:
+        """A tag as the JAX package addresses it (``wmat``, or
+        ``master:wmat`` for a pairtest side) -> the port's flat tag."""
+        flat = tag.replace(":", "/")
+        if flat not in self.params.get(pkey, {}):
+            raise KeyError(f"layer {layer_name!r} has no tag {tag!r}; "
+                           f"available: {sorted(self.params.get(pkey, {}))}")
+        return flat
+
+    def get_weight(self, layer_name: str, tag: str) -> np.ndarray:
+        """A layer's parameter as float32 numpy (the JAX package's
+        ``get_weight``; ``KeyError`` for an unknown layer or tag)."""
+        pkey = self._resolve_param_key(layer_name)
+        p = self.params[pkey][self._leaf_tag(pkey, tag, layer_name)]
+        return p.detach().float().cpu().numpy()
+
+    def set_weight(self, value: np.ndarray, layer_name: str,
+                   tag: str) -> None:
+        """Write a layer's parameter in place, in its dtype, and re-derive
+        the float32 masters so the next update does not revert it."""
+        pkey = self._resolve_param_key(layer_name)
+        p = self.params[pkey][self._leaf_tag(pkey, tag, layer_name)]
+        # a copy: the C ABI passes read-only views of its caller's memory
+        value = np.array(value, np.float32)
+        if tuple(p.shape) != value.shape:
+            raise ValueError(f"set_weight: shape mismatch {tuple(p.shape)} "
+                             f"vs {value.shape}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(value).to(p.device, p.dtype))
         if self.opt_state is not None:
             self._refresh_masters()
 
@@ -1001,19 +1087,23 @@ class NetTrainer:
                   for t, p in g.items()]
         for _, _, p in leaves:
             p.requires_grad_(True)
+        diags: Dict[str, torch.Tensor] = {}
         try:
             with record_function("train_forward"):
                 if self.remat:
                     nodes, buffers, losses = self._remat_forward(
-                        inputs, labels, epoch)
+                        inputs, labels, epoch, diags)
                 elif self.batch_split > 1:
                     nodes, buffers, losses = self._split_forward(
-                        inputs, labels, epoch)
+                        inputs, labels, epoch, diags)
                 else:
                     ctx = self._ctx(labels, epoch)
                     nodes, buffers = self.net.run(self.params, self.buffers,
                                                   inputs, ctx)
                     losses = ctx.losses
+                    diags = ctx.diagnostics
+                # the step's diagnostics (pairtest errors), on the device
+                self.last_diags = diags
                 if not losses:
                     raise RuntimeError("network has no loss layer; cannot "
                                        "train")
@@ -1033,11 +1123,13 @@ class NetTrainer:
         outs = {n: materialize(nodes[n]).detach() for n in self.eval_node_ids}
         return total.detach(), out, outs, buffers
 
-    def _split_forward(self, inputs, labels: LabelInfo, epoch: int):
+    def _split_forward(self, inputs, labels: LabelInfo, epoch: int,
+                       diags: Dict[str, torch.Tensor]):
         """``batch_split = K``: K sub-batch chains through the net, their
         loss terms summed (the scale stays 1 / batch, so the total is the
         unsplit batch's), the eval nodes' rows concatenated; each chain
-        draws its masks after the one before it."""
+        draws its masks after the one before it.  ``diags`` gets each
+        diagnostic's largest value over the chains."""
         if len(inputs) != 1:
             raise ValueError("batch_split: extra-data inputs unsupported")
         data, k = inputs[0], self.batch_split
@@ -1054,13 +1146,16 @@ class NetTrainer:
             nodes, _ = self.net.run(self.params, self.buffers,
                                     {0: data[sl]}, ctx)
             losses += ctx.losses
+            for k, v in ctx.diagnostics.items():
+                diags[k] = v if k not in diags else torch.maximum(diags[k], v)
             parts.append({n: materialize(nodes[n]) for n in self.eval_node_ids})
         nodes = [None] * self.net.cfg.num_nodes
         for n in self.eval_node_ids:
             nodes[n] = torch.cat([p[n] for p in parts])
         return nodes, self.buffers, losses
 
-    def _remat_forward(self, inputs, labels: LabelInfo, epoch: int):
+    def _remat_forward(self, inputs, labels: LabelInfo, epoch: int,
+                       diags: Dict[str, torch.Tensor]):
         """``remat = K``: the body's K segments
         (``pipeline_net.partition_network``) each run under
         ``torch.utils.checkpoint``, which keeps only a segment's frontier
@@ -1073,7 +1168,9 @@ class NetTrainer:
         the sibling-fuse and virtual-concat peepholes, as in the JAX
         package's segments; an armed ``mem_probe`` reads the allocator
         after each of them in the forward (the backward's recompute
-        runs with none)."""
+        runs with none).  ``diags`` gets the diagnostics of the trailing
+        layers only: a segment's stay inside its checkpoint, as in the
+        JAX package."""
         from torch.utils.checkpoint import checkpoint
         from . import pipeline_net
         from .net import conn_params
@@ -1122,6 +1219,7 @@ class NetTrainer:
             assert nid in env, ("remat: train-metric eval nodes must sit at "
                                 "or after the last segment boundary")
         node_list = [env.get(n) for n in range(net.cfg.num_nodes)]
+        diags.update(ctx.diagnostics)
         return node_list, self.buffers, ctx.losses + [body_loss]
 
     def update(self, batch) -> None:
@@ -1250,6 +1348,17 @@ class NetTrainer:
             lambda: torch.cuda.memory_allocated(dev),
             peak=lambda: torch.cuda.max_memory_allocated(dev), reset=reset)
         return self.mem_probe
+
+    @property
+    def has_diagnostics(self) -> bool:
+        """True when a layer emits step diagnostics (pairtest)."""
+        from ..layers.pairtest import PairTestLayer
+        return any(isinstance(c.layer, PairTestLayer)
+                   for c in self.net.connections)
+
+    def diagnostics_host(self) -> Dict[str, float]:
+        """:attr:`last_diags` as host floats, read in one transfer."""
+        return diagnostics_to_host([self.last_diags])[0]
 
     def layer_scopes(self) -> List[str]:
         """Each connection's :func:`~..layers.base.conn_scope_name`, the

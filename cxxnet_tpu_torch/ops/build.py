@@ -32,6 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: devices whose tensors every kernel wrapper sends to its plain version:
+#: the CPU, and ``meta`` (shapes without storage: ``task = check``'s
+#: traced graph, analysis/graph_lint.py).  A CUDA tensor launches the
+#: kernel or raises; any other device raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
 #: dtype codes of the C entry points (csrc/common.cuh CxnDtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

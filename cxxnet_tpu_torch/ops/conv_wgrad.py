@@ -232,7 +232,7 @@ def conv_wgrad_hwcn_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
     (N, C, H, W) x to (N, CO, OH, OW) dy.  A CUDA tensor goes through the
     CUDA kernel (or raises); a CPU tensor through
     :func:`conv_wgrad_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return conv_wgrad_plain(x, dy, kh, kw, stride, pad_y, pad_x)
     _check("conv_wgrad", x, dy)
     out = _launch(x, dy, kh, kw, stride, pad_y, pad_x)
@@ -261,7 +261,7 @@ def conv_wgrad_s2d_pallas(x: torch.Tensor, dy: torch.Tensor, kh: int,
     through the CUDA kernel on x itself (or raises): the space-to-depth
     identity of the JAX package's kernel only reorders the taps.  A CPU
     tensor goes through :func:`conv_wgrad_s2d_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return conv_wgrad_s2d_plain(x, dy, kh, kw, stride, pad_y, pad_x)
     _check("conv_wgrad_s2d", x, dy)
     out = _launch(x, dy, kh, kw, stride, pad_y, pad_x)

@@ -122,8 +122,12 @@ def _scores(q, k, scale: float, causal: bool,
     return s
 
 
-def _chunks(bh: int, s_len: int):
-    """b*h slices that bound each plain score matrix to ~256 MB."""
+def _chunks(bh: int, s_len: int, device: torch.device):
+    """b*h slices that bound each plain score matrix to ~256 MB; one
+    slice on ``meta``, which holds no storage (a traced graph stays
+    short)."""
+    if device.type == "meta":
+        return [slice(0, bh)]
     step = max(1, _PLAIN_CHUNK_ELEMS // (s_len * s_len))
     return [slice(i, min(i + step, bh)) for i in range(0, bh, step)]
 
@@ -135,7 +139,7 @@ def _fwd_plain(q, k, v, causal, scale, seg):
     scale = _default_scale(q, scale)
     segr = _seg_rows(seg, q.shape[0])
     os_, lses = [], []
-    for sl in _chunks(q.shape[0], q.shape[1]):
+    for sl in _chunks(q.shape[0], q.shape[1], q.device):
         s = _scores(q[sl], k[sl], scale, causal,
                     None if segr is None else segr[sl])
         m = s.amax(dim=-1, keepdim=True)
@@ -155,7 +159,7 @@ def _bwd_plain(q, k, v, o, lse, do, causal, scale, seg):
     scale = _default_scale(q, scale)
     segr = _seg_rows(seg, q.shape[0])
     dqs, dks, dvs = [], [], []
-    for sl in _chunks(q.shape[0], q.shape[1]):
+    for sl in _chunks(q.shape[0], q.shape[1], q.device):
         s = _scores(q[sl], k[sl], scale, causal,
                     None if segr is None else segr[sl])
         p = torch.exp(s - _acc(lse[sl]).transpose(1, 2))
@@ -282,7 +286,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(o, lse)`` for ``(b*h, s, d)`` q/k/v: the CUDA kernel for a CUDA
     tensor (or a raise), :func:`flash_attention_fwd_plain` on the CPU."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_fwd_plain(q, k, v, causal, scale)
     _check("flash_attention_fwd", (q, k, v), MAX_D)
     out = _launch_fwd("flash_attention_fwd", q, k, v, None, causal, scale)
@@ -296,7 +300,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     output gradient ``do``: the CUDA kernel for a CUDA tensor (or a
     raise), :func:`flash_attention_bwd_plain` on the CPU."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
     _check("flash_attention_bwd", (q, k, v, o, do), MAX_D)
     _check_lse("flash_attention_bwd", lse, q)
@@ -311,7 +315,7 @@ def flash_attention_seg_fwd(q, k, v, seg, scale: Optional[float] = None):
     ids.  The CUDA kernel for a CUDA tensor (or a raise),
     :func:`flash_attention_seg_fwd_plain` on the CPU."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_seg_fwd_plain(q, k, v, seg, scale)
     _check("flash_attention_seg_fwd", (q, k, v), MAX_D)
     seg32 = _seg_int32("flash_attention_seg_fwd", seg, q)
@@ -326,7 +330,7 @@ def flash_attention_seg_bwd(q, k, v, seg, o, lse, do,
     CUDA tensor (or a raise), :func:`flash_attention_seg_bwd_plain` on
     the CPU."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_seg_bwd_plain(q, k, v, seg, o, lse, do, scale)
     _check("flash_attention_seg_bwd", (q, k, v, o, do), MAX_D)
     _check_lse("flash_attention_seg_bwd", lse, q)

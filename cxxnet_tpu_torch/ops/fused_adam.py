@@ -78,7 +78,7 @@ def fused_adam_pallas(g: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
     m1, m2, w32)``.  CUDA tensors go through the CUDA kernel (or raise);
     CPU tensors through :func:`fused_adam_plain`.  Gate with
     :func:`fused_adam_supported`."""
-    if out.device.type == "cpu":
+    if out.device.type in build.PLAIN_DEVICES:
         new = fused_adam_plain(g, m1, m2, w32, lr_t, d1, d2, wd, clip)
         for dst, src in zip((out, m1, m2, w32), new):
             dst.copy_(src)

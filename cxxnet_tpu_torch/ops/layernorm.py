@@ -157,7 +157,7 @@ def layernorm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """``(y, mean, rstd)`` for ``(rows, d)`` x.  A CUDA tensor goes
     through the CUDA kernel (or raises); a CPU tensor through
     :func:`layernorm_fwd_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return layernorm_fwd_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_fwd: no kernel for {x.device}")
@@ -188,7 +188,7 @@ def layernorm_bwd(dy: torch.Tensor, a: torch.Tensor, gamma: torch.Tensor,
     """``(dx, dgamma, dbeta)`` (see :func:`layernorm_bwd_plain` for the
     arguments).  A CUDA tensor goes through the CUDA kernel (or raises);
     a CPU tensor through the plain version."""
-    if a.device.type == "cpu":
+    if a.device.type in build.PLAIN_DEVICES:
         return layernorm_bwd_plain(dy, a, gamma, beta, mean, rstd, save_x)
     if a.device.type != "cuda":
         raise ValueError(f"layernorm_bwd: no kernel for {a.device}")

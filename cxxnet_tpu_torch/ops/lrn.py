@@ -214,7 +214,7 @@ def lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
     """LRN forward of (N, C, H, W) x.  A CUDA tensor goes through the
     CUDA kernel (or raises); a CPU tensor through :func:`lrn_fwd_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return lrn_fwd_plain(x, nsize, alpha, beta, knorm)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_fwd: no kernel for {x.device}")
@@ -232,7 +232,7 @@ def lrn_bwd(x: torch.Tensor, g: torch.Tensor, nsize: int, alpha: float,
     """dx of the LRN of x for output gradient g.  A CUDA tensor goes
     through the CUDA kernel (or raises); a CPU tensor through
     :func:`lrn_bwd_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return lrn_bwd_plain(x, g, nsize, alpha, beta, knorm)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_bwd: no kernel for {x.device}")
@@ -304,7 +304,7 @@ def lrn_hwcn_fwd(xt: torch.Tensor, nsize: int, alpha: float, beta: float,
     """LRN forward of (H, W, C, N) xt, window along C.  A CUDA tensor goes
     through the CUDA kernel (or raises); a CPU tensor through
     :func:`lrn_hwcn_fwd_plain`."""
-    if xt.device.type == "cpu":
+    if xt.device.type in build.PLAIN_DEVICES:
         return lrn_hwcn_fwd_plain(xt, nsize, alpha, beta, knorm)
     if xt.device.type != "cuda":
         raise ValueError(f"lrn_hwcn_fwd: no kernel for {xt.device}")
@@ -323,7 +323,7 @@ def lrn_hwcn_bwd(xt: torch.Tensor, gt: torch.Tensor, nsize: int,
     """dx (H, W, C, N) of the LRN of xt for output gradient gt.  A CUDA
     tensor goes through the CUDA kernel (or raises); a CPU tensor through
     :func:`lrn_hwcn_bwd_plain`."""
-    if xt.device.type == "cpu":
+    if xt.device.type in build.PLAIN_DEVICES:
         return lrn_hwcn_bwd_plain(xt, gt, nsize, alpha, beta, knorm)
     if xt.device.type != "cuda":
         raise ValueError(f"lrn_hwcn_bwd: no kernel for {xt.device}")

@@ -242,7 +242,7 @@ def max_pool_fwd(x: torch.Tensor, geom: Geom) -> torch.Tensor:
     """Max pool of (N, C, H, W) x with ``geom = (kh, kw, stride, pad_y,
     pad_x)``.  A CUDA tensor goes through the CUDA kernel (or raises); a
     CPU tensor through :func:`max_pool_fwd_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return max_pool_fwd_plain(x, geom)
     if x.device.type != "cuda":
         raise ValueError(f"max_pool_fwd: no kernel for {x.device}")
@@ -259,7 +259,7 @@ def max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     """The all-ties dx from the forward's input x, its (pre-relu) output
     y and the output gradient dy.  A CUDA tensor goes through the CUDA
     kernel (or raises); a CPU tensor through :func:`max_pool_bwd_plain`."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return max_pool_bwd_plain(x, y, dy, geom, relu)
     if x.device.type != "cuda":
         raise ValueError(f"max_pool_bwd: no kernel for {x.device}")

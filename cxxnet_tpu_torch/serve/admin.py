@@ -63,14 +63,15 @@ class FlightCapture:
         self.requests = max(1, int(requests))
         self.max_ticks = max(1, int(max_ticks))
         self.stats_fn = stats_fn
+        # racelint: atomic(bounded deque, GIL-atomic appends; tick() snapshots under the arm lock and staleness is tolerated)
         self._ring: deque = deque(maxlen=max(1, int(ring)))
         self._lock = threading.Lock()
-        self.armed = False
-        self._reason = ""
-        self._prev_sample = 0
-        self._wm0 = 0
-        self._n0 = 0
-        self._ticks = 0
+        self.armed = False        # racelint: guarded-by(self._lock)
+        self._reason = ""         # racelint: guarded-by(self._lock)
+        self._prev_sample = 0     # racelint: guarded-by(self._lock)
+        self._wm0 = 0             # racelint: guarded-by(self._lock)
+        self._n0 = 0              # racelint: guarded-by(self._lock)
+        self._ticks = 0           # racelint: guarded-by(self._lock)
 
     def note_window(self, rec: dict) -> None:
         """Keep the recent ``serve_window`` records (the flight's
@@ -95,6 +96,7 @@ class FlightCapture:
                   f"{self.boost} for next {self.requests} requests")
         return True
 
+    # racelint: thread(reporter)
     def tick(self) -> Optional[dict]:
         """One reporter window; the ``serve_flight`` record when the
         capture completes in it, else None."""
@@ -140,10 +142,13 @@ class AdminServer:
         self._addr = (addr, int(port))
         self._config = dict(config or {})
         self._t0 = time.time()
+        # racelint: atomic(whole-object swap: start()/close() publish; the acceptor loop and port property only read)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
-        # swapped whole by their one writer; handlers read old or new
+        # whole-object swaps the scrape path reads without locks
+        # racelint: atomic(whole-object dict swap, reporter is the single writer; handlers read the old or the new map, never a torn one)
         self._last_window: Dict[str, dict] = {}
+        # racelint: atomic(whole-object dict swap, note_ready is the single writer)
         self._footprints: Dict[str, dict] = {}
         self.slo = None          # SloTracker (task_serve wires it)
         self.flight: Optional[FlightCapture] = None

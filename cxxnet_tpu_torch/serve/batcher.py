@@ -89,18 +89,19 @@ class MicroBatcher:
         self.name = name
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(queue_depth)))
         self._thread: Optional[threading.Thread] = None
+        # racelint: latch(write-once by the dispatcher; racy reads fan the failure out to submitters)
         self._failed: Optional[BaseException] = None
         self._closing = False
         # dispatcher-only writers
-        self.n_requests = 0
-        self.n_batches = 0
-        self.rows_served = 0
+        self.n_requests = 0    # racelint: atomic(plain-int bump, dispatcher is the only writer; scrape reads tolerate staleness)
+        self.n_batches = 0     # racelint: atomic(plain-int bump, dispatcher-only writer)
+        self.rows_served = 0   # racelint: atomic(plain-int bump, dispatcher-only writer)
+        # racelint: atomic(per-key int bump, dispatcher-only writer; the scrape path copies via copy_racy)
         self.batch_hist: Dict[int, int] = {}
-        # queue depth, sampled at arrival (submit) and at each dispatch,
-        # guarded by _stats_lock
-        self.depth_sum = 0
-        self.depth_samples = 0
-        self.depth_max = 0
+        # queue depth, sampled at arrival (submit) and at each dispatch
+        self.depth_sum = 0      # racelint: guarded-by(self._stats_lock)
+        self.depth_samples = 0  # racelint: guarded-by(self._stats_lock)
+        self.depth_max = 0      # racelint: guarded-by(self._stats_lock)
         self._stats_lock = threading.Lock()
         # the serve_window stream (task_serve's reporter turns it on and
         # drains it with window_stats; off, submit pays one bool test):
@@ -419,6 +420,7 @@ class StepScheduler:
         self.name = name
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(queue_depth)))
         self._thread: Optional[threading.Thread] = None
+        # racelint: latch(write-once by the decode loop; racy reads fan the failure out to submitters)
         self._failed: Optional[BaseException] = None
         self._closing = False
         self._draining = False
@@ -428,22 +430,23 @@ class StepScheduler:
         self._fill_order: List[int] = []
         self._free: List[int] = list(range(runner.slots))
         self._stats_lock = threading.Lock()
-        self._req_seq = 0              # guarded by _stats_lock
-        self._tok_lats: List[float] = []   # guarded by _stats_lock
+        self._req_seq = 0  # racelint: guarded-by(self._stats_lock)
+        self._tok_lats: List[float] = []  # racelint: guarded-by(self._stats_lock)
         # decode-loop-only writers
-        self._prefill_lats: List[float] = []
-        self._chunk_lats: List[float] = []
-        self.n_requests = 0
-        self.n_tokens = 0
-        self.n_steps = 0
-        self.n_prefills = 0
-        self.n_prefill_chunks = 0
-        self.n_draft_steps = 0
-        self.n_verify_calls = 0
-        self.n_spec_proposed = 0
-        self.n_spec_accepted = 0
-        self._draft_wall = 0.0
-        self._verify_wall = 0.0
+        self._prefill_lats: List[float] = []  # racelint: atomic(list append, decode-loop-only writer; stats() sorts a GIL-atomic copy)
+        self._chunk_lats: List[float] = []    # racelint: atomic(list append, decode-loop-only writer; stats() sorts a GIL-atomic copy)
+        self.n_requests = 0        # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_tokens = 0          # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_steps = 0           # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_prefills = 0        # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_prefill_chunks = 0  # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_draft_steps = 0     # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_verify_calls = 0    # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_spec_proposed = 0   # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self.n_spec_accepted = 0   # racelint: atomic(plain-int bump, decode-loop-only writer)
+        self._draft_wall = 0.0     # racelint: atomic(float bump, decode-loop-only writer)
+        self._verify_wall = 0.0    # racelint: atomic(float bump, decode-loop-only writer)
+        # racelint: atomic(per-key int bump, decode-loop-only writer; scrape copies via copy_racy)
         self.occ_hist: Dict[int, int] = {}
 
     # ------------------------------------------------------------- client

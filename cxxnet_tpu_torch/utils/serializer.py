@@ -76,6 +76,7 @@ def atomic_write(path: str, write_fn) -> None:
     fsync: readers see the old complete file or the new one."""
     tmp = path + ".tmp"
     try:
+        # disclint: ok(atomic-write) — the tmp half of the protocol itself
         with open(tmp, "wb") as f:
             write_fn(f)
             f.flush()

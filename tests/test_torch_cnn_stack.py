@@ -884,15 +884,16 @@ def test_googlenet_conf_steps_with_its_shipped_keys(tmp_path):
 
 
 def test_remaining_refusals_name_their_item():
-    """What stays refused is refused by name: the moe, pairtest and torch
-    layers, the multi-GPU trainer keys and the dp_* engine options."""
+    """What stays refused is refused by name: the moe layer (alone or as
+    a pairtest side), the multi-GPU trainer keys and the dp_* engine
+    options."""
     from cxxnet_tpu_torch.engine import EngineOptions
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
     from cxxnet_tpu_torch.nnet.trainer import UNPORTED_KEYS
-    assert NOT_PORTED == ("moe", "pairtest", "torch")
+    assert NOT_PORTED == ("moe",)
     assert set(UNPORTED_KEYS) == {"shard_opt_state", "fullc_gather",
                                   "update_on_server"}
-    for name in NOT_PORTED + ("pairtest[a,b]",):
+    for name in NOT_PORTED + ("pairtest-moe-conv", "pairtest-conv-moe"):
         with pytest.raises(ValueError, match="not ported"):
             create_layer(name)
     for key in UNPORTED_KEYS:
