@@ -20,9 +20,9 @@ netconfig block) and checks every key against the declared-key registry:
   vs batch_split/pipe, monitor vs multi_step, ...), surfaced before any
   device work;
 * **not ported** → a config the port refuses at run time (a layer type,
-  key value or device selection of the JAX package that
-  ``cxxnet_tpu_torch`` does not implement) is an error in the runtime's
-  own words (:func:`_not_ported_rules`).
+  a mesh axis, or several device ids for a one-device task, of the JAX
+  package that ``cxxnet_tpu_torch`` does not implement) is an error in
+  the runtime's own words (:func:`_not_ported_rules`).
 
 The findings and their words are the JAX package's, but for the
 not-ported rules and the card's names (``mem_chip`` selects an H100, not
@@ -1080,20 +1080,17 @@ def _mesh_rules(last: Dict[str, str], layer_types: List[str],
 def _not_ported_rules(pairs: ConfigPairs, add) -> None:
     """A config the port would refuse at run time is an error, in the
     runtime's own words: a layer type of ``layers/registry.NOT_PORTED``,
-    a non-default value of a key whose feature is not ported (the
-    trainer's ``UNPORTED_KEYS``, the task driver's ``UNPORTED_TASK_KEYS``,
-    an engine option's), a ``dev`` of several ids and a ``mesh`` over
-    more than one device.  Each key is reported at its first refused
-    occurrence, where the runtime stops.  The multi-GPU plane's rules go
-    when that plane is ported."""
-    from .. import engine
+    a ``mesh`` with a ``seq`` / ``expert`` / ``pipe`` axis wider than 1
+    (the model-parallel slice) and a ``dev`` of several ids for a task
+    that runs on one device (``pred`` / ``pred_raw`` / ``extract`` /
+    ``serve``).  Each key is reported at its first refused occurrence,
+    where the runtime stops."""
     from ..layers import registry as lreg
-    from ..main import UNPORTED_TASK_KEYS
-    from ..nnet.trainer import (UNPORTED_KEYS, mesh_message,
-                                several_ids_message, unported_message)
-    from ..parallel.mesh import MeshSpec, parse_device_spec
-    unported = dict(UNPORTED_KEYS, **UNPORTED_TASK_KEYS)
+    from ..main import ONE_DEVICE_TASKS, several_ids_message
+    from ..parallel.mesh import (MeshSpec, parse_device_spec,
+                                 unported_axes_message)
     seen = set()
+    task = dict(pairs).get("task", "train")
 
     def once(key: str, msg: str) -> None:
         if key not in seen:
@@ -1105,26 +1102,21 @@ def _not_ported_rules(pairs: ConfigPairs, add) -> None:
             tname = val.partition(":")[0]
             if lreg.is_not_ported(tname) and _layer_type_known(tname):
                 add(Finding("error", name, lreg.not_ported_message(tname)))
-        elif name in unported and val != unported[name]:
-            once(name, unported_message(name, val, unported[name]))
-        elif engine.is_engine_option(name) and engine._valid(name, val):
-            msg = engine.not_ported_message(name, val)
-            if msg:
-                once(name, msg)
-        elif name == "dev":
+        elif name == "dev" and task in ONE_DEVICE_TASKS:
             try:
                 ids = parse_device_spec(val.lower())["ids"] or []
             except ValueError:
                 continue  # malformed: the trainer's own error at build
             if len(ids) > 1:
-                once(name, several_ids_message(val, len(ids)))
+                once(name, several_ids_message(f"task = {task}", val,
+                                               len(ids)))
         elif name == "mesh":
             try:
-                size = MeshSpec.parse(val).size
+                axes = MeshSpec.parse(val).unported_axes()
             except ValueError:
                 continue  # the mesh KeySpec's error
-            if size > 1:
-                once(name, mesh_message(val))
+            if axes:
+                once(name, unported_axes_message(val, axes))
 
 
 # ----------------------------------------------- strict_config reporting

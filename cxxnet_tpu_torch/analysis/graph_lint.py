@@ -18,9 +18,10 @@ traced program *does*:
   back in another dtype than it took in.  The next step then runs
   another program on it (the retrace the JAX rule predicts), and a
   snapshot records the wrong type.  A warning.
-* **gradient leaves escaping the dp reduction** — kept as
-  :func:`dp_coverage_findings`; its driver waits for the multi-GPU
-  plane (``dp_*`` options are refused by ``engine.py``).
+* **gradient leaves escaping the dp reduction** — under ``dp_overlap =
+  1`` every parameter group must sit in a bucket of the plan
+  (:func:`dp_findings`); an inactive plan (a fallback gate) is an info
+  line.
 
 Tracing: :func:`trace_step` runs ``torch.fx.experimental.proxy_tensor.
 make_fx`` over the step the trainer runs — forward, loss, backward
@@ -143,14 +144,32 @@ def leaf_dtype_findings(before: Dict[str, Dict[str, torch.dtype]],
 def dp_coverage_findings(param_keys: Sequence[str],
                          covered_keys: Sequence[str]) -> List[Finding]:
     """Param groups whose gradients escape the dp_overlap bucket plan
-    (the JAX package's rule; its driver comes with the multi-GPU
-    plane)."""
+    (the JAX package's rule)."""
     missing = sorted(set(param_keys) - set(covered_keys))
     return [Finding(
         "error", "",
         f"gradient of param group {k!r} escapes the dp_overlap bucket "
         "plan: it would apply an unreduced per-device gradient and the "
         "replicas drift", scope="jaxpr") for k in missing]
+
+
+def dp_findings(trainer) -> List[Finding]:
+    """The bucket plan's coverage under ``dp_overlap = 1`` (the JAX
+    package's ``_dp_findings``): an error for each param group outside
+    every bucket, or an info line when a fallback gate keeps the
+    implicit step."""
+    if trainer.opts.dp_overlap != "1":
+        return []
+    if not trainer._dp_overlap_active():
+        return [Finding(
+            "info", "", "dp_overlap = 1 is configured but inactive on "
+            "this build (see the fallback warning above); bucket "
+            "coverage not checked", scope="jaxpr")]
+    plan = trainer._dp_overlap_plan()
+    covered: List[str] = list(plan.tail_keys)
+    for ks in plan.stage_keys:
+        covered.extend(ks)
+    return dp_coverage_findings(list(trainer.params), covered)
 
 
 class _TraceOnMeta(_OnMeta):
@@ -224,6 +243,7 @@ def lint_trainer(trainer, traced: Tuple = None) -> List[Finding]:
         else trace_step(trainer)
     findings = graph_findings(gm)
     findings.extend(leaf_dtype_findings(before, after))
+    findings.extend(dp_findings(trainer))
     n_nodes = sum(1 for n in gm.graph.nodes
                   if n.op not in ("placeholder", "output"))
     n_consts = sum(1 for n in gm.graph.nodes if n.op == "get_attr"

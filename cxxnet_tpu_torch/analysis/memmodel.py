@@ -16,9 +16,12 @@ strings the observatory joins on.  Two consumers:
 
 Bytes are counted from tensors (``numel() * element_size()``), which
 works on the ``meta`` tensors of the device-free build ``task = check``
-makes.  The port runs on one device, so nothing is divided by a mesh
-axis.  The model is coarse on the cost model's terms: a ranking aid and
-a conservative pre-flight ceiling, not a calibrated simulator.
+makes.  Accounting is per rank: a trainer on a mesh holds its shards
+(a ZeRO slice of the optimizer state, a model shard of a fullc weight),
+so its tensors count what the rank holds, and activations divide the
+global batch by the mesh's data axis.  The model is coarse on the cost
+model's terms: a ranking aid and a conservative pre-flight ceiling, not
+a calibrated simulator.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ def _opt_tree(trainer, pkey: str):
     of reduced-precision parameters included)."""
     if trainer.opt_state is not None:
         return trainer.opt_state[pkey]
-    return {tag: trainer.updater.make_state(p.to("meta"))
+    return {tag: trainer.updater.make_state(
+                trainer._opt_view(pkey, tag, p).to("meta"))
             for tag, p in trainer.params[pkey].items()}
 
 
@@ -87,7 +91,9 @@ def layer_mem(trainer) -> Dict[str, Dict[str, int]]:
     remat / batch_split residency corrections are made in
     :func:`totals`, where they are properties of the schedule."""
     from ..layers.base import conn_scope_name
+    from ..parallel.data import data_size
     itemsize = torch.empty((), dtype=trainer.dtype).element_size()
+    ndata = data_size(trainer.mesh)
     prows = param_rows(trainer)
     out: Dict[str, Dict[str, int]] = {}
     for i, conn in enumerate(trainer.net.connections):
@@ -97,7 +103,7 @@ def layer_mem(trainer) -> Dict[str, Dict[str, int]]:
             n = 1
             for d in trainer.net.node_shapes[nid]:
                 n *= int(d)
-            act += n * itemsize
+            act += (n // ndata) * itemsize
         pr = prows.get(scope, {})
         pbytes = int(pr.get("param_bytes", 0))
         out[scope] = {
@@ -161,17 +167,21 @@ def _fmt_gb(b: float) -> str:
 
 
 def _remediations(trainer, tot: Dict[str, int]) -> List[str]:
-    """Knob suggestions, the largest modelled saving first.  (ZeRO over
-    a data axis, the JAX package's third, waits for the multi-GPU
-    plane.)"""
+    """Knob suggestions, the largest modelled saving first."""
+    from ..parallel.data import data_size
     out: List[Tuple[int, str]] = []
-    act, acc = tot["act_bytes"], tot["acc_bytes"]
+    act, opt, acc = tot["act_bytes"], tot["opt_bytes"], tot["acc_bytes"]
     if int(trainer.remat or 0) <= 1 and act:
         out.append((act // 2, "remat = 2..4 (checkpoint activations; "
                     f"~{_fmt_gb(act / 2)} off)"))
     if trainer.batch_split <= 1 and act:
         out.append((act // 2, "batch_split = 2 (halve live "
                     f"activations; ~{_fmt_gb(act / 2)} off)"))
+    nd = data_size(trainer.mesh)
+    if not trainer.shard_opt_state and nd > 1 and opt:
+        save = opt - opt // nd
+        out.append((save, "shard_opt_state = 1 (ZeRO over the data "
+                    f"axis; ~{_fmt_gb(save)} off)"))
     if acc and trainer.opts.dp_reduce_dtype != "bf16":
         out.append((acc // 2, "dp_reduce_dtype = bf16 (halve the "
                     f"grad accumulator; ~{_fmt_gb(acc / 2)} off)"))

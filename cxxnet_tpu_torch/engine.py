@@ -7,7 +7,7 @@ Unlike the JAX package's process-global ``opts``, every trainer owns an
 :class:`~cxxnet_tpu_torch.layers.base.ForwardContext`, so two trainers in
 one process cannot change each other's kernels.
 
-Options the port acts on (``PORTED``):
+Options the port acts on (every value the JAX package takes):
 
 | key               | values            | meaning on the port                |
 |-------------------|-------------------|------------------------------------|
@@ -66,16 +66,24 @@ pool gate ``ops.nn.hwcn_pool_ok`` of ``pool_bwd = auto`` and
 ``pool_relu_fuse = 1`` holds only for a tensor on the card.  Elsewhere
 the CPU and the card build the same graph, and only the kernel-or-plain
 choice inside a wrapper follows the tensor's device.  The ``dp_*``
-options keep the JAX package's table so a conf reads the same, but
-their feature comes with the multi-GPU slice (ROADMAP.md): any value but
-the default is refused, from a conf or from the environment, rather
-than ignored.
+options drive the data-parallel plane (``parallel/overlap.py``) as in
+the JAX package:
+
+| key             | values           | meaning on the port                |
+|-----------------|------------------|------------------------------------|
+| dp_overlap      | 0 (default), 1   | 1 = bucketed gradient reductions   |
+|                 |                  | issued from the backward           |
+| dp_bucket_mb    | 4 (default), > 0 | a bucket's parameter MiB           |
+| dp_reduce_dtype | f32 (default),   | the reductions' wire dtype         |
+|                 | bf16             |                                    |
+| dp_reduce_at    | apply (default), | with update_period > 1: reduce     |
+|                 | step             | once per apply, or every step      |
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict
 
 
 def _is_positive_float(val: str) -> bool:
@@ -114,30 +122,9 @@ _DEFS = {
 }
 
 
-#: the values the port implements, by option; every other option takes
-#: only its default
-PORTED = {name: valid for name, (_, _, valid) in _DEFS.items()
-          if not name.startswith("dp_")}
-
-
-def not_ported_message(name: str, val: str,
-                       where: str = "") -> Optional[str]:
-    """The refusal of a valid value the port does not implement (the
-    runtime's and ``task = check``'s words), or None when it is ported."""
-    ported = PORTED.get(name, (_DEFS[name][1],))
-    if val in ported:
-        return None
-    return (f"{where or 'engine option ' + name} = {val}: not ported to "
-            f"cxxnet_tpu_torch yet (only {', '.join(map(repr, ported))}; "
-            "ROADMAP.md)")
-
-
 def _check(name: str, val: str, where: str) -> None:
     if not _valid(name, val):
         raise ValueError(f"{where} = {val}: expected {_expectation(name)}")
-    msg = not_ported_message(name, val, where)
-    if msg:
-        raise ValueError(msg)
 
 
 def _valid(name: str, val: str) -> bool:
@@ -183,9 +170,7 @@ class EngineOptions:
 def key_specs():
     """The options as lint KeySpecs (``analysis/registry.py``): the value
     check is the ``_valid`` the runtime enforces, so the lint and
-    :meth:`EngineOptions.set` never disagree on a spelling.  A valid
-    value the port does not implement is the lint's not-ported rule
-    (``analysis/conflint._not_ported_rules``)."""
+    :meth:`EngineOptions.set` never disagree on a spelling."""
     from .analysis.schema import KeySpec
 
     def make_check(name):

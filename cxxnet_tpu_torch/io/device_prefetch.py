@@ -57,7 +57,8 @@ class StagedBatch:
     staged (a u8 batch stays u8, normalised in the step; under
     ``input_s2d = 1`` already in space-to-depth form), ``label`` float32,
     ``extra_data`` the side inputs, ``mask`` the tail loss mask when
-    ``tail_mask_padd > 0``.  ``ready`` is the event recorded after the
+    ``tail_mask_padd > 0``; on a data mesh the tensors hold this rank's
+    rows and ``global_rows`` the batch's.  ``ready`` is the event recorded after the
     copies on the card, None once handed over (and on the CPU).
     ``NetTrainer.update`` / ``predict`` / ``predict_raw`` /
     ``extract_feature`` / ``evaluate`` take it wherever they take a
@@ -73,10 +74,13 @@ class StagedBatch:
     mask: Any = None
     h2d_sec: float = 0.0
     ready: Any = None
+    # rows of the whole batch when a data-mesh rank staged its rows only
+    global_rows: int = 0
 
     @property
     def batch_size(self) -> int:
-        return int(self.data.shape[0])
+        """Rows of the batch (the whole batch's on a data mesh)."""
+        return self.global_rows or int(self.data.shape[0])
 
     def tensors(self) -> list:
         return [t for t in (self.data, self.label, *self.extra_data,

@@ -143,7 +143,8 @@ class InsanityLayer(_UnaryLayer):
     def _fn(self, x, ctx):
         if ctx.train:
             lb, ub = self._bounds(int(ctx.epoch))
-            divisor = N.uniform(ctx.rng, x.shape, x.dtype) * (ub - lb) + lb
+            divisor = (N.batch_draw(N.uniform, ctx, x.shape, x.dtype)
+                       * (ub - lb) + lb)
             return torch.where(x > 0, x, x / divisor)
         return torch.where(x > 0, x, x / ((self.lb + self.ub) / 2.0))
 
@@ -199,7 +200,7 @@ class PReluLayer(_UnaryLayer):
         shape[ax] = x.shape[ax]
         mask = params["bias"].reshape(shape)
         if ctx.train and self.random > 0:
-            u = N.uniform(ctx.rng, x.shape, x.dtype)
+            u = N.batch_draw(N.uniform, ctx, x.shape, x.dtype)
             mask = mask * (1 + u * self.random * 2.0 - self.random)
         mask = torch.clamp(mask, 0.0, 1.0)
         return [torch.where(x > 0, x, x * mask)]

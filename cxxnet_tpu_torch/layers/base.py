@@ -205,7 +205,8 @@ class ForwardContext:
     ``rng`` draws a training forward's random masks (dropout, insanity);
     ``epoch`` is the update count, which anneals insanity's range.
     ``diagnostics`` collects the step's 0-d diagnostic tensors
-    (pairtest layers' relative errors), keyed ``<layer>:<what>``."""
+    (pairtest layers' relative errors), keyed ``<layer>:<what>``;
+    ``mesh`` is the trainer's data mesh."""
 
     train: bool
     opts: EngineOptions
@@ -217,6 +218,10 @@ class ForwardContext:
     loss_scale: float = 1.0
     rng: Optional[torch.Generator] = None
     epoch: int = 0
+    # the trainer's data mesh (parallel/mesh.Mesh) or None: batch-
+    # coupled layers (batch_norm) reduce their statistics over its data
+    # axis, so a rank's rows behave as the global batch
+    mesh: Optional[object] = None
 
 
 def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:

@@ -211,7 +211,7 @@ class InsanityPoolingLayer(_PoolingBase):
         if not ctx.train:
             return [N.max_pool2d(x, p.kernel_height, p.kernel_width,
                                  p.stride, opts=ctx.opts)]
-        mask = N.uniform(ctx.rng, x.shape, torch.float32)
+        mask = N.batch_draw(N.uniform, ctx, x.shape, torch.float32)
         return [N.insanity_max_pool(x, mask, p.kernel_height,
                                     p.kernel_width, p.stride, self.p_keep)]
 

@@ -14,6 +14,7 @@ import torch
 
 from ..analysis.schema import K
 from ..ops import nn as N
+from ..parallel.data import data_size, global_sum
 from .base import Layer, Shape4
 
 
@@ -25,7 +26,8 @@ class BatchNormLayer(Layer):
     also updates the ``moving_mean`` / ``moving_var`` buffers (momentum
     ``bn_momentum``), which ``moving_average = 1`` reads at eval.  A
     short tail batch's replica padding (``ctx.labels.mask``) is left out
-    of the batch statistics."""
+    of the batch statistics.  On a data mesh the statistics are the
+    global batch's (:meth:`_global_moments`)."""
 
     type_names = ("batch_norm",)
     extra_config_keys = (
@@ -79,7 +81,11 @@ class BatchNormLayer(Layer):
         xf = x.float()
         mask = ctx.labels.mask if (ctx.train and ctx.labels is not None) \
             else None
-        if ctx.train or not self.moving_average:
+        if (ctx.train or not self.moving_average) \
+                and data_size(ctx.mesh) > 1:
+            mean, var = self._global_moments(xf, mask, dims, bshape, ax,
+                                             ctx.mesh)
+        elif ctx.train or not self.moving_average:
             if mask is not None:
                 m4 = mask.float().reshape(-1, 1, 1, 1)
                 denom = torch.clamp(
@@ -104,6 +110,31 @@ class BatchNormLayer(Layer):
                        "moving_var": m * buffers["moving_var"]
                        + (1 - m) * var.detach()}
         return [out.to(x.dtype)], buffers
+
+
+    @staticmethod
+    def _global_moments(xf, mask, dims, bshape, ax, mesh):
+        """The mean and (two-pass) variance of the GLOBAL batch from a
+        rank's rows on a data mesh (the JAX package's statistics over the
+        sharded batch): each partial sum, and the count, summed over
+        ``data`` (:func:`~..parallel.data.global_sum`, whose backward
+        sums the cotangents over ``data`` in turn).  Padded tail rows
+        (``mask``) count nowhere, on whichever rank they fall.  Every
+        rank gets the same statistics, so the moving buffers stay equal."""
+        per_row = xf.numel() / xf.shape[0] / xf.shape[ax]
+        if mask is not None:
+            m4 = mask.float().reshape(-1, 1, 1, 1)
+            count = global_sum(m4.sum() * per_row, mesh)
+            denom = torch.clamp(count, min=1.0)
+            mean = global_sum((xf * m4).sum(dims), mesh) / denom
+            var = global_sum((torch.square(xf - mean.reshape(bshape))
+                              * m4).sum(dims), mesh) / denom
+        else:
+            denom = per_row * xf.shape[0] * data_size(mesh)
+            mean = global_sum(xf.sum(dims), mesh) / denom
+            var = global_sum(torch.square(xf - mean.reshape(bshape))
+                             .sum(dims), mesh) / denom
+        return mean, var
 
 
 class DropoutLayer(Layer):
@@ -136,6 +167,6 @@ class DropoutLayer(Layer):
         x = inputs[0]
         if not ctx.train or self.threshold == 0.0:
             return [x]
-        mask = N.dropout_mask(ctx.rng, x.shape, 1.0 - self.threshold,
-                              x.dtype)
+        mask = N.batch_draw(N.dropout_mask, ctx, x.shape,
+                            1.0 - self.threshold, x.dtype)
         return [x * mask]

@@ -58,7 +58,7 @@ _register_plugins()
 PLUGIN_TYPES = ("torch",)
 
 #: layers of the JAX package that the port does not implement yet: moe
-#: (the expert axis) with the multi-GPU plane (ROADMAP.md)
+#: (the expert axis) with the model-parallel slice (ROADMAP.md item 4(b))
 NOT_PORTED = ("moe",)
 
 
@@ -77,7 +77,7 @@ def not_ported_message(type_name: str) -> str:
     """The refusal of a layer type the port lacks (the runtime's and
     ``task = check``'s words)."""
     return (f"layer type {type_name!r} is not ported to cxxnet_tpu_torch "
-            "yet (ROADMAP.md)")
+            "yet (the model-parallel slice, ROADMAP.md item 4(b))")
 
 
 def create_layer(type_name: str) -> Layer:

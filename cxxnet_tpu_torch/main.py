@@ -73,9 +73,19 @@ Ported tasks:
   printed, one ``check`` record lands in the sink, and the exit code is
   1 iff a finding is an error.
 
-The keys of the JAX package's train loop whose features are not ported
-(``UNPORTED_TASK_KEYS``: the replica weight check of the multi-GPU
-plane) are refused by name.
+Data parallelism (``parallel/``): ``task = train`` / ``finetune`` with a
+``dev`` of several ids (``cpu:0-3``, ``gpu:0-3``) starts one rank a
+device (:func:`~.parallel.mesh.spawn`) and each runs this task on its
+rows of every batch over the ``mesh`` (one ``data`` axis by default);
+``CXN_COORDINATOR`` / ``CXN_NUM_PROC`` / ``CXN_PROC_RANK`` (or the
+``dist_*`` keys) join an external group of processes instead, one rank
+each, whose iterators read their own shard (``dist_num_worker`` /
+``dist_worker_rank``).  Of spawned ranks, rank 0 alone prints, writes
+records and writes snapshots (every rank gathers the shards it holds
+into them); each process of a ``CXN_*`` launch writes its own;
+``test_on_server = 1`` checks after each round that the replicas agree.
+A rank that fails fails the command.  ``pred`` / ``pred_raw`` /
+``extract`` / ``serve`` on several ids are refused by name.
 """
 
 from __future__ import annotations
@@ -99,7 +109,8 @@ from .io.device_prefetch import DevicePrefetcher, item_h2d_sec
 from .io.factory import create_iterator, init_iterator
 from .monitor import TrainingDiverged, log as mlog
 from .monitor.trace import ProfileWindow
-from .nnet.trainer import NetTrainer, diagnostics_to_host, refuse_unported
+from .nnet.trainer import NetTrainer, diagnostics_to_host
+from .parallel import mesh as meshlib
 from .serve import SERVE_KEYS
 from .utils.config import parse_config_file, parse_keyval_args
 
@@ -175,9 +186,23 @@ TASK_KEYS = (
     # (ckpt/__init__.py)
 ) + SERVE_KEYS + CKPT_KEYS
 
-#: train-loop keys of the JAX package that are not ported, with the one
-#: value the port takes: the replica weight check (the multi-GPU plane)
-UNPORTED_TASK_KEYS = {"test_on_server": "0"}
+#: tasks that run on one device only: several ids are refused by name
+ONE_DEVICE_TASKS = ("pred", "pred_raw", "extract", "serve")
+
+
+def several_ids_message(what: str, dev: str, n: int) -> str:
+    """The refusal of several device ids where the port runs one device
+    (the runtime's and ``task = check``'s words)."""
+    return (f"dev = {dev}: {n} devices; {what} on several device ids is "
+            "not ported to cxxnet_tpu_torch yet (training runs data-"
+            "parallel on them; ROADMAP.md, Multi-GPU)")
+
+
+def _cli_rank(rank: int, argv: List[str]) -> None:
+    """One spawned rank of a data-parallel CLI run."""
+    code = LearnTask().run(argv)
+    if code:
+        raise SystemExit(code)
 
 
 class LearnTask:
@@ -269,6 +294,14 @@ class LearnTask:
         self._mem_probe = None
         # task = check's findings
         self.last_check: Optional[list] = None
+        # test_on_server = 1: the replica weight check after each round
+        self.test_on_server = 0
+        # a rank of a spawned data mesh other than rank 0 (dev = cpu:0-3
+        # / gpu:0-3): it prints nothing and writes no records and no
+        # snapshot, which rank 0 does for all.  A process of a CXN_*
+        # launch is its own host and writes its own, as in the JAX
+        # package.
+        self.quiet_rank = False
 
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
@@ -339,12 +372,16 @@ class LearnTask:
             self.ledger = int(val)
         elif name == "rollback":
             self.rollback = int(val)
+        elif name == "test_on_server":
+            self.test_on_server = int(val)
         self.cfg.append((name, val))
 
     # ---------------------------------------------------------------- init
     def _create_net(self) -> NetTrainer:
         net = NetTrainer()
         for k, v in self.cfg:
+            if k == "metrics_sink" and self.quiet_rank:
+                continue  # rank 0 writes the records
             net.set_param(k, v)
         return net
 
@@ -611,6 +648,14 @@ class LearnTask:
         self.start_counter += 1
         if self.save_period == 0 or counter % self.save_period != 0:
             return
+        if self.quiet_rank:
+            # the gathers rank 0 makes to write, made here too
+            if self.ckpt_async:
+                self.net.checkpoint_payload(with_opt=bool(self.save_opt))
+            else:
+                self.net.save_model("", with_opt_state=bool(self.save_opt),
+                                    write=False)
+            return
         os.makedirs(self.name_model_dir, exist_ok=True)
         extra_state = self._ckpt_extra_state(capture_iter)
         metrics = self.net.metrics
@@ -730,6 +775,8 @@ class LearnTask:
             # "newest" counts only once an in-flight write committed; a
             # latched writer failure raises here
             self._ckpt_writer.drain()
+        # every rank reads what rank 0 committed
+        meshlib.barrier(self.net.mesh)
         cands = [(c, p) for c, p in
                  ckptlib.list_snapshots(self.name_model_dir)
                  if c < died_round]
@@ -908,6 +955,7 @@ class LearnTask:
                     self._emit_trace_report(prof)
                 rounds_done += 1
                 train_wall = time.perf_counter() - round_t0
+                self._check_replicas()
                 evals = {}
                 if not self.test_io:
                     line = f"[{self.start_counter}]"
@@ -970,6 +1018,17 @@ class LearnTask:
                     self._emit_trace_report(prof)
                 except Exception as pe:  # noqa: BLE001
                     mlog.warn(f"profile window flush failed: {pe}")
+
+    def _check_replicas(self) -> None:
+        """``test_on_server = 1``: after each round the replicas' weights,
+        optimizer state and buffers must agree exactly (the reference's
+        weight check, async_updater-inl.hpp:144-154)."""
+        if not self.test_on_server:
+            return
+        drift = self.net.check_weight_consistency()
+        if drift != 0.0:
+            raise RuntimeError(
+                f"replica weights diverged (max abs diff {drift})")
 
     def _window_record(self, win: dict, step: int, start: float,
                        staged: bool, bank) -> None:
@@ -1171,7 +1230,7 @@ class LearnTask:
         in the JAX package's order, so both packages see the same
         batches (under ``input_s2d = 1`` staged once in space-to-depth
         form, as the JAX package stages them).  A ``step`` record a
-        round."""
+        round; ``test_on_server = 1`` checks the replicas after each."""
         net = self.net
         k = max(self.multi_step, 1)
         shape = net.net.node_shapes[0]
@@ -1189,6 +1248,7 @@ class LearnTask:
             t = sum(self._timed_step(lambda: net.update_step(
                 {0: datas[j]}, net.label_info(labels[j])))
                 for j in range(k))
+            self._check_replicas()
             mlog.info(f"round {self.start_counter - 1:8d}: synth-device "
                       f"{k} steps, {shape[0] * k / t:.1f} examples/sec")
             net.metrics.emit(
@@ -1760,6 +1820,53 @@ class LearnTask:
         metrics.close()
         return code
 
+    def _join_distributed(self, ids: List[int]) -> bool:
+        """Bring up the data mesh's process group, if the run has one:
+        join an external group (``CXN_COORDINATOR`` / ``CXN_NUM_PROC`` /
+        ``CXN_PROC_RANK``, else the ``dist_*`` keys), setting the
+        iterators' ``dist_num_worker`` / ``dist_worker_rank`` unless the
+        config does; inside a spawned rank, take its rank.  Returns True
+        when this process must instead spawn one rank a device of a
+        ``dev`` with several ids (their count checked first)."""
+        import torch.distributed as dist
+        cfg = dict(self.cfg)
+        if dist.is_initialized():
+            self.quiet_rank = dist.get_rank() != 0
+            if self.quiet_rank:
+                mlog.mute()
+        else:
+            coord = os.environ.get("CXN_COORDINATOR",
+                                   cfg.get("dist_coordinator", ""))
+            if not coord:
+                if len(ids) > 1:
+                    meshlib.select_devices(cfg["dev"])
+                    return True
+                return False
+            nproc = int(os.environ.get("CXN_NUM_PROC",
+                                       cfg.get("dist_num_proc", "1")))
+            rank = int(os.environ.get("CXN_PROC_RANK",
+                                      cfg.get("dist_proc_rank", "0")))
+            platform = meshlib.parse_device_spec(
+                cfg.get("dev", "gpu").lower())["platform"]
+            meshlib.init_distributed(
+                coord, nproc, rank,
+                backend="gloo" if platform == "cpu" else "nccl")
+            if "dist_num_worker" not in cfg:
+                self.set_param("dist_num_worker", str(nproc))
+                self.set_param("dist_worker_rank", str(rank))
+            mlog.info(f"distributed: rank {rank}/{nproc} via {coord}")
+        return False
+
+    def _spawn_ranks(self, argv: List[str], n: int) -> int:
+        """Run this command as ``n`` ranks (one a device of ``dev``),
+        rendezvous on a private file store; a rank that fails fails the
+        command, and the others are stopped."""
+        dev = dict(self.cfg)["dev"]
+        backend = meshlib.backend_for(meshlib.select_devices(dev)[0])
+        mlog.info(f"dev = {dev}: {n} ranks over {backend}")
+        meshlib.spawn(_cli_rank, n, (list(argv),), backend=backend)
+        return 0
+
     def run(self, argv: List[str]) -> int:
         if len(argv) < 1:
             mlog.notice("Usage: python -m cxxnet_tpu_torch <config> "
@@ -1787,9 +1894,19 @@ class LearnTask:
             # lint only: no iterators, no device, no data files; what the
             # port refuses below is one of its findings
             return self.task_check(argv[0])
+        ids = meshlib.parse_device_spec(
+            dict(self.cfg).get("dev", "gpu").lower())["ids"] or []
+        if len(ids) > 1 and self.task in ONE_DEVICE_TASKS:
+            raise ValueError(several_ids_message(
+                f"task = {self.task}", dict(self.cfg)["dev"], len(ids)))
         for k, v in self.cfg:
-            if k in UNPORTED_TASK_KEYS:
-                refuse_unported(k, v, UNPORTED_TASK_KEYS[k])
+            axes = meshlib.MeshSpec.parse(v).unported_axes() \
+                if k == "mesh" else []
+            if axes:
+                # the trainer's refusal, before any rank is started
+                raise ValueError(meshlib.unported_axes_message(v, axes))
+        if self._join_distributed(ids):
+            return self._spawn_ranks(argv, len(ids))
         try:
             self.init()
             mlog.info("initializing end, start working")

@@ -16,7 +16,8 @@ lines):
 between INFO and WARNING; ``notice`` emits at WARNING so it survives.
 The mapping is process-global (like the loggers themselves): the last
 component to set ``silent`` wins, which matches the CLI where one task
-owns the process.
+owns the process.  :func:`mute` silences a process for good (the data
+mesh's ranks other than rank 0).
 
 Handlers resolve ``sys.stdout``/``sys.stderr`` at emit time, so output
 lands wherever the descriptor points *now* (pytest capsys, pipe
@@ -62,10 +63,23 @@ _out = _build("cxxnet_tpu_torch.out", "stdout")
 _err = _build("cxxnet_tpu_torch.err", "stderr")
 
 
+_muted = False
+
+
 def set_silent(flag) -> None:
     """``silent = 1`` suppresses info-level chatter (stdout logger to
     WARNING); results/warnings/notices still print."""
-    _out.setLevel(logging.WARNING if int(flag) else logging.INFO)
+    if not _muted:
+        _out.setLevel(logging.WARNING if int(flag) else logging.INFO)
+
+
+def mute() -> None:
+    """Silence every line but errors for the rest of the process: a
+    data-mesh rank other than rank 0, which alone prints."""
+    global _muted
+    _muted = True
+    _out.setLevel(logging.ERROR)
+    _err.setLevel(logging.ERROR)
 
 
 def is_silent() -> bool:

@@ -57,6 +57,17 @@ names the connection ranges a profile window joins kernels against.
 :meth:`NetTrainer.init_model` builds the net on ``meta`` tensors for
 ``task = check``; ``strict_config = 1`` has the layers report the keys
 they drop.
+
+Data parallelism (``parallel/``, the JAX package's mesh): with a ``dev``
+of several ids, a ``mesh`` or in a process group of several ranks, each
+rank holds a :class:`~..parallel.mesh.Mesh` and trains on its rows of
+every batch (:meth:`NetTrainer.stage_batch`,
+:meth:`NetTrainer._local_rows`); :meth:`NetTrainer.update_step` sums
+the gradients over ``data`` after the backward, or bucket by bucket from
+it under ``dp_overlap = 1`` (:meth:`NetTrainer._dp_mode`); ZeRO and the
+model axis's shards follow ``parallel/data.py`` and snapshots hold the
+logical arrays.  :meth:`NetTrainer.check_weight_consistency` is
+``test_on_server``'s replica check.
 """
 
 from __future__ import annotations
@@ -76,7 +87,9 @@ from ..layers.base import ForwardContext, LabelInfo, materialize
 from ..monitor import TrainingDiverged, ingraph, log as mlog
 from ..monitor.memory import BACKWARD, UPDATE, AllocProbe
 from ..monitor.metrics import Metrics, device_memory_gauges
-from ..parallel.mesh import MeshSpec, parse_device_spec
+from ..parallel import data as dplib, mesh as meshlib
+from ..parallel.mesh import (MeshSpec, parse_device_spec,
+                             unported_axes_message)
 from ..updater.updaters import UpdaterHyper, create_updater
 from ..utils import serializer
 from ..utils.metric import MetricSet
@@ -140,57 +153,28 @@ TRAINER_KEYS = (
            "reporter as warnings"),
 )
 
-#: trainer keys of the JAX package whose features are not ported: any
-#: value but the default is refused by name (ROADMAP.md: the multi-GPU
-#: plane)
-UNPORTED_KEYS = {"shard_opt_state": "0", "update_on_server": "0",
-                 "fullc_gather": "0"}
-
-
-def unported_message(name: str, val: str, default: str) -> str:
-    """The refusal of a key whose feature is not ported (the runtime's
-    and ``task = check``'s words)."""
-    return (f"{name} = {val}: not ported to cxxnet_tpu_torch yet (only "
-            f"{default!r}; ROADMAP.md)")
-
-
-def refuse_unported(name: str, val: str, default: str) -> None:
-    if val != default:
-        raise ValueError(unported_message(name, val, default))
-
-
-def several_ids_message(dev: str, n: int) -> str:
-    return (f"dev = {dev}: {n} devices; a data mesh over several device "
-            "ids (multi-GPU) is not ported to cxxnet_tpu_torch yet "
-            "(ROADMAP.md, Multi-GPU)")
-
-
-def mesh_message(val: str) -> str:
-    return (f"mesh = {val}: multi-GPU meshes are not ported to "
-            "cxxnet_tpu_torch yet (ROADMAP.md)")
-
-
-def resolve_device(dev: str) -> torch.device:
-    """``dev`` -> torch device.  ``cpu`` runs on the CPU; ``gpu``,
-    ``cuda`` and the JAX package's accelerator names (``tpu``, with
-    optional ``:i``) run on the card, and raise when there is none — an
-    accelerator request never lands on the CPU.  Several ids (``:i-j``,
-    ``:i,j``), which the JAX package turns into a data mesh, are refused
-    by name: the multi-GPU plane is not ported."""
+def resolve_device(dev: str, rank: int = 0) -> torch.device:
+    """``dev`` -> this rank's torch device.  ``cpu`` (any ids) runs on
+    the CPU; ``gpu``, ``cuda`` and the JAX package's accelerator names
+    (``tpu``, with optional ids) run on the card, and raise when there
+    is none — an accelerator request never lands on the CPU.  Several
+    ids (``:i-j``, ``:i,j``) are a data mesh of one rank a device: rank
+    ``rank`` takes the ``rank``-th id, and a range naming more cards
+    than are visible is refused with both counts."""
     spec = parse_device_spec(dev.lower())
     platform = spec["platform"]
     if platform not in ("cpu", "gpu", "cuda", "tpu"):
         raise ValueError(f"dev = {dev!r}: expected cpu, gpu[:i], cuda[:i] "
                          "or tpu[:i]")
     listed = spec["ids"] or []
-    if len(listed) > 1:
-        raise ValueError(several_ids_message(dev, len(listed)))
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"dev = {dev}: no CUDA device is available; set dev = cpu to "
             "run on the CPU")
+    if len(listed) > 1:
+        return meshlib.select_devices(dev)[rank]
     return torch.device("cuda", listed[0] if listed else 0)
 
 
@@ -394,6 +378,19 @@ class NetTrainer:
         # errors: 0-d tensors on the device, the JAX package's
         # _last_diags)
         self.last_diags: Dict[str, torch.Tensor] = {}
+        # the data-parallel plane (parallel/): ``mesh`` (None on one
+        # device; a caller may install one before the build, e.g. two
+        # gloo ranks on one card), the configured spec, ZeRO and the
+        # model-axis fullc shards (parallel/data.py), the dp_overlap
+        # bucket plan and its one-shot fallback warnings
+        self.mesh: Optional[meshlib.Mesh] = None
+        self.mesh_spec: Optional[MeshSpec] = None
+        self.shard_opt_state = 0
+        self.fullc_gather = 0
+        self.model_sharded: Dict[Tuple[str, str], Tuple[int, ...]] = {}
+        self.zero_leaves: set = set()
+        self._dp_plan_state = None
+        self._dp_warned: set = set()
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -412,8 +409,17 @@ class NetTrainer:
                                  f"{sorted(DTYPES)}")
             self.dtype = DTYPES[val]
         elif name == "mesh":
-            if MeshSpec.parse(val).size > 1:
-                raise ValueError(mesh_message(val))
+            spec = MeshSpec.parse(val)
+            if spec.unported_axes():
+                raise ValueError(unported_axes_message(
+                    val, spec.unported_axes()))
+            self.mesh_spec = spec
+        elif name in ("shard_opt_state", "update_on_server"):
+            # update_on_server = 1 (server-side optimizer state) is ZeRO
+            # over the data axis, as in the JAX package
+            self.shard_opt_state = int(val)
+        elif name == "fullc_gather":
+            self.fullc_gather = int(val)
         elif name == "remat":
             self.remat = int(val)
         elif name == "batch_split":
@@ -430,8 +436,6 @@ class NetTrainer:
             self.input_mean = np.array(
                 [float(v) for v in val.split(",") if v.strip()], np.float32)
             self._mean_dev = {}
-        elif name in UNPORTED_KEYS:
-            refuse_unported(name, val, UNPORTED_KEYS[name])
         elif name == "monitor":
             self.monitor = int(val)
         elif name == "monitor_interval":
@@ -472,9 +476,121 @@ class NetTrainer:
                    device: Optional[torch.device] = None) -> None:
         assert self.batch_size > 0, "batch_size must be set"
         self.netcfg = netcfg
-        self.device = device if device is not None \
-            else resolve_device(self.dev)
+        self._setup_mesh(device)
+        self.model_sharded, self.zero_leaves = {}, set()
         self.net = Network(netcfg, self.batch_size, self.dtype)
+
+    def _setup_mesh(self, device: Optional[torch.device]) -> None:
+        """This rank's device and mesh (the JAX package's
+        ``_setup_mesh``).  ``mesh`` names the axes; without it a ``dev``
+        of several ids is one ``data`` axis over them, and a process of
+        a joined group of several (``CXN_*``) one over the group.  A mesh
+        the caller installed is kept; on ``meta`` (``task = check``) the
+        mesh is virtual: the axes of one rank, no group.  One device
+        makes no mesh: no process group, no collective."""
+        import torch.distributed as dist
+        spec = self.mesh_spec
+        ids = parse_device_spec(self.dev.lower())["ids"] or []
+        if spec is None and len(ids) > 1:
+            spec = MeshSpec({"data": len(ids)})
+        joined = dist.is_available() and dist.is_initialized()
+        if spec is None and joined and dist.get_world_size() > 1:
+            spec = MeshSpec({"data": dist.get_world_size()})
+        if self.mesh is not None:
+            if spec is not None and spec.axes != self.mesh.axes:
+                raise ValueError(f"mesh {spec.axes} does not match the "
+                                 f"installed mesh {self.mesh.axes}")
+            self.device = device if device is not None else self.mesh.device
+        elif device is not None and device.type == "meta":
+            self.device = device
+            if spec is not None and spec.size > 1:
+                self.mesh = meshlib.virtual_mesh(spec, device)
+        else:
+            rank = dist.get_rank() if joined else 0
+            self.device = device if device is not None \
+                else resolve_device(self.dev, rank)
+            if spec is not None and spec.size > 1:
+                if not joined:
+                    n = spec.size
+                    raise ValueError(
+                        f"mesh {spec.axes} needs {n} ranks and this "
+                        "process is in no process group: select the "
+                        f"devices (dev = cpu:0-{n - 1} or gpu:0-{n - 1}; "
+                        "the CLI starts a rank for each) or start the "
+                        "ranks with parallel.mesh.spawn")
+                self.mesh = meshlib.build_mesh(spec, self.device)
+        nd = dplib.data_size(self.mesh)
+        if self.batch_size % nd:
+            raise ValueError(f"batch_size = {self.batch_size} does not "
+                             f"divide over the data axis of {nd}")
+
+    def _data_split(self) -> bool:
+        """True when each rank takes its rows of a batch (a real mesh
+        with a data axis wider than 1)."""
+        return (self.mesh is not None and not self.mesh.virtual
+                and dplib.data_size(self.mesh) > 1)
+
+    def _place_state(self) -> None:
+        """Cut the logical parameters to what this rank holds: the
+        model-axis shards; note the ZeRO leaves."""
+        self.model_sharded, self.zero_leaves = dplib.plan_shards(
+            self.params, self.mesh, fullc_gather=bool(self.fullc_gather),
+            shard_opt_state=bool(self.shard_opt_state))
+        self._slice_params()
+
+    def _slice_params(self) -> None:
+        for (pkey, tag), shape in self.model_sharded.items():
+            self.params[pkey][tag] = dplib.rank_slice(
+                self.params[pkey][tag], self.mesh, "model", shape[0])
+
+    def _opt_view(self, pkey: str, tag: str, p: torch.Tensor):
+        """The part of parameter ``p`` whose optimizer state this rank
+        holds: its row block for a ZeRO leaf, else all of it."""
+        if (pkey, tag) in self.zero_leaves:
+            return dplib.axis_block(p, self.mesh, "data")
+        return p
+
+    def _run_params(self):
+        """The params a forward reads: model-sharded leaves all-gathered
+        where a connection first reads them (:class:`~..parallel.data.
+        GatheringParams`), else the params themselves."""
+        if not self.model_sharded:
+            return self.params
+        return dplib.GatheringParams(self.params, self.model_sharded,
+                                     self.mesh)
+
+    def _logical_params(self) -> Params:
+        """The params as logical arrays (model shards gathered)."""
+        if not self.model_sharded:
+            return self.params
+        return {pkey: {tag: dplib.gather_leaf(p, self.mesh, "model")
+                       if (pkey, tag) in self.model_sharded else p
+                       for tag, p in g.items()}
+                for pkey, g in self.params.items()}
+
+    def _logical_opt(self) -> Dict:
+        """The optimizer state as logical arrays (ZeRO slices gathered
+        over ``data``, model shards over ``model``)."""
+        def full(pkey, tag, a):
+            if (pkey, tag) in self.zero_leaves:
+                return dplib.gather_leaf(a, self.mesh, "data")
+            if (pkey, tag) in self.model_sharded:
+                return dplib.gather_leaf(a, self.mesh, "model")
+            return a
+        return {pkey: {tag: {n: full(pkey, tag, a) for n, a in st.items()}
+                       for tag, st in g.items()}
+                for pkey, g in self.opt_state.items()}
+
+    def _rank_opt(self, pkey: str, tag: str, a: torch.Tensor
+                  ) -> torch.Tensor:
+        """A logical optimizer-state array cut to this rank's part."""
+        if (pkey, tag) in self.zero_leaves:
+            return dplib.rank_slice(a, self.mesh, "data",
+                                    self.params[pkey][tag].shape[0])
+        if (pkey, tag) in self.model_sharded:
+            return dplib.rank_slice(a, self.mesh, "model",
+                                    self.model_sharded[(pkey, tag)][0])
+        return a
 
     def init_model(self, device: Optional[torch.device] = None) -> None:
         """Fresh weights from ``seed``, drawn on the trainer's device.
@@ -494,7 +610,9 @@ class NetTrainer:
     def _post_build(self) -> None:
         """The updater, one hyper group per (layer, tag) — global keys,
         then the layer's own section (reference
-        NeuralNet::InitUpdaters) — the loss scale and the counters."""
+        NeuralNet::InitUpdaters) — the loss scale and the counters; on a
+        mesh the state is cut to this rank's part first."""
+        self._place_state()
         self.updater = create_updater(self.netcfg.updater_type)
         key_to_layer = {c.param_key: i for i, c in
                         enumerate(self.net.connections) if c.owns_params}
@@ -535,12 +653,31 @@ class NetTrainer:
         self._setup_input_s2d()
         self._reorder_relu_pool()
         self._fuse_sibling_convs()
+        # dp_overlap: the bucket plan is built lazily (after the relu ->
+        # pool reorder sets the deferred-bias keys); _overlap_defer picks
+        # the dp_reduce_at = apply window (local micro-steps, one
+        # reduction at the apply), pure-DP only
+        self._dp_plan_state = None
+        self._dp_warned = set()
+        defer_wanted = (
+            self.update_period > 1 and not self.monitor
+            and self.netcfg.extra_data_num == 0
+            and self.opts.dp_reduce_at == "apply"
+            and self._dp_overlap_active())
+        self._overlap_defer = defer_wanted and dplib.model_size(
+            self.mesh) <= 1
+        if defer_wanted and not self._overlap_defer:
+            self._dp_warned.add("defer_model")
+            mlog.warn("dp_reduce_at = apply is pure-DP; the model mesh "
+                      "axis reduces every micro-step instead "
+                      "(dp_reduce_at = step semantics)")
         # run header: the record binding the stream to the config it
         # measures
         self.metrics.emit(
             "run", updater=self.netcfg.updater_type,
             batch_size=self.batch_size, dtype=str(self.dtype).split(".")[-1],
-            mesh={"data": 1}, monitor=self.monitor,
+            mesh=dict(self.mesh.axes) if self.mesh is not None
+            else {"data": 1}, monitor=self.monitor,
             monitor_interval=self.monitor_interval,
             monitor_nan=self.monitor_nan, engine_opts=self.opts.snapshot())
 
@@ -777,6 +914,18 @@ class NetTrainer:
             self._grad_acc = {k: {t: v.to(self.device) for t, v in g.items()}
                               for k, g in _torch_group(acc, "acc",
                                                        dtypes).items()}
+            for (pkey, tag), shape in self.model_sharded.items():
+                g = self._grad_acc.get(pkey, {})
+                if tag in g:
+                    g[tag] = dplib.rank_slice(g[tag], self.mesh, "model",
+                                              shape[0])
+            if self._overlap_defer and self.mesh.axis_index("data"):
+                # the file holds the window's global sum; a local
+                # accumulator of dp_reduce_at = apply is reduced once at
+                # the apply, so one rank carries it
+                for g in self._grad_acc.values():
+                    for v in g.values():
+                        v.zero_()
         extra = header.get("extra") or {}
         self.epoch_counter = header["epoch"]
         self.round = extra.get("round", 0)
@@ -807,6 +956,7 @@ class NetTrainer:
                     t: torch.from_numpy(np.array(src[t], np.float32))
                     .to(self.device, p.dtype) for t, p in group.items()}
                 copied.append(name)
+        self._slice_params()
         if self.opt_state is not None:
             self._refresh_masters()
         self.copied_layers = copied
@@ -819,6 +969,7 @@ class NetTrainer:
                            for k, g in tree.items()}
         self.params = to(params)
         self.buffers = to(buffers)
+        self._slice_params()
         if self.opt_state is not None:
             self._refresh_masters()
 
@@ -842,7 +993,8 @@ class NetTrainer:
         """A layer's parameter as float32 numpy (the JAX package's
         ``get_weight``; ``KeyError`` for an unknown layer or tag)."""
         pkey = self._resolve_param_key(layer_name)
-        p = self.params[pkey][self._leaf_tag(pkey, tag, layer_name)]
+        flat = self._leaf_tag(pkey, tag, layer_name)
+        p = self._logical_params()[pkey][flat]
         return p.detach().float().cpu().numpy()
 
     def set_weight(self, value: np.ndarray, layer_name: str,
@@ -863,8 +1015,10 @@ class NetTrainer:
 
     def set_opt_state(self, opt: Dict) -> None:
         """Install optimizer state (e.g. from :func:`opt_state_from_jax`)
-        on the trainer's device."""
-        self.opt_state = {k: {t: {n: a.to(self.device, torch.float32)
+        on the trainer's device; on a mesh the logical arrays are cut to
+        this rank's part (its ZeRO slice, its model shard)."""
+        self.opt_state = {k: {t: {n: self._rank_opt(k, t, a).to(
+                                  self.device, torch.float32)
                                   for n, a in st.items()}
                               for t, st in g.items()}
                           for k, g in opt.items()}
@@ -877,7 +1031,8 @@ class NetTrainer:
             for tag, p in group.items():
                 st = self.opt_state[pkey][tag]
                 if "w32" in st:
-                    st["w32"] = p.detach().float().clone()
+                    st["w32"] = self._opt_view(pkey, tag, p).detach() \
+                        .float().clone()
 
     def _ensure_opt_state(self) -> None:
         if self.opt_state is not None:
@@ -885,7 +1040,8 @@ class NetTrainer:
         if self._opt_host is not None:
             self.set_opt_state(self._opt_host)
             return
-        self.opt_state = {pkey: {tag: self.updater.make_state(p)
+        self.opt_state = {pkey: {tag: self.updater.make_state(
+                                     self._opt_view(pkey, tag, p))
                                  for tag, p in g.items()}
                           for pkey, g in self.params.items()}
 
@@ -953,10 +1109,13 @@ class NetTrainer:
         state not made yet is made here, as the first update would make
         it, so a snapshot before the first step carries it as the JAX
         package's does.  Runs on the train thread: the arrays are
-        independent host copies, safe to hand to the async writer."""
+        independent host copies, safe to hand to the async writer.  On a
+        mesh every rank calls it (the shards of ZeRO and model-sharded
+        leaves are gathered into the logical arrays the file holds, the
+        same file one device writes); rank 0 writes it."""
         dtypes: Dict[str, str] = {}
         shards = {"params": serializer.flatten_tree(
-            {"params": _host_tree(self.params)}, dtypes)}
+            {"params": _host_tree(self._logical_params())}, dtypes)}
         buf = serializer.flatten_tree(
             {"buffers": _host_tree(self.buffers)}, dtypes)
         if buf:
@@ -964,11 +1123,11 @@ class NetTrainer:
         if with_opt:
             self._ensure_opt_state()
             shards["opt"] = serializer.flatten_tree(
-                {"opt": _host_tree(self.opt_state)}, dtypes)
+                {"opt": _host_tree(self._logical_opt())}, dtypes)
         if self.sample_counter % self.update_period \
                 and self._grad_acc is not None:
             shards["acc"] = serializer.flatten_tree(
-                {"acc": _host_tree(self._grad_acc)}, dtypes)
+                {"acc": _host_tree(self._global_acc())}, dtypes)
         extra = {"round": int(self.round),
                  "train_state": self.train_state()}
         if extra_state:
@@ -979,23 +1138,43 @@ class NetTrainer:
                 "extra": extra}
         return shards, meta
 
+    def _global_acc(self) -> Dict:
+        """The pending gradient window as the file holds it: the global
+        sum (a ``dp_reduce_at = apply`` window's local sums reduced over
+        ``data``) of logical arrays."""
+        out = {}
+        for pkey, g in self._grad_acc.items():
+            out[pkey] = {}
+            for tag, v in g.items():
+                if self._overlap_defer:
+                    v = meshlib.all_reduce(v.clone(), self.mesh, "data")
+                if (pkey, tag) in self.model_sharded:
+                    v = dplib.gather_leaf(v, self.mesh, "model")
+                out[pkey][tag] = v
+        return out
+
     def save_model(self, path: str, with_opt_state: bool = False,
-                   extra_state: Optional[Dict] = None) -> None:
+                   extra_state: Optional[Dict] = None,
+                   write: bool = True) -> None:
         """Write a legacy ``.model`` (atomically), with the optimizer state
         under ``with_opt_state`` (made here if no update has made it), and
         the round, :meth:`train_state` and ``extra_state`` in its header's
-        extra."""
+        extra.  On a mesh every rank calls it (the logical arrays are
+        gathered, :meth:`checkpoint_payload`), the ranks that do not write
+        the file with ``write = False``."""
         extra = {"round": int(self.round), "train_state": self.train_state()}
         if extra_state:
             extra.update(extra_state)
         if with_opt_state:
             self._ensure_opt_state()
+        params = self._logical_params()
+        opt = self._logical_opt() if with_opt_state else None
+        if not write:
+            return
         serializer.save_model(
             path, net_structure=self.netcfg.to_dict(),
-            epoch=self.epoch_counter, params=self.params,
-            buffers=self.buffers,
-            opt_state=self.opt_state if with_opt_state else None,
-            extra_meta=extra)
+            epoch=self.epoch_counter, params=params,
+            buffers=self.buffers, opt_state=opt, extra_meta=extra)
 
     # -------------------------------------------------------------- staging
     def _host_tensor(self, a, keep_u8: bool = False) -> torch.Tensor:
@@ -1021,28 +1200,35 @@ class NetTrainer:
         consumer's stream waits on (:meth:`StagedBatch.handover`)."""
         from ..io.device_prefetch import StagedBatch
         t0 = time.perf_counter()
-        data = self._host_tensor(batch.data, keep_u8=True)
+        # on a data mesh this rank stages its rows of the batch only
+        n = np.asarray(batch.label).shape[0]
+        rows = dplib.row_slice(self.mesh, n) if self._data_split() \
+            else slice(0, n)
+        label_host = np.asarray(batch.label)[rows]
+        data = self._host_tensor(np.asarray(batch.data)[rows], keep_u8=True)
         if self._s2d_args is not None:
             data = self.stage_input(data)
-        label = self._host_tensor(batch.label)
-        extras = tuple(self._host_tensor(e)
+        label = self._host_tensor(label_host)
+        extras = tuple(self._host_tensor(np.asarray(e)[rows])
                        for e in getattr(batch, "extra_data", None) or ())
         n_padd = int(getattr(batch, "tail_mask_padd", 0))
         mask = None
         if n_padd:
-            # tail-batch replica padding trains nothing (DataBatch)
-            mask = torch.ones((label.shape[0],), dtype=torch.float32,
-                              device=self.device)
-            mask[label.shape[0] - n_padd:] = 0.0
+            # tail-batch replica padding trains nothing (DataBatch),
+            # wherever its rows fall among the ranks
+            host_mask = np.ones((n,), np.float32)
+            host_mask[n - n_padd:] = 0.0
+            mask = torch.from_numpy(host_mask[rows]).to(self.device)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         return StagedBatch(
-            data=data, label=label, label_host=np.asarray(batch.label),
+            data=data, label=label, label_host=label_host,
             index=batch.index, num_batch_padd=int(batch.num_batch_padd),
             tail_mask_padd=n_padd, extra_data=extras, mask=mask,
-            h2d_sec=time.perf_counter() - t0, ready=ready)
+            h2d_sec=time.perf_counter() - t0, ready=ready,
+            global_rows=n if self._data_split() else 0)
 
     def _staged(self, batch):
         """The batch staged and safe to read on the current stream: a
@@ -1075,19 +1261,28 @@ class NetTrainer:
              ) -> ForwardContext:
         return ForwardContext(train=True, opts=self.opts, labels=labels,
                               loss_scale=self.loss_scale, rng=self.rng,
-                              epoch=epoch)
+                              epoch=epoch, mesh=self.mesh)
 
     def _loss_grads_outs(self, inputs: Dict[int, torch.Tensor],
-                         labels: LabelInfo, epoch: Optional[int] = None
+                         labels: LabelInfo, epoch: Optional[int] = None,
+                         dp: Optional[str] = None, acc: Optional[Dict] = None
                          ) -> Tuple[torch.Tensor, Dict, Dict, Dict]:
         """(loss, grads, {eval node: its training-forward output}, new
-        buffers)."""
+        buffers).  ``dp`` (:meth:`_dp_mode`) picks the backward of a
+        data-parallel step: ``overlap`` / ``fold`` reduce the gradients
+        bucket by bucket from the backward (``fold`` with the local
+        window ``acc`` folded in first), ``local`` leaves them local;
+        otherwise (``implicit`` or no mesh) the caller reduces them.
+        Model-sharded leaves are gathered where the forward reads them
+        and their gradients come back as shards."""
         epoch = self.epoch_counter if epoch is None else epoch
         leaves = [(k, t, p) for k, g in self.params.items()
                   for t, p in g.items()]
         for _, _, p in leaves:
             p.requires_grad_(True)
         diags: Dict[str, torch.Tensor] = {}
+        own = self.params
+        self.params = self._run_params()
         try:
             with record_function("train_forward"):
                 if self.remat:
@@ -1112,14 +1307,19 @@ class NetTrainer:
             # segment's recompute in the backward
             self.net.mem_probe = None
             with record_function("train_backward"):
-                grads = torch.autograd.grad(total, [p for _, _, p in leaves])
+                if dp in ("overlap", "fold", "local"):
+                    out = self._overlap_backward(total, leaves, dp, acc)
+                else:
+                    grads = torch.autograd.grad(
+                        total, [p for _, _, p in leaves])
+                    out = {}
+                    for (k, t, _), g in zip(leaves, grads):
+                        out.setdefault(k, {})[t] = g
         finally:
+            self.params = own
             self.net.mem_probe = None
             for _, _, p in leaves:
                 p.requires_grad_(False)
-        out: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (k, t, _), g in zip(leaves, grads):
-            out.setdefault(k, {})[t] = g
         outs = {n: materialize(nodes[n]).detach() for n in self.eval_node_ids}
         return total.detach(), out, outs, buffers
 
@@ -1229,16 +1429,16 @@ class NetTrainer:
         sb = self._staged(batch)
         outs = self.update_step(*self._batch_tensors(sb))
         if self.eval_train and self.train_metric.evals:
-            self._add_eval(self.train_metric,
-                           [outs[n].float().cpu().numpy()
-                            for n in self.eval_node_ids],
-                           sb.label_host, sb.num_batch_padd)
+            self._add_batch_eval(self.train_metric,
+                                 [outs[n].float() for n in
+                                  self.eval_node_ids], sb)
 
     def update_step(self, inputs: Dict[int, torch.Tensor],
                     labels: LabelInfo) -> Dict[int, torch.Tensor]:
         """One training step on device tensors (node id -> input, label
         fields); returns the eval-node outputs of its forward."""
         self._ensure_opt_state()
+        inputs, labels = self._local_rows(inputs, labels)
         inputs = {**inputs,
                   0: self.stage_input(self._normalize_input(inputs[0]))}
         self._count_shape(self._train_shapes, "train_step_traces", inputs)
@@ -1251,12 +1451,27 @@ class NetTrainer:
         epoch = self.epoch_counter
         if do_update:
             self.epoch_counter += 1
+        dp = self._dp_mode(do_update, len(inputs) > 1)
+        acc = None
+        if dp == "fold":
+            acc, self._grad_acc = self._grad_acc, None
+        # at one device the call is the single-device step's
+        kw = {} if dp is None else {"dp": dp, "acc": acc}
         loss, grads, outs, self.buffers = self._loss_grads_outs(
-            inputs, labels, epoch)
+            inputs, labels, epoch, **kw)
+        if dp is not None:
+            # the global batch's loss; the implicit step's gradients
+            # summed over data leaf by leaf (ZeRO leaves reduce-scattered
+            # when no accumulator holds them whole)
+            loss = meshlib.all_reduce(loss.clone(), self.mesh, "data")
+            if dp == "implicit":
+                grads = dplib.reduce_grads(
+                    grads, self.mesh, self.zero_leaves,
+                    scatter=self.update_period == 1)
         if probe is not None:
             probe.mark(BACKWARD)
         self.last_loss = loss
-        if self.update_period > 1:
+        if self.update_period > 1 and dp != "fold":
             if self._grad_acc is None:
                 self._grad_acc = grads
             else:
@@ -1281,6 +1496,148 @@ class NetTrainer:
                                                      self.params)
             self._monitor_tick(loss, self._last_monitor)
         return outs
+
+    # ------------------------------------------------------- data parallel
+    def _local_rows(self, inputs: Dict[int, torch.Tensor],
+                    labels: LabelInfo
+                    ) -> Tuple[Dict[int, torch.Tensor], LabelInfo]:
+        """A whole batch (``batch_size`` rows) cut to this rank's rows on
+        a data mesh; a staged batch arrives cut already
+        (:meth:`stage_batch`)."""
+        if not self._data_split() \
+                or inputs[0].shape[0] != self.batch_size:
+            return inputs, labels
+        rows = dplib.row_slice(self.mesh, self.batch_size)
+        return ({k: v[rows] for k, v in inputs.items()},
+                LabelInfo(fields={n: f[rows]
+                                  for n, f in labels.fields.items()},
+                          mask=None if labels.mask is None
+                          else labels.mask[rows]))
+
+    def _dp_mode(self, do_update: bool, extras: bool) -> Optional[str]:
+        """The reduction of this step: None off a data mesh; ``implicit``
+        (all gradients after the backward); ``overlap`` (bucketed, from
+        the backward: ``dp_overlap = 1``); under ``dp_reduce_at = apply``
+        windows, ``local`` micro-steps and a ``fold`` apply step."""
+        if not self._data_split():
+            if self.opts.dp_overlap == "1":
+                self._dp_overlap_active()  # warns: nothing to reduce
+            return None
+        if extras and self.opts.dp_overlap == "1":
+            self._dp_warn_once("extra-data inputs are unsupported")
+            return "implicit"
+        if not self._dp_overlap_active():
+            return "implicit"
+        if self._overlap_defer:
+            return "fold" if do_update else "local"
+        return "overlap"
+
+    def _dp_warn_once(self, reason: str) -> None:
+        if reason not in self._dp_warned:
+            self._dp_warned.add(reason)
+            mlog.warn(f"dp_overlap = 1 ignored: {reason}; using the "
+                      "implicit-psum step")
+
+    def _dp_overlap_plan(self):
+        """The bucket plan (:func:`~..parallel.overlap.plan_buckets`,
+        over the logical parameter sizes), built once with its log line;
+        None when an eval node sits before the loss-tail frontier."""
+        if self._dp_plan_state is None:
+            from ..parallel import overlap
+            logical = {pkey: {tag: torch.empty(
+                self.model_sharded.get((pkey, tag), tuple(p.shape)),
+                dtype=p.dtype, device="meta") for tag, p in g.items()}
+                for pkey, g in self.params.items()}
+            plan = overlap.plan_buckets(
+                self.net, logical, float(self.opts.dp_bucket_mb),
+                tuple(dict.fromkeys(self.eval_node_ids)))
+            self._dp_plan_state = (plan,)
+            if plan is not None:
+                sizes = [sum(overlap.group_bytes(logical[k]) for k in ks)
+                         for ks in plan.stage_keys]
+                n_gather = len(self.model_sharded)
+                mlog.info(
+                    "dp_overlap: %d buckets (KiB per bucket: %s), "
+                    "reduce_dtype=%s, reduce_at=%s%s" % (
+                        len(plan.stages),
+                        ",".join(str(s // 1024) for s in sizes),
+                        self.opts.dp_reduce_dtype, self.opts.dp_reduce_at,
+                        f", model-axis gathers={n_gather} leaves"
+                        if dplib.model_size(self.mesh) > 1 and n_gather
+                        else ""))
+        return self._dp_plan_state[0]
+
+    def _dp_overlap_active(self) -> bool:
+        """True when the bucketed, backward-overlapped reduction replaces
+        the implicit one.  Each combination it cannot run falls back to
+        the implicit step with a one-shot warning, in the JAX package's
+        words (the ``seq`` / ``expert`` / ``pipe`` axes and ``moe``,
+        which it also names, are refused before a trainer is built)."""
+        if self.opts.dp_overlap != "1":
+            return False
+        if dplib.data_size(self.mesh) < 2:
+            self._dp_warn_once("mesh has no data axis wider than 1")
+            return False
+        if self.remat or self.batch_split > 1:
+            self._dp_warn_once("remat/batch_split paths schedule "
+                               "their own backward")
+            return False
+        if self.buffers:
+            self._dp_warn_once("stateful layers (running buffers, e.g. "
+                               "batch_norm) don't thread through the "
+                               "sliced vjp")
+            return False
+        if self.has_diagnostics:
+            self._dp_warn_once("pairtest diagnostics need the implicit "
+                               "forward")
+            return False
+        if self.opts.conv_sibling_fuse == "1" \
+                or self.opts.concat_virtual == "1":
+            self._dp_warn_once("conv_sibling_fuse/concat_virtual rewrite "
+                               "the forward graph")
+            return False
+        if self._dp_overlap_plan() is None:
+            self._dp_warn_once("a train-metric eval node sits before the "
+                               "loss-tail frontier")
+            return False
+        return True
+
+    def _overlap_backward(self, total: torch.Tensor, leaves, dp: str,
+                          acc: Optional[Dict]) -> Dict:
+        """The ``dp_overlap`` backward (:mod:`..parallel.overlap`): each
+        bucket's reductions issued from the backward as its last
+        gradient lands (``local``: none, the local gradients)."""
+        from ..parallel import overlap
+        reducer = None
+        if dp != "local":
+            plan = self._dp_overlap_plan()
+            scatter = self.zero_leaves \
+                if dp == "fold" or self.update_period == 1 else set()
+            reducer = overlap.BucketReducer(
+                leaves, overlap.plan_buckets_of_keys(plan), self.mesh,
+                scatter=scatter,
+                dtype=overlap.REDUCE_DTYPES[self.opts.dp_reduce_dtype])
+        return overlap.run_backward(total, leaves, reducer=reducer, acc=acc)
+
+    def check_weight_consistency(self) -> float:
+        """Replica consistency, the ``test_on_server`` check: the largest
+        |difference| of any parameter, optimizer-state or buffer leaf
+        between the ranks that hold the same slice of it (ZeRO slices
+        compare over ``model``, model shards over ``data``); NaN against
+        a value is ``inf``.  0.0 when every replica agrees, and on one
+        device.  Every rank of the mesh must call it."""
+        if self.mesh is None or self.mesh.virtual:
+            return 0.0
+
+        def split(i: int, pkey: str, tag: str) -> Optional[str]:
+            if (pkey, tag) in self.model_sharded:
+                return "model"
+            if i == 1 and (pkey, tag) in self.zero_leaves:
+                return "data"
+            return None
+        return dplib.weight_consistency(
+            [self.params, self.opt_state or {}, self.buffers], self.mesh,
+            split)
 
     def _count_shape(self, seen: set, counter: str, inputs) -> None:
         """Count a batch shape the step has not seen (what retraces the
@@ -1373,15 +1730,25 @@ class NetTrainer:
     def apply_update(self, grads: Dict, epoch: int) -> None:
         """The updater on every (layer, tag), in place; ``fused_update =
         1`` sends the tensors its gate admits through the fused adam
-        kernel."""
+        kernel.  A ZeRO leaf is updated on this rank's row block (its
+        gradient's block: the reduce-scattered one, or a block of a whole
+        one) and the blocks are all-gathered back into the parameter."""
         fused = self.opts.fused_update == "1"
+        gathers = []
         with record_function("train_update"):
             for pkey, group in self.params.items():
                 for tag, p in group.items():
-                    self.updater.apply(p, grads[pkey][tag],
-                                       self.opt_state[pkey][tag],
+                    g = grads[pkey][tag]
+                    view = self._opt_view(pkey, tag, p)
+                    if view is not p and g.shape[0] == p.shape[0]:
+                        g = dplib.axis_block(g, self.mesh, "data")
+                    self.updater.apply(view, g, self.opt_state[pkey][tag],
                                        self.hypers[pkey][tag], epoch,
                                        fused=fused)
+                    if view is not p:
+                        gathers.append((p, view))
+            for p, view in gathers:
+                meshlib.all_gather(view.clone(), self.mesh, "data", out=p)
 
     def sync(self) -> None:
         """Wait for the device (a no-op on the CPU)."""
@@ -1390,19 +1757,20 @@ class NetTrainer:
 
     # ------------------------------------------------------------ forward
     def forward_eval(self, data: torch.Tensor, node_ids: Sequence[int],
-                     extra_data: Sequence[torch.Tensor] = ()
-                     ) -> List[np.ndarray]:
+                     extra_data: Sequence[torch.Tensor] = (),
+                     host: bool = True) -> List:
         """Eval forward of a ``(n, c, y, x)`` batch (and its extra input
         nodes), tensors on the trainer's device as a staged batch holds
-        them; float32 numpy values of the requested nodes."""
+        them; float32 numpy values of the requested nodes (``host =
+        False``: float32 tensors on the device)."""
         inputs = dict(enumerate([data, *extra_data]))
         inputs[0] = self.stage_input(self._normalize_input(inputs[0]))
         self._count_shape(self._eval_shapes, "eval_step_traces", inputs)
         with torch.inference_mode():
-            nodes = self.net.forward(self.params, inputs, self.context(),
-                                     buffers=self.buffers)
-        return [materialize(nodes[n]).float().cpu().numpy()
-                for n in node_ids]
+            nodes = self.net.forward(self._run_params(), inputs,
+                                     self.context(), buffers=self.buffers)
+        outs = [materialize(nodes[n]).float() for n in node_ids]
+        return [o.cpu().numpy() for o in outs] if host else outs
 
     def _node_rows(self, batch, nid: int) -> np.ndarray:
         """Node ``nid`` of a batch's (host or staged) eval forward as
@@ -1466,18 +1834,48 @@ class NetTrainer:
         self.metric.clear()
         for batch in data_iter:
             sb = self._staged(batch)
-            self._add_eval(self.metric,
-                           self.forward_eval(sb.data, self.eval_node_ids,
-                                             sb.extra_data),
-                           sb.label_host, sb.num_batch_padd)
+            self._add_batch_eval(
+                self.metric, self.forward_eval(sb.data, self.eval_node_ids,
+                                               sb.extra_data, host=False),
+                sb)
         return self.metric.print_line(name)
+
+    def _add_batch_eval(self, metric: MetricSet,
+                        preds: List[torch.Tensor], sb) -> None:
+        """A staged batch's eval-node values into ``metric``, padding
+        excluded.  On a data mesh the metric counts the global batch:
+        every rank's rows, labels and validity are all-gathered over
+        ``data`` (the padding is the last ``num_batch_padd`` rows of the
+        batch each rank read)."""
+        if not self._data_split():
+            self._add_eval(metric, [p.cpu().numpy() for p in preds],
+                           sb.label_host, sb.num_batch_padd)
+            return
+        n_local = sb.label_host.shape[0]
+        lo = dplib.row_slice(self.mesh, n_local * dplib.data_size(
+            self.mesh)).start
+        total = n_local * dplib.data_size(self.mesh)
+        valid = torch.from_numpy(
+            (np.arange(lo, lo + n_local) < total - sb.num_batch_padd)
+            .astype(np.float32)).to(self.device)
+        label = torch.from_numpy(np.asarray(sb.label_host, np.float32)) \
+            .to(self.device)
+        every = [meshlib.all_gather(t.reshape(n_local, -1).contiguous(),
+                                    self.mesh, "data")
+                 for t in [valid, label] + list(preds)]
+        keep = every[0][:, 0].cpu().numpy() > 0
+        label_all = every[1].cpu().numpy()[keep]
+        metric.add_eval([p.cpu().numpy()[keep] for p in every[2:]],
+                        {name: label_all[:, a:b]
+                         for name, a, b in self._label_fields})
 
     def start_round(self, r: int) -> None:
         self.round = r
         self.train_metric.clear()
 
     def context(self, decode=None) -> ForwardContext:
-        return ForwardContext(train=False, opts=self.opts, decode=decode)
+        return ForwardContext(train=False, opts=self.opts, decode=decode,
+                              mesh=self.mesh)
 
 
 def _replaying(fn, gen: Optional[torch.Generator]):

@@ -247,3 +247,18 @@ def dropout_mask(gen: torch.Generator, shape, pkeep: float,
     (dropout_layer-inl.hpp:46-48), drawn from ``gen`` on its device."""
     u = torch.rand(tuple(shape), generator=gen, device=gen.device)
     return (u < pkeep).to(dtype) * (1.0 / pkeep)
+
+
+def batch_draw(draw, ctx, shape, *args) -> torch.Tensor:
+    """``draw(ctx.rng, shape, *args)`` (:func:`uniform`,
+    :func:`dropout_mask`) of a training forward's batch-shaped random
+    mask.  On a data mesh (``ctx.mesh``) ``shape`` holds the rank's rows:
+    the draw is the whole batch's and the rank keeps its rows, so its
+    masks are those one device draws for the same rows (every rank's
+    generator moves in step)."""
+    from ..parallel.data import data_size, row_slice
+    nd = data_size(ctx.mesh)
+    if nd == 1:
+        return draw(ctx.rng, shape, *args)
+    full = (shape[0] * nd,) + tuple(shape[1:])
+    return draw(ctx.rng, full, *args)[row_slice(ctx.mesh, full[0])]

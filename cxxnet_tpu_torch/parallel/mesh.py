@@ -1,18 +1,47 @@
-"""Device selection and mesh specs: the parsing half of the JAX
-package's ``parallel/mesh.py``.
+"""Device selection, mesh specs and the data mesh over
+``torch.distributed`` (the JAX package's ``parallel/mesh.py``).
 
 ``dev = cpu | gpu | gpu:0 | gpu:0-3 | gpu:1,3`` and ``mesh =
 data:4,model:2`` parse here, for the trainer (``nnet/trainer.py``
-``resolve_device``) and the config lint alike.  No mesh is built: the
-multi-GPU plane, which shards a batch over the ids a ``dev`` lists, is
-not ported (ROADMAP.md), so the trainer refuses a ``dev`` of several ids
-and a ``mesh`` of more than one device by name.
+``resolve_device``) and the config lint alike.
+
+The building half: where the JAX package lays one SPMD program over a
+``jax.sharding.Mesh``, the port runs one process a device (a *rank*),
+joined in a ``torch.distributed`` process group.  :class:`Mesh` holds
+the named axes, this rank's coordinate on each (row-major over the axes
+in spec order, as ``np.array(devices).reshape(axes)`` lays the JAX
+package's devices), the world group and one subgroup per axis: the
+ranks that differ only on that axis.  The backend follows the device:
+``nccl`` for ``cuda``, ``gloo`` for ``cpu`` (:func:`backend_for`);
+:func:`build_mesh` takes another backend and an existing group, so two
+ranks can share one card over gloo.  The collectives the data-parallel
+plane calls (:func:`all_reduce`, :func:`reduce_scatter`,
+:func:`all_gather`) live here, each over one axis of a mesh; gloo has
+no reduce-scatter or all-gather of CUDA tensors, so a gloo mesh on the
+card runs every collective through host copies.
+
+Process bring-up: :func:`spawn` starts one rank a device with
+``torch.multiprocessing`` (spawn), rendezvous on a ``FileStore`` in a
+private temporary directory; a rank that dies fails the launch and the
+others are terminated, never left waiting in a collective.
+:func:`init_distributed` joins an external group (``CXN_COORDINATOR``
+/ ``CXN_NUM_PROC`` / ``CXN_PROC_RANK``, the JAX package's multi-host
+launch) over TCP.  A *virtual* mesh (:func:`virtual_mesh`) has the axes
+and no group: the ``meta`` trainer of ``task = check`` models a rank of
+it, and its collectives only give their outputs' shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+import datetime
+import os
+import shutil
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
 
 
 def parse_device_spec(dev: str) -> Dict:
@@ -42,6 +71,10 @@ def parse_device_spec(dev: str) -> Dict:
 #: ``pipe`` pipeline stages.  An unknown axis name would shard nothing,
 #: so parse rejects it with a suggestion.
 KNOWN_AXES = ("data", "model", "seq", "expert", "pipe")
+
+#: the axes the port runs wider than 1; the others come with the model-
+#: parallel slice (ROADMAP.md item 4(b))
+PORTED_AXES = ("data", "model")
 
 
 @dataclasses.dataclass
@@ -92,3 +125,341 @@ class MeshSpec:
     def axis_size(self, name: str) -> int:
         """Size of ``name`` (1 when the axis is absent)."""
         return self.axes.get(name, 1)
+
+    def unported_axes(self) -> List[str]:
+        """Axes wider than 1 that the port does not run (``seq``,
+        ``expert``, ``pipe``)."""
+        return [a for a, n in self.axes.items()
+                if n > 1 and a not in PORTED_AXES]
+
+
+def unported_axes_message(val: str, axes: Sequence[str]) -> str:
+    """The refusal of a mesh with an axis of the model-parallel slice
+    (the runtime's and ``task = check``'s words)."""
+    return (f"mesh = {val}: the {'/'.join(axes)} mesh "
+            f"{'axis is' if len(axes) == 1 else 'axes are'} not ported to "
+            "cxxnet_tpu_torch yet (ring attention, moe, pipelines: the "
+            "model-parallel slice, ROADMAP.md item 4(b))")
+
+
+def backend_for(device: torch.device) -> str:
+    """The process-group backend a device's ranks use: ``nccl`` for the
+    card, ``gloo`` for the CPU."""
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def select_devices(dev: str) -> List[torch.device]:
+    """The devices ``dev`` names, one a rank: ``cpu:0-3`` is four CPU
+    ranks, ``gpu:0-3`` cards 0-3.  A ``gpu`` range naming more cards
+    than are visible is refused with both counts: it never runs on
+    fewer devices than it names."""
+    spec = parse_device_spec(dev.lower())
+    platform = spec["platform"]
+    ids = spec["ids"] or [0]
+    if platform == "cpu":
+        return [torch.device("cpu") for _ in ids]
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if max(ids) >= have or len(ids) > have:
+        raise ValueError(
+            f"dev = {dev}: names {len(ids)} CUDA device(s) (ids "
+            f"{','.join(map(str, ids))}) but {have} are visible")
+    return [torch.device("cuda", i) for i in ids]
+
+
+class Mesh:
+    """One rank's view of the device mesh: ``axes`` (name -> size, spec
+    order), ``rank`` / ``coord`` (its index on each axis), ``device``,
+    the ``world`` group and one group per axis (:meth:`group`).  A
+    virtual mesh (``backend`` None) has no groups."""
+
+    def __init__(self, axes: Dict[str, int], rank: int,
+                 device: torch.device, backend: Optional[str],
+                 world: Any = None, groups: Optional[Dict[str, Any]] = None
+                 ) -> None:
+        self.axes = dict(axes)
+        self.rank = rank
+        self.device = device
+        self.backend = backend
+        self.world = world
+        self._groups = dict(groups or {})
+        self.coord: Dict[str, int] = {}
+        rest = rank
+        for name in reversed(list(self.axes)):
+            self.coord[name] = rest % self.axes[name]
+            rest //= self.axes[name]
+        self.coord = {a: self.coord[a] for a in self.axes}
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.axes.values():
+            n *= v
+        return n
+
+    @property
+    def virtual(self) -> bool:
+        return self.backend is None
+
+    def axis_size(self, name: str) -> int:
+        return self.axes.get(name, 1)
+
+    def axis_index(self, name: str) -> int:
+        return self.coord.get(name, 0)
+
+    def group(self, name: str) -> Any:
+        """The process group of the ranks that differ from this one on
+        axis ``name`` only."""
+        return self._groups.get(name)
+
+    def host_staged(self, t: torch.Tensor) -> bool:
+        """gloo has no reduce-scatter / all-gather of CUDA tensors: a
+        gloo mesh on the card stages its collectives through the host."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+
+def _axis_groups(axes: Dict[str, int], rank: int, world_group: Any,
+                 world_size: int) -> Dict[str, Any]:
+    """One group per axis wider than 1.  Every rank creates every group
+    in the same order (``new_group`` is collective) and keeps the one it
+    is in; an axis spanning the world is the world group."""
+    import torch.distributed as dist
+    import numpy as np
+    names = list(axes)
+    grid = np.arange(world_size).reshape([axes[a] for a in names])
+    groups: Dict[str, Any] = {}
+    for k, name in enumerate(names):
+        if axes[name] == 1:
+            continue
+        if axes[name] == world_size:
+            groups[name] = world_group
+            continue
+        moved = np.moveaxis(grid, k, -1).reshape(-1, axes[name])
+        for ranks in moved:
+            g = dist.new_group([int(r) for r in ranks])
+            if rank in ranks:
+                groups[name] = g
+    return groups
+
+
+def build_mesh(spec: Optional[MeshSpec], device: torch.device, *,
+               backend: Optional[str] = None, group: Any = None) -> Mesh:
+    """This rank's :class:`Mesh` over an initialized process group
+    (``group``, else the default group).  ``spec`` None: one ``data``
+    axis over the world.  ``backend`` defaults to the group's own."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "build_mesh: no process group; start the ranks with "
+            "parallel.mesh.spawn (the CLI does for dev = cpu:0-3 / "
+            "gpu:0-3) or join one with init_distributed")
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    spec = spec or MeshSpec({"data": world})
+    if spec.size != world:
+        raise ValueError(f"mesh axes {spec.axes} need {spec.size} ranks, "
+                         f"the process group has {world}")
+    backend = backend or str(dist.get_backend(group))
+    world_group = group if group is not None else dist.group.WORLD
+    return Mesh(spec.axes, rank, device, backend, world_group,
+                _axis_groups(spec.axes, rank, world_group, world))
+
+
+def virtual_mesh(spec: MeshSpec, device: torch.device) -> Mesh:
+    """Rank 0 of a mesh of ``spec`` with no process group: what the
+    ``meta`` trainer of ``task = check`` models."""
+    return Mesh(spec.axes, 0, device, None)
+
+
+#: seconds a collective may wait for the other ranks (torch's default)
+COLLECTIVE_TIMEOUT_SEC = 1800.0
+
+
+def init_distributed(coordinator: str, num_processes: int, process_id: int,
+                     backend: str = "gloo",
+                     timeout_sec: float = COLLECTIVE_TIMEOUT_SEC) -> None:
+    """Join an external process group over TCP at ``coordinator``
+    (``host:port`` of process 0): the JAX package's multi-host bring-up
+    (``CXN_COORDINATOR`` / ``CXN_NUM_PROC`` / ``CXN_PROC_RANK``)."""
+    import torch.distributed as dist
+    addr = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    dist.init_process_group(
+        backend, init_method=addr, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=timeout_sec))
+
+
+def _rank_entry(rank: int, fn: Callable, world: int, store_path: str,
+                backend: str, timeout_sec: float, args: tuple) -> None:
+    import torch.distributed as dist
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_sec))
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, nprocs: int, args: tuple = (), *,
+          backend: str = "gloo", timeout_sec: Optional[float] = None
+          ) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned ranks joined in one
+    ``backend`` process group (a ``FileStore`` in a private temporary
+    directory).  Returns when every rank returned; raises when one
+    raised or died (the others are terminated at once, not left in a
+    collective) and when the ranks outlive ``timeout_sec`` (None: no
+    deadline; a collective then waits COLLECTIVE_TIMEOUT_SEC, else
+    ``timeout_sec``)."""
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="cxn_ranks_")
+    ctx = mp.start_processes(
+        _rank_entry, args=(fn, nprocs, os.path.join(tmp, "store"), backend,
+                           timeout_sec or COLLECTIVE_TIMEOUT_SEC,
+                           tuple(args)),
+        nprocs=nprocs, join=False, start_method="spawn")
+    deadline = None if timeout_sec is None \
+        else time.monotonic() + timeout_sec
+    try:
+        while not ctx.join(timeout=1.0):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"spawn: {nprocs} ranks still running after "
+                    f"{timeout_sec:.0f} sec")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(5.0)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ collectives
+#: launches of each collective (by name), on every mesh of the process
+counts: Dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
+                          "all_gather": 0}
+
+
+class Pending:
+    """An issued collective: :meth:`wait` blocks until it finished and
+    returns its result tensor."""
+
+    def __init__(self, work, result: torch.Tensor,
+                 finish: Optional[Callable[[], torch.Tensor]] = None):
+        self._work = work
+        self._result = result
+        self._finish = finish
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._finish is not None:
+            self._result, self._finish = self._finish(), None
+        return self._result
+
+
+def _op(name: str):
+    import torch.distributed as dist
+    new = {"all_gather": "all_gather_single",
+           "reduce_scatter": "reduce_scatter_single"}[name]
+    old = {"all_gather": "all_gather_into_tensor",
+           "reduce_scatter": "reduce_scatter_tensor"}[name]
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def _wire(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t if dtype is None or t.dtype == dtype else t.to(dtype)
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "data", *,
+               dtype: Optional[torch.dtype] = None,
+               async_op: bool = False):
+    """Sum ``t`` over ``axis``, in ``t``'s dtype (``dtype`` is the
+    wire's, the JAX package's ``dp_reduce_dtype``).  Returns the sum
+    (``t`` itself, reduced in place, when it is contiguous and needs no
+    cast or host copy), or a :class:`Pending` of it under
+    ``async_op``."""
+    import torch.distributed as dist
+    group = mesh.group(axis)
+    if group is None:
+        return Pending(None, t) if async_op else t
+    counts["all_reduce"] += 1
+    x = _wire(t, dtype).contiguous()
+    if mesh.host_staged(x):
+        x = x.cpu()
+    work = dist.all_reduce(x, group=group, async_op=async_op)
+
+    def finish() -> torch.Tensor:
+        return x.to(t.device, t.dtype)
+    if async_op:
+        return Pending(work, t, finish)
+    return finish()
+
+
+def reduce_scatter(t: torch.Tensor, mesh: Mesh, axis: str = "data", *,
+                   dtype: Optional[torch.dtype] = None,
+                   async_op: bool = False):
+    """Sum ``t`` over ``axis`` and keep this rank's slice of the leading
+    dim (its index on ``axis``); ``t.shape[0]`` must divide by the axis
+    size.  Returns the slice, or a :class:`Pending` of it."""
+    n = mesh.axis_size(axis)
+    rows = t.shape[0] // n
+    group = mesh.group(axis)
+    if group is None:
+        i = mesh.axis_index(axis)
+        out = t.narrow(0, i * rows, rows).clone()
+        return Pending(None, out) if async_op else out
+    counts["reduce_scatter"] += 1
+    x = _wire(t, dtype).contiguous()
+    if mesh.host_staged(x):
+        x = x.cpu()
+    out = torch.empty((rows,) + tuple(t.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    work = _op("reduce_scatter")(out, x, group=group, async_op=async_op)
+
+    def finish() -> torch.Tensor:
+        return out.to(t.device, t.dtype)
+    if async_op:
+        return Pending(work, out, finish)
+    return finish()
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str = "data",
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``axis`` ranks' ``t`` joined on the leading dim, in their
+    axis order (into ``out`` when given; ``out`` must not hold ``t``)."""
+    n = mesh.axis_size(axis)
+    shape = (t.shape[0] * n,) + tuple(t.shape[1:])
+    group = mesh.group(axis)
+    if out is None:
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    if group is None:
+        if n == 1:
+            out.copy_(t)
+        else:
+            # a virtual mesh: the output's shape, the local rows repeated
+            out.copy_(t.repeat((n,) + (1,) * (t.dim() - 1)))
+        return out
+    counts["all_gather"] += 1
+    x = t.contiguous()
+    if mesh.host_staged(x):
+        host = torch.empty(shape, dtype=t.dtype)
+        _op("all_gather")(host, x.cpu(), group=group)
+        out.copy_(host)
+        return out
+    _op("all_gather")(out, x, group=group)
+    return out
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    """Wait for every rank of ``mesh`` (a no-op without a group)."""
+    if mesh is None or mesh.world is None:
+        return
+    import torch.distributed as dist
+    if mesh.backend == "nccl":
+        dist.barrier(group=mesh.world, device_ids=[mesh.device.index or 0])
+    else:
+        dist.barrier(group=mesh.world)

@@ -89,6 +89,11 @@ class Net:
     """Neural net object (CXNNetCreate parity)."""
 
     def __init__(self, dev: str = "gpu", cfg: str = ""):
+        from ..main import several_ids_message
+        from ..parallel.mesh import parse_device_spec
+        n = len(parse_device_spec(dev.lower())["ids"] or [])
+        if n > 1:
+            raise ValueError(several_ids_message("the wrapper API", dev, n))
         self._trainer = NetTrainer()
         self._trainer.set_param("dev", dev)
         for k, v in parse_config_string(cfg):

@@ -170,72 +170,72 @@ CASES = [
     ("monitor_multi_step", "monitor = 1\nmulti_step = 4\n", []),
     ("multi_step_update_period", "multi_step = 4\nupdate_period = 2\n", []),
     ("dp_overlap_batch_split", "dp_overlap = 1\nbatch_split = 2\n"
-     "batch_size = 8\n", ["dp_overlap"]),
+     "batch_size = 8\n", []),
     ("dp_reduce_at_apply", "dp_overlap = 1\ndp_reduce_at = apply\n",
-     ["dp_overlap"]),
+     []),
     ("dp_reduce_at_apply_quiet", "dp_overlap = 1\ndp_reduce_at = apply\n"
-     "update_period = 4\n", ["dp_overlap"]),
+     "update_period = 4\n", []),
     ("mesh_unknown_axis", "mesh = data:2,modle:2\n", []),
     ("mesh_product", "mesh = data:2,model:2\ndev = cpu:0-2\n",
-     ["mesh", "dev"]),
+     []),
     ("mesh_product_ok", "mesh = data:2,model:2\ndev = cpu:0-3\n"
-     "fullc_gather = 1\n", ["mesh", "dev", "fullc_gather"]),
+     "fullc_gather = 1\n", []),
     ("mesh_product_dev_tpu", "mesh = data:2,model:2\ndev = tpu\n"
-     "fullc_gather = 1\n", ["mesh", "fullc_gather"]),
-    ("mesh_batch", "mesh = data:4\nbatch_size = 10\n", ["mesh"]),
-    ("mesh_batch_ok", "mesh = data:4\nbatch_size = 16\n", ["mesh"]),
-    ("mesh_dead_model_axis", "mesh = data:2,model:2\n", ["mesh"]),
+     "fullc_gather = 1\n", []),
+    ("mesh_batch", "mesh = data:4\nbatch_size = 10\n", []),
+    ("mesh_batch_ok", "mesh = data:4\nbatch_size = 16\n", []),
+    ("mesh_dead_model_axis", "mesh = data:2,model:2\n", []),
     ("mesh_model_axis_gather", "mesh = data:2,model:2\nfullc_gather = 1\n",
-     ["mesh", "fullc_gather"]),
+     []),
     ("dp_overlap_seq", "dp_overlap = 1\nmesh = data:2,seq:2\n",
-     ["dp_overlap", "mesh"]),
+     ["mesh"]),
     ("dp_overlap_no_data", "dp_overlap = 1\nmesh = model:4\n"
-     "fullc_gather = 1\n", ["dp_overlap", "mesh", "fullc_gather"]),
+     "fullc_gather = 1\n", []),
     ("dp_overlap_reduce_at", "dp_overlap = 1\nmesh = data:2,model:2\n"
      "fullc_gather = 1\nupdate_period = 2\ndp_reduce_at = apply\n",
-     ["dp_overlap", "mesh", "fullc_gather"]),
+     []),
     ("dp_overlap_moe", "dp_overlap = 1\nmesh = data:2,model:2\n"
      "netconfig=start\nlayer[+1] = moe\n  num_expert = 4\n  nhidden = 8\n"
      "netconfig=end\ninput_shape = 1,1,8\n",
-     ["dp_overlap", "mesh", "layer[+1]"]),
+     ["layer[+1]"]),
     ("dp_overlap_quiet", "dp_overlap = 1\nmesh = data:2,model:2\n"
-     "fullc_gather = 1\n", ["dp_overlap", "mesh", "fullc_gather"]),
+     "fullc_gather = 1\n", []),
     ("pipe_shallow", "mesh = pipe:4\ndev = cpu:0-3\nnetconfig=start\n"
      "layer[+1] = fullc\n  nhidden = 4\nnetconfig=end\n"
-     "input_shape = 1,1,8\nbatch_size = 4\n", ["mesh", "dev"]),
-    ("pipe_no_net", "mesh = pipe:2\ndev = cpu:0-1\n", ["mesh", "dev"]),
+     "input_shape = 1,1,8\nbatch_size = 4\n", ["mesh"]),
+    ("pipe_no_net", "mesh = pipe:2\ndev = cpu:0-1\n", ["mesh"]),
     ("pipe_deep", "mesh = pipe:2\ndev = cpu:0-1\nnetconfig=start\n"
      "layer[+1] = fullc\n  nhidden = 8\nlayer[+1] = relu\n"
      "layer[+1] = fullc\n  nhidden = 4\nlayer[+0] = softmax\n"
      "netconfig=end\ninput_shape = 1,1,8\nbatch_size = 4\n",
-     ["mesh", "dev"]),
+     ["mesh"]),
     ("pipe_dp_overlap_gpipe", "dp_overlap = 1\nmesh = data:2,pipe:2\n"
-     "dev = cpu:0-3\n", ["dp_overlap", "mesh", "dev"]),
+     "dev = cpu:0-3\n", ["mesh"]),
     ("pipe_dp_overlap_1f1b", "dp_overlap = 1\nmesh = data:2,pipe:2\n"
-     "dev = cpu:0-3\npipe_schedule = 1f1b\n", ["dp_overlap", "mesh", "dev"]),
+     "dev = cpu:0-3\npipe_schedule = 1f1b\n", ["mesh"]),
     ("seq_dp_overlap", "dp_overlap = 1\nmesh = data:2,seq:2\n"
-     "dev = cpu:0-3\n", ["dp_overlap", "mesh", "dev"]),
+     "dev = cpu:0-3\n", ["mesh"]),
     ("pipe_ragged", "mesh = pipe:2\ndev = cpu:0-1\npipe_microbatch = 3\n"
-     "batch_size = 6\n", ["mesh", "dev"]),
+     "batch_size = 6\n", ["mesh"]),
     ("pipe_defaulted", "mesh = pipe:2\ndev = cpu:0-1\nbatch_size = 6\n",
-     ["mesh", "dev"]),
+     ["mesh"]),
     ("pipe_schedule_no_pipe", "mesh = data:2\ndev = cpu:0-1\n"
-     "pipe_schedule = 1f1b\n", ["mesh", "dev"]),
+     "pipe_schedule = 1f1b\n", []),
     ("pipe_schedule_no_mesh", "pipe_schedule = 1f1b\n", []),
     ("pipe_remat", "mesh = pipe:2\ndev = cpu:0-1\nremat = 2\n",
-     ["mesh", "dev"]),
+     ["mesh"]),
     ("pipe_clean", "mesh = data:2,pipe:2\ndev = cpu:0-3\n"
      "pipe_schedule = 1f1b\npipe_microbatch = 4\nbatch_size = 16\n",
-     ["mesh", "dev"]),
-    ("dp_reduce_dtype", "dp_reduce_dtype = bf16\n", ["dp_reduce_dtype"]),
+     ["mesh"]),
+    ("dp_reduce_dtype", "dp_reduce_dtype = bf16\n", []),
     ("dp_reduce_dtype_quiet", "dp_overlap = 1\ndp_reduce_dtype = bf16\n",
-     ["dp_overlap", "dp_reduce_dtype"]),
+     []),
     ("monitor_nan", "monitor_nan = fatal\n", []),
     ("batch_split_divisibility", "batch_size = 10\nbatch_split = 4\n", []),
     ("engine_options_net", "dp_overlap = 1\nfused_update = 1\n"
      "netconfig=start\nlayer[+1] = fullc\n  nhidden = 4\n"
      "layer[+0] = softmax\nnetconfig=end\ninput_shape = 1,1,8\n"
-     "batch_size = 4\n", ["dp_overlap"]),
+     "batch_size = 4\n", []),
     ("pallas_ln_bf16", "dtype = bfloat16\nnetconfig=start\n"
      "layer[+1] = layernorm\nnetconfig=end\ninput_shape = 1,8,16\n"
      "batch_size = 2\n", []),
@@ -257,13 +257,10 @@ CASES = [
 
 #: the by-design port-only findings of each example conf, by key
 EXAMPLE_PORT_ONLY = {
-    "example/LM/longctx.conf": ["dev", "mesh"],
-    "example/LM/moe_lm.conf": ["dev", "mesh", "layer[b0m_n->x1]",
+    "example/LM/longctx.conf": ["mesh"],
+    "example/LM/moe_lm.conf": ["mesh", "layer[b0m_n->x1]",
                                "layer[b1m_n->x2]"],
-    "example/LM/pipeline_lm.conf": ["dev", "mesh", "dp_overlap",
-                                    "fullc_gather"],
-    "example/MNIST/mesh.conf": ["dev", "mesh", "fullc_gather", "dp_overlap",
-                                "dp_bucket_mb"],
+    "example/LM/pipeline_lm.conf": ["mesh"],
 }
 
 
@@ -309,22 +306,34 @@ def test_example_conf_lint_matches_jax(conf):
     assert not [f for f in rest if f[0] == "error"]
 
 
-def test_not_ported_findings_use_the_runtime_words():
+def test_not_ported_findings_use_the_runtime_words(tmp_path):
     """Each not-ported finding is the ValueError the runtime raises for
-    the same key, word for word."""
-    from cxxnet_tpu_torch.nnet.trainer import NetTrainer, resolve_device
-    pairs = [("mesh", "data:2"), ("dev", "gpu:0-1"),
-             ("shard_opt_state", "1"), ("dp_overlap", "1")]
-    found = {f.key: f.message for f in conflint.lint_pairs(pairs)
-             if f.severity == "error"}
-    assert sorted(found) == sorted(k for k, _ in pairs)
-    for k, v in pairs:
-        with pytest.raises(ValueError) as ei:
-            if k == "dev":
-                resolve_device(v)
-            else:
-                NetTrainer().set_param(k, v)
-        assert str(ei.value) == found[k]
+    the same key, word for word: a mesh axis of the model-parallel slice
+    (the trainer), several device ids for a one-device task (the task
+    driver) and the moe layer.  The data-parallel plane's keys are no
+    finding."""
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    ported = [("mesh", "data:2,model:2"), ("dev", "gpu:0-3"),
+              ("shard_opt_state", "1"), ("update_on_server", "1"),
+              ("fullc_gather", "1"), ("test_on_server", "1"),
+              ("dp_overlap", "1"), ("dp_reduce_dtype", "bf16")]
+    assert not [f for f in conflint.lint_pairs(ported)
+                if f.severity == "error"]
+    (found,) = [f.message for f in conflint.lint_pairs(
+        [("mesh", "data:2,seq:2")]) if f.severity == "error"]
+    with pytest.raises(ValueError) as ei:
+        NetTrainer().set_param("mesh", "data:2,seq:2")
+    assert str(ei.value) == found
+    assert "model-parallel slice" in found
+    pairs = [("task", "pred"), ("dev", "gpu:0-1")]
+    (found,) = [f.message for f in conflint.lint_pairs(pairs)
+                if f.severity == "error" and f.key == "dev"]
+    conf = tmp_path / "pred.conf"
+    conf.write_text("task = pred\ndev = gpu:0-1\n")
+    with pytest.raises(ValueError) as ei:
+        LearnTask().run([str(conf)])
+    assert str(ei.value) == found
     with pytest.raises(ValueError) as ei:
         layer_registry.create_layer("moe")
     (msg,) = [f.message for f in conflint.lint_pairs(
@@ -416,6 +425,36 @@ def test_memory_totals_corrections_match_jax(keys):
     assert memmodel.totals(tt) == jmem.totals(jt)
 
 
+@pytest.mark.parametrize("keys", [
+    (("mesh", "data:4"),),
+    (("mesh", "data:4"), ("shard_opt_state", "1")),
+    (("mesh", "data:2,model:2"), ("fullc_gather", "1")),
+    (("mesh", "data:2,model:2"), ("fullc_gather", "1"),
+     ("shard_opt_state", "1"))], ids=["data", "zero", "model", "both"])
+def test_memory_model_on_a_mesh_matches_jax(keys):
+    """On a cpu:0-3 mesh both models count what one device holds: a ZeRO
+    slice of the optimizer state, a model shard of a fullc weight, the
+    data axis's share of the activations; the pre-flight's remediations
+    (ZeRO among them) agree."""
+    from cxxnet_tpu.nnet.trainer import NetTrainer as JT
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    text = _lm_net().replace("batch_size = 2", "batch_size = 8")
+    pairs = jparse(text) + [("dev", "cpu:0-3"), ("silent", "1"),
+                            ("eval_train", "0")] + list(keys)
+    jt, tt = JT(), NetTrainer()
+    for k, v in pairs:
+        jt.set_param(k, v)
+        tt.set_param(k, v)
+    jt.init_model()
+    tt.init_model(torch.device("meta"))
+    assert memmodel.param_rows(tt) == jmem.param_rows(jt)
+    assert memmodel.layer_mem(tt) == jmem.layer_mem(jt)
+    tot = memmodel.totals(tt)
+    assert tot == jmem.totals(jt)
+    assert memmodel._remediations(tt, tot) == jmem._remediations(
+        jt, jmem.totals(jt))
+
+
 @pytest.mark.parametrize("frac", [2.0, 0.95, 0.5],
                          ids=["over", "margin", "fits"])
 @pytest.mark.parametrize("net", sorted(NETS))
@@ -459,16 +498,21 @@ def test_task_check_cli_exit_codes_and_record(tmp_path, capsys):
 
 
 def test_task_check_refused_config_is_a_finding(tmp_path):
-    """A config the port refuses at run time (here test_on_server, which
-    LearnTask refuses) is a finding of task = check, not a raise."""
+    """test_on_server = 1 runs (it is the JAX package's finding-free
+    key); a config the port refuses at run time (here a pipe mesh axis,
+    which the trainer refuses) is a finding of task = check, not a
+    raise."""
     from cxxnet_tpu_torch.main import LearnTask
     conf = os.path.join(REPO, "example", "MNIST", "MNIST.conf")
     task = LearnTask()
-    assert task.run([conf, "task=check", "test_on_server=1"]) == 1
+    assert task.run([conf, "task=check", "test_on_server=1"]) == 0
+    assert not [f for f in task.last_check if f.severity == "error"]
+    task = LearnTask()
+    assert task.run([conf, "task=check", "mesh=data:2,pipe:2"]) == 1
     assert [f.key for f in task.last_check if f.severity == "error"] \
-        == ["test_on_server"]
+        == ["mesh"]
     with pytest.raises(ValueError, match="not ported"):
-        LearnTask().run([conf, "test_on_server=1", "dev=cpu"])
+        LearnTask().run([conf, "mesh=data:2,pipe:2", "dev=cpu:0-3"])
 
 
 def test_check_builds_on_meta_without_cuda(monkeypatch):

@@ -884,21 +884,25 @@ def test_googlenet_conf_steps_with_its_shipped_keys(tmp_path):
 
 
 def test_remaining_refusals_name_their_item():
-    """What stays refused is refused by name: the moe layer (alone or as
-    a pairtest side), the multi-GPU trainer keys and the dp_* engine
-    options."""
+    """What stays refused is refused by name, naming the model-parallel
+    slice: the moe layer (alone or as a pairtest side) and the seq /
+    expert / pipe mesh axes.  The data-parallel plane's trainer keys and
+    dp_* engine options, refused until it was ported, are taken."""
     from cxxnet_tpu_torch.engine import EngineOptions
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
-    from cxxnet_tpu_torch.nnet.trainer import UNPORTED_KEYS
     assert NOT_PORTED == ("moe",)
-    assert set(UNPORTED_KEYS) == {"shard_opt_state", "fullc_gather",
-                                  "update_on_server"}
     for name in NOT_PORTED + ("pairtest-moe-conv", "pairtest-conv-moe"):
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="not ported.*4\\(b\\)"):
             create_layer(name)
-    for key in UNPORTED_KEYS:
-        with pytest.raises(ValueError, match="not ported"):
-            NetTrainer().set_param(key, "1")
+    for mesh in ("data:2,seq:2", "expert:2", "pipe:2,model:2"):
+        with pytest.raises(ValueError, match="not ported.*4\\(b\\)"):
+            NetTrainer().set_param("mesh", mesh)
+    t = NetTrainer()
+    for key in ("shard_opt_state", "fullc_gather", "update_on_server"):
+        t.set_param(key, "1")
+    t.set_param("mesh", "data:2,model:2")
+    assert t.shard_opt_state == t.fullc_gather == 1
     for key, val in (("dp_overlap", "1"), ("dp_reduce_at", "step")):
-        with pytest.raises(ValueError, match="not ported"):
-            EngineOptions().set(key, val)
+        opts = EngineOptions()
+        opts.set(key, val)
+        assert getattr(opts, key) == val

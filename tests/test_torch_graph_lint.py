@@ -158,6 +158,45 @@ def test_dp_coverage_findings():
     assert not graph_lint.dp_coverage_findings(["a"], ["a"])
 
 
+@pytest.mark.parametrize("extra", [
+    "mesh = data:4\ndev = cpu:0-3\n",
+    "mesh = data:4\ndev = cpu:0-3\nshard_opt_state = 1\n",
+    "mesh = data:2,model:2\ndev = cpu:0-3\nfullc_gather = 1\n",
+    "mesh = data:4\ndev = cpu:0-3\nremat = 2\n",
+    "dev = cpu\n"], ids=["data", "zero", "model", "fallback", "one"])
+def test_dp_findings_match_jax(extra):
+    """The dp driver of the traced pass (the JAX package's
+    ``_dp_findings``) under dp_overlap = 1 on a mesh config: the
+    bucket plan covers every param group (no finding), and a fallback
+    gate, or one device, gives the same info line."""
+    from cxxnet_tpu import engine
+    from cxxnet_tpu.analysis import jaxpr_lint
+    from __graft_entry__ import _make_trainer
+    text = ("netconfig=start\nlayer[+1] = fullc:fc1\n  nhidden = 64\n"
+            "layer[+1] = relu\nlayer[+1] = fullc:fc2\n  nhidden = 4\n"
+            "layer[+0] = softmax\nnetconfig=end\ninput_shape = 1,1,16\n"
+            "batch_size = 8\nsilent = 1\ndp_bucket_mb = 0.001\n" + extra)
+    pairs = parse_config_string(text)
+    tt = NetTrainer()
+    for k, v in pairs + [("dp_overlap", "1")]:
+        tt.set_param(k, v)
+    tt.init_model(torch.device("meta"))
+    saved = (engine.opts.dp_overlap, engine.opts.dp_bucket_mb)
+    try:
+        engine.opts.set("dp_overlap", "1")
+        dev = dict(pairs)["dev"]
+        jt = _make_trainer(text, 8, dev, extra=[
+            kv for kv in pairs if kv[0] in ("mesh", "shard_opt_state",
+                                           "fullc_gather", "remat")])
+        jf = jaxpr_lint._dp_findings(jt)
+    finally:
+        engine.opts.set("dp_overlap", saved[0])
+        engine.opts.set("dp_bucket_mb", saved[1])
+    pf = graph_lint.dp_findings(tt)
+    assert [(f.severity, f.message) for f in pf] \
+        == [(f.severity, f.message) for f in jf]
+
+
 def test_trace_is_one_device_free_step(monkeypatch):
     """Forward, backward and the update are one graph (the adam update's
     sqrt among its nodes), traced with the AlexNet-class kernels' routes

@@ -268,24 +268,15 @@ def test_config_netconfig_and_engine_options_match_jax():
                                      ("dp_reduce_dtype", "bf16"),
                                      ("dp_reduce_at", "step")])
 def test_unported_engine_options_are_refused(monkeypatch, key, val):
-    """A key or value whose feature is not ported (the dp_* options) is
-    refused: from a conf, the trainer or the environment, it raises.
-    The CNN stack's lowering values, refused until they were ported,
-    are taken the same three ways and read back."""
+    """Every value the JAX package takes is taken: the dp_* options
+    (refused until the data-parallel plane was ported) and the CNN
+    stack's lowering values (refused until they were ported), from a
+    conf, the trainer or the environment, and read back."""
     from cxxnet_tpu_torch import engine as tengine
     opts = tengine.EngineOptions()
     opts.set(key, tengine._DEFS[key][1])
     t = NetTrainer()
-    if key.startswith("dp_"):
-        with pytest.raises(ValueError, match="not ported"):
-            opts.set(key, val)
-        with pytest.raises(ValueError, match="not ported"):
-            t.set_param(key, val)
-        monkeypatch.setenv(tengine._DEFS[key][0], val)
-        with pytest.raises(ValueError, match="not ported"):
-            tengine.EngineOptions()
-        return
-    assert val in tengine.PORTED[key]
+    assert tengine._valid(key, val)
     opts.set(key, val)
     t.set_param(key, val)
     assert getattr(opts, key) == getattr(t.opts, key) == val
@@ -495,16 +486,29 @@ def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("dev", ["cpu:0-3", "gpu:0-3", "tpu:0-3",
                                  "cuda:0,1", "gpu:1,3"])
-def test_dev_with_several_ids_is_refused(dev):
-    """The JAX package turns several device ids into a data mesh; the
-    port refuses them by name instead of running on the first id (on the
-    CPU and on the card alike), as it refuses a multi-device mesh."""
-    with pytest.raises(ValueError, match="not ported.*Multi-GPU"):
-        resolve_device(dev)
-    t = _port_trainer(NET, 2)
+def test_dev_with_several_ids_is_refused(dev, tmp_path):
+    """Several device ids are a data mesh of one rank a device, as in
+    the JAX package: a rank's device is its id's (the CPU for cpu ids;
+    an accelerator id never lands on the CPU), and a trainer outside a
+    process group refuses to build rather than run on one device.  The
+    one-device tasks (pred, serve) refuse several ids by name."""
+    from cxxnet_tpu_torch.main import LearnTask
+    if dev.startswith("cpu"):
+        assert resolve_device(dev) == torch.device("cpu")
+        assert resolve_device(dev, rank=3) == torch.device("cpu")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(dev)
+    t = _port_trainer(NET, 4)
     t.set_param("dev", dev)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises((RuntimeError, ValueError),
+                       match="no process group|no CUDA device"):
         t.init_model()
+    conf = tmp_path / "p.conf"
+    conf.write_text(f"task = pred\nmodel_in = x.model\ndev = {dev}\n")
+    with pytest.raises(ValueError, match="task = pred on several device "
+                       "ids is not ported"):
+        LearnTask().run([str(conf)])
 
 
 def test_dev_with_one_id_is_kept():
