@@ -246,7 +246,23 @@ Phases (any failure raises and exits non-zero):
    (d) every collective of the plane through the mesh module over NCCL
    at world size 1, f32 and bf16, each output its input; (e) the CLI
    with ``dev = gpu:0-1`` on a one-card machine exits non-zero with
-   both device counts.
+   both device counts;
+27. sequence and expert parallelism (``seq_expert``): SE_RANKS gloo
+   ranks share cuda:0, each running the port's CLI: (a)
+   example/LM/longctx.conf as shipped at data:2,seq:2 (ring attention
+   over seq; rows 11, 12 a rank), (b) example/LM/moe_lm.conf as shipped
+   at data:2,expert:2 and its net at data:2,model:2 (rows 9-12 a rank),
+   SE_STEPS steps each over a seeded corpus with ``test_on_server = 1``,
+   against the same CLI run on one device (rows 9-12): the first loss
+   within SE_FIRST_TOL, every loss within DP_LOSS_TOL, the replicas
+   bitwise equal, each rank holding half of the per-expert bytes
+   (weights and adam state); (c) moe_lm.conf on one device under
+   ``moe_dispatch`` sorted and dense; (d) ring attention at the served
+   LM's attention width (b4, 16 heads, s4096, hd128, bf16, causal,
+   packed segments) on 2 seq ranks against the one-device segmented
+   flash forward and backward (rows 9, 10), normwise within
+   SE_RING_TOL, its time and peak memory a rank.  Each rank's step p50
+   and peak memory printed beside the card's name and power limit.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -364,7 +380,8 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "alexnet_hwcn", "cnn_infer", "train_hd256", "resume",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
               "resnet", "alexnet_data", "staging", "observe",
-              "serve_admin", "check", "pairtest", "wrapper", "dp"}
+              "serve_admin", "check", "pairtest", "wrapper", "dp",
+              "seq_expert"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -530,6 +547,23 @@ DP_RESNET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=1",
 DP_LOSS_TOL = FUSED_LOSS_TOL
 #: seconds the spawned ranks may take (a hang fails the phase)
 DP_TIMEOUT_SEC = 900
+
+# seq_expert: SE_RANKS gloo ranks on cuda:0.  (a) example/LM/longctx.conf
+# at data:2,seq:2 and (b) example/LM/moe_lm.conf at data:2,expert:2 and
+# at data:2,model:2, each as shipped for SE_STEPS steps of a seeded
+# corpus, against the same CLI run on one device: the first loss within
+# SE_FIRST_TOL (relative), the last within DP_LOSS_TOL; (c) moe_lm.conf
+# on one device under moe_dispatch sorted and dense, within
+# SE_DISPATCH_TOL; (d) ring attention at the served LM's attention
+# width (SE_RING_SHAPE (b, h, s, hd), bf16, causal, packed segments) on
+# 2 seq ranks against the one-device segmented flash (rows 9, 10),
+# normwise within SE_RING_TOL
+SE_RANKS, SE_STEPS = 4, 6
+SE_FIRST_TOL = 1e-5
+SE_DISPATCH_TOL = 1e-5
+SE_RING_SHAPE = (4, 16, 4096, 128)
+SE_RING_TOL = 2e-2
+SE_RING_REPS = 3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: numbers one phase prints beside another's (alexnet's step p50)
@@ -5330,6 +5364,16 @@ def dp_run(name: str, argv: list) -> dict:
             if fused and fused_adam_supported(
                 net._opt_view(k, t, net.params[k][t]))})
         res["zero_leaves"] = len(net.zero_leaves)
+        # the per-expert tensors (and their optimizer state) this rank
+        # holds, against their logical bytes
+        held = logical = 0
+        for (k, t), (_, rows) in net.expert_sharded.items():
+            leaves = [net.params[k][t]] + list(net.opt_state[k][t].values())
+            for a in leaves:
+                held += a.numel() * a.element_size()
+                logical += rows * (a.numel() // a.shape[0]) \
+                    * a.element_size()
+        res["expert_bytes"] = (held, logical)
     res["buffers"] = {k: {t: v.detach().cpu().clone() for t, v in g.items()}
                       for k, g in net.buffers.items()}
     del task, net
@@ -5568,6 +5612,247 @@ def phase_dp(tmp: str) -> dict:
         log(f"dp (e): {n_card} cards visible; the one-card refusal is not "
             "exercised")
     MEASURED["dp_shards"] = adam_shard_check([tuple(s) for s in shards])
+    return launches
+
+
+# ------------------------------------------------ sequence and experts
+def seq_expert_corpus(tmp: str, label: str, batch: int, seqlen: int
+                      ) -> str:
+    """Four seeded token shards (the confs' ``tok_count = 4``) of vocab-
+    512 phrase documents holding exactly SE_STEPS packed batches of
+    ``batch`` x ``seqlen`` (and the lookahead token); returns the
+    ``path_tok`` pattern."""
+    from cxxnet_tpu_torch.io.text import write_token_shard
+    rng = np.random.RandomState(23)
+    phrases = [rng.randint(0, 512, rng.randint(8, 33)) for _ in range(16)]
+    want = SE_STEPS * batch * seqlen + 1
+    docs, total = [], 0
+    while total < want:
+        n = min(rng.randint(DOC_LENS[0], DOC_LENS[1] + 1), want - total)
+        doc = np.concatenate([phrases[rng.randint(16)]
+                              for _ in range(n // 8 + 1)])[:n]
+        docs.append(doc)
+        total += n
+    pattern = os.path.join(tmp, f"{label}_%d.tok")
+    for i in range(4):
+        write_token_shard(pattern % i, docs[i::4], itemsize=2)
+    return pattern
+
+
+def seq_expert_parts(tmp: str) -> list:
+    """The seq_expert path's CLI runs ``(name, argv)``, each a conf as
+    shipped over its seeded corpus for one round of SE_STEPS steps on
+    the card, the replicas checked after the round."""
+    lm = os.path.join(REPO, "example", "LM")
+    long_tok = seq_expert_corpus(tmp, "se_long", 8, 256)
+    moe_tok = seq_expert_corpus(tmp, "se_moe", 8, 128)
+    common = ["dev=gpu", "max_round=1", "save_model=0", "print_step=1",
+              "test_on_server=1", "silent=1"]
+    return [("longctx", [os.path.join(lm, "longctx.conf"),
+                         f"path_tok={long_tok}"] + common),
+            ("moe_expert", [os.path.join(lm, "moe_lm.conf"),
+                            f"path_tok={moe_tok}"] + common),
+            ("moe_model", [os.path.join(lm, "moe_lm.conf"),
+                           f"path_tok={moe_tok}", "mesh=data:2,model:2"]
+             + common)]
+
+
+def _seq_expert_rank(rank: int, tmp: str, parts: list) -> None:
+    """A rank of the seq_expert path: every part in turn, its results
+    saved."""
+    import torch
+    torch.cuda.set_device(0)
+    out = {name: dp_run(name, argv) for name, argv in parts}
+    torch.save(out, os.path.join(tmp, f"se_rank{rank}.pt"))
+
+
+def ring_inputs(dev):
+    """Part (d)'s seeded bf16 q, k, v, cotangent and packed segment ids
+    at SE_RING_SHAPE, the same in every process."""
+    import torch
+    b, h, s, hd = SE_RING_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    q, k, v, g = (torch.randn((b, h, s, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    seg = torch.from_numpy(seeded_segments(np.random.RandomState(31), b, s,
+                                           64)).to(dev)
+    return q, k, v, g, seg
+
+
+def _ring_rank(rank: int, tmp: str) -> None:
+    """Part (d) on one of 2 seq ranks sharing cuda:0: the ring's forward
+    and backward on the rank's block, its outputs saved, then
+    SE_RING_REPS timed forward + backward calls and the peak memory."""
+    import torch
+    from cxxnet_tpu_torch.parallel import mesh as meshlib, ring
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    m = meshlib.build_mesh(meshlib.MeshSpec({"seq": 2}), dev)
+    q, k, v, g, seg = ring_inputs(dev)
+    s_local = q.shape[2] // 2
+    blk = slice(rank * s_local, (rank + 1) * s_local)
+    q, k, v, g = (t[:, :, blk].contiguous() for t in (q, k, v, g))
+    seg = seg[:, blk].contiguous()
+
+    def run():
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = ring.ring_attention(qs, ks, vs, m, "seq", causal=True,
+                                  seg=seg)
+        out.backward(g)
+        return out.detach(), qs.grad, ks.grad, vs.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    got = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = []
+    for _ in range(SE_RING_REPS):
+        meshlib.barrier(m)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        run()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    torch.save(dict(got=[t.cpu() for t in got], ms=ms, peak=peak,
+                    shifts=meshlib.counts["ring_shift"]),
+               os.path.join(tmp, f"se_ring{rank}.pt"))
+
+
+def seq_expert_ring(tmp: str, card: str) -> None:
+    """Part (d): the ring on 2 gloo seq ranks on cuda:0 against the
+    one-device segmented flash forward and backward (rows 9 and 10,
+    launched here only to compare: not counted with the path)."""
+    import torch
+    from cxxnet_tpu_torch.ops.flash_attention import \
+        flash_attention_segmented
+    from cxxnet_tpu_torch.parallel import mesh as meshlib
+    t0 = time.perf_counter()
+    meshlib.spawn(_ring_rank, 2, (tmp,), backend="gloo",
+                  timeout_sec=DP_TIMEOUT_SEC)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"se_ring{r}.pt"))
+             for r in range(2)]
+    dev = torch.device("cuda", 0)
+    q, k, v, g, seg = ring_inputs(dev)
+    b, h, s, hd = SE_RING_SHAPE
+    q3, k3, v3 = (t.reshape(b * h, s, hd).clone().requires_grad_()
+                  for t in (q, k, v))
+    out = flash_attention_segmented(q3, k3, v3, seg)
+    out.backward(g.reshape(b * h, s, hd))
+    ref = [t.reshape(b, h, s, hd).float() for t in
+           (out.detach(), q3.grad, k3.grad, v3.grad)]
+    got = [torch.cat([r["got"][i] for r in ranks], 2).to(dev).float()
+           for i in range(4)]
+    errs = {n: float((a - r).norm() / r.norm())
+            for n, a, r in zip(("out", "dq", "dk", "dv"), got, ref)}
+    log(f"seq_expert (d) on {card}: ring attention b{b} h{h} s{s} hd{hd} "
+        f"bf16 causal + packed segments on 2 seq ranks of cuda:0 (gloo) "
+        f"against the one-device segmented flash (rows 9, 10): normwise "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol {SE_RING_TOL:g}); forward + backward a rank "
+        f"{[round(float(np.median(r['ms'])), 2) for r in ranks]} ms "
+        f"(median of {SE_RING_REPS}), peak memory a rank "
+        f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB, "
+        f"{ranks[0]['shifts']} ring shifts a rank; {wall:.1f} s")
+    MEASURED["se_ring_ms"] = [float(np.median(r["ms"])) for r in ranks]
+    bad = {n: e for n, e in errs.items() if not e <= SE_RING_TOL}
+    if bad:
+        raise AssertionError(f"seq_expert (d): the ring leaves the flash "
+                             f"kernels' result: {bad}")
+
+
+def phase_seq_expert(tmp: str) -> dict:
+    """Sequence and expert parallelism (``seq_expert``): SE_RANKS gloo
+    ranks share cuda:0 (spawned by the port's mesh module; gloo stages
+    CUDA tensors' collectives and ring shifts through the host), each
+    running the port's CLI: (a) longctx.conf at data:2,seq:2 (ring
+    attention over seq), (b) moe_lm.conf at data:2,expert:2 and its net
+    at data:2,model:2, SE_STEPS steps each with ``test_on_server = 1``,
+    against the same CLI run on one device (``mesh = data:1``): the
+    first loss within SE_FIRST_TOL, every loss within DP_LOSS_TOL, the
+    replicas bitwise equal, each rank holding half of the per-expert
+    bytes; (c) moe_lm.conf on one device under moe_dispatch sorted and
+    dense; (d) the ring at the served LM's width against rows 9 and 10.
+    Returns the path's launches: the mesh ranks' (rows 11 and 12 a rank;
+    9 and 10 where attention is not a ring) and the one-device runs'."""
+    import torch
+    from cxxnet_tpu_torch.parallel import mesh as meshlib
+    parts = seq_expert_parts(tmp)
+    card = card_line()
+    launches = {n: 0 for n in KERNELS}
+    ref = {}
+    for name, argv in parts[:2] + [("moe_dense", parts[1][1]
+                                    + ["moe_dispatch=dense"])]:
+        ref[name] = dp_run(name, argv + ["mesh=data:1"])
+        for n in KERNELS:
+            launches[n] += ref[name]["launches"][n]
+        log(f"seq_expert reference {name} (one device): losses "
+            f"{[round(x, 5) for x in ref[name]['losses']]}, step p50 "
+            f"{ref[name]['p50']:.2f} ms, peak {ref[name]['peak_gib']:.2f} "
+            f"GiB, launches {ref[name]['launches']}")
+    ref["moe_model"] = ref["moe_expert"]
+    srt, dense = ref["moe_expert"]["losses"], ref["moe_dense"]["losses"]
+    ddiff = max(abs(a - b) / abs(b) for a, b in zip(srt, dense))
+    log(f"seq_expert (c): moe_lm.conf on one device, moe_dispatch sorted "
+        f"against dense: largest relative loss difference {ddiff:.2e} "
+        f"(tol {SE_DISPATCH_TOL:g})")
+    if len(srt) != SE_STEPS or not ddiff <= SE_DISPATCH_TOL:
+        raise AssertionError(f"seq_expert (c): sorted {srt} dense {dense}")
+    t0 = time.perf_counter()
+    meshlib.spawn(_seq_expert_rank, SE_RANKS, (tmp, parts), backend="gloo",
+                  timeout_sec=DP_TIMEOUT_SEC)
+    log(f"seq_expert: {SE_RANKS} gloo ranks on cuda:0, {len(parts)} runs "
+        f"each, {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(tmp, f"se_rank{r}.pt"))
+             for r in range(SE_RANKS)]
+    want_mesh = {"longctx": {"data": 2, "seq": 2},
+                 "moe_expert": {"data": 2, "expert": 2},
+                 "moe_model": {"data": 2, "model": 2}}
+    for name, _ in parts:
+        r0 = ranks[0][name]
+        losses, base = r0["losses"], ref[name]["losses"]
+        diffs = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+        tols = [SE_FIRST_TOL] + [DP_LOSS_TOL] * (SE_STEPS - 1)
+        held = [rk[name].get("expert_bytes") for rk in ranks]
+        log(f"seq_expert {name} on {card}: mesh {r0['mesh']}, step p50 "
+            f"a rank {[round(rk[name]['p50'], 2) for rk in ranks]} ms (one "
+            f"device {ref[name]['p50']:.2f} ms), losses "
+            f"{[round(x, 5) for x in losses]} vs one device's: relative "
+            f"{[f'{d:.2e}' for d in diffs]}; drift "
+            f"{[rk[name]['drift'] for rk in ranks]}; peak memory a rank "
+            f"{[round(rk[name]['peak_gib'], 3) for rk in ranks]} GiB; "
+            f"per-expert bytes held / logical a rank {held}")
+        for r, rk in enumerate(ranks):
+            log(f"seq_expert {name} rank {r} launches: "
+                f"{rk[name]['launches']}")
+            want = ("layernorm_fwd", "layernorm_bwd") if name == "longctx" \
+                else ("layernorm_fwd", "layernorm_bwd",
+                      "flash_attention_seg_fwd", "flash_attention_seg_bwd")
+            short = [k for k in want if rk[name]["launches"][k] < SE_STEPS]
+            if short:
+                raise AssertionError(f"seq_expert {name}: rank {r} "
+                                     f"launched {short} less than once a "
+                                     "step")
+            for k in KERNELS:
+                launches[k] += rk[name]["launches"][k]
+        if r0["mesh"] != want_mesh[name] or len(losses) != SE_STEPS:
+            raise AssertionError(f"seq_expert {name}: mesh {r0['mesh']}, "
+                                 f"{len(losses)} steps")
+        if not all(np.isfinite(losses)) or any(
+                not d <= t for d, t in zip(diffs, tols)):
+            raise AssertionError(f"seq_expert {name}: losses {losses} "
+                                 f"leave the one-device run's {base}")
+        if any(rk[name]["drift"] != 0.0 for rk in ranks):
+            raise AssertionError(f"seq_expert {name}: replicas drifted")
+        if name != "longctx" and any(
+                h is None or h[1] == 0 or 2 * h[0] != h[1] for h in held):
+            raise AssertionError(f"seq_expert {name}: per-expert bytes "
+                                 f"held / logical {held}: not half")
+        MEASURED[f"se_{name}"] = [rk[name]["p50"] for rk in ranks]
+    seq_expert_ring(tmp, card)
     return launches
 
 
@@ -5889,6 +6174,8 @@ def main() -> int:
             paths["dp"] = phase_dp(tmp)
             numbers.setdefault("fused_adam", {})["dp_shards"] = \
                 MEASURED["dp_shards"]
+        if "seq_expert" in phases:
+            paths["seq_expert"] = phase_seq_expert(tmp)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",

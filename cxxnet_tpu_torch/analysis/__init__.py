@@ -23,9 +23,9 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
     traces its train step for the graph lint (``graph_lint.py``, the
     JAX package's jaxpr lint) and runs the OOM pre-flight (``mem_check
     = 1``) on it; a mesh config builds on a virtual mesh (one rank's
-    shards, no process group).  The SPMD lint comes with the model-
-    parallel slice (ROADMAP.md item 4(b)): an explicit ``spmd_check =
-    1`` warns that it has no effect.  Exit code
+    shards, no process group).  The SPMD lint is not ported yet
+    (ROADMAP.md item 4(b)): an explicit ``spmd_check = 1`` warns that
+    it has no effect.  Exit code
     1 iff any finding is an error."""
     from . import conflint
     findings = conflint.lint_pairs(cfg, path=path)

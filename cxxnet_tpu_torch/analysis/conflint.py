@@ -1080,8 +1080,8 @@ def _mesh_rules(last: Dict[str, str], layer_types: List[str],
 def _not_ported_rules(pairs: ConfigPairs, add) -> None:
     """A config the port would refuse at run time is an error, in the
     runtime's own words: a layer type of ``layers/registry.NOT_PORTED``,
-    a ``mesh`` with a ``seq`` / ``expert`` / ``pipe`` axis wider than 1
-    (the model-parallel slice) and a ``dev`` of several ids for a task
+    a ``mesh`` with a ``pipe`` axis wider than 1 (the pipeline slice)
+    and a ``dev`` of several ids for a task
     that runs on one device (``pred`` / ``pred_raw`` / ``extract`` /
     ``serve``).  Each key is reported at its first refused occurrence,
     where the runtime stops."""

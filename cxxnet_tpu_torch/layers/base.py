@@ -206,7 +206,8 @@ class ForwardContext:
     ``epoch`` is the update count, which anneals insanity's range.
     ``diagnostics`` collects the step's 0-d diagnostic tensors
     (pairtest layers' relative errors), keyed ``<layer>:<what>``;
-    ``mesh`` is the trainer's data mesh."""
+    ``mesh`` is the trainer's mesh and ``seq_split`` says whether this
+    rank holds a block of the positions."""
 
     train: bool
     opts: EngineOptions
@@ -222,6 +223,11 @@ class ForwardContext:
     # coupled layers (batch_norm) reduce their statistics over its data
     # axis, so a rank's rows behave as the global batch
     mesh: Optional[object] = None
+    # True when the rank holds its block of positions of every row (a
+    # seq axis wider than 1 dividing the sequence): attention runs as a
+    # ring over it, positional layers offset to the block, sequence
+    # statistics sum over it
+    seq_split: bool = False
 
 
 def _normal(gen: torch.Generator, shape, sigma: float, dtype) -> torch.Tensor:

@@ -18,6 +18,7 @@ from .conv import (AvgPoolingLayer, ConvolutionLayer, InsanityPoolingLayer,
                    SumPoolingLayer)
 from .fullc import FixConnectLayer, FullConnectLayer
 from .loss import L2LossLayer, MultiLogisticLayer, SoftmaxLayer
+from .moe import MoELayer
 from .norm import BatchNormLayer, DropoutLayer
 from .pairtest import PairTestLayer
 from .sequence import (AttentionLayer, EmbeddingLayer, LayerNormLayer,
@@ -41,7 +42,7 @@ for _cls in (SplitLayer, EltSumLayer, FlattenLayer, ConcatLayer,
              InsanityPoolingLayer, LRNLayer, FullConnectLayer,
              FixConnectLayer, BatchNormLayer, DropoutLayer, SoftmaxLayer,
              L2LossLayer, MultiLogisticLayer, EmbeddingLayer, LayerNormLayer,
-             SeqFullcLayer, AttentionLayer, SoftmaxSeqLayer):
+             SeqFullcLayer, AttentionLayer, SoftmaxSeqLayer, MoELayer):
     register(_cls)
 
 
@@ -57,9 +58,9 @@ _register_plugins()
 #: plugin layer types: their keys are their sections' only
 PLUGIN_TYPES = ("torch",)
 
-#: layers of the JAX package that the port does not implement yet: moe
-#: (the expert axis) with the model-parallel slice (ROADMAP.md item 4(b))
-NOT_PORTED = ("moe",)
+#: layers of the JAX package that the port does not implement yet (none
+#: since the moe layer came with the expert axis)
+NOT_PORTED: tuple = ()
 
 
 def layer_type_names():
@@ -77,7 +78,7 @@ def not_ported_message(type_name: str) -> str:
     """The refusal of a layer type the port lacks (the runtime's and
     ``task = check``'s words)."""
     return (f"layer type {type_name!r} is not ported to cxxnet_tpu_torch "
-            "yet (the model-parallel slice, ROADMAP.md item 4(b))")
+            "yet (ROADMAP.md)")
 
 
 def create_layer(type_name: str) -> Layer:

@@ -17,10 +17,19 @@ with segment ids); ``pallas_ln = 1`` (or ``x``, which saves the input
 for the backward) routes layernorm through
 :class:`~cxxnet_tpu_torch.ops.layernorm.LayerNorm`; ``0`` selects the
 plain torch path the JAX package runs off the TPU.
+
+Sequence parallelism: when the trainer split every row's positions over
+the ``seq`` mesh axis (``ctx.seq_split``), attention runs as ring
+attention over it (:func:`ring.sharded_attention`), the embedding adds
+its block's rows of ``wpos`` and ``softmax_seq`` counts a row's targets
+over all its blocks; a sequence the axis does not divide stays whole on
+every rank and attention falls back to dense attention, with the JAX
+package's warning.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional
 
 import torch
@@ -32,7 +41,7 @@ from ..ops.flash_attention import (attention_route, dense_reason,
                                    flash_attention,
                                    flash_attention_segmented)
 from ..ops.layernorm import layernorm
-from ..parallel import ring
+from ..parallel import mesh as meshlib, ring
 from .base import ForwardContext, Layer, Shape4, _normal
 from .loss import LossLayerBase
 
@@ -74,6 +83,15 @@ def single_device_attention(q, k, v, causal: bool, ctx: ForwardContext,
 
 #: calls under ``flash_attn = 1`` that took dense attention
 single_device_attention.dense_routes = 0
+
+
+def _seq_unsplit(ctx: ForwardContext) -> bool:
+    """True on a mesh whose ``seq`` axis is wider than 1 but does not
+    split this forward's positions (the sequence does not divide it):
+    every rank of the axis holds the whole sequence."""
+    mesh = ctx.mesh
+    return (mesh is not None and not mesh.virtual and not ctx.seq_split
+            and mesh.axis_size("seq") > 1)
 
 
 class EmbeddingLayer(Layer):
@@ -143,7 +161,12 @@ class EmbeddingLayer(Layer):
                 pidx = pos.long().clamp(0, wpos.shape[0] - 1)
                 out = out + wpos[pidx].to(out.dtype)
             else:
-                out = out + wpos[None, :, :].to(out.dtype)
+                # sequential positions; a rank holding a block of the
+                # positions adds the block's rows of the table
+                s = ids.shape[1]
+                off = ctx.mesh.axis_index("seq") * s if ctx.seq_split \
+                    else 0
+                out = out + wpos[None, off:off + s, :].to(out.dtype)
         return [out[:, None, :, :]]
 
 
@@ -294,8 +317,19 @@ class AttentionLayer(Layer):
             seg = _label_field(ctx, self.segment_key)
             if seg is not None:
                 seg = seg.long()
-            att = single_device_attention(q, k, v, bool(self.causal), ctx,
-                                          seg=seg)
+            if ctx.seq_split:
+                att = ring.sharded_attention(q, k, v, ctx.mesh,
+                                             causal=bool(self.causal),
+                                             seg=seg)
+            else:
+                if _seq_unsplit(ctx):
+                    warnings.warn(
+                        f"attention: seq length {s} is not divisible by the "
+                        f"seq mesh axis ({ctx.mesh.axis_size('seq')}); "
+                        "falling back to dense attention, which gathers the "
+                        "full sequence on one device", stacklevel=2)
+                att = single_device_attention(q, k, v, bool(self.causal),
+                                              ctx, seg=seg)
         att = att.transpose(1, 2).reshape(b, 1, s, d)
         bout = params.get("bout")
         return [F.linear(att, params["wout"].to(x.dtype),
@@ -383,11 +417,19 @@ class SoftmaxSeqLayer(LossLayerBase):
         if self.packed:
             valid = (y >= 0).float()
             tok = logp.gather(2, yi.clamp(min=0)[:, :, None])[:, :, 0]
-            per_inst = -(tok * valid).sum(dim=1) \
-                / valid.sum(dim=1).clamp(min=1.0)
+            count = valid.sum(dim=1)
+            if ctx.seq_split:
+                # a row's valid targets over all its blocks
+                count = meshlib.all_reduce(count, ctx.mesh, "seq")
+            per_inst = -(tok * valid).sum(dim=1) / count.clamp(min=1.0)
         else:
             tok = logp.gather(2, yi[:, :, None])[:, :, 0]
-            per_inst = -tok.mean(dim=1)
+            if ctx.seq_split:
+                # this block's share of the row's mean
+                per_inst = -tok.sum(dim=1) / (
+                    tok.shape[1] * ctx.mesh.axis_size("seq"))
+            else:
+                per_inst = -tok.mean(dim=1)
         self.add_loss(ctx, per_inst)
         # the output node is not part of the loss: no autograd graph
         with torch.no_grad():

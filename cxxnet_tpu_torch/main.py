@@ -75,8 +75,10 @@ Ported tasks:
 
 Data parallelism (``parallel/``): ``task = train`` / ``finetune`` with a
 ``dev`` of several ids (``cpu:0-3``, ``gpu:0-3``) starts one rank a
-device (:func:`~.parallel.mesh.spawn`) and each runs this task on its
-rows of every batch over the ``mesh`` (one ``data`` axis by default);
+device (:func:`~.parallel.mesh.spawn`; CPU ranks split the host's
+cores) and each runs this task on its rows of every batch over the
+``mesh`` (one ``data`` axis by default; ``model``, ``seq`` and
+``expert`` axes too, ``pipe`` refused by name);
 ``CXN_COORDINATOR`` / ``CXN_NUM_PROC`` / ``CXN_PROC_RANK`` (or the
 ``dist_*`` keys) join an external group of processes instead, one rank
 each, whose iterators read their own shard (``dist_num_worker`` /
@@ -198,8 +200,11 @@ def several_ids_message(what: str, dev: str, n: int) -> str:
             "parallel on them; ROADMAP.md, Multi-GPU)")
 
 
-def _cli_rank(rank: int, argv: List[str]) -> None:
-    """One spawned rank of a data-parallel CLI run."""
+def _cli_rank(rank: int, argv: List[str], threads: int = 0) -> None:
+    """One spawned rank of a data-parallel CLI run; ``threads`` > 0 caps
+    its intra-op threads (CPU ranks share the host's cores)."""
+    if threads:
+        torch.set_num_threads(threads)
     code = LearnTask().run(argv)
     if code:
         raise SystemExit(code)
@@ -1862,9 +1867,13 @@ class LearnTask:
         rendezvous on a private file store; a rank that fails fails the
         command, and the others are stopped."""
         dev = dict(self.cfg)["dev"]
-        backend = meshlib.backend_for(meshlib.select_devices(dev)[0])
+        device = meshlib.select_devices(dev)[0]
+        backend = meshlib.backend_for(device)
         mlog.info(f"dev = {dev}: {n} ranks over {backend}")
-        meshlib.spawn(_cli_rank, n, (list(argv),), backend=backend)
+        # CPU ranks split the host's cores instead of each taking all
+        threads = max(1, torch.get_num_threads() // n) \
+            if device.type == "cpu" else 0
+        meshlib.spawn(_cli_rank, n, (list(argv), threads), backend=backend)
         return 0
 
     def run(self, argv: List[str]) -> int:

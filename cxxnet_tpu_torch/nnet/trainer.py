@@ -67,7 +67,14 @@ the gradients over ``data`` after the backward, or bucket by bucket from
 it under ``dp_overlap = 1`` (:meth:`NetTrainer._dp_mode`); ZeRO and the
 model axis's shards follow ``parallel/data.py`` and snapshots hold the
 logical arrays.  :meth:`NetTrainer.check_weight_consistency` is
-``test_on_server``'s replica check.
+``test_on_server``'s replica check.  A ``seq`` axis that divides the
+input's positions splits them too (``seq_split``: a rank stages its
+block of every row and of each per-position label field, the step's
+gradients and loss sum over ``data`` and ``seq``); a moe layer's
+per-expert leaves are held as their block of experts on the axis
+hosting them (``expert_sharded``), and the gradients of what the
+``model`` / ``expert`` ranks compute alike are made bitwise one before
+the update.
 """
 
 from __future__ import annotations
@@ -389,6 +396,12 @@ class NetTrainer:
         self.fullc_gather = 0
         self.model_sharded: Dict[Tuple[str, str], Tuple[int, ...]] = {}
         self.zero_leaves: set = set()
+        # moe per-expert leaves held as their block of experts: (pkey,
+        # tag) -> (the axis hosting the experts, logical rows)
+        self.expert_sharded: Dict[Tuple[str, str], Tuple[str, int]] = {}
+        # a seq axis wider than 1 dividing the input's positions: each
+        # rank holds its block of every row's positions
+        self.seq_split = False
         self._dp_plan_state = None
         self._dp_warned: set = set()
 
@@ -478,7 +491,9 @@ class NetTrainer:
         self.netcfg = netcfg
         self._setup_mesh(device)
         self.model_sharded, self.zero_leaves = {}, set()
+        self.expert_sharded = {}
         self.net = Network(netcfg, self.batch_size, self.dtype)
+        self.seq_split = self._seq_splits()
 
     def _setup_mesh(self, device: Optional[torch.device]) -> None:
         """This rank's device and mesh (the JAX package's
@@ -524,6 +539,20 @@ class NetTrainer:
             raise ValueError(f"batch_size = {self.batch_size} does not "
                              f"divide over the data axis of {nd}")
 
+    def _seq_splits(self) -> bool:
+        """True when this rank holds a block of the positions: a mesh
+        with a group whose ``seq`` axis is wider than 1 and divides the
+        input's sequence (a (b, 1, 1, s) input)."""
+        mesh = self.mesh
+        if mesh is None or mesh.virtual or mesh.axis_size("seq") <= 1:
+            return False
+        shape = self.net.node_shapes[0]
+        return (shape[1] == shape[2] == 1
+                and shape[3] % mesh.axis_size("seq") == 0)
+
+    def _token_axes(self) -> Tuple[str, ...]:
+        return dplib.token_axes(self.seq_split)
+
     def _data_split(self) -> bool:
         """True when each rank takes its rows of a batch (a real mesh
         with a data axis wider than 1)."""
@@ -532,16 +561,38 @@ class NetTrainer:
 
     def _place_state(self) -> None:
         """Cut the logical parameters to what this rank holds: the
-        model-axis shards; note the ZeRO leaves."""
-        self.model_sharded, self.zero_leaves = dplib.plan_shards(
-            self.params, self.mesh, fullc_gather=bool(self.fullc_gather),
-            shard_opt_state=bool(self.shard_opt_state))
+        model-axis shards and the moe layers' blocks of experts; note
+        the ZeRO leaves."""
+        from ..layers.moe import MoELayer
+        moe_keys = {c.param_key for c in self.net.connections
+                    if isinstance(c.layer, MoELayer)}
+        self.model_sharded, self.zero_leaves, self.expert_sharded = \
+            dplib.plan_shards(
+                self.params, self.mesh,
+                fullc_gather=bool(self.fullc_gather),
+                shard_opt_state=bool(self.shard_opt_state),
+                expert_keys=moe_keys)
         self._slice_params()
 
+    def _shard_of(self, pkey: str, tag: str
+                  ) -> Tuple[Optional[str], int]:
+        """(the axis leaf ``(pkey, tag)`` is held sharded over on its
+        leading dim, its logical rows), or (None, 0) for a whole leaf
+        (ZeRO leaves are whole; only their optimizer state is cut)."""
+        if (pkey, tag) in self.model_sharded:
+            return "model", self.model_sharded[(pkey, tag)][0]
+        if (pkey, tag) in self.expert_sharded:
+            return self.expert_sharded[(pkey, tag)]
+        return None, 0
+
+    def _sharded_leaves(self):
+        return list(self.model_sharded) + list(self.expert_sharded)
+
     def _slice_params(self) -> None:
-        for (pkey, tag), shape in self.model_sharded.items():
+        for pkey, tag in self._sharded_leaves():
+            axis, rows = self._shard_of(pkey, tag)
             self.params[pkey][tag] = dplib.rank_slice(
-                self.params[pkey][tag], self.mesh, "model", shape[0])
+                self.params[pkey][tag], self.mesh, axis, rows)
 
     def _opt_view(self, pkey: str, tag: str, p: torch.Tensor):
         """The part of parameter ``p`` whose optimizer state this rank
@@ -559,12 +610,19 @@ class NetTrainer:
         return dplib.GatheringParams(self.params, self.model_sharded,
                                      self.mesh)
 
+    def _logical(self, pkey: str, tag: str, a: torch.Tensor
+                 ) -> torch.Tensor:
+        """A leaf (or its optimizer state) as the logical array: a shard
+        gathered over its axis."""
+        axis, _ = self._shard_of(pkey, tag)
+        return a if axis is None else dplib.gather_leaf(a, self.mesh, axis)
+
     def _logical_params(self) -> Params:
-        """The params as logical arrays (model shards gathered)."""
-        if not self.model_sharded:
+        """The params as logical arrays (model and expert shards
+        gathered)."""
+        if not self._sharded_leaves():
             return self.params
-        return {pkey: {tag: dplib.gather_leaf(p, self.mesh, "model")
-                       if (pkey, tag) in self.model_sharded else p
+        return {pkey: {tag: self._logical(pkey, tag, p)
                        for tag, p in g.items()}
                 for pkey, g in self.params.items()}
 
@@ -574,9 +632,7 @@ class NetTrainer:
         def full(pkey, tag, a):
             if (pkey, tag) in self.zero_leaves:
                 return dplib.gather_leaf(a, self.mesh, "data")
-            if (pkey, tag) in self.model_sharded:
-                return dplib.gather_leaf(a, self.mesh, "model")
-            return a
+            return self._logical(pkey, tag, a)
         return {pkey: {tag: {n: full(pkey, tag, a) for n, a in st.items()}
                        for tag, st in g.items()}
                 for pkey, g in self.opt_state.items()}
@@ -587,10 +643,8 @@ class NetTrainer:
         if (pkey, tag) in self.zero_leaves:
             return dplib.rank_slice(a, self.mesh, "data",
                                     self.params[pkey][tag].shape[0])
-        if (pkey, tag) in self.model_sharded:
-            return dplib.rank_slice(a, self.mesh, "model",
-                                    self.model_sharded[(pkey, tag)][0])
-        return a
+        axis, rows = self._shard_of(pkey, tag)
+        return dplib.rank_slice(a, self.mesh, axis, rows)
 
     def init_model(self, device: Optional[torch.device] = None) -> None:
         """Fresh weights from ``seed``, drawn on the trainer's device.
@@ -914,11 +968,10 @@ class NetTrainer:
             self._grad_acc = {k: {t: v.to(self.device) for t, v in g.items()}
                               for k, g in _torch_group(acc, "acc",
                                                        dtypes).items()}
-            for (pkey, tag), shape in self.model_sharded.items():
+            for pkey, tag in self._sharded_leaves():
                 g = self._grad_acc.get(pkey, {})
                 if tag in g:
-                    g[tag] = dplib.rank_slice(g[tag], self.mesh, "model",
-                                              shape[0])
+                    g[tag] = self._rank_opt(pkey, tag, g[tag])
             if self._overlap_defer and self.mesh.axis_index("data"):
                 # the file holds the window's global sum; a local
                 # accumulator of dp_reduce_at = apply is reduced once at
@@ -1148,9 +1201,7 @@ class NetTrainer:
             for tag, v in g.items():
                 if self._overlap_defer:
                     v = meshlib.all_reduce(v.clone(), self.mesh, "data")
-                if (pkey, tag) in self.model_sharded:
-                    v = dplib.gather_leaf(v, self.mesh, "model")
-                out[pkey][tag] = v
+                out[pkey][tag] = self._logical(pkey, tag, v)
         return out
 
     def save_model(self, path: str, with_opt_state: bool = False,
@@ -1200,15 +1251,18 @@ class NetTrainer:
         consumer's stream waits on (:meth:`StagedBatch.handover`)."""
         from ..io.device_prefetch import StagedBatch
         t0 = time.perf_counter()
-        # on a data mesh this rank stages its rows of the batch only
+        # on a data mesh this rank stages its rows of the batch only, on
+        # a seq axis that splits the positions its block of them
         n = np.asarray(batch.label).shape[0]
         rows = dplib.row_slice(self.mesh, n) if self._data_split() \
             else slice(0, n)
         label_host = np.asarray(batch.label)[rows]
-        data = self._host_tensor(np.asarray(batch.data)[rows], keep_u8=True)
+        data = self._host_tensor(
+            np.asarray(batch.data)[rows][..., self._position_block()],
+            keep_u8=True)
         if self._s2d_args is not None:
             data = self.stage_input(data)
-        label = self._host_tensor(label_host)
+        label = self._host_tensor(self._local_label(label_host))
         extras = tuple(self._host_tensor(np.asarray(e)[rows])
                        for e in getattr(batch, "extra_data", None) or ())
         n_padd = int(getattr(batch, "tail_mask_padd", 0))
@@ -1229,6 +1283,41 @@ class NetTrainer:
             tail_mask_padd=n_padd, extra_data=extras, mask=mask,
             h2d_sec=time.perf_counter() - t0, ready=ready,
             global_rows=n if self._data_split() else 0)
+
+    def _position_block(self) -> slice:
+        """This rank's block of the input's positions, its last dim (all
+        of it unless the ``seq`` axis splits the positions)."""
+        s = self.net.node_shapes[0][3]
+        if not self.seq_split:
+            return slice(0, s)
+        n = self.mesh.axis_size("seq")
+        i = self.mesh.axis_index("seq")
+        return slice(i * s // n, (i + 1) * s // n)
+
+    def _local_label(self, label):
+        """A (rows, label width) host label vector as this rank holds it:
+        each per-position field (one value a position: ``label``,
+        ``segment``, ``position`` of a packed LM) cut to the rank's block
+        of positions, the other fields whole, in the same order
+        (:meth:`label_info` reads the layout)."""
+        if not self.seq_split:
+            return label
+        s = self.net.node_shapes[0][3]
+        blk = self._position_block()
+        return np.concatenate(
+            [label[:, a + blk.start:a + blk.stop] if b - a == s
+             else label[:, a:b] for _, a, b in self._label_fields], 1)
+
+    def _local_fields(self) -> List[Tuple[str, int, int]]:
+        """The label fields' layout of a :meth:`_local_label` vector."""
+        s = self.net.node_shapes[0][3]
+        blk = self._position_block()
+        out, at = [], 0
+        for name, a, b in self._label_fields:
+            w = blk.stop - blk.start if b - a == s else b - a
+            out.append((name, at, at + w))
+            at += w
+        return out
 
     def _staged(self, batch):
         """The batch staged and safe to read on the current stream: a
@@ -1261,7 +1350,8 @@ class NetTrainer:
              ) -> ForwardContext:
         return ForwardContext(train=True, opts=self.opts, labels=labels,
                               loss_scale=self.loss_scale, rng=self.rng,
-                              epoch=epoch, mesh=self.mesh)
+                              epoch=epoch, mesh=self.mesh,
+                              seq_split=self.seq_split)
 
     def _loss_grads_outs(self, inputs: Dict[int, torch.Tensor],
                          labels: LabelInfo, epoch: Optional[int] = None,
@@ -1461,13 +1551,15 @@ class NetTrainer:
             inputs, labels, epoch, **kw)
         if dp is not None:
             # the global batch's loss; the implicit step's gradients
-            # summed over data leaf by leaf (ZeRO leaves reduce-scattered
-            # when no accumulator holds them whole)
-            loss = meshlib.all_reduce(loss.clone(), self.mesh, "data")
+            # summed over the token axes leaf by leaf (ZeRO leaves
+            # reduce-scattered when no accumulator holds them whole)
+            for ax in self._token_axes():
+                loss = meshlib.all_reduce(loss.clone(), self.mesh, ax)
             if dp == "implicit":
                 grads = dplib.reduce_grads(
                     grads, self.mesh, self.zero_leaves,
-                    scatter=self.update_period == 1)
+                    scatter=self.update_period == 1,
+                    axes=self._token_axes())
         if probe is not None:
             probe.mark(BACKWARD)
         self.last_loss = loss
@@ -1487,6 +1579,9 @@ class NetTrainer:
                 and self.sample_counter % self.monitor_interval == 0)
         before = ingraph.snapshot(self.params) if tick else None
         if do_update:
+            if dp is not None:
+                dplib.sync_replicas(
+                    grads, self.mesh, lambda k, t: self._shard_of(k, t)[0])
             self.apply_update(grads, epoch)
         if probe is not None:
             probe.mark(UPDATE)
@@ -1502,27 +1597,41 @@ class NetTrainer:
                     labels: LabelInfo
                     ) -> Tuple[Dict[int, torch.Tensor], LabelInfo]:
         """A whole batch (``batch_size`` rows) cut to this rank's rows on
-        a data mesh; a staged batch arrives cut already
+        a data mesh, and to its block of positions where the ``seq`` axis
+        splits them; a staged batch arrives cut already
         (:meth:`stage_batch`)."""
-        if not self._data_split() \
-                or inputs[0].shape[0] != self.batch_size:
+        s = self.net.node_shapes[0][3]
+        cut_rows = self._data_split() \
+            and inputs[0].shape[0] == self.batch_size
+        cut_pos = self.seq_split and inputs[0].shape[-1] == s
+        if not (cut_rows or cut_pos):
             return inputs, labels
-        rows = dplib.row_slice(self.mesh, self.batch_size)
-        return ({k: v[rows] for k, v in inputs.items()},
-                LabelInfo(fields={n: f[rows]
+        rows = dplib.row_slice(self.mesh, self.batch_size) if cut_rows \
+            else slice(None)
+        blk = self._position_block() if cut_pos else slice(None)
+
+        def cut(f):
+            f = f[rows]
+            return f[:, blk] if cut_pos and f.shape[1] == s else f
+        return ({k: v[rows][..., blk] if v.shape[-1] == s else v[rows]
+                 for k, v in inputs.items()},
+                LabelInfo(fields={n: cut(f)
                                   for n, f in labels.fields.items()},
                           mask=None if labels.mask is None
                           else labels.mask[rows]))
 
     def _dp_mode(self, do_update: bool, extras: bool) -> Optional[str]:
-        """The reduction of this step: None off a data mesh; ``implicit``
-        (all gradients after the backward); ``overlap`` (bucketed, from
-        the backward: ``dp_overlap = 1``); under ``dp_reduce_at = apply``
-        windows, ``local`` micro-steps and a ``fold`` apply step."""
+        """The reduction of this step: None on one device; ``implicit``
+        (all gradients after the backward; the one step of a mesh
+        without a data axis); ``overlap`` (bucketed, from the backward:
+        ``dp_overlap = 1``); under ``dp_reduce_at = apply`` windows,
+        ``local`` micro-steps and a ``fold`` apply step."""
         if not self._data_split():
             if self.opts.dp_overlap == "1":
                 self._dp_overlap_active()  # warns: nothing to reduce
-            return None
+            # a seq axis still sums, a model / expert axis still syncs
+            return "implicit" if self.mesh is not None \
+                and not self.mesh.virtual else None
         if extras and self.opts.dp_overlap == "1":
             self._dp_warn_once("extra-data inputs are unsupported")
             return "implicit"
@@ -1548,6 +1657,11 @@ class NetTrainer:
                 self.model_sharded.get((pkey, tag), tuple(p.shape)),
                 dtype=p.dtype, device="meta") for tag, p in g.items()}
                 for pkey, g in self.params.items()}
+            for (pkey, tag), (_, rows) in self.expert_sharded.items():
+                p = self.params[pkey][tag]
+                logical[pkey][tag] = torch.empty(
+                    (rows,) + tuple(p.shape[1:]), dtype=p.dtype,
+                    device="meta")
             plan = overlap.plan_buckets(
                 self.net, logical, float(self.opts.dp_bucket_mb),
                 tuple(dict.fromkeys(self.eval_node_ids)))
@@ -1571,13 +1685,29 @@ class NetTrainer:
         """True when the bucketed, backward-overlapped reduction replaces
         the implicit one.  Each combination it cannot run falls back to
         the implicit step with a one-shot warning, in the JAX package's
-        words (the ``seq`` / ``expert`` / ``pipe`` axes and ``moe``,
-        which it also names, are refused before a trainer is built)."""
+        words (the ``pipe`` axis, which it also names, is refused before
+        a trainer is built)."""
         if self.opts.dp_overlap != "1":
             return False
         if dplib.data_size(self.mesh) < 2:
             self._dp_warn_once("mesh has no data axis wider than 1")
             return False
+        extra_axes = [a for a in self.mesh.axes
+                      if a not in ("data", "model")
+                      and self.mesh.axis_size(a) > 1]
+        if extra_axes:
+            self._dp_warn_once(
+                f"mesh axes {'/'.join(extra_axes)} need GSPMD-placed "
+                "collectives (ring attention / expert all-to-all)")
+            return False
+        if dplib.model_size(self.mesh) > 1:
+            from ..layers.moe import MoELayer
+            if any(isinstance(c.layer, MoELayer)
+                   for c in self.net.connections):
+                self._dp_warn_once(
+                    "the model axis hosts MoE experts; dispatch/combine "
+                    "all-to-alls are GSPMD-placed")
+                return False
         if self.remat or self.batch_split > 1:
             self._dp_warn_once("remat/batch_split paths schedule "
                                "their own backward")
@@ -1623,15 +1753,17 @@ class NetTrainer:
         """Replica consistency, the ``test_on_server`` check: the largest
         |difference| of any parameter, optimizer-state or buffer leaf
         between the ranks that hold the same slice of it (ZeRO slices
-        compare over ``model``, model shards over ``data``); NaN against
+        compare over the axes but ``data``, model and expert shards over
+        the axes but theirs); NaN against
         a value is ``inf``.  0.0 when every replica agrees, and on one
         device.  Every rank of the mesh must call it."""
         if self.mesh is None or self.mesh.virtual:
             return 0.0
 
         def split(i: int, pkey: str, tag: str) -> Optional[str]:
-            if (pkey, tag) in self.model_sharded:
-                return "model"
+            axis, _ = self._shard_of(pkey, tag)
+            if axis is not None:
+                return axis
             if i == 1 and (pkey, tag) in self.zero_leaves:
                 return "data"
             return None
@@ -1723,9 +1855,13 @@ class NetTrainer:
         return list(self.net.scope_names)
 
     def label_info(self, label: torch.Tensor) -> LabelInfo:
-        """The label fields of a (batch, label width) device tensor."""
+        """The label fields of a (batch, label width) device tensor: the
+        whole vector, or a rank's :meth:`_local_label` of it."""
+        fields = self._label_fields
+        if self.seq_split and label.shape[1] != self.netcfg.label_width():
+            fields = self._local_fields()
         return LabelInfo(fields={name: label[:, a:b]
-                                 for name, a, b in self._label_fields})
+                                 for name, a, b in fields})
 
     def apply_update(self, grads: Dict, epoch: int) -> None:
         """The updater on every (layer, tag), in place; ``fused_update =
@@ -1847,6 +1983,13 @@ class NetTrainer:
         every rank's rows, labels and validity are all-gathered over
         ``data`` (the padding is the last ``num_batch_padd`` rows of the
         batch each rank read)."""
+        if self.seq_split:
+            # every row's positions: the blocks joined over seq
+            blk = self._position_block()
+            preds = [meshlib.all_gather(
+                p.movedim(2, 0).contiguous(), self.mesh, "seq").movedim(0, 2)
+                if p.dim() >= 3 and p.shape[2] == blk.stop - blk.start
+                else p for p in preds]
         if not self._data_split():
             self._add_eval(metric, [p.cpu().numpy() for p in preds],
                            sb.label_host, sb.num_batch_padd)
@@ -1875,7 +2018,7 @@ class NetTrainer:
 
     def context(self, decode=None) -> ForwardContext:
         return ForwardContext(train=False, opts=self.opts, decode=decode,
-                              mesh=self.mesh)
+                              mesh=self.mesh, seq_split=self.seq_split)
 
 
 def _replaying(fn, gen: Optional[torch.Generator]):

@@ -22,7 +22,14 @@ rules):
   wider than 1 (ZeRO): a replicated leaf with ``ndim >= 1``, ``shape[0]
   % N == 0`` and ``size >= 2**14`` keeps the optimizer state of its row
   slice only; its gradient is reduce-scattered, the rank updates its
-  slice and the slices are all-gathered back into the parameter.
+  slice and the slices are all-gathered back into the parameter;
+* a moe layer's per-expert leaves on the axis hosting the experts
+  (``expert``, else ``model``): each rank holds its block of experts
+  and their optimizer state (``layers/moe.py``).
+
+On a ``seq`` axis that splits the positions, every rank holds its rows
+and its block of positions: gradients and the loss sum over ``data``
+and ``seq`` (:func:`token_axes`).
 
 Snapshots hold the logical arrays (:func:`gather_leaf` joins a leaf's
 shards); :func:`rank_slice` cuts a logical array back to what a rank
@@ -62,24 +69,47 @@ def row_slice(mesh: Optional[meshlib.Mesh], n: int) -> slice:
 
 
 def plan_shards(params: Dict[str, Dict[str, torch.Tensor]], mesh,
-                *, fullc_gather: bool, shard_opt_state: bool
-                ) -> Tuple[Dict[Tuple[str, str], Tuple[int, ...]], set]:
-    """``(model-sharded leaves -> logical shape, ZeRO leaves)`` of the
-    logical ``params``: the JAX package's ``_make_shardings`` rules (a
-    pairtest side's ``master/wmat`` is a ``wmat``)."""
+                *, fullc_gather: bool, shard_opt_state: bool,
+                expert_keys=frozenset()
+                ) -> Tuple[Dict[Tuple[str, str], Tuple[int, ...]], set,
+                           Dict[Tuple[str, str], Tuple[str, int]]]:
+    """``(model-sharded leaves -> logical shape, ZeRO leaves,
+    expert-sharded leaves -> (axis, logical rows))`` of the logical
+    ``params``: the JAX package's ``_make_shardings`` rules (a pairtest
+    side's ``master/wmat`` is a ``wmat``).  A moe layer's group (its key
+    in ``expert_keys``) holds its per-expert leaves as their block of
+    experts over the axis hosting them (``expert``, else ``model``),
+    their optimizer state with them, and is never model- or
+    ZeRO-sharded."""
+    from ..layers.moe import expert_host_axis, expert_shard_rows
     msharded: Dict[Tuple[str, str], Tuple[int, ...]] = {}
+    esharded: Dict[Tuple[str, str], Tuple[str, int]] = {}
     zero: set = set()
     nm, nd = model_size(mesh), data_size(mesh)
+    eaxis = expert_host_axis(mesh)
     for pkey, group in params.items():
         for tag, p in group.items():
-            if (fullc_gather and nm > 1
+            if pkey in expert_keys:
+                if eaxis is not None and expert_shard_rows(
+                        tag, p.shape, mesh.axis_size(eaxis)):
+                    esharded[(pkey, tag)] = (eaxis, int(p.shape[0]))
+                    continue
+            elif (fullc_gather and nm > 1
                     and tag.rsplit("/", 1)[-1] == "wmat"
                     and p.dim() == 2 and p.shape[0] % nm == 0):
                 msharded[(pkey, tag)] = tuple(p.shape)
-            elif (shard_opt_state and nd > 1 and p.dim() >= 1
-                  and p.shape[0] % nd == 0 and p.numel() >= ZERO_MIN_SIZE):
+                continue
+            if (shard_opt_state and nd > 1 and p.dim() >= 1
+                    and p.shape[0] % nd == 0 and p.numel() >= ZERO_MIN_SIZE):
                 zero.add((pkey, tag))
-    return msharded, zero
+    return msharded, zero, esharded
+
+
+def token_axes(seq_split: bool) -> Tuple[str, ...]:
+    """The axes a step's tokens are split over, which every gradient and
+    the loss sum over: ``data``, and ``seq`` when it splits the
+    positions (``model`` and ``expert`` ranks hold the same tokens)."""
+    return ("data", "seq") if seq_split else ("data",)
 
 
 def axis_block(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -139,6 +169,39 @@ class AllReduceSum(torch.autograd.Function):
             None, None
 
 
+class SumPartials(torch.autograd.Function):
+    """The sum over a mesh axis of partial results whose consumer is
+    replicated over it (the moe layer's local experts' outputs): the
+    forward all-reduces, the backward passes the cotangent through, as
+    every rank's cotangent is already the whole one (summing them would
+    scale the gradient by the axis size)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return meshlib.all_reduce(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class SumGrads(torch.autograd.Function):
+    """A replicated tensor entering computation that each rank of a mesh
+    axis does a part of (the moe layer's local experts): the forward
+    passes it through, the backward sums the parts' cotangents over the
+    axis, so the gradient upstream is whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return meshlib.all_reduce(grad.clone(), ctx.mesh, ctx.axis), \
+            None, None
+
+
 def global_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` (a per-rank partial sum) summed over the ``data`` axis,
     under autograd: what batch-coupled layers (``batch_norm``'s
@@ -176,19 +239,50 @@ class GatheringParams(dict):
         return self._materialize(key) if key in self else default
 
 
-def reduce_grads(grads, mesh, zero: set, *, scatter: bool):
-    """The implicit step's reduction: every gradient summed over ``data``
-    leaf by leaf in ``grads``' order; ZeRO leaves reduce-scattered to
-    their row slice when ``scatter``."""
+def reduce_grads(grads, mesh, zero: set, *, scatter: bool,
+                 axes: Tuple[str, ...] = ("data",)):
+    """The implicit step's reduction: every gradient summed over ``axes``
+    (the token axes, :func:`token_axes`) leaf by leaf in ``grads``'
+    order; ZeRO leaves reduce-scattered to their row slice over ``data``
+    when ``scatter``."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for pkey, group in grads.items():
         out[pkey] = {}
         for tag, g in group.items():
+            for ax in axes[1:]:
+                g = meshlib.all_reduce(g, mesh, ax)
             if scatter and (pkey, tag) in zero:
                 out[pkey][tag] = meshlib.reduce_scatter(g, mesh, "data")
             else:
                 out[pkey][tag] = meshlib.all_reduce(g, mesh, "data")
     return out
+
+
+def replica_axes(mesh) -> Tuple[str, ...]:
+    """The axes whose ranks hold the same tokens and compute the same
+    replicated values (``model``, ``expert``), on a mesh with groups."""
+    if mesh is None or mesh.virtual:
+        return ()
+    return tuple(a for a in ("model", "expert") if mesh.axis_size(a) > 1)
+
+
+def sync_replicas(grads, mesh, shard_axis) -> None:
+    """Make each reduced gradient bitwise one across the axes whose ranks
+    compute it alike (:func:`replica_axes`): the value of the axis's
+    first rank is broadcast (in place in ``grads``).  The ranks compute
+    the same function, but a multi-threaded or atomic kernel may round
+    differently from one process to the next, and replicas must not
+    drift.  ``shard_axis(pkey, tag)`` names the axis a leaf is sharded
+    over (its ranks hold different slices), or None."""
+    axes = replica_axes(mesh)
+    if not axes:
+        return
+    for pkey, group in grads.items():
+        for tag, g in group.items():
+            for ax in axes:
+                if shard_axis(pkey, tag) != ax:
+                    g = meshlib.broadcast(g, mesh, ax)
+            group[tag] = g
 
 
 def _leaf_drift(t: torch.Tensor, mesh, axis: str) -> float:
@@ -213,7 +307,7 @@ def weight_consistency(trees, mesh, sharded_over) -> float:
     None for a replicated leaf.  0.0 means every replica agrees; the
     value is the same on every rank."""
     worst = 0.0
-    axes = [a for a in ("data", "model") if mesh.axis_size(a) > 1]
+    axes = [a for a in mesh.axes if mesh.axis_size(a) > 1]
     for i, tree in enumerate(trees):
         for pkey, group in tree.items():
             for tag, leaf in group.items():
@@ -224,8 +318,7 @@ def weight_consistency(trees, mesh, sharded_over) -> float:
                         if axis != split:
                             worst = max(worst, _leaf_drift(t, mesh, axis))
     # every rank returns the worst of all ranks
-    w = torch.tensor([worst], dtype=torch.float32, device=mesh.device)
-    every = meshlib.all_gather(w, mesh, "data") if "data" in axes else w
-    every = meshlib.all_gather(every.max().reshape(1), mesh, "model") \
-        if "model" in axes else every
+    every = torch.tensor([worst], dtype=torch.float32, device=mesh.device)
+    for axis in axes:
+        every = meshlib.all_gather(every.max().reshape(1), mesh, axis)
     return float(every.max())

@@ -72,9 +72,9 @@ def parse_device_spec(dev: str) -> Dict:
 #: so parse rejects it with a suggestion.
 KNOWN_AXES = ("data", "model", "seq", "expert", "pipe")
 
-#: the axes the port runs wider than 1; the others come with the model-
-#: parallel slice (ROADMAP.md item 4(b))
-PORTED_AXES = ("data", "model")
+#: the axes the port runs wider than 1; ``pipe`` comes with the pipeline
+#: slice (ROADMAP.md item 4(b))
+PORTED_AXES = ("data", "model", "seq", "expert")
 
 
 @dataclasses.dataclass
@@ -127,19 +127,18 @@ class MeshSpec:
         return self.axes.get(name, 1)
 
     def unported_axes(self) -> List[str]:
-        """Axes wider than 1 that the port does not run (``seq``,
-        ``expert``, ``pipe``)."""
+        """Axes wider than 1 that the port does not run (``pipe``)."""
         return [a for a, n in self.axes.items()
                 if n > 1 and a not in PORTED_AXES]
 
 
 def unported_axes_message(val: str, axes: Sequence[str]) -> str:
-    """The refusal of a mesh with an axis of the model-parallel slice
-    (the runtime's and ``task = check``'s words)."""
+    """The refusal of a mesh with an axis of the pipeline slice (the
+    runtime's and ``task = check``'s words)."""
     return (f"mesh = {val}: the {'/'.join(axes)} mesh "
             f"{'axis is' if len(axes) == 1 else 'axes are'} not ported to "
-            "cxxnet_tpu_torch yet (ring attention, moe, pipelines: the "
-            "model-parallel slice, ROADMAP.md item 4(b))")
+            "cxxnet_tpu_torch yet (GPipe / 1F1B pipelines: the pipeline "
+            "slice, ROADMAP.md item 4(b))")
 
 
 def backend_for(device: torch.device) -> str:
@@ -174,14 +173,16 @@ class Mesh:
 
     def __init__(self, axes: Dict[str, int], rank: int,
                  device: torch.device, backend: Optional[str],
-                 world: Any = None, groups: Optional[Dict[str, Any]] = None
-                 ) -> None:
+                 world: Any = None, groups: Optional[Dict[str, Any]] = None,
+                 axis_ranks: Optional[Dict[str, List[int]]] = None) -> None:
         self.axes = dict(axes)
         self.rank = rank
         self.device = device
         self.backend = backend
         self.world = world
         self._groups = dict(groups or {})
+        # axis -> the group's ranks (in the world group), in axis order
+        self._axis_ranks = dict(axis_ranks or {})
         self.coord: Dict[str, int] = {}
         rest = rank
         for name in reversed(list(self.axes)):
@@ -211,6 +212,12 @@ class Mesh:
         axis ``name`` only."""
         return self._groups.get(name)
 
+    def axis_peer(self, name: str, step: int) -> int:
+        """The world rank ``step`` places along axis ``name`` from this
+        one (around the axis's ring)."""
+        ranks = self._axis_ranks[name]
+        return ranks[(self.axis_index(name) + step) % len(ranks)]
+
     def host_staged(self, t: torch.Tensor) -> bool:
         """gloo has no reduce-scatter / all-gather of CUDA tensors: a
         gloo mesh on the card stages its collectives through the host."""
@@ -218,27 +225,30 @@ class Mesh:
 
 
 def _axis_groups(axes: Dict[str, int], rank: int, world_group: Any,
-                 world_size: int) -> Dict[str, Any]:
-    """One group per axis wider than 1.  Every rank creates every group
-    in the same order (``new_group`` is collective) and keeps the one it
-    is in; an axis spanning the world is the world group."""
+                 world_size: int):
+    """One group per axis wider than 1, and its ranks in axis order.
+    Every rank creates every group in the same order (``new_group`` is
+    collective) and keeps the one it is in; an axis spanning the world
+    is the world group."""
     import torch.distributed as dist
     import numpy as np
     names = list(axes)
     grid = np.arange(world_size).reshape([axes[a] for a in names])
     groups: Dict[str, Any] = {}
+    members: Dict[str, List[int]] = {}
     for k, name in enumerate(names):
         if axes[name] == 1:
             continue
-        if axes[name] == world_size:
-            groups[name] = world_group
-            continue
         moved = np.moveaxis(grid, k, -1).reshape(-1, axes[name])
         for ranks in moved:
-            g = dist.new_group([int(r) for r in ranks])
+            ranks = [int(r) for r in ranks]
+            if axes[name] == world_size:
+                g = world_group
+            else:
+                g = dist.new_group(ranks)
             if rank in ranks:
-                groups[name] = g
-    return groups
+                groups[name], members[name] = g, ranks
+    return groups, members
 
 
 def build_mesh(spec: Optional[MeshSpec], device: torch.device, *,
@@ -260,8 +270,9 @@ def build_mesh(spec: Optional[MeshSpec], device: torch.device, *,
                          f"the process group has {world}")
     backend = backend or str(dist.get_backend(group))
     world_group = group if group is not None else dist.group.WORLD
-    return Mesh(spec.axes, rank, device, backend, world_group,
-                _axis_groups(spec.axes, rank, world_group, world))
+    groups, members = _axis_groups(spec.axes, rank, world_group, world)
+    return Mesh(spec.axes, rank, device, backend, world_group, groups,
+                members)
 
 
 def virtual_mesh(spec: MeshSpec, device: torch.device) -> Mesh:
@@ -339,7 +350,7 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), *,
 # ------------------------------------------------------------ collectives
 #: launches of each collective (by name), on every mesh of the process
 counts: Dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
-                          "all_gather": 0}
+                          "all_gather": 0, "ring_shift": 0, "broadcast": 0}
 
 
 class Pending:
@@ -452,6 +463,48 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str = "data",
         return out
     _op("all_gather")(out, x, group=group)
     return out
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The ``t`` of the rank at index 0 of ``axis``, on every rank of it
+    (in place where no host copy is needed)."""
+    import torch.distributed as dist
+    group = mesh.group(axis)
+    if group is None:
+        return t
+    counts["broadcast"] += 1
+    x = t.contiguous()
+    staged = mesh.host_staged(x)
+    if staged:
+        x = x.cpu()
+    dist.broadcast(x, src=mesh._axis_ranks[axis][0], group=group)
+    return x.to(t.device) if staged or x is not t else t
+
+
+def ring_shift(t: torch.Tensor, mesh: Mesh, axis: str,
+               step: int = 1) -> torch.Tensor:
+    """``t`` sent ``step`` places along ``axis``'s ring, and the tensor of
+    the rank ``step`` places before received (``lax.ppermute`` with the
+    permutation ``i -> i + step``): a pair of point-to-point ops, through
+    host copies where gloo carries CUDA tensors.  Without a group (one
+    rank on the axis, a virtual mesh) a copy of ``t``."""
+    import torch.distributed as dist
+    n = mesh.axis_size(axis)
+    group = mesh.group(axis)
+    if group is None or n == 1 or step % n == 0:
+        return t.clone()
+    counts["ring_shift"] += 1
+    x = t.contiguous()
+    staged = mesh.host_staged(x)
+    if staged:
+        x = x.cpu()
+    out = torch.empty_like(x)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, mesh.axis_peer(axis, step), group),
+        dist.P2POp(dist.irecv, out, mesh.axis_peer(axis, -step), group)])
+    for r in reqs:
+        r.wait()
+    return out.to(t.device) if staged else out
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

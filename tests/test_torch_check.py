@@ -3,7 +3,7 @@
 * Registry: every key both packages declare has the same ``KeySpec``
   (name, kind, choices, lo, hi), scope by scope (global, each layer
   type, each iterator stage); the JAX package's keys the port lacks are
-  exactly the ``moe`` layer's and the ``torch`` plugin's.
+  exactly the ``torch`` plugin's (none at global scope).
 * Lint: the config-pair cases of tests/test_analysis.py and the
   ``_mem_rules`` cases of tests/test_memory.py, and every example conf,
   through both packages' ``conflint.lint_pairs``: the findings'
@@ -57,11 +57,10 @@ EXAMPLES = sorted(
     os.path.relpath(p, REPO) for p in glob.glob(
         os.path.join(REPO, "example", "**", "*.conf"), recursive=True))
 
-#: the JAX package's keys the port does not declare: its subsystem (the
-#: moe layer) is not ported
-JAX_ONLY_GLOBAL = {"num_expert", "capacity_factor", "moe_alpha",
-                   "moe_dispatch", "router_jitter"}
-JAX_ONLY_LAYER_TYPES = {"moe": JAX_ONLY_GLOBAL}
+#: the JAX package's keys the port does not declare (none since the moe
+#: layer came with the expert axis)
+JAX_ONLY_GLOBAL: set = set()
+JAX_ONLY_LAYER_TYPES: dict = {}
 #: the port's own keys: serve_gen_prompt_doc (serve/__init__.py)
 PORT_ONLY_GLOBAL = {"serve_gen_prompt_doc"}
 
@@ -94,8 +93,8 @@ def test_global_scope_matches_jax():
 
 @pytest.mark.parametrize("type_name", sorted(jlayers._REGISTRY))
 def test_layer_scope_matches_jax(type_name):
-    """Each layer type of the JAX package: the same keys in the port, or
-    (moe) no scope, since the port refuses the type."""
+    """Each layer type of the JAX package (moe included): the same keys
+    in the port."""
     j = jreg.layer_scope(type_name)
     p = registry.layer_scope(type_name)
     if type_name in JAX_ONLY_LAYER_TYPES:
@@ -188,7 +187,7 @@ CASES = [
     ("mesh_model_axis_gather", "mesh = data:2,model:2\nfullc_gather = 1\n",
      []),
     ("dp_overlap_seq", "dp_overlap = 1\nmesh = data:2,seq:2\n",
-     ["mesh"]),
+     []),
     ("dp_overlap_no_data", "dp_overlap = 1\nmesh = model:4\n"
      "fullc_gather = 1\n", []),
     ("dp_overlap_reduce_at", "dp_overlap = 1\nmesh = data:2,model:2\n"
@@ -197,7 +196,7 @@ CASES = [
     ("dp_overlap_moe", "dp_overlap = 1\nmesh = data:2,model:2\n"
      "netconfig=start\nlayer[+1] = moe\n  num_expert = 4\n  nhidden = 8\n"
      "netconfig=end\ninput_shape = 1,1,8\n",
-     ["layer[+1]"]),
+     []),
     ("dp_overlap_quiet", "dp_overlap = 1\nmesh = data:2,model:2\n"
      "fullc_gather = 1\n", []),
     ("pipe_shallow", "mesh = pipe:4\ndev = cpu:0-3\nnetconfig=start\n"
@@ -214,7 +213,7 @@ CASES = [
     ("pipe_dp_overlap_1f1b", "dp_overlap = 1\nmesh = data:2,pipe:2\n"
      "dev = cpu:0-3\npipe_schedule = 1f1b\n", ["mesh"]),
     ("seq_dp_overlap", "dp_overlap = 1\nmesh = data:2,seq:2\n"
-     "dev = cpu:0-3\n", ["mesh"]),
+     "dev = cpu:0-3\n", []),
     ("pipe_ragged", "mesh = pipe:2\ndev = cpu:0-1\npipe_microbatch = 3\n"
      "batch_size = 6\n", ["mesh"]),
     ("pipe_defaulted", "mesh = pipe:2\ndev = cpu:0-1\nbatch_size = 6\n",
@@ -257,9 +256,6 @@ CASES = [
 
 #: the by-design port-only findings of each example conf, by key
 EXAMPLE_PORT_ONLY = {
-    "example/LM/longctx.conf": ["mesh"],
-    "example/LM/moe_lm.conf": ["mesh", "layer[b0m_n->x1]",
-                               "layer[b1m_n->x2]"],
     "example/LM/pipeline_lm.conf": ["mesh"],
 }
 
@@ -308,24 +304,25 @@ def test_example_conf_lint_matches_jax(conf):
 
 def test_not_ported_findings_use_the_runtime_words(tmp_path):
     """Each not-ported finding is the ValueError the runtime raises for
-    the same key, word for word: a mesh axis of the model-parallel slice
-    (the trainer), several device ids for a one-device task (the task
-    driver) and the moe layer.  The data-parallel plane's keys are no
-    finding."""
+    the same key, word for word: a mesh axis of the pipeline slice (the
+    trainer) and several device ids for a one-device task (the CLI's
+    ``LearnTask``).  The data-parallel plane's keys, the seq and expert
+    axes and the moe layer are no finding."""
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     ported = [("mesh", "data:2,model:2"), ("dev", "gpu:0-3"),
+              ("mesh", "data:2,seq:2"), ("mesh", "data:2,expert:2"),
               ("shard_opt_state", "1"), ("update_on_server", "1"),
               ("fullc_gather", "1"), ("test_on_server", "1"),
               ("dp_overlap", "1"), ("dp_reduce_dtype", "bf16")]
     assert not [f for f in conflint.lint_pairs(ported)
                 if f.severity == "error"]
     (found,) = [f.message for f in conflint.lint_pairs(
-        [("mesh", "data:2,seq:2")]) if f.severity == "error"]
+        [("mesh", "data:2,pipe:2")]) if f.severity == "error"]
     with pytest.raises(ValueError) as ei:
-        NetTrainer().set_param("mesh", "data:2,seq:2")
+        NetTrainer().set_param("mesh", "data:2,pipe:2")
     assert str(ei.value) == found
-    assert "model-parallel slice" in found
+    assert "pipeline slice" in found
     pairs = [("task", "pred"), ("dev", "gpu:0-1")]
     (found,) = [f.message for f in conflint.lint_pairs(pairs)
                 if f.severity == "error" and f.key == "dev"]
@@ -334,12 +331,10 @@ def test_not_ported_findings_use_the_runtime_words(tmp_path):
     with pytest.raises(ValueError) as ei:
         LearnTask().run([str(conf)])
     assert str(ei.value) == found
-    with pytest.raises(ValueError) as ei:
-        layer_registry.create_layer("moe")
-    (msg,) = [f.message for f in conflint.lint_pairs(
-        parse_config_string("netconfig=start\nlayer[+1] = moe\n"
-                            "netconfig=end\n")) if f.severity == "error"]
-    assert str(ei.value) == msg
+    assert layer_registry.create_layer("moe").type_names == ("moe",)
+    assert not [f for f in conflint.lint_pairs(parse_config_string(
+        "netconfig=start\nlayer[+1] = moe\n  num_expert = 4\n"
+        "netconfig=end\n")) if f.severity == "error"]
 
 
 def test_card_selectors():

@@ -884,17 +884,19 @@ def test_googlenet_conf_steps_with_its_shipped_keys(tmp_path):
 
 
 def test_remaining_refusals_name_their_item():
-    """What stays refused is refused by name, naming the model-parallel
-    slice: the moe layer (alone or as a pairtest side) and the seq /
-    expert / pipe mesh axes.  The data-parallel plane's trainer keys and
-    dp_* engine options, refused until it was ported, are taken."""
+    """What stays refused is refused by name, naming its item: the pipe
+    mesh axis (the pipeline slice).  The moe layer (alone or as a
+    pairtest side), the seq / expert mesh axes, the data-parallel
+    plane's trainer keys and dp_* engine options, refused until they
+    were ported, are taken."""
     from cxxnet_tpu_torch.engine import EngineOptions
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
-    assert NOT_PORTED == ("moe",)
-    for name in NOT_PORTED + ("pairtest-moe-conv", "pairtest-conv-moe"):
-        with pytest.raises(ValueError, match="not ported.*4\\(b\\)"):
-            create_layer(name)
-    for mesh in ("data:2,seq:2", "expert:2", "pipe:2,model:2"):
+    assert NOT_PORTED == ()
+    for name in ("moe", "pairtest-moe-conv", "pairtest-conv-moe"):
+        create_layer(name)
+    for mesh in ("data:2,seq:2", "expert:2"):
+        NetTrainer().set_param("mesh", mesh)
+    for mesh in ("pipe:2,model:2", "data:2,pipe:2"):
         with pytest.raises(ValueError, match="not ported.*4\\(b\\)"):
             NetTrainer().set_param("mesh", mesh)
     t = NetTrainer()

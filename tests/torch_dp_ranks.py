@@ -71,7 +71,9 @@ def logical_state(t) -> Dict:
 def train_case(case: Dict, dev: str) -> Dict:
     """One case on this rank: ``case`` holds ``net``, ``extra`` pairs,
     ``batch``, ``shape``, ``steps``, ``tail_padd`` and optionally
-    ``init`` (the JAX package's params / buffers as numpy trees)."""
+    ``init`` (the JAX package's params / buffers as numpy trees) and
+    ``data`` (the batches themselves, ``(data, label, tail_padd)``
+    triples, instead of the seeded image batches)."""
     from cxxnet_tpu_torch.io.data import DataBatch
     from cxxnet_tpu_torch.nnet.trainer import params_from_jax
     t = port_trainer(case["net"], case.get("batch", 16), dev,
@@ -80,10 +82,10 @@ def train_case(case: Dict, dev: str) -> Dict:
         t.set_state(*params_from_jax(*case["init"]))
     t.start_round(1)
     losses, drift = [], []
-    for data, label, padd in batches(case.get("steps", 4),
-                                     case.get("batch", 16),
-                                     case.get("shape", (3, 16, 16)),
-                                     tail_padd=case.get("tail_padd", 0)):
+    for data, label, padd in case.get("data") or batches(
+            case.get("steps", 4), case.get("batch", 16),
+            case.get("shape", (3, 16, 16)),
+            tail_padd=case.get("tail_padd", 0)):
         b = DataBatch(data=data, label=label,
                       index=np.arange(data.shape[0], dtype=np.uint32))
         b.tail_mask_padd = padd
@@ -92,6 +94,14 @@ def train_case(case: Dict, dev: str) -> Dict:
         drift.append(t.check_weight_consistency())
     out = {"losses": losses, "drift": drift, "state": logical_state(t),
            "zero": sorted(t.zero_leaves), "model": sorted(t.model_sharded),
+           # what this rank holds of each expert-sharded leaf: (axis,
+           # logical rows, the parameter's shape, its optimizer state's)
+           "expert": {f"{k}/{tag}": (axis, rows,
+                                     tuple(t.params[k][tag].shape),
+                                     {n: tuple(a.shape) for n, a in
+                                      t.opt_state[k][tag].items()})
+                      for (k, tag), (axis, rows)
+                      in t.expert_sharded.items()},
            "buckets": None if t._dp_plan_state is None
            or t._dp_plan_state[0] is None
            else len(t._dp_plan_state[0].stages)}
