@@ -76,10 +76,11 @@ Phases (any failure raises and exits non-zero):
    two batches, an atomic ``.ckpt`` snapshot written off the training
    thread after each round (``ckpt_async = 1 ckpt_keep = 1``).  Run A
    trains uninterrupted in this process; run B is the same CLI in a
-   subprocess, SIGKILLed once its metrics show the round-2 snapshot
-   committed and a step of round 3 taken, then continued here with
-   ``continue = 1``.  B's round-2 snapshot must validate after the
-   kill, the continued run must start at round 3, and A's and B's last
+   subprocess, SIGKILLed once its metrics show the round-RESUME_KILL_AFTER
+   snapshot committed and a step of the next round taken, then continued
+   here with ``continue = 1``.  B's last committed snapshot must validate
+   after the kill, the continued run must start at the next round, and
+   A's and B's last
    snapshots must be equal bitwise: every array of every shard, the
    train state (the CUDA generator's state too) and the iterator state.
    The train chain reads through ``iter = threadbuffer``; run A stages
@@ -191,10 +192,12 @@ Phases (any failure raises and exits non-zero):
    fast ``slo`` record, exactly one ``serve_flight`` record whose
    trace-id range has its ``request`` spans in the sink, one max-pool
    launch a dispatch (and a bucket at warmup) and no retrace; then the
-   same conf over 10,000 seeded test rows with the endpoint on, without
-   (A) and with (B) a scraper process at 10 Hz, A B B A, each run's qps
-   and latency p50 / p99 printed; (b) the LM serve of phase 3 with
-   ``serve_admin_port``, without and with a scraper at 20 Hz, A B B A,
+   same conf over ADMIN_SCRAPE_ROWS seeded test rows with the endpoint
+   on, without (A) and with (B) a scraper process at 10 Hz, A B B A, each
+   run's qps and latency p50 / p99 printed; (c) a stall of the card
+   caught by the serve sentinels; (b) the LM serve of phase 3 over
+   ADMIN_GEN_PROMPTS prompts with ``serve_admin_port``, without and with
+   a scraper at 10 Hz, A B B A,
    each run's tok/s printed; in each scraped run ``/statusz``
    says ``kind = generate`` with tokens, steps and the occupancy
    histogram, ``/metrics`` has ``decode_occupancy_hist`` buckets, every
@@ -210,7 +213,9 @@ Phases (any failure raises and exits non-zero):
    step on meta tensors and gives one ``info`` finding and no error; it
    runs once more alone, its node count and seconds printed.  The
    allocator's live and reserved bytes and its count of allocations
-   must not move and no kernel may launch;
+   must not move and no kernel may launch.  The phase runs in a child
+   process started before the serve phase, beside the card's phases
+   (it takes one host core), and is collected in its turn;
 24. pair test (``pairtest``): ImageNet.conf with conv1 rewritten as
    ``pairtest-conv-torch`` (batch 256, bf16, ``synth_device_data = 1``,
    the kernel keys of phase 7) for PAIR_STEPS steps: the master's
@@ -234,9 +239,10 @@ Phases (any failure raises and exits non-zero):
    bf16, the AlexNet kernel keys (rows 1, 3, 4, 5), DP_ALEX_STEPS steps
    under ``dp_overlap`` 0 and 1 with ``test_on_server = 1`` (the
    replicas bitwise equal after every step), the bucket count printed;
-   (b) train_fused's packed LM (rows 9-12) under ``shard_opt_state =
-   1``, the fused adam (row 13) on each rank's slices, whose shapes are
-   printed and held to row 13's plain version; (c) ResNet-56 at batch
+   (b) train_fused's packed LM (rows 9-12) cut to DP_LM_LAYERS blocks
+   under ``shard_opt_state = 1``, the fused adam (row 13) on each
+   rank's slices, whose shapes are printed and held to row 13's plain
+   version; (c) ResNet-56 at batch
    128 with the global batch's batch_norm statistics, in bf16 and in
    float32 (no TF32, deterministic cuDNN), the moving buffers bitwise
    equal across the ranks.  Each part's losses against the same CLI run
@@ -262,7 +268,21 @@ Phases (any failure raises and exits non-zero):
    packed segments) on 2 seq ranks against the one-device segmented
    flash forward and backward (rows 9, 10), normwise within
    SE_RING_TOL, its time and peak memory a rank.  Each rank's step p50
-   and peak memory printed beside the card's name and power limit.
+   and peak memory printed beside the card's name and power limit;
+28. pipeline parallelism (``pipe``): gloo ranks share cuda:0, each
+   running the port's CLI (stage handoffs staged through the host): (a)
+   example/LM/pipeline_lm.conf as shipped (data:2, pipe:2, model:2,
+   1F1B, dp_overlap's (pipe, data) buckets, fullc_gather, f32) on
+   PIPE_RANKS ranks for SE_STEPS steps with ``test_on_server = 1``, then
+   under GPipe, against one device (rows 9-12 on every rank); (b) the
+   flagship packed LM at full width cut to PIPE_LAYERS blocks on
+   ``mesh = pipe:2`` under GPipe and 1F1B at PIPE_MICRO microbatches of
+   a row, against one device (rows 9-13 on both ranks), then at
+   PIPE_MICRO_WIDE: the peak memory a rank flat under 1F1B, growing
+   under GPipe.  Step p50, peak memory and handoffs a step a rank and
+   ``pipe_bubble_frac`` printed beside the card's name and power limit.
+   The check phase (23) runs the SPMD deep lint over every example conf
+   and the full-width LM's trace, timed.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -325,11 +345,11 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_ETA = 4, 6, 1e-3
 UNPACKED_LAYERS, UNPACKED_STEPS = 2, 3
 # the head-width-256 LM (d 2048 / 8 heads), cut to depth 2
 WIDE_NHEAD, WIDE_LAYERS, WIDE_STEPS = 8, 2, 4
-# kill and continue: the packed LM cut to depth 2 (a snapshot holds each
+# kill and continue: the packed LM cut to depth 1 (a snapshot holds each
 # parameter as float32 with its adam moments and master: 16 bytes a
-# parameter, ~2.3 GB at depth 2), RESUME_ROUNDS rounds of two batches;
+# parameter, ~1.5 GB at depth 1), RESUME_ROUNDS rounds of two batches;
 # run B is killed after snapshot RESUME_KILL_AFTER
-RESUME_LAYERS, RESUME_ROUNDS, RESUME_KILL_AFTER = 2, 3, 2
+RESUME_LAYERS, RESUME_ROUNDS, RESUME_KILL_AFTER = 1, 2, 1
 #: seconds run B may take to reach its kill point
 RESUME_KILL_TIMEOUT = 300
 DOC_LENS = (64, 4096)       # training document lengths
@@ -365,8 +385,9 @@ ADMIN_WINDOW, ADMIN_FLIGHT, ADMIN_SLO_SHARE = 0.25, 16, 0.5
 ADMIN_SCRAPE_HZ, ADMIN_SENTINEL_REL = 10, 100.0
 #: serve_admin's A B B A of the scrape's cost: seeded test rows a run
 #: (micro-batched), seeded prompts a run (the LM serve, PROMPT_LENS and
-#: GEN_TOKENS as the serve phase's)
-ADMIN_COST_ROWS, ADMIN_GEN_PROMPTS = 10000, 200
+#: GEN_TOKENS as the serve phase's); the anomaly run's test rows (a
+#: baseline before the stall and the windows after it)
+ADMIN_SCRAPE_ROWS, ADMIN_GEN_PROMPTS, ADMIN_STALL_ROWS = 2000, 24, 10000
 #: serve_admin's anomaly run: sentinel_rel (a window's p99 more than 11x
 #: its EWMA; the healthy windows' p99 jitter stays far below it, while
 #: the queue-depth sentinel, whose baseline sits near 0 under 4 clients,
@@ -381,7 +402,7 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
               "resnet", "alexnet_data", "staging", "observe",
               "serve_admin", "check", "pairtest", "wrapper", "dp",
-              "seq_expert"}
+              "seq_expert", "pipe"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -536,7 +557,9 @@ WRAPPER_ROUNDS, WRAPPER_CLIENTS = 2, 4
 # (relative) of the one-device run's: the bf16 training envelope of
 # train_fused against train (FUSED_LOSS_TOL); ResNet-56's bf16 run its
 # first loss within a bf16 rounding (2^-8), the rest printed
-DP_RANKS, DP_ALEX_STEPS, DP_LM_STEPS, DP_RESNET_STEPS = 2, 4, 6, 4
+DP_RANKS, DP_ALEX_STEPS, DP_LM_STEPS, DP_RESNET_STEPS = 2, 2, 3, 2
+#: (b)'s depth: train_fused's width and layer shapes, fewer blocks
+DP_LM_LAYERS = 4
 DP_ALEXNET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=1",
                    f"num_round={DP_ALEX_STEPS}", "pool_layout=hwcn",
                    "pool_relu_fuse=1", "pallas_lrn=1", "fast_wgrad=hwcn",
@@ -545,8 +568,10 @@ DP_RESNET_ARGS = ("dev=gpu", "synth_device_data=1", "multi_step=1",
                   f"num_round={DP_RESNET_STEPS}", "save_model=0",
                   "test_on_server=1", "silent=1")
 DP_LOSS_TOL = FUSED_LOSS_TOL
-#: seconds the spawned ranks may take (a hang fails the phase)
-DP_TIMEOUT_SEC = 900
+#: seconds a spawn of gloo ranks may take (each takes 15-70 s): a hang
+#: fails its phase, with every rank's Python stack dumped to stderr
+#: (:func:`arm_stack_dump`), well inside the smoke's time limit
+DP_TIMEOUT_SEC = 300
 
 # seq_expert: SE_RANKS gloo ranks on cuda:0.  (a) example/LM/longctx.conf
 # at data:2,seq:2 and (b) example/LM/moe_lm.conf at data:2,expert:2 and
@@ -564,6 +589,22 @@ SE_DISPATCH_TOL = 1e-5
 SE_RING_SHAPE = (4, 16, 4096, 128)
 SE_RING_TOL = 2e-2
 SE_RING_REPS = 3
+
+# pipe: (a) example/LM/pipeline_lm.conf as shipped (data:2, pipe:2,
+# model:2, 1F1B, dp_overlap = 1, fullc_gather = 1, f32) on PIPE_RANKS
+# gloo ranks on cuda:0 for SE_STEPS steps of a seeded corpus with
+# test_on_server = 1, then under pipe_schedule = gpipe, each against the
+# same CLI on one device (first loss within SE_FIRST_TOL, every loss
+# within DP_LOSS_TOL, replicas bitwise); (b) the packed LM of train_fused
+# at full width cut to PIPE_LAYERS blocks, mesh = pipe:2 on 2 ranks,
+# pipe_microbatch PIPE_MICRO (a row a microbatch), PIPE_STEPS steps under
+# GPipe and 1F1B against one device (DP_LOSS_TOL), then PIPE_MICRO_WIDE
+# microbatches of a row (batch 8) for PIPE_WIDE_STEPS steps under each,
+# for the peak memory a rank: flat under 1F1B (within PIPE_FLAT_TOL),
+# growing under GPipe
+PIPE_RANKS, PIPE_LAYERS, PIPE_STEPS = 8, 4, 4
+PIPE_MICRO, PIPE_MICRO_WIDE, PIPE_WIDE_STEPS = 4, 8, 1
+PIPE_FLAT_TOL = 0.10
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: numbers one phase prints beside another's (alexnet's step p50)
@@ -4001,11 +4042,15 @@ def check_counters_monotone(scrapes: list, label: str) -> None:
 def check_flights(recs: list, label: str, reason: str,
                   one: bool = True) -> list:
     """The ``serve_flight`` records in ``recs`` (exactly one if ``one``,
-    else at least one), each with a reason starting with ``reason``,
-    ADMIN_FLIGHT boosted requests and as many ``request`` spans in its
-    trace-id range; trace_sample is 0 outside the boosts, so every span
-    id lies in a flight's range (a request still in flight when a capture
-    restored the rate emits no more spans).  Returns them."""
+    else at least one), each with a reason starting with ``reason`` and
+    at least ADMIN_FLIGHT boosted requests.  A flight counts the requests
+    served after it armed, those admitted before it too (untraced: at
+    most CLIENTS, one a closed-loop client), and a request still in
+    flight when it restored the rate emits no more spans (again at most
+    CLIENTS): so its trace-id range holds at least ``requests_boosted -
+    CLIENTS`` ids, all but at most CLIENTS with a ``request`` span.
+    trace_sample is 0 outside the boosts, so every span id lies in a
+    flight's range.  Returns them."""
     flights = [r for r in recs if r["kind"] == "serve_flight"]
     if not flights or (one and len(flights) != 1) \
             or not all(f["reason"].startswith(reason) for f in flights):
@@ -4023,8 +4068,9 @@ def check_flights(recs: list, label: str, reason: str,
             f"{f['trace_first']}..{f['trace_last']}, "
             f"{len(requests & ids)} with a request span, "
             f"{len(ids - requests)} cut by the restore")
-        if not f["trace_first"] or len(requests & ids) < ADMIN_FLIGHT \
-                or f["requests_boosted"] < ADMIN_FLIGHT:
+        if not f["trace_first"] or f["requests_boosted"] < ADMIN_FLIGHT \
+                or len(ids) < f["requests_boosted"] - CLIENTS \
+                or len(ids - requests) > CLIENTS:
             raise AssertionError(f"serve_admin {label}: flight {f}: "
                                  f"{len(requests & ids)} request spans in "
                                  "it")
@@ -4117,21 +4163,21 @@ def admin_batch(tmp: str) -> dict:
     return launches
 
 
-def admin_cost_args(tmp: str, sink: str) -> list:
-    """mnist_serve_args at f32 over ADMIN_COST_ROWS seeded test rows (made
-    on the first call), writing to the sink ``sink``."""
-    data = os.path.join(tmp, "mnist_cost")
+def admin_cost_args(tmp: str, sink: str, rows: int) -> list:
+    """mnist_serve_args at f32 over ``rows`` seeded test rows (made on the
+    first call for that count), writing to the sink ``sink``."""
+    data = os.path.join(tmp, f"mnist_cost{rows}")
     if not os.path.exists(data):
         subprocess.run([sys.executable,
                         os.path.join(REPO, "tools", "make_synth_mnist.py"),
                         "--out", data, "--train", "1",
-                        "--test", str(ADMIN_COST_ROWS)],
+                        "--test", str(rows)],
                        check=True, capture_output=True)
     args = mnist_serve_args(tmp) + ["serve_dtype=f32",
                                     f"metrics_sink=jsonl:{sink}"]
     text = open(args[0]).read().replace(os.path.join(tmp, "mnist") + "/",
                                         data + "/")
-    args[0] = os.path.join(tmp, "mnist_serve_cost.conf")
+    args[0] = os.path.join(tmp, f"mnist_serve_cost{rows}.conf")
     with open(args[0], "w") as f:
         f.write(text)
     return args
@@ -4167,14 +4213,14 @@ def spread(vals: list) -> float:
 
 
 def admin_scrape_cost(tmp: str) -> dict:
-    """serve.conf over ADMIN_COST_ROWS seeded test rows with the admin
+    """serve.conf over ADMIN_SCRAPE_ROWS seeded test rows with the admin
     endpoint on, without a scraper (A) and with a scraper of /metrics and
     /statusz at ADMIN_SCRAPE_HZ (B), A B B A; prints each run's qps and
     its exact latency p50 / p99 over every request (the reservoir's
     estimates beside them); returns the runs' launches."""
     from cxxnet_tpu_torch.monitor.metrics import nearest_rank
     sink = os.path.join(tmp, "serve_admin_cost.jsonl")
-    args = admin_cost_args(tmp, sink)
+    args = admin_cost_args(tmp, sink, ADMIN_SCRAPE_ROWS)
     reset_launches()
     rows = []
     for label in "ABBA":
@@ -4191,13 +4237,13 @@ def admin_scrape_cost(tmp: str) -> dict:
                      len(scraper.scrapes) if scraper else 0))
         if scraper is not None:
             check_counters_monotone(scraper.scrapes, "scrape cost")
-        if st["retraces"] != 0 or st["requests"] != ADMIN_COST_ROWS \
-                or len(exact) != ADMIN_COST_ROWS:
+        if st["retraces"] != 0 or st["requests"] != ADMIN_SCRAPE_ROWS \
+                or len(exact) != ADMIN_SCRAPE_ROWS:
             raise AssertionError(f"serve_admin: {st['requests']} requests "
                                  f"({len(exact)} latencies), "
                                  f"{st['retraces']} retraces")
         del task
-    log(f"serve_admin scrape cost ({ADMIN_COST_ROWS} requests a run; A: no "
+    log(f"serve_admin scrape cost ({ADMIN_SCRAPE_ROWS} requests a run; A: no "
         f"scraper, B: /metrics + /statusz at {ADMIN_SCRAPE_HZ} Hz from "
         "another process; p50 / p99 exact over every request, the "
         "2048-value reservoir's in brackets), A B B A: " + "; ".join(
@@ -4210,7 +4256,7 @@ def admin_scrape_cost(tmp: str) -> dict:
 
 
 def admin_anomaly(tmp: str) -> dict:
-    """(c): the cost runs' stream with the sentinels at ADMIN_STALL_REL,
+    """(c): ADMIN_STALL_ROWS test rows with the sentinels at ADMIN_STALL_REL,
     no SLO, and the card stalled for ~ADMIN_STALL_SEC (matmuls queued on
     the default stream from another thread) ADMIN_STALL_AFTER s after
     /readyz turns 200: no p99 or qps anomaly before the stall, a
@@ -4221,7 +4267,7 @@ def admin_anomaly(tmp: str) -> dict:
     import urllib.request
     import torch
     sink = fresh(os.path.join(tmp, "serve_admin_stall.jsonl"))
-    args = admin_cost_args(tmp, sink) + [
+    args = admin_cost_args(tmp, sink, ADMIN_STALL_ROWS) + [
         "serve_sentinel=1", f"serve_sentinel_window={ADMIN_WINDOW}",
         f"sentinel_rel={ADMIN_STALL_REL}",
         f"serve_flight_requests={ADMIN_FLIGHT}"]
@@ -4921,22 +4967,28 @@ def check_estimate(conf: str, batch: int) -> int:
 
 
 def check_graph_lint(conf: str) -> tuple:
-    """The graph lint (analysis/graph_lint.py) of ``conf``'s train step
-    on the meta-built trainer, as task = check runs it: (findings,
-    seconds)."""
+    """The graph lint (analysis/graph_lint.py) and the SPMD deep lint
+    (analysis/spmdlint.py) of ``conf``'s train step on the meta-built
+    trainer, as task = check runs them (one trace for both): (graph
+    lint findings, seconds with the trace, SPMD findings, seconds of the
+    SPMD pass over the trace)."""
     import torch
-    from cxxnet_tpu_torch.analysis import graph_lint
+    from cxxnet_tpu_torch.analysis import graph_lint, spmdlint
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     from cxxnet_tpu_torch.utils.config import parse_config_file
     tr = NetTrainer()
-    for k, v in parse_config_file(conf):
-        if k != "metrics_sink":
-            tr.set_param(k, v)
+    cfg = [(k, v) for k, v in parse_config_file(conf) if k != "metrics_sink"]
+    for k, v in cfg:
+        tr.set_param(k, v)
     tr.set_param("silent", "1")
     tr.init_model(torch.device("meta"))
     t0 = time.perf_counter()
-    findings = graph_lint.lint_trainer(tr)
-    return findings, time.perf_counter() - t0
+    audit = {}
+    traced = graph_lint.trace_step(tr, audit)
+    findings = graph_lint.lint_trainer(tr, traced)
+    t1 = time.perf_counter()
+    spmd = spmdlint.lint_trainer(tr, traced, audit, cfg)
+    return findings, t1 - t0, spmd, time.perf_counter() - t1
 
 
 def alloc_state() -> tuple:
@@ -4948,8 +5000,9 @@ def alloc_state() -> tuple:
             torch.cuda.memory_stats().get("allocation.all.allocated", 0))
 
 
-def phase_check(tmp: str) -> dict:
-    """Phase 23 (``check``): the port's ``task = check`` on the card's
+def check_body(tmp: str) -> dict:
+    """The ``check`` phase's work, in the child :func:`start_check`
+    starts: the port's ``task = check`` on the card's
     machine, which does no device work: (a) ``mem_check = 1 mem_chip =
     h100`` on phase 9's LM conf at full width (d 2048, 12 layers, s 4096,
     batch 4, fused adam): exit 0, an ``info`` pre-flight finding with its
@@ -4960,9 +5013,12 @@ def phase_check(tmp: str) -> dict:
     never run): exit 1 with an error carrying remediations; (c) every
     example/**/*.conf: each exit code, error count and graph node count
     printed, every conf with a net the port builds linted (one info
-    line of the graph lint).  The allocator's live and reserved bytes
+    line of the graph lint) and no SPMD finding an error; (a) also runs
+    the SPMD pass alone over the LM's trace, in under 20 s.  The
+    allocator's live and reserved bytes
     and its count of allocations must not move, and no kernel may
-    launch.  Returns the path's launches."""
+    launch (in this process: a fresh one, so the allocator's readings
+    are its own).  Returns the path's launches."""
     import glob
     import torch
     from cxxnet_tpu_torch.analysis import costmodel
@@ -4989,15 +5045,23 @@ def phase_check(tmp: str) -> dict:
             or "full;" not in mem[0]["message"]:
         raise AssertionError(f"check (a): exit {rc}, {rec}")
     jx = [f for f in rec["findings"] if f.get("scope") == "jaxpr"]
-    lint, lsec = check_graph_lint(conf)
+    sp = [f for f in rec["findings"] if f.get("scope") == "spmd"]
+    lint, lsec, spmd, ssec = check_graph_lint(conf)
     log(f"check (a): graph lint of the fused LM's step: "
         + "; ".join(f"{f.severity} {f.message}" for f in lint)
-        + f" ({lsec:.1f} s); in the check record: "
+        + f" ({lsec:.1f} s with the trace); in the check record: "
         + "; ".join(f"{f['severity']} {f['message']}" for f in jx))
+    log(f"check (a): SPMD pass over the same trace ({ssec:.2f} s): "
+        + "; ".join(f"{f.severity} {f.key}: {f.message}" for f in spmd)
+        + "; in the check record: "
+        + "; ".join(f"{f['severity']} {f['key']}" for f in sp))
     if [f.severity for f in lint] != ["info"] or [f["severity"] for f in jx] \
             != ["info"] or not jx[0]["message"].startswith(
                 "traced train step: "):
         raise AssertionError(f"check (a): graph lint {lint}, {jx}")
+    if not sp or [f.key for f in spmd if f.severity == "error"] \
+            or not ssec < 20.0:
+        raise AssertionError(f"check (a): SPMD pass {spmd} in {ssec:.1f} s")
     cap = costmodel.HBM_BYTES[costmodel.H100]
     e0 = check_estimate(conf, TRAIN_BATCH)
     e1 = check_estimate(conf, TRAIN_BATCH + 1)
@@ -5028,12 +5092,19 @@ def phase_check(tmp: str) -> dict:
             task = LearnTask()
             code = task.run([c, "task=check"])
             n_err = sum(f.severity == "error" for f in task.last_check)
+            spmd_err = [f.key for f in task.last_check
+                        if f.scope == "spmd" and f.severity == "error"]
+            if spmd_err:
+                raise AssertionError(f"check (c): {c}: SPMD errors "
+                                     f"{spmd_err}")
             jx = [f for f in task.last_check if f.scope == "jaxpr"]
             nodes = [f.message.split()[3] for f in jx
                      if f.message.startswith("traced train step: ")]
+            n_spmd = sum(f.scope == "spmd" for f in task.last_check)
             out.append(f"{os.path.relpath(c, REPO)} exit {code}, {n_err} "
                        f"errors, {nodes[0] if nodes else 'no'} graph "
-                       f"nodes ({time.perf_counter() - t0:.2f} s)")
+                       f"nodes, {n_spmd} SPMD findings "
+                       f"({time.perf_counter() - t0:.2f} s)")
             # a conf with a net the port builds gets the graph lint's
             # one info line, nothing else of that scope
             has_net = re.search(r"(?m)^netconfig\s*=\s*start",
@@ -5053,6 +5124,62 @@ def phase_check(tmp: str) -> dict:
     if mem1 != mem0 or any(launches.values()):
         raise AssertionError("check: task = check touched the card")
     return launches
+
+
+#: seconds the check child may still need when its phase comes (it
+#: starts before the serve phase and takes 1-2 minutes of one core)
+CHECK_JOIN_SEC = 300
+
+
+def start_check(tmp: str):
+    """Start the ``check`` phase in a child process (``python3
+    chip_smoke.py --check-child TMP``) whose files, its output too, go
+    to a directory of their own under ``tmp``: ``task = check`` does no
+    device work and takes one host core for a minute or two, so it runs
+    beside the card's phases and :func:`phase_check` collects it.
+    Returns the child's Popen."""
+    own = os.path.join(tmp, "check")
+    os.makedirs(own)
+    with open(os.path.join(own, "check_child.log"), "w") as fo:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--check-child",
+             own], stdout=fo, stderr=subprocess.STDOUT, cwd=REPO)
+
+
+def check_child(tmp: str) -> int:
+    """``--check-child``: :func:`check_body` in this process; its
+    launches and the wall time to ``tmp/check_child.json``."""
+    t0 = time.perf_counter()
+    launches = check_body(tmp)
+    with open(os.path.join(tmp, "check_child.json"), "w") as f:
+        json.dump(dict(launches=launches, wall=time.perf_counter() - t0), f)
+    return 0
+
+
+def phase_check(proc, tmp: str) -> dict:
+    """Phase 23 (``check``): waits for the child :func:`start_check`
+    started (at most CHECK_JOIN_SEC), prints its output and fails when
+    it failed.  Returns the path's launches (none)."""
+    tmp = os.path.join(tmp, "check")
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=CHECK_JOIN_SEC)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    with open(os.path.join(tmp, "check_child.log")) as f:
+        for line in f.read().splitlines():
+            log(line)
+    if rc != 0:
+        raise AssertionError(f"check: the child exited {rc}"
+                             + (" (killed after its wait)" if rc is None
+                                else ""))
+    with open(os.path.join(tmp, "check_child.json")) as f:
+        res = json.load(f)
+    log(f"check: ran beside the earlier phases in {res['wall']:.1f} s; "
+        f"waited {time.perf_counter() - t0:.1f} s for it here")
+    return res["launches"]
 
 
 def pairtest_conf(tmp: str) -> str:
@@ -5289,7 +5416,8 @@ def dp_parts(tmp: str) -> list:
     from cxxnet_tpu_torch.models import resnet
     alex = [os.path.join(REPO, "example", "ImageNet", "ImageNet.conf")] \
         + list(DP_ALEXNET_ARGS) + [f"model_dir={tmp}/dp", "silent=1"]
-    lm = lm_train_conf(tmp, "dp_lm", True, NLAYER, NHEAD, DP_LM_STEPS, True)
+    lm = lm_train_conf(tmp, "dp_lm", True, DP_LM_LAYERS, NHEAD, DP_LM_STEPS,
+                       True)
     rconf = os.path.join(tmp, "dp_resnet.conf")
     with open(rconf, "w") as f:
         f.write(resnet(num_class=10, depth=RESNET_DEPTH) + f"""
@@ -5310,12 +5438,43 @@ random_type = kaiming
              + [f"model_dir={tmp}/dp", "dtype=float32"])]
 
 
-def dp_run(name: str, argv: list) -> dict:
+def state_digest(net) -> list:
+    """Every parameter, optimizer-state and buffer leaf's bits folded on
+    the card into two int64 sums, plain and position-weighted, in tree
+    order: ranks holding bitwise the same state give the same list."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for tree in (net.params, net.opt_state or {}, net.buffers):
+        for _, leaf in sorted(flat_leaves(tree)):
+            v = leaf.detach().contiguous().view(-1)
+            v = v.view(ints[v.element_size()]).to(torch.int64)
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            out.append((int(v.sum()), int((v * w).sum())))
+    return out
+
+
+def flat_leaves(tree, path: str = "") -> list:
+    """``[(path, tensor)]`` of a nested dict of tensors."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += flat_leaves(v, f"{path}/{k}")
+        else:
+            out.append((f"{path}/{k}", v))
+    return out
+
+
+def dp_run(name: str, argv: list, drift="weights") -> dict:
     """One LearnTask run of the dp path in this process (one device, or
     a rank of the spawned group): its losses, step times, launches (the
     counters set to 0 just before), peak memory, and on a mesh the
-    replicas' drift, the bucket count, the ZeRO shards the fused adam
-    took and the batch_norm buffers."""
+    replicas' drift (``drift``: ``weights``, the trainer's
+    ``check_weight_consistency``; ``digest``, this rank's
+    :func:`state_digest` for the caller to compare; None: neither), the
+    bucket count, the ZeRO shards the fused adam took and the batch_norm
+    buffers; on a pipe axis the last step's schedule statistics and the
+    bubble share."""
     import torch
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.ops.fused_adam import fused_adam_supported
@@ -5353,7 +5512,12 @@ def dp_run(name: str, argv: list) -> dict:
                wall=wall, mesh=None if net.mesh is None
                else dict(net.mesh.axes))
     if net.mesh is not None:
-        res["drift"] = net.check_weight_consistency()
+        t0 = time.perf_counter()
+        res["drift"] = net.check_weight_consistency() \
+            if drift == "weights" else None
+        res["digest"] = state_digest(net) if drift == "digest" else None
+        res["drift_sec"] = time.perf_counter() - t0
+        res["pipe"] = dict(net.pipe_stats, bubble=net.pipe_bubble_frac)
         plan = net._dp_plan_state
         res["buckets"] = None if plan is None or plan[0] is None \
             else len(plan[0].stages)
@@ -5382,9 +5546,18 @@ def dp_run(name: str, argv: list) -> dict:
     return res
 
 
+def arm_stack_dump() -> None:
+    """In a spawned rank: every thread's Python stack to stderr shortly
+    before the spawn's DP_TIMEOUT_SEC runs out, so that a hang says
+    where each rank waits."""
+    import faulthandler
+    faulthandler.dump_traceback_later(DP_TIMEOUT_SEC - 30, exit=False)
+
+
 def _dp_rank(rank: int, tmp: str, parts: list) -> None:
     """A rank of the dp path: every part in turn, its results saved."""
     import torch
+    arm_stack_dump()
     torch.cuda.set_device(0)
     out = {name: dp_run(name, argv) for name, argv in parts}
     torch.save(out, os.path.join(tmp, f"dp_rank{rank}.pt"))
@@ -5661,6 +5834,7 @@ def _seq_expert_rank(rank: int, tmp: str, parts: list) -> None:
     """A rank of the seq_expert path: every part in turn, its results
     saved."""
     import torch
+    arm_stack_dump()
     torch.cuda.set_device(0)
     out = {name: dp_run(name, argv) for name, argv in parts}
     torch.save(out, os.path.join(tmp, f"se_rank{rank}.pt"))
@@ -5686,6 +5860,7 @@ def _ring_rank(rank: int, tmp: str) -> None:
     SE_RING_REPS timed forward + backward calls and the peak memory."""
     import torch
     from cxxnet_tpu_torch.parallel import mesh as meshlib, ring
+    arm_stack_dump()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     m = meshlib.build_mesh(meshlib.MeshSpec({"seq": 2}), dev)
@@ -5853,6 +6028,161 @@ def phase_seq_expert(tmp: str) -> dict:
                                  f"held / logical {held}: not half")
         MEASURED[f"se_{name}"] = [rk[name]["p50"] for rk in ranks]
     seq_expert_ring(tmp, card)
+    return launches
+
+
+# ------------------------------------------------------------- pipeline
+def pipe_parts(tmp: str) -> tuple:
+    """The pipe path's CLI runs: (a)'s on PIPE_RANKS ranks, (b)'s on 2,
+    each ``(name, argv, how the replicas are checked)`` (``dp_run``'s
+    ``drift``)."""
+    lm = os.path.join(REPO, "example", "LM", "pipeline_lm.conf")
+    tok = seq_expert_corpus(tmp, "pipe_lm", 16, 128)
+    common = [f"path_tok={tok}", "dev=gpu", "max_round=1", "save_model=0",
+              "print_step=1", "test_on_server=1", "silent=1"]
+    a = [("lm_1f1b", [lm] + common, "weights"),
+         ("lm_gpipe", [lm] + common + ["pipe_schedule=gpipe"], "weights")]
+    flag = lm_train_conf(tmp, "pipe_flag", True, PIPE_LAYERS, NHEAD,
+                         PIPE_STEPS, True)
+    # the wide runs: PIPE_WIDE_STEPS batches of PIPE_MICRO_WIDE rows
+    flag_wide = lm_train_conf(
+        tmp, "pipe_flag_wide", True, PIPE_LAYERS, NHEAD,
+        PIPE_WIDE_STEPS * PIPE_MICRO_WIDE // TRAIN_BATCH, True)
+    pp = [flag, "mesh=pipe:2"] + PREFETCH_ARGS
+    wide = [flag_wide, "mesh=pipe:2", f"batch_size={PIPE_MICRO_WIDE}",
+            f"pipe_microbatch={PIPE_MICRO_WIDE}"] + PREFETCH_ARGS
+    # (b)'s replicas: 3.8 GB of state a rank, compared by digest (the
+    # weight check all-gathers it through the host: ~11 s a run)
+    b = [("flag_1f1b", pp + ["pipe_schedule=1f1b",
+                             f"pipe_microbatch={PIPE_MICRO}"], "digest"),
+         ("flag_gpipe", pp + ["pipe_schedule=gpipe",
+                              f"pipe_microbatch={PIPE_MICRO}"], "digest"),
+         ("flag_1f1b_wide", wide + ["pipe_schedule=1f1b"], None),
+         ("flag_gpipe_wide", wide + ["pipe_schedule=gpipe"], None)]
+    return a, b
+
+
+def _pipe_rank(rank: int, tmp: str, label: str, parts: list) -> None:
+    """A rank of the pipe path: every part in turn, its results saved."""
+    import torch
+    arm_stack_dump()
+    torch.cuda.set_device(0)
+    out = {name: dp_run(name, argv, drift) for name, argv, drift in parts}
+    torch.save(out, os.path.join(tmp, f"pipe_{label}{rank}.pt"))
+
+
+def phase_pipe(tmp: str) -> dict:
+    """Pipeline parallelism (``pipe``): gloo ranks share cuda:0 (spawned
+    by the port's mesh module; stage handoffs and collectives of CUDA
+    tensors staged through the host), each running the port's CLI.  (a)
+    pipeline_lm.conf as shipped on PIPE_RANKS ranks (data:2, pipe:2,
+    model:2; 1F1B with dp_overlap's (pipe, data) buckets), then under
+    GPipe, SE_STEPS steps, against one device: the first loss within
+    SE_FIRST_TOL, every loss within DP_LOSS_TOL, the replicas bitwise,
+    rows 9-12 on every rank (f32: row 9 on the CUDA cores).  (b) the
+    flagship packed LM (d 2048, 16 heads, s 4096, vocab 8192, bf16,
+    fused adam) cut to PIPE_LAYERS blocks, two a stage, on 2 ranks under
+    1F1B and GPipe at PIPE_MICRO microbatches, against one device within
+    DP_LOSS_TOL, replicas bitwise (:func:`state_digest` of every leaf),
+    rows 9-13 on both ranks; then at
+    PIPE_MICRO_WIDE microbatches of the same row each (batch 8): the
+    peak memory a rank flat under 1F1B (within PIPE_FLAT_TOL), printed
+    under GPipe.  Prints the step p50, peak GiB and handoffs a step a
+    rank and the bubble share.  Returns the path's launches, summed over
+    the ranks and the one-device runs."""
+    import torch
+    from cxxnet_tpu_torch.parallel import mesh as meshlib
+    card = card_line()
+    a, b = pipe_parts(tmp)
+    launches = {n: 0 for n in KERNELS}
+    ref = {}
+    for name, argv in (("lm", a[0][1] + ["mesh=data:1"]),
+                       ("flag", b[0][1][:1] + ["dev=gpu"] + PREFETCH_ARGS)):
+        ref[name] = dp_run(name, argv)
+        for n in KERNELS:
+            launches[n] += ref[name]["launches"][n]
+        log(f"pipe reference {name} (one device): losses "
+            f"{[round(x, 5) for x in ref[name]['losses']]}, step p50 "
+            f"{ref[name]['p50']:.2f} ms, peak {ref[name]['peak_gib']:.2f} "
+            f"GiB")
+    ranks = {}
+    for label, parts, n in (("a", a, PIPE_RANKS), ("b", b, 2)):
+        t0 = time.perf_counter()
+        meshlib.spawn(_pipe_rank, n, (tmp, label, parts), backend="gloo",
+                      timeout_sec=DP_TIMEOUT_SEC)
+        log(f"pipe ({label}): {n} gloo ranks on cuda:0, {len(parts)} runs "
+            f"each, {time.perf_counter() - t0:.1f} s")
+        ranks[label] = [torch.load(os.path.join(tmp, f"pipe_{label}{r}.pt"))
+                        for r in range(n)]
+    want = {"lm": {"data": 2, "pipe": 2, "model": 2}, "flag": {"pipe": 2}}
+    rows = {"lm": ("flash_attention_seg_fwd", "flash_attention_seg_bwd",
+                   "layernorm_fwd", "layernorm_bwd"),
+            "flag": ("flash_attention_seg_fwd", "flash_attention_seg_bwd",
+                     "layernorm_fwd", "layernorm_bwd", "fused_adam")}
+    for label, parts in (("a", a), ("b", b)):
+        for name, _, checked in parts:
+            base = ref[name.split("_")[0]]
+            rk = [r[name] for r in ranks[label]]
+            r0 = rk[0]
+            if checked == "digest":
+                # every leaf's bits alike on both ranks: no drift
+                for r in rk:
+                    r["drift"] = 0.0 if r["digest"] == r0["digest"] \
+                        else float("inf")
+            losses = r0["losses"]
+            diffs = [abs(x - y) / abs(y) for x, y in
+                     zip(losses, base["losses"])]
+            st = r0["pipe"]
+            log(f"pipe {name} on {card}: mesh {r0['mesh']}, step p50 a rank "
+                f"{[round(r['p50'], 2) for r in rk]} ms (one device "
+                f"{base['p50']:.2f} ms), peak memory a rank "
+                f"{[round(r['peak_gib'], 3) for r in rk]} GiB, handoffs a "
+                f"step a rank {[r['pipe']['handoffs'] for r in rk]}, most "
+                f"microbatches in flight a rank "
+                f"{[r['pipe']['live_max'] for r in rk]}, pipe_bubble_frac "
+                f"{st['bubble']:.4f}; losses "
+                f"{[round(x, 5) for x in losses]} vs one device's: relative "
+                f"{[f'{d:.2e}' for d in diffs]}; drift "
+                f"{[r['drift'] for r in rk]} "
+                f"({[round(r['drift_sec'], 1) for r in rk]} s); run wall a "
+                f"rank {[round(r['wall'], 1) for r in rk]} s")
+            for r, x in enumerate(rk):
+                log(f"pipe {name} rank {r} launches: {x['launches']}")
+                short = [k for k in rows[name.split("_")[0]]
+                         if x["launches"][k] < len(x["losses"])]
+                if short:
+                    raise AssertionError(f"pipe {name}: rank {r} launched "
+                                         f"{short} less than once a step")
+                for k in KERNELS:
+                    launches[k] += x["launches"][k]
+            if r0["mesh"] != want[name.split("_")[0]] \
+                    or not all(np.isfinite(losses)):
+                raise AssertionError(f"pipe {name}: mesh {r0['mesh']}, "
+                                     f"losses {losses}")
+            if checked:
+                tols = [SE_FIRST_TOL if label == "a" else DP_LOSS_TOL] \
+                    + [DP_LOSS_TOL] * (len(base["losses"]) - 1)
+                if len(losses) != len(base["losses"]) or any(
+                        not d <= t for d, t in zip(diffs, tols)):
+                    raise AssertionError(f"pipe {name}: losses {losses} "
+                                         f"leave the one device's "
+                                         f"{base['losses']}")
+                if any(r["drift"] != 0.0 for r in rk):
+                    raise AssertionError(f"pipe {name}: replicas drifted")
+            MEASURED[f"pipe_{name}"] = dict(
+                p50=[r["p50"] for r in rk], peak=[r["peak_gib"] for r in rk],
+                handoffs=[r["pipe"]["handoffs"] for r in rk])
+    for sched in ("1f1b", "gpipe"):
+        narrow = [r[f"flag_{sched}"]["peak_gib"] for r in ranks["b"]]
+        wide = [r[f"flag_{sched}_wide"]["peak_gib"] for r in ranks["b"]]
+        growth = [w / n - 1 for n, w in zip(narrow, wide)]
+        log(f"pipe (b) {sched}: peak memory a rank at pipe_microbatch "
+            f"{PIPE_MICRO} {[round(x, 3) for x in narrow]} GiB, at "
+            f"{PIPE_MICRO_WIDE} {[round(x, 3) for x in wide]} GiB (a row a "
+            f"microbatch): growth {[f'{g:+.1%}' for g in growth]}")
+        if sched == "1f1b" and any(abs(g) > PIPE_FLAT_TOL for g in growth):
+            raise AssertionError(f"pipe (b): 1F1B peak memory not flat in "
+                                 f"pipe_microbatch: {narrow} -> {wide}")
     return launches
 
 
@@ -6063,6 +6393,86 @@ def report_profile(events, step_ms) -> None:
             f"{count / n:7.1f} calls/step  {name[:100]}")
 
 
+def run_paths(phases: set, args, tmp: str, checker, paths: dict,
+              numbers: dict) -> None:
+    """The phases after the kernels', in order, each path's launches into
+    ``paths``; ``checker`` the check child (:func:`start_check`)."""
+    serve_conf = None
+    if "serve" in phases:
+        task, paths["serve"], serve_conf = phase_serve(tmp)
+        if "consistency" in phases:
+            phase_consistency(task)
+        if "serve_spec" in phases:
+            paths["serve_spec"] = phase_serve_spec(tmp, task, serve_conf)
+        del task
+    elif "serve_spec" in phases:
+        raise SystemExit("serve_spec needs the serve phase")
+    train_losses = None
+    for name, packed in (("train", True), ("train_unpacked", False)):
+        if name in phases:
+            paths[name], losses = phase_train(tmp, packed,
+                                              args.profile and packed)
+            if packed:
+                train_losses = losses
+    if "train_fused" in phases:
+        if train_losses is None:
+            raise SystemExit("train_fused needs the train phase")
+        paths["train_fused"], _ = phase_train(
+            tmp, True, args.profile, fused_vs=train_losses)
+    if "train_hd256" in phases:
+        paths["train_hd256"], _ = phase_train(tmp, True, wide=True)
+    if "resume" in phases:
+        paths["resume"] = phase_resume(tmp)
+    if "alexnet" in phases:
+        paths["alexnet"] = phase_alexnet(tmp, args.profile)
+    if "alexnet_data" in phases:
+        paths["alexnet_data"] = phase_alexnet_data(tmp)
+    if "alexnet_hwcn" in phases:
+        paths["alexnet_hwcn"] = phase_alexnet(tmp, args.profile,
+                                              hwcn=True)
+    if "googlenet" in phases:
+        paths["googlenet"] = phase_googlenet(tmp, profile=args.profile)
+    if "googlenet_hwcn" in phases:
+        paths["googlenet_hwcn"] = phase_googlenet(tmp, hwcn=True,
+                                                  profile=args.profile)
+    if "resnet" in phases:
+        paths["resnet"] = phase_resnet(tmp, args.profile)
+    if "mnist_conv" in phases:
+        paths["mnist_conv"], test_error = phase_mnist_conv(tmp)
+        if "cnn_infer" in phases:
+            paths["cnn_infer"] = phase_cnn_infer(tmp, test_error)
+        if "serve_batch" in phases:
+            paths["serve_batch"] = phase_serve_batch(tmp, test_error)
+    elif "serve_batch" in phases:
+        raise SystemExit("serve_batch needs the mnist_conv phase")
+    if "staging" in phases:
+        phase_staging(tmp)
+    if "observe" in phases:
+        if serve_conf is None or "mnist_conv" not in phases:
+            raise SystemExit("observe needs the serve and mnist_conv "
+                             "phases")
+        paths["observe"] = phase_observe(tmp, serve_conf)
+    if "serve_admin" in phases:
+        if serve_conf is None or "serve_batch" not in phases:
+            raise SystemExit("serve_admin needs the serve and "
+                             "serve_batch phases")
+        paths["serve_admin"] = phase_serve_admin(tmp, serve_conf)
+    if "check" in phases:
+        paths["check"] = phase_check(checker, tmp)
+    if "pairtest" in phases:
+        paths["pairtest"] = phase_pairtest(tmp)
+    if "wrapper" in phases:
+        paths["wrapper"] = phase_wrapper(tmp)
+    if "dp" in phases:
+        paths["dp"] = phase_dp(tmp)
+        numbers.setdefault("fused_adam", {})["dp_shards"] = \
+            MEASURED["dp_shards"]
+    if "seq_expert" in phases:
+        paths["seq_expert"] = phase_seq_expert(tmp)
+    if "pipe" in phases:
+        paths["pipe"] = phase_pipe(tmp)
+
+
 def main() -> int:
     global TRAIN_STEPS
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6080,6 +6490,7 @@ def main() -> int:
     ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
                     help="steps of the packed train and train_fused "
                          "phases (30 for a step p50 to compare trees by)")
+    ap.add_argument("--check-child", metavar="TMP", help=argparse.SUPPRESS)
     args = ap.parse_args()
     TRAIN_STEPS = args.train_steps
     if args.prefetch_device is not None:
@@ -6089,6 +6500,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.check_child:
+        return check_child(args.check_child)
     phases = set(args.phases.split(","))
     unknown = phases - ALL_PHASES
     if unknown:
@@ -6103,79 +6516,14 @@ def main() -> int:
         numbers.update(phase_last_kernels())
         phase_route_kernels()
     paths = {}
-    serve_conf = None
     with tempfile.TemporaryDirectory(prefix="cxn_smoke_") as tmp:
-        if "serve" in phases:
-            task, paths["serve"], serve_conf = phase_serve(tmp)
-            if "consistency" in phases:
-                phase_consistency(task)
-            if "serve_spec" in phases:
-                paths["serve_spec"] = phase_serve_spec(tmp, task, serve_conf)
-            del task
-        elif "serve_spec" in phases:
-            raise SystemExit("serve_spec needs the serve phase")
-        train_losses = None
-        for name, packed in (("train", True), ("train_unpacked", False)):
-            if name in phases:
-                paths[name], losses = phase_train(tmp, packed,
-                                                  args.profile and packed)
-                if packed:
-                    train_losses = losses
-        if "train_fused" in phases:
-            if train_losses is None:
-                raise SystemExit("train_fused needs the train phase")
-            paths["train_fused"], _ = phase_train(
-                tmp, True, args.profile, fused_vs=train_losses)
-        if "train_hd256" in phases:
-            paths["train_hd256"], _ = phase_train(tmp, True, wide=True)
-        if "resume" in phases:
-            paths["resume"] = phase_resume(tmp)
-        if "alexnet" in phases:
-            paths["alexnet"] = phase_alexnet(tmp, args.profile)
-        if "alexnet_data" in phases:
-            paths["alexnet_data"] = phase_alexnet_data(tmp)
-        if "alexnet_hwcn" in phases:
-            paths["alexnet_hwcn"] = phase_alexnet(tmp, args.profile,
-                                                  hwcn=True)
-        if "googlenet" in phases:
-            paths["googlenet"] = phase_googlenet(tmp, profile=args.profile)
-        if "googlenet_hwcn" in phases:
-            paths["googlenet_hwcn"] = phase_googlenet(tmp, hwcn=True,
-                                                      profile=args.profile)
-        if "resnet" in phases:
-            paths["resnet"] = phase_resnet(tmp, args.profile)
-        if "mnist_conv" in phases:
-            paths["mnist_conv"], test_error = phase_mnist_conv(tmp)
-            if "cnn_infer" in phases:
-                paths["cnn_infer"] = phase_cnn_infer(tmp, test_error)
-            if "serve_batch" in phases:
-                paths["serve_batch"] = phase_serve_batch(tmp, test_error)
-        elif "serve_batch" in phases:
-            raise SystemExit("serve_batch needs the mnist_conv phase")
-        if "staging" in phases:
-            phase_staging(tmp)
-        if "observe" in phases:
-            if serve_conf is None or "mnist_conv" not in phases:
-                raise SystemExit("observe needs the serve and mnist_conv "
-                                 "phases")
-            paths["observe"] = phase_observe(tmp, serve_conf)
-        if "serve_admin" in phases:
-            if serve_conf is None or "serve_batch" not in phases:
-                raise SystemExit("serve_admin needs the serve and "
-                                 "serve_batch phases")
-            paths["serve_admin"] = phase_serve_admin(tmp, serve_conf)
-        if "check" in phases:
-            paths["check"] = phase_check(tmp)
-        if "pairtest" in phases:
-            paths["pairtest"] = phase_pairtest(tmp)
-        if "wrapper" in phases:
-            paths["wrapper"] = phase_wrapper(tmp)
-        if "dp" in phases:
-            paths["dp"] = phase_dp(tmp)
-            numbers.setdefault("fused_adam", {})["dp_shards"] = \
-                MEASURED["dp_shards"]
-        if "seq_expert" in phases:
-            paths["seq_expert"] = phase_seq_expert(tmp)
+        checker = start_check(tmp) if "check" in phases else None
+        try:
+            run_paths(phases, args, tmp, checker, paths, numbers)
+        finally:
+            if checker is not None and checker.poll() is None:
+                checker.kill()
+                checker.wait()
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     kernels = [dict(name=n, route="cuda",
                     source=f"cxxnet_tpu_torch/ops/csrc/{src}",
@@ -6203,11 +6551,15 @@ def main() -> int:
 
 #: wall seconds of each phase function, in the order they ran
 PHASE_SEC: dict = {}
+#: the script's start, for the phases' start times on stderr
+T0 = time.perf_counter()
 
 
 def _timed(fn):
     def run(*args, **kwargs):
         t0 = time.perf_counter()
+        print(f"chip_smoke: {fn.__name__[len('phase_'):]} starts at "
+              f"{t0 - T0:.1f} s", file=sys.stderr, flush=True)
         try:
             return fn(*args, **kwargs)
         finally:

@@ -1,5 +1,6 @@
-"""Static analysis: the config lint and the traced-graph lint behind
-``task = check`` (the JAX package's ``analysis/`` over the port).
+"""Static analysis: the config lint, the traced-graph lint and the SPMD
+deep lint behind ``task = check`` (the JAX package's ``analysis/`` over
+the port).
 
 ``run_check`` runs ``task = check`` (``main.py``).  Only the
 dependency-free schema is imported here; the passes import the package
@@ -23,10 +24,9 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
     traces its train step for the graph lint (``graph_lint.py``, the
     JAX package's jaxpr lint) and runs the OOM pre-flight (``mem_check
     = 1``) on it; a mesh config builds on a virtual mesh (one rank's
-    shards, no process group).  The SPMD lint is not ported yet
-    (ROADMAP.md item 4(b)): an explicit ``spmd_check = 1`` warns that
-    it has no effect.  Exit code
-    1 iff any finding is an error."""
+    shards, no process group).  The SPMD deep lint (``spmdlint.py``)
+    walks the same trace unless ``spmd_check = 0``.  Exit code 1 iff any
+    finding is an error."""
     from . import conflint
     findings = conflint.lint_pairs(cfg, path=path)
     has_net = any(k.startswith("layer[") for k, _ in cfg)
@@ -36,13 +36,6 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
             "the OOM pre-flight needs the traced-graph pass (it models "
             "the built net); this config has no netconfig block",
             scope="mem"))
-    # the SPMD lint was asked for explicitly (its default-on case stays
-    # quiet, as in the JAX package): say that nothing ran
-    if dict(cfg).get("spmd_check") == "1" and has_net:
-        findings.append(Finding(
-            "warn", "spmd_check",
-            "the SPMD deep lint is not ported to cxxnet_tpu_torch yet "
-            "(ROADMAP.md); spmd_check = 1 has no effect", scope="spmd"))
     if not has_net:
         findings.append(Finding(
             "info", "", "no netconfig block in this config; "
@@ -54,13 +47,15 @@ def run_check(cfg, path: str = "") -> Tuple[List[Finding], int]:
             "cxxnet_tpu_torch does not implement (errors above)",
             scope="jaxpr"))
     else:
-        findings.extend(_trace_findings(cfg))
+        findings.extend(_trace_findings(
+            cfg, spmd=dict(cfg).get("spmd_check", "1") == "1"))
     n_err = sum(1 for f in findings if f.severity == "error")
     return findings, (1 if n_err else 0)
 
 
-def _trace_findings(cfg) -> List[Finding]:
+def _trace_findings(cfg, spmd: bool = True) -> List[Finding]:
     """Build the configured trainer on ``meta``, lint its traced step
+    (traced once: the graph lint and the SPMD lint walk the same trace)
     and run the pre-flight.  Build failures become findings instead of
     crashes: a config whose net cannot be built (bad shapes, undefined
     nodes) is what ``task = check`` exists to report.  The build changes
@@ -93,9 +88,11 @@ def _trace_findings(cfg) -> List[Finding]:
             return out + [Finding(
                 "warn", "", "traced-graph pass skipped: could not build "
                 f"the net on meta tensors ({e})", scope="jaxpr")]
+        traced, audit = None, {}
         try:
             from . import graph_lint
-            out.extend(graph_lint.lint_trainer(net))
+            traced = graph_lint.trace_step(net, audit)
+            out.extend(graph_lint.lint_trainer(net, traced))
         except Exception as e:  # noqa: BLE001 — lint must not crash check
             out.append(Finding("warn", "", f"traced-graph lint failed: {e}",
                                scope="jaxpr"))
@@ -106,6 +103,13 @@ def _trace_findings(cfg) -> List[Finding]:
             out.append(Finding("warn", "mem_check",
                                f"memory pre-flight failed: {e}",
                                scope="mem"))
+        if spmd and traced is not None:
+            try:
+                from . import spmdlint
+                out.extend(spmdlint.lint_trainer(net, traced, audit, cfg))
+            except Exception as e:  # noqa: BLE001 — must not crash check
+                out.append(Finding("warn", "spmd_check",
+                                   f"SPMD lint failed: {e}", scope="spmd"))
         return out
     finally:
         mlog.set_silent(1 if was_silent else 0)

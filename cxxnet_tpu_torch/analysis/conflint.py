@@ -20,9 +20,9 @@ netconfig block) and checks every key against the declared-key registry:
   vs batch_split/pipe, monitor vs multi_step, ...), surfaced before any
   device work;
 * **not ported** → a config the port refuses at run time (a layer type,
-  a mesh axis, or several device ids for a one-device task, of the JAX
-  package that ``cxxnet_tpu_torch`` does not implement) is an error in
-  the runtime's own words (:func:`_not_ported_rules`).
+  or several device ids for a one-device task, of the JAX package that
+  ``cxxnet_tpu_torch`` does not implement) is an error in the runtime's
+  own words (:func:`_not_ported_rules`).
 
 The findings and their words are the JAX package's, but for the
 not-ported rules and the card's names (``mem_chip`` selects an H100, not
@@ -1079,16 +1079,14 @@ def _mesh_rules(last: Dict[str, str], layer_types: List[str],
 # --------------------------------------------------- not-ported rules
 def _not_ported_rules(pairs: ConfigPairs, add) -> None:
     """A config the port would refuse at run time is an error, in the
-    runtime's own words: a layer type of ``layers/registry.NOT_PORTED``,
-    a ``mesh`` with a ``pipe`` axis wider than 1 (the pipeline slice)
+    runtime's own words: a layer type of ``layers/registry.NOT_PORTED``
     and a ``dev`` of several ids for a task
     that runs on one device (``pred`` / ``pred_raw`` / ``extract`` /
     ``serve``).  Each key is reported at its first refused occurrence,
     where the runtime stops."""
     from ..layers import registry as lreg
     from ..main import ONE_DEVICE_TASKS, several_ids_message
-    from ..parallel.mesh import (MeshSpec, parse_device_spec,
-                                 unported_axes_message)
+    from ..parallel.mesh import parse_device_spec
     seen = set()
     task = dict(pairs).get("task", "train")
 
@@ -1110,13 +1108,6 @@ def _not_ported_rules(pairs: ConfigPairs, add) -> None:
             if len(ids) > 1:
                 once(name, several_ids_message(f"task = {task}", val,
                                                len(ids)))
-        elif name == "mesh":
-            try:
-                axes = MeshSpec.parse(val).unported_axes()
-            except ValueError:
-                continue  # the mesh KeySpec's error
-            if axes:
-                once(name, unported_axes_message(val, axes))
 
 
 # ----------------------------------------------- strict_config reporting

@@ -19,7 +19,8 @@ traced program *does*:
   another program on it (the retrace the JAX rule predicts), and a
   snapshot records the wrong type.  A warning.
 * **gradient leaves escaping the dp reduction** — under ``dp_overlap =
-  1`` every parameter group must sit in a bucket of the plan
+  1`` every parameter group must sit in a bucket of the plan, the
+  pipelined 1F1B step's per-stage plan on a pipe mesh
   (:func:`dp_findings`); an inactive plan (a fallback gate) is an info
   line.
 
@@ -38,7 +39,7 @@ records and ``tools/obsv.py`` read them unchanged.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -161,6 +162,13 @@ def dp_findings(trainer) -> List[Finding]:
     if trainer.opts.dp_overlap != "1":
         return []
     if not trainer._dp_overlap_active():
+        # 1F1B composes through its own plan (per-stage buckets reduced
+        # over (pipe, data) at the cooldown ticks): its coverage instead
+        pipe_plan = trainer._pipe_bucket_plan() \
+            if trainer._pipelined else None
+        if pipe_plan is not None:
+            return dp_coverage_findings(
+                list(trainer.params), [k for ks, _ in pipe_plan for k in ks])
         return [Finding(
             "info", "", "dp_overlap = 1 is configured but inactive on "
             "this build (see the fallback warning above); bucket "
@@ -185,15 +193,21 @@ class _TraceOnMeta(_OnMeta):
         return super().__torch_function__(func, types, args, kwargs)
 
 
-def trace_step(trainer) -> Tuple[torch.fx.GraphModule, Dict, Dict]:
+def trace_step(trainer, audit: Optional[Dict] = None
+               ) -> Tuple[torch.fx.GraphModule, Dict, Dict]:
     """Trace the meta-built trainer's train step (the trainer's own
     ``_loss_grads_outs`` + ``apply_update``, as ``update_step`` runs
     them) to one graph.  Params, optimizer state, buffers, the data,
     labels and extra inputs are the graph's inputs; a tensor the step
     reaches any other way is a graph constant.  Returns the graph and
     the state leaves' dtypes (:func:`leaf_dtypes`) that went into the
-    step and that came back."""
+    step and that came back.  ``audit``, when given, gets what the SPMD
+    lint reads (``analysis/spmdlint.py``): ``collectives``, the step's
+    collective record in call order (``parallel.mesh.recording``), and
+    ``donation``, which parameter and optimizer-state leaves the step
+    handed back as the tensors it took in."""
     from torch.fx.experimental.proxy_tensor import make_fx
+    from ..parallel import mesh as meshlib
     if any(t.device.type != "meta" for g in trainer.params.values()
            for t in g.values()):
         raise ValueError("trace_step: the trainer must be built on meta "
@@ -213,6 +227,7 @@ def trace_step(trainer) -> Tuple[torch.fx.GraphModule, Dict, Dict]:
     after: Dict[str, Dict] = {}
 
     def step(params, opt_state, buffers, data, label, extras):
+        took = {"params": _leaves(params), "opt_state": _leaves(opt_state)}
         saved = (trainer.params, trainer.opt_state, trainer.buffers)
         trainer.params, trainer.opt_state, trainer.buffers = \
             params, opt_state, buffers
@@ -226,12 +241,28 @@ def trace_step(trainer) -> Tuple[torch.fx.GraphModule, Dict, Dict]:
             after.update(leaf_dtypes({"params": trainer.params,
                                       "opt_state": trainer.opt_state,
                                       "buffers": new_buffers}))
+            if audit is not None:
+                rows = []
+                for tree, gave in (("params", trainer.params),
+                                   ("opt_state", trainer.opt_state)):
+                    out = dict(_leaves(gave))
+                    for path, t in took[tree]:
+                        rows.append({"tree": tree, "path": path,
+                                     "bytes": _nbytes(t),
+                                     "donated": out.get(path) is t})
+                audit["donation"] = {
+                    "source": "in-place", "leaves": rows,
+                    "alias_bytes": sum(r["bytes"] for r in rows
+                                       if r["donated"])}
             return loss, trainer.params, trainer.opt_state, new_buffers
         finally:
             trainer.params, trainer.opt_state, trainer.buffers = saved
 
-    gm = make_fx(step)(trainer.params, trainer.opt_state, trainer.buffers,
-                       data, label, extras)
+    with meshlib.recording() as record:
+        gm = make_fx(step)(trainer.params, trainer.opt_state,
+                           trainer.buffers, data, label, extras)
+    if audit is not None:
+        audit["collectives"] = list(record)
     return gm, before, after
 
 

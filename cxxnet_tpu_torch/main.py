@@ -77,8 +77,10 @@ Data parallelism (``parallel/``): ``task = train`` / ``finetune`` with a
 ``dev`` of several ids (``cpu:0-3``, ``gpu:0-3``) starts one rank a
 device (:func:`~.parallel.mesh.spawn`; CPU ranks split the host's
 cores) and each runs this task on its rows of every batch over the
-``mesh`` (one ``data`` axis by default; ``model``, ``seq`` and
-``expert`` axes too, ``pipe`` refused by name);
+``mesh`` (one ``data`` axis by default; ``model``, ``seq``,
+``expert`` and ``pipe`` axes too: a pipe axis runs the stages of
+``pipe_schedule`` over ``pipe_microbatch`` microbatches, and step and
+round records carry the analytic ``pipe_bubble_frac``);
 ``CXN_COORDINATOR`` / ``CXN_NUM_PROC`` / ``CXN_PROC_RANK`` (or the
 ``dist_*`` keys) join an external group of processes instead, one rank
 each, whose iterators read their own shard (``dist_num_worker`` /
@@ -173,7 +175,7 @@ TASK_KEYS = (
     K("mem_chip", "str",
       help="pre-flight capacity selector (h100 or a full device "
            "name); defaults to dev= when it names a card"),
-    # the SPMD deep lint of the JAX package (not ported: ROADMAP.md)
+    # the SPMD deep lint (analysis/spmdlint.py), task = check's third pass
     K("spmd_check", "int", lo=0, hi=1,
       help="task=check: run the SPMD deep lint (default 1; 0 skips the "
            "collective/donation/dtype-flow pass)"),
@@ -990,6 +992,10 @@ class LearnTask:
                            **evals)
                 if rounds_done == 1 and self.compile_sec is not None:
                     rec["compile_sec"] = round(self.compile_sec, 3)
+                if net.pipe_bubble_frac:
+                    # the ledger carves the fill / drain share out of
+                    # dispatch
+                    rec["pipe_bubble_frac"] = round(net.pipe_bubble_frac, 4)
                 rec.update(net.memory_gauges())
                 self._rounds.append(rec)
                 metrics.emit("round", **rec)
@@ -1058,6 +1064,8 @@ class LearnTask:
                        staging_depth=round(win["depth"] / win["gets"], 2)
                        if win["gets"] else 0.0,
                        loss=loss)
+            if net.pipe_bubble_frac:
+                rec["pipe_bubble_frac"] = round(net.pipe_bubble_frac, 4)
             net.metrics.emit("step", **rec)
             if bank is not None:
                 bank.observe_step(rec, judge=self._plain_window(win))
@@ -1908,12 +1916,6 @@ class LearnTask:
         if len(ids) > 1 and self.task in ONE_DEVICE_TASKS:
             raise ValueError(several_ids_message(
                 f"task = {self.task}", dict(self.cfg)["dev"], len(ids)))
-        for k, v in self.cfg:
-            axes = meshlib.MeshSpec.parse(v).unported_axes() \
-                if k == "mesh" else []
-            if axes:
-                # the trainer's refusal, before any rank is started
-                raise ValueError(meshlib.unported_axes_message(v, axes))
         if self._join_distributed(ids):
             return self._spawn_ranks(argv, len(ids))
         try:

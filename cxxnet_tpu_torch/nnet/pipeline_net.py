@@ -1,19 +1,20 @@
-"""Graph partition of a netconfig net into contiguous stages (the JAX
-package's ``nnet/pipeline_net.py``, its partition only): ``remat = K``
-checkpoints each of K segments (``NetTrainer._remat_forward``).
-Pipeline execution across devices comes with the multi-GPU plane
-(ROADMAP.md).
+"""Graph partition of a netconfig net into contiguous stages and the
+stages' forward functions (the JAX package's ``nnet/pipeline_net.py``):
+``remat = K`` checkpoints each of K segments
+(``NetTrainer._remat_forward``), ``mesh = ...,pipe:K`` runs stage s on
+the ranks at index s of the ``pipe`` axis (``parallel/pipeline.py``).
 
 A cut may fall anywhere: the boundary carries the frontier, every node
 still live across it (one node at a pool or a flatten, several across an
 inception module's branches or a skip connection).  The trailing loss
 layers run after the last stage; loss layers inside the body (the aux
-heads) stay in it.
+heads, the moe layers' load balance) stay in it, and their terms ride
+the boundary as a scalar accumulator (:func:`make_stage_fns`).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 from ..layers.conv import ConvolutionLayer
 from ..layers.fullc import FullConnectLayer
@@ -116,3 +117,47 @@ def partition_network(net, n_stage: int
         avail = [i for i in avail if i > best]
     bounds = [0] + [c + 1 for c in cuts] + [body_end]
     return [(bounds[i], bounds[i + 1]) for i in range(n_stage)], body_end
+
+
+def run_conns(net, params, lo: int, hi: int, env, ctx):
+    """Connections ``[lo, hi)`` one by one over the node dict ``env``
+    (no sibling-fuse or virtual-concat peephole, as in the JAX package's
+    segments); an armed ``net.mem_probe`` reads the allocator after
+    each.  Returns ``env``."""
+    from .net import conn_params
+    for j in range(lo, hi):
+        conn = net.connections[j]
+        outs = conn.layer.forward(conn_params(params, conn),
+                                  [env[n] for n in conn.nindex_in], ctx)
+        for n, v in zip(conn.nindex_out, outs):
+            env[n] = v
+        if net.mem_probe is not None:
+            net.mem_probe.mark(net.scope_names[j])
+    return env
+
+
+def make_stage_fns(net, stages, ctx_of: Callable) -> List[Callable]:
+    """``stage_fns[s](params, acts, aux, m) -> (acts, aux)``: stage
+    ``s`` on microbatch ``m``.  ``acts`` is the tuple of the frontier
+    values entering the stage (:func:`frontier_nodes` order), ``aux`` the
+    scalar accumulator of the loss terms raised in the body before it:
+    the stage adds its own (``aux + l1 + l2 ...``, in the order they were
+    raised), so mid-body loss layers survive a partition.  ``ctx_of(m)``
+    makes the stage's :class:`~..layers.base.ForwardContext`: microbatch
+    ``m``'s label fields and loss mask, which mid-body loss layers read
+    (the JAX package's ``extra``), and the generator its masks draw
+    from."""
+    in_nodes = [frontier_nodes(net, s0) for s0, _ in stages]
+    out_nodes = [frontier_nodes(net, s1) for _, s1 in stages]
+
+    def mk(s: int, s0: int, s1: int):
+        def fn(params, acts, aux, m: int = 0):
+            ctx = ctx_of(m)
+            env = run_conns(net, params, s0, s1, dict(zip(in_nodes[s], acts)),
+                            ctx)
+            for loss in ctx.losses:
+                aux = aux + loss
+            return tuple(env[n] for n in out_nodes[s]), aux
+        return fn
+
+    return [mk(s, s0, s1) for s, (s0, s1) in enumerate(stages)]

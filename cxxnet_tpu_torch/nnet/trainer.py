@@ -95,8 +95,7 @@ from ..monitor import TrainingDiverged, ingraph, log as mlog
 from ..monitor.memory import BACKWARD, UPDATE, AllocProbe
 from ..monitor.metrics import Metrics, device_memory_gauges
 from ..parallel import data as dplib, mesh as meshlib
-from ..parallel.mesh import (MeshSpec, parse_device_spec,
-                             unported_axes_message)
+from ..parallel.mesh import MeshSpec, parse_device_spec
 from ..updater.updaters import UpdaterHyper, create_updater
 from ..utils import serializer
 from ..utils.metric import MetricSet
@@ -404,6 +403,17 @@ class NetTrainer:
         self.seq_split = False
         self._dp_plan_state = None
         self._dp_warned: set = set()
+        # mesh = ...,pipe:K (parallel/pipeline.py): microbatches a step
+        # (0: twice the stages), the schedule, and what the first
+        # pipelined step works out: the partition, the bucket plan of
+        # dp_overlap = 1 under 1f1b, the boundaries' wire specs (by
+        # microbatch shape), and the last step's schedule statistics
+        self.pipe_microbatch = 0
+        self.pipe_schedule = "gpipe"
+        self._pipe_partition = None
+        self._pipe_bucket_state = None
+        self._pipe_specs: Dict = {}
+        self.pipe_stats: Dict[str, int] = {}
 
     def set_param(self, name: str, val: str) -> None:
         if name == "batch_size":
@@ -422,11 +432,14 @@ class NetTrainer:
                                  f"{sorted(DTYPES)}")
             self.dtype = DTYPES[val]
         elif name == "mesh":
-            spec = MeshSpec.parse(val)
-            if spec.unported_axes():
-                raise ValueError(unported_axes_message(
-                    val, spec.unported_axes()))
-            self.mesh_spec = spec
+            self.mesh_spec = MeshSpec.parse(val)
+        elif name == "pipe_microbatch":
+            self.pipe_microbatch = int(val)
+        elif name == "pipe_schedule":
+            if val not in ("gpipe", "1f1b"):
+                raise ValueError(f"pipe_schedule = {val}: expected gpipe "
+                                 "or 1f1b")
+            self.pipe_schedule = val
         elif name in ("shard_opt_state", "update_on_server"):
             # update_on_server = 1 (server-side optimizer state) is ZeRO
             # over the data axis, as in the JAX package
@@ -701,6 +714,8 @@ class NetTrainer:
             device="cpu" if self.device.type == "meta" else self.device)
         self.rng.manual_seed(self.seed)
         self._remat_partition = None
+        self._pipe_partition = self._pipe_bucket_state = None
+        self._pipe_specs = {}
         if self.batch_split > 1 and self.buffers:
             raise ValueError("batch_split needs stateless layers (batch_norm "
                              "running stats would chain per sub-batch)")
@@ -1254,8 +1269,7 @@ class NetTrainer:
         # on a data mesh this rank stages its rows of the batch only, on
         # a seq axis that splits the positions its block of them
         n = np.asarray(batch.label).shape[0]
-        rows = dplib.row_slice(self.mesh, n) if self._data_split() \
-            else slice(0, n)
+        rows = self._rows(n) if self._data_split() else slice(0, n)
         label_host = np.asarray(batch.label)[rows]
         data = self._host_tensor(
             np.asarray(batch.data)[rows][..., self._position_block()],
@@ -1366,6 +1380,8 @@ class NetTrainer:
         Model-sharded leaves are gathered where the forward reads them
         and their gradients come back as shards."""
         epoch = self.epoch_counter if epoch is None else epoch
+        if self._pipelined:
+            return self._pipe_loss_grads(inputs, labels, epoch)
         leaves = [(k, t, p) for k, g in self.params.items()
                   for t, p in g.items()]
         for _, _, p in leaves:
@@ -1463,7 +1479,6 @@ class NetTrainer:
         JAX package."""
         from torch.utils.checkpoint import checkpoint
         from . import pipeline_net
-        from .net import conn_params
         net = self.net
         if len(inputs) != 1:
             raise ValueError("remat: extra-data inputs unsupported")
@@ -1473,44 +1488,324 @@ class NetTrainer:
         stages, body_end = self._remat_partition
         want = torch.float32 if 0 in net.id_inputs else net.dtype
         nodes = {0: inputs[0].to(want)}
+        fns = pipeline_net.make_stage_fns(
+            net, stages, lambda m: self._ctx(labels, epoch))
 
-        def run_conns(lo, hi, env, ctx):
-            for j in range(lo, hi):
-                conn = net.connections[j]
-                outs = conn.layer.forward(conn_params(self.params, conn),
-                                          [env[n] for n in conn.nindex_in],
-                                          ctx)
-                for n, v in zip(conn.nindex_out, outs):
-                    env[n] = v
-                if net.mem_probe is not None:
-                    net.mem_probe.mark(net.scope_names[j])
-            return env
-
-        def stage_fn(lo, hi, ins, outs):
-            def fn(*acts):
-                ctx = self._ctx(labels, epoch)
-                env = run_conns(lo, hi, dict(zip(ins, acts)), ctx)
-                loss = sum(ctx.losses, torch.zeros((), device=acts[0].device))
-                return tuple(env[n] for n in outs) + (loss,)
-            return fn
+        def segment(fn):
+            def run(*acts):
+                out, loss = fn(self.params, acts,
+                               torch.zeros((), device=acts[0].device))
+                return out + (loss,)
+            return run
 
         body_loss = None
-        for lo, hi in stages:
+        for fn, (lo, hi) in zip(fns, stages):
             ins = pipeline_net.frontier_nodes(net, lo)
-            outs = pipeline_net.frontier_nodes(net, hi)
-            res = checkpoint(_replaying(stage_fn(lo, hi, ins, outs),
-                                        self.rng),
+            res = checkpoint(_replaying(segment(fn), self.rng),
                              *[nodes[n] for n in ins], use_reentrant=False)
-            nodes = dict(zip(outs, res[:-1]))
+            nodes = dict(zip(pipeline_net.frontier_nodes(net, hi), res[:-1]))
             body_loss = res[-1] if body_loss is None else body_loss + res[-1]
         ctx = self._ctx(labels, epoch)
-        env = run_conns(body_end, len(net.connections), nodes, ctx)
+        env = pipeline_net.run_conns(net, self.params, body_end,
+                                     len(net.connections), nodes, ctx)
         for nid in self.eval_node_ids:
             assert nid in env, ("remat: train-metric eval nodes must sit at "
                                 "or after the last segment boundary")
         node_list = [env.get(n) for n in range(net.cfg.num_nodes)]
         diags.update(ctx.diagnostics)
         return node_list, self.buffers, ctx.losses + [body_loss]
+
+    # ------------------------------------------------------------ pipeline
+    @property
+    def _pipelined(self) -> bool:
+        return self.mesh is not None and self.mesh.axis_size("pipe") > 1
+
+    @property
+    def _n_micro(self) -> int:
+        return self.pipe_microbatch or 2 * self.mesh.axis_size("pipe")
+
+    @property
+    def pipe_bubble_frac(self) -> float:
+        """Analytic pipeline-bubble share of the step, ``(S-1)/(M+S-1)``
+        (S stages, M microbatches): the fraction of schedule ticks a
+        stage idles during fill and drain; 0.0 on a mesh without a pipe
+        axis.  Stamped on step and round records so the goodput ledger
+        carves ``pipe_bubble`` out of dispatch (monitor/ledger.py)."""
+        if not self._pipelined:
+            return 0.0
+        n = self.mesh.axis_size("pipe")
+        return (n - 1) / (self._n_micro + n - 1)
+
+    def _pipe_setup(self):
+        """The graph's partition into the pipe axis's stages, made once
+        (with its log line)."""
+        if self._pipe_partition is None:
+            from . import pipeline_net
+            n_stage = self.mesh.axis_size("pipe")
+            stages, body_end = pipeline_net.partition_network(
+                self.net, n_stage)
+            if not mlog.is_silent():
+                desc = ", ".join(
+                    "+".join(self.net.connections[j].layer.type_names[0]
+                             for j in range(s0, s1))
+                    for s0, s1 in stages)
+                mlog.info(f"pipeline: {n_stage} stages [{desc}]")
+            self._pipe_partition = (stages, body_end)
+        return self._pipe_partition
+
+    def _pipe_bucket_plan(self):
+        """The bucket plan of ``dp_overlap = 1`` composed with the pipe
+        axis under 1F1B, or None (one whole-tree reduction after the
+        schedule): each stage's param keys, the loss tail's with the last
+        stage's, in ``dp_bucket_mb``-bounded buckets tagged with the
+        stage whose last backward makes them final.  A key several stages
+        read belongs to the lowest of them, which finishes last (the JAX
+        package's ``_pipe_bucket_plan``)."""
+        if self.opts.dp_overlap != "1" or self.pipe_schedule != "1f1b" \
+                or dplib.data_size(self.mesh) < 2:
+            return None
+        if self._pipe_bucket_state is None:
+            from ..parallel import overlap
+            stages, body_end = self._pipe_setup()
+            n_stage = len(stages)
+            owner: Dict[str, int] = {}
+            for s, (s0, s1) in enumerate(stages):
+                for key in overlap._keys_read(self.net, s0, s1, self.params):
+                    owner.setdefault(key, s)
+            for key in overlap._keys_read(self.net, body_end,
+                                          len(self.net.connections),
+                                          self.params):
+                owner.setdefault(key, n_stage - 1)
+            logical = self._logical_bytes()
+            bucket_bytes = max(float(self.opts.dp_bucket_mb) * 2 ** 20, 1.0)
+            buckets = []
+            for s in range(n_stage):
+                # reverse layer order within the stage, chunked to the
+                # wire-size target
+                cur, acc = [], 0.0
+                for key in [k for k in reversed(list(owner))
+                            if owner[k] == s]:
+                    cur.append(key)
+                    acc += logical[key]
+                    if acc >= bucket_bytes:
+                        buckets.append((tuple(cur), s))
+                        cur, acc = [], 0.0
+                if cur:
+                    buckets.append((tuple(cur), s))
+            self._pipe_bucket_state = (tuple(buckets),)
+            if not mlog.is_silent():
+                mlog.info(
+                    "pipe dp_overlap: %d bucket(s) over %d stages "
+                    "(KiB: %s), reduce_dtype=%s — (pipe, data) psums "
+                    "issue at cooldown grad-ready ticks" % (
+                        len(buckets), n_stage,
+                        ",".join(str(sum(logical[k] for k in ks) // 1024)
+                                 for ks, _ in buckets),
+                        self.opts.dp_reduce_dtype))
+        return self._pipe_bucket_state[0]
+
+    def _logical_bytes(self) -> Dict[str, int]:
+        """Each param group's logical bytes (model shards counted
+        whole)."""
+        out = {}
+        for pkey, g in self.params.items():
+            n = 0
+            for tag, p in g.items():
+                shape = self.model_sharded.get((pkey, tag), tuple(p.shape))
+                n += int(np.prod(shape)) * p.element_size()
+            out[pkey] = n
+        return out
+
+    def _pipe_run(self, inputs, labels: Optional[LabelInfo], epoch: int,
+                  *, train: bool, node_ids: Sequence[int] = ()):
+        """This rank's stage of a pipelined step (``train``) or eval
+        forward over the batch it holds (``parallel/pipeline.py``).  The
+        batch is cut into ``n_micro`` contiguous microbatches; stage
+        ``s`` runs on the ranks at index ``s`` of the pipe axis, with the
+        whole parameter tree (model-axis shards and a moe layer's experts
+        gathered once, at the step's start); the loss tail and the nodes
+        read after the last stage (``node_ids``) run on the last stage, a
+        microbatch at a time, and the nodes' values reach every rank of
+        the axis.  Returns ``(run result, {node: values}, the leaves
+        [(pkey, tag, tensor)])``."""
+        from ..parallel import pipeline
+        from . import pipeline_net
+        net = self.net
+        stages, body_end = self._pipe_setup()
+        if len(inputs) != 1:
+            raise AssertionError("pipeline: extra-data inputs unsupported")
+        if train and not any(c.layer.is_loss for c in net.connections):
+            raise AssertionError("network has no loss layer; cannot train")
+        frontier = pipeline_net.frontier_nodes(net, body_end)
+        readable = self._pipe_tail_nodes()
+        for nid in node_ids:
+            assert nid in readable, (
+                "pipeline: train-metric eval nodes must sit at or after "
+                "the last stage boundary")
+        n_micro = self._n_micro
+        want = torch.float32 if 0 in net.id_inputs else net.dtype
+        x = inputs[0].to(want)
+        if x.shape[0] % n_micro:
+            raise AssertionError(f"pipeline: batch {x.shape[0]} not "
+                                 f"divisible by pipe_microbatch {n_micro}")
+        mbl = x.shape[0] // n_micro
+        # the shape-only pass (_pipe_wire) reads meta labels
+        shape_pass = [False]
+
+        def labels_of(m: int) -> Optional[LabelInfo]:
+            if labels is None:
+                return None
+            sl = slice(m * mbl, (m + 1) * mbl)
+
+            def cut(t):
+                t = t[sl]
+                return torch.empty_like(t, device="meta") \
+                    if shape_pass[0] else t
+            return LabelInfo(
+                fields={n: cut(f) for n, f in labels.fields.items()},
+                mask=None if labels.mask is None else cut(labels.mask))
+
+        def ctx_of(m: int) -> ForwardContext:
+            # no mesh: a stage computes on its rows as the JAX package's
+            # stages do inside shard_map (a moe layer's capacity and load
+            # balance per microbatch and data shard, every expert local)
+            return ForwardContext(
+                train=train, opts=self.opts, labels=labels_of(m),
+                loss_scale=self.loss_scale, rng=self.rng if train else None,
+                epoch=epoch)
+
+        params = {pkey: {tag: self._logical(pkey, tag, p)
+                         for tag, p in g.items()}
+                  for pkey, g in self.params.items()}
+        leaves = [(k, t, p) for k, g in params.items() for t, p in g.items()]
+        if train:
+            for _, _, p in leaves:
+                p.requires_grad_(True)
+        fns = pipeline_net.make_stage_fns(net, stages, ctx_of)
+        s = self.mesh.axis_index("pipe")
+        last = s == len(stages) - 1
+
+        def tail(p, acts, aux, m):
+            ctx = ctx_of(m)
+            env = pipeline_net.run_conns(net, p, body_end,
+                                         len(net.connections),
+                                         dict(zip(frontier, acts)), ctx)
+            loss = aux
+            for v in ctx.losses:
+                loss = loss + v
+            keep = [materialize(env[n]).detach() for n in node_ids]
+            return (loss if train else None), (keep, ctx.diagnostics)
+
+        shape_pass[0] = True
+        try:
+            specs, node_specs = self._pipe_wire(fns, tail, params, x[:mbl],
+                                                tuple(node_ids))
+        finally:
+            shape_pass[0] = False
+        grad_idx, reduce = None, None
+        if train:
+            from ..parallel.overlap import REDUCE_DTYPES, _keys_read
+            mine = set(_keys_read(net, *stages[s], params))
+            if last:
+                mine.update(_keys_read(net, body_end, len(net.connections),
+                                       params))
+            grad_idx = [i for i, (k, _, _) in enumerate(leaves) if k in mine]
+            buckets = self._pipe_bucket_plan()
+            where = {k: [i for i, (kk, _, _) in enumerate(leaves) if kk == k]
+                     for k in params}
+            reduce = {
+                "axes": ("pipe", "data"),
+                "buckets": None if buckets is None else
+                [([i for k in keys for i in where[k]], owner)
+                 for keys, owner in buckets],
+                "dtype": None if buckets is None
+                else REDUCE_DTYPES[self.opts.dp_reduce_dtype]}
+        res = pipeline.run_schedule(
+            lambda acts, aux, m: fns[s](params, acts, aux, m),
+            lambda m: (x[m * mbl:(m + 1) * mbl],), n_micro, specs,
+            mesh=self.mesh, schedule=self.pipe_schedule, train=train,
+            tail_fn=lambda acts, aux, m: tail(params, acts, aux, m),
+            leaves=[p for _, _, p in leaves],
+            grad_idx=grad_idx, reduce=reduce)
+        if train:
+            self.pipe_stats = {"live_max": res.live_max,
+                               "handoffs": res.handoffs}
+            self.last_diags = res.keeps[-1][1] if last and res.keeps else {}
+        # every rank of the pipe axis gets the tail's node outputs
+        outs = []
+        for j, (shape, dt) in enumerate(node_specs):
+            if last:
+                v = torch.cat([k[j] for k, _ in res.keeps])
+            else:
+                v = torch.zeros((n_micro * shape[0],) + tuple(shape[1:]),
+                                dtype=dt, device=self.device)
+            outs.append(pipeline.broadcast_last(v, self.mesh, "pipe"))
+        return res, dict(zip(node_ids, outs)), leaves
+
+    def _pipe_tail_nodes(self) -> set:
+        """The nodes a pipelined run can read: the last boundary's and
+        the loss tail's."""
+        from . import pipeline_net
+        _, body_end = self._pipe_setup()
+        out = set(pipeline_net.frontier_nodes(self.net, body_end))
+        for c in self.net.connections[body_end:]:
+            out.update(c.nindex_out)
+        return out
+
+    def _pipe_loss_grads(self, inputs, labels: LabelInfo, epoch: int):
+        """A pipelined step's ``(loss, grads, eval-node outputs,
+        buffers)``: the schedule's gradients, summed over (pipe, data) and
+        cast to the parameters' dtypes (a model shard's slice of its
+        whole gradient), and the loss, the last stage's per-microbatch
+        tail totals summed in microbatch order on every rank of the pipe
+        axis: one reduction under both schedules."""
+        from ..parallel import pipeline
+        if self.remat:
+            raise AssertionError(
+                "remat and mesh=pipe are mutually exclusive (the pipeline "
+                "schedule already bounds live activations per stage)")
+        own = [p for g in self.params.values() for p in g.values()]
+        try:
+            with record_function("train_pipeline"):
+                res, outs, leaves = self._pipe_run(
+                    inputs, labels, epoch, train=True,
+                    node_ids=list(dict.fromkeys(self.eval_node_ids)))
+        finally:
+            for p in own:
+                p.requires_grad_(False)
+        grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (k, t, _), g in zip(leaves, res.grads):
+            axis, _ = self._shard_of(k, t)
+            if axis is not None:
+                g = dplib.axis_block(g, self.mesh, axis)
+            grads.setdefault(k, {})[t] = g.to(self.params[k][t].dtype)
+        loss = pipeline.total_loss(res, self.mesh)
+        return loss, grads, outs, self.buffers
+
+    def _pipe_wire(self, fns, tail, params, x0, node_ids):
+        """``(specs, node specs)``: the wire spec of each stage's output
+        value and the shape and dtype of each requested node a
+        microbatch, from a shape-only pass of every stage and the tail on
+        ``meta`` tensors (nothing launches), once per microbatch
+        shape."""
+        from ..analysis.graph_lint import _TraceOnMeta
+        from ..parallel import pipeline
+        key = (tuple(x0.shape), x0.dtype, node_ids)
+        if key not in self._pipe_specs:
+            meta = torch.device("meta")
+            on_meta = {k: {t: torch.empty_like(p, device=meta)
+                           for t, p in g.items()} for k, g in params.items()}
+            with _TraceOnMeta(), torch.no_grad():
+                specs = pipeline.boundary_specs(
+                    [lambda a, aux, m, f=f: f(on_meta, a, aux, m)
+                     for f in fns], (torch.empty_like(x0, device=meta),))
+                acts = tuple(torch.empty(shape, dtype=dt, device=meta)
+                             for shape, dt in specs[-1][:-1])
+                _, (keep, _) = tail(on_meta, acts,
+                                    torch.zeros((), device=meta), 0)
+            self._pipe_specs[key] = (
+                specs, [(tuple(v.shape), v.dtype) for v in keep])
+        return self._pipe_specs[key]
 
     def update(self, batch) -> None:
         """One training step on a host :class:`~..io.data.DataBatch` or a
@@ -1606,8 +1901,9 @@ class NetTrainer:
         cut_pos = self.seq_split and inputs[0].shape[-1] == s
         if not (cut_rows or cut_pos):
             return inputs, labels
-        rows = dplib.row_slice(self.mesh, self.batch_size) if cut_rows \
-            else slice(None)
+        rows = self._rows(self.batch_size) if cut_rows else slice(None)
+        if not isinstance(rows, slice):
+            rows = torch.as_tensor(rows, device=inputs[0].device)
         blk = self._position_block() if cut_pos else slice(None)
 
         def cut(f):
@@ -1620,12 +1916,28 @@ class NetTrainer:
                           mask=None if labels.mask is None
                           else labels.mask[rows]))
 
+    def _rows(self, n: int, d: Optional[int] = None):
+        """The rows of an ``n``-row batch data rank ``d`` (this rank's by
+        default) takes: its block of ``n / N``, or on a pipelined mesh
+        its block of each of the ``n_micro`` contiguous microbatches the
+        batch is cut into (the JAX package shards each microbatch over
+        ``data``), an index array."""
+        if self._pipelined:
+            return dplib.micro_rows(self.mesh, n, self._n_micro, d)
+        return dplib.row_slice(self.mesh, n, d)
+
     def _dp_mode(self, do_update: bool, extras: bool) -> Optional[str]:
         """The reduction of this step: None on one device; ``implicit``
         (all gradients after the backward; the one step of a mesh
         without a data axis); ``overlap`` (bucketed, from the backward:
         ``dp_overlap = 1``); under ``dp_reduce_at = apply`` windows,
-        ``local`` micro-steps and a ``fold`` apply step."""
+        ``local`` micro-steps and a ``fold`` apply step; ``pipe`` on a
+        pipelined mesh (the schedule reduces its own gradients over
+        (pipe, data))."""
+        if self._pipelined:
+            if self.opts.dp_overlap == "1":
+                self._dp_overlap_active()  # warns where it cannot compose
+            return None if self.mesh.virtual else "pipe"
         if not self._data_split():
             if self.opts.dp_overlap == "1":
                 self._dp_overlap_active()  # warns: nothing to reduce
@@ -1685,12 +1997,19 @@ class NetTrainer:
         """True when the bucketed, backward-overlapped reduction replaces
         the implicit one.  Each combination it cannot run falls back to
         the implicit step with a one-shot warning, in the JAX package's
-        words (the ``pipe`` axis, which it also names, is refused before
-        a trainer is built)."""
+        words.  On a pipe axis the 1F1B schedule issues its own bucketed
+        reductions (:meth:`_pipe_bucket_plan`) and GPipe's whole-tree one
+        stays, with a warning."""
         if self.opts.dp_overlap != "1":
             return False
         if dplib.data_size(self.mesh) < 2:
             self._dp_warn_once("mesh has no data axis wider than 1")
+            return False
+        if self._pipelined:
+            if self.pipe_schedule != "1f1b":
+                self._dp_warn_once(
+                    "the gpipe pipeline schedule's backward is autodiff-"
+                    "scheduled (pipe_schedule = 1f1b composes)")
             return False
         extra_axes = [a for a in self.mesh.axes
                       if a not in ("data", "model")
@@ -1902,6 +2221,16 @@ class NetTrainer:
         inputs = dict(enumerate([data, *extra_data]))
         inputs[0] = self.stage_input(self._normalize_input(inputs[0]))
         self._count_shape(self._eval_shapes, "eval_step_traces", inputs)
+        if self._pipelined and not extra_data \
+                and set(node_ids) <= self._pipe_tail_nodes():
+            # through the stages, the nodes from the last one
+            with torch.no_grad():
+                _, got, _ = self._pipe_run(inputs, None, self.epoch_counter,
+                                           train=False,
+                                           node_ids=list(dict.fromkeys(
+                                               node_ids)))
+            outs = [got[n].float() for n in node_ids]
+            return [o.cpu().numpy() for o in outs] if host else outs
         with torch.inference_mode():
             nodes = self.net.forward(self._run_params(), inputs,
                                      self.context(), buffers=self.buffers)
@@ -1995,20 +2324,24 @@ class NetTrainer:
                            sb.label_host, sb.num_batch_padd)
             return
         n_local = sb.label_host.shape[0]
-        lo = dplib.row_slice(self.mesh, n_local * dplib.data_size(
-            self.mesh)).start
-        total = n_local * dplib.data_size(self.mesh)
+        nd = dplib.data_size(self.mesh)
+        total = n_local * nd
+        held = [np.arange(total)[self._rows(total, d)] for d in range(nd)]
         valid = torch.from_numpy(
-            (np.arange(lo, lo + n_local) < total - sb.num_batch_padd)
+            (held[self.mesh.axis_index("data")] < total - sb.num_batch_padd)
             .astype(np.float32)).to(self.device)
         label = torch.from_numpy(np.asarray(sb.label_host, np.float32)) \
             .to(self.device)
         every = [meshlib.all_gather(t.reshape(n_local, -1).contiguous(),
                                     self.mesh, "data")
                  for t in [valid, label] + list(preds)]
-        keep = every[0][:, 0].cpu().numpy() > 0
-        label_all = every[1].cpu().numpy()[keep]
-        metric.add_eval([p.cpu().numpy()[keep] for p in every[2:]],
+        # the global batch's row order (a pipelined mesh interleaves the
+        # ranks' rows microbatch by microbatch)
+        order = np.argsort(np.concatenate(held), kind="stable")
+        every = [t.cpu().numpy()[order] for t in every]
+        keep = every[0][:, 0] > 0
+        label_all = every[1][keep]
+        metric.add_eval([p[keep] for p in every[2:]],
                         {name: label_all[:, a:b]
                          for name, a, b in self._label_fields})
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import mesh as meshlib
@@ -56,16 +57,36 @@ def model_size(mesh: Optional[meshlib.Mesh]) -> int:
     return mesh.axis_size("model") if mesh is not None else 1
 
 
-def row_slice(mesh: Optional[meshlib.Mesh], n: int) -> slice:
-    """This rank's rows of an ``n``-row batch: its ``data`` index's
-    block of ``n / N``."""
+def row_slice(mesh: Optional[meshlib.Mesh], n: int,
+              d: Optional[int] = None) -> slice:
+    """The rows of an ``n``-row batch data rank ``d`` (this rank's by
+    default) takes: its ``data`` index's block of ``n / N``."""
     nd = data_size(mesh)
     if n % nd:
         raise ValueError(f"batch of {n} rows does not divide over the "
                          f"data axis of {nd}")
     rows = n // nd
-    d = mesh.axis_index("data") if mesh is not None else 0
+    if d is None:
+        d = mesh.axis_index("data") if mesh is not None else 0
     return slice(d * rows, (d + 1) * rows)
+
+
+def micro_rows(mesh: Optional[meshlib.Mesh], n: int, n_micro: int,
+               d: Optional[int] = None) -> np.ndarray:
+    """The rows of an ``n``-row batch data rank ``d`` takes on a
+    pipelined mesh: the batch is cut into ``n_micro`` contiguous
+    microbatches and each is sharded over ``data`` (the JAX package's
+    ``_pipe_microbatches`` with its data spec), so the rank holds its
+    block of every microbatch, microbatch after microbatch."""
+    nd = data_size(mesh)
+    if n % n_micro or (n // n_micro) % nd:
+        raise ValueError(f"pipeline: batch {n} not divisible by "
+                         f"pipe_microbatch {n_micro} microbatches of a "
+                         f"multiple of the data axis of {nd}")
+    mb = n // n_micro
+    blk = row_slice(mesh, mb, d)
+    return np.concatenate([np.arange(m * mb + blk.start, m * mb + blk.stop)
+                           for m in range(n_micro)])
 
 
 def plan_shards(params: Dict[str, Dict[str, torch.Tensor]], mesh,

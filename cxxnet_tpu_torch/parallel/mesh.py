@@ -16,9 +16,13 @@ ranks that differ only on that axis.  The backend follows the device:
 :func:`build_mesh` takes another backend and an existing group, so two
 ranks can share one card over gloo.  The collectives the data-parallel
 plane calls (:func:`all_reduce`, :func:`reduce_scatter`,
-:func:`all_gather`) live here, each over one axis of a mesh; gloo has
-no reduce-scatter or all-gather of CUDA tensors, so a gloo mesh on the
-card runs every collective through host copies.
+:func:`all_gather`) live here, each over one axis of a mesh (or over
+``(pipe, data)`` at once, a group of its own), as do the ring's and the
+pipeline's point-to-point sends (:func:`ring_shift`, :func:`handoff`);
+gloo has no reduce-scatter or all-gather of CUDA tensors, so a gloo mesh
+on the card runs every collective through host copies.
+:func:`recording` lists the collectives a block issues, on a virtual
+mesh too: what the SPMD lint reads of a traced step.
 
 Process bring-up: :func:`spawn` starts one rank a device with
 ``torch.multiprocessing`` (spawn), rendezvous on a ``FileStore`` in a
@@ -33,13 +37,14 @@ it, and its collectives only give their outputs' shapes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
 import shutil
 import tempfile
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -72,9 +77,13 @@ def parse_device_spec(dev: str) -> Dict:
 #: so parse rejects it with a suggestion.
 KNOWN_AXES = ("data", "model", "seq", "expert", "pipe")
 
-#: the axes the port runs wider than 1; ``pipe`` comes with the pipeline
-#: slice (ROADMAP.md item 4(b))
-PORTED_AXES = ("data", "model", "seq", "expert")
+#: the axes the port runs wider than 1: all of them
+PORTED_AXES = ("data", "model", "seq", "expert", "pipe")
+
+#: axes summed together in one reduction, with a group of their own on
+#: a mesh where both are wider than 1: a pipelined step's gradients sum
+#: over (pipe, data) at once (``parallel/pipeline.py``)
+MERGED_AXES = (("pipe", "data"),)
 
 
 @dataclasses.dataclass
@@ -125,20 +134,6 @@ class MeshSpec:
     def axis_size(self, name: str) -> int:
         """Size of ``name`` (1 when the axis is absent)."""
         return self.axes.get(name, 1)
-
-    def unported_axes(self) -> List[str]:
-        """Axes wider than 1 that the port does not run (``pipe``)."""
-        return [a for a, n in self.axes.items()
-                if n > 1 and a not in PORTED_AXES]
-
-
-def unported_axes_message(val: str, axes: Sequence[str]) -> str:
-    """The refusal of a mesh with an axis of the pipeline slice (the
-    runtime's and ``task = check``'s words)."""
-    return (f"mesh = {val}: the {'/'.join(axes)} mesh "
-            f"{'axis is' if len(axes) == 1 else 'axes are'} not ported to "
-            "cxxnet_tpu_torch yet (GPipe / 1F1B pipelines: the pipeline "
-            "slice, ROADMAP.md item 4(b))")
 
 
 def backend_for(device: torch.device) -> str:
@@ -201,15 +196,28 @@ class Mesh:
     def virtual(self) -> bool:
         return self.backend is None
 
-    def axis_size(self, name: str) -> int:
+    def axis_size(self, name) -> int:
+        """Size of axis ``name`` (1 when absent); of a tuple of axes, the
+        product."""
+        if isinstance(name, tuple):
+            n = 1
+            for a in name:
+                n *= self.axes.get(a, 1)
+            return n
         return self.axes.get(name, 1)
 
     def axis_index(self, name: str) -> int:
         return self.coord.get(name, 0)
 
-    def group(self, name: str) -> Any:
+    def group(self, name) -> Any:
         """The process group of the ranks that differ from this one on
-        axis ``name`` only."""
+        axis ``name`` only; for a tuple of axes (one of MERGED_AXES), on
+        those axes only."""
+        if isinstance(name, tuple):
+            wide = tuple(a for a in name if self.axis_size(a) > 1)
+            if len(wide) <= 1:
+                return self._groups.get(wide[0]) if wide else None
+            return self._groups.get(wide)
         return self._groups.get(name)
 
     def axis_peer(self, name: str, step: int) -> int:
@@ -226,28 +234,29 @@ class Mesh:
 
 def _axis_groups(axes: Dict[str, int], rank: int, world_group: Any,
                  world_size: int):
-    """One group per axis wider than 1, and its ranks in axis order.
-    Every rank creates every group in the same order (``new_group`` is
-    collective) and keeps the one it is in; an axis spanning the world
-    is the world group."""
+    """One group per axis wider than 1 and one per MERGED_AXES pair of
+    such axes, and its ranks in axis order.  Every rank creates every
+    group in the same order (``new_group`` is collective) and keeps the
+    one it is in; an axis spanning the world is the world group."""
     import torch.distributed as dist
     import numpy as np
     names = list(axes)
     grid = np.arange(world_size).reshape([axes[a] for a in names])
     groups: Dict[str, Any] = {}
     members: Dict[str, List[int]] = {}
-    for k, name in enumerate(names):
-        if axes[name] == 1:
-            continue
-        moved = np.moveaxis(grid, k, -1).reshape(-1, axes[name])
-        for ranks in moved:
+    combos = [(name,) for name in names if axes[name] > 1]
+    combos += [c for c in MERGED_AXES
+               if all(a in axes and axes[a] > 1 for a in c)]
+    for combo in combos:
+        ks = [names.index(a) for a in combo]
+        n = int(np.prod([axes[a] for a in combo]))
+        moved = np.moveaxis(grid, ks, list(range(-len(ks), 0)))
+        key = combo[0] if len(combo) == 1 else combo
+        for ranks in moved.reshape(-1, n):
             ranks = [int(r) for r in ranks]
-            if axes[name] == world_size:
-                g = world_group
-            else:
-                g = dist.new_group(ranks)
+            g = world_group if n == world_size else dist.new_group(ranks)
             if rank in ranks:
-                groups[name], members[name] = g, ranks
+                groups[key], members[key] = g, ranks
     return groups, members
 
 
@@ -348,9 +357,41 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), *,
 
 
 # ------------------------------------------------------------ collectives
-#: launches of each collective (by name), on every mesh of the process
+#: launches of each collective (by name), on every mesh of the process;
+#: ``handoff`` counts the pipeline's stage handoffs (:func:`handoff`)
 counts: Dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
-                          "all_gather": 0, "ring_shift": 0, "broadcast": 0}
+                          "all_gather": 0, "ring_shift": 0, "broadcast": 0,
+                          "handoff": 0}
+
+#: the open collective record (:func:`recording`), or None
+_record: Optional[List[Tuple[str, Tuple[str, ...], str, int]]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective and stage handoff issued in the block, on
+    any mesh (a virtual one too, where they only give their outputs'
+    shapes): a list of ``(op, axes, dtype, numel)`` in call order, the
+    wire's dtype for a reduction.  A call over an axis of size 1 (or
+    one the mesh lacks) issues nothing and is not recorded.  The SPMD
+    lint reads it (``analysis/spmdlint.py``)."""
+    global _record
+    saved, _record = _record, []
+    try:
+        yield _record
+    finally:
+        _record = saved
+
+
+def _note(op: str, mesh: "Mesh", axis, t: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> None:
+    if _record is None:
+        return
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    axes = tuple(a for a in axes if mesh.axis_size(a) > 1)
+    if axes:
+        _record.append((op, axes, str(dtype or t.dtype).replace(
+            "torch.", ""), int(t.numel())))
 
 
 class Pending:
@@ -394,6 +435,7 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "data", *,
     cast or host copy), or a :class:`Pending` of it under
     ``async_op``."""
     import torch.distributed as dist
+    _note("all_reduce", mesh, axis, t, dtype)
     group = mesh.group(axis)
     if group is None:
         return Pending(None, t) if async_op else t
@@ -418,6 +460,7 @@ def reduce_scatter(t: torch.Tensor, mesh: Mesh, axis: str = "data", *,
     size.  Returns the slice, or a :class:`Pending` of it."""
     n = mesh.axis_size(axis)
     rows = t.shape[0] // n
+    _note("reduce_scatter", mesh, axis, t, dtype)
     group = mesh.group(axis)
     if group is None:
         i = mesh.axis_index(axis)
@@ -444,6 +487,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str = "data",
     axis order (into ``out`` when given; ``out`` must not hold ``t``)."""
     n = mesh.axis_size(axis)
     shape = (t.shape[0] * n,) + tuple(t.shape[1:])
+    _note("all_gather", mesh, axis, t)
     group = mesh.group(axis)
     if out is None:
         out = torch.empty(shape, dtype=t.dtype, device=t.device)
@@ -465,10 +509,12 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str = "data",
     return out
 
 
-def broadcast(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The ``t`` of the rank at index 0 of ``axis``, on every rank of it
-    (in place where no host copy is needed)."""
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
+              src: int = 0) -> torch.Tensor:
+    """The ``t`` of the rank at index ``src`` of ``axis``, on every rank
+    of it (in place where no host copy is needed)."""
     import torch.distributed as dist
+    _note("broadcast", mesh, axis, t)
     group = mesh.group(axis)
     if group is None:
         return t
@@ -477,7 +523,7 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     staged = mesh.host_staged(x)
     if staged:
         x = x.cpu()
-    dist.broadcast(x, src=mesh._axis_ranks[axis][0], group=group)
+    dist.broadcast(x, src=mesh._axis_ranks[axis][src], group=group)
     return x.to(t.device) if staged or x is not t else t
 
 
@@ -490,6 +536,8 @@ def ring_shift(t: torch.Tensor, mesh: Mesh, axis: str,
     rank on the axis, a virtual mesh) a copy of ``t``."""
     import torch.distributed as dist
     n = mesh.axis_size(axis)
+    if step % n:
+        _note("ring_shift", mesh, axis, t)
     group = mesh.group(axis)
     if group is None or n == 1 or step % n == 0:
         return t.clone()
@@ -505,6 +553,60 @@ def ring_shift(t: torch.Tensor, mesh: Mesh, axis: str,
     for r in reqs:
         r.wait()
     return out.to(t.device) if staged else out
+
+
+#: one boundary value on the wire: (shape, dtype) of each of its tensors
+Spec = List[Tuple[Tuple[int, ...], torch.dtype]]
+
+
+def handoff(mesh: Mesh, axis: str,
+            sends: Sequence[Tuple[int, Sequence[torch.Tensor]]],
+            recvs: Sequence[Tuple[int, Spec]]) -> List[List[torch.Tensor]]:
+    """One tick of stage handoffs along ``axis`` (the pipeline's
+    ``lax.ppermute``): each ``(peer, tensors)`` of ``sends`` goes to the
+    rank ``peer`` places along the axis (+1 the next stage, -1 the one
+    before), and each ``(peer, spec)`` of ``recvs`` is a value of that
+    shape arriving from the rank ``peer`` places along it.  Every op of
+    the tick is posted in one ``batch_isend_irecv``, sends first, each
+    tensor tagged by its place in its value and its direction of
+    travel, so the ranks' posts pair up whatever their order.  gloo
+    carries a CUDA tensor through a host copy.  Returns the received
+    values, in ``recvs`` order.  On a virtual mesh (no group) the
+    received values are zeros of their specs, and each sent value
+    counts once in ``counts["handoff"]`` on a group."""
+    import torch.distributed as dist
+    for _, ts in sends:
+        for t in ts:
+            _note("handoff", mesh, axis, t)
+    group = mesh.group(axis)
+    if group is None:
+        return [[torch.zeros(shape, dtype=dt, device=mesh.device)
+                 for shape, dt in spec] for _, spec in recvs]
+    counts["handoff"] += len(sends)
+    staged = mesh.backend == "gloo" and mesh.device.type == "cuda"
+    ops, outs = [], []
+    for peer, ts in sends:
+        base = 0 if peer > 0 else 1 << 10
+        for i, t in enumerate(ts):
+            x = t.detach().contiguous()
+            ops.append(dist.P2POp(dist.isend, x.cpu() if staged else x,
+                                  mesh.axis_peer(axis, peer), group,
+                                  tag=base + i))
+    for peer, spec in recvs:
+        base = 1 << 10 if peer > 0 else 0
+        bufs = [torch.empty(shape, dtype=dt,
+                            device="cpu" if staged else mesh.device)
+                for shape, dt in spec]
+        outs.append(bufs)
+        for i, b in enumerate(bufs):
+            ops.append(dist.P2POp(dist.irecv, b, mesh.axis_peer(axis, peer),
+                                  group, tag=base + i))
+    if ops:
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+    if staged:
+        outs = [[b.to(mesh.device) for b in bufs] for bufs in outs]
+    return outs
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

@@ -201,31 +201,31 @@ CASES = [
      "fullc_gather = 1\n", []),
     ("pipe_shallow", "mesh = pipe:4\ndev = cpu:0-3\nnetconfig=start\n"
      "layer[+1] = fullc\n  nhidden = 4\nnetconfig=end\n"
-     "input_shape = 1,1,8\nbatch_size = 4\n", ["mesh"]),
-    ("pipe_no_net", "mesh = pipe:2\ndev = cpu:0-1\n", ["mesh"]),
+     "input_shape = 1,1,8\nbatch_size = 4\n", []),
+    ("pipe_no_net", "mesh = pipe:2\ndev = cpu:0-1\n", []),
     ("pipe_deep", "mesh = pipe:2\ndev = cpu:0-1\nnetconfig=start\n"
      "layer[+1] = fullc\n  nhidden = 8\nlayer[+1] = relu\n"
      "layer[+1] = fullc\n  nhidden = 4\nlayer[+0] = softmax\n"
      "netconfig=end\ninput_shape = 1,1,8\nbatch_size = 4\n",
-     ["mesh"]),
+     []),
     ("pipe_dp_overlap_gpipe", "dp_overlap = 1\nmesh = data:2,pipe:2\n"
-     "dev = cpu:0-3\n", ["mesh"]),
+     "dev = cpu:0-3\n", []),
     ("pipe_dp_overlap_1f1b", "dp_overlap = 1\nmesh = data:2,pipe:2\n"
-     "dev = cpu:0-3\npipe_schedule = 1f1b\n", ["mesh"]),
+     "dev = cpu:0-3\npipe_schedule = 1f1b\n", []),
     ("seq_dp_overlap", "dp_overlap = 1\nmesh = data:2,seq:2\n"
      "dev = cpu:0-3\n", []),
     ("pipe_ragged", "mesh = pipe:2\ndev = cpu:0-1\npipe_microbatch = 3\n"
-     "batch_size = 6\n", ["mesh"]),
+     "batch_size = 6\n", []),
     ("pipe_defaulted", "mesh = pipe:2\ndev = cpu:0-1\nbatch_size = 6\n",
-     ["mesh"]),
+     []),
     ("pipe_schedule_no_pipe", "mesh = data:2\ndev = cpu:0-1\n"
      "pipe_schedule = 1f1b\n", []),
     ("pipe_schedule_no_mesh", "pipe_schedule = 1f1b\n", []),
     ("pipe_remat", "mesh = pipe:2\ndev = cpu:0-1\nremat = 2\n",
-     ["mesh"]),
+     []),
     ("pipe_clean", "mesh = data:2,pipe:2\ndev = cpu:0-3\n"
      "pipe_schedule = 1f1b\npipe_microbatch = 4\nbatch_size = 16\n",
-     ["mesh"]),
+     []),
     ("dp_reduce_dtype", "dp_reduce_dtype = bf16\n", []),
     ("dp_reduce_dtype_quiet", "dp_overlap = 1\ndp_reduce_dtype = bf16\n",
      []),
@@ -254,10 +254,9 @@ CASES = [
      "mem_check = 1\nmem_chip = v5e\n", ["mem_chip"]),
 ]
 
-#: the by-design port-only findings of each example conf, by key
-EXAMPLE_PORT_ONLY = {
-    "example/LM/pipeline_lm.conf": ["mesh"],
-}
+#: the by-design port-only findings of each example conf, by key (none:
+#: the port runs every example conf's mesh)
+EXAMPLE_PORT_ONLY = {}
 
 
 def _norm(f):
@@ -304,25 +303,25 @@ def test_example_conf_lint_matches_jax(conf):
 
 def test_not_ported_findings_use_the_runtime_words(tmp_path):
     """Each not-ported finding is the ValueError the runtime raises for
-    the same key, word for word: a mesh axis of the pipeline slice (the
-    trainer) and several device ids for a one-device task (the CLI's
-    ``LearnTask``).  The data-parallel plane's keys, the seq and expert
-    axes and the moe layer are no finding."""
+    the same key, word for word: several device ids for a one-device
+    task (the CLI's ``LearnTask``).  The data-parallel plane's keys, the
+    seq, expert and pipe axes and the moe layer are no finding."""
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     ported = [("mesh", "data:2,model:2"), ("dev", "gpu:0-3"),
               ("mesh", "data:2,seq:2"), ("mesh", "data:2,expert:2"),
+              ("mesh", "data:2,pipe:2"), ("pipe_schedule", "1f1b"),
               ("shard_opt_state", "1"), ("update_on_server", "1"),
               ("fullc_gather", "1"), ("test_on_server", "1"),
               ("dp_overlap", "1"), ("dp_reduce_dtype", "bf16")]
     assert not [f for f in conflint.lint_pairs(ported)
                 if f.severity == "error"]
-    (found,) = [f.message for f in conflint.lint_pairs(
-        [("mesh", "data:2,pipe:2")]) if f.severity == "error"]
-    with pytest.raises(ValueError) as ei:
-        NetTrainer().set_param("mesh", "data:2,pipe:2")
-    assert str(ei.value) == found
-    assert "pipeline slice" in found
+    NetTrainer().set_param("mesh", "data:2,pipe:2")
+    for pairs in ([("task", "pred"), ("dev", "cpu:0-1")],
+                  [("task", "pred"), ("dev", "gpu:0-1")]):
+        (found,) = [f.message for f in conflint.lint_pairs(pairs)
+                    if f.severity == "error" and f.key == "dev"]
+        assert "several device ids" in found
     pairs = [("task", "pred"), ("dev", "gpu:0-1")]
     (found,) = [f.message for f in conflint.lint_pairs(pairs)
                 if f.severity == "error" and f.key == "dev"]
@@ -494,20 +493,26 @@ def test_task_check_cli_exit_codes_and_record(tmp_path, capsys):
 
 def test_task_check_refused_config_is_a_finding(tmp_path):
     """test_on_server = 1 runs (it is the JAX package's finding-free
-    key); a config the port refuses at run time (here a pipe mesh axis,
-    which the trainer refuses) is a finding of task = check, not a
-    raise."""
+    key); a config the port refuses at run time (here several device ids
+    for task = pred, which the CLI refuses) is a finding of the check
+    pass, not a raise; a pipe mesh axis is taken."""
+    from cxxnet_tpu_torch.analysis import run_check
     from cxxnet_tpu_torch.main import LearnTask
     conf = os.path.join(REPO, "example", "MNIST", "MNIST.conf")
     task = LearnTask()
     assert task.run([conf, "task=check", "test_on_server=1"]) == 0
     assert not [f for f in task.last_check if f.severity == "error"]
     task = LearnTask()
-    assert task.run([conf, "task=check", "mesh=data:2,pipe:2"]) == 1
-    assert [f.key for f in task.last_check if f.severity == "error"] \
-        == ["mesh"]
+    assert task.run([conf, "task=check", "mesh=data:2,pipe:2",
+                     "dev=cpu:0-3"]) == 0
+    assert not [f for f in task.last_check if f.severity == "error"]
+    findings, code = run_check([("task", "pred"), ("dev", "cpu:0-1")])
+    assert code == 1
+    (dev,) = [f for f in findings if f.severity == "error"
+              and f.key == "dev"]
+    assert "not ported" in dev.message
     with pytest.raises(ValueError, match="not ported"):
-        LearnTask().run([conf, "mesh=data:2,pipe:2", "dev=cpu:0-3"])
+        LearnTask().run([conf, "task=pred", "dev=cpu:0-1"])
 
 
 def test_check_builds_on_meta_without_cuda(monkeypatch):
@@ -584,21 +589,23 @@ def test_check_without_net_and_build_failure():
 
 @pytest.mark.parametrize("spmd_check", [None, "0", "1"])
 def test_check_explicit_spmd_check_warns_it_has_no_effect(spmd_check):
-    """The SPMD lint is not ported: an explicit ``spmd_check = 1`` gets
-    one warning (exit code unchanged), its default and ``0`` none; a
-    ``mem_check = 1`` without a net warns that the pre-flight cannot
-    run."""
+    """The SPMD deep lint runs by default and under ``spmd_check = 1``
+    (its census and in-place audit, both info; exit code unchanged) and
+    ``spmd_check = 0`` skips it, as in the JAX package; no "not ported"
+    warning is left.  A ``mem_check = 1`` without a net warns that the
+    pre-flight cannot run, and a config without a net has no SPMD
+    finding."""
     extra = "" if spmd_check is None else f"spmd_check = {spmd_check}\n"
     findings, code = run_check(parse_config_string(
         MLP_NET + "batch_size = 4\n" + extra))
     assert code == 0, [f.format() for f in findings]
     spmd = [f for f in findings if f.scope == "spmd"]
-    if spmd_check == "1":
-        (f,) = spmd
-        assert f.severity == "warn" and f.key == "spmd_check"
-        assert "not ported" in f.message
-    else:
+    assert not [f for f in findings if "not ported" in f.message]
+    if spmd_check == "0":
         assert not spmd
+    else:
+        assert [(f.severity, f.key) for f in spmd] == [
+            ("info", "spmd_collectives"), ("info", "spmd_donation")]
     findings, code = run_check(parse_config_string(
         "batch_size = 4\nmem_check = 1\n" + extra))
     assert code == 0

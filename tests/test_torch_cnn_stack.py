@@ -884,21 +884,18 @@ def test_googlenet_conf_steps_with_its_shipped_keys(tmp_path):
 
 
 def test_remaining_refusals_name_their_item():
-    """What stays refused is refused by name, naming its item: the pipe
-    mesh axis (the pipeline slice).  The moe layer (alone or as a
-    pairtest side), the seq / expert mesh axes, the data-parallel
-    plane's trainer keys and dp_* engine options, refused until they
-    were ported, are taken."""
+    """Nothing of the layers or the mesh stays refused: the moe layer
+    (alone or as a pairtest side), the seq / expert / pipe mesh axes, the
+    data-parallel plane's trainer keys and dp_* engine options, refused
+    until they were ported, are taken."""
     from cxxnet_tpu_torch.engine import EngineOptions
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
     assert NOT_PORTED == ()
     for name in ("moe", "pairtest-moe-conv", "pairtest-conv-moe"):
         create_layer(name)
-    for mesh in ("data:2,seq:2", "expert:2"):
+    for mesh in ("data:2,seq:2", "expert:2", "pipe:2,model:2",
+                 "data:2,pipe:2"):
         NetTrainer().set_param("mesh", mesh)
-    for mesh in ("pipe:2,model:2", "data:2,pipe:2"):
-        with pytest.raises(ValueError, match="not ported.*4\\(b\\)"):
-            NetTrainer().set_param("mesh", mesh)
     t = NetTrainer()
     for key in ("shard_opt_state", "fullc_gather", "update_on_server"):
         t.set_param(key, "1")

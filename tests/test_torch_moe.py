@@ -19,7 +19,7 @@ package, on the CPU.
   ranks: each rank holds only its two experts of every per-expert
   tensor and their adam state; its ``.ckpt`` holds the logical arrays,
   which the JAX package's trainer loads on its own mesh bitwise.
-* ``pipe`` is the one mesh axis still refused, by name; the
+* every mesh axis is taken (``pipe`` too); the
   ``dp_overlap = 1`` fallbacks of the seq / expert axes and of a moe
   layer on a model axis warn once, in the JAX package's words.
 """
@@ -280,18 +280,21 @@ def test_experts_live_on_their_rank_and_the_ckpt_crosses(moe_corpus):
 # ------------------------------------------------------- refusals, gates
 
 def test_pipe_is_the_one_refused_axis():
-    """``seq`` and ``expert`` meshes and the moe layer are taken; a
-    ``pipe`` axis is refused by name, naming the pipeline slice."""
+    """``seq``, ``expert`` and ``pipe`` meshes and the moe layer are
+    taken: no mesh axis is refused any more (the pipe axis came with the
+    pipeline slice), and every axis with semantics is a ported one."""
     from cxxnet_tpu_torch.layers.registry import NOT_PORTED, create_layer
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-    from cxxnet_tpu_torch.parallel.mesh import PORTED_AXES
+    from cxxnet_tpu_torch.parallel.mesh import KNOWN_AXES, PORTED_AXES
     assert NOT_PORTED == () and create_layer("moe").type_names == ("moe",)
-    assert set(PORTED_AXES) == {"data", "model", "seq", "expert"}
-    for mesh in ("data:2,seq:2", "data:2,expert:2", "expert:4"):
-        NetTrainer().set_param("mesh", mesh)
-    with pytest.raises(ValueError, match="pipe mesh axis is not ported.*"
-                       "pipeline slice"):
-        NetTrainer().set_param("mesh", "data:2,pipe:2")
+    assert set(PORTED_AXES) == set(KNOWN_AXES) == {
+        "data", "model", "seq", "expert", "pipe"}
+    for mesh in ("data:2,seq:2", "data:2,expert:2", "expert:4",
+                 "data:2,pipe:2", "data:2,pipe:2,model:2"):
+        t = NetTrainer()
+        t.set_param("mesh", mesh)
+        assert t.mesh_spec.size == np.prod(
+            [int(a.split(":")[1]) for a in mesh.split(",")])
 
 
 MOE_NET = """

@@ -1,6 +1,7 @@
 """Rank bodies of the port's data-parallel tests (tests/test_torch_dp.py,
-tests/test_torch_overlap.py): gloo ranks spawned on the CPU by
-``cxxnet_tpu_torch.parallel.mesh.spawn``, one intra-op thread a rank.
+tests/test_torch_overlap.py, tests/test_torch_pipeline.py): gloo ranks
+spawned on the CPU by ``cxxnet_tpu_torch.parallel.mesh.spawn``, one
+intra-op thread a rank.
 This module imports torch and the port only (never JAX): every spawned
 rank imports it.
 
@@ -71,17 +72,26 @@ def logical_state(t) -> Dict:
 def train_case(case: Dict, dev: str) -> Dict:
     """One case on this rank: ``case`` holds ``net``, ``extra`` pairs,
     ``batch``, ``shape``, ``steps``, ``tail_padd`` and optionally
-    ``init`` (the JAX package's params / buffers as numpy trees) and
+    ``init`` (the JAX package's params / buffers as numpy trees),
     ``data`` (the batches themselves, ``(data, label, tail_padd)``
-    triples, instead of the seeded image batches)."""
+    triples, instead of the seeded image batches) and ``eval`` (a batch
+    whose final node is read by the eval forward before the first
+    step).  On a pipe mesh the result holds the schedule's statistics
+    of each step (``pipe_stats``)."""
     from cxxnet_tpu_torch.io.data import DataBatch
     from cxxnet_tpu_torch.nnet.trainer import params_from_jax
     t = port_trainer(case["net"], case.get("batch", 16), dev,
                      case.get("extra", ()))
     if case.get("init") is not None:
         t.set_state(*params_from_jax(*case["init"]))
+    evals = None
+    if case.get("eval") is not None:
+        x = torch.from_numpy(case["eval"]).to(t.device)
+        if t._data_split():
+            x = x[torch.as_tensor(t._rows(x.shape[0]))]
+        evals = torch.from_numpy(t.forward_eval(x, [t.net.final_node])[0])
     t.start_round(1)
-    losses, drift = [], []
+    losses, drift, pipe_stats = [], [], []
     for data, label, padd in case.get("data") or batches(
             case.get("steps", 4), case.get("batch", 16),
             case.get("shape", (3, 16, 16)),
@@ -91,8 +101,10 @@ def train_case(case: Dict, dev: str) -> Dict:
         b.tail_mask_padd = padd
         t.update(b)
         losses.append(float(t.last_loss))
+        pipe_stats.append(dict(t.pipe_stats))
         drift.append(t.check_weight_consistency())
     out = {"losses": losses, "drift": drift, "state": logical_state(t),
+           "pipe_stats": pipe_stats, "eval": evals,
            "zero": sorted(t.zero_leaves), "model": sorted(t.model_sharded),
            # what this rank holds of each expert-sharded leaf: (axis,
            # logical rows, the parameter's shape, its optimizer state's)
@@ -123,14 +135,96 @@ def _group_body(rank: int, cases: List[Dict], out_dir: str,
         res = train_case(case, dev)
         if rank == 0:
             torch.save(res, os.path.join(out_dir, f"case{i}.pt"))
+        if case.get("all_ranks"):
+            torch.save(res, os.path.join(out_dir, f"case{i}_rank{rank}.pt"))
 
 
 def run_group(cases: List[Dict], out_dir: str, nprocs: int) -> List[Dict]:
     """Train every case on ``nprocs`` gloo ranks (``dev = cpu:0-N``) in
-    one spawned group; rank 0's results, case by case."""
+    one spawned group; rank 0's results, case by case (a case marked
+    ``all_ranks`` also leaves every rank's, ``rank_results``)."""
     from cxxnet_tpu_torch.parallel import mesh
     mesh.spawn(_group_body, nprocs,
                (cases, str(out_dir), f"cpu:0-{nprocs - 1}"),
                timeout_sec=JOIN_TIMEOUT_SEC)
     return [torch.load(os.path.join(out_dir, f"case{i}.pt"))
             for i in range(len(cases))]
+
+
+def rank_results(out_dir: str, i: int, nprocs: int) -> List[Dict]:
+    """Every rank's result of case ``i`` of an ``all_ranks`` case."""
+    return [torch.load(os.path.join(out_dir, f"case{i}_rank{r}.pt"))
+            for r in range(nprocs)]
+
+
+# ----------------------------------------------------- pipeline toy stages
+#: the toy pipeline's sizes: stages, microbatches, rows and width
+TOY_S, TOY_M, TOY_MB, TOY_D = 2, 4, 3, 4
+
+
+def toy_inputs():
+    """Seeded numpy inputs of the toy pipelines: stacked per-stage
+    weights and biases, microbatches, labels, the hetero stages'
+    weights."""
+    rnd = np.random.RandomState(11)
+    return dict(
+        w=(rnd.randn(TOY_S, TOY_D, TOY_D) * 0.5).astype(np.float32),
+        b=(rnd.randn(TOY_S, TOY_D) * 0.1).astype(np.float32),
+        x=rnd.randn(TOY_M, TOY_MB, TOY_D).astype(np.float32),
+        lab=rnd.randn(TOY_M, TOY_MB, TOY_D).astype(np.float32),
+        w0=(rnd.randn(TOY_D, 6) * 0.5).astype(np.float32),
+        w1=(rnd.randn(6, 2) * 0.5).astype(np.float32))
+
+
+def _toy_body(rank: int, out_dir: str) -> None:
+    """The toy stages through every entry point of
+    ``parallel/pipeline.py`` on a ``pipe:2`` mesh; rank 0 saves."""
+    torch.set_num_threads(1)
+    from cxxnet_tpu_torch.parallel import mesh as meshlib, pipeline
+    m = meshlib.build_mesh(meshlib.MeshSpec({"pipe": TOY_S}),
+                           torch.device("cpu"))
+    s = m.axis_index("pipe")
+    inp = {k: torch.from_numpy(v) for k, v in toy_inputs().items()}
+    mine = {"w": inp["w"][s], "b": inp["b"][s]}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    out = {"apply": pipeline.pipeline_apply(stage_fn, mine, inp["x"],
+                                            mesh=m)}
+    for sched in ("1f1b", "gpipe"):
+        loss, grads = pipeline.pipeline_1f1b(
+            stage_fn, lambda y, lab: ((y - lab) ** 2).sum(), mine,
+            inp["x"], inp["lab"], mesh=m, schedule=sched)
+        out[f"1f1b_{sched}"] = (loss, grads)
+    new, loss = pipeline.pipeline_train_step(
+        stage_fn, lambda y, lab: ((y - lab) ** 2).mean(), mine, inp["x"],
+        inp["lab"], mesh=m, lr=0.1)
+    out["train_step"] = (new, loss)
+    w0 = inp["w0"].clone().requires_grad_()
+    w1 = inp["w1"].clone().requires_grad_()
+
+    def st0(acts, aux, mm):
+        h = torch.tanh(acts[0] @ w0)
+        return (h,), aux + 0.01 * (h ** 2).sum()
+
+    def st1(acts, aux, mm):
+        return (acts[0] @ w1,), aux
+
+    outs, auxs = pipeline.pipeline_apply_hetero([st0, st1], inp["x"],
+                                                mesh=m)
+    out["hetero"] = (outs[0], auxs)
+    loss, grads, res = pipeline.pipeline_1f1b_hetero(
+        [st0, st1], lambda acts, aux, mm: aux + (acts[0] ** 2).sum(),
+        [w0, w1], inp["x"], mesh=m)
+    out["1f1b_hetero"] = (loss, grads)
+    torch.save(out, os.path.join(out_dir, f"toys{rank}.pt"))
+
+
+def run_toys(out_dir: str) -> List[Dict]:
+    """Each rank's toy results (:func:`_toy_body`), by pipe index."""
+    from cxxnet_tpu_torch.parallel import mesh
+    mesh.spawn(_toy_body, TOY_S, (str(out_dir),),
+               timeout_sec=JOIN_TIMEOUT_SEC)
+    return [torch.load(os.path.join(out_dir, f"toys{r}.pt"))
+            for r in range(TOY_S)]
