@@ -282,7 +282,20 @@ Phases (any failure raises and exits non-zero):
    under GPipe.  Step p50, peak memory and handoffs a step a rank and
    ``pipe_bubble_frac`` printed beside the card's name and power limit.
    The check phase (23) runs the SPMD deep lint over every example conf
-   and the full-width LM's trace, timed.
+   and the full-width LM's trace, timed;
+29. inference on a mesh (``infer_mesh``): INFER_RANKS gloo ranks share
+   cuda:0 in one spawn, each running the port's CLI in the group (its
+   rows of each batch, the rows all-gathered, rank 0 writing): (a)
+   MNIST_pred.conf from the mnist_conv phase's snapshot under
+   ``pool_layout = hwcn`` (``pred``, ``pred_raw``, ``extract`` in binary
+   rows; f32, TF32 off), (b) micro-batched serve.conf in f32 over
+   INFER_SERVE_ROWS seeded images (rank 0 serves, rank 1 follows each
+   dispatch), (c) ImageNet.conf ``pred_raw`` at batch 256 (128 a rank),
+   bf16, the AlexNet kernel keys (rows 1 and 3), over the alexnet_data
+   phase's eval pack from a seeded init's snapshot, also against one
+   device at a rank's batch.  Each against the same CLI run on one
+   device here; rows/s of (a) and (c) and the qps of (b) on both printed
+   beside the card's name and power limit.
 
 The kernel phase also holds rows 1, 3, 4 and 5 to their plain versions
 at the shapes phase 17 launches them (a batch_split chain of 128 images:
@@ -402,7 +415,7 @@ ALL_PHASES = {"env", "kernels", "serve", "consistency", "train",
               "serve_spec", "serve_batch", "googlenet", "googlenet_hwcn",
               "resnet", "alexnet_data", "staging", "observe",
               "serve_admin", "check", "pairtest", "wrapper", "dp",
-              "seq_expert", "pipe"}
+              "seq_expert", "pipe", "infer_mesh"}
 #: --profile: the kernels listed by device time
 PROFILE_TOP = 25
 
@@ -605,6 +618,31 @@ SE_RING_REPS = 3
 PIPE_RANKS, PIPE_LAYERS, PIPE_STEPS = 8, 4, 4
 PIPE_MICRO, PIPE_MICRO_WIDE, PIPE_WIDE_STEPS = 4, 8, 1
 PIPE_FLAT_TOL = 0.10
+
+# infer_mesh: INFER_RANKS gloo ranks on cuda:0 in one spawn, each running
+# the port's CLI inside the group.  (a) MNIST_pred.conf from mnist_conv's
+# snapshot (pred, pred_raw, extract in binary rows; f32, TF32 off): the
+# class ids equal one device's where its top two scores are more than
+# INFER_MARGIN apart, the rows within INFER_F32_TOL normwise; (b)
+# serve.conf (f32, buckets INFER_SHAPES) over INFER_SERVE_ROWS seeded
+# images, its answers task = pred's on the same ranks (BATCH_AGREE); (c)
+# ImageNet.conf at batch INFER_ALEX_BATCH (128 a rank), bf16, the AlexNet
+# kernel keys, pred_raw over alexnet_data's eval pack from a seeded
+# init's snapshot: the rows within INFER_F32_TOL normwise of one device
+# at a rank's batch and its argmax on every row; against one device at
+# the full batch within INFER_BF16_TOL normwise and the argmax equal on
+# INFER_AGREE of the rows, or as close as one device's own rows at the
+# two batches are (bf16 rows move with the batch on one device: 2.93e-2
+# normwise, 0.9902 of the argmaxes, PERF.md PR 22); rows 1 and 3
+# launched ALEXNET_EVAL_PER_BATCH times a batch on each rank
+INFER_RANKS = 2
+INFER_MARGIN, INFER_F32_TOL = 1e-5, 1e-5
+INFER_BF16_TOL, INFER_AGREE = 2e-2, 0.99
+INFER_SHAPES = (2, 8, 32)
+INFER_SERVE_ROWS = 2000
+INFER_ALEX_BATCH = 256
+INFER_ALEX_ARGS = ("dev=gpu", "pool_layout=hwcn", "pool_relu_fuse=1",
+                   "pallas_lrn=1", "silent=1")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: numbers one phase prints beside another's (alexnet's step p50)
@@ -6186,6 +6224,287 @@ def phase_pipe(tmp: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ inference on a mesh
+def infer_mesh_conf(tmp: str, src: str, data: str, out: str) -> str:
+    """example/MNIST/``src`` on the card with its data in ``data`` and its
+    pred section (and metrics sink) writing next to ``out``; returns the
+    conf's path."""
+    text = open(os.path.join(REPO, "example", "MNIST", src)).read()
+    conf = out + ".conf"
+    with open(conf, "w") as f:
+        f.write(text.replace("./data/", data + "/")
+                .replace("dev = cpu", "dev = gpu")
+                .replace("pred = out.txt", f"pred = {out}")
+                .replace("pred = serve_out.txt", f"pred = {out}")
+                .replace("jsonl:serve_metrics.jsonl", f"jsonl:{out}.jsonl"))
+    return conf
+
+
+def infer_mesh_parts(tmp: str, who: str) -> list:
+    """The infer_mesh runs of ``who`` (``mesh``: a rank of the group;
+    ``one``: one device), ``(name, CLI argv, strict float32)``, each
+    writing ``tmp/infer_mesh_<who>_<name>``."""
+    snap = os.path.join(tmp, "mnist_models", f"{MNIST_ROUNDS:04d}.model")
+    mnist = [f"model_in={snap}", "input_flat=0", "pool_layout=hwcn",
+             "silent=1"]
+    out = {n: os.path.join(tmp, f"infer_mesh_{who}_{n}")
+           for n in ("pred", "pred_raw", "extract", "serve_pred", "serve",
+                     "alexnet", "alexnet_rank_batch")}
+    data, data_2k = (os.path.join(tmp, d) for d in ("mnist", "mnist_2k"))
+    parts = [(n, [infer_mesh_conf(tmp, "MNIST_pred.conf", data, out[n])]
+              + mnist + extra, True)
+             for n, extra in (("pred", ["task=pred"]),
+                              ("pred_raw", ["task=pred_raw"]),
+                              ("extract", ["task=extract",
+                                           f"extract_node_name={EXTRACT_NODE}",
+                                           "output_format=bin"]))]
+    parts.append(("serve_pred", [infer_mesh_conf(
+        tmp, "MNIST_pred.conf", data_2k, out["serve_pred"])] + mnist
+        + ["task=pred"], True))
+    parts.append(("serve", [infer_mesh_conf(
+        tmp, "serve.conf", data_2k, out["serve"])] + mnist
+        + ["serve_dtype=f32", f"serve_clients={CLIENTS}",
+           "serve_shapes=" + ",".join(map(str, INFER_SHAPES))], True))
+    # one device also at a rank's batch: a rank's forward is that one
+    alex = [("alexnet", [])] + ([("alexnet_rank_batch", [
+        f"batch_size={INFER_ALEX_BATCH // INFER_RANKS}"])] if who == "one"
+        else [])
+    for name, extra in alex:
+        parts.append((name, [
+            alexnet_data_conf(tmp), "task=pred_raw",
+            f"model_in={tmp}/infer_mesh_alexnet/0000.model"]
+            + list(INFER_ALEX_ARGS) + PREFETCH_ARGS + extra
+            + [f"pred={out[name]}", "iter=imgbin",
+               f"image_list={tmp}/test.lst", f"image_bin={tmp}/test.bin",
+               f"image_mean={tmp}/image_net_mean.npz", "iter=end"], False))
+    return parts
+
+
+def infer_run(name: str, argv: list, strict: bool) -> dict:
+    """One CLI run of infer_mesh in this process (one device, or a rank
+    of the group; float32 without TF32 under ``strict``): its exit code,
+    wall, launches (the counters set to 0 just before), the summed
+    per-batch latency and, on the rank that serves, the serve stats."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if strict:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    reset_launches()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    try:
+        rc = task.run(argv)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    wall = time.perf_counter() - t0
+    hist = task.net.metrics.histograms
+    lat = hist.get("extract_latency_sec" if name == "extract"
+                   else "pred_latency_sec")
+    lat = lat.summary() if lat is not None else {"count": 0, "sum": 0.0}
+    res = dict(rc=rc, wall=wall, launches=read_launches(),
+               batches=int(lat["count"]), latency_sec=float(lat["sum"]),
+               p50_sec=float(lat.get("p50", 0.0)),
+               serve=task.last_serve,
+               mesh=None if task.net.mesh is None
+               else dict(task.net.mesh.axes))
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _infer_mesh_rank(rank: int, tmp: str, parts: list) -> None:
+    """A rank of infer_mesh: every part in turn, its results saved."""
+    import torch
+    arm_stack_dump()
+    torch.cuda.set_device(0)
+    out = {name: infer_run(name, argv, strict)
+           for name, argv, strict in parts}
+    with open(os.path.join(tmp, f"infer_mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+
+
+def normwise(got: np.ndarray, ref: np.ndarray) -> float:
+    """max |got - ref| / max |ref| of two host arrays of one shape (inf
+    where the shapes differ)."""
+    if got.shape != ref.shape:
+        return float("inf")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def infer_rows(tmp: str, who: str, name: str) -> np.ndarray:
+    """The rows ``who``'s run ``name`` wrote (text, or binary rows of
+    the ``.meta`` width)."""
+    path = os.path.join(tmp, f"infer_mesh_{who}_{name}")
+    if name == "extract":
+        meta = int(open(path + ".meta").read())
+        return np.fromfile(path, "<f4").reshape(-1, meta)
+    return np.loadtxt(path, np.float32, ndmin=2)
+
+
+def phase_infer_mesh(tmp: str) -> dict:
+    """Phase 29 (``infer_mesh``): ``pred`` / ``pred_raw`` / ``extract``
+    and micro-batched ``serve`` on INFER_RANKS gloo ranks sharing cuda:0
+    (one spawn, the port's CLI in the group), each held to the same CLI
+    run on one device here: (a) MNIST_pred.conf from the mnist_conv
+    phase's snapshot in f32 without TF32, (b) serve.conf over
+    INFER_SERVE_ROWS seeded images, (c) ImageNet.conf's ``pred_raw`` at
+    batch 256 in bf16 over the alexnet_data phase's eval pack (and on
+    one device at a rank's batch too), rows 1 and 3 on each rank.
+    Returns the group's launches, summed over the ranks."""
+    import torch
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.parallel import mesh as meshlib
+    card = card_line()
+    data_2k = os.path.join(tmp, "mnist_2k")
+    if not os.path.exists(data_2k):
+        subprocess.run([sys.executable,
+                        os.path.join(REPO, "tools", "make_synth_mnist.py"),
+                        "--out", data_2k, "--train", "10", "--test",
+                        str(INFER_SERVE_ROWS)], check=True,
+                       capture_output=True)
+    # AlexNet's seeded initial weights, the snapshot both sides load
+    if LearnTask().run([alexnet_data_conf(tmp), "num_round=0",
+                        "save_model=1", f"model_dir={tmp}/infer_mesh_alexnet"]
+                       + list(INFER_ALEX_ARGS)) != 0:
+        raise AssertionError("infer_mesh: the AlexNet snapshot")
+    one = {name: infer_run(name, argv, strict)
+           for name, argv, strict in infer_mesh_parts(tmp, "one")}
+    t0 = time.perf_counter()
+    meshlib.spawn(_infer_mesh_rank, INFER_RANKS,
+                  (tmp, infer_mesh_parts(tmp, "mesh")), backend="gloo",
+                  timeout_sec=DP_TIMEOUT_SEC)
+    spawn_sec = time.perf_counter() - t0
+    ranks = []
+    for r in range(INFER_RANKS):
+        with open(os.path.join(tmp, f"infer_mesh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"infer_mesh: {INFER_RANKS} gloo ranks on cuda:0, "
+        f"{len(ranks[0])} CLI runs each, {spawn_sec:.1f} s ({card})")
+    return infer_mesh_report(tmp, one, ranks, card)
+
+
+def infer_mesh_report(tmp: str, one: dict, ranks: list, card: str) -> dict:
+    """infer_mesh's checks and numbers from the one-device runs ``one``
+    and each rank's runs ``ranks`` (and the files they wrote); returns
+    the group's launches, summed over the ranks."""
+    mesh = ranks[0]
+    for name in mesh:
+        if any(rk[name]["rc"] != 0 for rk in ranks) or one[name]["rc"]:
+            raise AssertionError(f"infer_mesh {name}: a CLI run failed")
+        if any(rk[name]["mesh"] != {"data": INFER_RANKS} for rk in ranks):
+            raise AssertionError(f"infer_mesh {name}: meshes "
+                                 f"{[rk[name]['mesh'] for rk in ranks]}")
+
+    def rate_line(name: str, what: str) -> None:
+        rows = {who: infer_rows(tmp, who, name).shape[0]
+                for who in ("mesh", "one")}
+        a, b = mesh[name], one[name]
+        per = rows["mesh"] / a["batches"]
+        log(f"infer_mesh {what}: {rows['mesh']} rows in {a['batches']} "
+            f"batches; rows/s over the summed batch latency "
+            f"{rows['mesh'] / a['latency_sec']:.1f} on {INFER_RANKS} ranks "
+            f"vs {rows['one'] / b['latency_sec']:.1f} on one device; over "
+            f"the batch p50 {per / a['p50_sec']:.1f} vs "
+            f"{per / b['p50_sec']:.1f} (CLI wall {a['wall']:.2f} / "
+            f"{b['wall']:.2f} s; {card})")
+
+    # (a) MNIST: ids where one device's top two are apart, rows normwise
+    labels = read_mnist_labels(os.path.join(tmp, "mnist",
+                                            "t10k-labels-idx1-ubyte.gz"))
+    raw_one = infer_rows(tmp, "one", "pred_raw")
+    margin = np.array([top2_margin(r) for r in raw_one])
+    ids = {who: infer_rows(tmp, who, "pred")[:, 0]
+           for who in ("mesh", "one")}
+    clear = margin > INFER_MARGIN
+    differ = int(np.sum(ids["mesh"][clear] != ids["one"][clear]))
+    errs = {n: normwise(infer_rows(tmp, "mesh", n),
+                        infer_rows(tmp, "one", n))
+            for n in ("pred_raw", "extract")}
+    log(f"infer_mesh (a): MNIST_pred.conf, {ids['mesh'].size} rows: "
+        f"class ids differ on {differ} of the {int(clear.sum())} rows "
+        f"whose top two are more than {INFER_MARGIN:g} apart; pred_raw "
+        f"{errs['pred_raw']:.3e}, extract {errs['extract']:.3e} normwise "
+        f"(tol {INFER_F32_TOL:g})")
+    for name in ("pred", "pred_raw", "extract"):
+        rate_line(name, f"(a) {name}")
+    if ids["mesh"].size != labels.size or differ \
+            or max(errs.values()) > INFER_F32_TOL:
+        raise AssertionError(f"infer_mesh (a): ids differ on {differ} "
+                             f"rows, errors {errs}")
+    # (b) serve on the group against pred on the group
+    served = infer_rows(tmp, "mesh", "serve")[:, 0]
+    pred_2k = infer_rows(tmp, "mesh", "serve_pred")[:, 0]
+    st, st_one = mesh["serve"]["serve"], one["serve"]["serve"]
+    agree = float(np.mean(served == pred_2k)) if served.size \
+        == pred_2k.size else 0.0
+    log(f"infer_mesh (b): serve.conf f32 on {INFER_RANKS} ranks: "
+        f"{st['requests']} requests, {st['qps']:.1f} req/s vs "
+        f"{st_one['qps']:.1f} req/s on one device; mean batch "
+        f"{st['mean_batch']}, buckets {st['engine']['bucket_hist']}, "
+        f"retraces {st['retraces']}; agreement with task = pred on the "
+        f"ranks {agree:.6f} ({card})")
+    if served.size != INFER_SERVE_ROWS or st["retraces"] \
+            or agree < BATCH_AGREE or ranks[1]["serve"]["serve"] is not None:
+        raise AssertionError(f"infer_mesh (b): {served.size} answers, "
+                             f"agreement {agree}, retraces "
+                             f"{st['retraces']}")
+    # (c) AlexNet at full width
+    raw = {who: infer_rows(tmp, who, "alexnet") for who in ("mesh", "one")}
+    half = infer_rows(tmp, "one", "alexnet_rank_batch")
+
+    def agreement(a, b) -> float:
+        return float(np.mean(a.argmax(1) == b.argmax(1))) \
+            if a.shape == b.shape else 0.0
+    # a rank's forward is one device's at the rank's batch; one device's
+    # bf16 rows move with the batch alone (cuDNN's algorithms, the
+    # kernels' routes), which sets what the full batch is held to
+    err_half, agree_half = normwise(raw["mesh"], half), \
+        agreement(raw["mesh"], half)
+    err, agree = normwise(raw["mesh"], raw["one"]), \
+        agreement(raw["mesh"], raw["one"])
+    spread, agree_own = normwise(half, raw["one"]), \
+        agreement(half, raw["one"])
+    batches = DATA_EVAL_IMAGES // INFER_ALEX_BATCH
+    per = {n: [rk["alexnet"]["launches"][n] for rk in ranks]
+           for n in ALEXNET_EVAL_PER_BATCH}
+    log(f"infer_mesh (c): ImageNet.conf pred_raw, bf16, {raw['mesh'].shape}"
+        f" rows: against one device at a rank's batch "
+        f"({INFER_ALEX_BATCH // INFER_RANKS}) {err_half:.3e} normwise (tol "
+        f"{INFER_F32_TOL:g}), argmax agreement {agree_half:.4f} (min 1); "
+        f"against one device at {INFER_ALEX_BATCH} {err:.3e} normwise, "
+        f"argmax agreement {agree:.4f}, where one device alone moves "
+        f"{spread:.3e} / {agree_own:.4f} from batch "
+        f"{INFER_ALEX_BATCH // INFER_RANKS} to {INFER_ALEX_BATCH} (tol "
+        f"max({INFER_BF16_TOL:g}, that) / min({INFER_AGREE}, that)); "
+        f"launches a rank {per} for {batches} batches; one device "
+        f"{ {n: one['alexnet']['launches'][n] for n in per} }")
+    rate_line("alexnet", "(c) alexnet pred_raw")
+    if raw["mesh"].shape != (DATA_EVAL_IMAGES, 1000) \
+            or err_half > INFER_F32_TOL or agree_half < 1.0 \
+            or err > max(INFER_BF16_TOL, spread) \
+            or agree < min(INFER_AGREE, agree_own) or any(
+                c != ALEXNET_EVAL_PER_BATCH[n] * batches
+                for n, cs in per.items() for c in cs):
+        raise AssertionError(f"infer_mesh (c): rows {raw['mesh'].shape}, "
+                             f"errors {err_half} / {err}, agreement "
+                             f"{agree_half} / {agree}, launches {per}")
+    launches = {n: 0 for n in KERNELS}
+    for rk in ranks:
+        for run in rk.values():
+            for n in KERNELS:
+                launches[n] += run["launches"][n]
+    log(f"infer_mesh path launches (both ranks): {launches}")
+    if launches["max_pool_fwd"] < 1 or launches["lrn_fwd"] < 1:
+        raise AssertionError("infer_mesh: rows 1 and 3 never launched")
+    return launches
+
+
+
 def phase_wrapper(tmp: str) -> dict:
     """Phase 25 (``wrapper``): the port's Python and C frontends on the
     card.  (a) ``wrapper.api.train`` of MNIST_CONV.conf's net (rows 3-5
@@ -6471,6 +6790,11 @@ def run_paths(phases: set, args, tmp: str, checker, paths: dict,
         paths["seq_expert"] = phase_seq_expert(tmp)
     if "pipe" in phases:
         paths["pipe"] = phase_pipe(tmp)
+    if "infer_mesh" in phases:
+        if not {"mnist_conv", "alexnet_data"} <= phases:
+            raise SystemExit("infer_mesh needs the mnist_conv and "
+                             "alexnet_data phases")
+        paths["infer_mesh"] = phase_infer_mesh(tmp)
 
 
 def main() -> int:

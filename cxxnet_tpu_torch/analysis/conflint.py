@@ -19,10 +19,9 @@ netconfig block) and checks every key against the declared-key registry:
   enforce with run-time warnings or silent fallbacks (dp_overlap
   vs batch_split/pipe, monitor vs multi_step, ...), surfaced before any
   device work;
-* **not ported** → a config the port refuses at run time (a layer type,
-  or several device ids for a one-device task, of the JAX package that
-  ``cxxnet_tpu_torch`` does not implement) is an error in the runtime's
-  own words (:func:`_not_ported_rules`).
+* **not ported** → a config the port refuses at run time (a layer type
+  of the JAX package that ``cxxnet_tpu_torch`` does not implement) is an
+  error in the runtime's own words (:func:`_not_ported_rules`).
 
 The findings and their words are the JAX package's, but for the
 not-ported rules and the card's names (``mem_chip`` selects an H100, not
@@ -1079,35 +1078,13 @@ def _mesh_rules(last: Dict[str, str], layer_types: List[str],
 # --------------------------------------------------- not-ported rules
 def _not_ported_rules(pairs: ConfigPairs, add) -> None:
     """A config the port would refuse at run time is an error, in the
-    runtime's own words: a layer type of ``layers/registry.NOT_PORTED``
-    and a ``dev`` of several ids for a task
-    that runs on one device (``pred`` / ``pred_raw`` / ``extract`` /
-    ``serve``).  Each key is reported at its first refused occurrence,
-    where the runtime stops."""
+    runtime's own words: a layer type of ``layers/registry.NOT_PORTED``."""
     from ..layers import registry as lreg
-    from ..main import ONE_DEVICE_TASKS, several_ids_message
-    from ..parallel.mesh import parse_device_spec
-    seen = set()
-    task = dict(pairs).get("task", "train")
-
-    def once(key: str, msg: str) -> None:
-        if key not in seen:
-            seen.add(key)
-            add(Finding("error", key, msg))
-
     for name, val in pairs:
         if name.startswith("layer[") and not val.startswith("share"):
             tname = val.partition(":")[0]
             if lreg.is_not_ported(tname) and _layer_type_known(tname):
                 add(Finding("error", name, lreg.not_ported_message(tname)))
-        elif name == "dev" and task in ONE_DEVICE_TASKS:
-            try:
-                ids = parse_device_spec(val.lower())["ids"] or []
-            except ValueError:
-                continue  # malformed: the trainer's own error at build
-            if len(ids) > 1:
-                once(name, several_ids_message(f"task = {task}", val,
-                                               len(ids)))
 
 
 # ----------------------------------------------- strict_config reporting

@@ -89,7 +89,14 @@ records and writes snapshots (every rank gathers the shards it holds
 into them); each process of a ``CXN_*`` launch writes its own;
 ``test_on_server = 1`` checks after each round that the replicas agree.
 A rank that fails fails the command.  ``pred`` / ``pred_raw`` /
-``extract`` / ``serve`` on several ids are refused by name.
+``extract`` run on the same mesh: each rank runs the eval forward of its
+rows of every batch, the rows are all-gathered in the batch's order and
+rank 0 alone writes ``pred`` (and ``.meta``) and the latency record, in
+a spawned group and in a ``CXN_*`` launch alike.  Micro-batched
+``serve`` too: rank 0 runs the host, the batcher, its clients and the
+admin endpoint, and every forward of its engine is one collective
+dispatch that the other ranks follow (``serve/engine.py``); incremental
+decode (``serve_gen = 1``) refuses a mesh, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -189,18 +196,6 @@ TASK_KEYS = (
     # consumer, ServeConfig.from_pairs) and checkpoint / rollback keys
     # (ckpt/__init__.py)
 ) + SERVE_KEYS + CKPT_KEYS
-
-#: tasks that run on one device only: several ids are refused by name
-ONE_DEVICE_TASKS = ("pred", "pred_raw", "extract", "serve")
-
-
-def several_ids_message(what: str, dev: str, n: int) -> str:
-    """The refusal of several device ids where the port runs one device
-    (the runtime's and ``task = check``'s words)."""
-    return (f"dev = {dev}: {n} devices; {what} on several device ids is "
-            "not ported to cxxnet_tpu_torch yet (training runs data-"
-            "parallel on them; ROADMAP.md, Multi-GPU)")
-
 
 def _cli_rank(rank: int, argv: List[str], threads: int = 0) -> None:
     """One spawned rank of a data-parallel CLI run; ``threads`` > 0 caps
@@ -1298,7 +1293,23 @@ class LearnTask:
             mlog.warn(f"ledger emit failed: {e}")
 
     # ---------------------------------------------------------------- tasks
+    def _writes_output(self) -> bool:
+        """True unless this process is a rank other than 0 of a mesh: of
+        a mesh, rank 0 alone writes ``pred`` and the inference records
+        (every rank holds every row)."""
+        mesh = self.net.mesh
+        return mesh is None or mesh.virtual or mesh.rank == 0
+
+    def _output(self, mode: str):
+        """``name_pred`` opened for writing with ``mode`` where this
+        process writes it (:meth:`_writes_output`), else the null
+        device."""
+        path = self.name_pred if self._writes_output() else os.devnull
+        return open(path, mode)  # disclint: ok(atomic-write)
+
     def _emit_latency_record(self, op: str) -> None:
+        if not self._writes_output():
+            return
         metrics = self.net.metrics
         h = metrics.histograms.get(f"{op}_latency_sec")
         s = h.summary() if h is not None else {"count": 0}
@@ -1337,7 +1348,7 @@ class LearnTask:
         fn = self.net.predict_raw if raw else self.net.predict
         try:
             batches = self._pred_batches("to predict", staged=True)
-            with open(self.name_pred, "w") as fo:  # disclint: ok(atomic-write)
+            with self._output("w") as fo:
                 for batch in batches:
                     for row in self._timed("pred", fn, batch):
                         fo.write((" ".join(f"{v:g}" for v in row) if raw
@@ -1357,10 +1368,10 @@ class LearnTask:
             raise ValueError("task = extract: must set extract_node_name")
         mlog.notice(f"start extracting feature from node {node} ...")
         binary = self.output_format == 0
-        wrote_meta = False
+        wrote_meta = not self._writes_output()
         try:
             batches = self._pred_batches("to extract from", staged=True)
-            with open(self.name_pred, "wb" if binary else "w") as fo:  # disclint: ok(atomic-write)
+            with self._output("wb" if binary else "w") as fo:
                 for batch in batches:
                     feat = self._timed(
                         "extract",
@@ -1398,14 +1409,23 @@ class LearnTask:
         cfg = ServeConfig.from_pairs(self.cfg)
         if cfg.gen:
             return self.task_serve_gen(cfg)
-        from .serve.engine import SERVE_TOL
+        from .serve.engine import SERVE_TOL, PredictEngine
         from .serve.host import ModelHost, ServeModel
         metrics = self.net.metrics
-        sm = ServeModel(self.net, cfg, metrics=metrics)
+        # built alike on every rank: a config it refuses fails them all
+        # before any collective
+        engine = PredictEngine(self.net, shapes=cfg.shapes, dtype=cfg.dtype,
+                               metrics=metrics)
+        if not self._writes_output():
+            # a rank other than 0 of a mesh: every forward of rank 0's
+            # engine is a collective dispatch this rank follows
+            engine.follow()
+            return
         host = ModelHost()
-        host.attach(sm, warmup=False)
         stop_reporter = None
         try:
+            sm = ServeModel(self.net, cfg, metrics=metrics, engine=engine)
+            host.attach(sm, warmup=False)
             # the admin endpoint is up before warmup, so /readyz reads
             # 503 while the buckets warm
             admin = host.start_admin(
@@ -1508,6 +1528,8 @@ class LearnTask:
                 stop_reporter()
             # not ready first, then the batcher's drain, the admin last
             host.close()
+            # the other ranks of a mesh follow until this stop
+            engine.stop()
         mlog.notice(f"finished serving, wrote {self.name_pred}")
 
     def _serve_watchers(self, sm, cfg, metrics):
@@ -1913,9 +1935,6 @@ class LearnTask:
             return self.task_check(argv[0])
         ids = meshlib.parse_device_spec(
             dict(self.cfg).get("dev", "gpu").lower())["ids"] or []
-        if len(ids) > 1 and self.task in ONE_DEVICE_TASKS:
-            raise ValueError(several_ids_message(
-                f"task = {self.task}", dict(self.cfg)["dev"], len(ids)))
         if self._join_distributed(ids):
             return self._spawn_ranks(argv, len(ids))
         try:

@@ -614,14 +614,15 @@ class NetTrainer:
             return dplib.axis_block(p, self.mesh, "data")
         return p
 
-    def _run_params(self):
-        """The params a forward reads: model-sharded leaves all-gathered
+    def _run_params(self, params=None):
+        """The params a forward reads (``params``, this rank's leaves,
+        the trainer's own by default): model-sharded leaves all-gathered
         where a connection first reads them (:class:`~..parallel.data.
         GatheringParams`), else the params themselves."""
+        params = self.params if params is None else params
         if not self.model_sharded:
-            return self.params
-        return dplib.GatheringParams(self.params, self.model_sharded,
-                                     self.mesh)
+            return params
+        return dplib.GatheringParams(params, self.model_sharded, self.mesh)
 
     def _logical(self, pkey: str, tag: str, a: torch.Tensor
                  ) -> torch.Tensor:
@@ -1617,7 +1618,8 @@ class NetTrainer:
         return out
 
     def _pipe_run(self, inputs, labels: Optional[LabelInfo], epoch: int,
-                  *, train: bool, node_ids: Sequence[int] = ()):
+                  *, train: bool, node_ids: Sequence[int] = (),
+                  params=None):
         """This rank's stage of a pipelined step (``train``) or eval
         forward over the batch it holds (``parallel/pipeline.py``).  The
         batch is cut into ``n_micro`` contiguous microbatches; stage
@@ -1626,8 +1628,9 @@ class NetTrainer:
         gathered once, at the step's start); the loss tail and the nodes
         read after the last stage (``node_ids``) run on the last stage, a
         microbatch at a time, and the nodes' values reach every rank of
-        the axis.  Returns ``(run result, {node: values}, the leaves
-        [(pkey, tag, tensor)])``."""
+        the axis.  ``params`` (this rank's leaves) replaces the trainer's
+        own in an eval forward.  Returns ``(run result, {node: values},
+        the leaves [(pkey, tag, tensor)])``."""
         from ..parallel import pipeline
         from . import pipeline_net
         net = self.net
@@ -1676,7 +1679,8 @@ class NetTrainer:
 
         params = {pkey: {tag: self._logical(pkey, tag, p)
                          for tag, p in g.items()}
-                  for pkey, g in self.params.items()}
+                  for pkey, g in (self.params if params is None
+                                  else params).items()}
         leaves = [(k, t, p) for k, g in params.items() for t, p in g.items()]
         if train:
             for _, _, p in leaves:
@@ -2221,27 +2225,41 @@ class NetTrainer:
         inputs = dict(enumerate([data, *extra_data]))
         inputs[0] = self.stage_input(self._normalize_input(inputs[0]))
         self._count_shape(self._eval_shapes, "eval_step_traces", inputs)
-        if self._pipelined and not extra_data \
+        outs = self.eval_nodes(inputs, node_ids)
+        return [o.cpu().numpy() for o in outs] if host else outs
+
+    def eval_nodes(self, inputs: Dict[int, torch.Tensor],
+                   node_ids: Sequence[int], params=None
+                   ) -> List[torch.Tensor]:
+        """The eval forward of staged input nodes (this rank's rows and
+        positions) with ``params`` (this rank's leaves, the trainer's
+        own by default: a serve variant's cast or dequantized copy, cut
+        as they are); the requested nodes' values as float32 device
+        tensors.  A model-sharded leaf is gathered where it is read; on
+        a pipelined mesh the nodes of the last stage come through the
+        stages."""
+        if self._pipelined and len(inputs) == 1 \
                 and set(node_ids) <= self._pipe_tail_nodes():
             # through the stages, the nodes from the last one
             with torch.no_grad():
                 _, got, _ = self._pipe_run(inputs, None, self.epoch_counter,
                                            train=False,
                                            node_ids=list(dict.fromkeys(
-                                               node_ids)))
-            outs = [got[n].float() for n in node_ids]
-            return [o.cpu().numpy() for o in outs] if host else outs
+                                               node_ids)), params=params)
+            return [got[n].float() for n in node_ids]
         with torch.inference_mode():
-            nodes = self.net.forward(self._run_params(), inputs,
+            nodes = self.net.forward(self._run_params(params), inputs,
                                      self.context(), buffers=self.buffers)
-        outs = [materialize(nodes[n]).float() for n in node_ids]
-        return [o.cpu().numpy() for o in outs] if host else outs
+        return [materialize(nodes[n]).float() for n in node_ids]
 
     def _node_rows(self, batch, nid: int) -> np.ndarray:
         """Node ``nid`` of a batch's (host or staged) eval forward as
-        (valid rows, values) float32, the padding rows dropped."""
+        (valid rows, values) float32, the padding rows dropped.  On a
+        mesh every rank returns every row of the batch, in its order
+        (:meth:`_batch_rows`)."""
         sb = self._staged(batch)
-        [out] = self.forward_eval(sb.data, [nid], sb.extra_data)
+        [out] = self._batch_rows(
+            self.forward_eval(sb.data, [nid], sb.extra_data, host=False))
         n = sb.batch_size - sb.num_batch_padd
         return out.reshape(out.shape[0], -1)[:n]
 
@@ -2309,9 +2327,25 @@ class NetTrainer:
                         preds: List[torch.Tensor], sb) -> None:
         """A staged batch's eval-node values into ``metric``, padding
         excluded.  On a data mesh the metric counts the global batch:
-        every rank's rows, labels and validity are all-gathered over
-        ``data`` (the padding is the last ``num_batch_padd`` rows of the
-        batch each rank read)."""
+        every rank's rows and labels (:meth:`_batch_rows`)."""
+        label = sb.label_host
+        if self._data_split():
+            label = torch.from_numpy(np.asarray(label, np.float32)) \
+                .to(self.device)
+        label, *preds = self._batch_rows(preds, label)
+        self._add_eval(metric, preds, label, sb.num_batch_padd)
+
+    def _batch_rows(self, preds: List[torch.Tensor],
+                    label: Optional[torch.Tensor] = None
+                    ) -> List[np.ndarray]:
+        """Eval-node values of this rank's rows of a staged batch as
+        float32 host arrays of the whole batch's rows, in its order (the
+        padding rows, its last ``num_batch_padd``, kept): on a seq axis
+        that splits the positions the blocks are joined over ``seq``,
+        on a data mesh every rank's rows all-gathered over ``data`` (a
+        pipelined mesh interleaves the ranks' rows microbatch by
+        microbatch), so every rank holds them all.  ``label``, this
+        rank's label rows, comes first in the result when given."""
         if self.seq_split:
             # every row's positions: the blocks joined over seq
             blk = self._position_block()
@@ -2319,31 +2353,19 @@ class NetTrainer:
                 p.movedim(2, 0).contiguous(), self.mesh, "seq").movedim(0, 2)
                 if p.dim() >= 3 and p.shape[2] == blk.stop - blk.start
                 else p for p in preds]
+        ts = ([] if label is None else [label]) + list(preds)
         if not self._data_split():
-            self._add_eval(metric, [p.cpu().numpy() for p in preds],
-                           sb.label_host, sb.num_batch_padd)
-            return
-        n_local = sb.label_host.shape[0]
+            return [np.asarray(t) if isinstance(t, np.ndarray)
+                    else t.cpu().numpy() for t in ts]
+        n_local = ts[0].shape[0]
         nd = dplib.data_size(self.mesh)
         total = n_local * nd
-        held = [np.arange(total)[self._rows(total, d)] for d in range(nd)]
-        valid = torch.from_numpy(
-            (held[self.mesh.axis_index("data")] < total - sb.num_batch_padd)
-            .astype(np.float32)).to(self.device)
-        label = torch.from_numpy(np.asarray(sb.label_host, np.float32)) \
-            .to(self.device)
+        held = np.concatenate([np.arange(total)[self._rows(total, d)]
+                               for d in range(nd)])
         every = [meshlib.all_gather(t.reshape(n_local, -1).contiguous(),
-                                    self.mesh, "data")
-                 for t in [valid, label] + list(preds)]
-        # the global batch's row order (a pipelined mesh interleaves the
-        # ranks' rows microbatch by microbatch)
-        order = np.argsort(np.concatenate(held), kind="stable")
-        every = [t.cpu().numpy()[order] for t in every]
-        keep = every[0][:, 0] > 0
-        label_all = every[1][keep]
-        metric.add_eval([p[keep] for p in every[2:]],
-                        {name: label_all[:, a:b]
-                         for name, a, b in self._label_fields})
+                                    self.mesh, "data") for t in ts]
+        order = np.argsort(held, kind="stable")
+        return [t.cpu().numpy()[order] for t in every]
 
     def start_round(self, r: int) -> None:
         self.round = r

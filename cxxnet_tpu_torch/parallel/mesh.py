@@ -146,13 +146,18 @@ def select_devices(dev: str) -> List[torch.device]:
     """The devices ``dev`` names, one a rank: ``cpu:0-3`` is four CPU
     ranks, ``gpu:0-3`` cards 0-3.  A ``gpu`` range naming more cards
     than are visible is refused with both counts: it never runs on
-    fewer devices than it names."""
+    fewer devices than it names; with no card at all, in the words of
+    one id's refusal (``nnet/trainer.py`` ``resolve_device``)."""
     spec = parse_device_spec(dev.lower())
     platform = spec["platform"]
     ids = spec["ids"] or [0]
     if platform == "cpu":
         return [torch.device("cpu") for _ in ids]
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not have:
+        raise RuntimeError(
+            f"dev = {dev}: no CUDA device is available; set dev = cpu to "
+            "run on the CPU")
     if max(ids) >= have or len(ids) > have:
         raise ValueError(
             f"dev = {dev}: names {len(ids)} CUDA device(s) (ids "
@@ -509,13 +514,17 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str = "data",
     return out
 
 
-def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: Optional[str],
               src: int = 0) -> torch.Tensor:
     """The ``t`` of the rank at index ``src`` of ``axis``, on every rank
-    of it (in place where no host copy is needed)."""
+    of it (in place where no host copy is needed); ``axis`` None: of
+    world rank ``src``, on every rank of the mesh."""
     import torch.distributed as dist
-    _note("broadcast", mesh, axis, t)
-    group = mesh.group(axis)
+    _note("broadcast", mesh, tuple(mesh.axes) if axis is None else axis, t)
+    if axis is None:
+        group = mesh.world if mesh.size > 1 else None
+    else:
+        group = mesh.group(axis)
     if group is None:
         return t
     counts["broadcast"] += 1
@@ -523,7 +532,8 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
     staged = mesh.host_staged(x)
     if staged:
         x = x.cpu()
-    dist.broadcast(x, src=mesh._axis_ranks[axis][src], group=group)
+    root = src if axis is None else mesh._axis_ranks[axis][src]
+    dist.broadcast(x, src=root, group=group)
     return x.to(t.device) if staged or x is not t else t
 
 

@@ -105,6 +105,11 @@ class DecodeEngine:
         if trainer.net is None:
             raise ValueError("DecodeEngine needs an initialized/loaded "
                              "trainer")
+        if trainer.mesh is not None and trainer.mesh.size > 1:
+            raise ValueError(
+                "incremental decode runs single-device for now "
+                f"(mesh has {trainer.mesh.size} devices); drop the "
+                "mesh_shape for task=serve generation")
         self.trainer = trainer
         self.metrics = metrics if metrics is not None else trainer.metrics
         self.slots = int(slots)

@@ -25,26 +25,45 @@ records match the JAX package's.
 Each quantized variant is pairtested against the f32 reference within
 the declared :data:`SERVE_TOL` envelope (:meth:`PredictEngine.pairtest`,
 run by ``serve_calib`` at task startup).
+
+On a mesh (one rank a device, ``parallel/mesh.py``) rank 0 hosts the
+engine and every other rank runs :meth:`PredictEngine.follow`: each
+forward of rank 0 (a bucket's warmup, a predict, the f32 reference) is
+one collective dispatch.  Rank 0 broadcasts a header (op, bucket, valid
+rows, variant) and the bucket's padded rows; every rank runs its rows of
+them (its block of the ``data`` axis, the model axis's gathers as in the
+trainer's eval forward) and the rows are all-gathered, so rank 0 holds
+the bucket's output.  :meth:`PredictEngine.stop` ends the followers.
+Every bucket must divide over the ``data`` axis.  A variant's cast and
+quantization are made on each rank's own leaves: a model-axis shard
+holds whole output channels (rows of dim 0), so its per-channel scales
+are the logical weight's.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..layers.base import materialize
 from ..layers.conv import ConvolutionLayer
 from ..layers.fullc import FullConnectLayer
 from ..monitor import log as mlog
 from ..monitor.metrics import copy_racy
+from ..parallel import mesh as meshlib
 from .decode import _tree_bytes
 
 #: declared pairtest envelopes per predict variant (the JAX package's):
 #: max |variant - f32| / (max |f32| + 1e-6) over one predict call
 SERVE_TOL = {"f32": 0.0, "bf16": 2e-2, "int8": 6e-2}
+
+#: a collective dispatch's header ops, and its variants: the serve
+#: variant (``serve_dtype``) or the f32 reference (the trainer's params)
+_STOP, _RUN = 0, 1
+_SERVE, _REFERENCE = 0, 1
 
 
 def quantize_per_channel(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -82,6 +101,20 @@ class PredictEngine:
                              f"{'/'.join(SERVE_TOL)}")
         self.dtype = dtype
         self.device = trainer.device
+        mesh = trainer.mesh
+        # a mesh with a process group: rank 0 dispatches, the others
+        # follow (a virtual mesh has no group and no follower)
+        self.mesh = mesh if mesh is not None and not mesh.virtual \
+            and mesh.size > 1 else None
+        ndata = mesh.axis_size("data") if mesh is not None else 1
+        bad = [s for s in self.shapes if s % ndata]
+        if bad:
+            raise ValueError(
+                f"serve_shapes {bad} not divisible by the mesh data "
+                f"axis ({ndata}); every bucket shards over it")
+        # one collective dispatch at a time: the header, the rows, the
+        # forward and the gather of one never interleave with another's
+        self._dispatch_lock = threading.Lock()
         # the span tracer's registry (the pad / device / unpad spans)
         self.metrics = metrics if metrics is not None else trainer.metrics
         self._params, self._scales = self._prepare_params()
@@ -140,24 +173,80 @@ class PredictEngine:
     def _in_shape(self) -> Tuple[int, ...]:
         return tuple(self.trainer.net.node_shapes[0][1:])
 
-    def _forward(self, params, rows: np.ndarray, cast: bool) -> np.ndarray:
-        """Final-node values of ``rows`` as (n, values) float32."""
-        return self._run(params, self._to_device(rows, cast))
+    def _wire_device(self) -> torch.device:
+        """Where a dispatch's header and rows travel: the card for NCCL,
+        the host for gloo (which stages CUDA tensors through it)."""
+        return self.device if self.mesh.backend == "nccl" \
+            else torch.device("cpu")
 
-    def _to_device(self, rows: np.ndarray, cast: bool) -> torch.Tensor:
-        x = torch.as_tensor(np.ascontiguousarray(rows, np.float32),
-                            device=self.device)
-        return x.to(torch.bfloat16) if cast else x
+    def _dispatch(self, variant: int, rows: np.ndarray,
+                  take: int) -> np.ndarray:
+        """Final-node values of a bucket's padded ``rows`` as (b, values)
+        float32 with ``variant``'s params; on a mesh one collective
+        dispatch (rank 0 only: the followers run it in :meth:`follow`)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            raise RuntimeError(
+                f"PredictEngine: rank {self.mesh.rank} of a mesh dispatches "
+                "nothing; rank 0 does and the other ranks follow it")
+        x = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+        with self._dispatch_lock:
+            if self.mesh is not None:
+                wire = self._wire_device()
+                head = torch.tensor([_RUN, x.shape[0], take, variant],
+                                    dtype=torch.int64, device=wire)
+                meshlib.broadcast(head, self.mesh, None)
+                x = meshlib.broadcast(x.to(wire), self.mesh, None)
+            return self._run(variant, x)
 
-    def _run(self, params, x: torch.Tensor) -> np.ndarray:
-        """The eval forward of device rows ``x``, read back to the host
-        (the device sync) as (n, values) float32."""
+    def follow(self) -> None:
+        """A rank other than 0 of a mesh: run every dispatch rank 0
+        broadcasts, until its :meth:`stop`."""
+        wire = self._wire_device()
+        while True:
+            head = meshlib.broadcast(
+                torch.zeros(4, dtype=torch.int64, device=wire), self.mesh,
+                None)
+            op, b, _, variant = (int(v) for v in head.tolist())
+            if op == _STOP:
+                return
+            x = meshlib.broadcast(
+                torch.empty((b,) + self._in_shape, dtype=torch.float32,
+                            device=wire), self.mesh, None)
+            self._run(variant, x)
+
+    def stop(self) -> None:
+        """Rank 0 of a mesh: end the followers' :meth:`follow` (a no-op
+        elsewhere).  Called once, after the last dispatch: the serve
+        task sends it from a ``finally`` once the batcher is closed, so
+        that an error on rank 0 leaves no rank waiting."""
+        mesh = self.mesh
+        if mesh is None or mesh.rank != 0:
+            return
+        with self._dispatch_lock:
+            meshlib.broadcast(torch.tensor(
+                [_STOP, 0, 0, 0], dtype=torch.int64,
+                device=self._wire_device()), mesh, None)
+
+    def _run(self, variant: int, x: torch.Tensor) -> np.ndarray:
+        """The eval forward of a bucket's rows ``x`` (host or wire
+        tensor, all ``b`` of them): this rank's rows of them and, on a
+        seq axis, its positions, through the trainer's eval forward with
+        ``variant``'s params, read back to the host (the device sync)
+        with every rank's rows as (b, values) float32."""
         t = self.trainer
-        with torch.inference_mode():
-            nodes = t.net.forward(params, {0: t.stage_input(x)}, t.context(),
-                                  buffers=t.buffers)
-            out = materialize(nodes[t.net.final_node])
-            return out.reshape(out.shape[0], -1).float().cpu().numpy()
+        params = self._dequant() if variant == _SERVE else t.params
+        if t._data_split():
+            rows = t._rows(x.shape[0])
+            x = x[torch.as_tensor(rows) if isinstance(rows, np.ndarray)
+                  else rows]
+        x = x[..., t._position_block()]
+        x = x.to(self.device, non_blocking=True)
+        if variant == _SERVE and self.dtype == "bf16":
+            x = x.to(torch.bfloat16)
+        [out] = t.eval_nodes({0: t.stage_input(x)}, [t.net.final_node],
+                             params)
+        [out] = t._batch_rows([out])
+        return out.reshape(out.shape[0], -1)
 
     def _padded(self, x: np.ndarray, i: int, take: int, b: int):
         chunk = x[i:i + take]
@@ -172,9 +261,8 @@ class PredictEngine:
         dispatch at any other shape counts in :attr:`retraces`."""
         t0 = time.perf_counter()
         for b in self.shapes:
-            self._forward(self._dequant(),
-                          np.zeros((b,) + self._in_shape, np.float32),
-                          self.dtype == "bf16")
+            self._dispatch(_SERVE, np.zeros((b,) + self._in_shape,
+                                            np.float32), b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm = set(self.shapes)
@@ -233,8 +321,9 @@ class PredictEngine:
             raise ValueError(f"predict: rows of shape {x.shape[1:]} but the "
                              f"model takes {self._in_shape}")
         n = x.shape[0]
-        # pad (host pad + the copy to the device) / device (the forward and
-        # the read-back) / unpad spans inside the batcher's dispatch span,
+        # pad (the host pad) / device (on a mesh the broadcast, then the
+        # copy to the device, the forward, the gather and the read-back)
+        # / unpad spans inside the batcher's dispatch span,
         # the riders from the tracer's link: a dispatch with no sampled
         # rider emits none
         tracer = self.metrics.tracer if self.metrics is not None else None
@@ -251,13 +340,11 @@ class PredictEngine:
             self.pad_rows += b - take
             self.dispatches += 1
             t_pad0 = time.perf_counter() if tracing else 0.0
-            params = self._dequant()
-            rows = self._to_device(self._padded(x, i, take, b),
-                                   self.dtype == "bf16")
+            rows = self._padded(x, i, take, b)
             if tracing:
                 t_dev0 = time.perf_counter()
                 tracer.emit("pad", t_pad0, t_dev0, bucket=b, rows=take)
-            out = self._run(params, rows)
+            out = self._dispatch(_SERVE, rows, take)
             if tracing:
                 t_unpad0 = time.perf_counter()
                 tracer.emit("device", t_dev0, t_unpad0, bucket=b, rows=take)
@@ -279,9 +366,9 @@ class PredictEngine:
         while i < n:
             take = min(n - i, self.shapes[-1])
             b = self.bucket_for(take)
-            outs.append(self._forward(self.trainer.params,
-                                      self._padded(x, i, take, b),
-                                      False)[:take])
+            outs.append(self._dispatch(_REFERENCE,
+                                       self._padded(x, i, take, b),
+                                       take)[:take])
             i += take
         return outs[0] if len(outs) == 1 else np.concatenate(outs)
 

@@ -34,14 +34,15 @@ class ServeModel:
     micro-batcher.  ``predict`` is the thread-safe client surface."""
 
     def __init__(self, trainer, cfg: Optional[ServeConfig] = None, *,
-                 metrics=None, name: str = "default"):
+                 metrics=None, name: str = "default",
+                 engine: Optional[PredictEngine] = None):
         self.name = name
         self.cfg = cfg or ServeConfig()
         self.trainer = trainer
         self.metrics = metrics if metrics is not None else trainer.metrics
-        self.engine = PredictEngine(trainer, shapes=self.cfg.shapes,
-                                    dtype=self.cfg.dtype,
-                                    metrics=self.metrics)
+        self.engine = engine if engine is not None else PredictEngine(
+            trainer, shapes=self.cfg.shapes, dtype=self.cfg.dtype,
+            metrics=self.metrics)
         max_batch = min(self.cfg.max_batch, max(self.cfg.shapes))
         if self.cfg.max_batch > max(self.cfg.shapes):
             mlog.warn(f"serve[{name}]: serve_max_batch = "

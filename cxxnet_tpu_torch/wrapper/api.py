@@ -9,6 +9,18 @@ C ABI over this module is ``cxxnet_tpu_torch/native/capi.cc`` (built by
 ``cxxnet_tpu_torch/native/build.py``) for C/C++ embedders; Python users get
 this module directly.  ``dev`` defaults to the card (``gpu``); pass
 ``dev = "cpu"`` to run on the CPU.
+
+Several device ids (``gpu:0-1``, ``cpu:0-3``) are a mesh of one process
+a device, as the CLI runs them: a ``Net`` takes them inside a joined
+process group of that many ranks (``parallel.mesh.spawn``, or
+``init_distributed`` in each process), every rank makes the same calls,
+``update`` trains on each rank's rows of the batch and ``predict`` /
+``extract`` return every row on every rank (:meth:`Net.enable_serving`
+says how serving runs there).  Outside a
+group the trainer refuses them when the net is built (``init_model`` /
+``load_model``) and names ``parallel.mesh.spawn``: where the JAX
+package drives several devices from one process, the port runs one
+process a device.
 """
 
 from __future__ import annotations
@@ -89,11 +101,6 @@ class Net:
     """Neural net object (CXNNetCreate parity)."""
 
     def __init__(self, dev: str = "gpu", cfg: str = ""):
-        from ..main import several_ids_message
-        from ..parallel.mesh import parse_device_spec
-        n = len(parse_device_spec(dev.lower())["ids"] or [])
-        if n > 1:
-            raise ValueError(several_ids_message("the wrapper API", dev, n))
         self._trainer = NetTrainer()
         self._trainer.set_param("dev", dev)
         for k, v in parse_config_string(cfg):
@@ -139,25 +146,43 @@ class Net:
         (``"serve_shapes = 1,8\\nserve_dtype = bf16"``).  The legacy
         single-shot path returns on :meth:`disable_serving` — and stays
         in use for ``DataIter`` inputs either way (their batches carry
-        padding metadata the serve path deliberately doesn't)."""
+        padding metadata the serve path deliberately doesn't).  On a
+        mesh every rank calls it: rank 0 serves, and each other rank
+        runs rank 0's dispatches until rank 0's :meth:`disable_serving`
+        (rank 0 makes no other call that computes until then)."""
         from ..serve import ServeConfig
+        from ..serve.engine import PredictEngine
         from ..serve.host import ServeModel
         if self._serve is not None:
             raise RuntimeError("serving already enabled")
-        sm = ServeModel(
-            self._trainer, ServeConfig.from_pairs(parse_config_string(cfg)))
+        scfg = ServeConfig.from_pairs(parse_config_string(cfg))
+        engine = PredictEngine(self._trainer, shapes=scfg.shapes,
+                               dtype=scfg.dtype)
+        mesh = engine.mesh
+        if mesh is not None and mesh.rank != 0:
+            # on a mesh rank 0 serves; this rank runs each of its
+            # dispatches and returns at its disable_serving
+            engine.follow()
+            return
         try:
-            sm.warmup()
+            sm = ServeModel(self._trainer, scfg, engine=engine)
+            try:
+                sm.warmup()
+            except BaseException:
+                sm.close()
+                raise
         except BaseException:
-            sm.close()
+            engine.stop()
             raise
         self._serve = sm
 
     def disable_serving(self) -> None:
         """Shut the batcher down (joins its thread) and restore the
-        legacy single-shot predict."""
+        legacy single-shot predict; on rank 0 of a mesh the other ranks'
+        :meth:`enable_serving` returns here."""
         if self._serve is not None:
             self._serve.close()
+            self._serve.engine.stop()
             self._serve = None
 
     def predict(self, data) -> np.ndarray:

@@ -301,11 +301,14 @@ def test_example_conf_lint_matches_jax(conf):
     assert not [f for f in rest if f[0] == "error"]
 
 
-def test_not_ported_findings_use_the_runtime_words(tmp_path):
-    """Each not-ported finding is the ValueError the runtime raises for
-    the same key, word for word: several device ids for a one-device
-    task (the CLI's ``LearnTask``).  The data-parallel plane's keys, the
-    seq, expert and pipe axes and the moe layer are no finding."""
+def test_not_ported_findings_use_the_runtime_words(tmp_path, monkeypatch):
+    """A not-ported finding is the ValueError the runtime raises for the
+    same key, word for word (a layer type of ``NOT_PORTED``: empty since
+    every layer is ported, so one is listed here for the check).  The
+    data-parallel plane's keys, the seq, expert and pipe axes, the moe
+    layer, and several device ids for ``pred`` / ``pred_raw`` /
+    ``extract`` / ``serve`` (they run on a mesh) are no finding: on
+    those pairs the port's findings are the JAX package's."""
     from cxxnet_tpu_torch.main import LearnTask
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     ported = [("mesh", "data:2,model:2"), ("dev", "gpu:0-3"),
@@ -317,23 +320,30 @@ def test_not_ported_findings_use_the_runtime_words(tmp_path):
     assert not [f for f in conflint.lint_pairs(ported)
                 if f.severity == "error"]
     NetTrainer().set_param("mesh", "data:2,pipe:2")
-    for pairs in ([("task", "pred"), ("dev", "cpu:0-1")],
-                  [("task", "pred"), ("dev", "gpu:0-1")]):
-        (found,) = [f.message for f in conflint.lint_pairs(pairs)
-                    if f.severity == "error" and f.key == "dev"]
-        assert "several device ids" in found
-    pairs = [("task", "pred"), ("dev", "gpu:0-1")]
-    (found,) = [f.message for f in conflint.lint_pairs(pairs)
-                if f.severity == "error" and f.key == "dev"]
+    for task in ("pred", "pred_raw", "extract", "serve"):
+        for dev in ("cpu:0-1", "gpu:0-1"):
+            text = f"task = {task}\ndev = {dev}\n"
+            jf, rest, by_design = _lint_both(jparse(text),
+                                             parse_config_string(text))
+            assert rest == jf and not by_design, (task, dev)
+            assert not [f for f in rest if f[1] == "dev"], (task, dev)
     conf = tmp_path / "pred.conf"
     conf.write_text("task = pred\ndev = gpu:0-1\n")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LearnTask().run([str(conf)])
+    monkeypatch.setattr(layer_registry, "NOT_PORTED", ("moe",))
+    pairs = parse_config_string("netconfig=start\nlayer[+1] = moe\n"
+                                "  num_expert = 4\nnetconfig=end\n")
+    (found,) = [f.message for f in conflint.lint_pairs(pairs)
+                if f.severity == "error"]
     with pytest.raises(ValueError) as ei:
-        LearnTask().run([str(conf)])
+        layer_registry.create_layer("moe")
     assert str(ei.value) == found
+    monkeypatch.undo()
     assert layer_registry.create_layer("moe").type_names == ("moe",)
-    assert not [f for f in conflint.lint_pairs(parse_config_string(
-        "netconfig=start\nlayer[+1] = moe\n  num_expert = 4\n"
-        "netconfig=end\n")) if f.severity == "error"]
+    assert not [f for f in conflint.lint_pairs(pairs)
+                if f.severity == "error"]
 
 
 def test_card_selectors():
@@ -491,11 +501,12 @@ def test_task_check_cli_exit_codes_and_record(tmp_path, capsys):
     assert bad["key"] == "num_rund" and bad["suggestion"] == "num_round"
 
 
-def test_task_check_refused_config_is_a_finding(tmp_path):
+def test_task_check_refused_config_is_a_finding(tmp_path, monkeypatch):
     """test_on_server = 1 runs (it is the JAX package's finding-free
-    key); a config the port refuses at run time (here several device ids
-    for task = pred, which the CLI refuses) is a finding of the check
-    pass, not a raise; a pipe mesh axis is taken."""
+    key); a config the port refuses at run time (here a layer type
+    listed as not ported) is a finding of the check pass, not a raise;
+    a pipe mesh axis is taken, and several device ids for task = pred
+    (which run on a mesh) are no finding."""
     from cxxnet_tpu_torch.analysis import run_check
     from cxxnet_tpu_torch.main import LearnTask
     conf = os.path.join(REPO, "example", "MNIST", "MNIST.conf")
@@ -506,13 +517,22 @@ def test_task_check_refused_config_is_a_finding(tmp_path):
     assert task.run([conf, "task=check", "mesh=data:2,pipe:2",
                      "dev=cpu:0-3"]) == 0
     assert not [f for f in task.last_check if f.severity == "error"]
-    findings, code = run_check([("task", "pred"), ("dev", "cpu:0-1")])
-    assert code == 1
-    (dev,) = [f for f in findings if f.severity == "error"
-              and f.key == "dev"]
-    assert "not ported" in dev.message
-    with pytest.raises(ValueError, match="not ported"):
-        LearnTask().run([conf, "task=pred", "dev=cpu:0-1"])
+    findings, _ = run_check([("task", "pred"), ("dev", "cpu:0-1")])
+    assert not [f for f in findings if f.key == "dev"
+                or "not ported" in f.message]
+    monkeypatch.setattr(layer_registry, "NOT_PORTED", ("fullc",))
+    net = tmp_path / "net.conf"
+    net.write_text("netconfig=start\nlayer[+1] = fullc\n  nhidden = 4\n"
+                   "layer[+0] = softmax\nnetconfig=end\n"
+                   "input_shape = 1,1,8\nbatch_size = 4\ndev = cpu\n"
+                   "num_round = 0\nsave_model = 0\nsilent = 1\n")
+    task = LearnTask()
+    assert task.run([str(net), "task=check"]) == 1
+    (layer,) = [f for f in task.last_check if f.severity == "error"]
+    with pytest.raises(ValueError) as ei:
+        LearnTask().run([str(net)])
+    assert str(ei.value) == layer.message
+    assert "not ported" in layer.message and layer.key.startswith("layer[")
 
 
 def test_check_builds_on_meta_without_cuda(monkeypatch):

@@ -462,9 +462,9 @@ def test_cli_serves_one_request_per_document(tmp_path):
 
 def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
     """An accelerator request never lands on the CPU: dev unset (gpu),
-    dev = tpu and dev = cuda:0 all raise when no card is present; dev =
-    tpu:0-3 (several ids) is refused by name before any device is
-    looked for."""
+    dev = tpu, dev = cuda:0 and dev = tpu:0-3 (several ids: a mesh of
+    cards) all raise when no card is present, before any rank is
+    started."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from cxxnet_tpu_torch.main import LearnTask
@@ -477,7 +477,7 @@ def test_cli_without_dev_cpu_raises_without_a_card(tmp_path):
     for extra in ([], ["dev=tpu"], ["dev=cuda:0"], ["dev=gpu"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LearnTask().run([str(conf)] + extra)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         LearnTask().run([str(conf), "dev=tpu:0-3"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
@@ -490,8 +490,11 @@ def test_dev_with_several_ids_is_refused(dev, tmp_path):
     """Several device ids are a data mesh of one rank a device, as in
     the JAX package: a rank's device is its id's (the CPU for cpu ids;
     an accelerator id never lands on the CPU), and a trainer outside a
-    process group refuses to build rather than run on one device.  The
-    one-device tasks (pred, serve) refuse several ids by name."""
+    process group refuses to build rather than run on one device.
+    ``task = pred`` runs on them: on cpu ids the CLI spawns a rank an id
+    and writes one device's rows; gpu ids without a card raise, naming
+    ``dev = cpu``."""
+    from cxxnet_tpu_torch.io.text import write_token_shard
     from cxxnet_tpu_torch.main import LearnTask
     if dev.startswith("cpu"):
         assert resolve_device(dev) == torch.device("cpu")
@@ -504,11 +507,26 @@ def test_dev_with_several_ids_is_refused(dev, tmp_path):
     with pytest.raises((RuntimeError, ValueError),
                        match="no process group|no CUDA device"):
         t.init_model()
+    model = str(tmp_path / "lm.model")
+    _port_trainer(NET, 4).save_model(model)
+    rng = np.random.RandomState(8)
+    write_token_shard(str(tmp_path / "p.tok"),
+                      [rng.randint(0, 64, 40) for _ in range(4)], itemsize=2)
     conf = tmp_path / "p.conf"
-    conf.write_text(f"task = pred\nmodel_in = x.model\ndev = {dev}\n")
-    with pytest.raises(ValueError, match="task = pred on several device "
-                       "ids is not ported"):
-        LearnTask().run([str(conf)])
+    conf.write_text(
+        f"task = pred\nmodel_in = {model}\ndev = {dev}\nbatch_size = 4\n"
+        f"silent = 1\npred = {tmp_path}/out.txt\niter = text\n"
+        f"  path_tok = {tmp_path}/p.tok\niter = packseq\n  seqlen = 32\n"
+        "iter = end\n")
+    if not dev.startswith("cpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LearnTask().run([str(conf)])
+        return
+    assert LearnTask().run([str(conf)]) == 0
+    got = open(tmp_path / "out.txt").read()
+    assert LearnTask().run([str(conf), "dev=cpu"]) == 0
+    assert got == open(tmp_path / "out.txt").read()
+    assert len(got.splitlines()) == 4
 
 
 def test_dev_with_one_id_is_kept():
